@@ -1,0 +1,20 @@
+"""dgl_tpu_torch: the PyTorch / CUDA port of ``dgl_tpu`` for NVIDIA Hopper.
+
+Plain tensor code is PyTorch; the JAX package's Pallas kernels become CUDA
+kernels written for ``sm_90a`` under ``csrc/``, built at first use
+(``_kernels.py``). Entry points place their tensors on ``device``, which
+defaults to ``"cuda"``; pass ``device="cpu"`` to run the plain PyTorch
+versions of the kernels on the CPU.
+
+This slice covers full-graph GraphSAGE inference through the dense-hub
+SpMM: graph construction, ``reorder_for_spmm``, ``update_all`` with the
+builtin sum/mean reducers, ``SAGEConv`` and ``GraphSAGE``.
+"""
+from . import function, models, nn, ops, transforms
+from .base import ALL, EID, NID, DGLError
+from .convert import graph
+from .graph import Graph, Relation
+from .params import from_flax_params
+
+__all__ = ["ALL", "EID", "NID", "DGLError", "Graph", "Relation", "function",
+           "from_flax_params", "graph", "models", "nn", "ops", "transforms"]

@@ -1,0 +1,66 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The kernels live as CUDA C++ under ``dgl_tpu_torch/csrc/`` with a plain C
+interface. They are compiled for Hopper (``sm_90a``) at first use with
+``torch.utils.cpp_extension.load`` into ``<repo>/build/dgl_tpu_torch_kernels``
+and bound with ``ctypes``; no source includes PyTorch's headers, so the
+build takes seconds. Nothing here runs at import time: the CPU tests import
+every module on a machine without ``nvcc``.
+
+Every wrapper that launches a kernel adds one to its entry in
+:data:`launch_counts`, so a run can show that its path went through the
+kernel. A failed build or launch raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+_REPO_DIR = os.path.dirname(_PKG_DIR)
+BUILD_DIR = os.path.join(_REPO_DIR, "build", "dgl_tpu_torch_kernels")
+SOURCES = (os.path.join(_PKG_DIR, "csrc", "shell_prefix_sum.cu"),)
+CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+
+launch_counts = {"shell_prefix_sum": 0}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def library() -> ctypes.CDLL:
+    """Build (once per process) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            from torch.utils.cpp_extension import load
+
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            path = load(
+                name="dgl_tpu_torch_kernels",
+                sources=list(SOURCES),
+                build_directory=BUILD_DIR,
+                extra_cuda_cflags=CUDA_FLAGS,
+                is_python_module=False,
+            )
+            lib = ctypes.CDLL(path)
+            fn = lib.dgl_shell_prefix_sum
+            p, i64 = ctypes.c_void_p, ctypes.c_int64
+            fn.argtypes = [p, i64, i64, p, p, p, ctypes.c_int, p, p, i64,
+                           ctypes.c_int, p]
+            fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError_t {code}")

@@ -1,0 +1,435 @@
+"""Graph object of the port (counterpart of ``dgl_tpu/graph.py``).
+
+A :class:`Relation` holds one canonical edge type as COO + CSR + CSC index
+tensors, built once on the host with numpy and moved to the graph's device.
+Padded edges (beyond ``num_edges``) point at the virtual rows
+``num_src``/``num_dst``, as in the reference. A :class:`Graph` maps
+canonical edge types to relations and keeps node and edge features in plain
+dicts behind ``ndata``/``srcdata``/``dstdata``/``edata`` views.
+
+This slice ports the homogeneous graph: one node type, one edge type.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .base import ALL, DGLError, is_all
+
+CanonicalEtype = Tuple[str, str, str]
+
+
+def _asnumpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _np_idtype(idtype) -> np.dtype:
+    if idtype == torch.int32:
+        return np.dtype(np.int32)
+    if idtype == torch.int64:
+        return np.dtype(np.int64)
+    raise DGLError(f"idtype must be torch.int32 or torch.int64, got {idtype}")
+
+
+# ---------------------------------------------------------------------------
+# Relation structure (one canonical edge type)
+# ---------------------------------------------------------------------------
+
+
+class Relation:
+    """Adjacency of one canonical edge type in COO + CSR + CSC.
+
+    - ``src``, ``dst``: COO endpoints in edge-ID order.
+    - ``csr_*``: out-edges grouped by source row.
+    - ``csc_*``: in-edges grouped by destination row, the layout g-SpMM
+      consumes; ``csc_dst`` is the sorted per-edge destination id.
+    """
+
+    ARRAY_FIELDS = (
+        "src",
+        "dst",
+        "csr_indptr",
+        "csr_indices",
+        "csr_eids",
+        "csr_src",
+        "csc_indptr",
+        "csc_indices",
+        "csc_eids",
+        "csc_dst",
+    )
+
+    # plans of later slices; ops.gspmm raises on them
+    hub_plan = None
+    shell_plan = None
+    bitmap_plan = None
+    uniform_stride = 0
+
+    def __init__(self, arrays: Mapping[str, torch.Tensor], *, num_src: int,
+                 num_dst: int, num_edges: int, max_in_degree: int = -1,
+                 max_out_degree: int = -1, hub_plan=None):
+        for f in Relation.ARRAY_FIELDS:
+            setattr(self, f, arrays[f])
+        self.num_src = int(num_src)
+        self.num_dst = int(num_dst)
+        self.num_edges = int(num_edges)
+        self.max_in_degree = int(max_in_degree)
+        self.max_out_degree = int(max_out_degree)
+        self.hub_plan = hub_plan
+        self._host = {}
+
+    @staticmethod
+    def from_coo(src, dst, num_src: int, num_dst: int, *,
+                 idtype=torch.int32, num_edges: Optional[int] = None,
+                 device="cuda") -> "Relation":
+        """Build all formats from a COO edge list on the host.
+
+        ``num_edges`` < len(src) marks the tail as padding (padded edges
+        must already point at the virtual rows ``num_src``/``num_dst``).
+        The sorts are stable numpy argsorts: ties keep edge-id order.
+        """
+        src = _asnumpy(src)
+        dst = _asnumpy(dst)
+        if src.shape != dst.shape or src.ndim != 1:
+            raise DGLError(
+                f"src/dst must be equal-length 1D arrays, got {src.shape} "
+                f"vs {dst.shape}")
+        E_arr = src.shape[0]
+        E = E_arr if num_edges is None else int(num_edges)
+        np_id = _np_idtype(idtype)
+        src = src.astype(np_id)
+        dst = dst.astype(np_id)
+        if E > 0:
+            real_src, real_dst = src[:E], dst[:E]
+            if real_src.min() < 0 or real_src.max() >= num_src:
+                raise DGLError(
+                    f"src ids out of range [0, {num_src}): "
+                    f"min={real_src.min()}, max={real_src.max()}")
+            if real_dst.min() < 0 or real_dst.max() >= num_dst:
+                raise DGLError(
+                    f"dst ids out of range [0, {num_dst}): "
+                    f"min={real_dst.min()}, max={real_dst.max()}")
+
+        def build_index(major, nrows):
+            # +1: the padding row; padded edges sort to the end
+            order = np.argsort(major, kind="stable").astype(np_id)
+            counts = np.bincount(major, minlength=nrows + 1)
+            indptr = np.concatenate(([0], np.cumsum(counts)))
+            return indptr[: nrows + 1].astype(np_id), order, major[order]
+
+        def maxdeg(indptr, nrows):
+            if nrows == 0:
+                return 0
+            return int(np.max(indptr[1: nrows + 1] - indptr[:nrows]))
+
+        csr_indptr, csr_order, csr_src = build_index(src, num_src)
+        csc_indptr, csc_order, csc_dst = build_index(dst, num_dst)
+        host = {
+            "src": src,
+            "dst": dst,
+            "csr_indptr": csr_indptr,
+            "csr_indices": dst[csr_order],
+            "csr_eids": csr_order,
+            "csr_src": csr_src,
+            "csc_indptr": csc_indptr,
+            "csc_indices": src[csc_order],
+            "csc_eids": csc_order,
+            "csc_dst": csc_dst,
+        }
+        rel = Relation(
+            {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+             for k, v in host.items()},
+            num_src=num_src, num_dst=num_dst, num_edges=E,
+            max_in_degree=maxdeg(csc_indptr, num_dst),
+            max_out_degree=maxdeg(csr_indptr, num_src))
+        rel._host.update(host)
+        return rel
+
+    def _copy_with(self, **overrides) -> "Relation":
+        new = Relation.__new__(Relation)
+        new.__dict__.update(self.__dict__)
+        new.__dict__.update(overrides)
+        return new
+
+    def with_hub_plan(self, plan) -> "Relation":
+        """A copy carrying a dense-hub SpMM plan (``ops/hub_spmm.py``);
+        ``gspmm`` dispatches ``copy_u`` + sum/mean through it."""
+        return self._copy_with(hub_plan=plan)
+
+    def to(self, device) -> "Relation":
+        arrays = {f: getattr(self, f).to(device) for f in Relation.ARRAY_FIELDS}
+        plan = None if self.hub_plan is None else self.hub_plan.to(device)
+        return self._copy_with(hub_plan=plan, **arrays)
+
+    @property
+    def device(self) -> torch.device:
+        return self.src.device
+
+    @property
+    def num_edges_padded(self) -> int:
+        return int(self.src.shape[0])
+
+    def host_arrays(self, *fields) -> tuple:
+        """Numpy copies of index arrays for host-side plan builders, cached
+        per relation (relations are immutable)."""
+        for f in fields:
+            if f not in self._host:
+                self._host[f] = getattr(self, f).cpu().numpy()
+        return tuple(self._host[f] for f in fields)
+
+    def in_degrees(self) -> torch.Tensor:
+        return self.csc_indptr[1:] - self.csc_indptr[:-1]
+
+    def __repr__(self):
+        return (f"Relation(num_src={self.num_src}, num_dst={self.num_dst}, "
+                f"num_edges={self.num_edges})")
+
+
+# ---------------------------------------------------------------------------
+# Data views (ndata / srcdata / dstdata / edata)
+# ---------------------------------------------------------------------------
+
+
+class _FrameView(Mapping):
+    """Dict view of one feature frame with a first-dimension check."""
+
+    __slots__ = ("_frame", "_rows", "_what")
+
+    def __init__(self, frame: Dict[str, Any], rows: Tuple[int, ...], what):
+        self._frame = frame
+        self._rows = rows
+        self._what = what
+
+    def __getitem__(self, key):
+        return self._frame[key]
+
+    def __setitem__(self, key, value):
+        if value.shape[0] not in self._rows:
+            raise DGLError(f"Feature first dim {value.shape[0]} != number "
+                           f"of {self._what} {self._rows[0]}")
+        self._frame[key] = value
+
+    def __iter__(self):
+        return iter(self._frame)
+
+    def __len__(self):
+        return len(self._frame)
+
+    def __repr__(self):
+        return repr(dict(self._frame))
+
+
+# ---------------------------------------------------------------------------
+# Graph
+# ---------------------------------------------------------------------------
+
+
+class Graph:
+    """Homogeneous graph: one node type, one relation, feature frames.
+
+    Counterpart of ``dgl_tpu.graph.Graph`` (reference ``DGLGraph``).
+    """
+
+    def __init__(self, relations: Dict[CanonicalEtype, Relation],
+                 num_src_nodes: Dict[str, int]):
+        if len(relations) != 1 or len(num_src_nodes) != 1:
+            raise NotImplementedError(
+                "heterogeneous graphs are ported in a later slice "
+                "(ROADMAP queue A1)")
+        self._relations = dict(relations)
+        self._canonical_etypes = tuple(self._relations)
+        self._num_src_nodes = dict(num_src_nodes)
+        self._node_frames: Dict[str, Dict[str, Any]] = {}
+        self._edge_frames: Dict[CanonicalEtype, Dict[str, Any]] = {}
+        for (st, _, dt) in self._relations:
+            if st not in self._num_src_nodes or dt not in self._num_src_nodes:
+                raise DGLError(f"Unknown node type in relation {st}->{dt}")
+
+    # -- schema ------------------------------------------------------------
+
+    @property
+    def is_block(self) -> bool:
+        return False
+
+    @property
+    def ntypes(self):
+        return list(self._num_src_nodes)
+
+    @property
+    def idtype(self):
+        return self._relation().src.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._relation().device
+
+    def to_canonical_etype(self, etype) -> CanonicalEtype:
+        if etype is None:
+            return self._canonical_etypes[0]
+        if isinstance(etype, tuple):
+            if tuple(etype) not in self._relations:
+                raise DGLError(f"Unknown canonical etype {etype}")
+            return tuple(etype)
+        matches = [c for c in self._canonical_etypes if c[1] == etype]
+        if not matches:
+            raise DGLError(f"Unknown edge type {etype!r}")
+        return matches[0]
+
+    def _relation(self, etype=None) -> Relation:
+        return self._relations[self.to_canonical_etype(etype)]
+
+    # -- counts --------------------------------------------------------------
+
+    def num_nodes(self, ntype: Optional[str] = None) -> int:
+        return self._num_src_nodes[ntype or self.ntypes[0]]
+
+    def num_src_nodes(self, ntype: Optional[str] = None) -> int:
+        return self.num_nodes(ntype)
+
+    def num_dst_nodes(self, ntype: Optional[str] = None) -> int:
+        return self.num_nodes(ntype)
+
+    def num_edges(self, etype=None) -> int:
+        return self._relation(etype).num_edges
+
+    # -- data views ----------------------------------------------------------
+
+    def _node_frame(self):
+        return self._node_frames.setdefault(self.ntypes[0], {})
+
+    @property
+    def ndata(self):
+        return _FrameView(self._node_frame(), (self.num_nodes(),), "nodes")
+
+    srcdata = ndata
+    dstdata = ndata
+
+    @property
+    def edata(self):
+        rel = self._relation()
+        frame = self._edge_frames.setdefault(self._canonical_etypes[0], {})
+        return _FrameView(frame, (rel.num_edges, rel.num_edges_padded),
+                          "edges")
+
+    # -- structure queries ---------------------------------------------------
+
+    def in_degrees(self, v=ALL, etype=None):
+        deg = self._relation(etype).in_degrees()
+        if is_all(v):
+            return deg
+        return deg[torch.as_tensor(v, device=deg.device)]
+
+    # -- message passing -----------------------------------------------------
+
+    def update_all(self, message_func, reduce_func, apply_node_func=None,
+                   etype=None):
+        from . import core
+
+        return core.update_all_(self, message_func, reduce_func,
+                                apply_node_func, etype=etype)
+
+    def local_scope(self):
+        """Context manager isolating frame mutations."""
+        return _LocalScope(self)
+
+    def structural_clone(self) -> "Graph":
+        g = Graph.__new__(Graph)
+        g.__dict__.update(self.__dict__)
+        return g
+
+    def to(self, device) -> "Graph":
+        """A copy with every index tensor, plan and feature on ``device``."""
+        g = self.structural_clone()
+        g._relations = {k: r.to(device) for k, r in self._relations.items()}
+        g._node_frames = {nt: {k: v.to(device) for k, v in f.items()}
+                          for nt, f in self._node_frames.items()}
+        g._edge_frames = {et: {k: v.to(device) for k, v in f.items()}
+                          for et, f in self._edge_frames.items()}
+        return g
+
+    # -- SpMM plans ----------------------------------------------------------
+
+    @staticmethod
+    def _auto_num_hubs(rel) -> int:
+        """Smallest power-of-two H (128..4096) whose top-H sources cover
+        >= 50% of edges; below that, the coverage elbow."""
+        src, dst = rel.host_arrays("csc_indices", "csc_dst")
+        real = (src < rel.num_src) & (dst < rel.num_dst)
+        e = int(real.sum())
+        if e == 0:
+            return 128
+        deg = np.bincount(src[real], minlength=rel.num_src)
+        cum = np.cumsum(np.sort(deg)[::-1])
+        candidates = [h for h in (128, 256, 512, 1024, 2048, 4096)
+                      if h <= rel.num_src] or [rel.num_src]
+        for h in candidates:
+            if cum[min(h, cum.shape[0]) - 1] / e >= 0.5:
+                return h
+        best = candidates[0]
+        for prev, h in zip(candidates, candidates[1:]):
+            gain = (cum[min(h, cum.shape[0]) - 1]
+                    - cum[min(prev, cum.shape[0]) - 1]) / e
+            if gain < 0.05:
+                break
+            best = h
+        return best
+
+    def with_spmm_plans(self, num_hubs=2048,
+                        precision: str = "int8",
+                        weighted: bool = False,
+                        gather_dtype: str = "bf16",
+                        dense_attn: bool | str = "auto",
+                        dense_attn_max_cells: int = 16_000_000,
+                        bitmap: bool | str = "auto",
+                        bitmap_max_bytes: int = 2 << 30,
+                        bitmap_min_density: float = 5e-4) -> "Graph":
+        """A copy whose relation carries a dense-hub SpMM plan
+        (:mod:`dgl_tpu_torch.ops.hub_spmm`).
+
+        The reference's other plans come in later slices: ``weighted=True``,
+        ``dense_attn=True`` and ``bitmap=True`` raise, and ``"auto"`` attaches
+        no dense-attention or bitmap plan here."""
+        from .ops.hub_spmm import build_hub_plan
+
+        if weighted:
+            raise NotImplementedError(
+                "weighted shell plans: the weighted g-SpMM slice "
+                "(ROADMAP queue A3)")
+        if dense_attn is True:
+            raise NotImplementedError(
+                "dense_attn plans: the attention slice (ROADMAP queue A7)")
+        if bitmap is True:
+            raise NotImplementedError(
+                "bitmap plans: the dense-graph slice (ROADMAP queue A7)")
+        g = self.structural_clone()
+        rels = {}
+        for k, r in self._relations.items():
+            h = (self._auto_num_hubs(r) if num_hubs == "auto"
+                 else int(num_hubs))
+            rels[k] = r.with_hub_plan(build_hub_plan(r, h, precision))
+        g._relations = rels
+        return g
+
+    def __repr__(self):
+        return (f"Graph(num_nodes={self.num_nodes()}, "
+                f"num_edges={self.num_edges()}, device={self.device})")
+
+
+class _LocalScope:
+    def __init__(self, graph: Graph):
+        self._graph = graph
+
+    def __enter__(self):
+        g = self._graph
+        self._saved = (g._node_frames, g._edge_frames)
+        g._node_frames = {nt: dict(f) for nt, f in g._node_frames.items()}
+        g._edge_frames = {et: dict(f) for et, f in g._edge_frames.items()}
+        return g
+
+    def __exit__(self, *exc):
+        g = self._graph
+        g._node_frames, g._edge_frames = self._saved
+        return False

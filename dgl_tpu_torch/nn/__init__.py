@@ -1,0 +1,2 @@
+"""GNN layers (counterpart of ``dgl_tpu/nn/``), as ``torch.nn`` modules."""
+from .conv import *  # noqa: F401,F403

@@ -1,0 +1,143 @@
+"""Generalized SpMM (g-SpMM): fused message + reduce over the graph.
+
+Counterpart of ``dgl_tpu/ops/spmm.py``. :func:`gspmm` keeps the reference's
+dispatch order: uniform-stride blocks, bitmap plan, dense-hub plan, shell
+plan, then the plain path. This slice ports the dense-hub branch (``copy_u``
+with sum/mean) and the plain sorted segment sum; the branches of later
+slices raise and never run something else in their place.
+
+The plain path gathers the messages in CSC (dst-sorted) order and sums them
+with ``index_add_``. PyTorch's autograd differentiates it directly.
+"""
+from __future__ import annotations
+
+import sys
+
+import torch
+
+from ..base import DGLError
+from ..graph import Graph, Relation
+
+__all__ = ["gspmm"]  # extended by _register below
+
+
+def _expand(x, ndim):
+    """Right-pad feature dims so a 1-D tensor broadcasts like DGL ops do."""
+    while x.dim() < ndim:
+        x = x.unsqueeze(-1)
+    return x
+
+
+def _binary(op, lhs, rhs):
+    if op == "add":
+        return lhs + rhs
+    if op == "sub":
+        return lhs - rhs
+    if op == "mul":
+        return lhs * rhs
+    if op == "div":
+        return lhs / rhs
+    if op == "copy_lhs":
+        return lhs
+    if op == "copy_rhs":
+        return rhs
+    raise DGLError(f"Unknown spmm binary op {op!r}")
+
+
+def _gspmm_sum(op, rel: Relation, u, e):
+    """Sorted segment sum over the real edges in CSC order (padded edges
+    sort to the end of the CSC arrays and are left out)."""
+    E = rel.num_edges
+    ul = u.index_select(0, rel.csc_indices[:E]) if op != "copy_rhs" else None
+    el = e.index_select(0, rel.csc_eids[:E]) if op != "copy_lhs" else None
+    if ul is not None and el is not None:
+        nd = max(ul.dim(), el.dim())
+        ul, el = _expand(ul, nd), _expand(el, nd)
+    m = _binary(op, ul, el)
+    out = m.new_zeros((rel.num_dst,) + tuple(m.shape[1:]))
+    return out.index_add(0, rel.csc_dst[:E], m)
+
+
+def _mean(rel: Relation, out):
+    deg = torch.clamp(rel.in_degrees(), min=1).to(out.dtype)
+    return out / _expand(deg, out.dim())
+
+
+def gspmm(g, op, reduce_op, lhs_data, rhs_data, etype=None):
+    """Fused message+reduce (reference ``python/dgl/ops/spmm.py:39``).
+
+    ``op`` in {add, sub, mul, div, copy_lhs, copy_rhs}; ``reduce_op`` in
+    {sum, mean} in this slice. ``lhs_data`` are source node features,
+    ``rhs_data`` edge features. Returns destination-node features.
+    """
+    rel = g._relation(etype) if isinstance(g, Graph) else g
+    u, e = lhs_data, rhs_data
+    if op not in ("copy_lhs", "copy_rhs"):
+        if u is None or e is None:
+            raise DGLError(f"Binary op {op} needs both operands")
+        nd = max(u.dim(), e.dim())
+        u, e = _expand(u, nd), _expand(e, nd)
+    if reduce_op not in ("sum", "mean", "max", "min"):
+        raise DGLError(f"Unknown reduce op {reduce_op!r}")
+
+    if rel.uniform_stride > 0:
+        raise NotImplementedError(
+            "uniform-stride g-SpMM (fixed-shape MFG blocks): the minibatch "
+            "slice, ROADMAP queue A5")
+    if rel.bitmap_plan is not None:
+        raise NotImplementedError(
+            "bitmap g-SpMM: the dense-graph slice, ROADMAP queue A7")
+
+    # dense-hub fast path (ops/hub_spmm.py): one matmul for the hub edges,
+    # the shell prefix-sum kernel for the cold tail
+    if (rel.hub_plan is not None and op == "copy_lhs"
+            and reduce_op in ("sum", "mean")):
+        from .hub_spmm import hub_copy_u_sum
+
+        out = hub_copy_u_sum(rel.hub_plan, u)
+        return _mean(rel, out) if reduce_op == "mean" else out
+
+    if rel.shell_plan is not None:
+        raise NotImplementedError(
+            "weighted shell g-SpMM: ROADMAP queue A3")
+    if reduce_op in ("sum", "mean"):
+        out = _gspmm_sum(op, rel, u, e)
+        return _mean(rel, out) if reduce_op == "mean" else out
+    raise NotImplementedError(
+        f"g-SpMM with the {reduce_op} reducer: ROADMAP queue A2")
+
+
+def _gen_spmm_func(binary_op, reduce_op):
+    def func(g, x, y, etype=None):
+        return gspmm(g, binary_op, reduce_op, x, y, etype=etype)
+
+    func.__name__ = f"u_{binary_op}_e_{reduce_op}"
+    func.__doc__ = f"gspmm with message u {binary_op} e and {reduce_op} reducer."
+    return func
+
+
+def _gen_copy_spmm_func(target, reduce_op):
+    def func(g, x, etype=None):
+        if target == "u":
+            return gspmm(g, "copy_lhs", reduce_op, x, None, etype=etype)
+        return gspmm(g, "copy_rhs", reduce_op, None, x, etype=etype)
+
+    func.__name__ = f"copy_{target}_{reduce_op}"
+    func.__doc__ = f"gspmm copy_{target} with {reduce_op} reducer."
+    return func
+
+
+def _register():
+    mod = sys.modules[__name__]
+    for reduce_op in ("sum", "max", "min", "mean"):
+        for binary_op in ("add", "sub", "mul", "div"):
+            func = _gen_spmm_func(binary_op, reduce_op)
+            setattr(mod, func.__name__, func)
+            __all__.append(func.__name__)
+        for target in ("u", "e"):
+            func = _gen_copy_spmm_func(target, reduce_op)
+            setattr(mod, func.__name__, func)
+            __all__.append(func.__name__)
+
+
+_register()

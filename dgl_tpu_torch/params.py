@@ -1,0 +1,41 @@
+"""Carry parameters from the JAX package's flax modules into the port's
+``torch.nn`` modules."""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["from_flax_params"]
+
+
+def from_flax_params(params: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    """Map a flax parameter tree to a ``state_dict``.
+
+    ``params`` is the tree ``Module.init`` returns (with or without its
+    ``"params"`` collection key). Nested names join with dots; a
+    ``Dense.kernel`` of shape (in, out) becomes the ``Linear.weight`` of
+    shape (out, in); every other leaf (biases) carries over as it is. The
+    leaves may be any array numpy reads; they come out as float32. Load
+    the result with ``module.load_state_dict``.
+    """
+    if set(params) == {"params"}:
+        params = params["params"]
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+
+    def walk(tree, prefix):
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(value, prefix + name + ".")
+                continue
+            arr = np.array(value, dtype=np.float32)
+            if name == "kernel":
+                out[prefix + "weight"] = torch.from_numpy(
+                    np.ascontiguousarray(arr.T))
+            else:
+                out[prefix + name] = torch.from_numpy(arr)
+
+    walk(params, "")
+    return out

@@ -1,0 +1,100 @@
+"""Guards of the PyTorch port's boundaries.
+
+- No module of ``dgl_tpu_torch/``, and not ``chip_smoke.py``, imports JAX,
+  flax, optax or anything of the JAX package (read with ``ast``, so
+  imports inside functions count too).
+- The entry points place their tensors on CUDA unless the caller asks for
+  the CPU: in a process that sees no card, calling them without
+  ``device`` raises instead of running on the CPU.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dgl_tpu")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _dirs, names in os.walk(os.path.join(ROOT, "dgl_tpu_torch")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_roots(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+def test_port_imports_no_jax_and_nothing_of_dgl_tpu():
+    files = _port_files()
+    assert len(files) > 10, files  # the walk found the package
+    bad = []
+    for path in files:
+        for lineno, name in _imported_roots(path):
+            if name.split(".")[0] in FORBIDDEN:
+                bad.append(f"{os.path.relpath(path, ROOT)}:{lineno}: {name}")
+    assert not bad, "forbidden imports:\n" + "\n".join(bad)
+
+
+def test_guard_catches_a_forbidden_import(tmp_path):
+    p = tmp_path / "m.py"
+    p.write_text("def f():\n    from dgl_tpu.ops import spmm\n"
+                 "import jax.numpy as jnp\nimport dgl_tpu_torch\n")
+    names = [n for _l, n in _imported_roots(str(p))]
+    assert sorted(n for n in names if n.split(".")[0] in FORBIDDEN) == [
+        "dgl_tpu.ops", "jax.numpy"]
+
+
+_CALLS = {
+    "graph": "dt.graph((np.array([0, 1]), np.array([1, 2])), num_nodes=3{})",
+    "GraphSAGE": "dt.models.GraphSAGE(4, 8, 2, num_layers=2{})",
+    "Relation.from_coo": "dt.Relation.from_coo(np.array([0]), np.array([1]), "
+                         "2, 2{})",
+}
+
+_PROBE = """
+import json, numpy as np, torch, dgl_tpu_torch as dt
+assert not torch.cuda.is_available()
+out = {}
+for name, call in json.loads(CALLS).items():
+    try:
+        eval(call.format(""))
+        default = None
+    except Exception as exc:
+        default = f"{type(exc).__name__}: {exc}"
+    eval(call.format(', device="cpu"'))
+    out[name] = default
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def default_device_errors():
+    """Each entry point called without ``device`` and then with
+    ``device="cpu"``, in one process that sees no card."""
+    import json
+
+    code = f"CALLS = {json.dumps(json.dumps(_CALLS))}\n" + _PROBE
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", sorted(_CALLS))
+def test_entry_point_defaults_to_cuda(name, default_device_errors):
+    err = default_device_errors[name]
+    assert err is not None, f"{name} ran on the CPU without being asked"
+    assert "cuda" in err.lower(), err
