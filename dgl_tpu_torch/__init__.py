@@ -6,9 +6,11 @@ kernels written for ``sm_90a`` under ``csrc/``, built at first use
 defaults to ``"cuda"``; pass ``device="cpu"`` to run the plain PyTorch
 versions of the kernels on the CPU.
 
-This slice covers full-graph GraphSAGE inference through the dense-hub
-SpMM: graph construction, ``reorder_for_spmm``, ``update_all`` with the
-builtin sum/mean reducers, ``SAGEConv`` and ``GraphSAGE``.
+Ported so far: full-graph GraphSAGE inference through the dense-hub SpMM
+(graph construction, ``reorder_for_spmm``, ``update_all`` with the builtin
+sum/mean reducers, ``SAGEConv``, ``GraphSAGE``), and full-graph GCN and GAT
+inference through the bitmap path (``with_spmm_plans(bitmap=...)``,
+``GraphConv``, ``GCN``, ``GATConv``, ``GAT``).
 """
 from . import function, models, nn, ops, transforms
 from .base import ALL, EID, NID, DGLError

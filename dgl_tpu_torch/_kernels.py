@@ -3,8 +3,9 @@
 The kernels live as CUDA C++ under ``dgl_tpu_torch/csrc/`` with a plain C
 interface. They are compiled for Hopper (``sm_90a``) at first use with
 ``torch.utils.cpp_extension.load`` into ``<repo>/build/dgl_tpu_torch_kernels``
-and bound with ``ctypes``; no source includes PyTorch's headers, so the
-build takes seconds. Nothing here runs at import time: the CPU tests import
+(ninja compiles the sources in parallel, one ``nvcc`` each) and bound with
+``ctypes``; no source includes PyTorch's headers, so the build takes
+seconds. Nothing here runs at import time: the CPU tests import
 every module on a machine without ``nvcc``.
 
 Every wrapper that launches a kernel adds one to its entry in
@@ -20,10 +21,12 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _REPO_DIR = os.path.dirname(_PKG_DIR)
 BUILD_DIR = os.path.join(_REPO_DIR, "build", "dgl_tpu_torch_kernels")
-SOURCES = (os.path.join(_PKG_DIR, "csrc", "shell_prefix_sum.cu"),)
+SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name) for name in (
+    "shell_prefix_sum.cu", "bitmap_spmm.cu", "bitmap_gat_fwd.cu"))
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
-launch_counts = {"shell_prefix_sum": 0}
+launch_counts = {"shell_prefix_sum": 0, "bitmap_spmm": 0,
+                 "bitmap_gat_fwd": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -50,11 +53,17 @@ def library() -> ctypes.CDLL:
                 is_python_module=False,
             )
             lib = ctypes.CDLL(path)
-            fn = lib.dgl_shell_prefix_sum
-            p, i64 = ctypes.c_void_p, ctypes.c_int64
-            fn.argtypes = [p, i64, i64, p, p, p, ctypes.c_int, p, p, i64,
-                           ctypes.c_int, p]
-            fn.restype = ctypes.c_int
+            p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+            for fn, argtypes in (
+                    (lib.dgl_shell_prefix_sum,
+                     [p, i64, i64, p, p, p, i32, p, p, i64, i32, p]),
+                    (lib.dgl_bitmap_spmm,
+                     [p, i64, i64, p, i64, i64, i64, i32, p, p]),
+                    (lib.dgl_bitmap_gat_fwd,
+                     [p, i64, i64, p, p, p, i64, i32, i32, i32, i32, i32,
+                      i32, ctypes.c_float, p, p, p])):
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 

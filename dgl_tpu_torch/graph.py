@@ -62,11 +62,15 @@ class Relation:
         "csc_dst",
     )
 
-    # plans of later slices; ops.gspmm raises on them
+    # plans (ops.gspmm dispatches on them; the shell plan and uniform
+    # stride belong to later slices and raise there)
     hub_plan = None
     shell_plan = None
     bitmap_plan = None
     uniform_stride = 0
+    # where the reference would attach a dense-attention plan
+    # (ops/dense_attn.py, not ported): GATConv raises there
+    dense_attn = False
 
     def __init__(self, arrays: Mapping[str, torch.Tensor], *, num_src: int,
                  num_dst: int, num_edges: int, max_in_degree: int = -1,
@@ -159,10 +163,20 @@ class Relation:
         ``gspmm`` dispatches ``copy_u`` + sum/mean through it."""
         return self._copy_with(hub_plan=plan)
 
+    def with_bitmap_plan(self, plan) -> "Relation":
+        """A copy carrying a packed-bitmap dense SpMM plan
+        (``ops/bitmap_spmm.py``); ``gspmm`` dispatches ``copy_u`` +
+        sum/mean through it and ``GATConv`` its attention."""
+        return self._copy_with(bitmap_plan=plan)
+
     def to(self, device) -> "Relation":
         arrays = {f: getattr(self, f).to(device) for f in Relation.ARRAY_FIELDS}
-        plan = None if self.hub_plan is None else self.hub_plan.to(device)
-        return self._copy_with(hub_plan=plan, **arrays)
+        return self._copy_with(
+            hub_plan=None if self.hub_plan is None
+            else self.hub_plan.to(device),
+            bitmap_plan=None if self.bitmap_plan is None
+            else self.bitmap_plan.to(device),
+            **arrays)
 
     @property
     def device(self) -> torch.device:
@@ -182,6 +196,21 @@ class Relation:
 
     def in_degrees(self) -> torch.Tensor:
         return self.csc_indptr[1:] - self.csc_indptr[:-1]
+
+    def out_degrees(self) -> torch.Tensor:
+        return self.csr_indptr[1:] - self.csr_indptr[:-1]
+
+    def edge_keys(self) -> torch.Tensor:
+        """Sorted distinct ``dst * num_src + src`` keys of the real edges:
+        fewer than ``num_edges`` of them when the relation has
+        multi-edges."""
+        src, dst = self.src[:self.num_edges], self.dst[:self.num_edges]
+        return torch.unique(dst.to(torch.int64) * self.num_src
+                            + src.to(torch.int64))
+
+    def has_multi_edges(self) -> bool:
+        """Whether two real edges join the same (src, dst) pair."""
+        return int(self.edge_keys().numel()) != self.num_edges
 
     def __repr__(self):
         return (f"Relation(num_src={self.num_src}, num_dst={self.num_dst}, "
@@ -322,6 +351,12 @@ class Graph:
             return deg
         return deg[torch.as_tensor(v, device=deg.device)]
 
+    def out_degrees(self, u=ALL, etype=None):
+        deg = self._relation(etype).out_degrees()
+        if is_all(u):
+            return deg
+        return deg[torch.as_tensor(u, device=deg.device)]
+
     # -- message passing -----------------------------------------------------
 
     def update_all(self, message_func, reduce_func, apply_node_func=None,
@@ -386,36 +421,68 @@ class Graph:
                         bitmap: bool | str = "auto",
                         bitmap_max_bytes: int = 2 << 30,
                         bitmap_min_density: float = 5e-4) -> "Graph":
-        """A copy whose relation carries a dense-hub SpMM plan
-        (:mod:`dgl_tpu_torch.ops.hub_spmm`).
+        """A copy whose relation carries the reference's SpMM plans.
 
-        The reference's other plans come in later slices: ``weighted=True``,
-        ``dense_attn=True`` and ``bitmap=True`` raise, and ``"auto"`` attaches
-        no dense-attention or bitmap plan here."""
+        - A dense-hub plan (:mod:`dgl_tpu_torch.ops.hub_spmm`), always.
+        - A packed-bitmap plan (:mod:`dgl_tpu_torch.ops.bitmap_spmm`) when
+          ``bitmap=True``, or with ``"auto"`` on a dense relation (density
+          ``E/(N_src*N_dst) >= bitmap_min_density`` and bitmaps within
+          ``2 * bitmap_max_bytes``); the builder still refuses multi-edges
+          and plans over ``bitmap_max_bytes``.
+        - The dense-attention mark (``Relation.dense_attn``) where the
+          reference attaches its dense-attention plan: ``dense_attn`` not
+          False, at most ``dense_attn_max_cells`` cells, no multi-edges.
+          That plan is not ported; ``GATConv`` raises on a marked relation.
+
+        ``weighted=True`` (the weighted shell plans) raises."""
         from .ops.hub_spmm import build_hub_plan
 
         if weighted:
             raise NotImplementedError(
                 "weighted shell plans: the weighted g-SpMM slice "
                 "(ROADMAP queue A3)")
-        if dense_attn is True:
-            raise NotImplementedError(
-                "dense_attn plans: the attention slice (ROADMAP queue A7)")
-        if bitmap is True:
-            raise NotImplementedError(
-                "bitmap plans: the dense-graph slice (ROADMAP queue A7)")
         g = self.structural_clone()
         rels = {}
         for k, r in self._relations.items():
             h = (self._auto_num_hubs(r) if num_hubs == "auto"
                  else int(num_hubs))
-            rels[k] = r.with_hub_plan(build_hub_plan(r, h, precision))
+            r = r.with_hub_plan(build_hub_plan(r, h, precision))
+            rels[k] = with_dense_plans(
+                r, dense_attn=dense_attn,
+                dense_attn_max_cells=dense_attn_max_cells, bitmap=bitmap,
+                bitmap_max_bytes=bitmap_max_bytes,
+                bitmap_min_density=bitmap_min_density)
         g._relations = rels
         return g
 
     def __repr__(self):
         return (f"Graph(num_nodes={self.num_nodes()}, "
                 f"num_edges={self.num_edges()}, device={self.device})")
+
+
+def with_dense_plans(r: Relation, dense_attn: bool | str = "auto",
+                     dense_attn_max_cells: int = 16_000_000,
+                     bitmap: bool | str = "auto",
+                     bitmap_max_bytes: int = 2 << 30,
+                     bitmap_min_density: float = 5e-4) -> Relation:
+    """``r`` with the dense-attention mark and the bitmap plan that
+    ``Graph.with_spmm_plans`` attaches besides the hub plan (reference
+    ``graph.py:1165-1180``)."""
+    from .ops.bitmap_spmm import bitmap_bytes, build_bitmap_plan
+
+    cells = r.num_src * r.num_dst
+    if (dense_attn is True or dense_attn == "auto") and 0 < cells <= (
+            dense_attn_max_cells) and not r.has_multi_edges():
+        r = r._copy_with(dense_attn=True)
+    want_bitmap = bitmap is True or (
+        bitmap == "auto" and cells > 0
+        and r.num_edges / cells >= bitmap_min_density
+        and bitmap_bytes(r.num_src, r.num_dst, False) <= bitmap_max_bytes * 2)
+    if want_bitmap:
+        bp = build_bitmap_plan(r, max_bytes=bitmap_max_bytes)
+        if bp is not None:
+            r = r.with_bitmap_plan(bp)
+    return r
 
 
 class _LocalScope:

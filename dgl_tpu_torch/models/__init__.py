@@ -1,4 +1,6 @@
 """Models composing the nn layers (counterpart of ``dgl_tpu/models/``)."""
+from .gat import GAT
+from .gcn import GCN
 from .sage import GraphSAGE
 
-__all__ = ["GraphSAGE"]
+__all__ = ["GAT", "GCN", "GraphSAGE"]

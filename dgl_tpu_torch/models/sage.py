@@ -19,7 +19,7 @@ class GraphSAGE(nn.Module):
 
     The layers are named ``sage0``, ``sage1``, ... as in the reference, so
     :func:`dgl_tpu_torch.params.from_flax_params` maps its parameters.
-    Parameters are drawn on the CPU from ``generator`` and the module is
+    Parameters are drawn on the CPU from ``generator`` and each layer is
     then moved to ``device``.
     """
 
@@ -34,9 +34,8 @@ class GraphSAGE(nn.Module):
         for i in range(num_layers):
             self.add_module(f"sage{i}", SAGEConv(
                 dims[i], dims[i + 1], aggregator_type=aggregator_type,
-                generator=generator))
+                generator=generator, device=device))
         self.dropout = nn.Dropout(dropout)
-        self.to(device)
 
     def forward(self, graph_or_blocks, x):
         blocks = (graph_or_blocks

@@ -1,5 +1,8 @@
 """Graph convolution layers (counterpart of ``dgl_tpu/nn/conv/``)."""
-from .graphconv import expand_as_pair
+from .gatconv import GATConv
+from .graphconv import (GraphConv, check_zero_in_degree, expand_as_pair,
+                        precompute_graphconv)
 from .sageconv import SAGEConv
 
-__all__ = ["SAGEConv", "expand_as_pair"]
+__all__ = ["GATConv", "GraphConv", "SAGEConv", "check_zero_in_degree",
+           "expand_as_pair", "precompute_graphconv"]

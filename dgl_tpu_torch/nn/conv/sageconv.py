@@ -23,14 +23,15 @@ class SAGEConv(nn.Module):
 
     Parameters are initialised on the CPU from ``generator`` (Xavier-uniform
     projections, zero bias), as the reference's flax module initialises
-    them; move the module with ``.to(device)``.
+    them, and the module is then moved to ``device``.
     """
 
     def __init__(self, in_feats: int, out_feats: int,
                  aggregator_type: str = "mean", feat_drop: float = 0.0,
                  bias: bool = True, norm: Optional[Callable] = None,
                  activation: Optional[Callable] = None, *,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 device="cuda"):
         super().__init__()
         if aggregator_type in ("gcn", "pool", "lstm"):
             raise NotImplementedError(
@@ -50,6 +51,7 @@ class SAGEConv(nn.Module):
         with torch.no_grad():
             nn.init.xavier_uniform_(self.fc_neigh.weight, generator=generator)
             nn.init.xavier_uniform_(self.fc_self.weight, generator=generator)
+        self.to(device)
 
     def forward(self, graph, feat, edge_weight=None):
         with graph.local_scope() as g:

@@ -2,9 +2,10 @@
 
 Counterpart of ``dgl_tpu/ops/spmm.py``. :func:`gspmm` keeps the reference's
 dispatch order: uniform-stride blocks, bitmap plan, dense-hub plan, shell
-plan, then the plain path. This slice ports the dense-hub branch (``copy_u``
-with sum/mean) and the plain sorted segment sum; the branches of later
-slices raise and never run something else in their place.
+plan, then the plain path. Ported: the bitmap branch (``copy_u`` with
+sum/mean on 2-D features), the dense-hub branch (``copy_u`` with sum/mean)
+and the plain sorted segment sum; the branches of later slices raise and
+never run something else in their place.
 
 The plain path gathers the messages in CSC (dst-sorted) order and sums them
 with ``index_add_``. PyTorch's autograd differentiates it directly.
@@ -84,9 +85,15 @@ def gspmm(g, op, reduce_op, lhs_data, rhs_data, etype=None):
         raise NotImplementedError(
             "uniform-stride g-SpMM (fixed-shape MFG blocks): the minibatch "
             "slice, ROADMAP queue A5")
-    if rel.bitmap_plan is not None:
-        raise NotImplementedError(
-            "bitmap g-SpMM: the dense-graph slice, ROADMAP queue A7")
+    # packed-bitmap dense path (ops/bitmap_spmm.py): the adjacency streams
+    # as bits through kernel B2, the high-degree (Reddit-class) path
+    if (rel.bitmap_plan is not None and op == "copy_lhs"
+            and reduce_op in ("sum", "mean") and u is not None
+            and u.dim() == 2):
+        from .bitmap_spmm import bitmap_copy_u_sum
+
+        out = bitmap_copy_u_sum(rel.bitmap_plan, u)
+        return _mean(rel, out) if reduce_op == "mean" else out
 
     # dense-hub fast path (ops/hub_spmm.py): one matmul for the hub edges,
     # the shell prefix-sum kernel for the cold tail

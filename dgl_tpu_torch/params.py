@@ -17,9 +17,11 @@ def from_flax_params(params: Mapping[str, Any]) -> "OrderedDict[str, torch.Tenso
     ``params`` is the tree ``Module.init`` returns (with or without its
     ``"params"`` collection key). Nested names join with dots; a
     ``Dense.kernel`` of shape (in, out) becomes the ``Linear.weight`` of
-    shape (out, in); every other leaf (biases) carries over as it is. The
-    leaves may be any array numpy reads; they come out as float32. Load
-    the result with ``module.load_state_dict``.
+    shape (out, in); every other leaf carries over as it is: biases,
+    GraphConv's (in, out) ``weight``, GATConv's (1, H, O) ``attn_l``,
+    ``attn_r`` and ``bias``, whose port modules keep the reference's
+    shapes. The leaves may be any array numpy reads; they come out as
+    float32. Load the result with ``module.load_state_dict``.
     """
     if set(params) == {"params"}:
         params = params["params"]

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from ..base import EID, NID, DGLError
-from ..graph import Graph, Relation
+from ..graph import Graph, Relation, with_dense_plans
 
 __all__ = ["reorder_graph", "reorder_for_spmm"]
 
@@ -85,11 +85,11 @@ def reorder_for_spmm(g: Graph, num_hubs=2048, precision: str = "int8",
     new_of_old = np.empty(perm.shape[0], np.int64)
     new_of_old[perm] = np.arange(perm.shape[0])
     hubs_new = new_of_old[plan.hub_ids.cpu().numpy()[: plan.num_hubs]]
-    # the reference first attaches with_spmm_plans' plan and then replaces
-    # it with this pinned one; in this slice with_spmm_plans attaches
-    # nothing else, so the pinned plan is built directly
+    # the reference attaches with_spmm_plans' plans and then replaces the
+    # hub plan with this pinned one; the pinned plan is built directly and
+    # the other plans attached as with_spmm_plans would
     rel2 = g2._relation(None)
     key = g2.to_canonical_etype(None)
-    g2._relations = {key: rel2.with_hub_plan(
-        build_hub_plan(rel2, h, precision, hub_ids_override=hubs_new))}
+    g2._relations = {key: with_dense_plans(rel2.with_hub_plan(
+        build_hub_plan(rel2, h, precision, hub_ids_override=hubs_new)))}
     return g2, perm

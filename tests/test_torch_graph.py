@@ -133,12 +133,14 @@ def test_later_slices_raise():
     x = torch.ones(n, 2)
     with pytest.raises(NotImplementedError, match="queue A2"):
         dt.ops.copy_u_max(tg, x)
-    with pytest.raises(NotImplementedError, match="bitmap"):
-        tg.with_spmm_plans(bitmap=True)
-    with pytest.raises(NotImplementedError, match="dense_attn"):
-        tg.with_spmm_plans(dense_attn=True)
     with pytest.raises(NotImplementedError, match="weighted"):
         tg.with_spmm_plans(weighted=True)
-    # "auto" attaches the hub plan and nothing else in this slice
-    rel = tg.with_spmm_plans(num_hubs=128)._relation()
-    assert rel.hub_plan is not None and rel.bitmap_plan is None
+    # multi-edges: neither a bitmap plan nor the dense-attention mark
+    # attaches, forced or not, as in the reference
+    jg = dgl_tpu.graph((src, dst), num_nodes=n)
+    for kw in ({}, {"bitmap": True, "dense_attn": True}):
+        rel = tg.with_spmm_plans(num_hubs=128, **kw)._relation()
+        assert rel.hub_plan is not None and rel.bitmap_plan is None
+        assert not rel.dense_attn
+        jrel = jg.with_spmm_plans(num_hubs=128, **kw)._relation()
+        assert jrel.bitmap_plan is None and jrel.dense_adj is None

@@ -59,6 +59,11 @@ def test_guard_catches_a_forbidden_import(tmp_path):
 _CALLS = {
     "graph": "dt.graph((np.array([0, 1]), np.array([1, 2])), num_nodes=3{})",
     "GraphSAGE": "dt.models.GraphSAGE(4, 8, 2, num_layers=2{})",
+    "GCN": "dt.models.GCN(4, 8, 2{})",
+    "GAT": "dt.models.GAT(4, 8, 2, heads=2{})",
+    "SAGEConv": "dt.nn.SAGEConv(4, 8{})",
+    "GraphConv": "dt.nn.GraphConv(4, 8{})",
+    "GATConv": "dt.nn.GATConv(4, 8, 2{})",
     "Relation.from_coo": "dt.Relation.from_coo(np.array([0]), np.array([1]), "
                          "2, 2{})",
 }
