@@ -30,34 +30,58 @@ the GraphSAGE path (kernel B1, shell prefix sum):
    from the bytes it must move, then times the forward pass on both paths
    and ``copy_u_sum`` at F = 256 as a caller waits for them, and breaks the
    forward's device time down by kernel with ``torch.profiler``;
+6. trains the same GraphSAGE shape (dropout 0.5, ``torch.optim.Adam`` at
+   1e-2, masked cross-entropy over uniform random labels, every node
+   labelled): holds every parameter gradient of the fresh model (dropout
+   off) against the exact f32 path at rtol = 2e-2, atol = 2e-2 * max|ref|
+   (the exact path following the plan path's ReLU pattern, see
+   ``check_grads``),
+   drives one step with the launch counts read around it (3 B1 launches
+   forward and 2 backward, over the reverse shells: layer 0 aggregates the
+   input, which needs no gradient), runs four more (finite losses), holds
+   B1 against its plain version on the backward's real tables, and times
+   and profiles the step;
 
-the Reddit-scale GCN and GAT paths (kernels B2, bitmap SpMM, and B3,
-bitmap-flash GAT forward):
+the Reddit-scale GCN and GAT paths (kernels B2, bitmap SpMM, B3,
+bitmap-flash GAT forward, and B4 and B5, its backward):
 
-6. builds the synthetic Reddit stand-in at full scale (232,965 nodes, the
-   SBM recipe of ``dgl_tpu/data/synthetic.py``, 602-wide features) and
-   ``with_spmm_plans(num_hubs=256, bitmap=True, bitmap_max_bytes=8 << 30)``;
-7. drives GCN 602 -> 16 -> 41 once (eval, weights from seed 0, counts read
+7. builds the synthetic Reddit stand-in at full scale (232,965 nodes, the
+   SBM recipe of ``dgl_tpu/data/synthetic.py``, 602-wide features, its
+   labels and 60 % train split) and ``with_spmm_plans(num_hubs=256,
+   bitmap=True, bitmap_max_bytes=8 << 30)``;
+8. drives GCN 602 -> 16 -> 41 once (eval, weights from seed 0, counts read
    around it: two B2 launches) and holds it against the exact-f32 path at
    rtol = 2e-2, atol = 2e-2 * max|ref| (the bitmap path rounds the
    aggregated rows to bf16);
-8. drives GAT 602 -> 8 x 8 heads -> 41 once (counts read around it: two
-   B3 launches), checking the output's shape and finiteness (step 10
+9. drives GAT 602 -> 8 x 8 heads -> 41 once (counts read around it: two
+   B3 launches), checking the output's shape and finiteness (step 11
    holds its values);
-9. holds B2 against its plain version on both GCN layers' real tables at
-   rtol = 1e-5, atol = 1e-5 * max|ref| (the same f32 terms summed in
-   another order), and times it, its plain version and ``torch.sparse.mm``
-   on the CSR adjacency;
-10. holds B3 against its plain version on both GAT layers' real inputs, on
+10. holds B2 against its plain version on both GCN layers' real tables at
+    rtol = 1e-5, atol = 1e-5 * max|ref| (the same f32 terms summed in
+    another order), and times it, its plain version and ``torch.sparse.mm``
+    on the CSR adjacency;
+11. holds B3 against its plain version on both GAT layers' real inputs, on
     4,096 dst rows spread over the graph (the first and last 512-row tiles
     included), at rtol = 1e-4, atol = 1e-5 * max|ref| (exponentials and
     sums in another order); holds each layer's output on those rows (the
     main path's output for the last layer) against the layer's plain
     forward at the same tolerance; and times B3 and its plain version (no
     PyTorch call computes B3);
-11. times both forwards as a caller waits for them and breaks their device
-    time down by kernel with ``torch.profiler``.
+12. times both forwards as a caller waits for them and breaks their device
+    time down by kernel with ``torch.profiler``;
+13. trains GCN (dropout 0.5): gradients against the exact f32 path as in
+    step 6, one counted step (4 B2 launches: 2 forward, 2 backward over
+    ``bits``, the graph being symmetric), four more (finite, falling
+    losses), B2 against its plain version on the backward's real ``dz``,
+    step time and profile;
+14. trains GAT (no dropout): one counted step (2 launches each of B3, B4
+    and B5), four more (finite, falling losses); holds B4 and B5 against
+    their plain versions on both layers' real step inputs, B4 on the 4,096
+    dst rows of step 11 and B5 on 4,096 source rows chosen the same way,
+    at B3's tolerance; times both (no PyTorch call computes them; the plain
+    versions on the check rows only) and the step, and profiles the step.
 
+Every training input is built outside ``torch.inference_mode()``.
 It prints one JSON object per result line, the kernel table as
 ``{"kernels": [...]}``, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -66,7 +90,9 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -84,6 +110,8 @@ REDDIT_FEAT, REDDIT_CLASSES = 602, 41
 GCN_HIDDEN = 16  # examples/reddit_fullgraph_gcn.py:48-54
 GAT_HIDDEN, GAT_HEADS = 8, 8  # benchmarks/bench_reddit_gat.py:47-48
 B3_CHECK_ROWS = 4096
+LR = 1e-2  # optax.adam(1e-2) of the JAX package's training scripts
+TRAIN_STEPS = 5
 # HBM bandwidth by card name (NVIDIA data sheets), bytes/s
 HBM_RATE = (("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12), ("H200", 4.8e12),
             ("H100", 3.35e12))
@@ -201,17 +229,22 @@ def zipf_graph(seed: int = 0):
     return src, dst
 
 
-def cold_bags(plan, n_table):
-    """The plan's cold edges as embedding_bag input: per output row, the
-    table rows its shell levels gather (out-of-range slots dropped)."""
+def cold_bags(plan, reverse: bool = False):
+    """One direction's cold edges as embedding_bag input (the forward
+    shells, or with ``reverse`` the backward's): per output row, the table
+    rows its shell levels gather (out-of-range slots dropped). Returns the
+    indices, the offsets, the number of edges and of distinct table rows."""
     import torch
 
     from dgl_tpu_torch.ops.shell_prefix import BLOCK_ROWS, _rup
 
+    flat_idx, level_rows, _levels, _res, _unrank, n_out = plan.direction(
+        reverse)
+    n_table = plan.num_dst if reverse else plan.num_src
     rows, cols, off = [], [], 0
-    for m in plan.shell_rows:
-        mm = min(m, plan.num_dst)
-        idx = plan.shell_idx[off:off + mm].long()
+    for m in level_rows:
+        mm = min(m, n_out)
+        idx = flat_idx[off:off + mm].long()
         r = torch.arange(mm, device=idx.device)
         keep = idx < n_table
         rows.append(r[keep])
@@ -219,19 +252,21 @@ def cold_bags(plan, n_table):
         off += _rup(m, BLOCK_ROWS)
     rows, cols = torch.cat(rows), torch.cat(cols)
     order = torch.sort(rows, stable=True).indices
-    counts = torch.bincount(rows, minlength=plan.num_dst)
+    counts = torch.bincount(rows, minlength=n_out)
     offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
-    return cols[order], offsets
+    return (cols[order], offsets, int(cols.shape[0]),
+            int(torch.unique(cols).shape[0]))
 
 
-def kernel_bound(plan, n_table_rows_used, n_cold, feat, has_base, rate):
-    """Least time for one call: the larger of bytes / HBM rate and f32
-    adds / f32 rate. Bytes: each distinct table row read once (bf16),
-    every index read once (int32), the base read once and the output
-    written once (f32). Also returns the gather-stream figure, which reads
-    a table row per cold edge."""
-    n_out = plan.num_dst
-    n_idx = sum(min(m, n_out) for m in plan.shell_rows)
+def kernel_bound(level_rows, n_out, n_table_rows_used, n_cold, feat,
+                 has_base, rate):
+    """Least time for one call of B1 over shells of ``level_rows`` with
+    ``n_out`` output rows: the larger of bytes / HBM rate and f32 adds /
+    f32 rate. Bytes: each distinct table row read once (bf16), every index
+    read once (int32), the base read once and the output written once
+    (f32). Also returns the gather-stream figure, which reads a table row
+    per cold edge."""
+    n_idx = sum(min(m, n_out) for m in level_rows)
     out_bytes = n_out * feat * 4 * (2 if has_base else 1)
     once = n_table_rows_used * feat * 2 + n_idx * 4 + out_bytes
     stream = n_cold * feat * 2 + n_cold * 4 + out_bytes
@@ -239,6 +274,255 @@ def kernel_bound(plan, n_table_rows_used, n_cold, feat, has_base, rate):
     ops_ms = n_cold * feat / F32_RATE * 1e3
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     return max(bytes_ms, ops_ms), bound_by, stream / rate * 1e3
+
+
+def check_b1(plan, reverse, xg, bags, rate) -> dict:
+    """B1 against its plain version on one direction's shells (the
+    forward's, or with ``reverse`` the backward's) of the bf16 table
+    ``xg``, at rtol = atol = 1e-5 (both sum the same f32 values in the
+    same order); its times, the plain version's and ``embedding_bag``'s
+    over the same cold edges, and its bound."""
+    import torch
+
+    from dgl_tpu_torch.ops import hub_spmm
+    from dgl_tpu_torch.ops.shell_prefix import (shell_prefix_sum,
+                                                shell_prefix_sum_plain)
+
+    flat_idx, level_rows, levels, _res, _unrank, n_out = plan.direction(
+        reverse)
+    bag_idx, bag_off, n_cold, rows_used = bags
+    base = hub_spmm._residual_base(xg, plan, reverse)
+    args = (xg, flat_idx, level_rows, n_out)
+    kern = lambda: shell_prefix_sum(  # noqa: E731
+        *args, base=base, levels=levels)
+    got = kern()
+    want = shell_prefix_sum_plain(*args, base=base)
+    torch.cuda.synchronize()
+    abs_err = (got - want).abs().max().item()
+    rel_err = abs_err / max(want.abs().max().item(), 1e-30)
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+        raise RuntimeError(f"B1 vs plain ({'reverse' if reverse else 'fwd'}"
+                           f" shells, F={xg.shape[1]}): max abs err "
+                           f"{abs_err}")
+    lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+        bag_idx, xg, bag_off, mode="sum", include_last_offset=True)
+    lib_err = (lib().float() - want).abs().max().item()
+    bound, bound_by, stream_ms = kernel_bound(
+        level_rows, n_out, rows_used, n_cold, xg.shape[1], base is not None,
+        rate)
+    return {
+        "F": xg.shape[1], "n_out": n_out, "cold_edges": n_cold,
+        "table_rows_read": rows_used, "shell_levels": len(level_rows),
+        "residual": base is not None, "max_abs_err": abs_err,
+        "max_rel_err": rel_err,
+        "ms": time_ms(kern, 50, hide_host=True),
+        "ms_with_host": time_ms(kern, 50),
+        "plain_ms": time_ms(lambda: shell_prefix_sum_plain(
+            *args, base=base), 10, hide_host=True),
+        "library_ms": time_ms(lib, 50, hide_host=True),
+        "library_max_abs_err_bf16_out": lib_err,
+        "bound_ms": bound, "bound_by": bound_by,
+        "gather_stream_bound_ms": stream_ms,
+    }
+
+
+def masked_loss(logits, y, mask):
+    """The JAX package's training loss (``examples/reddit_fullgraph_gcn.py:
+    61-66``): softmax cross-entropy with integer labels, averaged over the
+    masked nodes."""
+    import torch.nn.functional as F
+
+    ce = F.cross_entropy(logits, y, reduction="none")
+    return (ce * mask).sum() / mask.sum()
+
+
+def train_step(model, opt, graph, x, y, mask):
+    """One training step as user code writes it: forward, masked loss,
+    backward, ``torch.optim.Adam`` step. Returns the loss (on the card)."""
+    opt.zero_grad(set_to_none=True)
+    loss = masked_loss(model(graph, x), y, mask)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def counted_step(model, opt, graph, x, y, mask, expect: dict, what: str):
+    """The training main path: one step with the launch counts set to 0
+    just before and read just after, and its peak device memory. Fails
+    unless each kernel in ``expect`` launched exactly that often."""
+    import torch
+
+    from dgl_tpu_torch import _kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = train_step(model, opt, graph, x, y, mask)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = dict(_kernels.launch_counts)
+    for name, n in expect.items():
+        if launches[name] != n:
+            raise RuntimeError(f"{what} training step launched {name} "
+                               f"{launches[name]} times, expected {n}")
+    return loss, launches, torch.cuda.max_memory_allocated() / 2**30, step_s
+
+
+def run_steps(model, opt, graph, x, y, mask, first_loss, falling: bool):
+    """``TRAIN_STEPS - 1`` more steps after the counted one; the losses
+    must be finite and, with ``falling``, the last below the first."""
+    import torch
+
+    losses = [first_loss] + [train_step(model, opt, graph, x, y, mask)
+                             for _ in range(TRAIN_STEPS - 1)]
+    losses = torch.stack(losses).tolist()
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"non-finite training loss: {losses}")
+    if falling and not losses[-1] < losses[0]:
+        raise RuntimeError(f"training loss did not fall: {losses}")
+    return losses
+
+
+def grads_of(model, graph, x, y, mask, pattern=None):
+    """Every parameter's gradient of the masked loss with dropout off, and
+    the ReLU pattern of the pass (the models' ``torch.relu`` calls, as
+    masks). Given another pass's ``pattern``, the ReLUs follow it instead
+    of their own inputs' signs: the same piecewise-linear function."""
+    import torch
+
+    relu, seen = torch.relu, []
+
+    def follow(t):
+        m = (t > 0) if pattern is None else pattern[len(seen)]
+        seen.append(m)
+        return t * m  # relu(t) when m = t > 0, with relu's gradient
+
+    model.eval()
+    model.zero_grad(set_to_none=True)
+    torch.relu = follow
+    try:
+        masked_loss(model(graph, x), y, mask).backward()
+    finally:
+        torch.relu = relu
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    model.train()
+    return grads, seen
+
+
+def check_grads(model, gp, g_exact, x, y, mask, what: str) -> dict:
+    """The plan path's parameter gradients (fresh weights, dropout off)
+    against the exact f32 path's, per parameter at rtol = 2e-2,
+    atol = 2e-2 * max|ref| (the plan paths round aggregated rows to bf16
+    on purpose). The exact path follows the plan path's ReLU pattern: a
+    pre-activation within bf16 rounding of 0 at a node with tens of
+    thousands of out-edges (a zipf hub) would otherwise swap a whole row
+    of a weight's gradient, a difference of the input, not of the
+    gradient. The comparison with the exact path's own pattern is reported
+    beside it, and the number of ReLU outputs whose sign differs."""
+    got, pattern = grads_of(model, gp, x, y, mask)
+    ref, _ = grads_of(model, g_exact, x, y, mask, pattern)
+    free, own = grads_of(model, g_exact, x, y, mask)
+    out = {"tolerance": "rtol=2e-2, atol=2e-2*max|ref| per parameter, "
+                        "exact path on the plan path's ReLU pattern",
+           "max_rel_err": {}, "max_rel_err_own_relu_pattern": {},
+           "relu_sign_differences": int(sum(
+               (a != b).sum().item() for a, b in zip(pattern, own)))}
+    for k, r in ref.items():
+        scale = max(r.abs().max().item(), 1e-30)
+        err = (got[k] - r).abs().max().item()
+        out["max_rel_err"][k] = err / scale
+        out["max_rel_err_own_relu_pattern"][k] = (
+            (got[k] - free[k]).abs().max().item()
+            / max(free[k].abs().max().item(), 1e-30))
+        if not (got[k] - r).abs().le(2e-2 * scale + 2e-2 * r.abs()).all():
+            raise RuntimeError(f"{what}: gradient of {k} vs the exact f32 "
+                               f"path: max abs err {err} (max |ref| "
+                               f"{scale})")
+    return out
+
+
+@contextlib.contextmanager
+def recording(module, name: str, keep=lambda *a, **k: True):
+    """Record the arguments of the calls of ``module.name`` for which
+    ``keep`` holds (the real inputs a training step hands a kernel)."""
+    orig = getattr(module, name)
+    calls = []
+
+    def rec(*a, **k):
+        if keep(*a, **k):
+            calls.append((a, k))
+        return orig(*a, **k)
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def run_sage_training(gp, x, rate: float, tag: dict) -> dict:
+    """GraphSAGE training at arxiv scale (B1 forward and, over the
+    reverse shells, backward); returns B1's backward figures."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch.models import GraphSAGE
+    from dgl_tpu_torch.ops import hub_spmm
+
+    plan = gp._relation().hub_plan
+    rel = gp._relation()
+    g_exact = dt.graph((rel.src.cpu(), rel.dst.cpu()), num_nodes=N_NODES)
+    # uniform labels from a fixed seed, as bench.py:307 draws them; every
+    # node trains
+    y = torch.from_numpy(np.random.default_rng(4).integers(
+        0, CLASSES, N_NODES)).cuda()
+    mask = torch.ones(N_NODES, device=x.device)
+    model = GraphSAGE(IN_FEATS, HIDDEN, CLASSES, num_layers=LAYERS,
+                      aggregator_type="mean", dropout=0.5,
+                      generator=torch.Generator().manual_seed(0)).train()
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    # gradients with dropout off against the exact f32 path, recording
+    # the reverse-shell calls' real tables for the kernel check
+    with recording(hub_spmm, "shell_prefix_sum",
+                   lambda t, idx, *a, **k: idx is plan.rev_shell_idx) as rec:
+        grad_check = check_grads(model, gp, g_exact, x, y, mask, "GraphSAGE")
+    del g_exact
+    # 3 forward launches (one per layer) + 2 backward: layer 0 aggregates
+    # the raw input, which needs no gradient; layers 1 and 2 aggregate
+    # tables that do
+    expect = LAYERS + (LAYERS - 1)
+    loss, launches, peak, step_s = counted_step(
+        model, opt, gp, x, y, mask, {"shell_prefix_sum": expect},
+        "GraphSAGE")
+    losses = run_steps(model, opt, gp, x, y, mask, loss, falling=False)
+    emit({"phase": "sage_train_main_path", "model": "GraphSAGE 128-256-256"
+          "-40, dropout 0.5", "launches": launches,
+          "expected_shell_prefix_sum": expect, "peak_memory_gib": peak,
+          "first_step_s": step_s, "losses": losses,
+          "grads_vs_exact_f32": grad_check,
+          "reverse_shells": len(plan.rev_shell_rows),
+          "reverse_residual": plan.res_src is not None, **tag})
+    if len(rec) != LAYERS - 1:
+        raise RuntimeError(f"recorded {len(rec)} reverse-shell calls")
+    bags = cold_bags(plan, reverse=True)
+    bwd = {}
+    for (args, _kw) in rec:
+        xg = args[0]
+        label = f"layer{1 if xg.shape[1] == HIDDEN else 2} bwd F={xg.shape[1]}"
+        bwd[label] = check_b1(plan, True, xg, bags, rate)
+        emit({"phase": "kernel_vs_plain", "kernel": "shell_prefix_sum",
+              "shape": label, **bwd[label], **tag})
+    del rec
+    timing = {"step_ms": time_ms(
+        lambda: train_step(model, opt, gp, x, y, mask), 5)}
+    emit({"phase": "sage_train_timing", **timing, **tag})
+    emit({"phase": "sage_train_profile", "calls": 2, **device_profile(
+        lambda: train_step(model, opt, gp, x, y, mask), 2), **tag})
+    return {"launches_train_step": launches["shell_prefix_sum"],
+            "train_step_ms": timing["step_ms"], "backward": bwd}
 
 
 def run_sage(rate: float, tag: dict) -> dict:
@@ -250,9 +534,6 @@ def run_sage(rate: float, tag: dict) -> dict:
     import dgl_tpu_torch as dt
     from dgl_tpu_torch import _kernels
     from dgl_tpu_torch.models import GraphSAGE
-    from dgl_tpu_torch.ops import hub_spmm
-    from dgl_tpu_torch.ops.shell_prefix import (shell_prefix_sum,
-                                                shell_prefix_sum_plain)
 
     # 2. the main path, driven once with the launch counts read around it
     t0 = time.perf_counter()
@@ -317,45 +598,14 @@ def run_sage(rate: float, tag: dict) -> dict:
             "headline F=256": torch.from_numpy(np.random.default_rng(2).normal(
                 size=(N_NODES, HEADLINE_F)).astype(np.float32)).cuda(),
         }
-    bag_idx, bag_off = cold_bags(plan, N_NODES)
-    n_cold = int(bag_idx.shape[0])
-    rows_used = int(torch.unique(bag_idx).shape[0])
-    shell_args = (plan.shell_idx, plan.shell_rows, N_NODES)
+    bags = cold_bags(plan)
     per_shape = {}
     with torch.inference_mode():
         for label, t in tables.items():
             xg = t.to(torch.bfloat16).contiguous()
-            base = hub_spmm._residual_base(xg, plan)
-            kw = {"base": base, "levels": plan.shell_levels}
-            got = shell_prefix_sum(xg, *shell_args, **kw)
-            want = shell_prefix_sum_plain(xg, *shell_args, base=base)
-            torch.cuda.synchronize()
-            abs_err = (got - want).abs().max().item()
-            rel_err = abs_err / max(want.abs().max().item(), 1e-30)
-            if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
-                raise RuntimeError(f"kernel vs plain at {label}: max abs "
-                                   f"err {abs_err}")
-            feat = xg.shape[1]
-            lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
-                bag_idx, xg, bag_off, mode="sum", include_last_offset=True)
-            lib_err = (lib().float() - want).abs().max().item()
-            bound, bound_by, stream_ms = kernel_bound(
-                plan, rows_used, n_cold, feat, base is not None, rate)
-            kern = lambda: shell_prefix_sum(xg, *shell_args, **kw)  # noqa: E731
-            per_shape[label] = {
-                "F": feat, "max_abs_err": abs_err, "max_rel_err": rel_err,
-                "ms": time_ms(kern, 50, hide_host=True),
-                "ms_with_host": time_ms(kern, 50),
-                "plain_ms": time_ms(lambda: shell_prefix_sum_plain(
-                    xg, *shell_args, base=base), 10, hide_host=True),
-                "library_ms": time_ms(lib, 50, hide_host=True),
-                "library_max_abs_err_bf16_out": lib_err,
-                "bound_ms": bound, "bound_by": bound_by,
-                "gather_stream_bound_ms": stream_ms,
-            }
+            per_shape[label] = check_b1(plan, False, xg, bags, rate)
             emit({"phase": "kernel_vs_plain", "kernel": "shell_prefix_sum",
-                  "shape": label, "n_out": N_NODES, "cold_edges": n_cold,
-                  "table_rows_read": rows_used, **per_shape[label], **tag})
+                  "shape": label, **per_shape[label], **tag})
 
     # 5. end-to-end times, host overhead included, and where the forward's
     # device time goes
@@ -372,21 +622,34 @@ def run_sage(rate: float, tag: dict) -> dict:
           gbps, "gbps_bytes": "(E+N)*F*4", "hbm_rate_gbps": rate / 1e9,
           **tag})
     emit({"phase": "forward_profile", "calls": 3, **prof, **tag})
+    del tables, outs, ref, g_ref
+
+    # 6. training: GraphSAGE with dropout, Adam, every node labelled
+    train = run_sage_training(gp, x, rate, tag)
 
     main = per_shape["layer1 F=256"]
+    bwd = train["backward"]
     return {
         "name": "shell_prefix_sum",
         "route": "cuda",
         "source": "dgl_tpu_torch/csrc/shell_prefix_sum.cu",
         "replaces": "dgl_tpu/ops/shell_pallas.py:110",
         "launches": launches["shell_prefix_sum"],
-        "max_abs_err": max(v["max_abs_err"] for v in per_shape.values()),
+        "max_abs_err": max(v["max_abs_err"]
+                           for v in list(per_shape.values())
+                           + list(bwd.values())),
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
-        "shape": f"layer1 F=256, n_out={N_NODES}, times per call",
+        "shape": f"layer1 F=256, n_out={N_NODES}, times per call; "
+                 "launches: the inference forward",
+        "launches_train_step": train["launches_train_step"],
+        "backward": {k: {f: v[f] for f in ("F", "n_out", "ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms", "max_abs_err")}
+                     for k, v in bwd.items()},
     }
 
 
@@ -398,8 +661,8 @@ def reddit_graph(seed: int = 41):
     directions; self-loops removed, then one added per node, and duplicates
     removed (the dedup runs on the card). Features follow the recipe's
     gaussian mode (class centroids times 2 plus unit noise), 602 wide.
-    Returns host int64 ``(src, dst)`` sorted by (dst, src) and the f32
-    features on the card."""
+    Returns host int64 ``(src, dst)`` sorted by (dst, src), and on the card
+    the f32 features, the int64 labels and the recipe's f32 train mask."""
     import numpy as np
     import torch
 
@@ -418,6 +681,9 @@ def reddit_graph(seed: int = 41):
     centroids = rng.normal(size=(REDDIT_CLASSES, REDDIT_FEAT)) * 2.0
     feat = (centroids[labels] + rng.normal(size=(n, REDDIT_FEAT))).astype(
         np.float32)
+    # the recipe's split (synthetic.py:153-161): 60 % of the nodes train
+    train_mask = np.zeros(n, np.float32)
+    train_mask[rng.permutation(n)[:int(n * 0.6)]] = 1.0
     s = torch.from_numpy(src).cuda()
     d = torch.from_numpy(dst).cuda()
     flat = torch.cat([d * n + s, s * n + d])
@@ -426,7 +692,8 @@ def reddit_graph(seed: int = 41):
     loops = torch.arange(n, device=flat.device, dtype=torch.int64) * (n + 1)
     flat = torch.unique(torch.cat([flat, loops]))
     out = ((flat % n).cpu().numpy(), (flat // n).cpu().numpy(),
-           torch.from_numpy(feat).cuda())
+           torch.from_numpy(feat).cuda(), torch.from_numpy(labels).cuda(),
+           torch.from_numpy(train_mask).cuda())
     del flat
     torch.cuda.empty_cache()
     return out
@@ -456,6 +723,190 @@ def check_rows(n: int, count: int, seed: int = 3):
     return torch.from_numpy(np.sort(np.concatenate([edge, mid]))).cuda()
 
 
+def run_gcn_training(g, gp, feat, y, mask, rate: float, tag: dict) -> dict:
+    """GCN training at Reddit scale (B2 forward and, over the transpose
+    bitmap, backward); returns B2's backward figures."""
+    import torch
+
+    from dgl_tpu_torch.models import GCN
+    from dgl_tpu_torch.ops import bitmap_spmm
+    from dgl_tpu_torch.ops.bitmap_spmm import (bitmap_matmul,
+                                               bitmap_matmul_plain)
+
+    N, rel = REDDIT_N, gp._relation()
+    E = rel.num_edges
+    model = GCN(REDDIT_FEAT, GCN_HIDDEN, REDDIT_CLASSES, dropout=0.5,
+                generator=torch.Generator().manual_seed(0)).train()
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    # gradients with dropout off against the exact f32 path, recording
+    # B2's calls of the plan pass: two forward, then the backward's
+    # (layer 1, layer 0)
+    with recording(bitmap_spmm, "bitmap_matmul") as rec:
+        grad_check = check_grads(model, gp, g, feat, y, mask, "GCN")
+    # 2 forward launches + 2 backward over bits (the graph is symmetric)
+    loss, launches, peak, step_s = counted_step(
+        model, opt, gp, feat, y, mask, {"bitmap_spmm": 4}, "GCN")
+    losses = run_steps(model, opt, gp, feat, y, mask, loss, falling=True)
+    emit({"phase": "gcn_train_main_path", "model": "GCN 602-16-41, dropout "
+          "0.5", "launches": launches, "peak_memory_gib": peak,
+          "first_step_s": step_s, "losses": losses,
+          "grads_vs_exact_f32": grad_check, **tag})
+    if len(rec) != 4:
+        raise RuntimeError(f"recorded {len(rec)} bitmap_matmul calls")
+    csc = rel.csc_indptr.long(), rel.csc_indices.long()
+    adj = torch.sparse_csr_tensor(csc[0], csc[1], torch.ones(
+        E, device=feat.device), size=(N, N))  # symmetric: A^T = A
+    bwd = {}
+    for i, (args, _kw) in enumerate(rec[2:]):
+        bits_t, dz, n_rows = args
+        label = f"layer{1 - i} bwd F={dz.shape[1]}"
+        got = bitmap_matmul(bits_t, dz, n_rows)
+        want = bitmap_matmul_plain(bits_t, dz, n_rows)
+        torch.cuda.synchronize()
+        scale = max(want.abs().max().item(), 1e-30)
+        abs_err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale):
+            raise RuntimeError(f"B2 vs plain at {label}: max abs err "
+                               f"{abs_err} (max |ref| {scale})")
+        feat_n = dz.shape[1]
+        dzf = dz.to(torch.bfloat16).float()
+        bound, bound_by = bitmap_bound(
+            bits_t, n_rows, N * feat_n * 2 + N * feat_n * 4, E * feat_n,
+            rate)
+        bwd[label] = {
+            "F": feat_n, "max_abs_err": abs_err,
+            "max_rel_err": abs_err / scale,
+            "ms": time_ms(lambda: bitmap_matmul(bits_t, dz, n_rows), 20,
+                          hide_host=True),
+            "plain_ms": time_ms(lambda: bitmap_matmul_plain(
+                bits_t, dz, n_rows), 2, warmup=1, hide_host=True),
+            "library_ms": time_ms(lambda: torch.sparse.mm(adj, dzf), 20,
+                                  hide_host=True),
+            "bound_ms": bound, "bound_by": bound_by,
+        }
+        emit({"phase": "kernel_vs_plain", "kernel": "bitmap_spmm",
+              "shape": label, "n_dst": n_rows, "edges": E,
+              "tolerance": "rtol=1e-5, atol=1e-5*max|ref|",
+              "library": "torch.sparse.mm(CSR adjacency, f32)",
+              **bwd[label], **tag})
+    del rec, adj
+    step = lambda: train_step(model, opt, gp, feat, y, mask)  # noqa: E731
+    timing = {"step_ms": time_ms(step, 5)}
+    emit({"phase": "gcn_train_timing", **timing, **tag})
+    emit({"phase": "gcn_train_profile", "calls": 2,
+          **device_profile(step, 2), **tag})
+    return {"launches_train_step": launches["bitmap_spmm"],
+            "train_step_ms": timing["step_ms"], "backward": bwd}
+
+
+def run_gat_training(gp, feat, y, mask, rate: float, tag: dict) -> dict:
+    """GAT training at Reddit scale (B3 forward, B4 and B5 backward);
+    returns B4's and B5's figures."""
+    import torch
+
+    from dgl_tpu_torch.models import GAT
+    from dgl_tpu_torch.ops import bitmap_gat as tbg
+
+    N, rel = REDDIT_N, gp._relation()
+    E = rel.num_edges
+    model = GAT(REDDIT_FEAT, GAT_HIDDEN, REDDIT_CLASSES, heads=GAT_HEADS,
+                feat_drop=0.0, attn_drop=0.0,
+                generator=torch.Generator().manual_seed(0)).train()
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    expect = {"bitmap_gat_fwd": 2, "bitmap_gat_bwd_dst": 2,
+              "bitmap_gat_bwd_src": 2}
+    loss, launches, peak, step_s = counted_step(
+        model, opt, gp, feat, y, mask, expect, "GAT")
+    losses = run_steps(model, opt, gp, feat, y, mask, loss, falling=True)
+    emit({"phase": "gat_train_main_path", "model": "GAT 602-8x8-41, no "
+          "dropout", "launches": launches, "peak_memory_gib": peak,
+          "first_step_s": step_s, "losses": losses, **tag})
+    # one more backward, recording B4's and B5's real inputs at both layers
+    with recording(tbg, "bitmap_gat_bwd_dst") as rec_d, recording(
+            tbg, "bitmap_gat_bwd_src") as rec_s:
+        masked_loss(model(gp, feat), y, mask).backward()
+    model.zero_grad(set_to_none=True)
+    if len(rec_d) != 2 or len(rec_s) != 2:
+        raise RuntimeError("expected two B4 and two B5 calls")
+    rows = check_rows(N, B3_CHECK_ROWS)
+    srows = check_rows(N, B3_CHECK_ROWS, seed=4)
+    b4, b5 = {}, {}
+    for (args_d, _), (args_s, _) in zip(rec_d, rec_s):
+        bits, elp, erp, hp, slope, lse, c, dz, n_rows = args_d
+        bits_t, n_src = args_s[0], args_s[8]
+        heads, odim = hp.shape[1], hp.shape[2]
+        label = f"layer{0 if heads == GAT_HEADS else 1} H={heads} O={odim}"
+        got = tbg.bitmap_gat_bwd_dst(*args_d)
+        got_del, got_dh = tbg.bitmap_gat_bwd_src(*args_s)
+        plain_d = lambda: tbg.gat_bwd_dst_plain(  # noqa: E731
+            bits[rows], elp, erp[rows], hp, slope, lse[rows], c[rows],
+            dz[rows])
+        plain_s = lambda: tbg.gat_bwd_src_plain(  # noqa: E731
+            bits_t[srows], elp[srows], erp, hp[srows], slope, lse, c, dz)
+        want = plain_d()
+        want_del, want_dh = plain_s()
+        torch.cuda.synchronize()
+        errs, rel = {}, {}
+        for what, a, b in (("der", got[rows], want),
+                           ("del", got_del[srows], want_del),
+                           ("dh", got_dh[srows], want_dh)):
+            scale = max(b.abs().max().item(), 1e-30)
+            errs[what] = (a - b).abs().max().item()
+            rel[what] = errs[what] / scale
+            if not torch.allclose(a, b, rtol=1e-4, atol=1e-5 * scale):
+                raise RuntimeError(f"B4/B5 vs plain at {label} ({what}): "
+                                   f"max abs err {errs[what]} (max |ref| "
+                                   f"{scale})")
+        nh, nho = N * heads, N * heads * odim
+        # B4 reads el, er, lse, c (f32), h (bf16) and dz (f32) and writes
+        # der; B5 reads el, h per source and er, lse, c, dz per
+        # destination and writes del and dh
+        bound_d = bitmap_bound(bits, n_rows, nh * 4 * 4 + nho * 2
+                               + nho * 4 + nh * 4, E * heads * odim * 2,
+                               rate)
+        bound_s = bitmap_bound(bits_t, n_src, nh * 4 * 4 + nho * 2
+                               + nho * 4 + nh * 4 + nho * 4,
+                               E * heads * odim * 4, rate)
+        common = {"H": heads, "O": odim, "library_ms": None,
+                  "plain_rows": B3_CHECK_ROWS}
+        b4[label] = {**common, "max_abs_err": errs["der"],
+                     "max_rel_err": rel["der"],
+                     "ms": time_ms(lambda: tbg.bitmap_gat_bwd_dst(*args_d),
+                                   10, hide_host=True),
+                     "plain_ms": time_ms(plain_d, 2, warmup=1,
+                                         hide_host=True),
+                     "bound_ms": bound_d[0], "bound_by": bound_d[1]}
+        b5[label] = {**common, "max_abs_err": max(errs["del"], errs["dh"]),
+                     "max_abs_err_del": errs["del"],
+                     "max_abs_err_dh": errs["dh"],
+                     "max_rel_err_del": rel["del"],
+                     "max_rel_err_dh": rel["dh"],
+                     "ms": time_ms(lambda: tbg.bitmap_gat_bwd_src(*args_s),
+                                   10, hide_host=True),
+                     "plain_ms": time_ms(plain_s, 2, warmup=1,
+                                         hide_host=True),
+                     "bound_ms": bound_s[0], "bound_by": bound_s[1]}
+        for name, d in (("bitmap_gat_bwd_dst", b4), ("bitmap_gat_bwd_src",
+                                                     b5)):
+            emit({"phase": "kernel_vs_plain", "kernel": name,
+                  "shape": label, "n": N, "edges": E,
+                  "tolerance": "rtol=1e-4, atol=1e-5*max|ref|",
+                  "plain": f"on {B3_CHECK_ROWS} rows (the first and last "
+                           "512-row tiles and random rows between)",
+                  "library": "none: no single PyTorch call computes a "
+                             "masked rank-1-logit softmax gradient",
+                  **d[label], **tag})
+        del got, got_del, got_dh, want, want_del, want_dh
+    del rec_d, rec_s
+    step = lambda: train_step(model, opt, gp, feat, y, mask)  # noqa: E731
+    timing = {"step_ms": time_ms(step, 3)}
+    emit({"phase": "gat_train_timing", **timing, **tag})
+    emit({"phase": "gat_train_profile", "calls": 2,
+          **device_profile(step, 2), **tag})
+    return {"launches": launches, "train_step_ms": timing["step_ms"],
+            "b4": b4, "b5": b5}
+
+
 def run_reddit(rate: float, tag: dict) -> list:
     """The Reddit-scale GCN and GAT paths (kernels B2 and B3); returns
     their entries of the kernel table."""
@@ -474,9 +925,9 @@ def run_reddit(rate: float, tag: dict) -> list:
     torch.backends.cudnn.allow_tf32 = False
     N = REDDIT_N
 
-    # 6. the graph and its plans, as examples/reddit_fullgraph_gcn.py:41-42
+    # 7. the graph and its plans, as examples/reddit_fullgraph_gcn.py:41-42
     t0 = time.perf_counter()
-    src, dst, feat = reddit_graph()
+    src, dst, feat, labels, train_mask = reddit_graph()
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     g = dt.graph((src, dst), num_nodes=N)
@@ -499,7 +950,7 @@ def run_reddit(rate: float, tag: dict) -> list:
           "setup_s": gen_s + graph_s + plans_s,
           "device_memory_gib": torch.cuda.memory_allocated() / 2**30, **tag})
 
-    # 7. GCN(602, 16, 41): the main path, counts read around it, then the
+    # 8. GCN(602, 16, 41): the main path, counts read around it, then the
     # exact f32 path (the graph without plans) as its reference
     gcn = GCN(REDDIT_FEAT, GCN_HIDDEN, REDDIT_CLASSES,
               generator=torch.Generator().manual_seed(0)).eval()
@@ -530,7 +981,7 @@ def run_reddit(rate: float, tag: dict) -> list:
           "tolerance": "rtol=2e-2, atol=2e-2*max|ref|", **tag})
     del ref
 
-    # 8. GAT(602, 8x8, 41): the main path, counts read around it
+    # 9. GAT(602, 8x8, 41): the main path, counts read around it
     gat = GAT(REDDIT_FEAT, GAT_HIDDEN, REDDIT_CLASSES, heads=GAT_HEADS,
               generator=torch.Generator().manual_seed(0)).eval()
     torch.cuda.reset_peak_memory_stats()
@@ -551,7 +1002,7 @@ def run_reddit(rate: float, tag: dict) -> list:
           "launches": gat_launches, "peak_memory_gib": gat_peak,
           "output_max_abs": gout.abs().max().item(), **tag})
 
-    # 9. B2 against its plain version and torch.sparse.mm on both layers'
+    # 10. B2 against its plain version and torch.sparse.mm on both layers'
     # real tables (F = 16 each)
     bits = plan.bits
     with torch.inference_mode():
@@ -598,7 +1049,7 @@ def run_reddit(rate: float, tag: dict) -> list:
                   **b2[label], **tag})
     del adj, tables, t0_tab
 
-    # 10. B3 against its plain version on both layers' real inputs, on
+    # 11. B3 against its plain version on both layers' real inputs, on
     # B3_CHECK_ROWS dst rows spread over the graph
     rows = check_rows(N, B3_CHECK_ROWS)
     b3 = {}
@@ -665,7 +1116,7 @@ def run_reddit(rate: float, tag: dict) -> list:
             del hs, el, er, elp, erp, hp, got, got_lse, y_want
         del layers, h0
 
-    # 11. both forwards as a caller waits for them, and where their device
+    # 12. both forwards as a caller waits for them, and where their device
     # time goes
     with torch.inference_mode():
         timing = {
@@ -678,8 +1129,15 @@ def run_reddit(rate: float, tag: dict) -> list:
               **device_profile(lambda: gcn(gp, feat), 3), **tag})
         emit({"phase": "gat_forward_profile", "calls": 2,
               **device_profile(lambda: gat(gp, feat), 2), **tag})
+    del gcn, gat, gout, out
+
+    # 13-14. training: GCN (dropout 0.5) and GAT, Adam, masked loss over
+    # the recipe's train split
+    gcn_train = run_gcn_training(g, gp, feat, labels, train_mask, rate, tag)
+    gat_train = run_gat_training(gp, feat, labels, train_mask, rate, tag)
 
     m2, m3 = b2["layer0 F=16"], b3["layer0 H=8 O=8"]
+    b4, b5 = gat_train["b4"], gat_train["b5"]
     return [{
         "name": "bitmap_spmm",
         "route": "cuda",
@@ -692,7 +1150,13 @@ def run_reddit(rate: float, tag: dict) -> list:
         "bound_ms": m2["bound_ms"],
         "bound_by": m2["bound_by"],
         "library_ms": m2["library_ms"],
-        "shape": f"GCN layer0 F=16, n_dst={N}, E={E}, times per call",
+        "shape": f"GCN layer0 F=16, n_dst={N}, E={E}, times per call; "
+                 "launches: the inference forward",
+        "launches_train_step": gcn_train["launches_train_step"],
+        "backward": {k: {f: v[f] for f in ("F", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms",
+                                             "max_abs_err")}
+                     for k, v in gcn_train["backward"].items()},
     }, {
         "name": "bitmap_gat_fwd",
         "route": "cuda",
@@ -706,8 +1170,27 @@ def run_reddit(rate: float, tag: dict) -> list:
         "bound_by": m3["bound_by"],
         "library_ms": None,
         "shape": f"GAT layer0 H=8 O=8, n_dst={N}, E={E}, times per call; "
-                 f"layer1 H=1 O=41: {b3['layer1 H=1 O=41']['ms']} ms",
-    }]
+                 f"layer1 H=1 O=41: {b3['layer1 H=1 O=41']['ms']} ms; "
+                 "launches: the inference forward",
+        "launches_train_step": gat_train["launches"]["bitmap_gat_fwd"],
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"dgl_tpu_torch/csrc/{name}.cu",
+        "replaces": f"dgl_tpu/ops/bitmap_gat.py:{line}",
+        "launches": gat_train["launches"][name],
+        "max_abs_err": max(v["max_abs_err"] for v in d.values()),
+        "ms": d["layer0 H=8 O=8"]["ms"],
+        "plain_ms": d["layer0 H=8 O=8"]["plain_ms"],
+        "bound_ms": d["layer0 H=8 O=8"]["bound_ms"],
+        "bound_by": d["layer0 H=8 O=8"]["bound_by"],
+        "library_ms": None,
+        "shape": f"GAT layer0 H=8 O=8, n={N}, E={E}, times per call; "
+                 f"layer1 H=1 O=41: {d['layer1 H=1 O=41']['ms']} ms; "
+                 f"plain_ms on {B3_CHECK_ROWS} rows; launches: one GAT "
+                 "training step",
+    } for name, line, d in (("bitmap_gat_bwd_dst", 226, b4),
+                            ("bitmap_gat_bwd_src", 298, b5))]
 
 
 def run() -> dict:

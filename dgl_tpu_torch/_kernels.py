@@ -22,11 +22,13 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _REPO_DIR = os.path.dirname(_PKG_DIR)
 BUILD_DIR = os.path.join(_REPO_DIR, "build", "dgl_tpu_torch_kernels")
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name) for name in (
-    "shell_prefix_sum.cu", "bitmap_spmm.cu", "bitmap_gat_fwd.cu"))
+    "shell_prefix_sum.cu", "bitmap_spmm.cu", "bitmap_gat_fwd.cu",
+    "bitmap_gat_bwd_dst.cu", "bitmap_gat_bwd_src.cu"))
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 launch_counts = {"shell_prefix_sum": 0, "bitmap_spmm": 0,
-                 "bitmap_gat_fwd": 0}
+                 "bitmap_gat_fwd": 0, "bitmap_gat_bwd_dst": 0,
+                 "bitmap_gat_bwd_src": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -61,6 +63,12 @@ def library() -> ctypes.CDLL:
                      [p, i64, i64, p, i64, i64, i64, i32, p, p]),
                     (lib.dgl_bitmap_gat_fwd,
                      [p, i64, i64, p, p, p, i64, i32, i32, i32, i32, i32,
+                      i32, ctypes.c_float, p, p, p]),
+                    (lib.dgl_bitmap_gat_bwd_dst,
+                     [p, i64, i64, p, p, p, p, p, p, i64, i32, i32, i32,
+                      i32, i32, ctypes.c_float, p, p]),
+                    (lib.dgl_bitmap_gat_bwd_src,
+                     [p, i64, i64, p, p, p, p, i64, i32, i32, i32, i32, i32,
                       i32, ctypes.c_float, p, p, p])):
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

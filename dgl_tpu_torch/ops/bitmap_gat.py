@@ -1,4 +1,4 @@
-"""Bitmap-flash GAT forward (counterpart of ``dgl_tpu/ops/bitmap_gat.py``).
+"""Bitmap-flash GAT (counterpart of ``dgl_tpu/ops/bitmap_gat.py``).
 
 Full-graph attention over a relation that carries a bitmap plan
 (:mod:`dgl_tpu_torch.ops.bitmap_spmm`). The logits are rank 1,
@@ -14,8 +14,19 @@ dst rows) on a CPU tensor. Both return ``out`` and ``lse`` as ``_gat_xla``
 defines them: ``p`` in f32, ``h`` rounded to bf16, zero-in-degree rows with
 ``out = 0`` and ``lse = log(1e-30)``.
 
-This slice ports the forward. The backward (kernels B4 and B5) is the
-training slice; the autograd function keeps ``lse`` for it and raises.
+The backward is the reference's flash decomposition, with ``alpha``
+recomputed from ``lse``, ``B = alpha * leaky'(raw)`` and ``c[d] = out[d] .
+dz[d]``:
+
+- :func:`bitmap_gat_bwd_dst` (kernel B4, ``csrc/bitmap_gat_bwd_dst.cu``),
+  dst-major over ``bits``: ``der[d] = dz[d] . (B @ h)[d] - c[d] rowsum(B)[d]``;
+- :func:`bitmap_gat_bwd_src` (kernel B5, ``csrc/bitmap_gat_bwd_src.cu``),
+  src-major over the transpose bitmap: ``dh[s] = (alpha^T dz)[s]`` and
+  ``del[s] = h[s] . (B^T dz)[s] - (B^T c)[s]``.
+
+Their plain versions :func:`gat_bwd_dst_plain` and :func:`gat_bwd_src_plain`
+compute the reference's ``_gat_xla_bwd`` (``dz`` in f32, ``h`` rounded to
+bf16, everything else f32) on any subset of bitmap rows.
 """
 from __future__ import annotations
 
@@ -24,13 +35,26 @@ import torch
 from .. import _kernels
 from .bitmap_spmm import BitmapPlan, _expand_bits
 
-__all__ = ["bitmap_gat", "bitmap_gat_fwd", "gat_fwd_plain", "BitmapPlan"]
+__all__ = ["bitmap_gat", "bitmap_gat_fwd", "gat_fwd_plain",
+           "bitmap_gat_bwd_dst", "bitmap_gat_bwd_src", "gat_bwd_dst_plain",
+           "gat_bwd_src_plain", "BitmapPlan"]
 
 _NEG = -1e30  # finite "-inf" of the reference's masked logits
 
 
 def _leaky(x, slope):
     return torch.where(x > 0, x, x * slope)
+
+
+def _dleaky(x, slope):
+    return torch.where(x > 0, x.new_ones(()), x.new_full((), slope))
+
+
+def _lse_guard(lse):
+    """The reference's guard: a row whose ``lse`` is about ``_NEG`` (no
+    in-edge on the TPU kernel's convention) gets ``-_NEG``, so its alpha
+    underflows to 0 instead of cancelling the mask."""
+    return torch.where(lse > _NEG / 2, lse, lse.new_full((), -_NEG))
 
 
 def _pad_rows(x, n):
@@ -75,6 +99,70 @@ def gat_fwd_plain(bits, el, er, h, slope, chunk=None):
     return out, lse
 
 
+def _chunk(heads, n_cols):
+    return max(1, (1 << 26) // max(heads * n_cols, 1))
+
+
+def gat_bwd_dst_plain(bits, el, er, h, slope, lse, c, dz, chunk=None):
+    """Plain PyTorch version of B4 (the ``der`` of reference
+    ``_gat_xla_bwd``) on the dst rows ``bits`` (R, W): ``el`` (n_src, H)
+    with n_src <= 8 W, ``h`` (n_src, H, O) taken as f32 of its values, and
+    the rows' ``er``, ``lse``, ``c`` (R, H) and ``dz`` (R, H, O). Returns
+    ``der`` (R, H) f32, ``chunk`` rows at a time."""
+    n_rows = bits.shape[0]
+    n_src, heads = el.shape
+    if chunk is None:
+        chunk = _chunk(heads, n_src)
+    f32 = torch.float32
+    elT = el.to(f32).t().contiguous()                         # (H, n_src)
+    erT, lseT, cT = (t.to(f32).t() for t in (er, _lse_guard(lse), c))
+    hT = h.to(f32).permute(1, 2, 0).contiguous()              # (H, O, n_src)
+    dzT = dz.to(f32).permute(1, 0, 2)                         # (H, R, O)
+    der = torch.empty((n_rows, heads), dtype=f32, device=el.device)
+    for c0 in range(0, n_rows, chunk):
+        c1 = min(c0 + chunk, n_rows)
+        mask = _expand_bits(bits[c0:c1])[:, :n_src].bool()   # (C, n_src)
+        raw = erT[:, c0:c1, None] + elT[:, None, :]          # (H, C, n_src)
+        alpha = torch.exp(_leaky(raw, slope) - lseT[:, c0:c1, None])
+        alpha = torch.where(mask, alpha, alpha.new_zeros(()))
+        dalpha = torch.bmm(dzT[:, c0:c1], hT)                # (H, C, n_src)
+        dlogit = alpha * (dalpha - cT[:, c0:c1, None]) * _dleaky(raw, slope)
+        der[c0:c1] = dlogit.sum(dim=2).t()
+    return der
+
+
+def gat_bwd_src_plain(bits_t, el, er, h, slope, lse, c, dz, chunk=None):
+    """Plain PyTorch version of B5 (the ``del`` and ``dh`` of reference
+    ``_gat_xla_bwd``) on the source rows ``bits_t`` (R, W_t) of the
+    transpose bitmap: the rows' ``el`` (R, H) and ``h`` (R, H, O), and the
+    destinations' ``dz`` (n_dst, H, O) and ``er``, ``lse``, ``c``
+    (>= n_dst, H), with n_dst <= 8 W_t. Returns ``del`` (R, H) and ``dh``
+    (R, H, O), f32, ``chunk`` rows at a time."""
+    n_rows = bits_t.shape[0]
+    n_dst, heads = dz.shape[0], dz.shape[1]
+    if chunk is None:
+        chunk = _chunk(heads, n_dst)
+    f32 = torch.float32
+    elT = el.to(f32).t()                                      # (H, R)
+    erT, lseT, cT = (t[:n_dst].to(f32).t().contiguous()
+                     for t in (er, _lse_guard(lse), c))       # (H, n_dst)
+    hT = h.to(f32).permute(1, 0, 2)                           # (H, R, O)
+    dzT = dz.to(f32).permute(1, 0, 2).contiguous()            # (H, n_dst, O)
+    dele = torch.empty((n_rows, heads), dtype=f32, device=el.device)
+    dh = torch.empty((n_rows, heads, h.shape[2]), dtype=f32, device=el.device)
+    for c0 in range(0, n_rows, chunk):
+        c1 = min(c0 + chunk, n_rows)
+        mask = _expand_bits(bits_t[c0:c1])[:, :n_dst].bool()  # (C, n_dst)
+        raw = elT[:, c0:c1, None] + erT[:, None, :]           # (H, C, n_dst)
+        alpha = torch.exp(_leaky(raw, slope) - lseT[:, None, :])
+        alpha = torch.where(mask, alpha, alpha.new_zeros(()))
+        dalpha = torch.bmm(hT[:, c0:c1], dzT.transpose(1, 2))
+        dlogit = alpha * (dalpha - cT[:, None, :]) * _dleaky(raw, slope)
+        dele[c0:c1] = dlogit.sum(dim=2).t()
+        dh[c0:c1] = torch.bmm(alpha, dzT).permute(1, 0, 2)
+    return dele, dh
+
+
 def bitmap_gat_fwd(bits, el, er, h, slope, n_rows=None):
     """``out`` (n_rows, H, O) and ``lse`` (n_rows, H), both f32, of the
     attention over the first ``n_rows`` bitmap rows. ``el`` (n_src, H)
@@ -87,6 +175,40 @@ def bitmap_gat_fwd(bits, el, er, h, slope, n_rows=None):
     if not h.is_cuda:
         raise ValueError(f"bitmap_gat_fwd: unsupported device {h.device}")
     return _launch(bits, el, er, h, float(slope), n_rows)
+
+
+def bitmap_gat_bwd_dst(bits, el, er, h, slope, lse, c, dz, n_rows=None):
+    """Kernel B4: ``der`` (n_rows, H) f32 over the first ``n_rows`` dst rows
+    of ``bits``. ``el`` (n_src, H) f32, ``h`` (n_src, H, O) bf16; ``er``,
+    ``lse``, ``c`` (>= n_rows, H) f32; ``dz`` (>= n_rows, H, O) f32.
+
+    A CUDA ``h`` runs the kernel; a CPU ``h`` runs the plain version."""
+    n_rows = bits.shape[0] if n_rows is None else int(n_rows)
+    if h.device.type == "cpu":
+        return gat_bwd_dst_plain(bits[:n_rows], el, er[:n_rows], h, slope,
+                                 lse[:n_rows], c[:n_rows], dz[:n_rows])
+    if not h.is_cuda:
+        raise ValueError(f"bitmap_gat_bwd_dst: unsupported device {h.device}")
+    return _launch_bwd_dst(bits, el, er, h, float(slope), lse, c, dz, n_rows)
+
+
+def bitmap_gat_bwd_src(bits_t, el, er, h, slope, lse, c, dz, n_rows=None):
+    """Kernel B5: ``del`` (n_rows, H) and ``dh`` (n_rows, H, O), f32, over
+    the first ``n_rows`` source rows of the transpose bitmap ``bits_t``.
+    ``el`` (>= n_rows, H) f32 and ``h`` (>= n_rows, H, O) bf16 per source;
+    ``dz`` (n_dst, H, O) f32 and ``er``, ``lse``, ``c`` (>= n_dst, H) f32
+    per destination, n_dst <= 8 * bits_t.shape[1].
+
+    A CUDA ``h`` runs the kernel; a CPU ``h`` runs the plain version."""
+    n_rows = bits_t.shape[0] if n_rows is None else int(n_rows)
+    n_dst = dz.shape[0]
+    if h.device.type == "cpu":
+        return gat_bwd_src_plain(bits_t[:n_rows], el[:n_rows], er, h[:n_rows],
+                                 slope, lse, c, dz)
+    if not h.is_cuda:
+        raise ValueError(f"bitmap_gat_bwd_src: unsupported device {h.device}")
+    return _launch_bwd_src(bits_t, el, er, h, float(slope), lse, c, dz,
+                           n_rows)
 
 
 def _pow2_at_least(n):
@@ -119,20 +241,9 @@ def _launch(bits, el, er, h, slope, n_rows):
     lse = torch.empty((n_rows, heads), dtype=torch.float32, device=dev)
     if n_rows == 0 or heads == 0 or odim == 0:
         return out, lse
-    # one pass holds nh heads x nf features of accumulator (nh * nf <= 64);
-    # heads and features pad to whole passes and 16-byte row gathers
-    nf = 8 if odim <= 8 else 16 if odim <= 16 else 32 if odim <= 32 else 64
-    nh = min(64 // nf, _pow2_at_least(heads))
-    h_pad, o_pad = -(-heads // nh) * nh, -(-odim // nf) * nf
-    er = er[:n_rows]
-    if h_pad != heads:
-        el = torch.nn.functional.pad(el, (0, h_pad - heads))
-        er = torch.nn.functional.pad(er, (0, h_pad - heads))
-    if (h_pad, o_pad) != (heads, odim):
-        h = torch.nn.functional.pad(h, (0, o_pad - odim, 0, h_pad - heads))
-    el, er, h = el.contiguous(), er.contiguous(), h.contiguous()
-    if h.data_ptr() % 16:
-        h = h.clone()
+    nh, nf, h_pad, o_pad = _passes(heads, odim)
+    el, er = _pad_heads(el, h_pad), _pad_heads(er[:n_rows], h_pad)
+    h = _pad_features(h, h_pad, o_pad)
     bits = bits.contiguous()
     lib = _kernels.library()
     with torch.cuda.device(dev):
@@ -144,6 +255,127 @@ def _launch(bits, el, er, h, slope, n_rows):
     _kernels.check(code, "bitmap_gat_fwd")
     _kernels.launch_counts["bitmap_gat_fwd"] += 1
     return out, lse
+
+
+def _passes(heads, odim):
+    """A pass holds nh heads x nf features per source (nh * nf <= 64), 8
+    features a lane; heads and features pad to whole passes. Returns (nh,
+    nf, h_pad, o_pad)."""
+    nf = 8 if odim <= 8 else 16 if odim <= 16 else 32 if odim <= 32 else 64
+    nh = min(64 // nf, _pow2_at_least(heads))
+    return nh, nf, -(-heads // nh) * nh, -(-odim // nf) * nf
+
+
+def _aligned(x):
+    """Contiguous and 16-byte aligned (the kernels' vector loads)."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def _pad_heads(x, h_pad):
+    """(n, H[, ...]) -> (n, h_pad[, ...]) with zero heads, contiguous."""
+    if x.shape[1] != h_pad:
+        pad = [0, 0] * (x.dim() - 2) + [0, h_pad - x.shape[1]]
+        x = torch.nn.functional.pad(x, pad)
+    return _aligned(x)
+
+
+def _pad_features(x, h_pad, o_pad):
+    """(n, H, O) -> (n, h_pad, o_pad) with zeros, contiguous and aligned."""
+    if tuple(x.shape[1:]) != (h_pad, o_pad):
+        x = torch.nn.functional.pad(x, (0, o_pad - x.shape[2],
+                                        0, h_pad - x.shape[1]))
+    return _aligned(x)
+
+
+def _check_bwd(bits, el, h, dz, row_ops, n_rows, n_cols):
+    """Common argument checks of B4 and B5: ``n_cols`` are the bitmap's
+    column entities, ``row_ops`` the f32 (>= n, H) operands with their
+    least row count."""
+    dev = h.device
+    if bits.dtype != torch.uint8 or bits.dim() != 2 or bits.device != dev:
+        raise ValueError("bits must be a 2-D uint8 bitmap on h's device")
+    if h.dtype != torch.bfloat16 or h.dim() != 3:
+        raise ValueError(f"h must be 3-D bf16, got {h.dtype} "
+                         f"{tuple(h.shape)}")
+    heads, odim = h.shape[1], h.shape[2]
+    if (dz.dtype != torch.float32 or dz.device != dev or dz.dim() != 3
+            or tuple(dz.shape[1:]) != (heads, odim)):
+        raise ValueError("dz must be (n, H, O) f32 on h's device")
+    for name, t, n in (("el", el, 0),) + tuple(row_ops):
+        if (t.dtype != torch.float32 or t.device != dev or t.dim() != 2
+                or t.shape[1] != heads or t.shape[0] < n):
+            raise ValueError(f"{name} must be (>= {n}, H) f32 on h's device")
+    n_bits_rows, W = bits.shape
+    if W % 512 or n_rows > n_bits_rows or n_cols > W * 8:
+        raise ValueError(f"bitmap {tuple(bits.shape)} does not fit "
+                         f"n_rows={n_rows} and {n_cols} columns")
+    return heads, odim
+
+
+def _launch_bwd_dst(bits, el, er, h, slope, lse, c, dz, n_rows):
+    n_src = h.shape[0]
+    heads, odim = _check_bwd(bits, el, h, dz,
+                             (("er", er, n_rows), ("lse", lse, n_rows),
+                              ("c", c, n_rows)), n_rows, n_src)
+    if el.shape[0] != n_src or dz.shape[0] < n_rows:
+        raise ValueError("el must have h's rows and dz >= n_rows")
+    dev = h.device
+    der = torch.empty((n_rows, heads), dtype=torch.float32, device=dev)
+    if n_rows == 0 or heads == 0 or odim == 0:
+        return der
+    nh, nf, h_pad, o_pad = _passes(heads, odim)
+    el = _pad_heads(el, h_pad)
+    er, lse, c = (_pad_heads(t[:n_rows], h_pad)
+                  for t in (er, _lse_guard(lse[:n_rows]), c))
+    h = _pad_features(h, h_pad, o_pad)
+    dz = _pad_features(dz[:n_rows], h_pad, o_pad)
+    bits = bits.contiguous()
+    lib = _kernels.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.dgl_bitmap_gat_bwd_dst(
+            bits.data_ptr(), n_rows, bits.shape[1], el.data_ptr(),
+            er.data_ptr(), lse.data_ptr(), c.data_ptr(), h.data_ptr(),
+            dz.data_ptr(), n_src, heads, h_pad, o_pad, nh, nf, slope,
+            der.data_ptr(), stream)
+    _kernels.check(code, "bitmap_gat_bwd_dst")
+    _kernels.launch_counts["bitmap_gat_bwd_dst"] += 1
+    return der
+
+
+def _launch_bwd_src(bits_t, el, er, h, slope, lse, c, dz, n_rows):
+    n_dst = dz.shape[0]
+    heads, odim = _check_bwd(bits_t, el, h, dz,
+                             (("er", er, n_dst), ("lse", lse, n_dst),
+                              ("c", c, n_dst)), n_rows, n_dst)
+    if el.shape[0] < n_rows or h.shape[0] < n_rows:
+        raise ValueError("el and h must have >= n_rows rows")
+    dev = h.device
+    dele = torch.empty((n_rows, heads), dtype=torch.float32, device=dev)
+    dh = torch.empty((n_rows, heads, odim), dtype=torch.float32, device=dev)
+    if n_rows == 0 or heads == 0 or odim == 0:
+        return dele, dh
+    nh, nf, h_pad, o_pad = _passes(heads, odim)
+    el = _pad_heads(el[:n_rows], h_pad)
+    h = _pad_features(h[:n_rows], h_pad, o_pad)
+    # the destinations' (er, lse, c) packed as one 16-byte gather per edge
+    ed = torch.stack([er[:n_dst], _lse_guard(lse[:n_dst]), c[:n_dst],
+                      torch.zeros_like(c[:n_dst])], dim=2)
+    ed = _pad_heads(ed, h_pad)
+    dz = _pad_features(dz, h_pad, o_pad)
+    bits_t = bits_t.contiguous()
+    lib = _kernels.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.dgl_bitmap_gat_bwd_src(
+            bits_t.data_ptr(), n_rows, bits_t.shape[1], el.data_ptr(),
+            h.data_ptr(), ed.data_ptr(), dz.data_ptr(), n_dst, heads, odim,
+            h_pad, o_pad, nh, nf, slope, dele.data_ptr(), dh.data_ptr(),
+            stream)
+    _kernels.check(code, "bitmap_gat_bwd_src")
+    _kernels.launch_counts["bitmap_gat_bwd_src"] += 1
+    return dele, dh
 
 
 def _prep(plan, el, er, h):
@@ -159,21 +391,39 @@ def _prep(plan, el, er, h):
 
 
 class _BitmapGAT(torch.autograd.Function):
-    """Forward of bitmap-flash GAT; its backward is the training slice."""
+    """Bitmap-flash GAT: forward B3, backward B4 and B5 (reference
+    ``_gat_fwd`` / ``_gat_bwd``)."""
 
     @staticmethod
     def forward(ctx, el, er, h, slope, plan):
         elp, erp, hp = _prep(plan, el, er, h)
         out, lse = bitmap_gat_fwd(plan.bits, elp, erp, hp, slope,
                                   plan.num_dst)
-        ctx.save_for_backward(el, er, h, lse)  # for kernels B4 and B5
-        return out.to(h.dtype)
+        out = out.to(h.dtype)
+        ctx.save_for_backward(el, er, h, lse, out)
+        ctx.slope, ctx.plan = slope, plan
+        return out
 
     @staticmethod
     def backward(ctx, dz):
-        raise NotImplementedError(
-            "bitmap GAT backward (kernels B4 and B5): the training slice, "
-            "ROADMAP queue B4/B5")
+        el, er, h, lse, out = ctx.saved_tensors
+        plan, slope = ctx.plan, ctx.slope
+        need_el, need_er, need_h = ctx.needs_input_grad[:3]
+        elp, erp, hp = _prep(plan, el, er, h)
+        # the kernels read only the real rows, so dz and out stay unpadded
+        dzf = dz.to(torch.float32)
+        c = (out.to(torch.float32) * dzf).sum(dim=2)  # c[d, h] = out . dz
+        d_el = d_er = d_h = None
+        if need_er:
+            d_er = bitmap_gat_bwd_dst(plan.bits, elp, erp, hp, slope, lse, c,
+                                      dzf, plan.num_dst).to(er.dtype)
+        if need_el or need_h:
+            bits_t = plan.bits if plan.bits_rev is None else plan.bits_rev
+            dele, dh = bitmap_gat_bwd_src(bits_t, elp, erp, hp, slope, lse,
+                                          c, dzf, plan.num_src)
+            d_el = dele.to(el.dtype) if need_el else None
+            d_h = dh.to(h.dtype) if need_h else None
+        return d_el, d_er, d_h, None, None
 
 
 def bitmap_gat(slope, plan: BitmapPlan, el, er, h):

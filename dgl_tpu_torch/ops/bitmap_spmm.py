@@ -17,9 +17,9 @@ expanding the tile) on a CUDA tensor, and the plain PyTorch version
 ``x`` rounded to bf16 and sum in f32.
 
 Semantics: exact ``copy_u + sum`` over a simple graph (the builder refuses
-multi-edges). This slice ports the forward; the backward (``A^T dz`` over
-``bits_rev``) is the training slice, and the autograd function raises
-until then.
+multi-edges). The backward is the same matmul over the transpose bitmap,
+``du = A^T dz`` through ``bits_rev`` (``bits`` itself when the relation is
+symmetric), as the reference's ``_bitmap_bwd``.
 """
 from __future__ import annotations
 
@@ -235,17 +235,20 @@ def _launch(bits, x, n_rows):
 
 
 class _BitmapCopyUSum(torch.autograd.Function):
-    """Forward of the bitmap SpMM; its backward is the training slice."""
+    """The bitmap SpMM; its backward runs the same kernel over ``A^T``."""
 
     @staticmethod
     def forward(ctx, u, plan):
+        ctx.plan = plan
         return bitmap_matmul(plan.bits, u, plan.num_dst).to(u.dtype)
 
     @staticmethod
     def backward(ctx, dz):
-        raise NotImplementedError(
-            "bitmap SpMM backward (A^T dz over bits_rev through kernel B2): "
-            "the training slice, ROADMAP queue B2")
+        plan = ctx.plan
+        bits_t = plan.bits if plan.bits_rev is None else plan.bits_rev
+        # dz rounds to bf16 as the forward rounds u (reference _bitmap_bwd)
+        du = bitmap_matmul(bits_t, dz, plan.num_src)
+        return du.to(dz.dtype), None
 
 
 def bitmap_copy_u_sum(plan: BitmapPlan, u):

@@ -18,9 +18,10 @@ the CPU an f32 matmul of the same bf16-rounded operands. The reference's
 ``"f32"`` mode, whose cold tail is a segment sum, is not ported (ROADMAP
 queue C).
 
-This slice ports the forward only. The backward (``A_hub^T @ dz`` plus the
-reverse shells) is the training slice; until then the autograd function
-raises instead of returning a gradient that misses the cold edges.
+The backward is the same split transposed (reference ``_bwd``):
+``A_hub^T @ dz`` for the hub sources, and the reverse shells (the cold edges
+ranked by source) through the same kernel for the others, added together
+with ``index_add_``.
 """
 from __future__ import annotations
 
@@ -39,20 +40,25 @@ _DTYPES = {"int8": torch.int8, "bf16": torch.bfloat16}
 
 
 class HubSpMMPlan:
-    """Precomputed hub/cold split of one relation, forward direction.
+    """Precomputed hub/cold split of one relation, both directions.
 
-    Tensors: ``hub_ids (H,)``, ``a_hub (N_dst, H)``, ``shells`` (per level
-    ``(idx, mask)``, padded slots hold ``num_src``), ``res_dst`` (the
-    beyond-cap residual ``(idx, pos_full, block_pos, mask)`` or None),
-    ``unrank_dst`` (None when the graph is rank-ordered), and the kernel's
-    layout of the shells: ``shell_idx`` (flat int32), ``shell_rows`` (the
-    level sizes) and ``shell_levels`` (their (2, K) offset/size table).
+    Tensors: ``hub_ids (H,)``, ``a_hub (N_dst, H)``; for the forward,
+    ``shells`` (per level ``(idx, mask)``, padded slots hold ``num_src``),
+    ``res_dst`` (the beyond-cap residual ``(idx, pos_full, block_pos,
+    mask)`` or None), ``unrank_dst`` (None when the graph is rank-ordered)
+    and the kernel's layout of the shells: ``shell_idx`` (flat int32),
+    ``shell_rows`` (the level sizes) and ``shell_levels`` (their (2, K)
+    offset/size table). The backward's reverse shells (cold edges ranked by
+    source, padded slots hold ``num_dst``) carry the same fields with a
+    ``rev_`` prefix, and ``res_src``, ``unrank_src``.
     """
 
     TENSOR_FIELDS = ("hub_ids", "a_hub", "unrank_dst", "shell_idx",
-                     "shell_levels")
+                     "shell_levels", "unrank_src", "rev_shell_idx",
+                     "rev_shell_levels")
 
-    def __init__(self, hub_ids, a_hub, shells, res_dst, unrank_dst, *,
+    def __init__(self, hub_ids, a_hub, shells, res_dst, unrank_dst,
+                 rev_shells, res_src, unrank_src, *,
                  num_src: int, num_dst: int, num_hubs: int, coverage: float,
                  precision: str):
         self.hub_ids = hub_ids
@@ -60,18 +66,19 @@ class HubSpMMPlan:
         self.shells = shells
         self.res_dst = res_dst
         self.unrank_dst = unrank_dst
+        self.rev_shells = rev_shells
+        self.res_src = res_src
+        self.unrank_src = unrank_src
         self.num_src = int(num_src)
         self.num_dst = int(num_dst)
         self.num_hubs = int(num_hubs)
         self.coverage = float(coverage)
         self.precision = str(precision)
-        if shells:
-            self.shell_idx, self.shell_rows = flat_shell_indices(
-                [idx for idx, _mask in shells], self.num_dst,
-                oob_index=self.num_src)
-            self.shell_levels = level_table(self.shell_rows, hub_ids.device)
-        else:
-            self.shell_idx, self.shell_rows, self.shell_levels = None, [], None
+        self.shell_idx, self.shell_rows, self.shell_levels = _flat_layout(
+            shells, self.num_src, hub_ids.device)
+        (self.rev_shell_idx, self.rev_shell_rows,
+         self.rev_shell_levels) = _flat_layout(rev_shells, self.num_dst,
+                                               hub_ids.device)
 
     def to(self, device) -> "HubSpMMPlan":
         new = HubSpMMPlan.__new__(HubSpMMPlan)
@@ -79,16 +86,39 @@ class HubSpMMPlan:
         for f in self.TENSOR_FIELDS:
             t = getattr(self, f)
             setattr(new, f, None if t is None else t.to(device))
-        new.shells = tuple((i.to(device), m.to(device))
-                           for i, m in self.shells)
-        new.res_dst = (None if self.res_dst is None
-                       else tuple(t.to(device) for t in self.res_dst))
+        for f in ("shells", "rev_shells"):
+            setattr(new, f, tuple((i.to(device), m.to(device))
+                                  for i, m in getattr(self, f)))
+        for f in ("res_dst", "res_src"):
+            t = getattr(self, f)
+            setattr(new, f, None if t is None
+                    else tuple(x.to(device) for x in t))
         return new
+
+    def direction(self, reverse: bool):
+        """``(flat_idx, level_rows, levels, residual, unrank, n_out)`` of the
+        forward shells, or of the reverse ones."""
+        if reverse:
+            return (self.rev_shell_idx, self.rev_shell_rows,
+                    self.rev_shell_levels, self.res_src, self.unrank_src,
+                    self.num_src)
+        return (self.shell_idx, self.shell_rows, self.shell_levels,
+                self.res_dst, self.unrank_dst, self.num_dst)
 
     def __repr__(self):
         return (f"HubSpMMPlan(H={self.num_hubs}, "
                 f"coverage={self.coverage:.3f}, precision={self.precision}, "
                 f"cold=shell)")
+
+
+def _flat_layout(shells, oob_index, device):
+    """The kernel's layout of one direction's shells: flat int32 indices,
+    level sizes and level table (None, [], None without shells)."""
+    if not shells:
+        return None, [], None
+    flat, rows = flat_shell_indices([idx for idx, _mask in shells], None,
+                                    oob_index=oob_index)
+    return flat, rows, level_table(rows, device)
 
 
 def _build_shells(e_from, e_to, n_to, n_from, device):
@@ -149,14 +179,17 @@ def build_hub_plan(rel, num_hubs: int = 2048, precision: str = "bf16",
                      torch.ones((), dtype=dtype, device=device),
                      accumulate=True)
     n_real = max(int(real.sum()), 1)
-    # padded shell slots point one past the table (n_from=n_src): the
-    # kernel and the plain version read them as zero rows
-    shells, res_dst, unrank_dst = _build_shells(
-        src_csc[cold_idx], dst_csc[cold_idx], n_dst, n_src, device)
+    # padded shell slots point one past the table (n_from): the kernel and
+    # the plain version read them as zero rows
+    cs, cd = src_csc[cold_idx], dst_csc[cold_idx]
+    shells, res_dst, unrank_dst = _build_shells(cs, cd, n_dst, n_src, device)
+    rev_shells, res_src, unrank_src = _build_shells(cd, cs, n_src, n_dst,
+                                                    device)
     return HubSpMMPlan(
         torch.from_numpy(hub_ids).to(device), a_hub, shells, res_dst,
-        unrank_dst, num_src=n_src, num_dst=n_dst, num_hubs=H,
-        coverage=float(is_hub.sum() / n_real), precision=precision)
+        unrank_dst, rev_shells, res_src, unrank_src, num_src=n_src,
+        num_dst=n_dst, num_hubs=H, coverage=float(is_hub.sum() / n_real),
+        precision=precision)
 
 
 def _mm(a, b):
@@ -169,33 +202,35 @@ def _mm(a, b):
     return torch.mm(a.to(torch.float32), b.to(torch.float32))
 
 
-def _residual_base(xg, plan: HubSpMMPlan):
-    """The beyond-cap residual's (rup(num_dst, 8), F) f32 sums of the bf16
-    table ``xg``, or None when the plan has no residual."""
-    if plan.res_dst is None or int(plan.res_dst[1].shape[0]) == 0:
+def _residual_base(xg, plan: HubSpMMPlan, reverse: bool = False):
+    """The beyond-cap residual's (rup(n_out, 8), F) f32 sums of the bf16
+    table ``xg``, or None when the direction has no residual."""
+    *_, res, _unrank, n_out = plan.direction(reverse)
+    if res is None or int(res[1].shape[0]) == 0:
         return None
-    r_idx, pos, bpos, r_mask = plan.res_dst
+    r_idx, pos, bpos, r_mask = res
     rows = xg.index_select(0, r_idx).to(torch.float32) * r_mask
     return residual_reduce(rows, (None, None, pos, bpos, r_mask),
-                           _rup(plan.num_dst, 8))
+                           _rup(n_out, 8))
 
 
-def _shell_sum(x, plan: HubSpMMPlan):
-    """``out[v] = sum_k x[idx_k[unrank[v]]]``: the cold-tail accumulation.
+def _shell_sum(x, plan: HubSpMMPlan, reverse: bool = False):
+    """``out[v] = sum_k x[idx_k[unrank[v]]]``: the cold-tail accumulation,
+    over the forward shells or (``reverse``) the backward's.
 
     Rows are rounded to bf16 before the gather, as the reference does. The
     beyond-cap residual reduces first and enters the kernel as its base."""
+    flat_idx, rows, levels, _res, unrank, n_out = plan.direction(reverse)
     xg = x.to(torch.bfloat16)
-    n_out = plan.num_dst
-    base = _residual_base(xg, plan)
-    if plan.shells:
-        acc = shell_prefix_sum(xg, plan.shell_idx, plan.shell_rows, n_out,
-                               base=base, levels=plan.shell_levels)
+    base = _residual_base(xg, plan, reverse)
+    if rows:
+        acc = shell_prefix_sum(xg, flat_idx, rows, n_out, base=base,
+                               levels=levels)
     elif base is not None:
         acc = base[:n_out]
     else:
         acc = x.new_zeros((n_out, x.shape[1]), dtype=torch.float32)
-    return acc if plan.unrank_dst is None else acc[plan.unrank_dst.long()]
+    return acc if unrank is None else acc[unrank.long()]
 
 
 def _hub_copy_u_sum2d(plan: HubSpMMPlan, x):
@@ -205,15 +240,22 @@ def _hub_copy_u_sum2d(plan: HubSpMMPlan, x):
 
 
 class _HubCopyUSum(torch.autograd.Function):
-    """Forward of the hub SpMM; its backward is the training slice."""
+    """The hub SpMM; its backward is the same split transposed."""
 
     @staticmethod
     def forward(ctx, x, plan):
+        ctx.plan = plan
         return _hub_copy_u_sum2d(plan, x)
 
     @staticmethod
     def backward(ctx, dz):
-        raise NotImplementedError("hub SpMM backward: training slice")
+        plan = ctx.plan
+        d_hub = _mm(plan.a_hub.t(), dz)
+        dx = _shell_sum(dz, plan, reverse=True)
+        # hub and cold sources are disjoint; the hub table's padding slots
+        # (id 0, zero columns of a_hub) add zero rows onto node 0
+        dx.index_add_(0, plan.hub_ids.long(), d_hub)
+        return dx.to(dz.dtype), None
 
 
 def hub_copy_u_sum(plan: HubSpMMPlan, x):

@@ -159,12 +159,26 @@ def test_auto_gate_skips_sparse_graphs_and_forces():
 
 
 def test_backward_raises():
+    """The backward that raised before training was ported: ``A^T dz``
+    through B2's module over ``bits_rev`` (asymmetric relation), held
+    against the plain matmul over the transpose at rtol = atol = 1e-5 and
+    against the exact f32 path's gradient at the bf16 bound."""
     n = 300
     src, dst = _simple_edges(n, n, 9000, 11)
     g = dt.graph((src, dst), num_nodes=n, device="cpu").with_spmm_plans(
         num_hubs=16, bitmap=True)
-    assert g._relation().bitmap_plan is not None
+    plan = g._relation().bitmap_plan
+    assert plan is not None and plan.bits_rev is not None
     x = torch.randn(n, 8, requires_grad=True)
-    out = dt.ops.copy_u_sum(g, x)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+    dz = torch.randn(n, 8)
+    _kernels.reset_launch_counts()
+    (dt.ops.copy_u_sum(g, x) * dz).sum().backward()
+    assert _kernels.launch_counts["bitmap_spmm"] == 0  # CPU: plain version
+    want = tb.bitmap_matmul_plain(plan.bits_rev, dz, n)
+    torch.testing.assert_close(x.grad, want, rtol=1e-5, atol=1e-5)
+    x_ref = x.detach().clone().requires_grad_()
+    g_ref = dt.graph((src, dst), num_nodes=n, device="cpu")
+    (dt.ops.copy_u_sum(g_ref, x_ref) * dz).sum().backward()
+    scale = x_ref.grad.abs().max().item()
+    torch.testing.assert_close(x.grad, x_ref.grad, rtol=2e-2,
+                               atol=2e-2 * scale)

@@ -295,15 +295,46 @@ def test_gatconv_raises_off_the_bitmap_route():
 
 
 def test_gat_backward_raises(graphs):
+    """The backwards that raised before training was ported. GATConv in
+    training mode: every parameter gets a gradient, and ``bitmap_gat``'s
+    hand backward (B4 and B5's plain versions) equals autograd through its
+    plain forward at rtol = atol = 1e-4. GCN in training mode (dropout 0):
+    its gradients against the exact f32 path's at the bf16 bound
+    rtol = 2e-2, atol = 2e-2 * max|ref|."""
     _, tg = graphs
     conv = GATConv(10, 4, 2, device="cpu").train()  # attn_drop = 0
-    out = conv(tg, torch.randn(N, 10))
-    with pytest.raises(NotImplementedError, match="B4 and B5"):
-        out.sum().backward()
-    gcn = GCN(10, 4, 3, device="cpu").train()
-    out = gcn(tg, torch.randn(N, 10))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+    conv(tg, torch.randn(N, 10)).sum().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in conv.parameters())
+    plan = tg._relation().bitmap_plan
+    rng = np.random.default_rng(8)
+    el, er, h, dz = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                     for s in ((N, 2), (N, 2), (N, 2, 4), (N, 2, 4)))
+    ins = [t.clone().requires_grad_() for t in (el, er, h)]
+    (tbg.bitmap_gat(0.2, plan, *ins) * dz).sum().backward()
+    refs = [t.clone().requires_grad_() for t in (el, er, h)]
+    # h rounded to bf16 in value only: the hand backward keeps dh in f32
+    hq = refs[2] + (refs[2].to(torch.bfloat16).float() - refs[2]).detach()
+    ws = plan.bits.shape[1] * 8
+    out, _ = tbg.gat_fwd_plain(plan.bits[:N], tbg._pad_rows(refs[0], ws),
+                               refs[1], tbg._pad_rows(hq, ws), 0.2)
+    (out * dz).sum().backward()
+    for a, b in zip(ins, refs):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-4)
+    rel = tg._relation()
+    g_exact = dt.graph((rel.src.numpy(), rel.dst.numpy()), num_nodes=N,
+                       device="cpu")
+    x = torch.randn(N, 10)
+    grads = []
+    for g in (tg, g_exact):
+        gcn = GCN(10, 4, 3, dropout=0.0,
+                  generator=torch.Generator().manual_seed(0),
+                  device="cpu").train()
+        gcn(g, x).square().sum().backward()
+        grads.append([p.grad for p in gcn.parameters()])
+    for a, b in zip(*grads):
+        scale = b.abs().max().item()
+        torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2 * scale)
 
 
 @pytest.mark.parametrize("make", [

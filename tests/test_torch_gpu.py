@@ -14,10 +14,12 @@ import torch
 
 import dgl_tpu_torch as dt
 from dgl_tpu_torch import _kernels
+from dgl_tpu_torch.models import GAT, GCN, GraphSAGE
 from dgl_tpu_torch.nn import GATConv
 from dgl_tpu_torch.ops import bitmap_gat as tbg
 from dgl_tpu_torch.ops.bitmap_spmm import (
-    bitmap_matmul, bitmap_matmul_plain, build_bitmap_plan)
+    bitmap_copy_u_sum, bitmap_matmul, bitmap_matmul_plain, build_bitmap_plan,
+    unpack_host)
 from dgl_tpu_torch.ops.hub_spmm import build_hub_plan, hub_copy_u_sum
 from dgl_tpu_torch.ops.shell_prefix import (
     flat_shell_indices, shell_prefix_sum, shell_prefix_sum_plain)
@@ -253,3 +255,208 @@ def test_gcn_and_gat_launch_the_kernels(card):
         ref = conv_cpu(g_cpu, x)
         torch.testing.assert_close(out.cpu(), ref, rtol=0,
                                    atol=2.0 ** -8 * ref.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# the backward: B4 (bitmap_gat_bwd_dst), B5 (bitmap_gat_bwd_src), and B2 and
+# B1 over the transposed structures
+# ---------------------------------------------------------------------------
+
+
+def _symmetric_plan():
+    """A symmetric relation on N_SRC nodes with nodes 4500..4599 isolated
+    and a full tile: nodes 0..31 joined to every node 0..4095."""
+    src, dst = _bitmap_edges(13)
+    keep = ((src < 4500) | (src >= 4600)) & ((dst < 4500) | (dst >= 4600))
+    src, dst = np.concatenate([src[keep], dst[keep]]), np.concatenate(
+        [dst[keep], src[keep]])
+    flat = np.unique(dst.astype(np.int64) * N_SRC + src)
+    rel = dt.Relation.from_coo(flat % N_SRC, flat // N_SRC, N_SRC, N_SRC,
+                               device="cpu")
+    plan = build_bitmap_plan(rel)
+    assert plan.bits_rev is None
+    return plan
+
+
+def _bwd_inputs(plan, heads, odim, seed):
+    n_src, n_dst = plan.num_src, plan.num_dst
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32))
+    el, er = t(n_src, heads), t(n_dst, heads)
+    h = t(n_src, heads, odim).to(torch.bfloat16)
+    out, lse = tbg.gat_fwd_plain(plan.bits[:n_dst], el, er, h, 0.2)
+    dz = t(n_dst, heads, odim)
+    return el, er, h, lse, (out * dz).sum(-1), dz
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("heads,odim", [(8, 8), (1, 41), (3, 5), (2, 130)])
+def test_bitmap_gat_bwd_kernels_match_plain(card, bitmap_plans, symmetric,
+                                            heads, odim):
+    """B4 over ``bits`` and B5 over the transpose (``bits_rev``, or
+    ``bits`` itself when symmetric) against their plain versions, on the
+    card and on the CPU: rows without an edge, a full 4096-bit tile, padded
+    heads and features (3, 5) and three feature walks (2, 130). rtol = 1e-4,
+    atol = 1e-5 * max|ref|, B3's tolerance (exponentials and sums in another
+    order)."""
+    plan = _symmetric_plan() if symmetric else bitmap_plans[0]
+    bits_t = plan.bits if plan.bits_rev is None else plan.bits_rev
+    ins = _bwd_inputs(plan, heads, odim, heads * 100 + odim)
+    el, er, h, lse, c, dz = (x.to(card) for x in ins)
+    n_src, n_dst = plan.num_src, plan.num_dst
+    bits, bits_tc = plan.bits.to(card), bits_t.to(card)
+    before = dict(_kernels.launch_counts)
+    der = tbg.bitmap_gat_bwd_dst(bits, el, er, h, 0.2, lse, c, dz, n_dst)
+    dele, dh = tbg.bitmap_gat_bwd_src(bits_tc, el, er, h, 0.2, lse, c, dz,
+                                      n_src)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["bitmap_gat_bwd_dst"] == (
+        before["bitmap_gat_bwd_dst"] + 1)
+    assert _kernels.launch_counts["bitmap_gat_bwd_src"] == (
+        before["bitmap_gat_bwd_src"] + 1)
+    assert der.shape == (n_dst, heads) and dh.shape == (n_src, heads, odim)
+    want_der = tbg.gat_bwd_dst_plain(bits[:n_dst], el, er, h, 0.2, lse, c,
+                                     dz)
+    want_del, want_dh = tbg.gat_bwd_src_plain(bits_tc[:n_src], el, er, h,
+                                              0.2, lse, c, dz)
+    _close(der, want_der, 1e-4)
+    _close(dele, want_del, 1e-4)
+    _close(dh, want_dh, 1e-4)
+    cpu_der = tbg.bitmap_gat_bwd_dst(plan.bits, *ins[:2], ins[2], 0.2,
+                                     *ins[3:], n_dst)
+    cpu_del, cpu_dh = tbg.bitmap_gat_bwd_src(bits_t, *ins[:2], ins[2], 0.2,
+                                             *ins[3:], n_src)
+    _close(der.cpu(), cpu_der, 1e-4)
+    _close(dele.cpu(), cpu_del, 1e-4)
+    _close(dh.cpu(), cpu_dh, 1e-4)
+    # rows without an edge: no gradient
+    deg_dst = _expand_deg(plan.bits, n_src)[:n_dst]
+    assert not der[torch.from_numpy(deg_dst == 0).to(card)].any()
+    deg_src = _expand_deg(bits_t, n_dst)[:n_src]
+    assert not dh[torch.from_numpy(deg_src == 0).to(card)].any()
+
+
+def _expand_deg(bits, n_cols):
+    return unpack_host(bits.numpy())[:, :n_cols].sum(1)
+
+
+def test_bitmap_gat_bwd_rejects_wrong_inputs(card, bitmap_plans):
+    plan, _ = bitmap_plans
+    el, er, h, lse, c, dz = (x.to(card) for x in _bwd_inputs(plan, 2, 4, 1))
+    bits = plan.bits.to(card)
+    with pytest.raises(ValueError, match="bf16"):
+        tbg.bitmap_gat_bwd_dst(bits, el, er, h.float(), 0.2, lse, c, dz)
+    with pytest.raises(ValueError, match="dz must be"):
+        tbg.bitmap_gat_bwd_src(plan.bits_rev.to(card), el, er, h, 0.2, lse,
+                               c, dz.double())
+    with pytest.raises(ValueError, match="lse must be"):
+        tbg.bitmap_gat_bwd_dst(bits, el, er, h, 0.2, lse[:10], c, dz,
+                               N_DST)
+
+
+def test_spmm_backwards_launch_b2_and_b1(card, bitmap_plans):
+    """B2 over ``bits_rev`` and the hub backward (B1 over the reverse
+    shells) on the card against the same backward on the CPU, one launch
+    each way. The bitmap: the same f32 terms in another order (rtol 1e-5,
+    atol 1e-5 * max|ref|). The hub: bf16 products and f32 sums in another
+    order, rtol = atol = 1e-4."""
+    plan, _ = bitmap_plans
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(N_SRC, 16)).astype(np.float32))
+    dz = torch.from_numpy(rng.normal(size=(N_DST, 16)).astype(np.float32))
+    grads = []
+    for p, dev in ((plan, "cpu"), (plan.to(card), card)):
+        xx = x.detach().clone().to(dev).requires_grad_()
+        before = _kernels.launch_counts["bitmap_spmm"]
+        (bitmap_copy_u_sum(p, xx) * dz.to(dev)).sum().backward()
+        grads.append(xx.grad)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["bitmap_spmm"] == before + 2
+    _close(grads[1].cpu(), grads[0], 1e-5)
+
+    w = 1.0 / np.arange(1, 6001)
+    src = rng.choice(6000, 48000, p=w / w.sum())
+    dst = rng.choice(6000, 48000, p=(w ** 0.7) / (w ** 0.7).sum())
+    rel = dt.graph((src, dst), num_nodes=6000, device="cpu")._relation()
+    hub = build_hub_plan(rel, 64, "int8")
+    assert hub.res_src is not None and hub.unrank_src is not None
+    x = torch.from_numpy(rng.normal(size=(6000, 64)).astype(np.float32))
+    dz = torch.from_numpy(rng.normal(size=(6000, 64)).astype(np.float32))
+    grads = []
+    for p, dev in ((hub, "cpu"), (hub.to(card), card)):
+        xx = x.detach().clone().to(dev).requires_grad_()
+        before = _kernels.launch_counts["shell_prefix_sum"]
+        (hub_copy_u_sum(p, xx) * dz.to(dev)).sum().backward()
+        grads.append(xx.grad)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["shell_prefix_sum"] == before + 2
+    torch.testing.assert_close(grads[1].cpu(), grads[0], rtol=1e-4,
+                               atol=1e-4)
+
+
+def _step_graphs(card, dense):
+    rng = np.random.default_rng(14)
+    n = 3000
+    if dense:  # symmetric with self-loops: the bitmap route
+        src, dst = rng.integers(0, n, 40000), rng.integers(0, n, 40000)
+        src, dst = (np.concatenate([src, dst, np.arange(n)]),
+                    np.concatenate([dst, src, np.arange(n)]))
+        flat = np.unique(dst * n + src)
+        g = dt.graph((flat % n, flat // n), num_nodes=n,
+                     device=card).with_spmm_plans(num_hubs=128,
+                                                  dense_attn=False)
+        assert g._relation().bitmap_plan is not None
+    else:  # zipf sources, reordered: the hub route
+        w = 1.0 / np.arange(1, n + 1)
+        src = rng.choice(n, 30000, p=w / w.sum())
+        g, _ = dt.transforms.reorder_for_spmm(
+            dt.graph((src, rng.integers(0, n, 30000)), num_nodes=n,
+                     device=card), num_hubs=128, precision="int8")
+        assert g._relation().bitmap_plan is None
+    return g, g.to("cpu"), rng
+
+
+@pytest.mark.parametrize("name,dense,make,counts", [
+    ("GCN", True, lambda d: GCN(24, 16, 5, dropout=0.0, device=d),
+     {"bitmap_spmm": 4}),
+    ("GAT", True, lambda d: GAT(24, 8, 5, heads=4, feat_drop=0.0,
+                                attn_drop=0.0, device=d),
+     {"bitmap_gat_fwd": 2, "bitmap_gat_bwd_dst": 2,
+      "bitmap_gat_bwd_src": 2}),
+    ("GraphSAGE", False, lambda d: GraphSAGE(24, 32, 5, num_layers=3,
+                                             dropout=0.0, device=d),
+     {"shell_prefix_sum": 5}),
+], ids=["GCN", "GAT", "GraphSAGE"])
+def test_training_step_on_card_matches_cpu(card, name, dense, make, counts):
+    """One training step (masked cross-entropy, backward) of each model on
+    the card against the same step on the CPU, with the launches it makes:
+    GCN 2 B2 forward + 2 backward (symmetric bitmap); GAT 2 each of B3, B4
+    and B5; GraphSAGE 3 B1 forward + 2 backward (layer 0 aggregates the
+    input, which needs no gradient). The card's f32 projections differ
+    from the CPU's in the last bit, which can move a bf16 rounding of an
+    aggregated row: gradients compared at rtol 0, atol 2**-8 * max|ref|."""
+    g, g_cpu, rng = _step_graphs(card, dense)
+    n = g.num_nodes()
+    x = torch.from_numpy(rng.normal(size=(n, 24)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 5, n))
+    mask = torch.from_numpy((rng.random(n) < 0.6).astype(np.float32))
+    model = make(card).train()
+    model_cpu = make("cpu").train()
+    model_cpu.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    _kernels.reset_launch_counts()
+    for m, gg, dev in ((model, g, card), (model_cpu, g_cpu, "cpu")):
+        logits = m(gg, x.to(dev))
+        ce = torch.nn.functional.cross_entropy(logits, y.to(dev),
+                                               reduction="none")
+        ((ce * mask.to(dev)).sum() / mask.sum()).backward()
+        if dev == card:
+            torch.cuda.synchronize()
+            got = {k: v for k, v in _kernels.launch_counts.items() if v}
+            assert got == counts
+    for (k, p), q in zip(model.named_parameters(), model_cpu.parameters()):
+        ref = q.grad
+        torch.testing.assert_close(p.grad.cpu(), ref, rtol=0,
+                                   atol=2.0 ** -8 * ref.abs().max().item(),
+                                   msg=k)

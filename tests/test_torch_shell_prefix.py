@@ -128,6 +128,19 @@ def test_hub_plan_arrays_exact(dst_skew, num_hubs):
         for ta, ja in zip(tp.res_dst, jp.res_dst):
             np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
     np.testing.assert_array_equal(_t(tp.unrank_dst), np.asarray(jp.unrank_dst))
+    # the backward's reverse shells (cold edges ranked by source)
+    assert len(tp.rev_shells) == len(jp.rev_shells) > 0
+    for (ti, tm), (ji, jm) in zip(tp.rev_shells, jp.rev_shells):
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    assert (tp.res_src is None) == (jp.res_src is None)
+    if jp.res_src is not None:
+        for ta, ja in zip(tp.res_src, jp.res_src):
+            np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    assert (tp.unrank_src is None) == (jp.unrank_src is None)
+    if jp.unrank_src is not None:
+        np.testing.assert_array_equal(tp.unrank_src.numpy(),
+                                      np.asarray(jp.unrank_src))
 
 
 def test_hub_plan_int8_falls_back_to_bf16():
@@ -176,13 +189,28 @@ def test_hub_copy_u_sum_matches(dst_skew, reorder, feat):
 
 
 def test_hub_backward_raises():
+    """The backward that raised before training was ported: ``A_hub^T dz``
+    plus the reverse shells through B1's module, against the exact f32
+    path's gradient at the bf16 bound rtol = 2e-2, atol = 2e-2 * max|ref|
+    (``dz`` rounds to bf16 as the forward's rows do)."""
     src, dst = _skewed_graph(500, 3000, 1)
     g, _ = dt.transforms.reorder_for_spmm(
         dt.graph((src, dst), num_nodes=500, device="cpu"), num_hubs=128)
+    plan = g._relation().hub_plan
+    assert plan.rev_shell_rows and plan.unrank_src is not None
     x = torch.randn(500, 8, requires_grad=True)
-    out = dt.ops.copy_u_sum(g, x)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+    dz = torch.randn(500, 8)
+    _kernels.reset_launch_counts()
+    (dt.ops.copy_u_sum(g, x) * dz).sum().backward()
+    assert _kernels.launch_counts["shell_prefix_sum"] == 0  # CPU: plain
+    rel = g._relation()
+    x_ref = x.detach().clone().requires_grad_()
+    g_ref = dt.graph((rel.src.numpy(), rel.dst.numpy()), num_nodes=500,
+                     device="cpu")
+    (dt.ops.copy_u_sum(g_ref, x_ref) * dz).sum().backward()
+    scale = x_ref.grad.abs().max().item()
+    torch.testing.assert_close(x.grad, x_ref.grad, rtol=2e-2,
+                               atol=2e-2 * scale)
 
 
 def test_cpu_path_launches_no_kernel():
