@@ -81,6 +81,38 @@ bitmap-flash GAT forward, and B4 and B5, its backward):
     at B3's tolerance; times both (no PyTorch call computes them; the plain
     versions on the check rows only) and the step, and profiles the step.
 
+the hub-cache path (kernel B6, hub gather; ``benchmarks/bench_hub.py``'s
+defaults: 1024 hubs, F = 256, f32):
+
+15. on the arxiv-scale zipf graph of step 2 without a plan, builds the hub
+    plan (its coverage printed), drives ``ops.hub_cache.hub_copy_u_sum``
+    once per precision (``"highest"`` and ``"bf16"``) with the launch
+    counts read around each call (one B6 launch each), and holds each
+    output against the exact ``ops.copy_u_sum`` at rtol = 2e-4,
+    atol = 2e-4 * max|ref| (``"highest"``) and max abs err
+    <= 2e-2 * max|ref| (``"bf16"``), the bounds of
+    ``tests/test_pallas_hub.py``;
+16. holds B6 against its plain version on the path's real hub table and
+    slots, for both precisions (both exact selections: max abs err 0.0),
+    times it, its plain version and ``torch.nn.functional.embedding`` over
+    the table with a zero row appended, gives its byte bound, and times
+    ``hub_copy_u_sum`` as a caller waits for it beside plain ``copy_u_sum``
+    and the ``reorder_for_spmm`` hub path (``bench_hub.py``'s comparison);
+
+the per-edge GAT path (g-SDDMM, edge softmax, g-SpMM; no hand kernel):
+
+17. on the same zipf graph plus one self-loop per node (1,335,586 edges, no
+    plan), drives ``GAT(128, 250, 40, heads=3, num_layers=3)``, the widths
+    of DGL's ogbn-arxiv GAT, once in eval mode (weights from seed 0) with
+    every kernel count read around it (all must stay 0), checks the
+    output's shape and finiteness and holds it against the same model on
+    the CPU at rtol = 1e-4, atol = 1e-4 * max|ref| (the same f32
+    operations, sums in other orders), and times and profiles the forward;
+18. trains it (feat_drop 0.75, attn_drop 0.05, Adam at 1e-2, masked
+    cross-entropy over uniform random labels, every node labelled): one
+    counted step (every kernel count 0), four more (finite losses), step
+    time, peak memory and a profile.
+
 Every training input is built outside ``torch.inference_mode()``.
 It prints one JSON object per result line, the kernel table as
 ``{"kernels": [...]}``, the card's name and power limit, and as its last
@@ -110,6 +142,9 @@ REDDIT_FEAT, REDDIT_CLASSES = 602, 41
 GCN_HIDDEN = 16  # examples/reddit_fullgraph_gcn.py:48-54
 GAT_HIDDEN, GAT_HEADS = 8, 8  # benchmarks/bench_reddit_gat.py:47-48
 B3_CHECK_ROWS = 4096
+HUB_HUBS, HUB_FEAT = 1024, 256  # benchmarks/bench_hub.py's defaults
+# DGL's examples/pytorch/ogb/ogbn-arxiv GAT: 3 layers, 3 heads, 250 hidden
+EDGE_GAT_HIDDEN, EDGE_GAT_HEADS = 250, 3
 LR = 1e-2  # optax.adam(1e-2) of the JAX package's training scripts
 TRAIN_STEPS = 5
 # HBM bandwidth by card name (NVIDIA data sheets), bytes/s
@@ -1193,6 +1228,239 @@ def run_reddit(rate: float, tag: dict) -> list:
                             ("bitmap_gat_bwd_src", 298, b5))]
 
 
+def expect_no_other_launch(launches: dict, allowed: dict, what: str):
+    """Fail unless the kernels in ``allowed`` launched exactly that often
+    and every other kernel not at all."""
+    for name, n in launches.items():
+        if n != allowed.get(name, 0):
+            raise RuntimeError(f"{what} launched {name} {n} times, expected "
+                               f"{allowed.get(name, 0)}")
+
+
+def run_hub_cache(rate: float, tag: dict) -> dict:
+    """The hub-cache path (kernel B6); returns B6's entry of the kernel
+    table."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.ops.hub_cache import (HubPlan, _hub_gather_plain,
+                                             hub_copy_u_sum, hub_gather)
+
+    # 15. the zipf graph without a plan, bench_hub.py's hub split and table
+    src, dst = zipf_graph(0)
+    g = dt.graph((src, dst), num_nodes=N_NODES)
+    gp, _perm = dt.transforms.reorder_for_spmm(g, num_hubs=2048,
+                                               precision="int8")
+    rel = g._relation()
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(N_NODES, HUB_FEAT)).astype(np.float32)).cuda()
+    t0 = time.perf_counter()
+    plan = HubPlan.build(rel, HUB_HUBS)
+    torch.cuda.synchronize()
+    emit({"phase": "hub_cache_plan", "num_hubs": plan.num_hubs,
+          "coverage": plan.coverage, "slots": plan.slots.shape[0],
+          "cold_edges_padded": plan.cold_src.shape[0],
+          "plan_s": time.perf_counter() - t0, **tag})
+    with torch.inference_mode():
+        ref = dt.ops.copy_u_sum(g, x)
+        scale = ref.abs().max().item()
+        launches, errs = {}, {}
+        for precision in ("highest", "bf16"):
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            out = hub_copy_u_sum(rel, x, plan=plan, precision=precision)
+            torch.cuda.synchronize()
+            launches[precision] = dict(_kernels.launch_counts)
+            expect_no_other_launch(launches[precision], {"hub_gather": 1},
+                                   f"hub_copy_u_sum({precision})")
+            if tuple(out.shape) != (N_NODES, HUB_FEAT) or not torch.isfinite(
+                    out).all():
+                raise RuntimeError(f"bad hub_copy_u_sum output "
+                                   f"{tuple(out.shape)}")
+            errs[precision] = (out - ref).abs().max().item()
+            ok = (torch.allclose(out, ref, rtol=2e-4, atol=2e-4 * scale)
+                  if precision == "highest"
+                  else errs[precision] <= 2e-2 * scale)
+            if not ok:
+                raise RuntimeError(f"hub_copy_u_sum({precision}) vs "
+                                   f"copy_u_sum: max abs err "
+                                   f"{errs[precision]} (max |ref| {scale})")
+            emit({"phase": "hub_cache_main_path", "precision": precision,
+                  "launches": launches[precision],
+                  "max_abs_err_vs_exact_f32": errs[precision],
+                  "max_rel_err": errs[precision] / scale,
+                  "tolerance": "rtol=2e-4, atol=2e-4*max|ref|"
+                               if precision == "highest"
+                               else "max abs err <= 2e-2*max|ref|", **tag})
+            del out
+
+        # 16. B6 against its plain version on the path's real table and
+        # slots, times, bound, and the SpMM as a caller waits for it
+        hub_x = x.index_select(0, plan.hub_ids)
+        slots = plan.slots
+        flat = slots.reshape(-1)
+        table_z = torch.cat([hub_x, hub_x.new_zeros((1, HUB_FEAT))])
+        E_pad, H = slots.shape[0], plan.num_hubs
+        # the (E, F) output written once, the slots and the table read once
+        bytes_ms = (E_pad * HUB_FEAT * 4 + E_pad * 4 + H * HUB_FEAT * 4) \
+            / rate * 1e3
+        b6 = {}
+        for precision in ("highest", "bf16"):
+            kern = lambda: hub_gather(  # noqa: E731
+                hub_x, slots, precision=precision)
+            got = kern()
+            want = _hub_gather_plain(hub_x, slots, precision)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if not torch.equal(got, want):
+                raise RuntimeError(f"B6 vs plain ({precision}): max abs err "
+                                   f"{err}, expected 0.0")
+            lib = lambda: torch.nn.functional.embedding(  # noqa: E731
+                flat, table_z)
+            lib_err = (lib() - got).abs().max().item()
+            b6[precision] = {
+                "H": H, "F": HUB_FEAT, "E_padded": E_pad,
+                "max_abs_err": err,
+                "ms": time_ms(kern, 20, hide_host=True),
+                "plain_ms": time_ms(lambda: _hub_gather_plain(
+                    hub_x, slots, precision), 10, hide_host=True),
+                "library_ms": time_ms(lib, 20, hide_host=True),
+                "library_max_abs_err": lib_err,
+                # a selection does no arithmetic (the bf16 rounding is one
+                # conversion per value): bytes bound it
+                "bound_ms": bytes_ms, "bound_by": "bytes",
+            }
+            emit({"phase": "kernel_vs_plain", "kernel": "hub_gather",
+                  "precision": precision, "tolerance": "exact (0.0)",
+                  "library": "torch.nn.functional.embedding over the table "
+                             "with a zero row appended",
+                  **b6[precision], **tag})
+            del got, want
+        timing = {
+            "hub_copy_u_sum_ms": time_ms(lambda: hub_copy_u_sum(
+                rel, x, plan=plan), 10),
+            "hub_copy_u_sum_bf16_ms": time_ms(lambda: hub_copy_u_sum(
+                rel, x, plan=plan, precision="bf16"), 10),
+            "copy_u_sum_plain_ms": time_ms(lambda: dt.ops.copy_u_sum(g, x),
+                                           10),
+            "copy_u_sum_reorder_for_spmm_hub_path_ms": time_ms(
+                lambda: dt.ops.copy_u_sum(gp, x), 10),
+        }
+        emit({"phase": "hub_cache_timing", "F": HUB_FEAT, **timing, **tag})
+        emit({"phase": "hub_cache_profile", "calls": 3, **device_profile(
+            lambda: hub_copy_u_sum(rel, x, plan=plan), 3), **tag})
+    m = b6["highest"]
+    return {
+        "name": "hub_gather",
+        "route": "cuda",
+        "source": "dgl_tpu_torch/csrc/hub_gather.cu",
+        "replaces": "dgl_tpu/ops/pallas_hub.py:112",
+        "launches": launches["highest"]["hub_gather"],
+        "max_abs_err": max(v["max_abs_err"] for v in b6.values()),
+        "ms": m["ms"],
+        "plain_ms": m["plain_ms"],
+        "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"],
+        "library_ms": m["library_ms"],
+        "shape": f"hub_x ({H}, {HUB_FEAT}) f32, slots ({E_pad}, 1), "
+                 f"precision highest, times per call; bf16: "
+                 f"{b6['bf16']['ms']} ms; launches: one hub_copy_u_sum call",
+        "launches_bf16": launches["bf16"]["hub_gather"],
+        "hub_copy_u_sum_ms": timing["hub_copy_u_sum_ms"],
+    }
+
+
+def run_gat_edge(tag: dict) -> dict:
+    """GAT over the per-edge route at ogbn-arxiv widths, inference and
+    training; no hand kernel may launch."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.models import GAT
+
+    # 17. the zipf graph plus one self-loop per node, no plan
+    t0 = time.perf_counter()
+    src, dst = zipf_graph(0)
+    loops = np.arange(N_NODES)
+    g = dt.graph((np.concatenate([src, loops]), np.concatenate([dst, loops])),
+                 num_nodes=N_NODES)
+    rel = g._relation()
+    if rel.hub_plan is not None or rel.bitmap_plan is not None:
+        raise RuntimeError("the per-edge GAT graph carries a plan")
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(N_NODES, IN_FEATS)).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.random.default_rng(4).integers(
+        0, CLASSES, N_NODES)).cuda()
+    mask = torch.ones(N_NODES, device=x.device)
+    model = GAT(IN_FEATS, EDGE_GAT_HIDDEN, CLASSES, heads=EDGE_GAT_HEADS,
+                num_layers=LAYERS, feat_drop=0.75, attn_drop=0.05,
+                generator=torch.Generator().manual_seed(0)).eval()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    with torch.inference_mode():
+        out = model(g, x)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect_no_other_launch(launches, {}, "the per-edge GAT forward")
+    if tuple(out.shape) != (N_NODES, CLASSES) or not torch.isfinite(
+            out).all():
+        raise RuntimeError(f"bad per-edge GAT output {tuple(out.shape)}")
+    emit({"phase": "gat_edge_main_path", "model": "GAT 128-250x3-250x3-40, "
+          "3 layers, per-edge route", "nodes": N_NODES,
+          "edges": rel.num_edges, "launches": launches,
+          "peak_memory_gib": peak, "setup_s": setup_s, **tag})
+
+    # the same model on the CPU as the reference
+    t0 = time.perf_counter()
+    model_cpu = GAT(IN_FEATS, EDGE_GAT_HIDDEN, CLASSES, heads=EDGE_GAT_HEADS,
+                    num_layers=LAYERS, device="cpu").eval()
+    model_cpu.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        ref = model_cpu(g.to("cpu"), x.cpu())
+    scale = ref.abs().max().item()
+    err = (out.cpu() - ref).abs().max().item()
+    if not torch.allclose(out.cpu(), ref, rtol=1e-4, atol=1e-4 * scale):
+        raise RuntimeError(f"per-edge GAT on the card vs the CPU: max abs "
+                           f"err {err} (max |ref| {scale})")
+    emit({"phase": "gat_edge_vs_cpu", "max_abs_err": err,
+          "max_rel_err": err / scale, "cpu_forward_s":
+          time.perf_counter() - t0,
+          "tolerance": "rtol=1e-4, atol=1e-4*max|ref|", **tag})
+    del model_cpu, ref, out
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(g, x), 5)
+        prof = device_profile(lambda: model(g, x), 2)
+    emit({"phase": "gat_edge_timing", "forward_ms": fwd_ms, **tag})
+    emit({"phase": "gat_edge_forward_profile", "calls": 2, **prof, **tag})
+
+    # 18. training: both dropouts, Adam, every node labelled
+    model.train()
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    loss, launches, peak, step_s = counted_step(
+        model, opt, g, x, y, mask, {k: 0 for k in _kernels.launch_counts},
+        "per-edge GAT")
+    losses = run_steps(model, opt, g, x, y, mask, loss, falling=False)
+    emit({"phase": "gat_edge_train_main_path", "model": "GAT 128-250x3-"
+          "250x3-40, feat_drop 0.75, attn_drop 0.05", "launches": launches,
+          "peak_memory_gib": peak, "first_step_s": step_s, "losses": losses,
+          **tag})
+    step = lambda: train_step(model, opt, g, x, y, mask)  # noqa: E731
+    timing = {"step_ms": time_ms(step, 3)}
+    emit({"phase": "gat_edge_train_timing", **timing, **tag})
+    emit({"phase": "gat_edge_train_profile", "calls": 2,
+          **device_profile(step, 2), **tag})
+    return {"forward_ms": fwd_ms, "train_step_ms": timing["step_ms"],
+            "peak_memory_gib": peak}
+
+
 def run() -> dict:
     import torch
 
@@ -1211,6 +1479,8 @@ def run() -> dict:
 
     kernels = [run_sage(rate, tag)]
     kernels += run_reddit(rate, tag)
+    kernels.append(run_hub_cache(rate, tag))
+    run_gat_edge(tag)
     return {"kernels": kernels, "card": card}
 
 

@@ -10,7 +10,11 @@ Ported so far: full-graph GraphSAGE inference through the dense-hub SpMM
 (graph construction, ``reorder_for_spmm``, ``update_all`` with the builtin
 sum/mean reducers, ``SAGEConv``, ``GraphSAGE``), and full-graph GCN and GAT
 inference through the bitmap path (``with_spmm_plans(bitmap=...)``,
-``GraphConv``, ``GCN``, ``GATConv``, ``GAT``).
+``GraphConv``, ``GCN``, ``GATConv``, ``GAT``), full-graph training of all
+three, the per-edge message-passing layer (g-SDDMM, edge softmax, the
+max/min reducers, segment ops, ``apply_edges``/``apply_nodes`` and
+user-defined functions) that carries GAT on sparse graphs, and the opt-in
+hub-cache g-SpMM (``ops.hub_cache``).
 """
 from . import function, models, nn, ops, transforms
 from .base import ALL, EID, NID, DGLError

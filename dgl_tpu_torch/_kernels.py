@@ -23,12 +23,12 @@ _REPO_DIR = os.path.dirname(_PKG_DIR)
 BUILD_DIR = os.path.join(_REPO_DIR, "build", "dgl_tpu_torch_kernels")
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name) for name in (
     "shell_prefix_sum.cu", "bitmap_spmm.cu", "bitmap_gat_fwd.cu",
-    "bitmap_gat_bwd_dst.cu", "bitmap_gat_bwd_src.cu"))
+    "bitmap_gat_bwd_dst.cu", "bitmap_gat_bwd_src.cu", "hub_gather.cu"))
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 launch_counts = {"shell_prefix_sum": 0, "bitmap_spmm": 0,
                  "bitmap_gat_fwd": 0, "bitmap_gat_bwd_dst": 0,
-                 "bitmap_gat_bwd_src": 0}
+                 "bitmap_gat_bwd_src": 0, "hub_gather": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -69,7 +69,9 @@ def library() -> ctypes.CDLL:
                       i32, i32, ctypes.c_float, p, p]),
                     (lib.dgl_bitmap_gat_bwd_src,
                      [p, i64, i64, p, p, p, p, i64, i32, i32, i32, i32, i32,
-                      i32, ctypes.c_float, p, p, p])):
+                      i32, ctypes.c_float, p, p, p]),
+                    (lib.dgl_hub_gather,
+                     [p, i64, i64, i32, p, i64, i32, p, i32, p])):
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = lib

@@ -1,38 +1,80 @@
-"""Message-passing engine (counterpart of ``dgl_tpu/core.py``).
+"""Message-passing engine (counterpart of ``dgl_tpu/core.py``; reference
+``python/dgl/core.py``).
 
-A builtin message paired with a builtin reducer lowers to one fused g-SpMM
-(reference ``python/dgl/core.py:311``). This slice ports that pairing for
-the messages g-SpMM takes directly (``copy_u``, ``copy_e`` and the
-``u op e`` binaries) with the sum/mean reducers; user-defined functions and
-the g-SDDMM lowering come in a later slice.
+``message_passing`` dispatches as the reference does (``core.py:372``):
+
+1. a builtin message with a builtin reducer lowers to one g-SpMM
+   (``invoke_gspmm``, reference ``core.py:311``); messages that read ``v``,
+   ``dot`` messages and ``e sub/div u`` are materialised per edge with
+   g-SDDMM first and reduced as ``copy_e``;
+2. a builtin message alone (``apply_edges``) lowers to g-SDDMM
+   (``invoke_gsddmm``, reference ``core.py:273``);
+3. a UDF message or reducer materialises the messages per edge; a UDF
+   reducer then reads one padded mailbox (``invoke_udf_reduce``) in place
+   of the reference's degree buckets, as ``dgl_tpu`` does.
+
+``pull``, ``push``, ``send_and_recv`` and ``multi_update_all`` come in a
+later slice and raise.
 """
 from __future__ import annotations
 
+from typing import Callable, Dict
+
+import torch
+
 from . import ops
-from .base import DGLError
+from .base import ALL, DGLError, is_all
 from .function.base import MessageFunction, ReduceFunction
 from .graph import Graph
+from .ops.sddmm import _gather_target
+from .udf import EdgeBatch, NodeBatch
 
-__all__ = ["message_passing", "invoke_gspmm"]
+__all__ = ["message_passing", "invoke_gspmm", "invoke_gsddmm",
+           "invoke_edge_udf", "invoke_udf_reduce"]
+
+
+def _src_frame(g: Graph, cet):
+    return g._node_frames.setdefault(cet[0], {})
+
+
+def _dst_frame(g: Graph, cet):
+    return g._node_frames.setdefault(cet[2], {})
+
+
+def _edge_frame(g: Graph, cet):
+    return g._edge_frames.setdefault(cet, {})
 
 
 def _fetch(g: Graph, cet, target: str, field: str):
     if target == "u":
-        frame = g._node_frames.setdefault(cet[0], {})
+        frame = _src_frame(g, cet)
+    elif target == "v":
+        frame = _dst_frame(g, cet)
     elif target == "e":
-        frame = g._edge_frames.setdefault(cet, {})
+        frame = _edge_frame(g, cet)
     else:
-        raise NotImplementedError(
-            f"messages reading the {target!r} frame lower to g-SDDMM: "
-            "ROADMAP queue A2")
+        raise DGLError(f"Unknown target {target!r}")
     if field not in frame:
         raise DGLError(f"Field {field!r} not found in {target}-frame of {cet}")
     return frame[field]
 
 
+def invoke_gsddmm(g: Graph, cet, mfunc: MessageFunction):
+    """Per-edge messages with g-SDDMM (reference ``core.py:273``)."""
+    rel = g._relations[cet]
+    lhs = _fetch(g, cet, mfunc.lhs, mfunc.lhs_field)
+    if mfunc.binary_op == "copy_lhs":
+        out = ops.gsddmm(rel, "copy_lhs", lhs, None, lhs_target=mfunc.lhs)
+    else:
+        rhs = _fetch(g, cet, mfunc.rhs, mfunc.rhs_field)
+        out = ops.gsddmm(rel, mfunc.binary_op, lhs, rhs,
+                         lhs_target=mfunc.lhs, rhs_target=mfunc.rhs)
+    return {mfunc.out_field: out}
+
+
 def invoke_gspmm(g: Graph, cet, mfunc: MessageFunction,
                  rfunc: ReduceFunction):
-    """Fused message+reduce (reference ``core.py:311``)."""
+    """Fused message + reduce (reference ``core.py:311``)."""
     rel = g._relations[cet]
     reduce_op = rfunc.name
     if mfunc.binary_op == "copy_lhs":
@@ -45,23 +87,104 @@ def invoke_gspmm(g: Graph, cet, mfunc: MessageFunction,
         else:
             raise DGLError("copy_v message is not meaningful for update_all")
         return {rfunc.out_field: out}
-    if (mfunc.lhs, mfunc.rhs) != ("u", "e") or mfunc.binary_op == "dot":
-        raise NotImplementedError(
-            f"message {mfunc.name}: lowers through g-SDDMM, ROADMAP queue A2")
-    u = _fetch(g, cet, "u", mfunc.lhs_field)
-    e = _fetch(g, cet, "e", mfunc.rhs_field)
-    out = ops.gspmm(rel, mfunc.binary_op, reduce_op, u, e)
+    op = mfunc.binary_op
+    if {mfunc.lhs, mfunc.rhs} == {"u", "e"} and op != "dot" and not (
+            mfunc.lhs == "e" and op in ("sub", "div")):
+        # u op e, or the commuting e add/mul u: g-SpMM takes (u, e)
+        u_field, e_field = ((mfunc.lhs_field, mfunc.rhs_field)
+                            if mfunc.lhs == "u"
+                            else (mfunc.rhs_field, mfunc.lhs_field))
+        u = _fetch(g, cet, "u", u_field)
+        e = _fetch(g, cet, "e", e_field)
+        return {rfunc.out_field: ops.gspmm(rel, op, reduce_op, u, e)}
+    # e sub/div u, dot, and messages reading v: materialise, reduce copy_e
+    msg = invoke_gsddmm(g, cet, mfunc)[mfunc.out_field]
+    out = ops.gspmm(rel, "copy_rhs", reduce_op, None, msg)
     return {rfunc.out_field: out}
+
+
+def invoke_edge_udf(g: Graph, cet, func: Callable):
+    """Run an edge UDF over all edges (reference ``core.py:52``)."""
+    rel = g._relations[cet]
+    src_data = {k: _gather_target(rel, "u", v)
+                for k, v in _src_frame(g, cet).items()}
+    dst_data = {k: _gather_target(rel, "v", v)
+                for k, v in _dst_frame(g, cet).items()}
+    ebatch = EdgeBatch(src_data, dict(_edge_frame(g, cet)), dst_data,
+                       edges=(rel.src, rel.dst))
+    out = func(ebatch)
+    if not isinstance(out, dict):
+        raise DGLError("Edge UDF must return a dict of edge fields")
+    return out
+
+
+def invoke_node_udf(g: Graph, func: Callable, ntype: str, orig=None):
+    data = dict(g._node_frames.setdefault(ntype, {}))
+    if orig:
+        data.update(orig)
+    out = func(NodeBatch(data))
+    if not isinstance(out, dict):
+        raise DGLError("Node UDF must return a dict of node fields")
+    return out
+
+
+def invoke_udf_reduce(g: Graph, cet, rfunc: Callable, msgdata: Dict):
+    """Padded-mailbox UDF reduce (``dgl_tpu`` ``core.py:147``).
+
+    Slot ``r`` of node ``d``'s (max_in_degree, feat) mailbox holds its
+    r-th incoming message in CSC order; the rest are zeros, and the
+    ``NodeBatch``'s ``mailbox_mask`` marks the real slots. The UDF sees all
+    destinations at once."""
+    rel = g._relations[cet]
+    maxdeg = max(rel.max_in_degree, 1)
+    n, E = rel.num_dst, rel.num_edges
+    dst = rel.csc_dst[:E].to(torch.int64)
+    # rank of each sorted edge within its destination's segment
+    rank = torch.arange(E, device=dst.device) - rel.csc_indptr[dst]
+    slot = dst * maxdeg + rank
+    mailbox = {}
+    for k, v in msgdata.items():
+        vs = v.index_select(0, rel.csc_eids[:E])
+        buf = vs.new_zeros((n * maxdeg,) + tuple(vs.shape[1:]))
+        mailbox[k] = buf.index_copy(0, slot, vs).reshape(
+            (n, maxdeg) + tuple(vs.shape[1:]))
+    deg = rel.in_degrees()
+    mask = (torch.arange(maxdeg, device=deg.device)[None, :]
+            < deg[:, None])
+    out = rfunc(NodeBatch(dict(_dst_frame(g, cet)), mailbox, mask))
+    if not isinstance(out, dict):
+        raise DGLError("Reduce UDF must return a dict of node fields")
+    return out
 
 
 def message_passing(g: Graph, mfunc, rfunc, afunc=None, etype=None):
     """Core dispatch (reference ``python/dgl/core.py:372``). Returns the new
     dst-node fields as a dict."""
-    if not (isinstance(mfunc, MessageFunction)
-            and isinstance(rfunc, ReduceFunction)) or afunc is not None:
-        raise NotImplementedError(
-            "user-defined message/reduce/apply functions: ROADMAP queue A2")
-    return invoke_gspmm(g, g.to_canonical_etype(etype), mfunc, rfunc)
+    cet = g.to_canonical_etype(etype)
+    if isinstance(mfunc, MessageFunction) and isinstance(rfunc,
+                                                         ReduceFunction):
+        ndata = invoke_gspmm(g, cet, mfunc, rfunc)
+    else:
+        if isinstance(mfunc, MessageFunction):
+            msgdata = invoke_gsddmm(g, cet, mfunc)
+        else:
+            msgdata = invoke_edge_udf(g, cet, mfunc)
+        if isinstance(rfunc, ReduceFunction):
+            out = ops.gspmm(g._relations[cet], "copy_rhs", rfunc.name, None,
+                            msgdata[rfunc.msg_field])
+            ndata = {rfunc.out_field: out}
+        else:
+            ndata = invoke_udf_reduce(g, cet, rfunc, msgdata)
+    if afunc is not None:
+        data = dict(_dst_frame(g, cet))
+        data.update(ndata)
+        ndata.update(afunc(NodeBatch(data)))
+    return ndata
+
+
+# ---------------------------------------------------------------------------
+# Graph-method implementations (bound in graph.py)
+# ---------------------------------------------------------------------------
 
 
 def update_all_(g: Graph, message_func, reduce_func, apply_node_func=None,
@@ -70,5 +193,74 @@ def update_all_(g: Graph, message_func, reduce_func, apply_node_func=None,
     cet = g.to_canonical_etype(etype)
     ndata = message_passing(g, message_func, reduce_func, apply_node_func,
                             etype=cet)
-    g._node_frames.setdefault(cet[2], {}).update(ndata)
+    _dst_frame(g, cet).update(ndata)
     return ndata
+
+
+def _set_rows(frame, data, rows):
+    """Write ``data[k][rows]`` into ``frame[k]`` out of place (zeros where
+    the frame has no such field of that shape); returns the rows."""
+    for k, val in data.items():
+        base = frame.get(k)
+        if base is None or base.shape != val.shape:
+            base = torch.zeros_like(val)
+        frame[k] = base.index_put((rows,), val[rows])
+    return {k: v[rows] for k, v in data.items()}
+
+
+def _ids(ids, device):
+    return torch.atleast_1d(torch.as_tensor(ids, device=device)).to(
+        torch.int64)
+
+
+def apply_edges_(g: Graph, func, edges=ALL, etype=None):
+    """``DGLGraph.apply_edges`` (reference ``heterograph.py:4597``).
+
+    A subset is computed over all edges and only its rows are written into
+    the edge frame, as ``dgl_tpu`` does; the subset's values are
+    returned."""
+    cet = g.to_canonical_etype(etype)
+    if isinstance(func, MessageFunction):
+        edata = invoke_gsddmm(g, cet, func)
+    else:
+        edata = invoke_edge_udf(g, cet, func)
+    frame = _edge_frame(g, cet)
+    if is_all(edges):
+        frame.update(edata)
+        return edata
+    return _set_rows(frame, edata, _ids(edges, g.device))
+
+
+def apply_nodes(g: Graph, func, v=ALL, ntype=None):
+    """``DGLGraph.apply_nodes`` (reference ``heterograph.py:4495``); a node
+    subset is computed over all nodes and its rows written."""
+    ntype = ntype or g.ntypes[0]
+    ndata = invoke_node_udf(g, func, ntype)
+    frame = g._node_frames.setdefault(ntype, {})
+    if is_all(v):
+        frame.update(ndata)
+        return ndata
+    return _set_rows(frame, ndata, _ids(v, g.device))
+
+
+def _later(what):
+    raise NotImplementedError(
+        f"{what}: subset propagation and multi-relation updates come in a "
+        "later slice (ROADMAP queue A2)")
+
+
+def multi_update_all_(g, etype_dict, cross_reducer, apply_node_func=None):
+    _later("multi_update_all")
+
+
+def pull(g, v, message_func, reduce_func, apply_node_func=None, etype=None):
+    _later("pull")
+
+
+def push(g, u, message_func, reduce_func, apply_node_func=None, etype=None):
+    _later("push")
+
+
+def send_and_recv(g, edges, message_func, reduce_func, apply_node_func=None,
+                  etype=None):
+    _later("send_and_recv")

@@ -200,6 +200,27 @@ class Relation:
     def out_degrees(self) -> torch.Tensor:
         return self.csr_indptr[1:] - self.csr_indptr[:-1]
 
+    def edge_mask(self) -> torch.Tensor:
+        """Boolean (E_padded,) mask of the real (non-padding) edges."""
+        return (torch.arange(self.num_edges_padded, device=self.device)
+                < self.num_edges)
+
+    def reverse(self) -> "Relation":
+        """The relation with src and dst swapped: CSR and CSC trade places
+        (reference ``UnitGraph`` reverse view). No copy; plans stay
+        behind."""
+        swap = {"src": "dst", "dst": "src", "csr_indptr": "csc_indptr",
+                "csr_indices": "csc_indices", "csr_eids": "csc_eids",
+                "csr_src": "csc_dst", "csc_indptr": "csr_indptr",
+                "csc_indices": "csr_indices", "csc_eids": "csr_eids",
+                "csc_dst": "csr_src"}
+        return Relation({f: getattr(self, swap[f])
+                         for f in Relation.ARRAY_FIELDS},
+                        num_src=self.num_dst, num_dst=self.num_src,
+                        num_edges=self.num_edges,
+                        max_in_degree=self.max_out_degree,
+                        max_out_degree=self.max_in_degree)
+
     def edge_keys(self) -> torch.Tensor:
         """Sorted distinct ``dst * num_src + src`` keys of the real edges:
         fewer than ``num_edges`` of them when the relation has
@@ -240,6 +261,10 @@ class _FrameView(Mapping):
             raise DGLError(f"Feature first dim {value.shape[0]} != number "
                            f"of {self._what} {self._rows[0]}")
         self._frame[key] = value
+
+    def update(self, other):
+        for key, value in dict(other).items():
+            self[key] = value
 
     def __iter__(self):
         return iter(self._frame)
@@ -357,7 +382,17 @@ class Graph:
             return deg
         return deg[torch.as_tensor(u, device=deg.device)]
 
-    # -- message passing -----------------------------------------------------
+    # -- message passing (implemented in core.py) ----------------------------
+
+    def apply_nodes(self, func, v=ALL, ntype=None):
+        from . import core
+
+        return core.apply_nodes(self, func, v=v, ntype=ntype)
+
+    def apply_edges(self, func, edges=ALL, etype=None):
+        from . import core
+
+        return core.apply_edges_(self, func, edges=edges, etype=etype)
 
     def update_all(self, message_func, reduce_func, apply_node_func=None,
                    etype=None):
@@ -365,6 +400,34 @@ class Graph:
 
         return core.update_all_(self, message_func, reduce_func,
                                 apply_node_func, etype=etype)
+
+    def multi_update_all(self, etype_dict, cross_reducer,
+                         apply_node_func=None):
+        from . import core
+
+        return core.multi_update_all_(self, etype_dict, cross_reducer,
+                                      apply_node_func)
+
+    def pull(self, v, message_func, reduce_func, apply_node_func=None,
+             etype=None):
+        from . import core
+
+        return core.pull(self, v, message_func, reduce_func,
+                         apply_node_func, etype=etype)
+
+    def push(self, u, message_func, reduce_func, apply_node_func=None,
+             etype=None):
+        from . import core
+
+        return core.push(self, u, message_func, reduce_func,
+                         apply_node_func, etype=etype)
+
+    def send_and_recv(self, edges, message_func, reduce_func,
+                      apply_node_func=None, etype=None):
+        from . import core
+
+        return core.send_and_recv(self, edges, message_func, reduce_func,
+                                  apply_node_func, etype=etype)
 
     def local_scope(self):
         """Context manager isolating frame mutations."""

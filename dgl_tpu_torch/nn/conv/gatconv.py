@@ -1,15 +1,20 @@
 """Graph attention layer (counterpart of ``dgl_tpu/nn/conv/gatconv.py``).
 
 Reference: ``python/dgl/nn/pytorch/conv/gatconv.py``. The reference picks
-one of four routes for the attention; this slice ports the bitmap-flash
-route (``ops/bitmap_gat.py``, kernel B3), taken when the graph carries a
-bitmap plan (``Graph.with_spmm_plans(bitmap=...)``). The other routes
-raise with their ROADMAP items:
+one of four routes for the attention; two are ported:
 
-- dense masked attention, where the reference attaches a dense-attention
-  plan (the relation's ``dense_attn`` mark; ROADMAP queue A7);
-- fused shell-space attention over a shell plan (ROADMAP queue A7);
-- the per-edge SDDMM / edge-softmax / SpMM chain (ROADMAP queue A2).
+- the bitmap-flash route (``ops/bitmap_gat.py``, kernels B3 to B5), taken
+  when the graph carries a bitmap plan (``Graph.with_spmm_plans(bitmap=
+  ...)``), there are no edge weights, no attention is returned and no
+  attention dropout runs;
+- the per-edge route, everywhere else: ``apply_edges(u_add_v)``, leaky
+  ReLU, ``edge_softmax``, the edge weights, attention dropout in training
+  mode, ``update_all(u_mul_e, sum)`` (reference ``gatconv.py:337-346``).
+
+The other two raise with their ROADMAP items: dense masked attention, where
+the reference attaches a dense-attention plan (the relation's
+``dense_attn`` mark), and fused shell-space attention over a shell plan
+(both ROADMAP queue A7).
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from ... import function as fn
+from ...ops.edge_softmax import edge_softmax
 from .graphconv import check_zero_in_degree, expand_as_pair
 
 
@@ -106,10 +113,19 @@ class GATConv(nn.Module):
                 raise NotImplementedError(
                     "GATConv over a shell plan (ops/fused_gat.py, fused "
                     "shell-space attention): ROADMAP queue A7")
-            raise NotImplementedError(
-                "GATConv's per-edge route (apply_edges(u_add_v), "
-                "edge_softmax, update_all(u_mul_e, sum)) needs g-SDDMM and "
-                "edge_softmax: ROADMAP queue A2")
+            g.srcdata.update({"ft": h_src, "el": el.unsqueeze(-1)})
+            g.dstdata.update({"er": er.unsqueeze(-1)})
+            g.apply_edges(fn.u_add_v("el", "er", "e"))
+            e = nn.functional.leaky_relu(g.edata["e"], self.negative_slope)
+            a = edge_softmax(g, e)  # (E, H, 1)
+            if edge_weight is not None:
+                a = a * edge_weight.reshape(-1, 1, 1)
+            if self.training and self.attn_drop > 0:
+                a = nn.functional.dropout(a, self.attn_drop)
+            g.edata["a"] = a
+            g.update_all(fn.u_mul_e("ft", "a", "m"), fn.sum("m", "ft"))
+            rst = self._finish(g.dstdata["ft"], feat_dst, H, O)
+            return (rst, a) if get_attention else rst
 
     def _finish(self, rst, feat_dst, H, O):
         if self.res_fc is not None:

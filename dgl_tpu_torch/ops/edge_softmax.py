@@ -1,0 +1,93 @@
+"""Edge softmax: softmax over the incoming edges of each destination node
+(counterpart of ``dgl_tpu/ops/edge_softmax.py``; reference
+``python/dgl/ops/edge_softmax.py:12``).
+
+Ported: the plain branch, a numerically stable softmax whose reductions
+(g-SpMM's max and sum over ``copy_e``) run over the sorted (CSC) view and
+whose result is re-expressed in eid order with gathers; padded edges get
+0. ``norm_by="src"`` normalises over out-edges through the reversed
+relation. The autograd function saves only the output, as the reference's
+``EdgeSoftmax.backward``
+(``python/dgl/backend/pytorch/sparse.py:685``):
+
+    grad_e = out * grad_out - out * sum_per_dst(out * grad_out)[dst]
+
+The uniform-stride (MFG block) branch and the shell-plan branch raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..graph import Graph, Relation
+from .sddmm import _gather_target, _mask_pad
+from .spmm import _gspmm_cmp, _gspmm_sum
+
+__all__ = ["edge_softmax"]
+
+
+def _dst_max(rel: Relation, logits):
+    """Each destination's largest logit over its real in-edges; 0 for a
+    row without in-edges or whose maximum is not finite (the reference's
+    shift)."""
+    smax = _gspmm_cmp("copy_rhs", "max", rel, None, logits)
+    return torch.where(torch.isfinite(smax), smax, 0.0)
+
+
+def _check_branch(rel: Relation, norm_by: str):
+    if norm_by not in ("dst", "src"):
+        raise ValueError(f"norm_by must be 'dst' or 'src', got {norm_by!r}")
+    if rel.uniform_stride > 0 and norm_by == "dst":
+        raise NotImplementedError(
+            "edge_softmax over uniform-stride MFG blocks: the minibatch "
+            "slice, ROADMAP queue A5")
+    if rel.shell_plan is not None:
+        raise NotImplementedError(
+            "edge_softmax over a shell plan (shell_edge_softmax): ROADMAP "
+            "queue A3/A7")
+
+
+class _EdgeSoftmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rel, norm_by, logits):
+        if norm_by == "src":
+            rel = rel.reverse()
+        z = torch.exp(logits - _gather_target(rel, "v", _dst_max(rel,
+                                                                  logits)))
+        # the real edges' exponentials summed per destination
+        ssum = _gspmm_sum("copy_rhs", rel, None, z)
+        out = z / _gather_target(rel, "v", torch.clamp(ssum, min=1e-38))
+        # padded edges get 0 (the reference's clamped gathers leave
+        # meaningless values, often inf, there) and so no gradient
+        out = _mask_pad(rel, out)
+        ctx.rel = rel
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dz):
+        (out,) = ctx.saved_tensors
+        rel = ctx.rel
+        sds = out * dz
+        accum = _gspmm_sum("copy_rhs", rel, None, sds)
+        return None, None, sds - out * _gather_target(rel, "v", accum)
+
+
+def edge_softmax(graph, logits, eids=None, norm_by="dst", etype=None):
+    """Edge softmax (reference ``python/dgl/ops/edge_softmax.py:12``).
+
+    ``logits``: (E, *) edge logits in eid order. Returns normalised scores
+    of the same shape. ``norm_by="dst"`` normalises over each node's
+    incoming edges (the GAT convention), ``"src"`` over its outgoing
+    edges. With ``eids``, the softmax runs over that subset of edges only:
+    the others take part as ``-inf`` logits and receive 0."""
+    rel = graph._relation(etype) if isinstance(graph, Graph) else graph
+    _check_branch(rel, norm_by)
+    if eids is None:
+        return _EdgeSoftmax.apply(rel, norm_by, logits)
+    mask = torch.zeros(rel.num_edges_padded, dtype=torch.bool,
+                       device=logits.device)
+    mask[torch.as_tensor(eids, device=logits.device).to(torch.int64)] = True
+    mask = mask.reshape((-1,) + (1,) * (logits.dim() - 1))
+    out = _EdgeSoftmax.apply(rel, norm_by,
+                             torch.where(mask, logits, -torch.inf))
+    return torch.where(mask, out, 0.0)

@@ -4,11 +4,16 @@ Counterpart of ``dgl_tpu/ops/spmm.py``. :func:`gspmm` keeps the reference's
 dispatch order: uniform-stride blocks, bitmap plan, dense-hub plan, shell
 plan, then the plain path. Ported: the bitmap branch (``copy_u`` with
 sum/mean on 2-D features), the dense-hub branch (``copy_u`` with sum/mean)
-and the plain sorted segment sum; the branches of later slices raise and
-never run something else in their place.
+and the plain path with all four reducers; the uniform-stride and shell
+branches raise and never run something else in their place.
 
-The plain path gathers the messages in CSC (dst-sorted) order and sums them
-with ``index_add_``. PyTorch's autograd differentiates it directly.
+The plain path gathers the messages in CSC (dst-sorted) order and reduces
+them over the real edges: sums with ``index_add``, max and min with
+``scatter_reduce`` (zero-in-degree rows give 0, reference
+``heterograph.py:5117-5123``). PyTorch's autograd differentiates both. A
+tied maximum or minimum splits its gradient evenly among the tied
+messages, on both sides (``scatter_reduce``'s rule; JAX's scatter-extremal
+JVP averages them).
 """
 from __future__ import annotations
 
@@ -20,6 +25,25 @@ from ..base import DGLError
 from ..graph import Graph, Relation
 
 __all__ = ["gspmm"]  # extended by _register below
+
+
+def _reduce_grad(grad, shape):
+    """Sum a gradient over the dims its input was broadcast along
+    (reference ``backend/pytorch/sparse.py:43``)."""
+    grad_shape = tuple(grad.shape[1:])
+    in_shape = tuple(shape[1:])
+    if grad_shape == in_shape:
+        return grad
+    num_to_squeeze = len(grad_shape) - len(in_shape)
+    in_shape_pad = (1,) * num_to_squeeze + in_shape
+    dims = tuple(i + 1 for i, (g, s) in enumerate(zip(grad_shape,
+                                                       in_shape_pad))
+                 if s == 1 and g > 1)
+    if dims:
+        grad = grad.sum(dim=dims, keepdim=True)
+    if num_to_squeeze:
+        grad = grad.reshape(grad.shape[:1] + in_shape)
+    return grad
 
 
 def _expand(x, ndim):
@@ -45,18 +69,35 @@ def _binary(op, lhs, rhs):
     raise DGLError(f"Unknown spmm binary op {op!r}")
 
 
-def _gspmm_sum(op, rel: Relation, u, e):
-    """Sorted segment sum over the real edges in CSC order (padded edges
-    sort to the end of the CSC arrays and are left out)."""
+def _messages_csc(op, rel: Relation, u, e):
+    """Per-edge messages of the real edges in CSC (dst-sorted) order:
+    padded edges sort to the end of the CSC arrays and are left out."""
     E = rel.num_edges
     ul = u.index_select(0, rel.csc_indices[:E]) if op != "copy_rhs" else None
     el = e.index_select(0, rel.csc_eids[:E]) if op != "copy_lhs" else None
     if ul is not None and el is not None:
         nd = max(ul.dim(), el.dim())
         ul, el = _expand(ul, nd), _expand(el, nd)
-    m = _binary(op, ul, el)
+    return _binary(op, ul, el)
+
+
+def _gspmm_sum(op, rel: Relation, u, e):
+    """Sorted segment sum over the real edges."""
+    m = _messages_csc(op, rel, u, e)
     out = m.new_zeros((rel.num_dst,) + tuple(m.shape[1:]))
-    return out.index_add(0, rel.csc_dst[:E], m)
+    return out.index_add(0, rel.csc_dst[:rel.num_edges], m)
+
+
+def _gspmm_cmp(op, reduce_op, rel: Relation, u, e):
+    """Max or min over each destination's messages (reference
+    ``spmm.py:202-210``); a row without in-edges keeps the initial 0."""
+    m = _messages_csc(op, rel, u, e)
+    idx = rel.csc_dst[:rel.num_edges].to(torch.int64)
+    idx = idx.reshape((-1,) + (1,) * (m.dim() - 1)).expand_as(m)
+    out = m.new_zeros((rel.num_dst,) + tuple(m.shape[1:]))
+    return out.scatter_reduce(0, idx, m,
+                              "amax" if reduce_op == "max" else "amin",
+                              include_self=False)
 
 
 def _mean(rel: Relation, out):
@@ -68,7 +109,7 @@ def gspmm(g, op, reduce_op, lhs_data, rhs_data, etype=None):
     """Fused message+reduce (reference ``python/dgl/ops/spmm.py:39``).
 
     ``op`` in {add, sub, mul, div, copy_lhs, copy_rhs}; ``reduce_op`` in
-    {sum, mean} in this slice. ``lhs_data`` are source node features,
+    {sum, mean, max, min}. ``lhs_data`` are source node features,
     ``rhs_data`` edge features. Returns destination-node features.
     """
     rel = g._relation(etype) if isinstance(g, Graph) else g
@@ -110,8 +151,7 @@ def gspmm(g, op, reduce_op, lhs_data, rhs_data, etype=None):
     if reduce_op in ("sum", "mean"):
         out = _gspmm_sum(op, rel, u, e)
         return _mean(rel, out) if reduce_op == "mean" else out
-    raise NotImplementedError(
-        f"g-SpMM with the {reduce_op} reducer: ROADMAP queue A2")
+    return _gspmm_cmp(op, reduce_op, rel, u, e)
 
 
 def _gen_spmm_func(binary_op, reduce_op):

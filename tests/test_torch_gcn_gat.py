@@ -274,18 +274,22 @@ def test_gatconv_raises_off_the_bitmap_route():
         conv(gd, x)
     gb = g.with_spmm_plans(num_hubs=16, dense_attn=False)
     assert conv(gb, x).shape == (n, 2, 4)
-    # no plan: the per-edge chain (needs g-SDDMM and edge_softmax)
-    with pytest.raises(NotImplementedError, match="queue A2"):
-        conv(g, x)
-    with pytest.raises(NotImplementedError, match="queue A2"):
-        conv(gb, x, get_attention=True)
-    with pytest.raises(NotImplementedError, match="queue A2"):
-        conv(gb, x, edge_weight=torch.ones(gb.num_edges()))
+    # no plan, an edge weight, the attention returned: the per-edge chain
+    # (g-SDDMM, edge_softmax, g-SpMM), ported since the message-passing
+    # slice; on the same relation it gives the same values with or
+    # without the plans
+    edge = conv(g, x)
+    assert edge.shape == (n, 2, 4) and torch.isfinite(edge).all()
+    rst, attn = conv(gb, x, get_attention=True)
+    assert attn.shape == (gb.num_edges(), 2, 1)
+    torch.testing.assert_close(rst, edge, rtol=0, atol=0)
+    torch.testing.assert_close(
+        conv(gb, x, edge_weight=torch.ones(gb.num_edges())), edge,
+        rtol=0, atol=0)
     # attention dropout in training mode leaves the bitmap route
     drop = GATConv(6, 4, 2, attn_drop=0.5, allow_zero_in_degree=True,
                    device="cpu").train()
-    with pytest.raises(NotImplementedError, match="queue A2"):
-        drop(gb, x)
+    assert drop(gb, x).shape == (n, 2, 4)
     # a shell plan: the fused shell-space route
     key = g.to_canonical_etype(None)
     gs = g.structural_clone()

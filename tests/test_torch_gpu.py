@@ -20,6 +20,8 @@ from dgl_tpu_torch.ops import bitmap_gat as tbg
 from dgl_tpu_torch.ops.bitmap_spmm import (
     bitmap_copy_u_sum, bitmap_matmul, bitmap_matmul_plain, build_bitmap_plan,
     unpack_host)
+from dgl_tpu_torch.ops.hub_cache import HubPlan, _hub_gather_plain, hub_gather
+from dgl_tpu_torch.ops.hub_cache import hub_copy_u_sum as hub_cache_copy_u_sum
 from dgl_tpu_torch.ops.hub_spmm import build_hub_plan, hub_copy_u_sum
 from dgl_tpu_torch.ops.shell_prefix import (
     flat_shell_indices, shell_prefix_sum, shell_prefix_sum_plain)
@@ -460,3 +462,104 @@ def test_training_step_on_card_matches_cpu(card, name, dense, make, counts):
         torch.testing.assert_close(p.grad.cpu(), ref, rtol=0,
                                    atol=2.0 ** -8 * ref.abs().max().item(),
                                    msg=k)
+
+
+# ---------------------------------------------------------------------------
+# B6 (hub_gather) and the per-edge GAT route
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("precision", ["highest", "bf16"])
+@pytest.mark.parametrize("feat", [256, 40, 13])
+def test_hub_gather_kernel_matches_plain(card, dtype, precision, feat):
+    """Exact selections on both sides: equal to the bit. Random slots over
+    [0, H] (the sentinel H included), a negative slot, and F = 13 (the
+    one-value path); the table also as a view one element in, which is not
+    16-byte aligned (the one-value path too)."""
+    H, E = 512, 6144
+    rng = np.random.default_rng(feat)
+    table = torch.from_numpy(rng.normal(size=(H + 1, feat)).astype(
+        np.float32)).to(dtype)
+    slots = torch.from_numpy(rng.integers(0, H + 1, (E, 1)).astype(np.int32))
+    slots[5, 0] = -3
+    table_c = table.to(card)
+    shifted = table_c.reshape(-1)[1:1 + H * feat].view(H, feat)
+    for hub in (table_c[:H], shifted):
+        before = _kernels.launch_counts["hub_gather"]
+        out = hub_gather(hub, slots.to(card), precision=precision)
+        torch.cuda.synchronize()
+        assert _kernels.launch_counts["hub_gather"] == before + 1
+        assert out.dtype == dtype and out.shape == (E, feat)
+        want = _hub_gather_plain(hub.cpu(), slots, precision)
+        assert torch.equal(out.cpu(), want)
+        assert torch.equal(out, _hub_gather_plain(hub, slots.to(card),
+                                                  precision))
+        dead = (slots[:, 0] < 0) | (slots[:, 0] >= H)
+        assert not out[dead.to(card)].any() and int(dead.sum()) > 0
+
+
+def test_hub_gather_rejects_wrong_inputs(card):
+    hub = torch.ones(256, 8, device=card)
+    slots = torch.zeros(2048, 1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="int32"):
+        hub_gather(hub, slots.long())
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        hub_gather(hub.double(), slots)
+    with pytest.raises(ValueError, match="2048"):
+        hub_gather(hub, slots[:1000])
+
+
+def test_hub_copy_u_sum_launches_b6(card):
+    """The hub-cache g-SpMM on the card: one B6 launch per call, the exact
+    ``copy_u_sum`` at rtol = atol = 2e-4 (``tests/test_pallas_hub.py``'s
+    bound; the same f32 rows summed in another order)."""
+    rng = np.random.default_rng(9)
+    n, e = 6000, 48000
+    w = 1.0 / np.arange(1, n + 1)
+    src = rng.choice(n, e, p=w / w.sum())
+    g = dt.graph((src, rng.integers(0, n, e)), num_nodes=n, device=card)
+    x = torch.from_numpy(rng.normal(size=(n, 40)).astype(np.float32)).to(card)
+    plan = HubPlan.build(g._relation(), 1024)
+    assert plan.slots.is_cuda and 0.0 < plan.coverage < 1.0
+    before = _kernels.launch_counts["hub_gather"]
+    with torch.no_grad():
+        out = hub_cache_copy_u_sum(g._relation(), x, plan=plan)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["hub_gather"] == before + 1
+    torch.testing.assert_close(out, dt.ops.copy_u_sum(g, x), rtol=2e-4,
+                               atol=2e-4)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        hub_cache_copy_u_sum(g._relation(), x.requires_grad_(), plan=plan)
+
+
+def test_gatconv_edge_route_matches_bitmap_route(card):
+    """On a 4,200-node graph: GATConv's per-edge route (an edge weight of
+    ones, which changes nothing) against its bitmap route (B3) on the card,
+    with weights and input exact in bf16 so that B3's rounding of the
+    projection changes nothing: B3's tolerance, rtol = 1e-4 and
+    atol = 1e-5 * max|ref|. The per-edge route launches no kernel."""
+    rng = np.random.default_rng(15)
+    n = 4200
+    src, dst = rng.integers(0, n, 60000), rng.integers(0, n, 60000)
+    flat = np.unique(np.concatenate([dst * n + src, np.arange(n) * (n + 1)]))
+    g = dt.graph((flat % n, flat // n), num_nodes=n, device=card)
+    g = g.with_spmm_plans(num_hubs=128, dense_attn=False)
+    conv = GATConv(8, 16, 4, generator=torch.Generator().manual_seed(2),
+                   device=card).eval()
+    with torch.no_grad():
+        conv.fc.weight.copy_(torch.from_numpy(
+            rng.integers(-7, 8, tuple(conv.fc.weight.shape)) / 8.0))
+    x = torch.from_numpy(rng.integers(-1, 2, (n, 8)).astype(np.float32))
+    x = x.to(card)
+    with torch.inference_mode():
+        _kernels.reset_launch_counts()
+        bitmap = conv(g, x)
+        torch.cuda.synchronize()
+        assert _kernels.launch_counts["bitmap_gat_fwd"] == 1
+        _kernels.reset_launch_counts()
+        edge = conv(g, x, edge_weight=torch.ones(g.num_edges(), device=card))
+        torch.cuda.synchronize()
+        assert not any(_kernels.launch_counts.values())
+    torch.testing.assert_close(edge, bitmap, rtol=1e-4,
+                               atol=1e-5 * bitmap.abs().max().item())

@@ -130,14 +130,21 @@ def test_u_mul_e_sum_no_plan_matches():
 def test_later_slices_raise():
     src, dst, n = _edges("multi", 0)
     tg = dt.graph((src, dst), num_nodes=n, device="cpu")
-    x = torch.ones(n, 2)
-    with pytest.raises(NotImplementedError, match="queue A2"):
-        dt.ops.copy_u_max(tg, x)
+    jg = dgl_tpu.graph((src, dst), num_nodes=n)
+    x = np.random.default_rng(1).normal(size=(n, 2)).astype(np.float32)
+    rel = tg._relation()
+    with pytest.raises(NotImplementedError, match="queue A5"):
+        dt.ops.copy_u_max(rel._copy_with(uniform_stride=4),
+                          torch.from_numpy(x))
+    # the max reducer runs since the message-passing slice: the
+    # reference's values, parallel edges included
+    np.testing.assert_allclose(
+        dt.ops.copy_u_max(tg, torch.from_numpy(x)).numpy(),
+        np.asarray(dgl_tpu.ops.copy_u_max(jg, x)), rtol=1e-6, atol=1e-6)
     with pytest.raises(NotImplementedError, match="weighted"):
         tg.with_spmm_plans(weighted=True)
     # multi-edges: neither a bitmap plan nor the dense-attention mark
     # attaches, forced or not, as in the reference
-    jg = dgl_tpu.graph((src, dst), num_nodes=n)
     for kw in ({}, {"bitmap": True, "dense_attn": True}):
         rel = tg.with_spmm_plans(num_hubs=128, **kw)._relation()
         assert rel.hub_plan is not None and rel.bitmap_plan is None
