@@ -6,7 +6,15 @@
 Run it from the root of a checkout, on a machine with a CUDA card. It
 
 1. builds the hand-written CUDA kernels from ``dgl_tpu_torch/csrc`` (one
-   ``nvcc`` per source, started together);
+   ``nvcc`` per source, started together), and B4's and B5's sources once
+   more with ``-Xptxas -v`` for their registers, shared memory and spills;
+1a. holds B4 and B5 against their plain versions at the edges of their
+    walk (phase ``bitmap_gat_bwd_edge_cases``): a dst row with more set
+    bits than the walk's queue holds, empty rows both ways, rows whose
+    block count is not a whole number of the walk's 2-block loads, row
+    counts that are not a multiple of a thread block's 8 rows, and every
+    (nh, nf) case of the kernels' switch; rows without an edge must get
+    exact zeros;
 
 the GraphSAGE path (kernel B1, shell prefix sum):
 
@@ -79,7 +87,10 @@ bitmap-flash GAT forward, and B4 and B5, its backward):
     their plain versions on both layers' real step inputs, B4 on the 4,096
     dst rows of step 11 and B5 on 4,096 source rows chosen the same way,
     at B3's tolerance; times both (no PyTorch call computes them; the plain
-    versions on the check rows only) and the step, and profiles the step.
+    versions on the check rows only) beside their times with ``dz`` in
+    f32 (``prev_ms``, PERF.md's figure for them, not measured here),
+    ``ptxas``'s figures, the blocks an SM holds and the bitmap bytes in
+    flight per SM while those warps load; times the step and profiles it.
 
 the hub-cache path (kernel B6, hub gather; ``benchmarks/bench_hub.py``'s
 defaults: 1024 hubs, F = 256, f32):
@@ -142,6 +153,21 @@ REDDIT_FEAT, REDDIT_CLASSES = 602, 41
 GCN_HIDDEN = 16  # examples/reddit_fullgraph_gcn.py:48-54
 GAT_HIDDEN, GAT_HEADS = 8, 8  # benchmarks/bench_reddit_gat.py:47-48
 B3_CHECK_ROWS = 4096
+# B4's and B5's times with dz in f32, as PERF.md records them (H100 80GB
+# HBM3 at 700 W, the final chip run of the PR that ported them), by GAT
+# layer: printed beside this run's times as "prev_ms", not measured here
+PREV_MS = {"bitmap_gat_bwd_dst": {"layer0 H=8 O=8": 5.990,
+                                  "layer1 H=1 O=41": 5.684},
+           "bitmap_gat_bwd_src": {"layer0 H=8 O=8": 8.339,
+                                  "layer1 H=1 O=41": 7.257}}
+# the edge cases of B4's and B5's walk: a bitmap of 1,301 dst rows by
+# 26,001 sources (7 blocks a dst row, 1 a source row), and (heads, odim)
+# pairs giving each (nh, nf) case of the kernels' switch
+EDGE_N_SRC, EDGE_N_DST = 26_001, 1_301
+EDGE_CASES = ((1, 5), (2, 8), (3, 7), (12, 8), (1, 16), (2, 12), (5, 16),
+              (1, 32), (3, 20), (2, 130))
+SWITCH_CASES = {(1, 8), (2, 8), (4, 8), (8, 8), (1, 16), (2, 16), (4, 16),
+                (1, 32), (2, 32), (1, 64)}
 HUB_HUBS, HUB_FEAT = 1024, 256  # benchmarks/bench_hub.py's defaults
 # DGL's examples/pytorch/ogb/ogbn-arxiv GAT: 3 layers, 3 heads, 250 hidden
 EDGE_GAT_HIDDEN, EDGE_GAT_HEADS = 250, 3
@@ -171,6 +197,55 @@ def hbm_rate(name: str) -> float:
         if key in name:
             return rate
     raise RuntimeError(f"no HBM bandwidth on record for {name!r}")
+
+
+def ptxas_start(names):
+    """Compile each of ``csrc/<name>.cu`` once more with ``-Xptxas -v``
+    (the build's target and optimisation), in the background; returns the
+    running ``nvcc`` processes by name."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from dgl_tpu_torch import _kernels
+
+    out_dir = os.path.join(_kernels.BUILD_DIR, "ptxas")
+    os.makedirs(out_dir, exist_ok=True)
+    return {name: subprocess.Popen(
+        [os.path.join(CUDA_HOME, "bin", "nvcc"), *_kernels.CUDA_FLAGS,
+         "-std=c++17", "-c", "-Xptxas", "-v", "-o",
+         os.path.join(out_dir, name + ".o"),
+         os.path.join(ROOT, "dgl_tpu_torch", "csrc", name + ".cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in names}
+
+
+def ptxas_report(proc) -> dict:
+    """What ``ptxas -v`` said of each (nh, nf) instantiation of a kernel
+    template: registers, static shared bytes, stack frame and spills."""
+    import re
+
+    text = proc.communicate()[0]
+    if proc.returncode:
+        raise RuntimeError(f"nvcc -Xptxas -v failed: {text[-2000:]}")
+    report, key = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '[^']*?ILi(\d+)ELi(\d+)E",
+                      line)
+        if m:
+            key = f"nh={m.group(1)} nf={m.group(2)}"
+            report[key] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and key:
+            report[key].update(stack_bytes=int(m.group(1)),
+                               spill_store_bytes=int(m.group(2)),
+                               spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key:
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[key].update(registers=int(m.group(1)),
+                               smem_bytes=int(smem.group(1)) if smem else 0)
+    return report
 
 
 def emit(obj) -> None:
@@ -834,9 +909,11 @@ def run_gcn_training(g, gp, feat, y, mask, rate: float, tag: dict) -> dict:
             "train_step_ms": timing["step_ms"], "backward": bwd}
 
 
-def run_gat_training(gp, feat, y, mask, rate: float, tag: dict) -> dict:
+def run_gat_training(gp, feat, y, mask, rate: float, ptxas: dict,
+                     tag: dict) -> dict:
     """GAT training at Reddit scale (B3 forward, B4 and B5 backward);
-    returns B4's and B5's figures."""
+    returns B4's and B5's figures, with ``ptxas``'s report of each and its
+    occupancy beside them."""
     import torch
 
     from dgl_tpu_torch.models import GAT
@@ -893,25 +970,33 @@ def run_gat_training(gp, feat, y, mask, rate: float, tag: dict) -> dict:
                                    f"max abs err {errs[what]} (max |ref| "
                                    f"{scale})")
         nh, nho = N * heads, N * heads * odim
-        # B4 reads el, er, lse, c (f32), h (bf16) and dz (f32) and writes
-        # der; B5 reads el, h per source and er, lse, c, dz per
-        # destination and writes del and dh
+        # B4 reads el, er, lse, c (f32), h and dz (bf16) and writes der; B5
+        # reads el, h per source and er, lse, c, dz per destination and
+        # writes del and dh
         bound_d = bitmap_bound(bits, n_rows, nh * 4 * 4 + nho * 2
-                               + nho * 4 + nh * 4, E * heads * odim * 2,
+                               + nho * 2 + nh * 4, E * heads * odim * 2,
                                rate)
         bound_s = bitmap_bound(bits_t, n_src, nh * 4 * 4 + nho * 2
-                               + nho * 4 + nh * 4 + nho * 4,
+                               + nho * 2 + nh * 4 + nho * 4,
                                E * heads * odim * 4, rate)
         common = {"H": heads, "O": odim, "library_ms": None,
                   "plain_rows": B3_CHECK_ROWS}
-        b4[label] = {**common, "max_abs_err": errs["der"],
+        compiled = {name: {"ptxas": ptxas[name][
+            "nh={} nf={}".format(*tbg._passes(heads, odim)[:2])],
+            **tbg.bwd_occupancy(name, heads, odim),
+            "prev_ms": PREV_MS[name][label],
+            "prev_ms_source": "PERF.md, PR 3's final chip run (dz in f32); "
+                              "not measured in this run"} for name in PREV_MS}
+        b4[label] = {**common, **compiled["bitmap_gat_bwd_dst"],
+                     "max_abs_err": errs["der"],
                      "max_rel_err": rel["der"],
                      "ms": time_ms(lambda: tbg.bitmap_gat_bwd_dst(*args_d),
                                    10, hide_host=True),
                      "plain_ms": time_ms(plain_d, 2, warmup=1,
                                          hide_host=True),
                      "bound_ms": bound_d[0], "bound_by": bound_d[1]}
-        b5[label] = {**common, "max_abs_err": max(errs["del"], errs["dh"]),
+        b5[label] = {**common, **compiled["bitmap_gat_bwd_src"],
+                     "max_abs_err": max(errs["del"], errs["dh"]),
                      "max_abs_err_del": errs["del"],
                      "max_abs_err_dh": errs["dh"],
                      "max_rel_err_del": rel["del"],
@@ -942,7 +1027,7 @@ def run_gat_training(gp, feat, y, mask, rate: float, tag: dict) -> dict:
             "b4": b4, "b5": b5}
 
 
-def run_reddit(rate: float, tag: dict) -> list:
+def run_reddit(rate: float, ptxas: dict, tag: dict) -> list:
     """The Reddit-scale GCN and GAT paths (kernels B2 and B3); returns
     their entries of the kernel table."""
     import numpy as np
@@ -1169,7 +1254,8 @@ def run_reddit(rate: float, tag: dict) -> list:
     # 13-14. training: GCN (dropout 0.5) and GAT, Adam, masked loss over
     # the recipe's train split
     gcn_train = run_gcn_training(g, gp, feat, labels, train_mask, rate, tag)
-    gat_train = run_gat_training(gp, feat, labels, train_mask, rate, tag)
+    gat_train = run_gat_training(gp, feat, labels, train_mask, rate, ptxas,
+                                 tag)
 
     m2, m3 = b2["layer0 F=16"], b3["layer0 H=8 O=8"]
     b4, b5 = gat_train["b4"], gat_train["b5"]
@@ -1461,6 +1547,97 @@ def run_gat_edge(tag: dict) -> dict:
             "peak_memory_gib": peak}
 
 
+def edge_case_plan():
+    """The bitmap of B4's and B5's edge cases, built on the card: random
+    edges with empty rows both ways (destinations 1000..1099 receive
+    nothing, sources 20000..20099 send nothing), a full dst row 7 (25,901
+    bits, 4,096 in each full block: more than the walk's 256-entry queue,
+    so each block goes in rounds) and a full source row 9 (1,201 bits).
+    7 blocks a dst row is not a whole number of the walk's 2-block loads,
+    and neither row count is a multiple of a thread block's 8 rows."""
+    import numpy as np
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch.ops.bitmap_spmm import build_bitmap_plan
+
+    rng = np.random.default_rng(17)
+    src = rng.integers(0, EDGE_N_SRC, 40000)
+    dst = rng.integers(0, EDGE_N_DST, 40000)
+    keep = (((dst < 1000) | (dst >= 1100))
+            & ((src < 20000) | (src >= 20100)))
+    all_src = np.setdiff1d(np.arange(EDGE_N_SRC), np.arange(20000, 20100))
+    all_dst = np.setdiff1d(np.arange(EDGE_N_DST), np.arange(1000, 1100))
+    src = np.concatenate([src[keep], all_src, np.full(all_dst.size, 9)])
+    dst = np.concatenate([dst[keep], np.full(all_src.size, 7), all_dst])
+    flat = np.unique(dst.astype(np.int64) * EDGE_N_SRC + src)
+    rel = dt.Relation.from_coo(flat % EDGE_N_SRC, flat // EDGE_N_SRC,
+                               EDGE_N_SRC, EDGE_N_DST)
+    return build_bitmap_plan(rel)
+
+
+def run_bwd_edge_cases(tag: dict) -> None:
+    """B4 and B5 at the edges of their walk (``edge_case_plan``), every
+    (nh, nf) case of their switch, against their plain versions at
+    rtol = 1e-4, atol = 1e-5 * max|ref| (B3's tolerance); rows without an
+    edge must get exact zeros. Raises on any mismatch."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch.ops import bitmap_gat as tbg
+
+    plan = edge_case_plan()
+    bits, bits_t = plan.bits, plan.bits_rev
+    deg_dst = tbg._expand_bits(bits[:EDGE_N_DST])[:, :EDGE_N_SRC].sum(1)
+    deg_src = tbg._expand_bits(bits_t[:EDGE_N_SRC])[:, :EDGE_N_DST].sum(1)
+    if (int(deg_dst[7]) != EDGE_N_SRC - 100 or int(deg_src[9]) != EDGE_N_DST
+            - 100 or int((deg_dst == 0).sum()) != 100
+            or int((deg_src == 0).sum()) != 100):
+        raise RuntimeError("the edge-case bitmap lacks its full or empty rows")
+    covered = {tbg._passes(h, o)[:2] for h, o in EDGE_CASES}
+    if covered != SWITCH_CASES:
+        raise RuntimeError(f"edge cases cover {sorted(covered)}")
+    cases = {}
+    for heads, odim in EDGE_CASES:
+        rng = np.random.default_rng(heads * 10 + odim)
+        t = lambda *sh: torch.from_numpy(  # noqa: E731
+            rng.normal(size=sh).astype(np.float32)).cuda()
+        el, er = t(EDGE_N_SRC, heads), t(EDGE_N_DST, heads)
+        h = t(EDGE_N_SRC, heads, odim).to(torch.bfloat16)
+        out, lse = tbg.gat_fwd_plain(bits[:EDGE_N_DST], el, er, h, 0.2)
+        dzf = t(EDGE_N_DST, heads, odim)
+        c, dz = (out * dzf).sum(-1), dzf.to(torch.bfloat16)
+        der = tbg.bitmap_gat_bwd_dst(bits, el, er, h, 0.2, lse, c, dz,
+                                     EDGE_N_DST)
+        dele, dh = tbg.bitmap_gat_bwd_src(bits_t, el, er, h, 0.2, lse, c, dz,
+                                          EDGE_N_SRC)
+        want = (tbg.gat_bwd_dst_plain(bits[:EDGE_N_DST], el, er, h, 0.2, lse,
+                                      c, dz),
+                *tbg.gat_bwd_src_plain(bits_t[:EDGE_N_SRC], el, er, h, 0.2,
+                                       lse, c, dz))
+        torch.cuda.synchronize()
+        label = f"H={heads} O={odim}"
+        errs = {}
+        for what, a, b in zip(("der", "del", "dh"), (der, dele, dh), want):
+            scale = max(b.abs().max().item(), 1e-30)
+            errs[what] = (a - b).abs().max().item()
+            if not torch.allclose(a, b, rtol=1e-4, atol=1e-5 * scale):
+                raise RuntimeError(f"B4/B5 edge case {label} ({what}): max "
+                                   f"abs err {errs[what]} (max |ref| "
+                                   f"{scale})")
+        if (der[deg_dst == 0].any() or dele[deg_src == 0].any()
+                or dh[deg_src == 0].any()):
+            raise RuntimeError(f"B4/B5 edge case {label}: a row without an "
+                               "edge got a gradient")
+        nh, nf = tbg._passes(heads, odim)[:2]
+        cases[label] = {"nh": nh, "nf": nf, "max_abs_err": errs}
+    emit({"phase": "bitmap_gat_bwd_edge_cases", "bitmap": repr(plan),
+          "full_rows_bits": {"dst 7": int(deg_dst[7]),
+                             "source 9": int(deg_src[9])},
+          "empty_rows": {"dst": 100, "source": 100},
+          "tolerance": "rtol=1e-4, atol=1e-5*max|ref|", "cases": cases,
+          **tag})
+
+
 def run() -> dict:
     import torch
 
@@ -1471,14 +1648,17 @@ def run() -> dict:
     tag = {"card": card}
 
     # 1. build the kernels from the checkout's sources (one nvcc each,
-    # started together)
+    # started together), and B4 and B5 once more for ptxas's report
     t0 = time.perf_counter()
+    procs = ptxas_start(PREV_MS)
     _kernels.library()
+    ptxas = {name: ptxas_report(p) for name, p in procs.items()}
     emit({"phase": "build", "kernels": sorted(_kernels.launch_counts),
-          "seconds": time.perf_counter() - t0, **tag})
+          "seconds": time.perf_counter() - t0, "ptxas": ptxas, **tag})
 
+    run_bwd_edge_cases(tag)
     kernels = [run_sage(rate, tag)]
-    kernels += run_reddit(rate, tag)
+    kernels += run_reddit(rate, ptxas, tag)
     kernels.append(run_hub_cache(rate, tag))
     run_gat_edge(tag)
     return {"kernels": kernels, "card": card}

@@ -70,6 +70,8 @@ def library() -> ctypes.CDLL:
                     (lib.dgl_bitmap_gat_bwd_src,
                      [p, i64, i64, p, p, p, p, i64, i32, i32, i32, i32, i32,
                       i32, ctypes.c_float, p, p, p]),
+                    (lib.dgl_bitmap_gat_bwd_dst_occupancy, [i32, i32, p]),
+                    (lib.dgl_bitmap_gat_bwd_src_occupancy, [i32, i32, p]),
                     (lib.dgl_hub_gather,
                      [p, i64, i64, i32, p, i64, i32, p, i32, p])):
                 fn.argtypes = argtypes

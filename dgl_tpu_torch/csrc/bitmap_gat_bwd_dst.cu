@@ -8,14 +8,20 @@
 //   der[d, h] = sum_s b[s] * (h[s, h, :] . dz[d, h, :])  -  c[d, h] * sum_s b[s]
 //
 // which is the reference's dz[d] . (B @ h)[d] - c[d] * rowsum(B)[d] with
-// B = alpha * leaky'(raw). f32 throughout with h in bf16, as the reference's
-// CPU path _gat_xla_bwd defines it (the TPU kernel rounds B and dz to bf16).
-// lse arrives already guarded (a row with lse near -1e30 carries +1e30).
+// B = alpha * leaky'(raw). h and dz arrive in bf16, as the TPU path hands
+// them to its kernel (dgl_tpu/ops/bitmap_gat.py:453-456); c was taken from
+// the f32 dz. Everything else is f32 (the TPU kernel also rounds B to
+// bf16). lse arrives already guarded (a row with lse near -1e30 carries
+// +1e30).
 //
-// What bounds it on this card: bytes. Every call reads the whole bitmap
-// (Reddit: 6.81 GB, about 2.0 ms at 3.35 TB/s) plus el, er, lse, c, h and
-// dz once. The TPU kernel recomputes the dense (C, S) tile of alpha for
-// every head, N^2 * H exponentials; a walk over the set bits needs E * H.
+// What bounds it on this card: bytes in the bound. Every call reads the
+// whole bitmap (Reddit: 6.81 GB, about 2.0 ms at 3.35 TB/s) plus el, er,
+// lse, c, h and dz once. The TPU kernel recomputes the dense (C, S) tile of
+// alpha for every head, N^2 * H exponentials; a walk over the set bits
+// needs E * H. In fact latency bounds it: a warp loads, decodes and drains
+// one after the other, and a drain is a chain of L2 round trips (el[s],
+// then h[s]: 32 + 128 bytes an edge at H = 8, O = 8) with no bitmap load
+// in flight (PERF.md, PR 5).
 //
 // Design: B3's (bitmap_gat_fwd.cu) walk with lse known, so there is no
 // running max and no rescale. One warp owns one dst row; a pass covers NH
@@ -28,6 +34,13 @@
 // of the row inside the warp (their partial dots add into the same scalar),
 // heads beyond NH as further blocks (blockIdx.y): every output belongs to
 // one warp, so no atomics and no second pass.
+//
+// Occupancy and bytes in flight: a block is kWarps = 8 warps with 8 KB of
+// queues, so the registers (ptxas -v; chip_smoke.py prints them) decide how
+// many blocks an SM holds. While they load, each lane has kUnroll = 2
+// 16-byte loads in flight, 1 KB a warp: 40 KB an SM at 5 blocks, more than
+// the 25 KB that 3.35 TB/s at about 1 us of latency asks of each of the 132
+// SMs. During a drain a warp has none.
 //
 // Plain C interface, bound from Python with ctypes
 // (dgl_tpu_torch/_kernels.py); the launch returns cudaGetLastError().
@@ -48,7 +61,7 @@ __global__ void __launch_bounds__(kWarps * 32) gat_bwd_dst_kernel(
     const uint8_t* __restrict__ bits, int64_t n_rows, int64_t row_bytes,
     const float* __restrict__ el, const float* __restrict__ er,
     const float* __restrict__ lse, const float* __restrict__ cc,
-    const uint16_t* __restrict__ h, const float* __restrict__ dz,
+    const uint16_t* __restrict__ h, const uint16_t* __restrict__ dz,
     int64_t n_src, int heads, int h_pad, int o_pad, float slope,
     float* __restrict__ der) {
   constexpr int G = NH * NF / 8;  // lanes per source, 8 features each
@@ -70,9 +83,15 @@ __global__ void __launch_bounds__(kWarps * 32) gat_bwd_dst_kernel(
   __shared__ int queue[kWarps][bitmap_walk::kQueue];
   for (int fg = 0; fg < o_pad / NF; ++fg) {
     const int f0 = fg * NF + (slot % C) * 8;
-    const float4* dzp = reinterpret_cast<const float4*>(dz + rh * o_pad + f0);
-    const float4 d0 = __ldg(dzp), d1 = __ldg(dzp + 1);
-    const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+    const uint4 dq =
+        __ldg(reinterpret_cast<const uint4*>(dz + rh * o_pad + f0));
+    const uint32_t dw[4] = {dq.x, dq.y, dq.z, dq.w};
+    float dv[8];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      dv[2 * k] = __uint_as_float(dw[k] << 16);
+      dv[2 * k + 1] = __uint_as_float(dw[k] & 0xffff0000u);
+    }
     const uint16_t* h_hf = h + static_cast<int64_t>(hh) * o_pad + f0;
     const bool first = fg == 0;  // sum b once, on the first walk
     bitmap_walk::walk_row<G, kUnroll>(
@@ -127,17 +146,21 @@ cudaError_t launch(const void* bits, int64_t n_rows, int64_t row_bytes,
       static_cast<const uint8_t*>(bits), n_rows, row_bytes,
       static_cast<const float*>(el), static_cast<const float*>(er),
       static_cast<const float*>(lse), static_cast<const float*>(cc),
-      static_cast<const uint16_t*>(h), static_cast<const float*>(dz), n_src,
-      heads, h_pad, o_pad, slope, static_cast<float*>(der));
+      static_cast<const uint16_t*>(h), static_cast<const uint16_t*>(dz),
+      n_src, heads, h_pad, o_pad, slope, static_cast<float*>(der));
   return cudaGetLastError();
 }
 
 }  // namespace
 
+#define DGL_GAT_CASES(X)                                             \
+  X(1, 8) X(2, 8) X(4, 8) X(8, 8) X(1, 16) X(2, 16) X(4, 16) X(1, 32) \
+  X(2, 32) X(1, 64)
+
 // bits: (>= n_rows, row_bytes) uint8, row_bytes a multiple of 512, rows
 // 16-byte aligned. el: (n_src, h_pad) f32. er, lse (guarded), c:
 // (n_rows, h_pad) f32. h: (n_src, h_pad, o_pad) bf16, dz: (n_rows, h_pad,
-// o_pad) f32, both 16-byte aligned. der: (n_rows, heads) f32. (nh, nf) as
+// o_pad) bf16, both 16-byte aligned. der: (n_rows, heads) f32. (nh, nf) as
 // for dgl_bitmap_gat_fwd: nh in {1, 2, 4, 8}, nf in {8, 16, 32, 64},
 // nh * nf <= 64. Returns a cudaError_t as int.
 extern "C" int dgl_bitmap_gat_bwd_dst(const void* bits, int64_t n_rows,
@@ -158,10 +181,21 @@ extern "C" int dgl_bitmap_gat_bwd_dst(const void* bits, int64_t n_rows,
     return static_cast<int>(launch<NH, NF>(bits, n_rows, row_bytes, el, er, \
                                            lse, c, h, dz, n_src, heads,     \
                                            h_pad, o_pad, slope, der, s));
-  DGL_GAT_CASE(1, 8) DGL_GAT_CASE(2, 8) DGL_GAT_CASE(4, 8) DGL_GAT_CASE(8, 8)
-  DGL_GAT_CASE(1, 16) DGL_GAT_CASE(2, 16) DGL_GAT_CASE(4, 16)
-  DGL_GAT_CASE(1, 32) DGL_GAT_CASE(2, 32)
-  DGL_GAT_CASE(1, 64)
+  DGL_GAT_CASES(DGL_GAT_CASE)
+#undef DGL_GAT_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The (nh, nf) kernel's registers, static shared bytes, local bytes per
+// thread, resident blocks per SM and bitmap bytes in flight per SM
+// (bitmap_walk::walk_occupancy), into out[0..4]. Returns a cudaError_t as
+// int.
+extern "C" int dgl_bitmap_gat_bwd_dst_occupancy(int nh, int nf, int* out) {
+#define DGL_GAT_CASE(NH, NF)                                 \
+  if (nh == NH && nf == NF)                                  \
+    return static_cast<int>(bitmap_walk::walk_occupancy(     \
+        gat_bwd_dst_kernel<NH, NF>, kWarps * 32, kUnroll, out));
+  DGL_GAT_CASES(DGL_GAT_CASE)
 #undef DGL_GAT_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,29 +10,37 @@
 //   del[s, h]   = sum_d b[d] * (h[s, h, :] . dz[d, h, :])  -  sum_d b[d] * c[d, h]
 //
 // which is the reference's dh = alpha^T dz and del = h . (B^T dz) - B^T c.
-// f32 throughout with h in bf16 and dz in f32, as the reference's CPU path
-// _gat_xla_bwd defines it (the TPU kernel rounds alpha, B and dz to bf16).
+// h and dz arrive in bf16, as the TPU path hands them to its kernel
+// (dgl_tpu/ops/bitmap_gat.py:466-468); c was taken from the f32 dz.
+// Everything else is f32 (the TPU kernel also rounds alpha and B to bf16).
 //
 // What bounds it on this card: bytes in the bound (the transpose bitmap, the
 // per-source el and h, the per-destination er, lse, c and dz read once, del
-// and dh written once), but in fact the per-edge gather of dz[d]: 32 bytes a
-// lane, H * O * 4 a destination (256 B at H = 8, O = 8), from a table that
-// at Reddit scale (59.6 MB) is larger than the 50 MB L2. The TPU kernel
-// builds dense (C, S) tiles of alpha for every head (N^2 * H exponentials);
-// a walk over the set bits needs E * H.
+// and dh written once). The TPU kernel builds dense (C, S) tiles of alpha
+// for every head (N^2 * H exponentials); a walk over the set bits needs
+// E * H. In fact latency bounds it, as in bitmap_gat_bwd_dst.cu, with
+// larger gathers: every edge reads the destination's (er, lse, c) and dz[d]
+// from L2, 128 + 128 bytes at H = 8, O = 8. In bf16 the dz table is 29.8 MB
+// at Reddit scale, where in f32 it was 59.6 MB, more than the 50 MB L2 by
+// itself; beside the 29.8 MB (er, lse, c) table it still exceeds L2.
 //
 // Design: B3's walk (bitmap_gat_fwd.cu) over the transpose bitmap, one warp
 // per source row. A pass covers NH heads, each destination going to
 // G = NH * NF / 8 lanes with 8 features each. The destination's er, lse and
 // c arrive packed as one float4 per (d, h) (the wrapper builds the table),
-// so a lane makes one 16-byte and two 16-byte dz gathers per edge. h[s] is
-// the same for every edge of the row: a lane keeps its 8 values in
-// registers and adds b * (h[s] . dz[d]) into one scalar, beside its 8 dh
+// so a lane makes two 16-byte gathers per edge: (er, lse, c) and 8 bf16 of
+// dz. h[s] is the same for every edge of the row: a lane keeps its 8 values
+// in registers and adds b * (h[s] . dz[d]) into one scalar, beside its 8 dh
 // accumulators. At the end of a walk the lanes that share a slot add their
 // dh accumulators with shuffles and G lanes write the row's dh; the del
 // scalars add over the lanes of a head after the last walk. Features beyond
 // NF run as further walks inside the warp, heads beyond NH as further
 // blocks: every output belongs to one warp, so no atomics.
+//
+// Occupancy and bytes in flight: as in bitmap_gat_bwd_dst.cu, 1 KB of
+// bitmap in flight a warp while it loads; the 8 dh accumulators cost
+// registers, so an SM holds fewer blocks than B4's (chip_smoke.py prints
+// ptxas -v's figures and the blocks an SM holds).
 //
 // Plain C interface, bound from Python with ctypes
 // (dgl_tpu_torch/_kernels.py); the launch returns cudaGetLastError().
@@ -48,11 +56,20 @@ namespace {
 constexpr int kWarps = 8;   // rows (warps) per thread block
 constexpr int kUnroll = 2;  // 16-byte bitmap loads in flight per lane
 
+__device__ __forceinline__ void bf16x8(uint4 v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __uint_as_float(w[k] << 16);
+    f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
 template <int NH, int NF>
 __global__ void __launch_bounds__(kWarps * 32) gat_bwd_src_kernel(
     const uint8_t* __restrict__ bits_t, int64_t n_rows, int64_t row_bytes,
     const float* __restrict__ el, const uint16_t* __restrict__ h,
-    const float4* __restrict__ ed, const float* __restrict__ dz,
+    const float4* __restrict__ ed, const uint16_t* __restrict__ dz,
     int64_t n_dst, int heads, int odim, int h_pad, int o_pad, float slope,
     float* __restrict__ del, float* __restrict__ dh) {
   constexpr int G = NH * NF / 8;  // lanes per destination, 8 features each
@@ -73,15 +90,9 @@ __global__ void __launch_bounds__(kWarps * 32) gat_bwd_src_kernel(
   __shared__ int queue[kWarps][bitmap_walk::kQueue];
   for (int fg = 0; fg < o_pad / NF; ++fg) {
     const int f0 = fg * NF + (slot % C) * 8;
-    const uint4 hv = __ldg(reinterpret_cast<const uint4*>(h + rh * o_pad + f0));
-    const uint32_t hw[4] = {hv.x, hv.y, hv.z, hv.w};
     float hs[8];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      hs[2 * k] = __uint_as_float(hw[k] << 16);
-      hs[2 * k + 1] = __uint_as_float(hw[k] & 0xffff0000u);
-    }
-    const float* dz_hf = dz + static_cast<int64_t>(hh) * o_pad + f0;
+    bf16x8(__ldg(reinterpret_cast<const uint4*>(h + rh * o_pad + f0)), hs);
+    const uint16_t* dz_hf = dz + static_cast<int64_t>(hh) * o_pad + f0;
     const bool first = fg == 0;  // sum b * c once, on the first walk
     float acc[8];
 #pragma unroll
@@ -94,11 +105,9 @@ __global__ void __launch_bounds__(kWarps * 32) gat_bwd_src_kernel(
           const bool pos = zp > 0.f;
           const float a = expf((pos ? zp : zp * slope) - e.y);
           const float b = pos ? a : a * slope;
-          const float4* dp =
-              reinterpret_cast<const float4*>(dz_hf + d * d_stride);
-          const float4 d0 = __ldg(dp), d1 = __ldg(dp + 1);
-          const float dv[8] = {d0.x, d0.y, d0.z, d0.w,
-                               d1.x, d1.y, d1.z, d1.w};
+          float dv[8];
+          bf16x8(__ldg(reinterpret_cast<const uint4*>(dz_hf + d * d_stride)),
+                 dv);
           float dot = 0.f;
 #pragma unroll
           for (int k = 0; k < 8; ++k) {
@@ -153,18 +162,22 @@ cudaError_t launch(const void* bits_t, int64_t n_rows, int64_t row_bytes,
   gat_bwd_src_kernel<NH, NF><<<grid, kWarps * 32, 0, s>>>(
       static_cast<const uint8_t*>(bits_t), n_rows, row_bytes,
       static_cast<const float*>(el), static_cast<const uint16_t*>(h),
-      static_cast<const float4*>(ed), static_cast<const float*>(dz), n_dst,
-      heads, odim, h_pad, o_pad, slope, static_cast<float*>(del),
+      static_cast<const float4*>(ed), static_cast<const uint16_t*>(dz),
+      n_dst, heads, odim, h_pad, o_pad, slope, static_cast<float*>(del),
       static_cast<float*>(dh));
   return cudaGetLastError();
 }
 
 }  // namespace
 
+#define DGL_GAT_CASES(X)                                             \
+  X(1, 8) X(2, 8) X(4, 8) X(8, 8) X(1, 16) X(2, 16) X(4, 16) X(1, 32) \
+  X(2, 32) X(1, 64)
+
 // bits_t: (>= n_rows, row_bytes) uint8 transpose bitmap (rows = sources),
 // row_bytes a multiple of 512, rows 16-byte aligned; n_dst <= 8 * row_bytes.
 // el: (n_rows, h_pad) f32. h: (n_rows, h_pad, o_pad) bf16. ed: (n_dst,
-// h_pad) float4 of (er, guarded lse, c, 0). dz: (n_dst, h_pad, o_pad) f32.
+// h_pad) float4 of (er, guarded lse, c, 0). dz: (n_dst, h_pad, o_pad) bf16.
 // h, ed and dz 16-byte aligned. del: (n_rows, heads) f32. dh: (n_rows,
 // heads, odim) f32. (nh, nf) as for dgl_bitmap_gat_fwd. Returns a
 // cudaError_t as int.
@@ -185,10 +198,21 @@ extern "C" int dgl_bitmap_gat_bwd_src(const void* bits_t, int64_t n_rows,
     return static_cast<int>(launch<NH, NF>(bits_t, n_rows, row_bytes, el, h,  \
                                            ed, dz, n_dst, heads, odim, h_pad, \
                                            o_pad, slope, del, dh, s));
-  DGL_GAT_CASE(1, 8) DGL_GAT_CASE(2, 8) DGL_GAT_CASE(4, 8) DGL_GAT_CASE(8, 8)
-  DGL_GAT_CASE(1, 16) DGL_GAT_CASE(2, 16) DGL_GAT_CASE(4, 16)
-  DGL_GAT_CASE(1, 32) DGL_GAT_CASE(2, 32)
-  DGL_GAT_CASE(1, 64)
+  DGL_GAT_CASES(DGL_GAT_CASE)
+#undef DGL_GAT_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The (nh, nf) kernel's registers, static shared bytes, local bytes per
+// thread, resident blocks per SM and bitmap bytes in flight per SM
+// (bitmap_walk::walk_occupancy), into out[0..4]. Returns a cudaError_t as
+// int.
+extern "C" int dgl_bitmap_gat_bwd_src_occupancy(int nh, int nf, int* out) {
+#define DGL_GAT_CASE(NH, NF)                                 \
+  if (nh == NH && nf == NF)                                  \
+    return static_cast<int>(bitmap_walk::walk_occupancy(     \
+        gat_bwd_src_kernel<NH, NF>, kWarps * 32, kUnroll, out));
+  DGL_GAT_CASES(DGL_GAT_CASE)
 #undef DGL_GAT_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,6 +1,8 @@
 // One warp walks the set bits of one row of a plane-packed adjacency bitmap
 // (dgl_tpu_torch/ops/bitmap_spmm.py): the shared front end of the bitmap
-// kernels (bitmap_spmm.cu, bitmap_gat_fwd.cu).
+// kernels, one walk (walk_row) for all four users: the SpMM B2
+// (bitmap_spmm.cu), the GAT forward B3 (bitmap_gat_fwd.cu) and the GAT
+// backward B4 and B5 (bitmap_gat_bwd_dst.cu, bitmap_gat_bwd_src.cu).
 //
 // Layout: a row holds n_blocks blocks of 512 bytes (4096 sources each);
 // within a block, byte b carries bit j for source block*4096 + j*512 + b.
@@ -103,6 +105,28 @@ __device__ __forceinline__ void walk_row(const uint8_t* __restrict__ brow,
     }
   }
   drain();
+}
+
+// Registers, static shared bytes and local (stack and spill) bytes per
+// thread of a walk_row kernel launched with `threads` threads a block and U
+// = `unroll`, its resident blocks per SM, and the bitmap bytes an SM has in
+// flight while all those warps load (U 16-byte loads a lane), into
+// out[0..4].
+template <typename Kernel>
+cudaError_t walk_occupancy(Kernel kernel, int threads, int unroll, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                    0);
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = blocks;
+  out[4] = blocks * threads * unroll * 16;
+  return cudaSuccess;
 }
 
 }  // namespace bitmap_walk

@@ -16,7 +16,9 @@ defines them: ``p`` in f32, ``h`` rounded to bf16, zero-in-degree rows with
 
 The backward is the reference's flash decomposition, with ``alpha``
 recomputed from ``lse``, ``B = alpha * leaky'(raw)`` and ``c[d] = out[d] .
-dz[d]``:
+dz[d]`` taken from the f32 ``dz``; both kernels then get ``dz`` rounded to
+bf16, as the reference's TPU path hands it to its kernels
+(``dgl_tpu/ops/bitmap_gat.py:455,468``):
 
 - :func:`bitmap_gat_bwd_dst` (kernel B4, ``csrc/bitmap_gat_bwd_dst.cu``),
   dst-major over ``bits``: ``der[d] = dz[d] . (B @ h)[d] - c[d] rowsum(B)[d]``;
@@ -25,10 +27,12 @@ dz[d]``:
   ``del[s] = h[s] . (B^T dz)[s] - (B^T c)[s]``.
 
 Their plain versions :func:`gat_bwd_dst_plain` and :func:`gat_bwd_src_plain`
-compute the reference's ``_gat_xla_bwd`` (``dz`` in f32, ``h`` rounded to
-bf16, everything else f32) on any subset of bitmap rows.
+compute the reference's ``_gat_xla_bwd`` (``dz`` and ``h`` taken as f32 of
+their bf16 values, everything else f32) on any subset of bitmap rows.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -107,7 +111,8 @@ def gat_bwd_dst_plain(bits, el, er, h, slope, lse, c, dz, chunk=None):
     """Plain PyTorch version of B4 (the ``der`` of reference
     ``_gat_xla_bwd``) on the dst rows ``bits`` (R, W): ``el`` (n_src, H)
     with n_src <= 8 W, ``h`` (n_src, H, O) taken as f32 of its values, and
-    the rows' ``er``, ``lse``, ``c`` (R, H) and ``dz`` (R, H, O). Returns
+    the rows' ``er``, ``lse``, ``c`` (R, H) and ``dz`` (R, H, O), taken as
+    f32 of its values. Returns
     ``der`` (R, H) f32, ``chunk`` rows at a time."""
     n_rows = bits.shape[0]
     n_src, heads = el.shape
@@ -135,9 +140,9 @@ def gat_bwd_src_plain(bits_t, el, er, h, slope, lse, c, dz, chunk=None):
     """Plain PyTorch version of B5 (the ``del`` and ``dh`` of reference
     ``_gat_xla_bwd``) on the source rows ``bits_t`` (R, W_t) of the
     transpose bitmap: the rows' ``el`` (R, H) and ``h`` (R, H, O), and the
-    destinations' ``dz`` (n_dst, H, O) and ``er``, ``lse``, ``c``
-    (>= n_dst, H), with n_dst <= 8 W_t. Returns ``del`` (R, H) and ``dh``
-    (R, H, O), f32, ``chunk`` rows at a time."""
+    destinations' ``dz`` (n_dst, H, O), taken as f32 of its values, and
+    ``er``, ``lse``, ``c`` (>= n_dst, H), with n_dst <= 8 W_t. Returns
+    ``del`` (R, H) and ``dh`` (R, H, O), f32, ``chunk`` rows at a time."""
     n_rows = bits_t.shape[0]
     n_dst, heads = dz.shape[0], dz.shape[1]
     if chunk is None:
@@ -180,7 +185,7 @@ def bitmap_gat_fwd(bits, el, er, h, slope, n_rows=None):
 def bitmap_gat_bwd_dst(bits, el, er, h, slope, lse, c, dz, n_rows=None):
     """Kernel B4: ``der`` (n_rows, H) f32 over the first ``n_rows`` dst rows
     of ``bits``. ``el`` (n_src, H) f32, ``h`` (n_src, H, O) bf16; ``er``,
-    ``lse``, ``c`` (>= n_rows, H) f32; ``dz`` (>= n_rows, H, O) f32.
+    ``lse``, ``c`` (>= n_rows, H) f32; ``dz`` (>= n_rows, H, O) bf16.
 
     A CUDA ``h`` runs the kernel; a CPU ``h`` runs the plain version."""
     n_rows = bits.shape[0] if n_rows is None else int(n_rows)
@@ -196,7 +201,7 @@ def bitmap_gat_bwd_src(bits_t, el, er, h, slope, lse, c, dz, n_rows=None):
     """Kernel B5: ``del`` (n_rows, H) and ``dh`` (n_rows, H, O), f32, over
     the first ``n_rows`` source rows of the transpose bitmap ``bits_t``.
     ``el`` (>= n_rows, H) f32 and ``h`` (>= n_rows, H, O) bf16 per source;
-    ``dz`` (n_dst, H, O) f32 and ``er``, ``lse``, ``c`` (>= n_dst, H) f32
+    ``dz`` (n_dst, H, O) bf16 and ``er``, ``lse``, ``c`` (>= n_dst, H) f32
     per destination, n_dst <= 8 * bits_t.shape[1].
 
     A CUDA ``h`` runs the kernel; a CPU ``h`` runs the plain version."""
@@ -299,9 +304,9 @@ def _check_bwd(bits, el, h, dz, row_ops, n_rows, n_cols):
         raise ValueError(f"h must be 3-D bf16, got {h.dtype} "
                          f"{tuple(h.shape)}")
     heads, odim = h.shape[1], h.shape[2]
-    if (dz.dtype != torch.float32 or dz.device != dev or dz.dim() != 3
+    if (dz.dtype != torch.bfloat16 or dz.device != dev or dz.dim() != 3
             or tuple(dz.shape[1:]) != (heads, odim)):
-        raise ValueError("dz must be (n, H, O) f32 on h's device")
+        raise ValueError("dz must be (n, H, O) bf16 on h's device")
     for name, t, n in (("el", el, 0),) + tuple(row_ops):
         if (t.dtype != torch.float32 or t.device != dev or t.dim() != 2
                 or t.shape[1] != heads or t.shape[0] < n):
@@ -378,6 +383,22 @@ def _launch_bwd_src(bits_t, el, er, h, slope, lse, c, dz, n_rows):
     return dele, dh
 
 
+def bwd_occupancy(name, heads, odim):
+    """What the card runs B4 (``name="bitmap_gat_bwd_dst"``) or B5
+    (``"bitmap_gat_bwd_src"``) with at ``heads`` x ``odim``: the compiled
+    kernel's registers, static shared bytes and local (stack and spill)
+    bytes per thread, its resident blocks per SM, and the bitmap bytes an SM
+    has in flight at that occupancy while all its warps load."""
+    nh, nf, _h_pad, _o_pad = _passes(heads, odim)
+    out = (ctypes.c_int * 5)()
+    code = getattr(_kernels.library(), f"dgl_{name}_occupancy")(
+        nh, nf, ctypes.addressof(out))
+    _kernels.check(code, f"{name}_occupancy")
+    keys = ("registers", "static_smem_bytes", "local_bytes_per_thread",
+            "blocks_per_sm", "bitmap_bytes_in_flight_per_sm")
+    return {"nh": nh, "nf": nf, **dict(zip(keys, out))}
+
+
 def _prep(plan, el, er, h):
     """The reference's operand preparation: el and er in f32, h in bf16,
     el and h padded to the bitmap's column count, er to its row count."""
@@ -410,17 +431,20 @@ class _BitmapGAT(torch.autograd.Function):
         plan, slope = ctx.plan, ctx.slope
         need_el, need_er, need_h = ctx.needs_input_grad[:3]
         elp, erp, hp = _prep(plan, el, er, h)
-        # the kernels read only the real rows, so dz and out stay unpadded
+        # the kernels read only the real rows, so dz and out stay unpadded;
+        # c[d, h] = out . dz from the f32 dz, then dz in bf16 for both
+        # kernels (the reference's TPU path, bitmap_gat.py:447-468)
         dzf = dz.to(torch.float32)
-        c = (out.to(torch.float32) * dzf).sum(dim=2)  # c[d, h] = out . dz
+        c = (out.to(torch.float32) * dzf).sum(dim=2)
+        dzb = dzf.to(torch.bfloat16)
         d_el = d_er = d_h = None
         if need_er:
             d_er = bitmap_gat_bwd_dst(plan.bits, elp, erp, hp, slope, lse, c,
-                                      dzf, plan.num_dst).to(er.dtype)
+                                      dzb, plan.num_dst).to(er.dtype)
         if need_el or need_h:
             bits_t = plan.bits if plan.bits_rev is None else plan.bits_rev
             dele, dh = bitmap_gat_bwd_src(bits_t, elp, erp, hp, slope, lse,
-                                          c, dzf, plan.num_src)
+                                          c, dzb, plan.num_src)
             d_el = dele.to(el.dtype) if need_el else None
             d_h = dh.to(h.dtype) if need_h else None
         return d_el, d_er, d_h, None, None

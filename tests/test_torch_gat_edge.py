@@ -180,18 +180,22 @@ def _exact_in_bf16(conv, in_feats, seed):
 def test_edge_route_matches_bitmap_route(heads, out_f):
     """One layer, the same relation: the bitmap route (no edge weight) and
     the per-edge route (an edge weight of ones, which changes nothing) in
-    the port, outputs and gradients of the attention vectors."""
+    the port, outputs and gradients of the attention vectors. The
+    cotangent holds bf16 values: the bitmap route's backward hands its
+    kernels ``dz`` in bf16, the per-edge route keeps it in f32."""
     g = _bitmap_graph()
     assert g._relation().bitmap_plan is not None
     conv = GATConv(4, out_f, heads, generator=torch.Generator().manual_seed(1),
                    device="cpu").eval()
     x = _exact_in_bf16(conv, 4, heads)
     ones = torch.ones(g.num_edges())
+    cot = torch.from_numpy(np.random.default_rng(out_f).normal(
+        size=(N, heads, out_f)).astype(np.float32)).to(torch.bfloat16).float()
     outs, grads = [], []
     for ew in (None, ones):
         conv.zero_grad()
         out = conv(g, x, edge_weight=ew)
-        out.square().sum().backward()
+        (out * cot).sum().backward()
         outs.append(out.detach())
         grads.append([conv.attn_l.grad.clone(), conv.attn_r.grad.clone()])
     bitmap, edge = outs

@@ -302,7 +302,9 @@ def test_gat_backward_raises(graphs):
     """The backwards that raised before training was ported. GATConv in
     training mode: every parameter gets a gradient, and ``bitmap_gat``'s
     hand backward (B4 and B5's plain versions) equals autograd through its
-    plain forward at rtol = atol = 1e-4. GCN in training mode (dropout 0):
+    plain forward at rtol = atol = 1e-4, on a cotangent of bf16 values (the
+    hand backward hands its kernels ``dz`` in bf16). GCN in training mode
+    (dropout 0):
     its gradients against the exact f32 path's at the bf16 bound
     rtol = 2e-2, atol = 2e-2 * max|ref|."""
     _, tg = graphs
@@ -314,6 +316,7 @@ def test_gat_backward_raises(graphs):
     rng = np.random.default_rng(8)
     el, er, h, dz = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
                      for s in ((N, 2), (N, 2), (N, 2, 4), (N, 2, 4)))
+    dz = dz.to(torch.bfloat16).float()
     ins = [t.clone().requires_grad_() for t in (el, er, h)]
     (tbg.bitmap_gat(0.2, plan, *ins) * dz).sum().backward()
     refs = [t.clone().requires_grad_() for t in (el, er, h)]

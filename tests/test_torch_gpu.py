@@ -288,8 +288,8 @@ def _bwd_inputs(plan, heads, odim, seed):
     el, er = t(n_src, heads), t(n_dst, heads)
     h = t(n_src, heads, odim).to(torch.bfloat16)
     out, lse = tbg.gat_fwd_plain(plan.bits[:n_dst], el, er, h, 0.2)
-    dz = t(n_dst, heads, odim)
-    return el, er, h, lse, (out * dz).sum(-1), dz
+    dz = t(n_dst, heads, odim)  # c from the f32 dz, the kernels' dz in bf16
+    return el, er, h, lse, (out * dz).sum(-1), dz.to(torch.bfloat16)
 
 
 @pytest.mark.parametrize("symmetric", [False, True])
@@ -343,6 +343,79 @@ def _expand_deg(bits, n_cols):
     return unpack_host(bits.numpy())[:, :n_cols].sum(1)
 
 
+EDGE_N_SRC, EDGE_N_DST = 26_001, 1_301  # 7 and 1 bitmap blocks a row
+
+
+def _edge_case_plan():
+    """Random edges with empty rows both ways (destinations 1000..1099
+    receive nothing, sources 20000..20099 send nothing), a full dst row 7
+    (25,901 bits, 4,096 in each full block: more than the walk's 256-entry
+    queue, so each block goes in rounds) and a full source row 9 (1,201
+    bits). 7 blocks a dst row is not a whole number of the walk's 2-block
+    loads, and neither row count is a multiple of the 8 rows of a thread
+    block."""
+    rng = np.random.default_rng(17)
+    src = rng.integers(0, EDGE_N_SRC, 40000)
+    dst = rng.integers(0, EDGE_N_DST, 40000)
+    keep = (((dst < 1000) | (dst >= 1100))
+            & ((src < 20000) | (src >= 20100)))
+    all_src = np.setdiff1d(np.arange(EDGE_N_SRC), np.arange(20000, 20100))
+    all_dst = np.setdiff1d(np.arange(EDGE_N_DST), np.arange(1000, 1100))
+    src = np.concatenate([src[keep], all_src, np.full(all_dst.size, 9)])
+    dst = np.concatenate([dst[keep], np.full(all_src.size, 7), all_dst])
+    flat = np.unique(dst.astype(np.int64) * EDGE_N_SRC + src)
+    rel = dt.Relation.from_coo(flat % EDGE_N_SRC, flat // EDGE_N_SRC,
+                               EDGE_N_SRC, EDGE_N_DST, device="cpu")
+    return build_bitmap_plan(rel)
+
+
+# (heads, odim) giving each (nh, nf) case of B4's and B5's switch: (1, 8),
+# (2, 8), (4, 8), (8, 8) over two blocks of heads, (1, 16), (2, 16), (4, 16)
+# over two, (1, 32), (2, 32), (1, 64) in three feature walks
+EDGE_CASES = [(1, 5), (2, 8), (3, 7), (12, 8), (1, 16), (2, 12), (5, 16),
+              (1, 32), (3, 20), (2, 130)]
+
+
+def test_edge_cases_cover_every_switch_case():
+    assert sorted(tbg._passes(h, o)[:2] for h, o in EDGE_CASES) == sorted(
+        [(1, 8), (2, 8), (4, 8), (8, 8), (1, 16), (2, 16), (4, 16), (1, 32),
+         (2, 32), (1, 64)])
+
+
+@pytest.fixture(scope="module")
+def edge_case_plan():
+    return _edge_case_plan()
+
+
+@pytest.mark.parametrize("heads,odim", EDGE_CASES)
+def test_bitmap_gat_bwd_edge_cases(card, edge_case_plan, heads, odim):
+    """B4 and B5's walk at its edges (see ``_edge_case_plan``),
+    every (nh, nf) case of the switch, against the plain versions at
+    B3's tolerance; rows without an edge get exact zeros."""
+    plan = edge_case_plan
+    deg_dst = _expand_deg(plan.bits, EDGE_N_SRC)[:EDGE_N_DST]
+    deg_src = _expand_deg(plan.bits_rev, EDGE_N_DST)[:EDGE_N_SRC]
+    assert deg_dst[7] == EDGE_N_SRC - 100 and deg_src[9] == EDGE_N_DST - 100
+    assert (deg_dst == 0).sum() == 100 and (deg_src == 0).sum() == 100
+    el, er, h, lse, c, dz = (x.to(card) for x in _bwd_inputs(
+        plan, heads, odim, heads * 10 + odim))
+    bits, bits_t = plan.bits.to(card), plan.bits_rev.to(card)
+    der = tbg.bitmap_gat_bwd_dst(bits, el, er, h, 0.2, lse, c, dz,
+                                 EDGE_N_DST)
+    dele, dh = tbg.bitmap_gat_bwd_src(bits_t, el, er, h, 0.2, lse, c, dz,
+                                      EDGE_N_SRC)
+    torch.cuda.synchronize()
+    _close(der, tbg.gat_bwd_dst_plain(bits[:EDGE_N_DST], el, er, h, 0.2, lse,
+                                      c, dz), 1e-4)
+    want_del, want_dh = tbg.gat_bwd_src_plain(bits_t[:EDGE_N_SRC], el, er, h,
+                                              0.2, lse, c, dz)
+    _close(dele, want_del, 1e-4)
+    _close(dh, want_dh, 1e-4)
+    assert not der[torch.from_numpy(deg_dst == 0).to(card)].any()
+    empty = torch.from_numpy(deg_src == 0).to(card)
+    assert not dele[empty].any() and not dh[empty].any()
+
+
 def test_bitmap_gat_bwd_rejects_wrong_inputs(card, bitmap_plans):
     plan, _ = bitmap_plans
     el, er, h, lse, c, dz = (x.to(card) for x in _bwd_inputs(plan, 2, 4, 1))
@@ -352,6 +425,10 @@ def test_bitmap_gat_bwd_rejects_wrong_inputs(card, bitmap_plans):
     with pytest.raises(ValueError, match="dz must be"):
         tbg.bitmap_gat_bwd_src(plan.bits_rev.to(card), el, er, h, 0.2, lse,
                                c, dz.double())
+    for fn, b in ((tbg.bitmap_gat_bwd_dst, bits),
+                  (tbg.bitmap_gat_bwd_src, plan.bits_rev.to(card))):
+        with pytest.raises(ValueError, match="bf16"):
+            fn(b, el, er, h, 0.2, lse, c, dz.float())
     with pytest.raises(ValueError, match="lse must be"):
         tbg.bitmap_gat_bwd_dst(bits, el, er, h, 0.2, lse[:10], c, dz,
                                N_DST)

@@ -10,7 +10,11 @@ Tolerances:
 
 - ``bitmap_gat`` gradients: rtol = atol = 1e-4, as for its ``out`` (both
   compute alpha and the products in f32 with ``h`` rounded to bf16, in
-  other orders and, on a CPU with AMX, possibly as bf16x3 matmuls).
+  other orders and, on a CPU with AMX, possibly as bf16x3 matmuls), on a
+  cotangent of bf16 values: the port's backward hands its kernels ``dz``
+  rounded to bf16, as the reference's TPU path does, where the reference's
+  CPU path keeps it in f32. On an f32 cotangent: norm-relative 2e-2, the
+  reference's bf16 bound for this backward (``der`` subtracts two terms).
 - ``bitmap_copy_u_sum`` and the plain g-SpMM: rtol = atol = 1e-5 (the same
   f32 terms, or the same bf16-rounded rows, summed in another order);
   ``hub_copy_u_sum``: rtol = atol = 1e-4, its forward tolerance.
@@ -76,6 +80,15 @@ def _vjp(fn, args, cot):
     return [np.asarray(g) for g in pull(*[jnp.asarray(a) for a in args])]
 
 
+def _bf16_values(x):
+    """``x`` (f32) rounded to the nearest bf16 value, ties to even, and
+    kept in f32."""
+    u = x.astype(np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
 def _grads(fn, args, cot):
     """The port's gradients of ``sum(fn(*args) * cot)``."""
     ts = [torch.from_numpy(a).requires_grad_() for a in args]
@@ -94,7 +107,8 @@ def test_bitmap_gat_grads_match(symmetric, heads, odim):
     """d el, d er, d h against ``jax.grad`` through the reference, which
     runs ``_gat_xla_bwd`` on the CPU. The asymmetric relation (700 sources,
     600 destinations, the last 50 without an in-edge) uses ``bits_rev``;
-    the symmetric one uses ``bits`` both ways."""
+    the symmetric one uses ``bits`` both ways. The cotangent holds bf16
+    values, so the port's rounding of ``dz`` changes nothing."""
     rng = np.random.default_rng(heads * 100 + odim)
     if symmetric:
         n_src = n_dst = 650
@@ -108,7 +122,7 @@ def test_bitmap_gat_grads_match(symmetric, heads, odim):
     el = rng.normal(size=(n_src, heads)).astype(np.float32)
     er = rng.normal(size=(n_dst, heads)).astype(np.float32)
     h = rng.normal(size=(n_src, heads, odim)).astype(np.float32)
-    cot = rng.normal(size=(n_dst, heads, odim)).astype(np.float32)
+    cot = _bf16_values(rng.normal(size=(n_dst, heads, odim)))
     ref = _vjp(lambda a, b, c: jbg.bitmap_gat(0.2, jp, a, b, c),
                (el, er, h), cot)
     _kernels.reset_launch_counts()
@@ -120,6 +134,63 @@ def test_bitmap_gat_grads_match(symmetric, heads, odim):
         np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-4, err_msg=name)
     if not symmetric:  # no in-edge: no gradient through those rows' er
         assert not got[1][-50:].any()
+
+
+def _bitmap_gat_case(seed, heads, odim):
+    """An asymmetric relation (700 sources, 600 destinations, the last 50
+    without an in-edge), its plans on both sides and f32 operands."""
+    n_src, n_dst = 700, 600
+    src, dst = _simple_edges(n_src, n_dst, 9000, seed, empty_dst=50)
+    jrel, trel = _relations(src, dst, n_src, n_dst)
+    rng = np.random.default_rng(seed)
+    arrays = [rng.normal(size=s).astype(np.float32)
+              for s in ((n_src, heads), (n_dst, heads), (n_src, heads, odim),
+                        (n_dst, heads, odim))]
+    return (jb.build_bitmap_plan(jrel), tb.build_bitmap_plan(trel),
+            *arrays)
+
+
+@pytest.mark.parametrize("heads,odim", [(3, 5), (2, 16)])
+def test_bitmap_gat_grads_f32_cotangent_bf16_bound(heads, odim):
+    """On an f32 cotangent the port's backward (``dz`` rounded to bf16 for
+    its kernels) against ``jax.grad`` through the reference's CPU path
+    (``dz`` in f32): within the reference's bf16 bound, norm-relative
+    2e-2 per gradient."""
+    jp, tp, el, er, h, cot = _bitmap_gat_case(6, heads, odim)
+    assert np.any(_bf16_values(cot) != cot)
+    ref = _vjp(lambda a, b, c: jbg.bitmap_gat(0.2, jp, a, b, c),
+               (el, er, h), cot)
+    got = _grads(lambda a, b, c: tbg.bitmap_gat(0.2, tp, a, b, c),
+                 (el, er, h), cot)
+    for name, g, r in zip(("el", "er", "h"), got, ref):
+        assert g.shape == r.shape
+        rel_l2 = np.linalg.norm(g - r) / np.linalg.norm(r)
+        assert rel_l2 < 2e-2, (name, rel_l2)
+
+
+def test_bitmap_gat_backward_hands_kernels_bf16_dz(monkeypatch):
+    """``_BitmapGAT.backward`` takes ``c = out . dz`` from the f32
+    cotangent and hands B4 and B5 ``dz`` rounded to bf16, as the
+    reference's TPU path does (``dgl_tpu/ops/bitmap_gat.py:447-468``)."""
+    _, plan, el, er, h, cot = _bitmap_gat_case(7, 2, 6)
+    seen = {}
+    for name in ("bitmap_gat_bwd_dst", "bitmap_gat_bwd_src"):
+        fn = getattr(tbg, name)
+        monkeypatch.setattr(tbg, name, lambda *a, _f=fn, _n=name, **k: (
+            seen.__setitem__(_n, a), _f(*a, **k))[1])
+    ins = [torch.from_numpy(a).requires_grad_() for a in (el, er, h)]
+    dz = torch.from_numpy(cot)
+    out = tbg.bitmap_gat(0.2, plan, *ins)
+    (out * dz).sum().backward()
+    assert sorted(seen) == ["bitmap_gat_bwd_dst", "bitmap_gat_bwd_src"]
+    c_f32 = (out.detach() * dz).sum(-1)
+    c_bf16 = (out.detach() * dz.to(torch.bfloat16).float()).sum(-1)
+    assert not torch.equal(c_f32, c_bf16)
+    for name, args in seen.items():
+        c, dz_k = args[6], args[7]
+        assert dz_k.dtype == torch.bfloat16, name
+        assert torch.equal(dz_k, dz.to(torch.bfloat16)), name
+        assert c.dtype == torch.float32 and torch.equal(c, c_f32), name
 
 
 def test_bitmap_gat_plain_row_subsets_and_needs_input_grad(monkeypatch):
@@ -337,7 +408,89 @@ def test_gcn_grads_match():
     _assert_grads_close(got, ref)
 
 
-def test_gat_grads_match():
+@pytest.fixture
+def reference_bf16_dz(monkeypatch):
+    """The reference's CPU backward of ``bitmap_gat`` (``_gat_xla_bwd``,
+    ``dz`` in f32) under its TPU path's ``dz`` contract, which the port
+    follows: ``c = out . dz`` from the f32 ``dz`` and the products on
+    ``dz`` rounded to bf16 (``dgl_tpu/ops/bitmap_gat.py:447-468``).
+    ``_gat_xla_bwd`` takes ``c`` from its own ``out`` and ``dz``, so it
+    runs on the bf16 ``dz`` with one more feature: 0 in ``h``, 1 in
+    ``out`` and in ``dz`` the rest of the f32 ``c``. The backward is linear
+    in ``dz`` and ``c``, and that feature adds to ``c`` only."""
+    orig = jbg._gat_xla_bwd
+
+    def bwd(bits, bits_t, el, er, h, slope, lse, out, dz):
+        dzb = dz.astype(jnp.bfloat16).astype(jnp.float32)
+        rest = jnp.einsum("dho,dho->dh", out, dz - dzb)[..., None]
+
+        def widen(x, col):
+            return jnp.concatenate([x, col], axis=2)
+
+        dele, der, dh = orig(
+            bits, bits_t, el, er, widen(h, jnp.zeros_like(h[..., :1])),
+            slope, lse, widen(out, jnp.ones_like(out[..., :1])),
+            widen(dzb, rest))
+        return dele, der, dh[..., :-1]
+
+    monkeypatch.setattr(jbg, "_gat_xla_bwd", bwd)
+
+
+def _rel_l2(a, b):
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+def test_reference_bf16_dz_oracle(reference_bf16_dz):
+    """``reference_bf16_dz`` itself, on an f32 cotangent: its gradients
+    against a dense float64 evaluation of the contract (alpha and B from
+    the forward, ``c`` from the f32 ``dz``, every product on ``dz`` rounded
+    to bf16) at rtol = 1e-4, atol = 1e-4 * max|ref|; and against the
+    reference's TPU path, ``_gat_bwd`` through its Pallas kernels in
+    interpret mode, within the bounds of
+    ``tests/test_bitmap_gat.py::test_pallas_interpret_matches_xla``
+    (norm-relative 5e-3 for ``del`` and ``dh``, 2.5e-2 for ``der``)."""
+    seed, heads, odim, slope = 11, 2, 8, 0.2
+    jp, _, el, er, h, cot = _bitmap_gat_case(seed, heads, odim)
+    src, dst = _simple_edges(700, 600, 9000, seed, empty_dst=50)
+    fn = lambda a, b, c: jbg.bitmap_gat(slope, jp, a, b, c)  # noqa: E731
+    oracle = _vjp(fn, (el, er, h), cot)
+
+    adj = np.zeros((600, 700), bool)
+    adj[dst, src] = True
+    hb = _bf16_values(h).astype(np.float64)
+    z = er.astype(np.float64)[:, None, :] + el.astype(np.float64)[None]
+    raw = np.where(z > 0, z, slope * z)  # (d, s, head)
+    logits = np.where(adj[..., None], raw, -np.inf)
+    m = logits.max(1, keepdims=True)
+    p = np.where(adj[..., None], np.exp(logits - np.where(np.isfinite(m), m,
+                                                          0.0)), 0.0)
+    den = p.sum(1, keepdims=True)
+    alpha = np.divide(p, den, out=np.zeros_like(p), where=den > 0)
+    b = alpha * np.where(z > 0, 1.0, slope)
+    out = np.einsum("dsk,sko->dko", alpha, hb)
+    c = np.einsum("dko,dko->dk", out, cot.astype(np.float64))
+    dzb = _bf16_values(cot).astype(np.float64)
+    hdz = np.einsum("sko,dko->dsk", hb, dzb)
+    want = (np.einsum("dsk,dsk->sk", b, hdz) - np.einsum("dsk,dk->sk", b, c),
+            np.einsum("dsk,dsk->dk", b, hdz) - c * b.sum(1),
+            np.einsum("dsk,dko->sko", alpha, dzb))
+    for name, g, w in zip(("el", "er", "h"), oracle, want):
+        np.testing.assert_allclose(g, w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=name)
+
+    jbg._FORCE_PALLAS_INTERPRET = True
+    try:
+        pallas = _vjp(fn, (el, er, h), cot)
+    finally:
+        jbg._FORCE_PALLAS_INTERPRET = False
+    for name, g, r, tol in zip(("el", "er", "h"), oracle, pallas,
+                               (5e-3, 2.5e-2, 5e-3)):
+        assert _rel_l2(g, r) < tol, (name, _rel_l2(g, r))
+
+
+def test_gat_grads_match(reference_bf16_dz):
+    """Against the reference with its TPU path's ``dz`` contract for the
+    bitmap GAT backward (``reference_bf16_dz``)."""
     jg, tg = _dense_graphs()
     x = np.random.default_rng(3).normal(size=(500, 24)).astype(np.float32)
     got, ref = _model_grads(
