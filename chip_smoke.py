@@ -6,9 +6,17 @@
 Run it from the root of a checkout, on a machine with a CUDA card. It
 
 1. builds the hand-written CUDA kernels from ``dgl_tpu_torch/csrc`` (one
-   ``nvcc`` per source, started together), and B4's and B5's sources once
-   more with ``-Xptxas -v`` for their registers, shared memory and spills;
-1a. holds B4 and B5 against their plain versions at the edges of their
+   ``nvcc`` per source, started together), and B3's, B4's and B5's sources
+   once more with ``-Xptxas -v`` for their registers, shared memory and
+   spills;
+1a. holds B3 against its plain version at the edges of its CSC walk (phase
+    ``bitmap_gat_fwd_edge_cases``): rows of in-degree 0, 1, 31, 32, 33
+    and around the chunks of 64, 128 and 256 sources, 1,000 and more, a row
+    holding every source, sink indices in the CSC (padded edges, to be
+    skipped), every (nh, nf) case of its switch and layer 1's H = 1,
+    O = 41; rows without an edge must get out = 0 exactly and
+    lse = log(1e-30);
+1b. holds B4 and B5 against their plain versions at the edges of their
     walk (phase ``bitmap_gat_bwd_edge_cases``): a dst row with more set
     bits than the walk's queue holds, empty rows both ways, rows whose
     block count is not a whole number of the walk's 2-block loads, row
@@ -62,19 +70,23 @@ bitmap-flash GAT forward, and B4 and B5, its backward):
    rtol = 2e-2, atol = 2e-2 * max|ref| (the bitmap path rounds the
    aggregated rows to bf16);
 9. drives GAT 602 -> 8 x 8 heads -> 41 once (counts read around it: two
-   B3 launches), checking the output's shape and finiteness (step 11
-   holds its values);
+   B3 launches, B3 walking the relation's CSC), checking the output's shape
+   and finiteness (step 11 holds its values);
 10. holds B2 against its plain version on both GCN layers' real tables at
     rtol = 1e-5, atol = 1e-5 * max|ref| (the same f32 terms summed in
     another order), and times it, its plain version and ``torch.sparse.mm``
     on the CSR adjacency;
-11. holds B3 against its plain version on both GAT layers' real inputs, on
-    4,096 dst rows spread over the graph (the first and last 512-row tiles
-    included), at rtol = 1e-4, atol = 1e-5 * max|ref| (exponentials and
-    sums in another order); holds each layer's output on those rows (the
-    main path's output for the last layer) against the layer's plain
-    forward at the same tolerance; and times B3 and its plain version (no
-    PyTorch call computes B3);
+11. holds B3 (over the relation's CSC) against its plain version (over
+    the bits) on both GAT layers' real inputs, on 4,096 dst rows spread
+    over the graph (the first and last 512-row tiles included), at
+    rtol = 1e-4, atol = 1e-5 * max|ref| (exponentials and sums in another
+    order); holds each layer's output on those rows (the main path's output
+    for the last layer) against the layer's plain forward at the same
+    tolerance; times B3 and its plain version (no PyTorch call computes
+    B3), and gives B3's byte bound over the CSC, the bytes its gathers move, its
+    ``ptxas`` figures, blocks per SM and gather bytes in flight per SM,
+    beside its time as a bitmap walk (``prev_ms``, PERF.md's figure, not
+    measured here);
 12. times both forwards as a caller waits for them and breaks their device
     time down by kernel with ``torch.profiler``;
 13. trains GCN (dropout 0.5): gradients against the exact f32 path as in
@@ -153,13 +165,21 @@ REDDIT_FEAT, REDDIT_CLASSES = 602, 41
 GCN_HIDDEN = 16  # examples/reddit_fullgraph_gcn.py:48-54
 GAT_HIDDEN, GAT_HEADS = 8, 8  # benchmarks/bench_reddit_gat.py:47-48
 B3_CHECK_ROWS = 4096
-# B4's and B5's times with dz in f32, as PERF.md records them (H100 80GB
-# HBM3 at 700 W, the final chip run of the PR that ported them), by GAT
-# layer: printed beside this run's times as "prev_ms", not measured here
-PREV_MS = {"bitmap_gat_bwd_dst": {"layer0 H=8 O=8": 5.990,
+# B3's times as a walk of the bitmap, and B4's and B5's with dz in f32, as
+# PERF.md records them (H100 80GB HBM3 at 700 W), by GAT layer: printed
+# beside this run's times as "prev_ms", not measured here
+PREV_MS = {"bitmap_gat_fwd": {"layer0 H=8 O=8": 5.944,
+                              "layer1 H=1 O=41": 5.648},
+           "bitmap_gat_bwd_dst": {"layer0 H=8 O=8": 5.990,
                                   "layer1 H=1 O=41": 5.684},
            "bitmap_gat_bwd_src": {"layer0 H=8 O=8": 8.339,
                                   "layer1 H=1 O=41": 7.257}}
+PREV_MS_SOURCE = {
+    "bitmap_gat_fwd": "PERF.md: the kernel that walked the bitmap, before "
+                      "the CSC walk; not measured in this run",
+    "bitmap_gat_bwd_dst": "PERF.md: the kernel with dz in f32; not measured "
+                          "in this run"}
+PREV_MS_SOURCE["bitmap_gat_bwd_src"] = PREV_MS_SOURCE["bitmap_gat_bwd_dst"]
 # the edge cases of B4's and B5's walk: a bitmap of 1,301 dst rows by
 # 26,001 sources (7 blocks a dst row, 1 a source row), and (heads, odim)
 # pairs giving each (nh, nf) case of the kernels' switch
@@ -168,6 +188,14 @@ EDGE_CASES = ((1, 5), (2, 8), (3, 7), (12, 8), (1, 16), (2, 12), (5, 16),
               (1, 32), (3, 20), (2, 130))
 SWITCH_CASES = {(1, 8), (2, 8), (4, 8), (8, 8), (1, 16), (2, 16), (4, 16),
                 (1, 32), (2, 32), (1, 64)}
+# the edge cases of B3's CSC walk: 1,301 dst rows over 5,003 sources, rows
+# of the in-degrees below (around the chunks of 32, 64, 128 and 256
+# sources; 5,003 is the row holding every source), and (heads, odim)
+# giving each case of the switch and the GAT's layer 1
+FWD_N_SRC, FWD_N_DST = 5_003, 1_301
+FWD_DEGREES = (0, 1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256, 257,
+               1000, 1500, 5003)
+FWD_CASES = EDGE_CASES + ((1, 41),)
 HUB_HUBS, HUB_FEAT = 1024, 256  # benchmarks/bench_hub.py's defaults
 # DGL's examples/pytorch/ogb/ogbn-arxiv GAT: 3 layers, 3 heads, 250 hidden
 EDGE_GAT_HIDDEN, EDGE_GAT_HEADS = 250, 3
@@ -809,6 +837,31 @@ def reddit_graph(seed: int = 41):
     return out
 
 
+def b3_figures(rel, heads, odim, rate) -> dict:
+    """B3's bound and traffic over the relation's CSC: the bound counts every input read once (indptr, the int32 ids, el,
+    er and h over the real rows) and every output written once (out, lse)
+    over the HBM rate, against 2 f32 operations per edge and feature over
+    the f32 rate; ``gather_gb`` is what the design moves per call, el and h
+    gathered per edge and pass (mostly L2 hits), and ``ids_gb`` the ids
+    read once a pass."""
+    from dgl_tpu_torch.ops import bitmap_gat as tbg
+
+    nh, nf, h_pad, o_pad = tbg._passes(heads, odim)
+    passes = (h_pad // nh) * (o_pad // nf)
+    E, N = rel.num_edges, rel.num_dst
+    n_bytes = ((N + 1) * 4 + E * 4 + 2 * rel.num_src * heads * 4
+               + rel.num_src * heads * odim * 2 + N * heads * odim * 4
+               + N * heads * 4)
+    bytes_ms = n_bytes / rate * 1e3
+    ops_ms = 2 * E * heads * odim / F32_RATE * 1e3
+    return {"nf": nf, "o_pad": o_pad, "passes": passes,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_bytes_ms": bytes_ms, "bound_operations_ms": ops_ms,
+            "gather_gb": E * passes * (nh * 4 + nh * nf * 2) / 1e9,
+            "ids_gb": E * passes * 4 / 1e9}
+
+
 def bitmap_bound(bits, n_rows, other_bytes, flops, rate):
     """Least time of one call over the bitmap: its first ``n_rows`` rows
     read once (the padding rows below are never read) plus ``other_bytes``
@@ -985,8 +1038,8 @@ def run_gat_training(gp, feat, y, mask, rate: float, ptxas: dict,
             "nh={} nf={}".format(*tbg._passes(heads, odim)[:2])],
             **tbg.bwd_occupancy(name, heads, odim),
             "prev_ms": PREV_MS[name][label],
-            "prev_ms_source": "PERF.md, PR 3's final chip run (dz in f32); "
-                              "not measured in this run"} for name in PREV_MS}
+            "prev_ms_source": PREV_MS_SOURCE[name]}
+            for name in ("bitmap_gat_bwd_dst", "bitmap_gat_bwd_src")}
         b4[label] = {**common, **compiled["bitmap_gat_bwd_dst"],
                      "max_abs_err": errs["der"],
                      "max_rel_err": rel["der"],
@@ -1036,8 +1089,7 @@ def run_reddit(rate: float, ptxas: dict, tag: dict) -> list:
     import dgl_tpu_torch as dt
     from dgl_tpu_torch import _kernels
     from dgl_tpu_torch.models import GAT, GCN
-    from dgl_tpu_torch.ops.bitmap_gat import (_prep, bitmap_gat_fwd,
-                                              gat_fwd_plain)
+    from dgl_tpu_torch.ops import bitmap_gat as tbg
     from dgl_tpu_torch.ops.bitmap_spmm import (bitmap_matmul,
                                                bitmap_matmul_plain)
 
@@ -1170,8 +1222,10 @@ def run_reddit(rate: float, ptxas: dict, tag: dict) -> list:
     del adj, tables, t0_tab
 
     # 11. B3 against its plain version on both layers' real inputs, on
-    # B3_CHECK_ROWS dst rows spread over the graph
+    # B3_CHECK_ROWS dst rows spread over the graph; B3 walks the relation's
+    # CSC, the plain version reads the bits
     rows = check_rows(N, B3_CHECK_ROWS)
+    csc = rel.csc_indptr, rel.csc_indices
     b3 = {}
     with torch.inference_mode():
         h0 = gat.gat0(gp, feat)
@@ -1184,11 +1238,12 @@ def run_reddit(rate: float, ptxas: dict, tag: dict) -> list:
             hs = conv.fc(x_in).reshape(-1, heads, odim)
             el = (hs * conv.attn_l).sum(-1)
             er = (hs * conv.attn_r).sum(-1)
-            elp, erp, hp = _prep(plan, el, er, hs)
+            hb = hs.to(torch.bfloat16)
             slope = conv.negative_slope
-            got, got_lse = bitmap_gat_fwd(bits, elp, erp, hp, slope, N)
-            want, want_lse = gat_fwd_plain(bits[rows], elp, erp[rows], hp,
-                                           slope)
+            got, got_lse = tbg.bitmap_gat_fwd(bits, *csc, el, er, hb, slope,
+                                              N)
+            want, want_lse = tbg.gat_fwd_plain(bits[rows], el, er[rows], hb,
+                                               slope)
             # the layer's plain forward on the check rows: the plain
             # attention, then the layer's residual, bias and activation,
             # and at the last layer the model's mean over heads
@@ -1206,34 +1261,33 @@ def run_reddit(rate: float, ptxas: dict, tag: dict) -> list:
                     raise RuntimeError(f"B3 vs plain at {label} ({what}): "
                                        f"max abs err {errs[what]} "
                                        f"(max |ref| {scale})")
-            # el, er and h over the N real rows read once; out and lse
-            # written once
-            io = (N * heads * 4 + N * heads * 4 + N * heads * odim * 2
-                  + N * heads * odim * 4 + N * heads * 4)
-            bound, bound_by = bitmap_bound(bits, N, io,
-                                           E * heads * odim * 2, rate)
+            nh, nf = tbg._passes(heads, odim)[:2]
             b3[label] = {
                 "H": heads, "O": odim, "max_abs_err": errs["out"],
                 "max_abs_err_lse": errs["lse"],
                 "max_abs_err_layer_output": errs["layer_output"],
-                "ms": time_ms(lambda: bitmap_gat_fwd(bits, elp, erp, hp,
-                                                     slope, N), 10,
-                              hide_host=True),
+                "ms": time_ms(lambda: tbg.bitmap_gat_fwd(
+                    bits, *csc, el, er, hb, slope, N), 10, hide_host=True),
                 # one call of about a minute at layer 0: no warm-up (the
                 # check above ran it on 4,096 rows)
-                "plain_ms": time_ms(lambda: gat_fwd_plain(
-                    bits[:N], elp, erp[:N], hp, slope), 1, warmup=0,
+                "plain_ms": time_ms(lambda: tbg.gat_fwd_plain(
+                    bits[:N], el, er[:N], hb, slope), 1, warmup=0,
                     hide_host=True),
                 "library_ms": None,
-                "bound_ms": bound, "bound_by": bound_by,
+                **b3_figures(rel, heads, odim, rate),
+                "ptxas": ptxas["bitmap_gat_fwd"][f"nh={nh} nf={nf}"],
+                **tbg.fwd_occupancy(heads, odim),
+                "prev_ms": PREV_MS["bitmap_gat_fwd"][label],
+                "prev_ms_source": PREV_MS_SOURCE["bitmap_gat_fwd"],
             }
             emit({"phase": "kernel_vs_plain", "kernel": "bitmap_gat_fwd",
                   "shape": label, "n_dst": N, "checked_rows": len(rows),
+                  "input": "the relation's CSC (csc_indptr, csc_indices)",
                   "tolerance": "rtol=1e-4, atol=1e-5*max|ref|",
                   "library": "none: no single PyTorch call computes a "
                              "masked rank-1-logit softmax aggregation",
                   **b3[label], **tag})
-            del hs, el, er, elp, erp, hp, got, got_lse, y_want
+            del hs, el, er, hb, got, got_lse, y_want
         del layers, h0
 
     # 12. both forwards as a caller waits for them, and where their device
@@ -1290,9 +1344,14 @@ def run_reddit(rate: float, ptxas: dict, tag: dict) -> list:
         "bound_ms": m3["bound_ms"],
         "bound_by": m3["bound_by"],
         "library_ms": None,
+        "input": "the relation's CSC (csc_indptr, csc_indices), walked a "
+                 "dst row a warp; the bitmap is not read",
         "shape": f"GAT layer0 H=8 O=8, n_dst={N}, E={E}, times per call; "
-                 f"layer1 H=1 O=41: {b3['layer1 H=1 O=41']['ms']} ms; "
-                 "launches: the inference forward",
+                 "layer1 H=1 O=41 in one pass of 64 features; launches: "
+                 "the inference forward",
+        "layer1": {k: b3["layer1 H=1 O=41"][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "max_abs_err")},
         "launches_train_step": gat_train["launches"]["bitmap_gat_fwd"],
     }] + [{
         "name": name,
@@ -1638,6 +1697,91 @@ def run_bwd_edge_cases(tag: dict) -> None:
           **tag})
 
 
+def fwd_edge_case_csc(device="cuda"):
+    """The graph of B3's edge cases (``tests/test_torch_gpu.py`` holds B3 to
+    the same ones): the rows 0..16 have the in-degrees FWD_DEGREES, rows
+    1000..1099 none, the others 0..40 random ones; and its CSC with sink
+    indices (``FWD_N_SRC``, a padded edge) added: one in the middle of rows
+    20..24, a sink alone in row 25 (which has no real edge), 40 after the
+    33 real ones of row 26. Returns the bitmap plan of the real edges, the
+    CSC with sinks (int32) and the real in-degrees, all on ``device``."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch.ops.bitmap_spmm import build_bitmap_plan
+
+    rng = np.random.default_rng(23)
+    deg = rng.integers(0, 41, FWD_N_DST)
+    deg[:len(FWD_DEGREES)] = FWD_DEGREES
+    deg[1000:1100] = 0
+    deg[25], deg[26] = 0, 33
+    lists = [np.sort(rng.choice(FWD_N_SRC, d, replace=False)) for d in deg]
+    src = np.concatenate(lists)
+    dst = np.repeat(np.arange(FWD_N_DST), deg)
+    plan = build_bitmap_plan(dt.Relation.from_coo(src, dst, FWD_N_SRC,
+                                                  FWD_N_DST, device=device))
+    for d in range(20, 25):
+        lists[d] = np.insert(lists[d], len(lists[d]) // 2, FWD_N_SRC)
+    lists[25] = np.array([FWD_N_SRC])
+    lists[26] = np.concatenate([lists[26], np.full(40, FWD_N_SRC)])
+    indptr = np.concatenate([[0], np.cumsum([len(x) for x in lists])])
+    csc = tuple(torch.from_numpy(a.astype(np.int32)).to(device)
+                for a in (indptr, np.concatenate(lists)))
+    return plan, csc, torch.from_numpy(deg).to(device)
+
+
+def run_fwd_edge_cases(tag: dict) -> None:
+    """B3 at the edges of its CSC walk (``fwd_edge_case_csc``), every case
+    of its switch, against its plain version over the bits at rtol = 1e-4,
+    atol = 1e-5 * max|ref|: rows without a real edge must get out = 0
+    exactly and lse = log(1e-30), sink indices must be skipped. Raises on
+    any mismatch."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch.ops import bitmap_gat as tbg
+
+    plan, csc, deg = fwd_edge_case_csc()
+    bits = plan.bits
+    got_deg = tbg._expand_bits(bits[:FWD_N_DST])[:, :FWD_N_SRC].sum(1)
+    if not torch.equal(got_deg.long(), deg.long()):
+        raise RuntimeError("the edge-case bitmap lacks its rows")
+    covered = {tbg._passes(h, o)[:2] for h, o in FWD_CASES}
+    if covered != SWITCH_CASES:
+        raise RuntimeError(f"B3 edge cases cover {sorted(covered)}")
+    empty = deg == 0
+    cases = {}
+    for heads, odim in FWD_CASES:
+        rng = np.random.default_rng(heads * 100 + odim)
+        t = lambda *sh: torch.from_numpy(  # noqa: E731
+            rng.normal(size=sh).astype(np.float32)).cuda()
+        el, er = t(FWD_N_SRC, heads), t(FWD_N_DST, heads)
+        h = t(FWD_N_SRC, heads, odim).to(torch.bfloat16)
+        out, lse = tbg.bitmap_gat_fwd(bits, *csc, el, er, h, 0.2, FWD_N_DST)
+        want = tbg.gat_fwd_plain(bits[:FWD_N_DST], el, er, h, 0.2)
+        torch.cuda.synchronize()
+        label = f"H={heads} O={odim} nf={tbg._passes(heads, odim)[1]}"
+        errs = {}
+        for what, a, b in zip(("out", "lse"), (out, lse), want):
+            scale = max(b.abs().max().item(), 1e-30)
+            errs[what] = (a - b).abs().max().item()
+            if not torch.allclose(a, b, rtol=1e-4, atol=1e-5 * scale):
+                raise RuntimeError(f"B3 edge case {label} ({what}): max abs "
+                                   f"err {errs[what]} (max |ref| {scale})")
+        if out[empty].any() or not torch.all(
+                lse[empty] == float(np.log(np.float32(1e-30)))):
+            raise RuntimeError(f"B3 edge case {label}: a row without an "
+                               "edge got a value")
+        cases[label] = {"max_abs_err": errs}
+    emit({"phase": "bitmap_gat_fwd_edge_cases", "bitmap": repr(plan),
+          "degrees": list(FWD_DEGREES), "empty_rows": int(empty.sum()),
+          "sink_indices": {"rows 20..24": 1, "row 25 (alone)": 1,
+                           "row 26": 40},
+          "tolerance": "rtol=1e-4, atol=1e-5*max|ref|", "cases": cases,
+          **tag})
+
+
 def run() -> dict:
     import torch
 
@@ -1648,7 +1792,7 @@ def run() -> dict:
     tag = {"card": card}
 
     # 1. build the kernels from the checkout's sources (one nvcc each,
-    # started together), and B4 and B5 once more for ptxas's report
+    # started together), and B3, B4 and B5 once more for ptxas's report
     t0 = time.perf_counter()
     procs = ptxas_start(PREV_MS)
     _kernels.library()
@@ -1656,6 +1800,7 @@ def run() -> dict:
     emit({"phase": "build", "kernels": sorted(_kernels.launch_counts),
           "seconds": time.perf_counter() - t0, "ptxas": ptxas, **tag})
 
+    run_fwd_edge_cases(tag)
     run_bwd_edge_cases(tag)
     kernels = [run_sage(rate, tag)]
     kernels += run_reddit(rate, ptxas, tag)

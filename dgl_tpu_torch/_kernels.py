@@ -62,7 +62,7 @@ def library() -> ctypes.CDLL:
                     (lib.dgl_bitmap_spmm,
                      [p, i64, i64, p, i64, i64, i64, i32, p, p]),
                     (lib.dgl_bitmap_gat_fwd,
-                     [p, i64, i64, p, p, p, i64, i32, i32, i32, i32, i32,
+                     [p, p, i64, p, p, p, i64, i32, i32, i32, i32, i32,
                       i32, ctypes.c_float, p, p, p]),
                     (lib.dgl_bitmap_gat_bwd_dst,
                      [p, i64, i64, p, p, p, p, p, p, i64, i32, i32, i32,
@@ -70,6 +70,7 @@ def library() -> ctypes.CDLL:
                     (lib.dgl_bitmap_gat_bwd_src,
                      [p, i64, i64, p, p, p, p, i64, i32, i32, i32, i32, i32,
                       i32, ctypes.c_float, p, p, p]),
+                    (lib.dgl_bitmap_gat_fwd_occupancy, [i32, i32, p]),
                     (lib.dgl_bitmap_gat_bwd_dst_occupancy, [i32, i32, p]),
                     (lib.dgl_bitmap_gat_bwd_src_occupancy, [i32, i32, p]),
                     (lib.dgl_hub_gather,

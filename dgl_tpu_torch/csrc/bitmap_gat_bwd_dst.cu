@@ -23,8 +23,8 @@
 // then h[s]: 32 + 128 bytes an edge at H = 8, O = 8) with no bitmap load
 // in flight (PERF.md, PR 5).
 //
-// Design: B3's (bitmap_gat_fwd.cu) walk with lse known, so there is no
-// running max and no rescale. One warp owns one dst row; a pass covers NH
+// Design: the set-bit walk of bitmap_walk.cuh with lse known, so there is
+// no running max and no rescale. One warp owns one dst row; a pass covers NH
 // heads, each source going to G = NH * NF / 8 lanes with 8 features each.
 // dz[d] is the same for every edge of the row, so a lane keeps its 8 dz
 // values in registers and adds b * (h[s] . dz[d]) over its 8 features into

@@ -24,7 +24,7 @@
 // at Reddit scale, where in f32 it was 59.6 MB, more than the 50 MB L2 by
 // itself; beside the 29.8 MB (er, lse, c) table it still exceeds L2.
 //
-// Design: B3's walk (bitmap_gat_fwd.cu) over the transpose bitmap, one warp
+// Design: B4's walk (bitmap_walk.cuh) over the transpose bitmap, one warp
 // per source row. A pass covers NH heads, each destination going to
 // G = NH * NF / 8 lanes with 8 features each. The destination's er, lse and
 // c arrive packed as one float4 per (d, h) (the wrapper builds the table),

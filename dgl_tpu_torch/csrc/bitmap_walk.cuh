@@ -1,8 +1,9 @@
 // One warp walks the set bits of one row of a plane-packed adjacency bitmap
-// (dgl_tpu_torch/ops/bitmap_spmm.py): the shared front end of the bitmap
-// kernels, one walk (walk_row) for all four users: the SpMM B2
-// (bitmap_spmm.cu), the GAT forward B3 (bitmap_gat_fwd.cu) and the GAT
-// backward B4 and B5 (bitmap_gat_bwd_dst.cu, bitmap_gat_bwd_src.cu).
+// (dgl_tpu_torch/ops/bitmap_spmm.py): the shared front end of the kernels
+// that read the bitmap, one walk (walk_row) for its three users: the SpMM
+// B2 (bitmap_spmm.cu) and the GAT backward B4 and B5
+// (bitmap_gat_bwd_dst.cu, bitmap_gat_bwd_src.cu). The GAT forward B3
+// (bitmap_gat_fwd.cu) walks the relation's CSC instead.
 //
 // Layout: a row holds n_blocks blocks of 512 bytes (4096 sources each);
 // within a block, byte b carries bit j for source block*4096 + j*512 + b.

@@ -35,6 +35,18 @@ def _np_idtype(idtype) -> np.dtype:
     raise DGLError(f"idtype must be torch.int32 or torch.int64, got {idtype}")
 
 
+_HASH_P = 2 ** 31 - 1  # a prime: every product below stays under 2^63
+
+
+def _hash_keys(keys: torch.Tensor) -> int:
+    """Sum over distinct int64 keys of a squared affine hash mod
+    ``_HASH_P``: independent of order and device, and no integer overflow
+    for keys below 2^62 and fewer than 2^32 of them."""
+    lo, hi = keys % _HASH_P, keys // _HASH_P
+    a = (lo * 1_103_515_245 + hi * 12_345 + 1) % _HASH_P
+    return int(((a * a) % _HASH_P).sum())
+
+
 # ---------------------------------------------------------------------------
 # Relation structure (one canonical edge type)
 # ---------------------------------------------------------------------------
@@ -74,16 +86,22 @@ class Relation:
 
     def __init__(self, arrays: Mapping[str, torch.Tensor], *, num_src: int,
                  num_dst: int, num_edges: int, max_in_degree: int = -1,
-                 max_out_degree: int = -1, hub_plan=None):
+                 max_out_degree: int = -1, min_in_degree: int = -1,
+                 min_out_degree: int = -1, hub_plan=None):
         for f in Relation.ARRAY_FIELDS:
             setattr(self, f, arrays[f])
         self.num_src = int(num_src)
         self.num_dst = int(num_dst)
         self.num_edges = int(num_edges)
+        # degree extremes, counted on the host when the relation is built
+        # (-1: not known), so no layer call reads the degrees back
         self.max_in_degree = int(max_in_degree)
         self.max_out_degree = int(max_out_degree)
+        self.min_in_degree = int(min_in_degree)
+        self.min_out_degree = int(min_out_degree)
         self.hub_plan = hub_plan
         self._host = {}
+        self._edge_hash = None
 
     @staticmethod
     def from_coo(src, dst, num_src: int, num_dst: int, *,
@@ -124,10 +142,10 @@ class Relation:
             indptr = np.concatenate(([0], np.cumsum(counts)))
             return indptr[: nrows + 1].astype(np_id), order, major[order]
 
-        def maxdeg(indptr, nrows):
+        def degree(extreme, indptr, nrows):
             if nrows == 0:
                 return 0
-            return int(np.max(indptr[1: nrows + 1] - indptr[:nrows]))
+            return int(extreme(indptr[1: nrows + 1] - indptr[:nrows]))
 
         csr_indptr, csr_order, csr_src = build_index(src, num_src)
         csc_indptr, csc_order, csc_dst = build_index(dst, num_dst)
@@ -147,8 +165,10 @@ class Relation:
             {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
              for k, v in host.items()},
             num_src=num_src, num_dst=num_dst, num_edges=E,
-            max_in_degree=maxdeg(csc_indptr, num_dst),
-            max_out_degree=maxdeg(csr_indptr, num_src))
+            max_in_degree=degree(np.max, csc_indptr, num_dst),
+            max_out_degree=degree(np.max, csr_indptr, num_src),
+            min_in_degree=degree(np.min, csc_indptr, num_dst),
+            min_out_degree=degree(np.min, csr_indptr, num_src))
         rel._host.update(host)
         return rel
 
@@ -166,7 +186,11 @@ class Relation:
     def with_bitmap_plan(self, plan) -> "Relation":
         """A copy carrying a packed-bitmap dense SpMM plan
         (``ops/bitmap_spmm.py``); ``gspmm`` dispatches ``copy_u`` +
-        sum/mean through it and ``GATConv`` its attention."""
+        sum/mean through it and ``GATConv`` its attention. Raises when the
+        plan was built from another edge set."""
+        if plan is not None and plan.edge_hash != self.edge_hash():
+            raise DGLError(f"{plan!r} was not built from {self!r}: their "
+                           "edge sets differ")
         return self._copy_with(bitmap_plan=plan)
 
     def to(self, device) -> "Relation":
@@ -219,7 +243,9 @@ class Relation:
                         num_src=self.num_dst, num_dst=self.num_src,
                         num_edges=self.num_edges,
                         max_in_degree=self.max_out_degree,
-                        max_out_degree=self.max_in_degree)
+                        max_out_degree=self.max_in_degree,
+                        min_in_degree=self.min_out_degree,
+                        min_out_degree=self.min_in_degree)
 
     def edge_keys(self) -> torch.Tensor:
         """Sorted distinct ``dst * num_src + src`` keys of the real edges:
@@ -228,6 +254,14 @@ class Relation:
         src, dst = self.src[:self.num_edges], self.dst[:self.num_edges]
         return torch.unique(dst.to(torch.int64) * self.num_src
                             + src.to(torch.int64))
+
+    def edge_hash(self) -> int:
+        """A hash of the set of (src, dst) pairs of the real edges, the
+        same on every device; counted once (one read from the device) and
+        kept by copies and moves. A bitmap plan records its relation's."""
+        if self._edge_hash is None:
+            self._edge_hash = _hash_keys(self.edge_keys())
+        return self._edge_hash
 
     def has_multi_edges(self) -> bool:
         """Whether two real edges join the same (src, dst) pair."""

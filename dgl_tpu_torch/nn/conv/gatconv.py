@@ -3,7 +3,8 @@
 Reference: ``python/dgl/nn/pytorch/conv/gatconv.py``. The reference picks
 one of four routes for the attention; two are ported:
 
-- the bitmap-flash route (``ops/bitmap_gat.py``, kernels B3 to B5), taken
+- the bitmap-flash route (``ops/bitmap_gat.py``, kernels B3 to B5: B3
+  walks the relation's CSC, B4 and B5 the plan's bitmap), taken
   when the graph carries a bitmap plan (``Graph.with_spmm_plans(bitmap=
   ...)``), there are no edge weights, no attention is returned and no
   attention dropout runs;
@@ -107,7 +108,7 @@ class GATConv(nn.Module):
                 from ...ops.bitmap_gat import bitmap_gat
 
                 rst = bitmap_gat(self.negative_slope, rel.bitmap_plan, el,
-                                 er, h_src)
+                                 er, h_src, rel)
                 return self._finish(rst, feat_dst, H, O)
             if rel.shell_plan is not None and fused:
                 raise NotImplementedError(

@@ -29,11 +29,16 @@ def expand_as_pair(feat, graph=None):
 
 def check_zero_in_degree(graph, allow: bool):
     """Raise when a destination node has no in-edge (its output would be
-    invalid), unless ``allow``. Reads the degrees on the host."""
-    if allow:
+    invalid), unless ``allow``. Reads the relation's minimum in-degree,
+    counted on the host when it was built: no device read, no sync. A
+    relation built without it (-1, not known) reads its degrees instead."""
+    if allow or graph.num_dst_nodes() == 0:
         return
-    deg = graph.in_degrees()
-    if graph.num_dst_nodes() > 0 and int(deg.min()) == 0:
+    rel = graph._relation()
+    low = rel.min_in_degree
+    if low < 0:
+        low = int(rel.in_degrees().min())
+    if low == 0:
         raise DGLError(
             "There are 0-in-degree nodes in the graph; output for those "
             "nodes will be invalid. Add self-loops or pass "

@@ -6,12 +6,15 @@ Full-graph attention over a relation that carries a bitmap plan
 softmax over each dst row's in-neighbours weights the projected source
 features ``h``. Nothing E- or N^2-sized is stored.
 
-:func:`bitmap_gat_fwd` runs the hand-written CUDA kernel
-(``dgl_tpu_torch/csrc/bitmap_gat_fwd.cu``: one warp per dst row walks its
-set bits with an online softmax) on a CUDA tensor, and the plain PyTorch
-version :func:`gat_fwd_plain` (the reference's ``_gat_xla``, chunked over
-dst rows) on a CPU tensor. Both return ``out`` and ``lse`` as ``_gat_xla``
-defines them: ``p`` in f32, ``h`` rounded to bf16, zero-in-degree rows with
+:func:`bitmap_gat_fwd` runs the hand-written CUDA kernel B3
+(``dgl_tpu_torch/csrc/bitmap_gat_fwd.cu``: one warp per dst row walks the
+row's in-edge list from the relation's CSC, ``csc_indptr`` /
+``csc_indices``, with an online softmax and a chunk of gathers in flight) on
+a CUDA tensor, and the plain PyTorch version :func:`gat_fwd_plain` (the
+reference's ``_gat_xla`` over the plan's bits, chunked over dst rows) on a
+CPU tensor. The plan refuses multi-edges, so the CSC and the bits name the
+same (d, s) pairs. Both return ``out`` and ``lse`` as ``_gat_xla`` defines
+them: ``p`` in f32, ``h`` rounded to bf16, zero-in-degree rows with
 ``out = 0`` and ``lse = log(1e-30)``.
 
 The backward is the reference's flash decomposition, with ``alpha``
@@ -168,18 +171,22 @@ def gat_bwd_src_plain(bits_t, el, er, h, slope, lse, c, dz, chunk=None):
     return dele, dh
 
 
-def bitmap_gat_fwd(bits, el, er, h, slope, n_rows=None):
-    """``out`` (n_rows, H, O) and ``lse`` (n_rows, H), both f32, of the
-    attention over the first ``n_rows`` bitmap rows. ``el`` (n_src, H)
-    f32, ``er`` (>= n_rows, H) f32, ``h`` (n_src, H, O) bf16.
+def bitmap_gat_fwd(bits, indptr, indices, el, er, h, slope, n_rows=None):
+    """Kernel B3: ``out`` (n_rows, H, O) and ``lse`` (n_rows, H), both f32,
+    of the attention over the first ``n_rows`` dst rows. Their in-edges are
+    named twice, alike: by the plan's ``bits``, which the plain version
+    reads, and by the relation's CSC, ``indptr`` (n_rows + 1,) and
+    ``indices``, both int32, which the kernel reads (an index outside
+    [0, n_src) is skipped). ``el`` (n_src, H) f32, ``er`` (>= n_rows, H)
+    f32, ``h`` (n_src, H, O) bf16.
 
-    A CUDA ``h`` runs the kernel; a CPU ``h`` runs the plain version."""
+    A CUDA ``h`` runs the kernel; a CPU ``h`` runs the plain version, for
+    which the CSC may be None."""
     n_rows = bits.shape[0] if n_rows is None else int(n_rows)
+    _check_fwd(bits, indptr, indices, el, er, h, n_rows)
     if h.device.type == "cpu":
         return gat_fwd_plain(bits[:n_rows], el, er[:n_rows], h, slope)
-    if not h.is_cuda:
-        raise ValueError(f"bitmap_gat_fwd: unsupported device {h.device}")
-    return _launch(bits, el, er, h, float(slope), n_rows)
+    return _launch(indptr, indices, el, er, h, float(slope), n_rows)
 
 
 def bitmap_gat_bwd_dst(bits, el, er, h, slope, lse, c, dz, n_rows=None):
@@ -223,52 +230,98 @@ def _pow2_at_least(n):
     return p
 
 
-def _launch(bits, el, er, h, slope, n_rows):
+def _check_fwd(bits, indptr, indices, el, er, h, n_rows):
+    """Argument checks of B3 and its plain version; raises ValueError. The
+    CSC is the kernel's input: a CUDA ``h`` needs it, int32 on its device
+    (int64 ids are refused, not converted)."""
     dev = h.device
-    if bits.dtype != torch.uint8 or bits.dim() != 2 or bits.device != dev:
-        raise ValueError("bits must be a 2-D uint8 bitmap on h's device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"bitmap_gat_fwd: unsupported device {dev}")
     if h.dtype != torch.bfloat16 or h.dim() != 3:
         raise ValueError(f"h must be 3-D bf16, got {h.dtype} "
                          f"{tuple(h.shape)}")
-    n_src, heads, odim = h.shape
-    n_bits_rows, W = bits.shape
+    n_src, heads, _ = h.shape
     if (el.dtype != torch.float32 or er.dtype != torch.float32
             or el.device != dev or er.device != dev
             or tuple(el.shape) != (n_src, heads) or er.dim() != 2
             or er.shape[1] != heads or er.shape[0] < n_rows):
         raise ValueError("el must be (n_src, H) and er (>= n_rows, H) f32 "
                          "on h's device")
-    if W % 512 or n_rows > n_bits_rows or n_src > W * 8:
+    if bits.dtype != torch.uint8 or bits.dim() != 2 or bits.device != dev:
+        raise ValueError("bits must be a 2-D uint8 bitmap on h's device")
+    if bits.shape[1] % 512 or n_rows > bits.shape[0] or n_src > (
+            bits.shape[1] * 8):
         raise ValueError(f"bitmap {tuple(bits.shape)} does not fit h "
                          f"{tuple(h.shape)} and n_rows={n_rows}")
+    if indptr is None and indices is None and dev.type == "cpu":
+        return
+    for name, t in (("indptr", indptr), ("indices", indices)):
+        if (not isinstance(t, torch.Tensor) or t.dtype != torch.int32
+                or t.dim() != 1 or t.device != dev):
+            raise ValueError(f"{name} must be a 1-D int32 tensor on h's "
+                             "device: the relation's CSC")
+    if indptr.numel() != n_rows + 1:
+        raise ValueError(f"indptr has {indptr.numel()} entries, not "
+                         f"n_rows + 1 = {n_rows + 1}")
+    if indices.numel() + 4096 >= 2 ** 31:
+        raise ValueError("more than 2^31 - 4096 edges: ids are int32")
+
+
+def _launch(indptr, indices, el, er, h, slope, n_rows, nf=None):
+    """B3 on checked inputs. ``nf``: the features per pass, the fewest
+    passes' by default (:func:`_passes`); the tests also run others."""
+    dev = h.device
+    n_src, heads, odim = h.shape
     out = torch.empty((n_rows, heads, odim), dtype=torch.float32,
                       device=dev)
     lse = torch.empty((n_rows, heads), dtype=torch.float32, device=dev)
     if n_rows == 0 or heads == 0 or odim == 0:
         return out, lse
-    nh, nf, h_pad, o_pad = _passes(heads, odim)
+    nh, nf, h_pad, o_pad = _passes(heads, odim, nf)
     el, er = _pad_heads(el, h_pad), _pad_heads(er[:n_rows], h_pad)
     h = _pad_features(h, h_pad, o_pad)
-    bits = bits.contiguous()
+    indptr, indices = indptr.contiguous(), indices.contiguous()
     lib = _kernels.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.dgl_bitmap_gat_fwd(
-            bits.data_ptr(), n_rows, W, el.data_ptr(), er.data_ptr(),
-            h.data_ptr(), n_src, heads, odim, h_pad, o_pad, nh, nf, slope,
-            out.data_ptr(), lse.data_ptr(), stream)
+            indptr.data_ptr(), indices.data_ptr(), n_rows, el.data_ptr(),
+            er.data_ptr(), h.data_ptr(), n_src, heads, odim, h_pad, o_pad,
+            nh, nf, slope, out.data_ptr(), lse.data_ptr(), stream)
     _kernels.check(code, "bitmap_gat_fwd")
     _kernels.launch_counts["bitmap_gat_fwd"] += 1
     return out, lse
 
 
-def _passes(heads, odim):
+def _passes(heads, odim, nf=None):
     """A pass holds nh heads x nf features per source (nh * nf <= 64), 8
-    features a lane; heads and features pad to whole passes. Returns (nh,
-    nf, h_pad, o_pad)."""
-    nf = 8 if odim <= 8 else 16 if odim <= 16 else 32 if odim <= 32 else 64
+    features a lane; heads and features pad to whole passes. ``nf`` by
+    default: the least of 8, 16, 32, 64 that holds ``odim``, so the fewest
+    passes, which every kernel runs (a B3 pass re-reads the ids and el and
+    repeats every edge's logits: H=1, O=41 as three passes of 16 features
+    measured slower than one of 64 on the H100, PERF.md). Returns
+    (nh, nf, h_pad, o_pad)."""
+    if nf is None:
+        nf = next((f for f in (8, 16, 32) if odim <= f), 64)
+    if nf not in (8, 16, 32, 64):
+        raise ValueError(f"nf must be 8, 16, 32 or 64, got {nf}")
     nh = min(64 // nf, _pow2_at_least(heads))
     return nh, nf, -(-heads // nh) * nh, -(-odim // nf) * nf
+
+
+def fwd_occupancy(heads, odim):
+    """What the card runs B3 with at ``heads`` x ``odim``: the compiled
+    kernel's registers, static shared bytes and local (stack and spill)
+    bytes per thread, its resident blocks per SM, and the gather bytes an
+    SM has in flight at that occupancy while all its warps gather."""
+    nh, nf, _h_pad, _o_pad = _passes(heads, odim)
+    out = (ctypes.c_int * 5)()
+    code = _kernels.library().dgl_bitmap_gat_fwd_occupancy(
+        nh, nf, ctypes.addressof(out))
+    _kernels.check(code, "bitmap_gat_fwd_occupancy")
+    keys = ("registers", "static_smem_bytes", "local_bytes_per_thread",
+            "blocks_per_sm", "gather_bytes_in_flight_per_sm")
+    return {"nh": nh, "nf": nf, **dict(zip(keys, out))}
 
 
 def _aligned(x):
@@ -400,8 +453,9 @@ def bwd_occupancy(name, heads, odim):
 
 
 def _prep(plan, el, er, h):
-    """The reference's operand preparation: el and er in f32, h in bf16,
-    el and h padded to the bitmap's column count, er to its row count."""
+    """The reference's operand preparation, as B4 and B5 take it: el and er
+    in f32, h in bf16, el and h padded to the bitmap's column count, er to
+    its row count."""
     Hp, W = plan.bits.shape
     Ws = W * 8
     nheads, odim = int(el.shape[1]), int(h.shape[2])
@@ -416,10 +470,12 @@ class _BitmapGAT(torch.autograd.Function):
     ``_gat_fwd`` / ``_gat_bwd``)."""
 
     @staticmethod
-    def forward(ctx, el, er, h, slope, plan):
-        elp, erp, hp = _prep(plan, el, er, h)
-        out, lse = bitmap_gat_fwd(plan.bits, elp, erp, hp, slope,
-                                  plan.num_dst)
+    def forward(ctx, el, er, h, slope, plan, rel):
+        csc = (None, None) if rel is None else (rel.csc_indptr,
+                                                rel.csc_indices)
+        out, lse = bitmap_gat_fwd(plan.bits, *csc, el.to(torch.float32),
+                                  er.to(torch.float32),
+                                  h.to(torch.bfloat16), slope, plan.num_dst)
         out = out.to(h.dtype)
         ctx.save_for_backward(el, er, h, lse, out)
         ctx.slope, ctx.plan = slope, plan
@@ -447,15 +503,32 @@ class _BitmapGAT(torch.autograd.Function):
                                           c, dzb, plan.num_src)
             d_el = dele.to(el.dtype) if need_el else None
             d_h = dh.to(h.dtype) if need_h else None
-        return d_el, d_er, d_h, None, None
+        return d_el, d_er, d_h, None, None, None
 
 
-def bitmap_gat(slope, plan: BitmapPlan, el, er, h):
+def _check_plan_rel(plan, rel):
+    """The plan must be the relation's: the same node and edge counts and
+    the same edge set (``Relation.edge_hash``, counted once a relation)."""
+    for what in ("num_src", "num_dst", "num_edges"):
+        if getattr(plan, what) != getattr(rel, what):
+            raise ValueError(f"bitmap plan and relation disagree on {what}: "
+                             f"{getattr(plan, what)} != "
+                             f"{getattr(rel, what)}")
+    if plan.edge_hash != rel.edge_hash():
+        raise ValueError("bitmap plan and relation disagree on their edge "
+                         "sets: the plan was built from another relation")
+
+
+def bitmap_gat(slope, plan: BitmapPlan, el, er, h, rel=None):
     """Full-graph GAT aggregation over a bitmap plan.
 
     ``el`` (num_src, H): per-source logit halves; ``er`` (num_dst, H):
     per-destination halves; ``h`` (num_src, H, O): projected features.
     Returns (num_dst, H, O) in ``h.dtype``: ``sum_s alpha[s, d] h[s]`` with
     alpha the softmax of ``leaky(el[s] + er[d])`` over each destination's
-    in-neighbours."""
-    return _BitmapGAT.apply(el, er, h, slope, plan)
+    in-neighbours. ``rel``: the plan's relation, whose CSC the forward
+    kernel walks; on the CPU the plain version reads only the plan's bits,
+    and ``rel`` may be None there."""
+    if rel is not None:
+        _check_plan_rel(plan, rel)
+    return _BitmapGAT.apply(el, er, h, slope, plan, rel)

@@ -56,15 +56,20 @@ class BitmapPlan:
     ``bits``: (rup(num_dst, 512), rup(num_src, 4096)/8) uint8 in the
     plane-packed layout. ``bits_rev``: the transpose bitmap for the
     backward, None when the relation is symmetric and square (``bits``
-    serves both directions).
+    serves both directions). ``num_edges`` and ``edge_hash``: the
+    relation's edge count (set bits) and ``Relation.edge_hash()``, which let
+    a consumer check that a relation is the plan's.
     """
 
     def __init__(self, bits, bits_rev, *, num_src: int, num_dst: int,
+                 num_edges: int, edge_hash: int,
                  compute_dtype: str = "bfloat16"):
         self.bits = bits
         self.bits_rev = bits_rev
         self.num_src = int(num_src)
         self.num_dst = int(num_dst)
+        self.num_edges = int(num_edges)
+        self.edge_hash = int(edge_hash)
         self.compute_dtype = str(compute_dtype)
 
     def to(self, device) -> "BitmapPlan":
@@ -72,6 +77,7 @@ class BitmapPlan:
             self.bits.to(device),
             None if self.bits_rev is None else self.bits_rev.to(device),
             num_src=self.num_src, num_dst=self.num_dst,
+            num_edges=self.num_edges, edge_hash=self.edge_hash,
             compute_dtype=self.compute_dtype)
 
     @property
@@ -152,7 +158,8 @@ def build_bitmap_plan(rel, max_bytes: int = 2 << 30,
     bits_rev = (None if symmetric
                 else _pack(dst, src, rel.num_dst, rel.num_src))
     return BitmapPlan(bits, bits_rev, num_src=rel.num_src,
-                      num_dst=rel.num_dst, compute_dtype=compute_dtype)
+                      num_dst=rel.num_dst, num_edges=rel.num_edges,
+                      edge_hash=rel.edge_hash(), compute_dtype=compute_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -123,7 +123,8 @@ def test_bitmap_gat_matches(heads, odim):
                                atol=1e-4)
     elp, erp, hp = tbg._prep(tplan, torch.from_numpy(el),
                              torch.from_numpy(er), torch.from_numpy(h))
-    _, lse = tbg.bitmap_gat_fwd(tplan.bits, elp, erp, hp, 0.2, n_dst)
+    _, lse = tbg.bitmap_gat_fwd(tplan.bits, trel.csc_indptr,
+                                trel.csc_indices, elp, erp, hp, 0.2, n_dst)
     live = np.bincount(dst, minlength=n_dst) > 0
     np.testing.assert_allclose(lse.numpy()[live], np.asarray(jlse)[live],
                                rtol=1e-5, atol=1e-5)

@@ -131,11 +131,15 @@ def _bitmap_edges(seed):
 
 
 @pytest.fixture(scope="module")
-def bitmap_plans():
+def bitmap_rel():
     src, dst = _bitmap_edges(11)
-    rel = dt.Relation.from_coo(src, dst, N_SRC, N_DST, device="cpu")
-    plan = build_bitmap_plan(rel)
-    return plan, np.bincount(dst, minlength=N_DST)
+    return dt.Relation.from_coo(src, dst, N_SRC, N_DST, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def bitmap_plans(bitmap_rel):
+    plan = build_bitmap_plan(bitmap_rel)
+    return plan, np.bincount(_bitmap_edges(11)[1], minlength=N_DST)
 
 
 def test_bitmap_plan_built_on_card_equals_cpu(card, bitmap_plans):
@@ -176,11 +180,25 @@ def test_bitmap_spmm_kernel_matches_plain(card, bitmap_plans, feat):
     torch.testing.assert_close(out_t.cpu(), want_t[:, None].expand(-1, feat))
 
 
+def _b3(bits, csc, el, er, h, n_rows, nf):
+    """B3 through its wrapper (the fewest passes), or at another ``nf``
+    through the private launcher after the wrapper's checks."""
+    if nf is None:
+        return tbg.bitmap_gat_fwd(bits, *csc, el, er, h, 0.2, n_rows)
+    tbg._check_fwd(bits, *csc, el, er, h, n_rows)
+    return tbg._launch(*csc, el, er, h, 0.2, n_rows, nf)
+
+
+@pytest.mark.parametrize("nf", [None, 8, 16, 32, 64])
 @pytest.mark.parametrize("heads,odim", [(8, 8), (1, 41), (3, 5), (2, 130)])
-def test_bitmap_gat_kernel_matches_plain(card, bitmap_plans, heads, odim):
-    """(3, 5) pads heads and features; (2, 130) runs three feature passes.
-    rtol = 1e-4, atol = 1e-5 * max|ref|: the exponentials and sums run in
-    another order (an online softmax merged across lanes)."""
+def test_bitmap_gat_kernel_matches_plain(card, bitmap_plans, bitmap_rel,
+                                         heads, odim, nf):
+    """B3 walks the relation's CSC, the plain version reads the bits. (3, 5)
+    pads heads and features; (2, 130) runs three feature passes at nf = 64;
+    every nf (given to the private launcher; the wrapper takes the fewest
+    passes) reaches another case of the kernel's switch. rtol = 1e-4,
+    atol = 1e-5 * max|ref|: the exponentials and sums run in another order
+    (an online softmax merged across lanes)."""
     plan, deg = bitmap_plans
     rng = np.random.default_rng(heads * 1000 + odim)
     el = torch.from_numpy(rng.normal(size=(N_SRC, heads)).astype(np.float32))
@@ -188,9 +206,10 @@ def test_bitmap_gat_kernel_matches_plain(card, bitmap_plans, heads, odim):
     h = torch.from_numpy(rng.normal(size=(N_SRC, heads, odim)).astype(
         np.float32)).to(torch.bfloat16)
     bits = plan.bits.to(card)
+    csc = bitmap_rel.csc_indptr.to(card), bitmap_rel.csc_indices.to(card)
     before = _kernels.launch_counts["bitmap_gat_fwd"]
-    out, lse = tbg.bitmap_gat_fwd(bits, el.to(card), er.to(card),
-                                  h.to(card), 0.2, N_DST)
+    out, lse = _b3(bits, csc, el.to(card), er.to(card), h.to(card), N_DST,
+                   nf)
     torch.cuda.synchronize()
     assert _kernels.launch_counts["bitmap_gat_fwd"] == before + 1
     ref_out, ref_lse = tbg.gat_fwd_plain(bits[:N_DST], el.to(card),
@@ -206,7 +225,39 @@ def test_bitmap_gat_kernel_matches_plain(card, bitmap_plans, heads, odim):
     assert torch.all(lse[empty] == float(np.log(np.float32(1e-30))))
 
 
-def test_kernels_reject_wrong_inputs(card, bitmap_plans):
+@pytest.mark.parametrize("heads,odim,nf", [
+    (1, 5, None), (2, 8, None), (3, 7, None), (12, 8, None), (1, 16, None),
+    (2, 12, None), (5, 16, None), (1, 32, None), (3, 20, None),
+    (2, 130, None), (1, 41, 16), (1, 41, 64)])
+def test_bitmap_gat_fwd_edge_cases(card, heads, odim, nf):
+    """B3 against its plain version at B3's tolerance on rows of in-degree
+    0, 1, 31, 32, 33 (and around 64, 128, 256 sources), 1,000 and more, a
+    row holding every source, and sink indices that must be skipped; both
+    feature widths at O = 41 (o_pad 48 and 64). Rows without a real edge
+    get out = 0 and lse = log(1e-30) exactly. The graph is chip_smoke.py's
+    ``fwd_edge_case_csc``, which holds B3 to the same cases."""
+    from chip_smoke import FWD_N_DST, FWD_N_SRC, fwd_edge_case_csc
+
+    plan, csc, deg = fwd_edge_case_csc(card)
+    assert int(deg.max()) == FWD_N_SRC
+    rng = np.random.default_rng(heads * 100 + odim)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32)).to(card)
+    el, er = t(FWD_N_SRC, heads), t(FWD_N_DST, heads)
+    h = t(FWD_N_SRC, heads, odim).to(torch.bfloat16)
+    bits = plan.bits
+    out, lse = _b3(bits, csc, el, er, h, FWD_N_DST, nf)
+    ref_out, ref_lse = tbg.gat_fwd_plain(bits[:FWD_N_DST], el, er, h, 0.2)
+    torch.cuda.synchronize()
+    _close(out, ref_out, 1e-4)
+    _close(lse, ref_lse, 1e-4)
+    empty = deg == 0
+    assert int(empty.sum()) >= 100 and bool(empty[25])
+    assert not out[empty].any()
+    assert torch.all(lse[empty] == float(np.log(np.float32(1e-30))))
+
+
+def test_kernels_reject_wrong_inputs(card, bitmap_plans, bitmap_rel):
     plan, _ = bitmap_plans
     bits = plan.bits.to(card)
     with pytest.raises(ValueError, match="uint8"):
@@ -215,11 +266,49 @@ def test_kernels_reject_wrong_inputs(card, bitmap_plans):
         bitmap_matmul(bits[:, :512], torch.ones(N_SRC, 4, device=card))
     h = torch.ones(N_SRC, 2, 4, device=card)
     el = torch.ones(N_SRC, 2, device=card)
+    csc = bitmap_rel.csc_indptr.to(card), bitmap_rel.csc_indices.to(card)
     with pytest.raises(ValueError, match="bf16"):
-        tbg.bitmap_gat_fwd(bits, el, el[:N_DST], h, 0.2, N_DST)
+        tbg.bitmap_gat_fwd(bits, *csc, el, el[:N_DST], h, 0.2, N_DST)
+    hb = h.to(torch.bfloat16)
     with pytest.raises(ValueError, match="el must be"):
-        tbg.bitmap_gat_fwd(bits, el[:, :1], el[:N_DST],
-                           h.to(torch.bfloat16), 0.2, N_DST)
+        tbg.bitmap_gat_fwd(bits, *csc, el[:, :1], el[:N_DST], hb, 0.2,
+                           N_DST)
+    # the kernel walks the CSC: on the card it must be there, int32
+    with pytest.raises(ValueError, match="indptr must be"):
+        tbg.bitmap_gat_fwd(bits, None, None, el, el[:N_DST], hb, 0.2, N_DST)
+    with pytest.raises(ValueError, match="indices must be"):
+        tbg.bitmap_gat_fwd(bits, csc[0], csc[1].long(), el, el[:N_DST], hb,
+                           0.2, N_DST)
+    with pytest.raises(ValueError, match="indices must be"):
+        tbg.bitmap_gat_fwd(bits, csc[0], csc[1].cpu(), el, el[:N_DST], hb,
+                           0.2, N_DST)
+    with pytest.raises(ValueError, match="entries"):
+        tbg.bitmap_gat_fwd(bits, *csc, el, el[:N_DST], hb, 0.2, N_DST - 1)
+
+
+def test_bitmap_gat_rejects_another_relation(card, bitmap_plans,
+                                             bitmap_rel):
+    """The plan and the relation must agree on num_src, num_dst and the
+    edge count, and an int64 relation is refused, not converted."""
+    plan = bitmap_plans[0].to(card)
+    el = torch.ones(N_SRC, 2, device=card)
+    er = torch.ones(N_DST, 2, device=card)
+    h = torch.ones(N_SRC, 2, 4, device=card)
+    src, dst = _bitmap_edges(11)
+    fewer = dt.Relation.from_coo(src[1:], dst[1:], N_SRC, N_DST, device=card)
+    with pytest.raises(ValueError, match="num_edges"):
+        tbg.bitmap_gat(0.2, plan, el, er, h, fewer)
+    wide = dt.Relation.from_coo(src, dst, N_SRC + 1, N_DST, device=card)
+    with pytest.raises(ValueError, match="num_src"):
+        tbg.bitmap_gat(0.2, plan, torch.ones(N_SRC + 1, 2, device=card), er,
+                       torch.ones(N_SRC + 1, 2, 4, device=card), wide)
+    wide64 = dt.Relation.from_coo(src, dst, N_SRC, N_DST, device=card,
+                                  idtype=torch.int64)
+    with pytest.raises(ValueError, match="int32"):
+        tbg.bitmap_gat(0.2, plan, el, er, h, wide64)
+    out = tbg.bitmap_gat(0.2, plan, el, er, h, bitmap_rel.to(card))
+    torch.cuda.synchronize()
+    assert out.shape == (N_DST, 2, 4)
 
 
 def test_gcn_and_gat_launch_the_kernels(card):

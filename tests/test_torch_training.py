@@ -207,7 +207,8 @@ def test_bitmap_gat_plain_row_subsets_and_needs_input_grad(monkeypatch):
         rng.normal(size=s).astype(np.float32))
     el, er, h = t(n_src, heads), t(n_dst, heads), t(n_src, heads, odim)
     elp, erp, hp = tbg._prep(plan, el, er, h)
-    out, lse = tbg.bitmap_gat_fwd(plan.bits, elp, erp, hp, 0.2, n_dst)
+    out, lse = tbg.bitmap_gat_fwd(plan.bits, trel.csc_indptr,
+                                  trel.csc_indices, elp, erp, hp, 0.2, n_dst)
     dz = t(n_dst, heads, odim)
     c = (out * dz).sum(-1)
     der = tbg.bitmap_gat_bwd_dst(plan.bits, elp, erp, hp, 0.2, lse, c, dz,
