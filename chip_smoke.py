@@ -134,7 +134,35 @@ the per-edge GAT path (g-SDDMM, edge softmax, g-SpMM; no hand kernel):
 18. trains it (feat_drop 0.75, attn_drop 0.05, Adam at 1e-2, masked
     cross-entropy over uniform random labels, every node labelled): one
     counted step (every kernel count 0), four more (finite losses), step
-    time, peak memory and a profile.
+    time, peak memory and a profile;
+
+the minibatch GraphSAGE paths (no hand kernel), on the zipf graph with
+``bench.py``'s ogbn-products widths (100-wide f32 features, labels in
+[0, 47), GraphSAGE 100 -> 256 -> 47, batch 512, fanouts [10, 10]):
+
+19. ``sage_minibatch`` (``bench.py:388-495``): samples 4 batches of a
+    seeded permutation once on the host with
+    ``FixedShapeNeighborSampler`` (the first call builds
+    ``csrc/host_ops.cpp`` with ``g++``; ``sample_ms`` is a batch's host
+    time, C++ included), holds one step on the card (feature gather,
+    forward over the 2 blocks, masked loss, backward) against the same
+    step on the CPU at rtol = 1e-4, atol = 1e-5 * max|ref| (loss, logits,
+    every gradient), drives one epoch of the 4 SGD steps (lr 1e-3) with
+    the launch counts read around it (all must stay 0), prints
+    ``ms_per_step`` (median of 5 runs of 10 epochs after a warm one),
+    ``edges_per_s``, ``run_spread`` and a profile, and checks that the
+    first batch's loss is finite and lower after training;
+20. ``sage_minibatch_end_to_end`` (``bench.py:286-385``): holds the
+    on-device sampler's picks on a part-masked batch (every unmasked pick
+    an in-neighbour, rows of in-degree at most 10 taking all their
+    neighbours in order, masks 0 past the degree and under masked seeds),
+    then drives one epoch (``device_seed_batches`` from a CUDA generator,
+    330 steps of sampling, feature gather, ``DeviceSAGE`` forward and
+    backward and an Adam step at 1e-3) with the launch counts read around
+    it (all 0) and any host sync an error, and prints ``bench.py``'s
+    ``ms_per_step``, ``steps_per_epoch``, ``edges_per_s`` and ``epoch_s``
+    (1 + 2 epochs against 1, best of 2 each), a step's profile, and the
+    epochs' mean losses, which must be finite and fall.
 
 Every training input is built outside ``torch.inference_mode()``.
 It prints one JSON object per result line, the kernel table as
@@ -197,6 +225,12 @@ FWD_DEGREES = (0, 1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256, 257,
                1000, 1500, 5003)
 FWD_CASES = EDGE_CASES + ((1, 41),)
 HUB_HUBS, HUB_FEAT = 1024, 256  # benchmarks/bench_hub.py's defaults
+# bench.py's minibatch cells (bench.py:303-305, 399-411): ogbn-products
+# widths, batch 512, fanouts [10, 10], S = 4 reused host-sampled batches
+MB_FEAT, MB_HIDDEN, MB_CLASSES, MB_BATCH = 100, 256, 47, 512
+MB_FANOUTS, MB_BATCHES = [10, 10], 4
+MB_EPOCHS, MB_RUNS = 10, 5  # k epochs a timed run (bench.py's iters), runs
+E2E_EPOCHS = 2  # the end-to-end cell times 1 + k epochs against 1
 # DGL's examples/pytorch/ogb/ogbn-arxiv GAT: 3 layers, 3 heads, 250 hidden
 EDGE_GAT_HIDDEN, EDGE_GAT_HEADS = 250, 3
 LR = 1e-2  # optax.adam(1e-2) of the JAX package's training scripts
@@ -318,7 +352,10 @@ def device_profile(fn, iters: int) -> dict:
     call runs inside the trace first and only kernels that start inside a
     ``record_function`` window around the ``iters`` calls count. Each
     kernel's entry gives its ms per call and the launches counted, so a lost
-    launch would show as a short count."""
+    launch would show as a short count. A ``record_function`` range (the
+    window, ``Optimizer.step#Adam.step``) also shows on the device's track,
+    spanning the kernels launched inside it; it is no kernel and is not
+    counted."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -337,10 +374,12 @@ def device_profile(fn, iters: int) -> dict:
     events = prof.events()
     start = min(ev.time_range.start for ev in events
                 if ev.name == "chip_smoke_window")
+    ranges = {ev.name for ev in events
+              if ev.device_type == torch.autograd.DeviceType.CPU}
     by_name: dict = {}
     for ev in events:
         if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and ev.name != "chip_smoke_window"
+                and ev.name not in ranges
                 and ev.time_range.start >= start):
             key = ev.name[:80]  # kernels whose names share it are summed
             us, n = by_name.get(key, (0.0, 0))
@@ -351,6 +390,8 @@ def device_profile(fn, iters: int) -> dict:
         "wall_ms_per_call": wall_us / iters / 1e3,
         "device_busy_ms_per_call": busy_us / iters / 1e3,
         "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
+        "kernel_launches_per_call": sum(n for _us, n in by_name.values())
+        / iters,
         "kernels_ms_per_call": {k: v[0] / iters / 1e3 for k, v in top},
         "kernels_launches_in_trace": {k: v[1] for k, v in top},
     }
@@ -1782,6 +1823,309 @@ def run_fwd_edge_cases(tag: dict) -> None:
           **tag})
 
 
+def minibatch_data(device):
+    """The zipf graph on ``device`` with bench.py's minibatch features
+    (N, 100) f32 and labels uniform in [0, 47), from seeded numpy
+    generators."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+
+    g = dt.graph(zipf_graph(0), num_nodes=N_NODES, device=device)
+    rng = np.random.default_rng(5)
+    feats = torch.from_numpy(rng.normal(size=(N_NODES, MB_FEAT)).astype(
+        np.float32)).to(device)
+    labels = torch.from_numpy(rng.integers(0, MB_CLASSES, N_NODES)).to(device)
+    return g, feats, labels
+
+
+def block_loss(model, blocks, feats, labels):
+    """``sage_minibatch``'s loss (bench.py:454-466): gather the input
+    frontier's features (padding rows zeroed), forward over the blocks,
+    cross-entropy over the real output slots; returns it and the
+    logits."""
+    import torch
+
+    from dgl_tpu_torch.base import NID
+
+    x = feats[blocks[0].srcdata[NID]] * blocks[0].srcdata["_mask"][:, None]
+    logits = model(blocks, x)
+    return masked_loss(logits, labels[blocks[-1].dstdata[NID]],
+                       blocks[-1].dstdata["_mask"].to(torch.float32)), logits
+
+
+def run_sage_minibatch(data, tag: dict, device="cuda") -> dict:
+    """19. bench.py's ``sage_minibatch`` (bench.py:388-495): fixed-shape
+    blocks sampled on the host, reused, and the training step on the
+    card; no hand kernel may launch."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.dataloading import FixedShapeNeighborSampler
+    from dgl_tpu_torch.models import GraphSAGE
+
+    t_phase = time.perf_counter()
+    g, feats, labels = data
+    seeds = np.random.default_rng(6).permutation(N_NODES)[
+        :MB_BATCHES * MB_BATCH].reshape(MB_BATCHES, MB_BATCH)
+    # the host library's build and the relation's int64 CSC, once
+    t0 = time.perf_counter()
+    FixedShapeNeighborSampler(MB_FANOUTS, MB_BATCH, seed=1,
+                              device=device).sample_blocks(g, seeds[0])
+    first_sample_s = time.perf_counter() - t0
+    sampler = FixedShapeNeighborSampler(MB_FANOUTS, MB_BATCH, seed=0,
+                                        device=device)
+    batches, sample_s = [], []
+    for s in range(MB_BATCHES):
+        t0 = time.perf_counter()
+        batches.append(sampler.sample_blocks(g, seeds[s])[2])
+        sample_s.append(time.perf_counter() - t0)
+    real_edges = sum(int(b.edata["_mask"].sum()) for bl in batches
+                     for b in bl)
+    model = GraphSAGE(MB_FEAT, MB_HIDDEN, MB_CLASSES, num_layers=2,
+                      dropout=0.0, generator=torch.Generator().manual_seed(0),
+                      device=device)
+
+    # one step on the card against the same step on the CPU
+    model_cpu = GraphSAGE(MB_FEAT, MB_HIDDEN, MB_CLASSES, num_layers=2,
+                          dropout=0.0, device="cpu")
+    model_cpu.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    got = block_loss(model, batches[0], feats, labels)
+    ref = block_loss(model_cpu, [b.to("cpu") for b in batches[0]],
+                     feats.cpu(), labels.cpu())
+    for loss, _logits in (got, ref):
+        loss.backward()
+    pairs = [("loss", got[0], ref[0]), ("logits", got[1], ref[1])] + [
+        (k, p.grad, q.grad) for (k, p), q in zip(model.named_parameters(),
+                                                 model_cpu.parameters())]
+    errs = {}
+    for name, a, b in pairs:
+        a, b = a.detach().cpu(), b.detach()
+        scale = b.abs().max().item()
+        errs[name] = (a - b).abs().max().item()
+        if not torch.allclose(a, b, rtol=1e-4, atol=1e-5 * scale):
+            raise RuntimeError(f"minibatch step on the card vs the CPU: "
+                               f"{name} max abs err {errs[name]} (max |ref| "
+                               f"{scale})")
+    emit({"phase": "sage_minibatch_vs_cpu", "max_abs_err": errs,
+          "tolerance": "rtol=1e-4, atol=1e-5*max|ref|", **tag})
+    del model_cpu
+
+    # the main path: an epoch of S steps with the launch counts read
+    # around it
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+    with torch.no_grad():
+        first_loss = block_loss(model, batches[0], feats, labels)[0]
+
+    def epoch():
+        for blocks in batches:
+            opt.zero_grad(set_to_none=True)
+            block_loss(model, blocks, feats, labels)[0].backward()
+            opt.step()
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    epoch()
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(launches, {}, "the sage_minibatch epoch")
+    emit({"phase": "sage_minibatch_main_path",
+          "model": f"GraphSAGE {MB_FEAT}-{MB_HIDDEN}-{MB_CLASSES}, 2 layers "
+                   f"over blocks", "launches": launches,
+          "first_sample_s": first_sample_s, **tag})
+
+    # bench.py's timing: runs of k epochs after a warm one
+    epoch()
+    runs = []
+    for _ in range(MB_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MB_EPOCHS):
+            epoch()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    med = statistics.median(runs)
+    prof = device_profile(epoch, 2)
+    with torch.no_grad():
+        last_loss = block_loss(model, batches[0], feats, labels)[0]
+    losses = [first_loss.item(), last_loss.item()]
+    if not all(map(math.isfinite, losses)) or not losses[1] < losses[0]:
+        raise RuntimeError(f"sage_minibatch: the first batch's loss before "
+                           f"and after training: {losses}")
+    result = {
+        "config": f"B={MB_BATCH} fanouts={MB_FANOUTS} feat={MB_FEAT} "
+                  f"hid={MB_HIDDEN}",
+        "ms_per_step": med / (MB_EPOCHS * MB_BATCHES) * 1e3,
+        "edges_per_s": real_edges * MB_EPOCHS / med,
+        "run_spread": (max(runs) - min(runs)) / med,
+        "sample_ms": statistics.mean(sample_s) * 1e3,
+        "device_idle_share": prof["device_idle_share"],
+        "device_busy_ms_per_step": prof["device_busy_ms_per_call"]
+        / MB_BATCHES,
+        "wall_ms_per_step_profiled": prof["wall_ms_per_call"] / MB_BATCHES,
+        "real_edges_per_epoch": real_edges, "loss_first_batch": losses,
+        "phase_s": time.perf_counter() - t_phase}
+    emit({"phase": "sage_minibatch", **result, **tag})
+    emit({"phase": "sage_minibatch_profile", "calls": "2 epochs of "
+          f"{MB_BATCHES} steps", **prof, **tag})
+    return result
+
+
+def check_device_picks(mfg, indptr, indices, fanouts) -> int:
+    """On the card: every unmasked pick is an in-neighbour of its frontier
+    node; a live row of in-degree at most the fanout takes all its
+    neighbours in CSC order; masks are 0 past the degree and under a
+    masked node. Returns the masked seeds' count."""
+    import torch
+
+    n, e = indptr.shape[0] - 1, indices.shape[0]
+    deg_all = (indptr[1:] - indptr[:-1]).long()
+    dst = torch.repeat_interleave(torch.arange(n, device=indptr.device),
+                                  deg_all)
+    keys = torch.sort(dst * n + indices.long()).values
+    live = mfg.seed_mask
+    for depth, fanout in enumerate(reversed(fanouts)):
+        front = mfg.frontiers[depth].long()
+        nbr, m = mfg.nbrs[depth].long(), mfg.masks[depth]
+        q = (front[:, None] * n + nbr)[m]
+        hit = keys[torch.searchsorted(keys, q).clamp(max=e - 1)] == q
+        start = indptr[front].long()
+        deg = indptr[front + 1].long() - start
+        j = torch.arange(fanout, device=m.device)[None, :]
+        inside = j < deg[:, None]
+        small = (deg <= fanout) & live
+        want = indices[(start[:, None] + j).clamp(max=e - 1)].long()
+        bad = {
+            "pick not an in-neighbour": int((~hit).sum()),
+            "mask past the degree": int((m & ~inside).sum()),
+            "mask under a masked node": int((m & ~live[:, None]).sum()),
+            "take-all row missing a slot": int(
+                (small[:, None] & inside & ~m).sum()),
+            "take-all row out of order": int(
+                (small[:, None] & inside & (nbr != want)).sum()),
+        }
+        if any(bad.values()):
+            raise RuntimeError(f"device sampler, depth {depth}: {bad}")
+        live = torch.cat([live, m.reshape(-1)])
+    return int((~mfg.seed_mask).sum())
+
+
+def run_sage_end_to_end(data, tag: dict, device="cuda") -> dict:
+    """20. bench.py's ``sage_minibatch_end_to_end`` (bench.py:286-385):
+    each epoch shuffles its seeds on the card, and every step samples on
+    the card, gathers the features and takes an Adam step, eagerly, with
+    no host sync inside an epoch; no hand kernel may launch."""
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.models import DeviceSAGE
+    from dgl_tpu_torch.sampling import (DeviceNeighborSampler,
+                                        device_seed_batches)
+
+    t_phase = time.perf_counter()
+    g, feats, labels = data
+    rel = g._relation()
+    indptr = rel.csc_indptr.to(torch.int32)
+    indices = rel.csc_indices.to(torch.int32)
+    sampler = DeviceNeighborSampler(MB_FANOUTS)
+    model = DeviceSAGE(MB_FEAT, MB_HIDDEN, MB_CLASSES, num_layers=2,
+                       generator=torch.Generator().manual_seed(0),
+                       device=device)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    gen = torch.Generator(device=device).manual_seed(42)
+    nb = N_NODES // MB_BATCH  # full batches per epoch, as bench.py
+
+    # the sampler's picks, on the last (part-masked) batch of a schedule
+    ids, smask = device_seed_batches(gen, N_NODES, MB_BATCH, device=device)
+    mfg = sampler.sample(gen, indptr, indices, ids[-1], seed_mask=smask[-1])
+    masked = check_device_picks(mfg, indptr, indices, MB_FANOUTS)
+    emit({"phase": "sage_end_to_end_picks", "seeds": MB_BATCH,
+          "masked_seeds": masked,
+          "frontiers": [int(f.shape[0]) for f in mfg.frontiers],
+          "real_edges": int(mfg.num_real_edges()), **tag})
+
+    def step(seeds, sm):
+        mfg = sampler.sample(gen, indptr, indices, seeds, seed_mask=sm)
+        logits = model(mfg, feats.index_select(0, mfg.input_nodes()))
+        loss = masked_loss(logits, labels.index_select(0, seeds),
+                           sm.to(torch.float32))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach(), mfg.num_real_edges()
+
+    def epochs(k):
+        """k epochs; their real edges and mean losses, on the card."""
+        edges = torch.zeros((), dtype=torch.int64, device=device)
+        means = []
+        for _ in range(k):
+            ids, smask = device_seed_batches(gen, N_NODES, MB_BATCH,
+                                             device=device)
+            total = torch.zeros((), device=device)
+            for i in range(nb):
+                loss, ne = step(ids[i], smask[i])
+                total = total + loss
+                edges = edges + ne
+            means.append(total / nb)
+        return edges, means
+
+    # the main path: one epoch with the launch counts read around it and
+    # any host sync an error
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        edges, means = epochs(1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(launches, {}, "the end-to-end epoch")
+    losses = [m.item() for m in means]
+    emit({"phase": "sage_end_to_end_main_path",
+          "model": f"DeviceSAGE {MB_FEAT}-{MB_HIDDEN}-{MB_CLASSES}, "
+                   f"fanouts {MB_FANOUTS}, unique mode",
+          "launches": launches, "host_syncs_in_epoch": 0,
+          "real_edges": int(edges), **tag})
+
+    # bench.py's timing: 1 + k epochs against 1, best of 2 each
+    def timed(k):
+        best = math.inf
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            edges, means = epochs(k)
+            edges = int(edges)  # the one read, after the last step
+            best = min(best, time.perf_counter() - t0)
+            losses.extend(m.item() for m in means)
+        return best, edges / k
+
+    t1, _ = timed(1)
+    tk, edges_per_epoch = timed(1 + E2E_EPOCHS)
+    dt_epoch = (tk - t1) / E2E_EPOCHS
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"end-to-end epoch mean losses: {losses}")
+    prof = device_profile(lambda: step(ids[0], smask[0]), 20)
+    result = {
+        "pipeline": "on-device sampler (sampling+shuffle+fetch+train, "
+                    "eager)",
+        "ms_per_step": dt_epoch / nb * 1e3, "steps_per_epoch": nb,
+        "edges_per_s": edges_per_epoch / dt_epoch, "epoch_s": dt_epoch,
+        "device_idle_share": prof["device_idle_share"],
+        "device_busy_ms_per_step": prof["device_busy_ms_per_call"],
+        "epoch_mean_losses": losses,
+        "phase_s": time.perf_counter() - t_phase}
+    emit({"phase": "sage_minibatch_end_to_end", **result, **tag})
+    emit({"phase": "sage_end_to_end_profile", "calls": "20 steps",
+          **prof, **tag})
+    return result
+
+
 def run() -> dict:
     import torch
 
@@ -1806,6 +2150,12 @@ def run() -> dict:
     kernels += run_reddit(rate, ptxas, tag)
     kernels.append(run_hub_cache(rate, tag))
     run_gat_edge(tag)
+    t0 = time.perf_counter()
+    data = minibatch_data("cuda")
+    emit({"phase": "minibatch_data", "setup_s": time.perf_counter() - t0,
+          **tag})
+    run_sage_minibatch(data, tag)
+    run_sage_end_to_end(data, tag)
     return {"kernels": kernels, "card": card}
 
 

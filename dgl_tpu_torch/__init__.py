@@ -14,13 +14,19 @@ inference through the bitmap path (``with_spmm_plans(bitmap=...)``,
 three, the per-edge message-passing layer (g-SDDMM, edge softmax, the
 max/min reducers, segment ops, ``apply_edges``/``apply_nodes`` and
 user-defined functions) that carries GAT on sparse graphs, and the opt-in
-hub-cache g-SpMM (``ops.hub_cache``).
+hub-cache g-SpMM (``ops.hub_cache``), and minibatch GraphSAGE training:
+fixed-shape MFG blocks (``create_block``) from the host sampler
+(``dataloading.FixedShapeNeighborSampler``) through the uniform-stride
+g-SpMM and edge softmax, and the on-device sampler
+(``sampling.DeviceNeighborSampler``, ``device_seed_batches``) with
+``models.DeviceSAGE``.
 """
-from . import function, models, nn, ops, transforms
+from . import dataloading, function, models, nn, ops, sampling, transforms
 from .base import ALL, EID, NID, DGLError
-from .convert import graph
+from .convert import create_block, graph
 from .graph import Graph, Relation
 from .params import from_flax_params
 
-__all__ = ["ALL", "EID", "NID", "DGLError", "Graph", "Relation", "function",
-           "from_flax_params", "graph", "models", "nn", "ops", "transforms"]
+__all__ = ["ALL", "EID", "NID", "DGLError", "Graph", "Relation",
+           "create_block", "dataloading", "function", "from_flax_params",
+           "graph", "models", "nn", "ops", "sampling", "transforms"]

@@ -38,7 +38,9 @@ def _src_frame(g: Graph, cet):
 
 
 def _dst_frame(g: Graph, cet):
-    return g._node_frames.setdefault(cet[2], {})
+    """The destination nodes' frame: a block's own, a graph's node
+    frame."""
+    return g._dst_frames.setdefault(cet[2], {})
 
 
 def _edge_frame(g: Graph, cet):
@@ -119,7 +121,8 @@ def invoke_edge_udf(g: Graph, cet, func: Callable):
 
 
 def invoke_node_udf(g: Graph, func: Callable, ntype: str, orig=None):
-    data = dict(g._node_frames.setdefault(ntype, {}))
+    """Run a node UDF over the destination nodes (a graph's nodes)."""
+    data = dict(g._dst_frames.setdefault(ntype, {}))
     if orig:
         data.update(orig)
     out = func(NodeBatch(data))
@@ -233,10 +236,11 @@ def apply_edges_(g: Graph, func, edges=ALL, etype=None):
 
 def apply_nodes(g: Graph, func, v=ALL, ntype=None):
     """``DGLGraph.apply_nodes`` (reference ``heterograph.py:4495``); a node
-    subset is computed over all nodes and its rows written."""
+    subset is computed over all nodes and its rows written. On a block it
+    runs over the destination nodes, as the reference's does."""
     ntype = ntype or g.ntypes[0]
     ndata = invoke_node_udf(g, func, ntype)
-    frame = g._node_frames.setdefault(ntype, {})
+    frame = g._dst_frames.setdefault(ntype, {})
     if is_all(v):
         frame.update(ndata)
         return ndata

@@ -7,7 +7,9 @@ Padded edges (beyond ``num_edges``) point at the virtual rows
 canonical edge types to relations and keeps node and edge features in plain
 dicts behind ``ndata``/``srcdata``/``dstdata``/``edata`` views.
 
-This slice ports the homogeneous graph: one node type, one edge type.
+Ported: the homogeneous graph (one node type, one edge type) and the
+message-flow-graph block (``is_block=True``, reference ``create_block``),
+whose destination nodes have a frame of their own.
 """
 from __future__ import annotations
 
@@ -74,11 +76,13 @@ class Relation:
         "csc_dst",
     )
 
-    # plans (ops.gspmm dispatches on them; the shell plan and uniform
-    # stride belong to later slices and raise there)
+    # plans (ops.gspmm dispatches on them; the shell plan belongs to a
+    # later slice and raises there)
     hub_plan = None
     shell_plan = None
     bitmap_plan = None
+    # > 0 on a fixed-shape MFG block: edge d*f+j belongs to dst d or to the
+    # padding sink, so reductions are a masked reshape (ops/spmm.py)
     uniform_stride = 0
     # where the reference would attach a dense-attention plan
     # (ops/dense_attn.py, not ported): GATConv raises there
@@ -316,13 +320,20 @@ class _FrameView(Mapping):
 
 
 class Graph:
-    """Homogeneous graph: one node type, one relation, feature frames.
+    """Homogeneous graph or block: one node type, one relation, feature
+    frames.
 
-    Counterpart of ``dgl_tpu.graph.Graph`` (reference ``DGLGraph``).
+    Counterpart of ``dgl_tpu.graph.Graph`` (reference ``DGLGraph``). A
+    block (``is_block=True``, a message-flow graph) has separate source
+    and destination node spaces: ``srcdata`` (also ``ndata``) holds
+    ``num_src_nodes()`` rows, ``dstdata`` ``num_dst_nodes()`` rows in a
+    frame of its own. On a graph both views share one frame.
     """
 
     def __init__(self, relations: Dict[CanonicalEtype, Relation],
-                 num_src_nodes: Dict[str, int]):
+                 num_src_nodes: Dict[str, int],
+                 num_dst_nodes: Optional[Dict[str, int]] = None,
+                 is_block: bool = False):
         if len(relations) != 1 or len(num_src_nodes) != 1:
             raise NotImplementedError(
                 "heterogeneous graphs are ported in a later slice "
@@ -330,17 +341,27 @@ class Graph:
         self._relations = dict(relations)
         self._canonical_etypes = tuple(self._relations)
         self._num_src_nodes = dict(num_src_nodes)
+        self._num_dst_nodes = dict(num_dst_nodes if num_dst_nodes is not None
+                                   else num_src_nodes)
+        if self._num_dst_nodes.keys() != self._num_src_nodes.keys():
+            raise NotImplementedError(
+                "blocks between node types: heterogeneous graphs "
+                "(ROADMAP queue A1)")
+        self._is_block = bool(is_block)
         self._node_frames: Dict[str, Dict[str, Any]] = {}
+        # a block's destination nodes have their own frames; a graph's
+        # are its node frames
+        self._dst_frames = {} if self._is_block else self._node_frames
         self._edge_frames: Dict[CanonicalEtype, Dict[str, Any]] = {}
         for (st, _, dt) in self._relations:
-            if st not in self._num_src_nodes or dt not in self._num_src_nodes:
+            if st not in self._num_src_nodes or dt not in self._num_dst_nodes:
                 raise DGLError(f"Unknown node type in relation {st}->{dt}")
 
     # -- schema ------------------------------------------------------------
 
     @property
     def is_block(self) -> bool:
-        return False
+        return self._is_block
 
     @property
     def ntypes(self):
@@ -372,28 +393,32 @@ class Graph:
     # -- counts --------------------------------------------------------------
 
     def num_nodes(self, ntype: Optional[str] = None) -> int:
+        """The node count; on a block the source nodes', which hold the
+        destination nodes first."""
         return self._num_src_nodes[ntype or self.ntypes[0]]
 
     def num_src_nodes(self, ntype: Optional[str] = None) -> int:
         return self.num_nodes(ntype)
 
     def num_dst_nodes(self, ntype: Optional[str] = None) -> int:
-        return self.num_nodes(ntype)
+        return self._num_dst_nodes[ntype or self.ntypes[0]]
 
     def num_edges(self, etype=None) -> int:
         return self._relation(etype).num_edges
 
     # -- data views ----------------------------------------------------------
 
-    def _node_frame(self):
-        return self._node_frames.setdefault(self.ntypes[0], {})
-
     @property
     def ndata(self):
-        return _FrameView(self._node_frame(), (self.num_nodes(),), "nodes")
+        return _FrameView(self._node_frames.setdefault(self.ntypes[0], {}),
+                          (self.num_nodes(),), "nodes")
 
     srcdata = ndata
-    dstdata = ndata
+
+    @property
+    def dstdata(self):
+        return _FrameView(self._dst_frames.setdefault(self.ntypes[0], {}),
+                          (self.num_dst_nodes(),), "dst nodes")
 
     @property
     def edata(self):
@@ -478,6 +503,9 @@ class Graph:
         g._relations = {k: r.to(device) for k, r in self._relations.items()}
         g._node_frames = {nt: {k: v.to(device) for k, v in f.items()}
                           for nt, f in self._node_frames.items()}
+        g._dst_frames = (g._node_frames if not self._is_block else
+                         {nt: {k: v.to(device) for k, v in f.items()}
+                          for nt, f in self._dst_frames.items()})
         g._edge_frames = {et: {k: v.to(device) for k, v in f.items()}
                           for et, f in self._edge_frames.items()}
         return g
@@ -553,6 +581,10 @@ class Graph:
         return g
 
     def __repr__(self):
+        if self._is_block:
+            return (f"Block(num_src_nodes={self.num_src_nodes()}, "
+                    f"num_dst_nodes={self.num_dst_nodes()}, "
+                    f"num_edges={self.num_edges()}, device={self.device})")
         return (f"Graph(num_nodes={self.num_nodes()}, "
                 f"num_edges={self.num_edges()}, device={self.device})")
 
@@ -588,12 +620,14 @@ class _LocalScope:
 
     def __enter__(self):
         g = self._graph
-        self._saved = (g._node_frames, g._edge_frames)
+        self._saved = (g._node_frames, g._dst_frames, g._edge_frames)
         g._node_frames = {nt: dict(f) for nt, f in g._node_frames.items()}
+        g._dst_frames = (g._node_frames if not g._is_block else
+                         {nt: dict(f) for nt, f in g._dst_frames.items()})
         g._edge_frames = {et: dict(f) for et, f in g._edge_frames.items()}
         return g
 
     def __exit__(self, *exc):
         g = self._graph
-        g._node_frames, g._edge_frames = self._saved
+        g._node_frames, g._dst_frames, g._edge_frames = self._saved
         return False

@@ -1,6 +1,7 @@
 """Models composing the nn layers (counterpart of ``dgl_tpu/models/``)."""
+from .device_sage import DeviceSAGE
 from .gat import GAT
 from .gcn import GCN
 from .sage import GraphSAGE
 
-__all__ = ["GAT", "GCN", "GraphSAGE"]
+__all__ = ["DeviceSAGE", "GAT", "GCN", "GraphSAGE"]

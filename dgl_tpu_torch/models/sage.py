@@ -1,8 +1,10 @@
 """GraphSAGE model (counterpart of ``dgl_tpu/models/sage.py``).
 
-Reference: ``examples/graphbolt/node_classification.py``. This slice runs
-it on one full graph; the minibatch form over MFG blocks comes with the
-sampler slice (ROADMAP queue A5).
+Reference: ``examples/graphbolt/node_classification.py``. Takes one graph
+(full-graph training, through the hub or plain g-SpMM) or a list of MFG
+blocks, innermost first (minibatch training: the blocks of
+``dataloading.FixedShapeNeighborSampler``, through the uniform-stride
+g-SpMM).
 """
 from __future__ import annotations
 

@@ -12,7 +12,11 @@ relation. The autograd function saves only the output, as the reference's
 
     grad_e = out * grad_out - out * sum_per_dst(out * grad_out)[dst]
 
-The uniform-stride (MFG block) branch and the shell-plan branch raise.
+On a uniform-stride block (``norm_by="dst"``) the softmax runs over each
+destination's stripe of ``f`` slots, masked to the slots whose edge is the
+destination's (reference ``dgl_tpu/ops/edge_softmax.py:28-50,82-88``), and
+its backward is ``sds - out * sum_stripe(sds)`` with ``sds = out * dz``.
+The shell-plan branch raises.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch
 
 from ..graph import Graph, Relation
 from .sddmm import _gather_target, _mask_pad
-from .spmm import _gspmm_cmp, _gspmm_sum
+from .spmm import _gspmm_cmp, _gspmm_sum, _stripe_valid
 
 __all__ = ["edge_softmax"]
 
@@ -33,13 +37,18 @@ def _dst_max(rel: Relation, logits):
     return torch.where(torch.isfinite(smax), smax, 0.0)
 
 
+def _uniform_reshape(rel: Relation, x):
+    """The ``(B, f, *feat)`` stripes of per-edge values and their validity
+    mask on a uniform-stride block; every edge must lie in a stripe
+    (``E == num_dst * stride``), as the reference requires."""
+    f, B = rel.uniform_stride, rel.num_dst
+    valid = _stripe_valid(rel).reshape((B, f) + (1,) * (x.dim() - 1))
+    return x[:B * f].reshape((B, f) + tuple(x.shape[1:])), valid
+
+
 def _check_branch(rel: Relation, norm_by: str):
     if norm_by not in ("dst", "src"):
         raise ValueError(f"norm_by must be 'dst' or 'src', got {norm_by!r}")
-    if rel.uniform_stride > 0 and norm_by == "dst":
-        raise NotImplementedError(
-            "edge_softmax over uniform-stride MFG blocks: the minibatch "
-            "slice, ROADMAP queue A5")
     if rel.shell_plan is not None:
         raise NotImplementedError(
             "edge_softmax over a shell plan (shell_edge_softmax): ROADMAP "
@@ -49,6 +58,17 @@ def _check_branch(rel: Relation, norm_by: str):
 class _EdgeSoftmax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rel, norm_by, logits):
+        ctx.uniform = rel.uniform_stride > 0 and norm_by == "dst"
+        if ctx.uniform:
+            z, valid = _uniform_reshape(rel, logits)
+            m = torch.where(valid, z, -torch.inf).amax(1, keepdim=True)
+            m = torch.where(torch.isfinite(m), m, 0.0)
+            ez = torch.where(valid, torch.exp(z - m), 0.0)
+            s = torch.clamp(ez.sum(1, keepdim=True), min=1e-38)
+            out = (ez / s).reshape(logits.shape)
+            ctx.save_for_backward(out)
+            ctx.stripes = z.shape[:2]
+            return out
         if norm_by == "src":
             rel = rel.reverse()
         z = torch.exp(logits - _gather_target(rel, "v", _dst_max(rel,
@@ -66,8 +86,13 @@ class _EdgeSoftmax(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dz):
         (out,) = ctx.saved_tensors
-        rel = ctx.rel
         sds = out * dz
+        if ctx.uniform:
+            shape = ctx.stripes + tuple(out.shape[1:])
+            sds_r, out_r = sds.reshape(shape), out.reshape(shape)
+            grad = sds_r - out_r * sds_r.sum(1, keepdim=True)
+            return None, None, grad.reshape(out.shape)
+        rel = ctx.rel
         accum = _gspmm_sum("copy_rhs", rel, None, sds)
         return None, None, sds - out * _gather_target(rel, "v", accum)
 

@@ -2,10 +2,16 @@
 
 Counterpart of ``dgl_tpu/ops/spmm.py``. :func:`gspmm` keeps the reference's
 dispatch order: uniform-stride blocks, bitmap plan, dense-hub plan, shell
-plan, then the plain path. Ported: the bitmap branch (``copy_u`` with
-sum/mean on 2-D features), the dense-hub branch (``copy_u`` with sum/mean)
-and the plain path with all four reducers; the uniform-stride and shell
-branches raise and never run something else in their place.
+plan, then the plain path. Ported: the uniform-stride branch (all ops and
+reducers), the bitmap branch (``copy_u`` with sum/mean on 2-D features),
+the dense-hub branch (``copy_u`` with sum/mean) and the plain path with
+all four reducers; the shell branch raises and never runs something else
+in its place.
+
+The uniform-stride branch serves fixed-shape MFG blocks, where edge
+``d * f + j`` belongs to destination ``d`` or to the padding sink: it
+gathers the messages, masks the sink's, and reduces a ``(num_dst, f)``
+reshape (no scatter), as the reference does.
 
 The plain path gathers the messages in CSC (dst-sorted) order and reduces
 them over the real edges: sums with ``index_add``, max and min with
@@ -100,6 +106,42 @@ def _gspmm_cmp(op, reduce_op, rel: Relation, u, e):
                               include_self=False)
 
 
+def _stripe_valid(rel: Relation):
+    """On a uniform-stride block, whether edge slot ``d * f + j`` (the
+    first ``num_dst * f`` edges) is an edge of destination ``d``, not of
+    the padding sink."""
+    f, B = rel.uniform_stride, rel.num_dst
+    stripe = torch.arange(B * f, device=rel.dst.device,
+                          dtype=rel.dst.dtype) // f
+    return rel.dst[:B * f] == stripe
+
+
+def _gspmm_uniform(op, reduce_op, rel: Relation, u, e):
+    """Masked reshape-and-reduce over a uniform-stride block (reference
+    ``dgl_tpu/ops/spmm.py:164-192``): a slot counts where its edge's
+    destination is its stripe's; max/min give 0 on a row with no such
+    slot."""
+    f, B = rel.uniform_stride, rel.num_dst
+    E = B * f
+    valid = _stripe_valid(rel)
+    ul = u.index_select(0, rel.src[:E]) if op != "copy_rhs" else None
+    el = e[:E] if op != "copy_lhs" else None
+    if ul is not None and el is not None:
+        nd = max(ul.dim(), el.dim())
+        ul, el = _expand(ul, nd), _expand(el, nd)
+    m = _binary(op, ul, el)
+    v = valid.reshape((E,) + (1,) * (m.dim() - 1))
+    shape = (B, f) + tuple(m.shape[1:])
+    if reduce_op in ("sum", "mean"):
+        out = torch.where(v, m, 0).reshape(shape).sum(1)
+        return _mean(rel, out) if reduce_op == "mean" else out
+    fill = -torch.inf if reduce_op == "max" else torch.inf
+    red = torch.amax if reduce_op == "max" else torch.amin
+    out = red(torch.where(v, m, fill).reshape(shape), dim=1)
+    has = _expand(valid.reshape(B, f).any(1), out.dim())
+    return torch.where(has, out, 0)
+
+
 def _mean(rel: Relation, out):
     deg = torch.clamp(rel.in_degrees(), min=1).to(out.dtype)
     return out / _expand(deg, out.dim())
@@ -122,10 +164,11 @@ def gspmm(g, op, reduce_op, lhs_data, rhs_data, etype=None):
     if reduce_op not in ("sum", "mean", "max", "min"):
         raise DGLError(f"Unknown reduce op {reduce_op!r}")
 
-    if rel.uniform_stride > 0:
-        raise NotImplementedError(
-            "uniform-stride g-SpMM (fixed-shape MFG blocks): the minibatch "
-            "slice, ROADMAP queue A5")
+    # fixed-shape MFG blocks: masked reshape+reduce, no scatter; a relation
+    # with fewer edges than num_dst * stride takes the branches below
+    if (rel.uniform_stride > 0
+            and rel.num_dst * rel.uniform_stride <= rel.num_edges_padded):
+        return _gspmm_uniform(op, reduce_op, rel, u, e)
     # packed-bitmap dense path (ops/bitmap_spmm.py): the adjacency streams
     # as bits through kernel B2, the high-degree (Reddit-class) path
     if (rel.bitmap_plan is not None and op == "copy_lhs"

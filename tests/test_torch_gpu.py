@@ -729,3 +729,120 @@ def test_gatconv_edge_route_matches_bitmap_route(card):
         assert not any(_kernels.launch_counts.values())
     torch.testing.assert_close(edge, bitmap, rtol=1e-4,
                                atol=1e-5 * bitmap.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# minibatch training: host-sampled blocks and the on-device sampler
+# ---------------------------------------------------------------------------
+
+
+def _zipf_graph(n, e, seed, device):
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, n + 1)
+    return dt.graph((rng.choice(n, e, p=w / w.sum()), rng.integers(0, n, e)),
+                    num_nodes=n, device=device)
+
+
+def test_minibatch_step_on_card_matches_cpu(card):
+    """One ``sage_minibatch`` step over host-sampled blocks on the card
+    against the same blocks and weights on the CPU: loss, logits and every
+    gradient at rtol 1e-4, atol 1e-5 * max|ref| (f32 throughout; sums in
+    other orders). No hand kernel runs on this path."""
+    from dgl_tpu_torch.base import NID
+    from dgl_tpu_torch.dataloading import FixedShapeNeighborSampler
+
+    g = _zipf_graph(3000, 20000, 21, card)
+    sampler = FixedShapeNeighborSampler([4, 6], 128, seed=0, device=card)
+    seeds = np.random.default_rng(1).permutation(3000)[:120]
+    _, _, blocks = sampler.sample_blocks(g, seeds)
+    rng = np.random.default_rng(2)
+    feats = torch.from_numpy(rng.normal(size=(3000, 20)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 7, 3000))
+    model = GraphSAGE(20, 32, 7, num_layers=2, dropout=0.0,
+                      generator=torch.Generator().manual_seed(0),
+                      device=card)
+    model_cpu = GraphSAGE(20, 32, 7, num_layers=2, dropout=0.0, device="cpu")
+    model_cpu.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    out = {}
+    _kernels.reset_launch_counts()
+    for m, bs, dev in ((model, blocks, card),
+                       (model_cpu, [b.to("cpu") for b in blocks], "cpu")):
+        x = (feats.to(dev)[bs[0].srcdata[NID]]
+             * bs[0].srcdata["_mask"][:, None])
+        y = labels.to(dev)[bs[-1].dstdata[NID]]
+        w = bs[-1].dstdata["_mask"].to(torch.float32)
+        logits = m(bs, x)
+        ce = torch.nn.functional.cross_entropy(logits, y, reduction="none")
+        loss = (ce * w).sum() / torch.clamp(w.sum(), min=1)
+        loss.backward()
+        out[dev] = (loss.detach().cpu(), logits.detach().cpu(),
+                    [p.grad.cpu() for p in m.parameters()])
+    torch.cuda.synchronize()
+    assert not any(_kernels.launch_counts.values())
+    for got, ref in zip(out[card][:2] + tuple(out[card][2]),
+                        out["cpu"][:2] + tuple(out["cpu"][2])):
+        torch.testing.assert_close(got, ref, rtol=1e-4,
+                                   atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("mode", ["unique", "replace", "exact"])
+def test_device_sampler_on_card(card, mode):
+    """The on-device sampler on a CUDA generator: every unmasked pick is an
+    in-neighbour of its node, rows of in-degree at most the fanout take
+    all their neighbours in CSC order, masks are 0 past the degree and on
+    masked seeds' subtrees."""
+    from dgl_tpu_torch.sampling import (DeviceNeighborSampler,
+                                        device_seed_batches)
+
+    g = _zipf_graph(3000, 20000, 22, "cpu")
+    rel = g._relation()
+    ip, ix = rel.csc_indptr.numpy(), rel.csc_indices.numpy()
+    gen = torch.Generator(device=card).manual_seed(0)
+    ids, smask = device_seed_batches(gen, 3000, 256, device=card)
+    assert sorted(ids[smask].tolist()) == list(range(3000))
+    mfg = DeviceNeighborSampler([5, 8], mode=mode).sample(
+        gen, rel.csc_indptr.to(card), rel.csc_indices.to(card), ids[-1],
+        seed_mask=smask[-1])
+    assert mfg.nbrs[0].is_cuda and mfg.nbrs[0].dtype == torch.int32
+    for depth, fanout in enumerate([8, 5]):
+        front = mfg.frontiers[depth].cpu().numpy()
+        nbr = mfg.nbrs[depth].cpu().numpy()
+        mask = mfg.masks[depth].cpu().numpy()
+        live = (smask[-1].cpu().numpy() if depth == 0 else
+                np.concatenate([smask[-1].cpu().numpy(),
+                                mfg.masks[0].cpu().numpy().reshape(-1)]))
+        assert not mask[~live].any()
+        for r, v in enumerate(front):
+            lo, hi = ip[v], ip[v + 1]
+            assert set(nbr[r][mask[r]]) <= set(ix[lo:hi])
+            if not live[r]:
+                continue
+            if hi - lo <= fanout:
+                assert mask[r][:hi - lo].all() and not mask[r][hi - lo:].any()
+                assert (nbr[r][:hi - lo] == ix[lo:hi]).all()
+            elif mode != "unique":
+                assert mask[r].all()
+    edges = mfg.num_real_edges()
+    assert edges.is_cuda and int(edges) == sum(int(m.sum())
+                                               for m in mfg.masks)
+
+
+def test_uniform_stride_survives_to_card(card):
+    """A block's relation keeps its stride, degree bounds and frames when
+    the block moves to the card and back."""
+    from dgl_tpu_torch.base import NID
+    from dgl_tpu_torch.dataloading import FixedShapeNeighborSampler
+
+    g = _zipf_graph(500, 3000, 23, "cpu")
+    _, _, blocks = FixedShapeNeighborSampler([3], 16, seed=0, device="cpu"
+                                             ).sample_blocks(g, np.arange(16))
+    b = blocks[0]
+    for moved in (b.to(card), b.to(card).to("cpu")):
+        r, r0 = moved._relation(), b._relation()
+        assert (r.uniform_stride, r.max_in_degree) == (3, r0.max_in_degree)
+        assert moved.is_block and moved.dstdata[NID].shape == (17,)
+        x = torch.randn(b.num_src_nodes(), 4)
+        torch.testing.assert_close(
+            dt.ops.copy_u_mean(r, x.to(r.device)).cpu(),
+            dt.ops.copy_u_mean(r0, x), rtol=1e-6, atol=1e-6)

@@ -1,5 +1,7 @@
 """Parity of the port's graph core with ``dgl_tpu``: the ten Relation
 arrays, in-degrees and the ``reorder_for_spmm`` permutation, all exact."""
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -133,9 +135,15 @@ def test_later_slices_raise():
     jg = dgl_tpu.graph((src, dst), num_nodes=n)
     x = np.random.default_rng(1).normal(size=(n, 2)).astype(np.float32)
     rel = tg._relation()
-    with pytest.raises(NotImplementedError, match="queue A5"):
+    # the uniform-stride branch runs since the minibatch slice: with a
+    # stride set on a graph's relation, the reference's values, whichever
+    # branch its guard picks
+    jrel = copy.copy(jg._relation(None))
+    jrel.uniform_stride = 4
+    np.testing.assert_array_equal(
         dt.ops.copy_u_max(rel._copy_with(uniform_stride=4),
-                          torch.from_numpy(x))
+                          torch.from_numpy(x)).numpy(),
+        np.asarray(dgl_tpu.ops.copy_u_max(jrel, x)))
     # the max reducer runs since the message-passing slice: the
     # reference's values, parallel edges included
     np.testing.assert_allclose(

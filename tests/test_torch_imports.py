@@ -66,6 +66,15 @@ _CALLS = {
     "GATConv": "dt.nn.GATConv(4, 8, 2{})",
     "Relation.from_coo": "dt.Relation.from_coo(np.array([0]), np.array([1]), "
                          "2, 2{})",
+    "create_block": "dt.create_block((np.array([0, 1]), np.array([0, 0])), "
+                    "2, 1{})",
+    "FixedShapeNeighborSampler": (
+        "dt.dataloading.FixedShapeNeighborSampler([2], 4{}).sample_blocks("
+        "dt.graph((np.array([0, 1]), np.array([1, 2])), num_nodes=3, "
+        "device='cpu'), np.array([1, 2]))"),
+    "device_seed_batches": "dt.sampling.device_seed_batches("
+                           "torch.Generator(), 10, 4{})",
+    "DeviceSAGE": "dt.models.DeviceSAGE(4, 8, 2{})",
 }
 
 _PROBE = """

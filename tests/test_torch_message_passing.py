@@ -223,8 +223,19 @@ def test_edge_softmax_unported_branches_raise():
     _, tg = _graph("simple", seed=5)
     rel = tg._relation()
     x = torch.zeros(tg.num_edges(), 2)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tops.edge_softmax(rel._copy_with(uniform_stride=4), x)
+    # the uniform-stride branch runs since the minibatch slice: on a
+    # relation of 4 in-edges a destination, in stripes, the reference's
+    # values, forward and gradient
+    n = 30
+    src = np.random.default_rng(7).integers(0, n, 4 * n)
+    dst = np.repeat(np.arange(n), 4)
+    jrel = dgl_tpu.graph((src, dst), num_nodes=n)._relation(None)
+    jrel.uniform_stride = 4
+    trel = dt.graph((src, dst), num_nodes=n, device="cpu")._relation()
+    _check(lambda a: jops.edge_softmax(jrel, a),
+           lambda a: tops.edge_softmax(trel._copy_with(uniform_stride=4), a),
+           [np.random.default_rng(8).normal(size=(4 * n, 2)).astype(
+               np.float32)])
     with pytest.raises(NotImplementedError, match="shell"):
         tops.edge_softmax(rel._copy_with(shell_plan=object()), x)
     with pytest.raises(ValueError, match="norm_by"):
