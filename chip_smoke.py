@@ -23,6 +23,13 @@ Run it from the root of a checkout, on a machine with a CUDA card. It
     counts that are not a multiple of a thread block's 8 rows, and every
     (nh, nf) case of the kernels' switch; rows without an edge must get
     exact zeros;
+1c. holds B1's weighted caller (``shell_prefix_gspmm``) against its plain
+    version, exactly, on small weighted shell plans (phase
+    ``shell_gspmm_edge_cases``): every op, bf16 and f32 tables, every
+    broadcast ``gspmm`` hands the shell path at F = 1, 40, 128, 256, 750,
+    with and without the residual's base, identity and other unrank,
+    ``div`` by a zero at edge 0 (inf and NaN where the plain version has
+    them), a graph without an edge;
 
 the GraphSAGE path (kernel B1, shell prefix sum):
 
@@ -135,6 +142,40 @@ the per-edge GAT path (g-SDDMM, edge softmax, g-SpMM; no hand kernel):
     cross-entropy over uniform random labels, every node labelled): one
     counted step (every kernel count 0), four more (finite losses), step
     time, peak memory and a profile;
+
+the weighted shell plan (B1's weighted caller; the fused and dense GAT
+routes, no hand kernel), on the graph of step 17 built with
+``with_spmm_plans(num_hubs=2048, weighted=True)`` (bf16 gathers; its
+levels and residuals printed, ``plans_s``):
+
+18a. weighted GCN at ogbn-arxiv widths: ``EdgeWeightNorm("both")`` over
+     edge weights uniform in [0.5, 1.5) from a seed (one kernel launch,
+     its degree sum), then three ``GraphConv(norm="none")`` layers 128 ->
+     256 -> 256 -> 40 with ReLU and dropout 0.5, as DGL users compose them
+     (``weighted_gcn``): one counted forward (3 launches: the layers
+     aggregate at 128, 256 and 40), held against the same layers on the
+     graph without plans (the exact f32 path) at rtol = 2e-2,
+     atol = 2e-2 * max|ref|; gradients as in step 6; one counted step (5
+     launches: the backward over the reverse shells at 256 and 40, the
+     input needing none), four more; the kernel against its plain version
+     (exact) at each of the five recorded shapes, with its byte bound and
+     ``torch.sparse.mm`` over the f32 CSR of the weights; times and
+     profiles;
+18b. GAT 128-250x3-40 over the fused shell-space route: one counted
+     forward (every kernel count 0, three fused layers), held against the
+     per-edge route on the graph without plans at rtol = 2e-2,
+     atol = 2e-2 * max|ref| and against the same fused route on the CPU
+     (at most 1 element in 1000 outside 1e-4, all within 2**-8 of
+     max|ref|); times, profile, peak memory; training with feat_drop 0.75
+     and attn_drop 0.05 (an (E, H) mask), Adam, five steps with finite
+     losses, the step time beside step 18's;
+18c. dense attention at Cora's size: a seeded random graph of 2,708 nodes,
+     10,556 edges (5,278 pairs) plus self-loops, 1,433 features, DGL's Cora
+     GAT (8 heads of 8, 7 classes) over ``with_spmm_plans(weighted=True)``:
+     both layers take the dense route in bf16 (recorded); the output and
+     gradients against the per-edge route within 3e-2 L2-relative and the
+     loss sum(out**2) within 1e-2, the reference's bound for that route;
+     one training step with both dropouts 0.6;
 
 the minibatch GraphSAGE paths (no hand kernel), on the zipf graph with
 ``bench.py``'s ogbn-products widths (100-wide f32 features, labels in
@@ -438,19 +479,22 @@ def cold_bags(plan, reverse: bool = False):
 
 
 def kernel_bound(level_rows, n_out, n_table_rows_used, n_cold, feat,
-                 has_base, rate):
+                 has_base, rate, elem=2, slot_bytes=4, ops_per_value=1):
     """Least time for one call of B1 over shells of ``level_rows`` with
-    ``n_out`` output rows: the larger of bytes / HBM rate and f32 adds /
-    f32 rate. Bytes: each distinct table row read once (bf16), every index
-    read once (int32), the base read once and the output written once
-    (f32). Also returns the gather-stream figure, which reads a table row
-    per cold edge."""
+    ``n_out`` output rows: the larger of bytes / HBM rate and f32
+    operations / f32 rate. Bytes: each distinct table row read once
+    (``elem`` bytes a value), each slot's indices read once
+    (``slot_bytes``), the base read once and the output written once
+    (f32). Operations: ``ops_per_value`` a cold edge and feature (B1 an
+    add; its weighted caller a message op and an add, with an edge index
+    and value among its slot bytes). Also returns the gather-stream
+    figure, which reads a table row per cold edge."""
     n_idx = sum(min(m, n_out) for m in level_rows)
     out_bytes = n_out * feat * 4 * (2 if has_base else 1)
-    once = n_table_rows_used * feat * 2 + n_idx * 4 + out_bytes
-    stream = n_cold * feat * 2 + n_cold * 4 + out_bytes
+    once = n_table_rows_used * feat * elem + n_idx * slot_bytes + out_bytes
+    stream = n_cold * feat * elem + n_cold * slot_bytes + out_bytes
     bytes_ms = once / rate * 1e3
-    ops_ms = n_cold * feat / F32_RATE * 1e3
+    ops_ms = ops_per_value * n_cold * feat / F32_RATE * 1e3
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     return max(bytes_ms, ops_ms), bound_by, stream / rate * 1e3
 
@@ -1570,10 +1614,7 @@ def run_gat_edge(tag: dict) -> dict:
 
     # 17. the zipf graph plus one self-loop per node, no plan
     t0 = time.perf_counter()
-    src, dst = zipf_graph(0)
-    loops = np.arange(N_NODES)
-    g = dt.graph((np.concatenate([src, loops]), np.concatenate([dst, loops])),
-                 num_nodes=N_NODES)
+    g = dt.graph(zipf_loops_graph(), num_nodes=N_NODES)
     rel = g._relation()
     if rel.hub_plan is not None or rel.bitmap_plan is not None:
         raise RuntimeError("the per-edge GAT graph carries a plan")
@@ -2126,6 +2167,649 @@ def run_sage_end_to_end(data, tag: dict, device="cuda") -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# the weighted shell plan: B1's weighted caller, GCN with edge weights, the
+# fused and dense GAT routes
+# ---------------------------------------------------------------------------
+
+
+def gspmm_edge_case_plans(device="cuda"):
+    """The plans of the weighted kernel's edge cases
+    (``tests/test_torch_gpu.py`` holds the kernel to the same ones), by
+    name: ``residual``, a power-law graph of 300 nodes and 4,000 edges
+    whose in- and out-degrees pass the shell cap (both residuals, unrank
+    not the identity); ``identity``, 500 nodes and 3,000 uniform edges
+    relabelled by falling in-degree (no residual, identity unrank);
+    ``empty``, 50 nodes and no edge (no level). f32 gathers; the cases cast
+    the tables to each type themselves."""
+    import numpy as np
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch.ops.shell_spmm import build_shell_plan
+
+    rng = np.random.default_rng(17)
+    n = 300
+    w = 1.0 / np.arange(1, n + 1)
+    graphs = {"residual": (rng.choice(n, 4000, p=w / w.sum()),
+                           rng.choice(n, 4000, p=w[::-1] / w.sum()), n)}
+    n = 500
+    src, dst = rng.integers(0, n, 3000), rng.integers(0, n, 3000)
+    perm = np.argsort(-np.bincount(dst, minlength=n), kind="stable")
+    new = np.empty(n, np.int64)
+    new[perm] = np.arange(n)
+    graphs["identity"] = (new[src], new[dst], n)
+    graphs["empty"] = (np.zeros(0, np.int64), np.zeros(0, np.int64), 50)
+    return {name: build_shell_plan(dt.graph((s, d), num_nodes=n,
+                                            device=device)._relation(),
+                                   "f32")
+            for name, (s, d, n) in graphs.items()}
+
+
+# (u feature shape or None, e feature shape): every broadcast gspmm hands
+# the shell path, at F = 1, 40, 128, 256 and 750
+GSPMM_SHAPES = (((1,), (1,)), (None, ()),
+                ((40,), (1,)), ((2, 20), (2, 1)), ((2, 20), (2, 20)),
+                ((2, 20), (1, 1)),
+                ((128,), (1,)), ((4, 32), (4, 1)), ((4, 32), (1, 1)),
+                ((256,), (1,)), ((2, 128), (2, 1)), ((2, 128), (2, 128)),
+                ((750,), (1,)), ((3, 250), (3, 1)), ((3, 250), (3, 250)))
+GSPMM_OPS = ("add", "sub", "mul", "div", "copy_lhs", "copy_rhs")
+
+
+def gspmm_case(plan, u_feat, e_feat, op, dtype, seed, device="cuda"):
+    """One edge case's arguments of ``shell_prefix_gspmm``: the tables in
+    ``dtype`` (edge 0's value 0 under ``div``: its message is inf, and the
+    padded slots, which gather edge 0, must be skipped), the forward
+    layout and the residual's base."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch.ops.shell_spmm import _residual_base
+
+    rng = np.random.default_rng(seed)
+    n_edges = int(plan.emask.shape[0])
+    lhs = rhs = None
+    if op != "copy_rhs":
+        lhs = torch.from_numpy(rng.normal(size=(plan.num_src,) + tuple(
+            u_feat or (1,))).astype(np.float32)).to(device, dtype)
+    if op != "copy_lhs":
+        e = rng.normal(size=(n_edges,) + tuple(e_feat)).astype(np.float32)
+        if op == "div" and n_edges:
+            e[0] = 0.0
+        rhs = torch.from_numpy(e).to(device, dtype)
+    lay = plan.fwd
+    empty = torch.zeros(0, dtype=torch.int32, device=device)
+    nidx = empty if lay.nidx is None else lay.nidx
+    eidx = empty if lay.eidx is None else lay.eidx
+    base = _residual_base(op, lhs, rhs, plan.res_dst, plan.num_dst)
+    return (op, lhs, rhs, nidx, eidx, lay.level_rows, lay.level_real,
+            plan.num_dst), base
+
+
+def run_gspmm_edge_cases(tag: dict) -> None:
+    """The weighted kernel against its plain version on the edge-case plans
+    (``gspmm_edge_case_plans``): every op, both table types, every
+    broadcast of ``GSPMM_SHAPES``, with and without the residual's base,
+    identity and other unrank, ``div`` by a zero at edge 0, a graph without
+    an edge. Exact: the same rounded messages added in the same order
+    (inf and NaN where they are)."""
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.ops.shell_prefix import (shell_prefix_gspmm,
+                                                shell_prefix_gspmm_plain)
+
+    plans = gspmm_edge_case_plans()
+    n_cases, nonfinite = 0, 0
+    before = _kernels.launch_counts["shell_prefix_gspmm"]
+    for name, plan in plans.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            for i, (u_feat, e_feat) in enumerate(GSPMM_SHAPES):
+                for op in GSPMM_OPS:
+                    if (u_feat is None) != (op == "copy_rhs"):
+                        continue
+                    args, base = gspmm_case(plan, u_feat, e_feat, op, dtype,
+                                            i * 10 + GSPMM_OPS.index(op))
+                    got = shell_prefix_gspmm(*args, base=base)
+                    want = shell_prefix_gspmm_plain(*args, base=base)
+                    torch.cuda.synchronize()
+                    try:
+                        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                                   equal_nan=True)
+                    except AssertionError as exc:
+                        raise RuntimeError(
+                            f"shell_prefix_gspmm edge case {name} {dtype} "
+                            f"{op} u{u_feat} e{e_feat}: {exc}") from None
+                    nonfinite += int((~torch.isfinite(got)).sum())
+                    n_cases += 1
+    launched = _kernels.launch_counts["shell_prefix_gspmm"] - before
+    if launched != n_cases:
+        raise RuntimeError(f"{n_cases} edge cases launched the kernel "
+                           f"{launched} times")
+    emit({"phase": "shell_gspmm_edge_cases", "cases": n_cases,
+          "plans": {k: {"levels": len(p.fwd.level_rows),
+                        "residual": p.res_dst is not None,
+                        "identity_unrank": p.unrank_dst is None}
+                    for k, p in plans.items()},
+          "nonfinite_outputs_matched": nonfinite,
+          "tolerance": "exact (0.0; inf and NaN where the plain version has "
+                       "them)", **tag})
+
+
+def zipf_loops_graph():
+    """The zipf graph plus one self-loop a node (the GAT graphs: no
+    zero in-degree): 169,343 nodes, 1,335,586 edges."""
+    import numpy as np
+
+    src, dst = zipf_graph(0)
+    loops = np.arange(N_NODES)
+    return np.concatenate([src, loops]), np.concatenate([dst, loops])
+
+
+def weighted_gcn(dims, dropout, seed):
+    """GraphConv(norm="none") layers of widths ``dims`` over normalised
+    edge weights, as DGL users compose them for a weighted graph:
+    ``EdgeWeightNorm("both")`` once into ``g.edata["w"]``, each layer
+    ``conv(g, h, edge_weight=g.edata["w"])``, ReLU then dropout between
+    layers (the ``GCN`` model's order). Weights from ``seed``."""
+    import torch
+    from torch import nn
+
+    from dgl_tpu_torch.nn import GraphConv
+
+    class _Model(nn.Module):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator().manual_seed(seed)
+            self.convs = nn.ModuleList(
+                GraphConv(a, b, norm="none", generator=gen)
+                for a, b in zip(dims[:-1], dims[1:]))
+            self.dropout = nn.Dropout(dropout)
+
+        def forward(self, graph, x):
+            w = graph.edata["w"]
+            for i, conv in enumerate(self.convs):
+                x = conv(graph, x, edge_weight=w)
+                if i != len(self.convs) - 1:
+                    x = self.dropout(torch.relu(x))
+            return x
+
+    return _Model()
+
+
+def check_gspmm(args, kw, plan, reverse, weights_csr, rate) -> dict:
+    """One recorded call of the weighted kernel against its plain version
+    on the card (exact), its time, the plain version's, ``torch.sparse.mm``
+    over the f32 CSR of the edge weights (``u_mul_e`` sum, the same
+    function) and its bound."""
+    import torch
+
+    from dgl_tpu_torch.ops.shell_prefix import (BLOCK_ROWS, _rup,
+                                                shell_prefix_gspmm,
+                                                shell_prefix_gspmm_plain)
+
+    op, lhs, rhs, nidx, _eidx, rows, real, n_out = args
+    base = kw.get("base")
+    kern = lambda: shell_prefix_gspmm(*args, **kw)  # noqa: E731
+    got = kern()
+    want = shell_prefix_gspmm_plain(*args, base=base)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not torch.equal(got, want):
+        raise RuntimeError(f"shell_prefix_gspmm vs plain "
+                           f"({'bwd' if reverse else 'fwd'}, F="
+                           f"{got.shape[-1]}): max abs err {err}")
+    lay, _res, unrank, _n = plan.direction(reverse)
+    used, off = [], 0
+    for m8, m in zip(lay.level_rows, lay.level_real):
+        used.append(nidx[off:off + min(m, n_out)])
+        off += _rup(m8, BLOCK_ROWS)
+    rows_used = int(torch.unique(torch.cat(used)).numel())
+    feat = int(got[0].numel())
+    n_edges = sum(min(int(m), n_out) for m in real)
+    bound, bound_by, _stream = kernel_bound(
+        real, n_out, rows_used, n_edges, feat, base is not None, rate,
+        elem=lhs.element_size(),
+        slot_bytes=8 + rhs.element_size() * int(rhs[0].numel()),
+        ops_per_value=2)
+    table = lhs.to(torch.float32).reshape(lhs.shape[0], -1)
+    lib = lambda: torch.sparse.mm(weights_csr, table)  # noqa: E731
+    # the kernel's rows are in rank order
+    by_node = got.reshape(n_out, -1)
+    if unrank is not None:
+        by_node = by_node.index_select(0, unrank.long())
+    lib_err = (lib() - by_node).abs().max().item()
+    return {
+        "F": feat, "op": op, "table": str(lhs.dtype), "n_out": n_out,
+        "edges": n_edges,
+        "levels": len(rows), "residual": base is not None,
+        "table_rows_read": rows_used, "max_abs_err": err,
+        "ms": time_ms(kern, 50, hide_host=True),
+        "plain_ms": time_ms(lambda: shell_prefix_gspmm_plain(
+            *args, base=base), 10, hide_host=True),
+        "library_ms": time_ms(lib, 50, hide_host=True),
+        "library_max_abs_err_f32_table": lib_err,
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+
+
+def weights_csr(rel, w, reverse: bool):
+    """The f32 CSR of the edge weights: (N_dst, N_src) by destination row,
+    or with ``reverse`` its transpose."""
+    import torch
+
+    if reverse:
+        crow, col, eid = rel.csr_indptr, rel.csr_indices, rel.csr_eids
+        shape = (rel.num_src, rel.num_dst)
+    else:
+        crow, col, eid = rel.csc_indptr, rel.csc_indices, rel.csc_eids
+        shape = (rel.num_dst, rel.num_src)
+    return torch.sparse_csr_tensor(crow.long(), col.long(),
+                                   w.index_select(0, eid.long()), shape)
+
+
+def run_weighted_gcn(gp, g_exact, x, y, mask, rate: float,
+                     tag: dict) -> dict:
+    """GCN with edge weights at ogbn-arxiv widths over the weighted shell
+    plan (B1's weighted caller); returns the kernel's entry of the kernel
+    table."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.nn import EdgeWeightNorm
+    from dgl_tpu_torch.ops import shell_prefix
+
+    rel = gp._relation()
+    plan = rel.shell_plan
+    w = torch.from_numpy((np.random.default_rng(5).random(
+        rel.num_edges) + 0.5).astype(np.float32)).cuda()
+    norm = EdgeWeightNorm("both")
+    _kernels.reset_launch_counts()
+    gp.edata["w"] = norm(gp, w)
+    torch.cuda.synchronize()
+    norm_launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(norm_launches, {"shell_prefix_gspmm": 1},
+                           "EdgeWeightNorm")
+    g_exact.edata["w"] = norm(g_exact, w)
+    dims = (IN_FEATS, HIDDEN, HIDDEN, CLASSES)
+    model = weighted_gcn(dims, 0.5, 0).cuda().eval()
+
+    # the main path: one counted forward (one launch a layer: GraphConv
+    # aggregates at the smaller width, 128, 256 and 40)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    with torch.inference_mode():
+        out = model(gp, x)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect_no_other_launch(launches, {"shell_prefix_gspmm": LAYERS},
+                           "the weighted GCN forward")
+    with torch.inference_mode():
+        ref = model(g_exact, x)
+    scale = ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    if tuple(out.shape) != (N_NODES, CLASSES) or not torch.allclose(
+            out, ref, rtol=2e-2, atol=2e-2 * scale):
+        raise RuntimeError(f"weighted GCN vs exact f32 path: max abs err "
+                           f"{err} (max |ref| {scale}), shape "
+                           f"{tuple(out.shape)}")
+    emit({"phase": "weighted_gcn_main_path", "model": "GraphConv(norm="
+          "'none') 128-256-256-40 over EdgeWeightNorm('both') weights, "
+          "ReLU, dropout 0.5", "launches": launches,
+          "expected_shell_prefix_gspmm": LAYERS,
+          "edge_weight_norm_launches": norm_launches,
+          "max_abs_err_vs_exact_f32": err, "max_rel_err": err / scale,
+          "tolerance": "rtol=2e-2, atol=2e-2*max|ref|",
+          "peak_memory_gib": peak, **tag})
+    del out, ref
+
+    # gradients against the exact f32 path, recording the kernel's real
+    # calls (3 forward, 2 backward over the reverse shells)
+    model.train()
+    with recording(shell_prefix, "shell_prefix_gspmm") as rec:
+        grad_check = check_grads(model, gp, g_exact, x, y, mask,
+                                 "weighted GCN")
+    if len(rec) != LAYERS + LAYERS - 1:
+        raise RuntimeError(f"the gradient pass called the kernel {len(rec)} "
+                           "times")
+    calls = list(rec)
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    expect = LAYERS + LAYERS - 1  # the input's aggregation needs no dU
+    loss, step_launches, step_peak, step_s = counted_step(
+        model, opt, gp, x, y, mask, {"shell_prefix_gspmm": expect},
+        "weighted GCN")
+    expect_no_other_launch(step_launches, {"shell_prefix_gspmm": expect},
+                           "the weighted GCN step")
+    losses = run_steps(model, opt, gp, x, y, mask, loss, falling=False)
+    emit({"phase": "weighted_gcn_train_main_path", "launches":
+          step_launches, "expected_shell_prefix_gspmm": expect,
+          "peak_memory_gib": step_peak, "first_step_s": step_s,
+          "losses": losses, "grads_vs_exact_f32": grad_check,
+          "shell_levels": {"forward": len(plan.fwd.level_rows),
+                           "reverse": len(plan.rev.level_rows)}, **tag})
+
+    # the kernel at each of the path's shapes
+    csr = {False: weights_csr(rel, gp.edata["w"], False),
+           True: weights_csr(rel, gp.edata["w"], True)}
+    shapes = {}
+    with torch.inference_mode():
+        for args, kw in calls:
+            reverse = args[3] is plan.rev.nidx
+            r = check_gspmm(args, kw, plan, reverse, csr[reverse], rate)
+            label = f"{'bwd' if reverse else 'fwd'} F={r['F']}"
+            shapes[label] = r
+            emit({"phase": "kernel_vs_plain", "kernel": "shell_prefix_gspmm",
+                  "shape": label, "tolerance": "exact (0.0)",
+                  "library": "torch.sparse.mm, f32 CSR of the edge weights, "
+                             "f32 table", **r, **tag})
+    if sorted(shapes) != sorted([f"fwd F={f}" for f in dims[:-2]]
+                                + [f"fwd F={CLASSES}", f"bwd F={HIDDEN}",
+                                   f"bwd F={CLASSES}"]):
+        raise RuntimeError(f"recorded kernel shapes {sorted(shapes)}")
+    del calls, rec
+
+    model.eval()
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(gp, x), 10)
+        exact_ms = time_ms(lambda: model(g_exact, x), 5)
+        prof = device_profile(lambda: model(gp, x), 3)
+    model.train()
+    step = lambda: train_step(model, opt, gp, x, y, mask)  # noqa: E731
+    timing = {"forward_ms": fwd_ms, "exact_f32_path_forward_ms": exact_ms,
+              "step_ms": time_ms(step, 5)}
+    emit({"phase": "weighted_gcn_timing", **timing, **tag})
+    emit({"phase": "weighted_gcn_forward_profile", "calls": 3, **prof,
+          **tag})
+    emit({"phase": "weighted_gcn_train_profile", "calls": 2,
+          **device_profile(step, 2), **tag})
+    main = shapes[f"fwd F={HIDDEN}"]
+    return {
+        "name": "shell_prefix_gspmm",
+        "route": "cuda",
+        "source": "dgl_tpu_torch/csrc/shell_prefix_sum.cu",
+        "replaces": "dgl_tpu/ops/shell_pallas.py:110",
+        "launches": launches["shell_prefix_gspmm"],
+        "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "shape": f"u_mul_e sum, fwd F={HIDDEN} bf16, n_out={N_NODES}, times "
+                 "per call; launches: the weighted GCN forward",
+        "launches_train_step": step_launches["shell_prefix_gspmm"],
+        "shapes": {k: {f: v[f] for f in ("F", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms",
+                                         "max_abs_err")}
+                   for k, v in shapes.items()},
+        "forward_ms": fwd_ms, "train_step_ms": timing["step_ms"],
+    }
+
+
+def bf16_flip_check(out, ref, what):
+    """The port's rule for one computation on two devices whose roundings
+    to bf16 may differ by one step: at most 1 element in 1000 outside
+    rtol = atol = 1e-4 of max|ref|, every element within 2**-8 *
+    max|ref|."""
+    scale = max(ref.abs().max().item(), 1e-30)
+    diff = (out - ref).abs()
+    bad = (diff > 1e-4 * scale + 1e-4 * ref.abs()).float().mean().item()
+    err = diff.max().item()
+    if bad > 1e-3 or err > 2.0 ** -8 * scale:
+        raise RuntimeError(f"{what}: max abs err {err} (max |ref| {scale}), "
+                           f"share outside 1e-4: {bad}")
+    return {"max_abs_err": err, "max_rel_err": err / scale,
+            "share_outside_1e-4": bad}
+
+
+def run_fused_gat(gp, g_plain, x, y, mask, edge_step_ms, tag: dict) -> dict:
+    """GAT at ogbn-arxiv widths over the weighted shell plan: every layer
+    through the fused shell-space route (PyTorch operations, no hand
+    kernel, as the reference's XLA operations)."""
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.models import GAT
+    from dgl_tpu_torch.ops import fused_gat
+
+    model = GAT(IN_FEATS, EDGE_GAT_HIDDEN, CLASSES, heads=EDGE_GAT_HEADS,
+                num_layers=LAYERS, feat_drop=0.75, attn_drop=0.05,
+                generator=torch.Generator().manual_seed(0)).eval()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    with recording(fused_gat, "fused_gat_attention") as rec, \
+            torch.inference_mode():
+        out = model(gp, x)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect_no_other_launch(launches, {}, "the fused GAT forward")
+    if len(rec) != LAYERS:
+        raise RuntimeError(f"{len(rec)} layers took the fused route")
+    del rec
+    if tuple(out.shape) != (N_NODES, CLASSES) or not torch.isfinite(
+            out).all():
+        raise RuntimeError(f"bad fused GAT output {tuple(out.shape)}")
+    with torch.inference_mode():
+        ref = model(g_plain, x)
+    scale = ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    if not torch.allclose(out, ref, rtol=2e-2, atol=2e-2 * scale):
+        raise RuntimeError(f"fused GAT vs the per-edge route: max abs err "
+                           f"{err} (max |ref| {scale})")
+    del ref
+    t0 = time.perf_counter()
+    model_cpu = GAT(IN_FEATS, EDGE_GAT_HIDDEN, CLASSES, heads=EDGE_GAT_HEADS,
+                    num_layers=LAYERS, device="cpu").eval()
+    model_cpu.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        cpu = model_cpu(gp.to("cpu"), x.cpu())
+    vs_cpu = bf16_flip_check(out.cpu(), cpu, "fused GAT card vs CPU")
+    emit({"phase": "fused_gat_main_path", "model": "GAT 128-250x3-250x3-40,"
+          " 3 layers, fused shell-space route", "launches": launches,
+          "peak_memory_gib": peak,
+          "vs_per_edge_route": {"max_abs_err": err,
+                                "max_rel_err": err / scale,
+                                "tolerance": "rtol=2e-2, atol=2e-2*max|ref|"},
+          "vs_cpu_fused_route": {**vs_cpu, "tolerance": "at most 1 in 1000 "
+                                 "outside 1e-4, all within 2**-8*max|ref|",
+                                 "cpu_forward_s": time.perf_counter() - t0},
+          **tag})
+    del model_cpu, cpu, out
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(gp, x), 5)
+        prof = device_profile(lambda: model(gp, x), 2)
+    emit({"phase": "fused_gat_forward_profile", "calls": 2, **prof, **tag})
+
+    model.train()
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    loss, launches, step_peak, step_s = counted_step(
+        model, opt, gp, x, y, mask, {k: 0 for k in _kernels.launch_counts},
+        "fused GAT")
+    losses = run_steps(model, opt, gp, x, y, mask, loss, falling=False)
+    step = lambda: train_step(model, opt, gp, x, y, mask)  # noqa: E731
+    step_ms = time_ms(step, 3)
+    emit({"phase": "fused_gat_train_main_path", "model": "GAT 128-250x3-"
+          "250x3-40, feat_drop 0.75, attn_drop 0.05 (an (E, H) mask)",
+          "launches": launches, "peak_memory_gib": step_peak,
+          "first_step_s": step_s, "losses": losses, **tag})
+    emit({"phase": "fused_gat_timing", "forward_ms": fwd_ms,
+          "step_ms": step_ms, "per_edge_route_step_ms_this_run":
+          edge_step_ms, **tag})
+    emit({"phase": "fused_gat_train_profile", "calls": 2,
+          **device_profile(step, 2), **tag})
+    return {"forward_ms": fwd_ms, "train_step_ms": step_ms,
+            "peak_memory_gib": step_peak}
+
+
+# DGL's Cora GAT (examples/pytorch/gat): 8 heads of 8, 7 classes, both
+# dropouts 0.6; Cora's shape: 2,708 nodes, 10,556 directed edges (5,278
+# pairs), 1,433 features
+CORA_N, CORA_PAIRS, CORA_FEAT, CORA_CLASSES = 2708, 5278, 1433, 7
+
+
+def cora_graph(seed: int = 43):
+    """A seeded random graph of Cora's shape: CORA_PAIRS distinct
+    undirected pairs, no self-loop, both directions, plus one self-loop a
+    node."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, CORA_N, 3 * CORA_PAIRS)
+    b = rng.integers(0, CORA_N, 3 * CORA_PAIRS)
+    lo, hi = np.minimum(a, b), np.maximum(a, b)
+    key = np.unique((lo * CORA_N + hi)[lo != hi])
+    key = rng.permutation(key)[:CORA_PAIRS]
+    lo, hi = key // CORA_N, key % CORA_N
+    loops = np.arange(CORA_N)
+    return (np.concatenate([lo, hi, loops]), np.concatenate([hi, lo, loops]))
+
+
+def run_dense_cora(tag: dict) -> dict:
+    """GAT at Cora's size over ``with_spmm_plans(weighted=True)``: both
+    layers through the dense masked-attention route in bf16, held against
+    the per-edge route at the reference's bound for that route."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.models import GAT
+    from dgl_tpu_torch.ops import dense_attn
+
+    src, dst = cora_graph()
+    g = dt.graph((src, dst), num_nodes=CORA_N)
+    t0 = time.perf_counter()
+    gp = g.with_spmm_plans(weighted=True)
+    torch.cuda.synchronize()
+    plans_s = time.perf_counter() - t0
+    rel = gp._relation()
+    if rel.dense_adj is None or rel.shell_plan is None:
+        raise RuntimeError("the Cora-sized graph lacks its dense mask")
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(CORA_N, CORA_FEAT)).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.random.default_rng(7).integers(
+        0, CORA_CLASSES, CORA_N)).cuda()
+    mask = torch.ones(CORA_N, device=x.device)
+    model = GAT(CORA_FEAT, 8, CORA_CLASSES, heads=8, num_layers=2,
+                feat_drop=0.6, attn_drop=0.6,
+                generator=torch.Generator().manual_seed(0)).eval()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 is on for f32 products")
+    _kernels.reset_launch_counts()
+    with recording(dense_attn, "dense_masked_attention") as rec:
+        with torch.inference_mode():
+            out = model(gp, x)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(launches, {}, "the dense GAT forward")
+    if len(rec) != 2 or any(k["compute_dtype"] != torch.bfloat16
+                            for _a, k in rec):
+        raise RuntimeError("the dense route did not carry both layers in "
+                           "bf16")
+    del rec
+    # the reference's bound for this route in bf16
+    # (tests/test_dense_attn.py::test_dense_path_bf16_error_bound): the
+    # loss sum(out**2) within 1e-2 relative, each gradient within 3e-2
+    # L2-relative; the output within 3e-2 L2-relative
+    with torch.inference_mode():
+        ref = model(g, x)
+    out_l2 = ((out - ref).norm() / ref.norm()).item()
+    model.zero_grad(set_to_none=True)
+    losses, grads = [], []
+    for graph in (gp, g):
+        loss = (model(graph, x) ** 2).sum()
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({k: p.grad.clone() for k, p in model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+    loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    grad_l2 = {k: ((grads[0][k] - r).norm() / r.norm().clamp_min(1e-12)
+                   ).item() for k, r in grads[1].items()}
+    if out_l2 >= 3e-2 or loss_rel >= 1e-2 or max(grad_l2.values()) >= 3e-2:
+        raise RuntimeError(f"dense GAT vs per-edge: output L2 {out_l2}, "
+                           f"loss {loss_rel}, gradients {grad_l2}")
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(gp, x), 10)
+        edge_fwd_ms = time_ms(lambda: model(g, x), 10)
+    model.train()
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    loss, step_launches, peak, step_s = counted_step(
+        model, opt, gp, x, y, mask, {k: 0 for k in _kernels.launch_counts},
+        "dense GAT")
+    if not math.isfinite(loss.item()):
+        raise RuntimeError(f"dense GAT training loss {loss.item()}")
+    step_ms = time_ms(lambda: train_step(model, opt, gp, x, y, mask), 10)
+    result = {"forward_ms": fwd_ms, "per_edge_route_forward_ms": edge_fwd_ms,
+              "step_ms": step_ms}
+    emit({"phase": "dense_gat_cora", "model": "GAT 1433-8x8-7, dropouts "
+          "0.6 (Cora-sized random graph)", "nodes": CORA_N,
+          "edges": rel.num_edges, "plans_s": plans_s, "launches": launches,
+          "vs_per_edge_route": {"output_l2_rel": out_l2,
+                                "loss_rel": loss_rel, "grad_l2_rel": grad_l2,
+                                "tolerance": "output and gradients < 3e-2 "
+                                "L2-relative, loss < 1e-2"},
+          "train_step_launches": step_launches, "train_loss": loss.item(),
+          "peak_memory_gib": peak, **result, **tag})
+    return result
+
+
+def run_weighted(rate: float, edge_step_ms: float, tag: dict) -> dict:
+    """The weighted shell plan's phases on the zipf graph plus self-loops
+    (``with_spmm_plans(num_hubs=2048, weighted=True)``, bf16 gathers):
+    the weighted GCN (B1's weighted caller) and the fused GAT route.
+    Returns the weighted kernel's entry of the kernel table."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+
+    src, dst = zipf_loops_graph()
+    # two graphs: a plan copy shares its original's feature frames
+    g = dt.graph((src, dst), num_nodes=N_NODES)
+    t0 = time.perf_counter()
+    gp = dt.graph((src, dst), num_nodes=N_NODES).with_spmm_plans(
+        num_hubs=2048, weighted=True)
+    torch.cuda.synchronize()
+    plans_s = time.perf_counter() - t0
+    rel = gp._relation()
+    plan = rel.shell_plan
+    if plan is None or rel.dense_adj is not None or (
+            rel.bitmap_plan is not None):
+        raise RuntimeError("the weighted graph's plans are not the shell "
+                           "and hub plans alone")
+
+    def res_size(res):
+        return None if res is None else {
+            "padded_slots": int(res[0].shape[0]),
+            "edges": int(res[4].sum().item()),
+            "nodes": int(torch.unique(res[3]).numel())}
+
+    emit({"phase": "weighted_plans", "nodes": N_NODES,
+          "edges": rel.num_edges, "plans_s": plans_s,
+          "gather_dtype": plan.gather_dtype,
+          "forward_levels": len(plan.fwd.level_rows),
+          "forward_level_rows": plan.fwd.level_real,
+          "forward_residual": res_size(plan.res_dst),
+          "reverse_levels": len(plan.rev.level_rows),
+          "reverse_residual": res_size(plan.res_src),
+          "identity_unrank": {"dst": plan.unrank_dst is None,
+                              "src": plan.unrank_src is None}, **tag})
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(N_NODES, IN_FEATS)).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.random.default_rng(4).integers(
+        0, CLASSES, N_NODES)).cuda()
+    mask = torch.ones(N_NODES, device=x.device)
+    entry = run_weighted_gcn(gp, g, x, y, mask, rate, tag)
+    entry["fused_gat"] = run_fused_gat(gp, g, x, y, mask, edge_step_ms, tag)
+    return entry
+
+
 def run() -> dict:
     import torch
 
@@ -2146,10 +2830,13 @@ def run() -> dict:
 
     run_fwd_edge_cases(tag)
     run_bwd_edge_cases(tag)
+    run_gspmm_edge_cases(tag)
     kernels = [run_sage(rate, tag)]
     kernels += run_reddit(rate, ptxas, tag)
     kernels.append(run_hub_cache(rate, tag))
-    run_gat_edge(tag)
+    edge = run_gat_edge(tag)
+    kernels.append(run_weighted(rate, edge["train_step_ms"], tag))
+    run_dense_cora(tag)
     t0 = time.perf_counter()
     data = minibatch_data("cuda")
     emit({"phase": "minibatch_data", "setup_s": time.perf_counter() - t0,

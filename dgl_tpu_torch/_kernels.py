@@ -26,7 +26,8 @@ SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name) for name in (
     "bitmap_gat_bwd_dst.cu", "bitmap_gat_bwd_src.cu", "hub_gather.cu"))
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
-launch_counts = {"shell_prefix_sum": 0, "bitmap_spmm": 0,
+launch_counts = {"shell_prefix_sum": 0, "shell_prefix_gspmm": 0,
+                 "bitmap_spmm": 0,
                  "bitmap_gat_fwd": 0, "bitmap_gat_bwd_dst": 0,
                  "bitmap_gat_bwd_src": 0, "hub_gather": 0}
 
@@ -59,6 +60,9 @@ def library() -> ctypes.CDLL:
             for fn, argtypes in (
                     (lib.dgl_shell_prefix_sum,
                      [p, i64, i64, p, p, p, i32, p, p, i64, i32, p]),
+                    (lib.dgl_shell_prefix_gspmm,
+                     [i32, i32, p, i32, i64, i64, p, i32, i64, i64, p, p, p,
+                      p, i32, p, p, i64, i64, i32, p]),
                     (lib.dgl_bitmap_spmm,
                      [p, i64, i64, p, i64, i64, i64, i32, p, p]),
                     (lib.dgl_bitmap_gat_fwd,

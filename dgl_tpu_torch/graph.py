@@ -76,17 +76,14 @@ class Relation:
         "csc_dst",
     )
 
-    # plans (ops.gspmm dispatches on them; the shell plan belongs to a
-    # later slice and raises there)
+    # plans (ops.gspmm, ops.edge_softmax and GATConv dispatch on them)
     hub_plan = None
     shell_plan = None
     bitmap_plan = None
+    dense_adj = None
     # > 0 on a fixed-shape MFG block: edge d*f+j belongs to dst d or to the
     # padding sink, so reductions are a masked reshape (ops/spmm.py)
     uniform_stride = 0
-    # where the reference would attach a dense-attention plan
-    # (ops/dense_attn.py, not ported): GATConv raises there
-    dense_attn = False
 
     def __init__(self, arrays: Mapping[str, torch.Tensor], *, num_src: int,
                  num_dst: int, num_edges: int, max_in_degree: int = -1,
@@ -187,6 +184,18 @@ class Relation:
         ``gspmm`` dispatches ``copy_u`` + sum/mean through it."""
         return self._copy_with(hub_plan=plan)
 
+    def with_shell_plan(self, plan) -> "Relation":
+        """A copy carrying a full-edge shell plan (``ops/shell_spmm.py``);
+        ``gspmm`` dispatches every op with sum/mean/max/min through it
+        (after the hub plan's ``copy_u``), ``edge_softmax`` its reductions
+        and ``GATConv`` its fused attention."""
+        return self._copy_with(shell_plan=plan)
+
+    def with_dense_adj(self, plan) -> "Relation":
+        """A copy carrying a dense adjacency mask (``ops/dense_attn.py``);
+        ``GATConv`` then runs dense masked attention."""
+        return self._copy_with(dense_adj=plan)
+
     def with_bitmap_plan(self, plan) -> "Relation":
         """A copy carrying a packed-bitmap dense SpMM plan
         (``ops/bitmap_spmm.py``); ``gspmm`` dispatches ``copy_u`` +
@@ -199,12 +208,11 @@ class Relation:
 
     def to(self, device) -> "Relation":
         arrays = {f: getattr(self, f).to(device) for f in Relation.ARRAY_FIELDS}
-        return self._copy_with(
-            hub_plan=None if self.hub_plan is None
-            else self.hub_plan.to(device),
-            bitmap_plan=None if self.bitmap_plan is None
-            else self.bitmap_plan.to(device),
-            **arrays)
+        plans = {k: None if getattr(self, k) is None
+                 else getattr(self, k).to(device)
+                 for k in ("hub_plan", "shell_plan", "bitmap_plan",
+                           "dense_adj")}
+        return self._copy_with(**plans, **arrays)
 
     @property
     def device(self) -> torch.device:
@@ -554,24 +562,26 @@ class Graph:
           ``E/(N_src*N_dst) >= bitmap_min_density`` and bitmaps within
           ``2 * bitmap_max_bytes``); the builder still refuses multi-edges
           and plans over ``bitmap_max_bytes``.
-        - The dense-attention mark (``Relation.dense_attn``) where the
-          reference attaches its dense-attention plan: ``dense_attn`` not
-          False, at most ``dense_attn_max_cells`` cells, no multi-edges.
-          That plan is not ported; ``GATConv`` raises on a marked relation.
-
-        ``weighted=True`` (the weighted shell plans) raises."""
+        - With ``weighted=True``, a full-edge shell plan
+          (:mod:`dgl_tpu_torch.ops.shell_spmm`, gathers in
+          ``gather_dtype``), so edge-weighted sum/mean ops, max/min, the
+          edge softmax and GATConv's fused attention skip the segment
+          reductions as well.
+        - A dense adjacency mask (:mod:`dgl_tpu_torch.ops.dense_attn`,
+          ``Relation.dense_adj``) when ``dense_attn`` is not False, the
+          relation has at most ``dense_attn_max_cells`` cells and no
+          multi-edges: ``GATConv`` then runs dense masked attention."""
         from .ops.hub_spmm import build_hub_plan
+        from .ops.shell_spmm import build_shell_plan
 
-        if weighted:
-            raise NotImplementedError(
-                "weighted shell plans: the weighted g-SpMM slice "
-                "(ROADMAP queue A3)")
         g = self.structural_clone()
         rels = {}
         for k, r in self._relations.items():
             h = (self._auto_num_hubs(r) if num_hubs == "auto"
                  else int(num_hubs))
             r = r.with_hub_plan(build_hub_plan(r, h, precision))
+            if weighted:
+                r = r.with_shell_plan(build_shell_plan(r, gather_dtype))
             rels[k] = with_dense_plans(
                 r, dense_attn=dense_attn,
                 dense_attn_max_cells=dense_attn_max_cells, bitmap=bitmap,
@@ -594,15 +604,17 @@ def with_dense_plans(r: Relation, dense_attn: bool | str = "auto",
                      bitmap: bool | str = "auto",
                      bitmap_max_bytes: int = 2 << 30,
                      bitmap_min_density: float = 5e-4) -> Relation:
-    """``r`` with the dense-attention mark and the bitmap plan that
-    ``Graph.with_spmm_plans`` attaches besides the hub plan (reference
-    ``graph.py:1165-1180``)."""
+    """``r`` with the dense adjacency mask and the bitmap plan that
+    ``Graph.with_spmm_plans`` attaches besides the hub and shell plans
+    (reference ``graph.py:1165-1180``)."""
     from .ops.bitmap_spmm import bitmap_bytes, build_bitmap_plan
+    from .ops.dense_attn import build_dense_adj
 
     cells = r.num_src * r.num_dst
-    if (dense_attn is True or dense_attn == "auto") and 0 < cells <= (
-            dense_attn_max_cells) and not r.has_multi_edges():
-        r = r._copy_with(dense_attn=True)
+    if dense_attn is True or dense_attn == "auto":
+        da = build_dense_adj(r, max_cells=dense_attn_max_cells)
+        if da is not None:
+            r = r.with_dense_adj(da)
     want_bitmap = bitmap is True or (
         bitmap == "auto" and cells > 0
         and r.num_edges / cells >= bitmap_min_density

@@ -1,2 +1,3 @@
 """GNN layers (counterpart of ``dgl_tpu/nn/``), as ``torch.nn`` modules."""
 from .conv import *  # noqa: F401,F403
+from .utils_nn import EdgeWeightNorm  # noqa: F401

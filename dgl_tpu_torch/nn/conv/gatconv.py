@@ -1,21 +1,26 @@
 """Graph attention layer (counterpart of ``dgl_tpu/nn/conv/gatconv.py``).
 
-Reference: ``python/dgl/nn/pytorch/conv/gatconv.py``. The reference picks
-one of four routes for the attention; two are ported:
+Reference: ``python/dgl/nn/pytorch/conv/gatconv.py``. The layer picks one
+of four routes for the attention, in the reference's order
+(``dgl_tpu/nn/conv/gatconv.py:66-161``); the first three need no edge
+weight and no returned attention:
 
-- the bitmap-flash route (``ops/bitmap_gat.py``, kernels B3 to B5: B3
-  walks the relation's CSC, B4 and B5 the plan's bitmap), taken
-  when the graph carries a bitmap plan (``Graph.with_spmm_plans(bitmap=
-  ...)``), there are no edge weights, no attention is returned and no
-  attention dropout runs;
-- the per-edge route, everywhere else: ``apply_edges(u_add_v)``, leaky
-  ReLU, ``edge_softmax``, the edge weights, attention dropout in training
-  mode, ``update_all(u_mul_e, sum)`` (reference ``gatconv.py:337-346``).
+1. dense masked attention (``ops/dense_attn.py``) when the relation
+   carries a dense adjacency mask (``Relation.dense_adj``, attached by
+   ``with_spmm_plans`` to small graphs), in ``dense_compute_dtype``
+   (bf16 by default, as the reference's);
+2. the bitmap-flash route (``ops/bitmap_gat.py``, kernels B3 to B5) when
+   the graph carries a bitmap plan and no attention dropout runs;
+3. fused shell-space attention (``ops/fused_gat.py``) over a shell plan
+   (``with_spmm_plans(weighted=True)``);
+4. the per-edge route everywhere else: ``apply_edges(u_add_v)``, leaky
+   ReLU, ``edge_softmax``, the edge weights, attention dropout in training
+   mode, ``update_all(u_mul_e, sum)`` (reference ``gatconv.py:337-346``).
 
-The other two raise with their ROADMAP items: dense masked attention, where
-the reference attaches a dense-attention plan (the relation's
-``dense_attn`` mark), and fused shell-space attention over a shell plan
-(both ROADMAP queue A7).
+In training, the dense and fused routes draw their attention-dropout masks
+(an (H, N_dst, N_src) and an (E, H) one) with ``torch.bernoulli`` from
+PyTorch's default generator of the device, where the reference draws them
+from an rbg key: the two agree in distribution, not in bits.
 """
 from __future__ import annotations
 
@@ -52,7 +57,8 @@ class GATConv(nn.Module):
                  feat_drop: float = 0.0, attn_drop: float = 0.0,
                  negative_slope: float = 0.2, residual: bool = False,
                  activation: Optional[Callable] = None,
-                 allow_zero_in_degree: bool = False, bias: bool = True, *,
+                 allow_zero_in_degree: bool = False, bias: bool = True,
+                 dense_compute_dtype: str = "bfloat16", *,
                  generator: Optional[torch.Generator] = None,
                  device="cuda"):
         super().__init__()
@@ -64,6 +70,12 @@ class GATConv(nn.Module):
         self.negative_slope = negative_slope
         self.activation = activation
         self.allow_zero_in_degree = allow_zero_in_degree
+        # the dense route's (H, N_dst, N_src) attention type: bf16 halves
+        # that route's traffic (the reference's default; its gradients
+        # stay within 3e-2 L2-relative of the exact route's,
+        # tests/test_dense_attn.py::test_dense_path_bf16_error_bound);
+        # "float32" gives the per-edge route's values
+        self.dense_compute_dtype = getattr(torch, dense_compute_dtype)
         self.feat_drop = nn.Dropout(feat_drop)
         self.fc = nn.Linear(in_feats, H * O, bias=False)
         with torch.no_grad():
@@ -97,23 +109,33 @@ class GATConv(nn.Module):
             er = (h_dst * self.attn_r).sum(-1)  # (N_dst, H)
             rel = g._relation(None)
             fused = edge_weight is None and not get_attention
-            if rel.dense_attn and fused:
-                raise NotImplementedError(
-                    "GATConv over a dense-attention plan (ops/dense_attn.py, "
-                    "the reference's small-graph route): ROADMAP queue A7; "
-                    "build the graph with with_spmm_plans(dense_attn=False) "
-                    "to take the bitmap route")
-            if (rel.bitmap_plan is not None and fused
-                    and (self.attn_drop == 0 or not self.training)):
+            dropping = self.training and self.attn_drop > 0
+            if rel.dense_adj is not None and fused:
+                from ...ops.dense_attn import dense_masked_attention
+
+                rst = dense_masked_attention(
+                    rel.dense_adj, el, er, h_src,
+                    negative_slope=self.negative_slope,
+                    dropout_fn=self._drop if dropping else None,
+                    compute_dtype=self.dense_compute_dtype)
+                return self._finish(rst, feat_dst, H, O)
+            if rel.bitmap_plan is not None and fused and not dropping:
                 from ...ops.bitmap_gat import bitmap_gat
 
                 rst = bitmap_gat(self.negative_slope, rel.bitmap_plan, el,
                                  er, h_src, rel)
                 return self._finish(rst, feat_dst, H, O)
             if rel.shell_plan is not None and fused:
-                raise NotImplementedError(
-                    "GATConv over a shell plan (ops/fused_gat.py, fused "
-                    "shell-space attention): ROADMAP queue A7")
+                from ...ops.fused_gat import fused_gat_attention
+
+                drop = None
+                if dropping:
+                    # (E, H) eid-keyed mask, dropout after the softmax
+                    drop = self._drop(h_src.new_ones((g.num_edges(), H)))
+                rst = fused_gat_attention(self.negative_slope,
+                                          rel.shell_plan, el, er, h_src,
+                                          drop)
+                return self._finish(rst, feat_dst, H, O)
             g.srcdata.update({"ft": h_src, "el": el.unsqueeze(-1)})
             g.dstdata.update({"er": er.unsqueeze(-1)})
             g.apply_edges(fn.u_add_v("el", "er", "e"))
@@ -127,6 +149,12 @@ class GATConv(nn.Module):
             g.update_all(fn.u_mul_e("ft", "a", "m"), fn.sum("m", "ft"))
             rst = self._finish(g.dstdata["ft"], feat_dst, H, O)
             return (rst, a) if get_attention else rst
+
+    def _drop(self, a):
+        """``a`` times a Bernoulli(keep) mask over ``keep``."""
+        keep = 1.0 - self.attn_drop
+        bits = torch.bernoulli(torch.full(a.shape, keep, device=a.device))
+        return a * bits.to(a.dtype) / keep
 
     def _finish(self, rst, feat_dst, H, O):
         if self.res_fc is not None:

@@ -16,7 +16,14 @@ On a uniform-stride block (``norm_by="dst"``) the softmax runs over each
 destination's stripe of ``f`` slots, masked to the slots whose edge is the
 destination's (reference ``dgl_tpu/ops/edge_softmax.py:28-50,82-88``), and
 its backward is ``sds - out * sum_stripe(sds)`` with ``sds = out * dz``.
-The shell-plan branch raises.
+
+Over a shell plan (``with_spmm_plans(weighted=True)``) the max and the
+exp-sum accumulate over the plan's rank-space prefixes
+(``shell_spmm.shell_edge_softmax``; the reverse shells for
+``norm_by="src"``), and the backward's per-node sum is
+``shell_spmm.shell_edge_acc`` read back through each edge's rank position
+(reference ``dgl_tpu/ops/edge_softmax.py:53-56,89-110``); padded edges get
+0, as on the plain branch.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ import torch
 
 from ..graph import Graph, Relation
 from .sddmm import _gather_target, _mask_pad
-from .spmm import _gspmm_cmp, _gspmm_sum, _stripe_valid
+from .spmm import _expand, _gspmm_cmp, _gspmm_sum, _stripe_valid
 
 __all__ = ["edge_softmax"]
 
@@ -46,13 +53,9 @@ def _uniform_reshape(rel: Relation, x):
     return x[:B * f].reshape((B, f) + tuple(x.shape[1:])), valid
 
 
-def _check_branch(rel: Relation, norm_by: str):
+def _check_branch(norm_by: str):
     if norm_by not in ("dst", "src"):
         raise ValueError(f"norm_by must be 'dst' or 'src', got {norm_by!r}")
-    if rel.shell_plan is not None:
-        raise NotImplementedError(
-            "edge_softmax over a shell plan (shell_edge_softmax): ROADMAP "
-            "queue A3/A7")
 
 
 class _EdgeSoftmax(torch.autograd.Function):
@@ -68,6 +71,15 @@ class _EdgeSoftmax(torch.autograd.Function):
             out = (ez / s).reshape(logits.shape)
             ctx.save_for_backward(out)
             ctx.stripes = z.shape[:2]
+            return out
+        ctx.shell = None
+        if rel.shell_plan is not None:
+            from .shell_spmm import _softmax_side, shell_edge_softmax
+
+            out = _mask_pad(rel, shell_edge_softmax(rel.shell_plan, logits,
+                                                    norm_by))
+            ctx.rel, ctx.shell = rel, _softmax_side(rel.shell_plan, norm_by)
+            ctx.save_for_backward(out)
             return out
         if norm_by == "src":
             rel = rel.reverse()
@@ -93,6 +105,13 @@ class _EdgeSoftmax(torch.autograd.Function):
             grad = sds_r - out_r * sds_r.sum(1, keepdim=True)
             return None, None, grad.reshape(out.shape)
         rel = ctx.rel
+        if ctx.shell is not None:
+            from .shell_spmm import shell_edge_acc
+
+            shells, res, n_out, rank_eid = ctx.shell
+            accum = shell_edge_acc(shells, n_out, sds, kind="sum",
+                                   residual=res).index_select(0, rank_eid)
+            return None, None, sds - out * _expand(accum, sds.dim())
         accum = _gspmm_sum("copy_rhs", rel, None, sds)
         return None, None, sds - out * _gather_target(rel, "v", accum)
 
@@ -106,7 +125,7 @@ def edge_softmax(graph, logits, eids=None, norm_by="dst", etype=None):
     edges. With ``eids``, the softmax runs over that subset of edges only:
     the others take part as ``-inf`` logits and receive 0."""
     rel = graph._relation(etype) if isinstance(graph, Graph) else graph
-    _check_branch(rel, norm_by)
+    _check_branch(norm_by)
     if eids is None:
         return _EdgeSoftmax.apply(rel, norm_by, logits)
     mask = torch.zeros(rel.num_edges_padded, dtype=torch.bool,

@@ -16,6 +16,20 @@ out-of-range index that gathers zero (:func:`flat_shell_indices`).
 TPU kernel could not) on a CUDA tensor, and the plain PyTorch version
 :func:`shell_prefix_sum_plain` on a CPU tensor. Both sum in f32, base first
 and then level by level, so on the same inputs they agree to the bit.
+
+:func:`shell_prefix_gspmm` is B1's weighted caller (the reference's
+``shell_spmm._shell_accumulate``, which builds the message stream with XLA
+ops and hands it to the same Pallas kernel). Its kernel,
+``dgl_shell_prefix_gspmm`` in the same source, gathers a node row and an
+edge row per slot and fuses the message too:
+
+    out[r] = base[r]
+             + sum_{k : r < n_k} f32(round_gd(op(u[nidx_k[r]], e[eidx_k[r]])))
+
+with ``n_k`` each level's real row count: the weighted plan's padded slots
+gather row 0 and edge 0, which are real data, so the walk stops by the
+count, not by the index. :func:`shell_prefix_gspmm_plain` is its plain
+version, with the same sums in the same order.
 """
 from __future__ import annotations
 
@@ -23,10 +37,11 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from .shell_spmm import _rup, prefix_reduce
+from .shell_spmm import _expand, _msg, _out_feat, _rup, prefix_reduce
 
 __all__ = ["flat_shell_indices", "level_table", "shell_prefix_sum",
-           "shell_prefix_sum_plain"]
+           "shell_prefix_sum_plain", "shell_prefix_gspmm",
+           "shell_prefix_gspmm_plain"]
 
 BLOCK_ROWS = 512  # level padding of the flat layout (shell_pallas._BR)
 
@@ -62,12 +77,14 @@ def flat_shell_indices(shell_indices, n_out, oob_index):
     return flat, level_rows
 
 
-def level_table(level_rows, device):
+def level_table(level_rows, device, counts=None):
     """(2, K) int64 tensor: each level's offset into the flat index vector,
-    then its row count. The kernel reads it on the device."""
-    rows = np.asarray(level_rows, np.int64)
+    then its row count (``counts`` in place of ``level_rows`` where given:
+    the weighted kernel's real row counts). The kernel reads it on the
+    device."""
+    rows = np.asarray(level_rows if counts is None else counts, np.int64)
     padded = np.asarray([_rup(m, BLOCK_ROWS) for m in level_rows], np.int64)
-    off = np.concatenate(([0], np.cumsum(padded)[:-1])).astype(np.int64)
+    off = (np.cumsum(padded) - padded).astype(np.int64)
     return torch.from_numpy(np.stack([off, rows])).to(device)
 
 
@@ -156,3 +173,180 @@ def _launch(table, flat_idx, level_rows, n_out, base, levels):
     _kernels.check(code, "shell_prefix_sum")
     _kernels.launch_counts["shell_prefix_sum"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the weighted caller: the message built in the kernel
+# ---------------------------------------------------------------------------
+
+_OPS = {"add": 0, "sub": 1, "mul": 2, "div": 3, "copy_lhs": 4,
+        "copy_rhs": 5}
+
+
+def _check_layout(nidx, level_rows, level_real, n_out):
+    if not level_rows and not level_real:
+        return
+    if len(level_rows) != len(level_real) or any(
+            c > m for c, m in zip(level_real, level_rows)):
+        raise ValueError("level_real must give at most level_rows rows a "
+                         "level")
+    need = sum(_rup(int(m), BLOCK_ROWS) for m in level_rows[:-1]) + (
+        min(int(level_real[-1]), n_out) if level_rows else 0)
+    if need > nidx.shape[0]:
+        raise ValueError("the flat indices are shorter than their level "
+                         "layout")
+
+
+def shell_prefix_gspmm_plain(op, lhs, rhs, nidx, eidx, level_rows,
+                             level_real, n_out, base=None):
+    """Plain PyTorch version of :func:`shell_prefix_gspmm`: per level, the
+    gathers, the message in the tables' type, a select of the level's
+    ``n_k`` real rows, then an f32 add into the prefix (``prefix_reduce``,
+    base first)."""
+    feat = _out_feat(op, lhs, rhs)
+    ref = lhs if lhs is not None else rhs
+    pieces, off = [], 0
+    for m8, m in zip(level_rows, level_real):
+        mm = min(int(m8), n_out)
+        ul = None if lhs is None else lhs.index_select(
+            0, nidx[off:off + mm].long())
+        el = None if rhs is None else rhs.index_select(
+            0, eidx[off:off + mm].long())
+        rows = _msg(op, ul, el)
+        keep = torch.arange(mm, device=rows.device) < m
+        # where, not a product: a padded slot's message may be inf or NaN
+        pieces.append(torch.where(_expand(keep, rows.dim()), rows,
+                                  0).to(torch.float32))
+        off += _rup(int(m8), BLOCK_ROWS)
+    if base is not None:
+        base = base[:n_out].to(torch.float32)
+    out = prefix_reduce(pieces, n_out, base=base)
+    if out is None:
+        return torch.zeros((n_out,) + feat, dtype=torch.float32,
+                           device=ref.device)
+    return out
+
+
+def shell_prefix_gspmm(op, lhs, rhs, nidx, eidx, level_rows, level_real,
+                       n_out, base=None, levels=None):
+    """``out[r] = base[r] + sum_{k : r < n_k} f32(op(lhs[nidx_k[r]],
+    rhs[eidx_k[r]]))``, the message computed in the tables' type.
+
+    ``lhs`` (N, ...) and ``rhs`` (E, ...): bf16 or f32 tables of one type
+    (either None for the copy ops), broadcast like ``gspmm``'s operands.
+    ``nidx``/``eidx``: int32 flat layouts of :func:`flat_shell_indices`.
+    ``level_rows``: the levels' padded lengths (``n_k8``); ``level_real``:
+    their real row counts (``n_k``). ``base``: optional (>= n_out, *feat)
+    f32. ``levels``: the ``level_table(level_rows, device,
+    counts=level_real)`` on the tables' device (built here when not given).
+    Returns (n_out, *feat) f32.
+
+    A CUDA table runs the kernel; a CPU table runs the plain version.
+    """
+    if op not in _OPS:
+        raise ValueError(f"unknown op {op!r}")
+    if (lhs is None) != (op == "copy_rhs") or (rhs is None) != (
+            op == "copy_lhs"):
+        raise ValueError(f"op {op!r} takes "
+                         + {"copy_lhs": "lhs only", "copy_rhs": "rhs only"}
+                         .get(op, "lhs and rhs"))
+    _check_layout(nidx, level_rows, level_real, n_out)
+    ref = lhs if lhs is not None else rhs
+    if ref.device.type == "cpu":
+        return shell_prefix_gspmm_plain(op, lhs, rhs, nidx, eidx,
+                                        level_rows, level_real, n_out,
+                                        base=base)
+    if not ref.is_cuda:
+        raise ValueError(f"shell_prefix_gspmm: unsupported device "
+                         f"{ref.device}")
+    return _launch_gspmm(op, lhs, rhs, nidx, eidx, level_rows, level_real,
+                         n_out, base, levels)
+
+
+def _broadcast(shape, out):
+    """How an operand of feature shape ``shape`` (right-padded to
+    ``out``'s rank) reads output column ``j`` of the flattened ``out``:
+    ``(kind, div, mod)`` with column ``(j // div) % mod``. Kind 0: the
+    whole row (``j``); 1: one value a row; 2: one contiguous run of
+    ``out``'s dims, the others broadcast. None for any other pattern."""
+    dims = [(s, o) for s, o in zip(shape, out) if o != 1]
+    present = [i for i, (s, o) in enumerate(dims) if s == o]
+    if not present:
+        return 1, 1, 1
+    lo, hi = present[0], present[-1]
+    if present != list(range(lo, hi + 1)):
+        return None
+    mod = int(np.prod([o for _s, o in dims[lo:hi + 1]], dtype=np.int64))
+    div = int(np.prod([o for _s, o in dims[hi + 1:]], dtype=np.int64))
+    return (0 if div == 1 and lo == 0 else 2), div, mod
+
+
+def _launch_gspmm(op, lhs, rhs, nidx, eidx, level_rows, level_real, n_out,
+                  base, levels):
+    ref = lhs if lhs is not None else rhs
+    dev = ref.device
+    dtype = ref.dtype
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"tables must be bf16 or f32, got {dtype}")
+    for t in (lhs, rhs):
+        if t is not None and (t.dtype != dtype or t.device != dev
+                              or t.dim() < 1):
+            raise ValueError("lhs and rhs must be tables of one type on one "
+                             "device")
+    for t in (nidx, eidx):
+        if t.dtype != torch.int32 or t.device != dev:
+            raise ValueError("nidx and eidx must be int32 on the tables' "
+                             "device")
+    feat = _out_feat(op, lhs, rhs)
+    nd = len(feat)
+    D = int(np.prod(feat, dtype=np.int64))
+    pattern = []
+    for t in (lhs, rhs):
+        if t is None:
+            pattern.append((1, 1, 1))
+            continue
+        shape = tuple(t.shape[1:]) + (1,) * (nd - (t.dim() - 1))
+        p = _broadcast(shape, feat)
+        if p is None:
+            raise ValueError(
+                f"shell_prefix_gspmm: unsupported broadcast of lhs "
+                f"{None if lhs is None else tuple(lhs.shape)} and rhs "
+                f"{None if rhs is None else tuple(rhs.shape)}: an operand's "
+                f"non-broadcast dims must be one contiguous run")
+        pattern.append(p)
+    if levels is None:
+        levels = level_table(level_rows, dev, counts=level_real)
+    if (levels.dtype != torch.int64 or levels.device != dev
+            or tuple(levels.shape) != (2, len(level_rows))):
+        raise ValueError("levels must be the (2, K) int64 level_table")
+    lhs = None if lhs is None else lhs.contiguous()
+    rhs = None if rhs is None else rhs.contiguous()
+    nidx, eidx, levels = nidx.contiguous(), eidx.contiguous(), \
+        levels.contiguous()
+    if base is not None:
+        if (base.dtype != torch.float32 or base.device != dev
+                or base.shape[0] < n_out or tuple(base.shape[1:]) != feat):
+            raise ValueError("base must be (>= n_out, *feat) f32 on the "
+                             "tables' device")
+        base = base[:n_out].reshape(n_out, D).contiguous()
+    out = torch.empty((n_out, D), dtype=torch.float32, device=dev)
+    ptrs = [out.data_ptr()] + [t.data_ptr() for t, (kind, _d, _m) in zip(
+        (lhs, rhs), pattern) if t is not None and kind == 0]
+    if base is not None:
+        ptrs.append(base.data_ptr())
+    vec = 8 if D % 8 == 0 and all(p % 16 == 0 for p in ptrs) else 1
+    args = []
+    for t, (kind, div, mod) in zip((lhs, rhs), pattern):
+        args += [None if t is None else t.data_ptr(), kind, div, mod]
+    lib = _kernels.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.dgl_shell_prefix_gspmm(
+            _OPS[op], int(dtype == torch.bfloat16), *args,
+            nidx.data_ptr(), eidx.data_ptr(), levels[0].data_ptr(),
+            levels[1].data_ptr(), len(level_rows),
+            None if base is None else base.data_ptr(), out.data_ptr(),
+            n_out, D, vec, stream)
+    _kernels.check(code, "shell_prefix_gspmm")
+    _kernels.launch_counts["shell_prefix_gspmm"] += 1
+    return out.reshape((n_out,) + feat)

@@ -4,9 +4,9 @@ Counterpart of ``dgl_tpu/ops/spmm.py``. :func:`gspmm` keeps the reference's
 dispatch order: uniform-stride blocks, bitmap plan, dense-hub plan, shell
 plan, then the plain path. Ported: the uniform-stride branch (all ops and
 reducers), the bitmap branch (``copy_u`` with sum/mean on 2-D features),
-the dense-hub branch (``copy_u`` with sum/mean) and the plain path with
-all four reducers; the shell branch raises and never runs something else
-in its place.
+the dense-hub branch (``copy_u`` with sum/mean), the shell branch (every op
+with sum/mean through ``shell_gspmm_sum`` and its kernel, max/min through
+``shell_gspmm_cmp``) and the plain path with all four reducers.
 
 The uniform-stride branch serves fixed-shape MFG blocks, where edge
 ``d * f + j`` belongs to destination ``d`` or to the padding sink: it
@@ -188,9 +188,18 @@ def gspmm(g, op, reduce_op, lhs_data, rhs_data, etype=None):
         out = hub_copy_u_sum(rel.hub_plan, u)
         return _mean(rel, out) if reduce_op == "mean" else out
 
+    # full-edge shell path (ops/shell_spmm.py): every op with sum/mean
+    # through the weighted shell kernel, max/min over the shells
     if rel.shell_plan is not None:
-        raise NotImplementedError(
-            "weighted shell g-SpMM: ROADMAP queue A3")
+        if reduce_op in ("sum", "mean"):
+            from .shell_spmm import shell_gspmm_sum
+
+            out = shell_gspmm_sum(op, rel.shell_plan, u, e)
+            return _mean(rel, out) if reduce_op == "mean" else out
+        from .shell_spmm import shell_gspmm_cmp
+
+        return shell_gspmm_cmp(op, reduce_op, rel.shell_plan, u, e,
+                               rel.in_degrees())
     if reduce_op in ("sum", "mean"):
         out = _gspmm_sum(op, rel, u, e)
         return _mean(rel, out) if reduce_op == "mean" else out

@@ -1,7 +1,8 @@
 """Graph transforms (counterpart of ``dgl_tpu/transforms/functional.py``).
 
-This slice ports the relabelling that the hub SpMM path needs:
-``reorder_graph`` with a given permutation and ``reorder_for_spmm``.
+Ported: the relabelling that the SpMM plans need, ``reorder_graph`` with a
+given permutation and ``reorder_for_spmm`` (hub plan, and with
+``weighted=True`` the shell plan).
 """
 from __future__ import annotations
 
@@ -62,22 +63,25 @@ def reorder_for_spmm(g: Graph, num_hubs=2048, precision: str = "int8",
     chosen hub set can differ on degree ties, which would perturb the cold
     degrees and break the identity ranking.
 
+    With ``weighted=True`` the relabelled graph also carries the weighted
+    shell plan (``gather_dtype``), as ``with_spmm_plans(weighted=True)``
+    attaches it.
+
     Returns ``(g2, perm)``: ``perm[i]`` is the original id of new node
     ``i``; node features are carried over permuted. Homogeneous graphs
     only.
     """
     from ..ops.hub_spmm import build_hub_plan
+    from ..ops.shell_spmm import build_shell_plan
 
-    if weighted:
-        raise NotImplementedError(
-            "weighted shell plans: the weighted g-SpMM slice "
-            "(ROADMAP queue A3)")
     rel = g._relation(None)
     h = g._auto_num_hubs(rel) if num_hubs == "auto" else int(num_hubs)
     plan = build_hub_plan(rel, h, precision)
     if plan.unrank_dst is None:  # already rank-ordered
         perm = np.arange(g.num_nodes(), dtype=np.int64)
-        return g.with_spmm_plans(num_hubs=h, precision=precision), perm
+        return g.with_spmm_plans(num_hubs=h, precision=precision,
+                                 weighted=weighted,
+                                 gather_dtype=gather_dtype), perm
     perm = np.argsort(plan.unrank_dst.cpu().numpy(),
                       kind="stable").astype(np.int64)
     g2 = reorder_graph(g, "custom", store_ids=False,
@@ -90,6 +94,9 @@ def reorder_for_spmm(g: Graph, num_hubs=2048, precision: str = "int8",
     # the other plans attached as with_spmm_plans would
     rel2 = g2._relation(None)
     key = g2.to_canonical_etype(None)
-    g2._relations = {key: with_dense_plans(rel2.with_hub_plan(
-        build_hub_plan(rel2, h, precision, hub_ids_override=hubs_new)))}
+    rel2 = rel2.with_hub_plan(
+        build_hub_plan(rel2, h, precision, hub_ids_override=hubs_new))
+    if weighted:
+        rel2 = rel2.with_shell_plan(build_shell_plan(rel2, gather_dtype))
+    g2._relations = {key: with_dense_plans(rel2)}
     return g2, perm

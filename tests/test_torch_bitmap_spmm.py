@@ -109,9 +109,10 @@ def test_gspmm_dispatch_and_auto_gate():
     assert tplan is not None and tgp._relation().hub_plan is not None
     np.testing.assert_array_equal(
         np.asarray(jgp._relation().bitmap_plan.bits), tplan.bits.numpy())
-    # 360,000 cells <= 16M, no multi-edges: both mark dense attention
+    # 360,000 cells <= 16M, no multi-edges: both attach the dense mask
     assert jgp._relation().dense_adj is not None
-    assert tgp._relation().dense_attn
+    np.testing.assert_array_equal(tgp._relation().dense_adj.mask.numpy(),
+                                  np.asarray(jgp._relation().dense_adj.mask))
     x = np.random.default_rng(8).normal(size=(n, 12)).astype(np.float32)
     xt = torch.from_numpy(x)
     for op in ("copy_u_sum", "copy_u_mean"):
@@ -142,15 +143,17 @@ def test_auto_gate_skips_sparse_graphs_and_forces():
     jrel = jg.with_spmm_plans(num_hubs=16)._relation()
     assert jrel.bitmap_plan is None and jrel.dense_adj is None
     rel = tg.with_spmm_plans(num_hubs=16)._relation()
-    assert rel.bitmap_plan is None and not rel.dense_attn  # 25M cells: no
+    assert rel.bitmap_plan is None and rel.dense_adj is None  # 25M cells
     # ... but 25M cells are within a larger dense-attention budget
     jrel = jg.with_spmm_plans(num_hubs=16, dense_attn_max_cells=3 * 10**7)
     trel = tg.with_spmm_plans(num_hubs=16, dense_attn_max_cells=3 * 10**7)
     assert jrel._relation().dense_adj is not None
-    assert trel._relation().dense_attn
-    assert not tg.with_spmm_plans(num_hubs=16, dense_attn=False,
-                                  dense_attn_max_cells=3 * 10**7
-                                  )._relation().dense_attn
+    np.testing.assert_array_equal(
+        trel._relation().dense_adj.mask.numpy(),
+        np.asarray(jrel._relation().dense_adj.mask))
+    assert tg.with_spmm_plans(num_hubs=16, dense_attn=False,
+                              dense_attn_max_cells=3 * 10**7
+                              )._relation().dense_adj is None
     # bitmap=True forces the plan whatever the density
     forced = tg.with_spmm_plans(num_hubs=16, bitmap=True)._relation()
     jforced = jg.with_spmm_plans(num_hubs=16, bitmap=True)._relation()

@@ -59,7 +59,7 @@ def _assert_close_up_to_bf16_flips(out, ref):
 
 def _dense_graph(n=N, e=40_000, seed=0):
     """A symmetric simple graph with a self-loop on every node (density
-    ~0.1): both sides attach a bitmap plan and, for GAT, no dense mark."""
+    ~0.1): both sides attach a bitmap plan and, for GAT, no dense mask."""
     rng = np.random.default_rng(seed)
     src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
     loops = np.arange(n)
@@ -72,7 +72,7 @@ def _dense_graph(n=N, e=40_000, seed=0):
     tg = dt.graph((src, dst), num_nodes=n, device="cpu").with_spmm_plans(**kw)
     assert jg._relation().bitmap_plan is not None
     assert tg._relation().bitmap_plan is not None
-    assert not tg._relation().dense_attn
+    assert tg._relation().dense_adj is None
     return jg, tg
 
 
@@ -267,12 +267,16 @@ def test_gatconv_raises_off_the_bitmap_route():
     g = dt.graph((src, dst), num_nodes=n, device="cpu")
     conv = GATConv(6, 4, 2, allow_zero_in_degree=True, device="cpu").eval()
     x = torch.randn(n, 6)
-    # the reference attaches its dense-attention plan here (90,000 cells)
+    # the dense route runs since the weighted g-SpMM slice (90,000 cells,
+    # the reference's mask): in f32, the per-edge route's values
     gd = g.with_spmm_plans(num_hubs=16)
-    assert gd._relation().dense_attn
+    assert gd._relation().dense_adj is not None
     assert gd._relation().bitmap_plan is not None
-    with pytest.raises(NotImplementedError, match="dense-attention"):
-        conv(gd, x)
+    conv32 = GATConv(6, 4, 2, allow_zero_in_degree=True,
+                     dense_compute_dtype="float32", device="cpu").eval()
+    conv32.load_state_dict(conv.state_dict())
+    torch.testing.assert_close(conv32(gd, x), conv32(g, x), rtol=1e-5,
+                               atol=1e-5)
     gb = g.with_spmm_plans(num_hubs=16, dense_attn=False)
     assert conv(gb, x).shape == (n, 2, 4)
     # no plan, an edge weight, the attention returned: the per-edge chain
@@ -291,12 +295,12 @@ def test_gatconv_raises_off_the_bitmap_route():
     drop = GATConv(6, 4, 2, attn_drop=0.5, allow_zero_in_degree=True,
                    device="cpu").train()
     assert drop(gb, x).shape == (n, 2, 4)
-    # a shell plan: the fused shell-space route
-    key = g.to_canonical_etype(None)
-    gs = g.structural_clone()
-    gs._relations = {key: g._relation()._copy_with(shell_plan=object())}
-    with pytest.raises(NotImplementedError, match="fused_gat"):
-        conv(gs, x)
+    # a shell plan: the fused shell-space route, since the weighted g-SpMM
+    # slice; with an f32 plan, the per-edge route's values
+    gs = g.with_spmm_plans(num_hubs=16, weighted=True, gather_dtype="f32",
+                           dense_attn=False, bitmap=False)
+    assert gs._relation().shell_plan is not None
+    torch.testing.assert_close(conv(gs, x), edge, rtol=1e-5, atol=1e-5)
 
 
 def test_gat_backward_raises(graphs):

@@ -846,3 +846,147 @@ def test_uniform_stride_survives_to_card(card):
         torch.testing.assert_close(
             dt.ops.copy_u_mean(r, x.to(r.device)).cpu(),
             dt.ops.copy_u_mean(r0, x), rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# B1's weighted caller: shell_prefix_gspmm
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("plan_name", ["residual", "identity", "empty"])
+def test_gspmm_kernel_edge_cases(card, plan_name, dtype):
+    """The weighted kernel against its plain version on chip_smoke.py's
+    edge-case plans (``gspmm_edge_case_plans``): every op and broadcast of
+    ``GSPMM_SHAPES``, ``div`` by a zero at edge 0. Exact, inf and NaN
+    included: the same rounded messages added in the same order."""
+    from chip_smoke import (GSPMM_OPS, GSPMM_SHAPES, gspmm_case,
+                            gspmm_edge_case_plans)
+    from dgl_tpu_torch.ops.shell_prefix import (shell_prefix_gspmm,
+                                                shell_prefix_gspmm_plain)
+
+    plan = gspmm_edge_case_plans(card)[plan_name]
+    for i, (u_feat, e_feat) in enumerate(GSPMM_SHAPES):
+        for op in GSPMM_OPS:
+            if (u_feat is None) != (op == "copy_rhs"):
+                continue
+            args, base = gspmm_case(plan, u_feat, e_feat, op,
+                                    getattr(torch, dtype), i, card)
+            before = _kernels.launch_counts["shell_prefix_gspmm"]
+            got = shell_prefix_gspmm(*args, base=base)
+            torch.cuda.synchronize()
+            assert _kernels.launch_counts["shell_prefix_gspmm"] == before + 1
+            want = shell_prefix_gspmm_plain(*args, base=base)
+            torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                       equal_nan=True)
+            cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a
+                        for a in args]
+            cpu = shell_prefix_gspmm_plain(
+                *cpu_args, base=None if base is None else base.cpu())
+            torch.testing.assert_close(got.cpu(), cpu, rtol=1e-6, atol=1e-6,
+                                       equal_nan=True)
+
+
+def test_gspmm_kernel_rejects_wrong_inputs(card):
+    from chip_smoke import gspmm_case, gspmm_edge_case_plans
+    from dgl_tpu_torch.ops.shell_prefix import shell_prefix_gspmm
+
+    plan = gspmm_edge_case_plans(card)["residual"]
+    (op, lhs, rhs, *rest), base = gspmm_case(plan, (2, 4), (2, 1), "mul",
+                                             torch.float32, 0, card)
+    n, e = lhs.shape[0], rhs.shape[0]
+    # each operand's non-broadcast dims must be one contiguous run
+    with pytest.raises(ValueError, match="unsupported broadcast"):
+        shell_prefix_gspmm("mul", torch.ones(n, 2, 1, 4, device=card),
+                           torch.ones(e, 1, 3, 1, device=card), *rest)
+    with pytest.raises(ValueError, match="unsupported broadcast"):
+        shell_prefix_gspmm("mul", torch.ones(n, 2, 3, 4, device=card),
+                           torch.ones(e, 2, 1, 4, device=card), *rest)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        shell_prefix_gspmm("mul", lhs.half(), rhs.half(), *rest)
+    with pytest.raises(ValueError, match="one type"):
+        shell_prefix_gspmm("mul", lhs, rhs.to(torch.bfloat16), *rest)
+    with pytest.raises(ValueError, match="int32"):
+        shell_prefix_gspmm("mul", lhs, rhs, rest[0].long(), *rest[1:])
+    with pytest.raises(ValueError, match="base"):
+        shell_prefix_gspmm("mul", lhs, rhs, *rest,
+                           base=torch.zeros(plan.num_dst, 8, device=card))
+
+
+def test_shell_gspmm_sum_backward_launches_the_kernel(card):
+    """``u_mul_e_sum`` over a weighted plan on the card: one launch
+    forward, one backward (the source gradient over the reverse shells;
+    the edge gradient is gathers), values and gradients as on the CPU."""
+    from chip_smoke import gspmm_edge_case_plans
+
+    rng = np.random.default_rng(3)
+    n, e = 300, 4000
+    w = 1.0 / np.arange(1, n + 1)
+    src = rng.choice(n, e, p=w / w.sum())
+    dst = rng.choice(n, e, p=w[::-1] / w.sum())
+    u = rng.normal(size=(n, 2, 4)).astype(np.float32)
+    ew = rng.normal(size=(e, 2, 1)).astype(np.float32)
+    dz = rng.normal(size=(n, 2, 4)).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", card):
+        g = dt.graph((src, dst), num_nodes=n, device=dev).with_spmm_plans(
+            num_hubs=16, weighted=True)
+        ut = torch.from_numpy(u).to(dev).requires_grad_()
+        et = torch.from_numpy(ew).to(dev).requires_grad_()
+        _kernels.reset_launch_counts()
+        out = dt.ops.u_mul_e_sum(g, ut, et)
+        assert _kernels.launch_counts["shell_prefix_gspmm"] == (
+            1 if dev == card else 0)
+        out.backward(torch.from_numpy(dz).to(dev))
+        if dev == card:
+            torch.cuda.synchronize()
+            assert _kernels.launch_counts["shell_prefix_gspmm"] == 2
+            assert not any(v for k, v in _kernels.launch_counts.items()
+                           if k != "shell_prefix_gspmm")
+        outs[str(dev)] = [t.detach().cpu() for t in (out, ut.grad, et.grad)]
+    for a, b in zip(outs[str(card)], outs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert gspmm_edge_case_plans("cpu")["empty"].fwd.level_rows == []
+
+
+def test_weighted_routes_on_card_match_cpu(card):
+    """GAT over the fused route (a weighted plan, no dense mask) and over
+    the dense route (a small graph), and the weighted GCN layer, on the
+    card against the same modules on the CPU; no hand kernel launches on
+    the GAT routes."""
+    from dgl_tpu_torch.nn import EdgeWeightNorm, GraphConv
+
+    rng = np.random.default_rng(5)
+    n = 400
+    src, dst = rng.integers(0, n, 4000), rng.integers(0, n, 4000)
+    src = np.concatenate([src, np.arange(n)])
+    dst = np.concatenate([dst, np.arange(n)])
+    x = rng.normal(size=(n, 12)).astype(np.float32)
+    w = (rng.random(src.shape[0]) + 0.5).astype(np.float32)
+    res = {}
+    for dev in ("cpu", card):
+        g = dt.graph((src, dst), num_nodes=n, device=dev)
+        gf = g.with_spmm_plans(num_hubs=16, weighted=True, gather_dtype="f32",
+                               dense_attn=False, bitmap=False)
+        gd = g.with_spmm_plans(num_hubs=16, dense_attn_max_cells=10**6,
+                               bitmap=False)
+        gat = GAT(12, 4, 3, heads=2, generator=torch.Generator().manual_seed(
+            0), device=dev).eval()
+        conv = GraphConv(12, 6, norm="none", generator=torch.Generator(
+        ).manual_seed(1), device=dev)
+        xt = torch.from_numpy(x).to(dev)
+        _kernels.reset_launch_counts()
+        with torch.no_grad():
+            fused, dense = gat(gf, xt), gat(gd, xt)
+        assert not any(_kernels.launch_counts.values())
+        with torch.no_grad():
+            gcn = conv(gf, xt, edge_weight=EdgeWeightNorm("both")(
+                gf, torch.from_numpy(w).to(dev)))
+        res[str(dev)] = [t.cpu() for t in (fused, dense, gcn)]
+    (fused, dense, gcn), (fused_c, dense_c, gcn_c) = res[str(card)], res["cpu"]
+    torch.testing.assert_close(fused, fused_c, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gcn, gcn_c, rtol=1e-4, atol=1e-4)
+    # the dense route in bf16: an exp that differs in the last bit may
+    # round to the neighbouring bf16 value
+    torch.testing.assert_close(dense, dense_c, rtol=0,
+                               atol=2.0 ** -8 * dense_c.abs().max().item())

@@ -149,13 +149,29 @@ def test_later_slices_raise():
     np.testing.assert_allclose(
         dt.ops.copy_u_max(tg, torch.from_numpy(x)).numpy(),
         np.asarray(dgl_tpu.ops.copy_u_max(jg, x)), rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="weighted"):
-        tg.with_spmm_plans(weighted=True)
-    # multi-edges: neither a bitmap plan nor the dense-attention mark
-    # attaches, forced or not, as in the reference
+    # the weighted shell plan runs since the weighted g-SpMM slice: on this
+    # multigraph, the reference's plan array for array
+    jsp = jg.with_spmm_plans(weighted=True)._relation(None).shell_plan
+    tsp = tg.with_spmm_plans(weighted=True)._relation().shell_plan
+    for f in jsp.ARRAY_FIELDS:
+        ja, ta = getattr(jsp, f), getattr(tsp, f)
+        if f in ("shells", "rev_shells"):
+            ja = [a for lvl in ja for a in lvl]
+            ta = [a for lvl in ta for a in lvl]
+        elif f in ("res_dst", "res_src") and ja is not None:
+            ja, ta = list(ja), list(ta)
+        else:
+            ja, ta = [ja], [ta]
+        assert len(ja) == len(ta), f
+        for a, b in zip(ja, ta):
+            assert (a is None) == (b is None), f
+            if a is not None:
+                np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    # multi-edges: neither a bitmap plan nor the dense mask attaches,
+    # forced or not, as in the reference
     for kw in ({}, {"bitmap": True, "dense_attn": True}):
         rel = tg.with_spmm_plans(num_hubs=128, **kw)._relation()
         assert rel.hub_plan is not None and rel.bitmap_plan is None
-        assert not rel.dense_attn
+        assert rel.dense_adj is None
         jrel = jg.with_spmm_plans(num_hubs=128, **kw)._relation()
         assert jrel.bitmap_plan is None and jrel.dense_adj is None

@@ -220,7 +220,7 @@ def test_edge_softmax_eids(norm_by):
 
 
 def test_edge_softmax_unported_branches_raise():
-    _, tg = _graph("simple", seed=5)
+    jg, tg = _graph("simple", seed=5)
     rel = tg._relation()
     x = torch.zeros(tg.num_edges(), 2)
     # the uniform-stride branch runs since the minibatch slice: on a
@@ -236,8 +236,14 @@ def test_edge_softmax_unported_branches_raise():
            lambda a: tops.edge_softmax(trel._copy_with(uniform_stride=4), a),
            [np.random.default_rng(8).normal(size=(4 * n, 2)).astype(
                np.float32)])
-    with pytest.raises(NotImplementedError, match="shell"):
-        tops.edge_softmax(rel._copy_with(shell_plan=object()), x)
+    # the shell-plan branch runs since the weighted g-SpMM slice: the
+    # reference's values over its weighted plan, forward and gradient
+    kw = dict(num_hubs=16, weighted=True, gather_dtype="f32")
+    jgp, tgp = jg.with_spmm_plans(**kw), tg.with_spmm_plans(**kw)
+    assert tgp._relation().shell_plan is not None
+    _check(lambda a: jops.edge_softmax(jgp, a),
+           lambda a: tops.edge_softmax(tgp, a),
+           [_rand(tuple(x.shape), 9)])
     with pytest.raises(ValueError, match="norm_by"):
         tops.edge_softmax(rel, x, norm_by="both")
 
