@@ -6,9 +6,9 @@
 Run it from the root of a checkout, on a machine with a CUDA card. It
 
 1. builds the hand-written CUDA kernels from ``dgl_tpu_torch/csrc`` (one
-   ``nvcc`` per source, started together), and B3's, B4's and B5's sources
-   once more with ``-Xptxas -v`` for their registers, shared memory and
-   spills;
+   ``nvcc`` per source, started together), and B1's (with its weighted
+   caller), B3's, B4's and B5's sources once more with ``-Xptxas -v`` for
+   their registers, shared memory and spills;
 1a. holds B3 against its plain version at the edges of its CSC walk (phase
     ``bitmap_gat_fwd_edge_cases``): rows of in-degree 0, 1, 31, 32, 33
     and around the chunks of 64, 128 and 256 sources, 1,000 and more, a row
@@ -27,9 +27,11 @@ Run it from the root of a checkout, on a machine with a CUDA card. It
     version, exactly, on small weighted shell plans (phase
     ``shell_gspmm_edge_cases``): every op, bf16 and f32 tables, every
     broadcast ``gspmm`` hands the shell path at F = 1, 40, 128, 256, 750,
-    with and without the residual's base, identity and other unrank,
-    ``div`` by a zero at edge 0 (inf and NaN where the plain version has
-    them), a graph without an edge;
+    with and without the residual's base, identity and other unrank, rows
+    out in rank order and in node order (``rank``), ``div`` by a zero at
+    edge 0 (inf and NaN where the plain version has them), a graph without
+    an edge, and 3,001 rows whose levels end at the kernel's tile edges
+    (``tiles_edges``: 32 levels, a residual, rows without an in-edge);
 
 the GraphSAGE path (kernel B1, shell prefix sum):
 
@@ -150,17 +152,20 @@ levels and residuals printed, ``plans_s``):
 
 18a. weighted GCN at ogbn-arxiv widths: ``EdgeWeightNorm("both")`` over
      edge weights uniform in [0.5, 1.5) from a seed (one kernel launch,
-     its degree sum), then three ``GraphConv(norm="none")`` layers 128 ->
-     256 -> 256 -> 40 with ReLU and dropout 0.5, as DGL users compose them
+     its ``copy_rhs`` degree sum, recorded), then three
+     ``GraphConv(norm="none")`` layers 128 -> 256 -> 256 -> 40 with ReLU
+     and dropout 0.5, as DGL users compose them
      (``weighted_gcn``): one counted forward (3 launches: the layers
      aggregate at 128, 256 and 40), held against the same layers on the
      graph without plans (the exact f32 path) at rtol = 2e-2,
      atol = 2e-2 * max|ref|; gradients as in step 6; one counted step (5
      launches: the backward over the reverse shells at 256 and 40, the
      input needing none), four more; the kernel against its plain version
-     (exact) at each of the five recorded shapes, with its byte bound and
-     ``torch.sparse.mm`` over the f32 CSR of the weights; times and
-     profiles;
+     (exact) at each of the six recorded shapes (the five of the step and
+     ``EdgeWeightNorm``'s), with its byte bound, ``torch.sparse.mm`` over
+     the f32 CSR of the weights (times a ones column for the degrees),
+     ``ptxas``'s figures and its occupancy; times and profiles (the
+     kernel stores rows in node order: no unrank gather follows it);
 18b. GAT 128-250x3-40 over the fused shell-space route: one counted
      forward (every kernel count 0, three fused layers), held against the
      per-edge route on the graph without plans at rtol = 2e-2,
@@ -321,9 +326,30 @@ def ptxas_start(names):
         for name in names}
 
 
+def ptxas_key(name: str) -> str:
+    """The report's key of a compiled kernel's mangled ``name``: ``nh=..
+    nf=..`` for B3-B5's templates, ``gspmm T=.. vec=.. op=.. fast=..``
+    for B1's weighted caller, ``sum vec=..`` for B1, else the name
+    itself."""
+    import re
+
+    m = re.search(r"shell_prefix_gspmm_kernelI([tf])Li(\d+)ELi(\d+)ELb([01])E",
+                  name)
+    if m:
+        return (f"gspmm T={'bf16' if m.group(1) == 't' else 'f32'} "
+                f"vec={m.group(2)} op={GSPMM_OPS[int(m.group(3))]} "
+                f"fast={m.group(4)}")
+    m = re.search(r"shell_prefix_sum_kernelILi(\d+)E", name)
+    if m:
+        return f"sum vec={m.group(1)}"
+    m = re.search(r"ILi(\d+)ELi(\d+)E", name)
+    return f"nh={m.group(1)} nf={m.group(2)}" if m else name
+
+
 def ptxas_report(proc) -> dict:
-    """What ``ptxas -v`` said of each (nh, nf) instantiation of a kernel
-    template: registers, static shared bytes, stack frame and spills."""
+    """What ``ptxas -v`` said of each instantiation of a kernel template
+    (keys from ``ptxas_key``): registers, static shared bytes, stack frame
+    and spills."""
     import re
 
     text = proc.communicate()[0]
@@ -331,10 +357,9 @@ def ptxas_report(proc) -> dict:
         raise RuntimeError(f"nvcc -Xptxas -v failed: {text[-2000:]}")
     report, key = {}, None
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '[^']*?ILi(\d+)ELi(\d+)E",
-                      line)
+        m = re.search(r"Compiling entry function '([^']*)'", line)
         if m:
-            key = f"nh={m.group(1)} nf={m.group(2)}"
+            key = ptxas_key(m.group(1))
             report[key] = {}
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -479,7 +504,8 @@ def cold_bags(plan, reverse: bool = False):
 
 
 def kernel_bound(level_rows, n_out, n_table_rows_used, n_cold, feat,
-                 has_base, rate, elem=2, slot_bytes=4, ops_per_value=1):
+                 has_base, rate, elem=2, slot_bytes=4, ops_per_value=1,
+                 row_bytes=0):
     """Least time for one call of B1 over shells of ``level_rows`` with
     ``n_out`` output rows: the larger of bytes / HBM rate and f32
     operations / f32 rate. Bytes: each distinct table row read once
@@ -487,10 +513,11 @@ def kernel_bound(level_rows, n_out, n_table_rows_used, n_cold, feat,
     (``slot_bytes``), the base read once and the output written once
     (f32). Operations: ``ops_per_value`` a cold edge and feature (B1 an
     add; its weighted caller a message op and an add, with an edge index
-    and value among its slot bytes). Also returns the gather-stream
-    figure, which reads a table row per cold edge."""
+    and value among its slot bytes); ``row_bytes`` more a row read once
+    (the weighted caller's rank). Also returns the gather-stream figure,
+    which reads a table row per cold edge."""
     n_idx = sum(min(m, n_out) for m in level_rows)
-    out_bytes = n_out * feat * 4 * (2 if has_base else 1)
+    out_bytes = n_out * (feat * 4 * (2 if has_base else 1) + row_bytes)
     once = n_table_rows_used * feat * elem + n_idx * slot_bytes + out_bytes
     stream = n_cold * feat * elem + n_cold * slot_bytes + out_bytes
     bytes_ms = once / rate * 1e3
@@ -2173,6 +2200,30 @@ def run_sage_end_to_end(data, tag: dict, device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 
+# The ``tiles`` edge-case plan's level row counts n_0 .. n_31: ends at
+# R - 1, R and R + 1 of the kernel's tiles (R = 128, 48, 16, 8 and 4 rows
+# at the widths of GSPMM_SHAPES) and at 2R +- 1, others inside a tile.
+TILE_LEVEL_ENDS = (2500, 1500, 700, 385, 257, 256, 255, 200, 129, 128, 127,
+                   100, 97, 96, 95, 60, 49, 48, 47, 33, 32, 31, 17, 16, 15,
+                   9, 8, 7, 5, 4, 3, 1)
+
+
+def tiles_edges(rng, n=3001, extra=8):
+    """Edges whose destinations' in-degrees give the levels
+    ``TILE_LEVEL_ENDS``: the rank-0 row reaches all 32 levels and ``extra``
+    edges past the cap (a residual), rows beyond the first level's 2,500
+    have no in-edge, and the rank order is a random permutation of the
+    node ids (unrank not the identity). ``n`` (3,001) is no multiple of
+    any tile's rows. Sources uniform."""
+    import numpy as np
+
+    ends = np.asarray(TILE_LEVEL_ENDS)
+    deg = (ends[None, :] > np.arange(n)[:, None]).sum(1)
+    deg[0] += extra
+    dst = np.repeat(rng.permutation(n), deg)
+    return rng.integers(0, n, dst.size), dst, n
+
+
 def gspmm_edge_case_plans(device="cuda"):
     """The plans of the weighted kernel's edge cases
     (``tests/test_torch_gpu.py`` holds the kernel to the same ones), by
@@ -2180,8 +2231,9 @@ def gspmm_edge_case_plans(device="cuda"):
     whose in- and out-degrees pass the shell cap (both residuals, unrank
     not the identity); ``identity``, 500 nodes and 3,000 uniform edges
     relabelled by falling in-degree (no residual, identity unrank);
-    ``empty``, 50 nodes and no edge (no level). f32 gathers; the cases cast
-    the tables to each type themselves."""
+    ``empty``, 50 nodes and no edge (no level); ``tiles``, 3,001 nodes
+    whose levels end at the kernel's tile edges (``tiles_edges``). f32
+    gathers; the cases cast the tables to each type themselves."""
     import numpy as np
 
     import dgl_tpu_torch as dt
@@ -2199,6 +2251,7 @@ def gspmm_edge_case_plans(device="cuda"):
     new[perm] = np.arange(n)
     graphs["identity"] = (new[src], new[dst], n)
     graphs["empty"] = (np.zeros(0, np.int64), np.zeros(0, np.int64), 50)
+    graphs["tiles"] = tiles_edges(rng)
     return {name: build_shell_plan(dt.graph((s, d), num_nodes=n,
                                             device=device)._relation(),
                                    "f32")
@@ -2246,13 +2299,26 @@ def gspmm_case(plan, u_feat, e_feat, op, dtype, seed, device="cuda"):
             plan.num_dst), base
 
 
+def gspmm_case_ranks(plan, device="cuda"):
+    """The ``rank`` arguments each edge case runs with: none (rows out in
+    rank order) and the plan's ``rank_dst`` (node order; ``arange`` where
+    the rank order is the identity, so the kernel's scatter still runs)."""
+    import torch
+
+    rank = plan.rank_dst
+    if rank is None:
+        rank = torch.arange(plan.num_dst, dtype=torch.int32, device=device)
+    return (None, rank)
+
+
 def run_gspmm_edge_cases(tag: dict) -> None:
     """The weighted kernel against its plain version on the edge-case plans
     (``gspmm_edge_case_plans``): every op, both table types, every
     broadcast of ``GSPMM_SHAPES``, with and without the residual's base,
-    identity and other unrank, ``div`` by a zero at edge 0, a graph without
-    an edge. Exact: the same rounded messages added in the same order
-    (inf and NaN where they are)."""
+    identity and other unrank, rows out in rank and in node order, ``div``
+    by a zero at edge 0, a graph without an edge, levels ending at the
+    kernel's tile edges. Exact: the same rounded messages added in the
+    same order (inf and NaN where they are)."""
     import torch
 
     from dgl_tpu_torch import _kernels
@@ -2270,24 +2336,28 @@ def run_gspmm_edge_cases(tag: dict) -> None:
                         continue
                     args, base = gspmm_case(plan, u_feat, e_feat, op, dtype,
                                             i * 10 + GSPMM_OPS.index(op))
-                    got = shell_prefix_gspmm(*args, base=base)
-                    want = shell_prefix_gspmm_plain(*args, base=base)
-                    torch.cuda.synchronize()
-                    try:
-                        torch.testing.assert_close(got, want, rtol=0, atol=0,
-                                                   equal_nan=True)
-                    except AssertionError as exc:
-                        raise RuntimeError(
-                            f"shell_prefix_gspmm edge case {name} {dtype} "
-                            f"{op} u{u_feat} e{e_feat}: {exc}") from None
-                    nonfinite += int((~torch.isfinite(got)).sum())
-                    n_cases += 1
+                    for rank in gspmm_case_ranks(plan):
+                        got = shell_prefix_gspmm(*args, base=base, rank=rank)
+                        want = shell_prefix_gspmm_plain(*args, base=base,
+                                                        rank=rank)
+                        torch.cuda.synchronize()
+                        try:
+                            torch.testing.assert_close(
+                                got, want, rtol=0, atol=0, equal_nan=True)
+                        except AssertionError as exc:
+                            raise RuntimeError(
+                                f"shell_prefix_gspmm edge case {name} "
+                                f"{dtype} {op} u{u_feat} e{e_feat} rank "
+                                f"{rank is not None}: {exc}") from None
+                        nonfinite += int((~torch.isfinite(got)).sum())
+                        n_cases += 1
     launched = _kernels.launch_counts["shell_prefix_gspmm"] - before
     if launched != n_cases:
         raise RuntimeError(f"{n_cases} edge cases launched the kernel "
                            f"{launched} times")
     emit({"phase": "shell_gspmm_edge_cases", "cases": n_cases,
-          "plans": {k: {"levels": len(p.fwd.level_rows),
+          "plans": {k: {"rows": p.num_dst,
+                        "levels": len(p.fwd.level_rows),
                         "residual": p.res_dst is not None,
                         "identity_unrank": p.unrank_dst is None}
                     for k, p in plans.items()},
@@ -2337,59 +2407,99 @@ def weighted_gcn(dims, dropout, seed):
     return _Model()
 
 
+@contextlib.contextmanager
+def unrank_gathers(unrank):
+    """Record each ``index_select`` by ``unrank`` (the gather the weighted
+    kernel's node-order store replaces) run inside the block: yields the
+    list its row counts go into."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    found = []
+    if unrank is None:
+        yield found
+        return
+
+    class _Gathers(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if (func is torch.ops.aten.index_select.default
+                    and args[2].shape == unrank.shape
+                    and torch.equal(args[2], unrank.to(args[2].dtype))):
+                found.append(int(args[0].shape[0]))
+            return func(*args, **(kwargs or {}))
+
+    with _Gathers():
+        yield found
+
+
 def check_gspmm(args, kw, plan, reverse, weights_csr, rate) -> dict:
     """One recorded call of the weighted kernel against its plain version
     on the card (exact), its time, the plain version's, ``torch.sparse.mm``
-    over the f32 CSR of the edge weights (``u_mul_e`` sum, the same
-    function) and its bound."""
+    over the f32 CSR of the edge weights (the same function: times the
+    f32 table for ``u_mul_e``, times a ones column for ``EdgeWeightNorm``'s
+    ``copy_rhs``), its bound, and what the card runs it with."""
     import torch
 
     from dgl_tpu_torch.ops.shell_prefix import (BLOCK_ROWS, _rup,
+                                                gspmm_occupancy,
                                                 shell_prefix_gspmm,
                                                 shell_prefix_gspmm_plain)
 
     op, lhs, rhs, nidx, _eidx, rows, real, n_out = args
-    base = kw.get("base")
+    base, rank = kw.get("base"), kw.get("rank")
     kern = lambda: shell_prefix_gspmm(*args, **kw)  # noqa: E731
     got = kern()
-    want = shell_prefix_gspmm_plain(*args, base=base)
+    want = shell_prefix_gspmm_plain(*args, base=base, rank=rank)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
+    feat = int(got[0].numel())
     if not torch.equal(got, want):
         raise RuntimeError(f"shell_prefix_gspmm vs plain "
-                           f"({'bwd' if reverse else 'fwd'}, F="
-                           f"{got.shape[-1]}): max abs err {err}")
+                           f"({'bwd' if reverse else 'fwd'}, {op}, F="
+                           f"{feat}): max abs err {err}")
     lay, _res, unrank, _n = plan.direction(reverse)
-    used, off = [], 0
-    for m8, m in zip(lay.level_rows, lay.level_real):
-        used.append(nidx[off:off + min(m, n_out)])
-        off += _rup(m8, BLOCK_ROWS)
-    rows_used = int(torch.unique(torch.cat(used)).numel())
-    feat = int(got[0].numel())
     n_edges = sum(min(int(m), n_out) for m in real)
-    bound, bound_by, _stream = kernel_bound(
+    value_bytes = rhs.element_size() * int(rhs[0].numel())
+    if lhs is None:  # copy_rhs: the slots' edge indices and values alone
+        rows_used, elem, slot_bytes, ops = 0, 0, 4 + value_bytes, 1
+        table = torch.ones((weights_csr.shape[1], 1), device=got.device)
+    else:
+        used, off = [], 0
+        for m8, m in zip(lay.level_rows, lay.level_real):
+            used.append(nidx[off:off + min(m, n_out)])
+            off += _rup(m8, BLOCK_ROWS)
+        rows_used = int(torch.unique(torch.cat(used)).numel())
+        elem, slot_bytes, ops = lhs.element_size(), 8 + value_bytes, 2
+        table = lhs.to(torch.float32).reshape(lhs.shape[0], -1)
+    bound, bound_by, stream = kernel_bound(
         real, n_out, rows_used, n_edges, feat, base is not None, rate,
-        elem=lhs.element_size(),
-        slot_bytes=8 + rhs.element_size() * int(rhs[0].numel()),
-        ops_per_value=2)
-    table = lhs.to(torch.float32).reshape(lhs.shape[0], -1)
+        elem=elem, slot_bytes=slot_bytes, ops_per_value=ops,
+        row_bytes=0 if rank is None else 4)
     lib = lambda: torch.sparse.mm(weights_csr, table)  # noqa: E731
-    # the kernel's rows are in rank order
     by_node = got.reshape(n_out, -1)
-    if unrank is not None:
+    if rank is None and unrank is not None:  # rows in rank order
         by_node = by_node.index_select(0, unrank.long())
     lib_err = (lib() - by_node).abs().max().item()
+    occ = gspmm_occupancy(op, lhs, rhs, len(rows))
+    row0 = None
+    if lhs is not None:  # every slot gathers row 0: no traffic for rows
+        a0 = (op, lhs, rhs, torch.zeros_like(nidx)) + tuple(args[4:])
+        row0 = time_ms(lambda: shell_prefix_gspmm(*a0, **kw), 50,
+                       hide_host=True)
     return {
-        "F": feat, "op": op, "table": str(lhs.dtype), "n_out": n_out,
-        "edges": n_edges,
-        "levels": len(rows), "residual": base is not None,
+        "F": feat, "op": op, "table": str(rhs.dtype),
+        "n_out": n_out, "edges": n_edges, "levels": len(rows),
+        "residual": base is not None, "node_order": rank is not None,
         "table_rows_read": rows_used, "max_abs_err": err,
         "ms": time_ms(kern, 50, hide_host=True),
         "plain_ms": time_ms(lambda: shell_prefix_gspmm_plain(
-            *args, base=base), 10, hide_host=True),
+            *args, base=base, rank=rank), 10, hide_host=True),
         "library_ms": time_ms(lib, 50, hide_host=True),
         "library_max_abs_err_f32_table": lib_err,
         "bound_ms": bound, "bound_by": bound_by,
+        # a table row read from memory for every slot: no cache reuse
+        "gather_stream_ms": stream, "ms_every_slot_row_0": row0,
+        "ptxas_key": occ.pop("kernel"), "occupancy": occ,
     }
 
 
@@ -2408,11 +2518,11 @@ def weights_csr(rel, w, reverse: bool):
                                    w.index_select(0, eid.long()), shape)
 
 
-def run_weighted_gcn(gp, g_exact, x, y, mask, rate: float,
+def run_weighted_gcn(gp, g_exact, x, y, mask, rate: float, ptxas: dict,
                      tag: dict) -> dict:
     """GCN with edge weights at ogbn-arxiv widths over the weighted shell
     plan (B1's weighted caller); returns the kernel's entry of the kernel
-    table."""
+    table. ``ptxas``: the report of ``shell_prefix_sum.cu``."""
     import numpy as np
     import torch
 
@@ -2425,10 +2535,11 @@ def run_weighted_gcn(gp, g_exact, x, y, mask, rate: float,
     w = torch.from_numpy((np.random.default_rng(5).random(
         rel.num_edges) + 0.5).astype(np.float32)).cuda()
     norm = EdgeWeightNorm("both")
-    _kernels.reset_launch_counts()
-    gp.edata["w"] = norm(gp, w)
-    torch.cuda.synchronize()
-    norm_launches = dict(_kernels.launch_counts)
+    with recording(shell_prefix, "shell_prefix_gspmm") as norm_rec:
+        _kernels.reset_launch_counts()
+        gp.edata["w"] = norm(gp, w)
+        torch.cuda.synchronize()
+        norm_launches = dict(_kernels.launch_counts)
     expect_no_other_launch(norm_launches, {"shell_prefix_gspmm": 1},
                            "EdgeWeightNorm")
     g_exact.edata["w"] = norm(g_exact, w)
@@ -2456,11 +2567,17 @@ def run_weighted_gcn(gp, g_exact, x, y, mask, rate: float,
         raise RuntimeError(f"weighted GCN vs exact f32 path: max abs err "
                            f"{err} (max |ref| {scale}), shape "
                            f"{tuple(out.shape)}")
+    with torch.inference_mode(), unrank_gathers(plan.unrank_dst) as gathers:
+        model(gp, x)
+    if gathers:
+        raise RuntimeError(f"the weighted GCN forward gathered {gathers} "
+                           "times by unrank: the kernel stores in node order")
     emit({"phase": "weighted_gcn_main_path", "model": "GraphConv(norm="
           "'none') 128-256-256-40 over EdgeWeightNorm('both') weights, "
           "ReLU, dropout 0.5", "launches": launches,
           "expected_shell_prefix_gspmm": LAYERS,
           "edge_weight_norm_launches": norm_launches,
+          "unrank_gathers": len(gathers),
           "max_abs_err_vs_exact_f32": err, "max_rel_err": err / scale,
           "tolerance": "rtol=2e-2, atol=2e-2*max|ref|",
           "peak_memory_gib": peak, **tag})
@@ -2494,22 +2611,27 @@ def run_weighted_gcn(gp, g_exact, x, y, mask, rate: float,
     # the kernel at each of the path's shapes
     csr = {False: weights_csr(rel, gp.edata["w"], False),
            True: weights_csr(rel, gp.edata["w"], True)}
+    calls += [(a, k, weights_csr(rel, w, False)) for a, k in norm_rec]
     shapes = {}
     with torch.inference_mode():
-        for args, kw in calls:
+        for args, kw, *norm_csr in calls:
             reverse = args[3] is plan.rev.nidx
-            r = check_gspmm(args, kw, plan, reverse, csr[reverse], rate)
-            label = f"{'bwd' if reverse else 'fwd'} F={r['F']}"
+            r = check_gspmm(args, kw, plan, reverse,
+                            norm_csr[0] if norm_csr else csr[reverse], rate)
+            r["ptxas"] = ptxas[r.pop("ptxas_key")]
+            label = (f"norm F={r['F']}" if norm_csr else
+                     f"{'bwd' if reverse else 'fwd'} F={r['F']}")
             shapes[label] = r
             emit({"phase": "kernel_vs_plain", "kernel": "shell_prefix_gspmm",
                   "shape": label, "tolerance": "exact (0.0)",
                   "library": "torch.sparse.mm, f32 CSR of the edge weights, "
-                             "f32 table", **r, **tag})
+                             "times the f32 table (a ones column for "
+                             "EdgeWeightNorm)", **r, **tag})
     if sorted(shapes) != sorted([f"fwd F={f}" for f in dims[:-2]]
                                 + [f"fwd F={CLASSES}", f"bwd F={HIDDEN}",
-                                   f"bwd F={CLASSES}"]):
+                                   f"bwd F={CLASSES}", "norm F=1"]):
         raise RuntimeError(f"recorded kernel shapes {sorted(shapes)}")
-    del calls, rec
+    del calls, rec, norm_rec
 
     model.eval()
     with torch.inference_mode():
@@ -2545,6 +2667,7 @@ def run_weighted_gcn(gp, g_exact, x, y, mask, rate: float,
                                          "bound_by", "library_ms",
                                          "max_abs_err")}
                    for k, v in shapes.items()},
+        "launches_edge_weight_norm": norm_launches["shell_prefix_gspmm"],
         "forward_ms": fwd_ms, "train_step_ms": timing["step_ms"],
     }
 
@@ -2759,7 +2882,8 @@ def run_dense_cora(tag: dict) -> dict:
     return result
 
 
-def run_weighted(rate: float, edge_step_ms: float, tag: dict) -> dict:
+def run_weighted(rate: float, edge_step_ms: float, ptxas: dict,
+                 tag: dict) -> dict:
     """The weighted shell plan's phases on the zipf graph plus self-loops
     (``with_spmm_plans(num_hubs=2048, weighted=True)``, bf16 gathers):
     the weighted GCN (B1's weighted caller) and the fused GAT route.
@@ -2805,7 +2929,8 @@ def run_weighted(rate: float, edge_step_ms: float, tag: dict) -> dict:
     y = torch.from_numpy(np.random.default_rng(4).integers(
         0, CLASSES, N_NODES)).cuda()
     mask = torch.ones(N_NODES, device=x.device)
-    entry = run_weighted_gcn(gp, g, x, y, mask, rate, tag)
+    entry = run_weighted_gcn(gp, g, x, y, mask, rate,
+                             ptxas["shell_prefix_sum"], tag)
     entry["fused_gat"] = run_fused_gat(gp, g, x, y, mask, edge_step_ms, tag)
     return entry
 
@@ -2820,9 +2945,10 @@ def run() -> dict:
     tag = {"card": card}
 
     # 1. build the kernels from the checkout's sources (one nvcc each,
-    # started together), and B3, B4 and B5 once more for ptxas's report
+    # started together), and B1 (with its weighted caller), B3, B4 and B5
+    # once more for ptxas's report
     t0 = time.perf_counter()
-    procs = ptxas_start(PREV_MS)
+    procs = ptxas_start(list(PREV_MS) + ["shell_prefix_sum"])
     _kernels.library()
     ptxas = {name: ptxas_report(p) for name, p in procs.items()}
     emit({"phase": "build", "kernels": sorted(_kernels.launch_counts),
@@ -2835,7 +2961,7 @@ def run() -> dict:
     kernels += run_reddit(rate, ptxas, tag)
     kernels.append(run_hub_cache(rate, tag))
     edge = run_gat_edge(tag)
-    kernels.append(run_weighted(rate, edge["train_step_ms"], tag))
+    kernels.append(run_weighted(rate, edge["train_step_ms"], ptxas, tag))
     run_dense_cora(tag)
     t0 = time.perf_counter()
     data = minibatch_data("cuda")

@@ -62,7 +62,9 @@ def library() -> ctypes.CDLL:
                      [p, i64, i64, p, p, p, i32, p, p, i64, i32, p]),
                     (lib.dgl_shell_prefix_gspmm,
                      [i32, i32, p, i32, i64, i64, p, i32, i64, i64, p, p, p,
-                      p, i32, p, p, i64, i64, i32, p]),
+                      p, i32, p, p, p, i64, i64, i32, p]),
+                    (lib.dgl_shell_prefix_gspmm_occupancy,
+                     [i32, i32, i32, i32, i32, i64, i32, p]),
                     (lib.dgl_bitmap_spmm,
                      [p, i64, i64, p, i64, i64, i64, i32, p, p]),
                     (lib.dgl_bitmap_gat_fwd,

@@ -28,16 +28,21 @@ edge row per slot and fuses the message too:
 
 with ``n_k`` each level's real row count: the weighted plan's padded slots
 gather row 0 and edge 0, which are real data, so the walk stops by the
-count, not by the index. :func:`shell_prefix_gspmm_plain` is its plain
-version, with the same sums in the same order.
+count, not by the index. Given the plan's ``rank`` (rank position to
+node), it stores row ``r`` at ``rank[r]``, so the rows come out in node
+order with no unrank gather after it. :func:`shell_prefix_gspmm_plain` is
+its plain version, with the same sums in the same order.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from .. import _kernels
-from .shell_spmm import _expand, _msg, _out_feat, _rup, prefix_reduce
+from .shell_spmm import (SHELL_CAP, _expand, _msg, _out_feat, _rup,
+                         prefix_reduce)
 
 __all__ = ["flat_shell_indices", "level_table", "shell_prefix_sum",
            "shell_prefix_sum_plain", "shell_prefix_gspmm",
@@ -190,6 +195,12 @@ def _check_layout(nidx, level_rows, level_real, n_out):
             c > m for c, m in zip(level_real, level_rows)):
         raise ValueError("level_real must give at most level_rows rows a "
                          "level")
+    if len(level_rows) > SHELL_CAP:
+        raise ValueError(f"{len(level_rows)} levels: the kernel takes at "
+                         f"most SHELL_CAP = {SHELL_CAP}")
+    if any(b > a for a, b in zip(level_real, level_real[1:])):
+        raise ValueError("level_real must not increase: the levels are "
+                         "nested prefixes")
     need = sum(_rup(int(m), BLOCK_ROWS) for m in level_rows[:-1]) + (
         min(int(level_real[-1]), n_out) if level_rows else 0)
     if need > nidx.shape[0]:
@@ -197,12 +208,32 @@ def _check_layout(nidx, level_rows, level_real, n_out):
                          "layout")
 
 
+def _check_rank(rank, n_out, device):
+    """Raise unless ``rank`` is an int32 permutation of the ``n_out`` rows
+    on ``device``. The permutation test reads the device, so a tensor
+    remembers the version counter it passed at (a plan's rank is tested
+    on its first call, and again only after an in-place change)."""
+    if (rank.dtype != torch.int32 or rank.device != device
+            or rank.dim() != 1 or rank.shape[0] != n_out):
+        raise ValueError(f"rank must be a 1-D int32 vector of n_out = "
+                         f"{n_out} rows on the tables' device")
+    version = None if rank.is_inference() else rank._version
+    if version is not None and getattr(rank, "_permutation_at",
+                                       None) == version:
+        return
+    if not torch.equal(torch.sort(rank).values, torch.arange(
+            n_out, dtype=torch.int32, device=device)):
+        raise ValueError("rank must be a permutation of range(n_out)")
+    if version is not None:
+        rank._permutation_at = version
+
+
 def shell_prefix_gspmm_plain(op, lhs, rhs, nidx, eidx, level_rows,
-                             level_real, n_out, base=None):
+                             level_real, n_out, base=None, rank=None):
     """Plain PyTorch version of :func:`shell_prefix_gspmm`: per level, the
     gathers, the message in the tables' type, a select of the level's
     ``n_k`` real rows, then an f32 add into the prefix (``prefix_reduce``,
-    base first)."""
+    base first); with ``rank``, row ``r`` copied to ``rank[r]``."""
     feat = _out_feat(op, lhs, rhs)
     ref = lhs if lhs is not None else rhs
     pieces, off = [], 0
@@ -224,12 +255,14 @@ def shell_prefix_gspmm_plain(op, lhs, rhs, nidx, eidx, level_rows,
     if out is None:
         return torch.zeros((n_out,) + feat, dtype=torch.float32,
                            device=ref.device)
-    return out
+    if rank is None:
+        return out
+    return torch.empty_like(out).index_copy_(0, rank.long(), out)
 
 
 def shell_prefix_gspmm(op, lhs, rhs, nidx, eidx, level_rows, level_real,
-                       n_out, base=None, levels=None):
-    """``out[r] = base[r] + sum_{k : r < n_k} f32(op(lhs[nidx_k[r]],
+                       n_out, base=None, levels=None, rank=None):
+    """``out[rank[r]] = base[r] + sum_{k : r < n_k} f32(op(lhs[nidx_k[r]],
     rhs[eidx_k[r]]))``, the message computed in the tables' type.
 
     ``lhs`` (N, ...) and ``rhs`` (E, ...): bf16 or f32 tables of one type
@@ -239,6 +272,9 @@ def shell_prefix_gspmm(op, lhs, rhs, nidx, eidx, level_rows, level_real,
     their real row counts (``n_k``). ``base``: optional (>= n_out, *feat)
     f32. ``levels``: the ``level_table(level_rows, device,
     counts=level_real)`` on the tables' device (built here when not given).
+    ``rank``: optional int32 permutation of the ``n_out`` rows (the plan's
+    ``rank_dst``/``rank_src``); without it row ``r`` stays at ``r``.
+    At most ``SHELL_CAP`` levels, their real counts non-increasing.
     Returns (n_out, *feat) f32.
 
     A CUDA table runs the kernel; a CPU table runs the plain version.
@@ -252,15 +288,17 @@ def shell_prefix_gspmm(op, lhs, rhs, nidx, eidx, level_rows, level_real,
                          .get(op, "lhs and rhs"))
     _check_layout(nidx, level_rows, level_real, n_out)
     ref = lhs if lhs is not None else rhs
+    if ref.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"shell_prefix_gspmm: unsupported device "
+                         f"{ref.device}")
+    if rank is not None:
+        _check_rank(rank, n_out, ref.device)
     if ref.device.type == "cpu":
         return shell_prefix_gspmm_plain(op, lhs, rhs, nidx, eidx,
                                         level_rows, level_real, n_out,
-                                        base=base)
-    if not ref.is_cuda:
-        raise ValueError(f"shell_prefix_gspmm: unsupported device "
-                         f"{ref.device}")
+                                        base=base, rank=rank)
     return _launch_gspmm(op, lhs, rhs, nidx, eidx, level_rows, level_real,
-                         n_out, base, levels)
+                         n_out, base, levels, rank)
 
 
 def _broadcast(shape, out):
@@ -281,25 +319,20 @@ def _broadcast(shape, out):
     return (0 if div == 1 and lo == 0 else 2), div, mod
 
 
-def _launch_gspmm(op, lhs, rhs, nidx, eidx, level_rows, level_real, n_out,
-                  base, levels):
+def _operands(op, lhs, rhs):
+    """The message's feature shape and each operand's ``_broadcast``
+    pattern (``(1, 1, 1)`` for the one a copy op does not read)."""
     ref = lhs if lhs is not None else rhs
-    dev = ref.device
     dtype = ref.dtype
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"tables must be bf16 or f32, got {dtype}")
     for t in (lhs, rhs):
-        if t is not None and (t.dtype != dtype or t.device != dev
+        if t is not None and (t.dtype != dtype or t.device != ref.device
                               or t.dim() < 1):
             raise ValueError("lhs and rhs must be tables of one type on one "
                              "device")
-    for t in (nidx, eidx):
-        if t.dtype != torch.int32 or t.device != dev:
-            raise ValueError("nidx and eidx must be int32 on the tables' "
-                             "device")
     feat = _out_feat(op, lhs, rhs)
     nd = len(feat)
-    D = int(np.prod(feat, dtype=np.int64))
     pattern = []
     for t in (lhs, rhs):
         if t is None:
@@ -314,6 +347,20 @@ def _launch_gspmm(op, lhs, rhs, nidx, eidx, level_rows, level_real, n_out,
                 f"{None if rhs is None else tuple(rhs.shape)}: an operand's "
                 f"non-broadcast dims must be one contiguous run")
         pattern.append(p)
+    return feat, pattern
+
+
+def _launch_gspmm(op, lhs, rhs, nidx, eidx, level_rows, level_real, n_out,
+                  base, levels, rank):
+    ref = lhs if lhs is not None else rhs
+    dev = ref.device
+    dtype = ref.dtype
+    feat, pattern = _operands(op, lhs, rhs)
+    for t in (nidx, eidx):
+        if t.dtype != torch.int32 or t.device != dev:
+            raise ValueError("nidx and eidx must be int32 on the tables' "
+                             "device")
+    D = int(np.prod(feat, dtype=np.int64))
     if levels is None:
         levels = level_table(level_rows, dev, counts=level_real)
     if (levels.dtype != torch.int64 or levels.device != dev
@@ -345,8 +392,32 @@ def _launch_gspmm(op, lhs, rhs, nidx, eidx, level_rows, level_real, n_out,
             _OPS[op], int(dtype == torch.bfloat16), *args,
             nidx.data_ptr(), eidx.data_ptr(), levels[0].data_ptr(),
             levels[1].data_ptr(), len(level_rows),
+            None if rank is None else rank.contiguous().data_ptr(),
             None if base is None else base.data_ptr(), out.data_ptr(),
             n_out, D, vec, stream)
     _kernels.check(code, "shell_prefix_gspmm")
     _kernels.launch_counts["shell_prefix_gspmm"] += 1
     return out.reshape((n_out,) + feat)
+
+
+def gspmm_occupancy(op, lhs, rhs, n_levels):
+    """What the card runs a :func:`shell_prefix_gspmm` launch over these
+    tables and ``n_levels`` levels with (16-byte aligned tables assumed):
+    the compiled kernel's registers, static shared bytes and local (stack
+    and spill) bytes a thread, the block's threads and dynamic shared
+    bytes, the blocks an SM holds, and the instantiation (``kernel``, as
+    ``chip_smoke.ptxas_key`` names it)."""
+    feat, pattern = _operands(op, lhs, rhs)
+    D = int(np.prod(feat, dtype=np.int64))
+    vec = 8 if D % 8 == 0 else 1
+    bf16 = (lhs if lhs is not None else rhs).dtype == torch.bfloat16
+    out = (ctypes.c_int * 7)()
+    code = _kernels.library().dgl_shell_prefix_gspmm_occupancy(
+        _OPS[op], int(bf16), vec, pattern[0][0], pattern[1][0], D, n_levels,
+        ctypes.addressof(out))
+    _kernels.check(code, "shell_prefix_gspmm_occupancy")
+    keys = ("registers", "static_smem_bytes", "local_bytes_per_thread",
+            "threads_per_block", "dynamic_smem_bytes", "blocks_per_sm")
+    return {**dict(zip(keys, out)),
+            "kernel": f"gspmm T={'bf16' if bf16 else 'f32'} vec={vec} "
+                      f"op={op} fast={out[6]}"}

@@ -393,19 +393,20 @@ def _residual_base(op, lhs, rhs, residual, n_out):
 def _shell_accumulate(plan, reverse, op, lhs, rhs):
     """``out[v] = sum_k msg(shell_k)[unrank[v]]`` over one direction, in
     f32; None when the direction has no edge. The residual reduces first
-    and enters the kernel as its base."""
+    and enters the kernel as its base; the kernel stores each rank row at
+    its node (``rank``), so no unrank gather follows it."""
     from .shell_prefix import shell_prefix_gspmm
 
     lay, residual, unrank, n_out = plan.direction(reverse)
     base = _residual_base(op, lhs, rhs, residual, n_out)
     if lay.level_rows:
-        acc = shell_prefix_gspmm(op, lhs, rhs, lay.nidx, lay.eidx,
-                                 lay.level_rows, lay.level_real, n_out,
-                                 base=base, levels=lay.levels)
-    elif base is not None:
-        acc = base[:n_out]
-    else:
+        return shell_prefix_gspmm(
+            op, lhs, rhs, lay.nidx, lay.eidx, lay.level_rows,
+            lay.level_real, n_out, base=base, levels=lay.levels,
+            rank=plan.rank_src if reverse else plan.rank_dst)
+    if base is None:
         return None
+    acc = base[:n_out]
     return acc if unrank is None else acc.index_select(0, unrank.long())
 
 

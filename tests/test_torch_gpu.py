@@ -854,14 +854,17 @@ def test_uniform_stride_survives_to_card(card):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("plan_name", ["residual", "identity", "empty"])
+@pytest.mark.parametrize("plan_name", ["residual", "identity", "empty",
+                                       "tiles"])
 def test_gspmm_kernel_edge_cases(card, plan_name, dtype):
     """The weighted kernel against its plain version on chip_smoke.py's
     edge-case plans (``gspmm_edge_case_plans``): every op and broadcast of
-    ``GSPMM_SHAPES``, ``div`` by a zero at edge 0. Exact, inf and NaN
-    included: the same rounded messages added in the same order."""
+    ``GSPMM_SHAPES``, ``div`` by a zero at edge 0, rows out in rank order
+    and in node order (``gspmm_case_ranks``), levels ending at the
+    kernel's tile edges (``tiles``). Exact, inf and NaN included: the same
+    rounded messages added in the same order."""
     from chip_smoke import (GSPMM_OPS, GSPMM_SHAPES, gspmm_case,
-                            gspmm_edge_case_plans)
+                            gspmm_case_ranks, gspmm_edge_case_plans)
     from dgl_tpu_torch.ops.shell_prefix import (shell_prefix_gspmm,
                                                 shell_prefix_gspmm_plain)
 
@@ -872,19 +875,22 @@ def test_gspmm_kernel_edge_cases(card, plan_name, dtype):
                 continue
             args, base = gspmm_case(plan, u_feat, e_feat, op,
                                     getattr(torch, dtype), i, card)
-            before = _kernels.launch_counts["shell_prefix_gspmm"]
-            got = shell_prefix_gspmm(*args, base=base)
-            torch.cuda.synchronize()
-            assert _kernels.launch_counts["shell_prefix_gspmm"] == before + 1
-            want = shell_prefix_gspmm_plain(*args, base=base)
-            torch.testing.assert_close(got, want, rtol=0, atol=0,
-                                       equal_nan=True)
-            cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a
-                        for a in args]
-            cpu = shell_prefix_gspmm_plain(
-                *cpu_args, base=None if base is None else base.cpu())
-            torch.testing.assert_close(got.cpu(), cpu, rtol=1e-6, atol=1e-6,
-                                       equal_nan=True)
+            for rank in gspmm_case_ranks(plan, card):
+                before = _kernels.launch_counts["shell_prefix_gspmm"]
+                got = shell_prefix_gspmm(*args, base=base, rank=rank)
+                torch.cuda.synchronize()
+                assert (_kernels.launch_counts["shell_prefix_gspmm"]
+                        == before + 1)
+                want = shell_prefix_gspmm_plain(*args, base=base, rank=rank)
+                torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                           equal_nan=True)
+                cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a
+                            for a in args]
+                cpu = shell_prefix_gspmm_plain(
+                    *cpu_args, base=None if base is None else base.cpu(),
+                    rank=None if rank is None else rank.cpu())
+                torch.testing.assert_close(got.cpu(), cpu, rtol=1e-6,
+                                           atol=1e-6, equal_nan=True)
 
 
 def test_gspmm_kernel_rejects_wrong_inputs(card):
@@ -911,6 +917,18 @@ def test_gspmm_kernel_rejects_wrong_inputs(card):
     with pytest.raises(ValueError, match="base"):
         shell_prefix_gspmm("mul", lhs, rhs, *rest,
                            base=torch.zeros(plan.num_dst, 8, device=card))
+    # rank: an int32 permutation of the n_out rows on the tables' device
+    rank = plan.rank_dst
+    for bad, match in ((rank.cpu(), "device"), (rank.long(), "int32"),
+                       (rank[:-1], "n_out"),
+                       (torch.zeros_like(rank), "permutation")):
+        with pytest.raises(ValueError, match=match):
+            shell_prefix_gspmm("mul", lhs, rhs, *rest, rank=bad)
+    # at most 32 levels: no fallback above the kernel's level table
+    flat = torch.zeros(33 * 512, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="SHELL_CAP"):
+        shell_prefix_gspmm("mul", lhs, rhs, flat, flat, [512] * 33,
+                           [1] * 33, plan.num_dst)
 
 
 def test_shell_gspmm_sum_backward_launches_the_kernel(card):

@@ -57,8 +57,14 @@ def _edges(kind, seed=0):
     """``powerlaw``: zipf sources and (reversed) zipf destinations, node 0
     sends and node N-1 receives far more than 32 edges. ``ranked``: 1,500
     uniform edges, the nodes relabelled in stable order of falling
-    in-degree."""
+    in-degree. ``tiles``: chip_smoke.py's edge-case graph of 3,001 nodes
+    whose levels end at the weighted kernel's tile edges (32 levels, a
+    residual, rows without an in-edge, unrank not the identity)."""
     rng = np.random.default_rng(seed)
+    if kind == "tiles":
+        from chip_smoke import tiles_edges
+
+        return tiles_edges(rng)[:2]
     if kind == "powerlaw":
         w = 1.0 / np.arange(1, N + 1)
         return (rng.choice(N, E, p=w / w.sum()),
@@ -73,11 +79,17 @@ def _edges(kind, seed=0):
 _GRAPHS = {}
 
 
+def _n(kind):
+    """The graph's node count."""
+    return 3001 if kind == "tiles" else N
+
+
 def _graphs(kind):
     if kind not in _GRAPHS:
         src, dst = _edges(kind)
-        _GRAPHS[kind] = (dgl_tpu.graph((src, dst), num_nodes=N),
-                         dt.graph((src, dst), num_nodes=N, device="cpu"))
+        n = _n(kind)
+        _GRAPHS[kind] = (dgl_tpu.graph((src, dst), num_nodes=n),
+                         dt.graph((src, dst), num_nodes=n, device="cpu"))
     return _GRAPHS[kind]
 
 
@@ -176,21 +188,24 @@ def _assert_plans_equal(jp, tp):
 
 
 @pytest.mark.parametrize("gd", ["bf16", "f32"])
-@pytest.mark.parametrize("kind", ["powerlaw", "ranked"])
+@pytest.mark.parametrize("kind", ["powerlaw", "ranked", "tiles"])
 def test_plan_arrays_equal(kind, gd):
     """Every array of the reference's plan, and the kernel's layouts: the
     reference's flat index vectors (``flat_shell_indices`` with index 0 in
     padded slots) and each level's real row count (its mask's ones)."""
     jp, tp = _plans(kind, gd)
     _assert_plans_equal(jp, tp)
-    residual = kind == "powerlaw"
-    assert (tp.res_dst is not None) == residual
-    assert (tp.res_src is not None) == residual
+    assert (tp.res_dst is not None) == (kind != "ranked")
+    assert (tp.res_src is not None) == (kind == "powerlaw")
     assert (tp.unrank_dst is None) == (kind == "ranked")
+    if kind == "tiles":
+        from chip_smoke import TILE_LEVEL_ENDS
+
+        assert tp.fwd.level_real == list(TILE_LEVEL_ENDS)
     for shells, lay in ((jp.shells, tp.fwd), (jp.rev_shells, tp.rev)):
         for i in (0, 1):
-            flat, rows = sp.flat_shell_indices([s[i] for s in shells], N,
-                                               oob_index=0)
+            flat, rows = sp.flat_shell_indices([s[i] for s in shells],
+                                               _n(kind), oob_index=0)
             assert rows == lay.level_rows
             np.testing.assert_array_equal(
                 (lay.nidx, lay.eidx)[i].numpy(), np.asarray(flat))
@@ -242,12 +257,14 @@ def test_with_spmm_plans_and_reorder_weighted(gd):
 
 @pytest.mark.parametrize("gd", ["bf16", "f32"])
 @pytest.mark.parametrize("op", OPS)
-def test_plain_matches_pallas_interpret(op, gd):
+@pytest.mark.parametrize("kind", ["powerlaw", "tiles"])
+def test_plain_matches_pallas_interpret(kind, op, gd):
     """The reference's weighted caller: one flat masked message stream
     (``msg_of`` over the flat indices, padded slots selected to 0) into
     ``shell_prefix_sum_pallas`` in interpret mode, with the residual as its
     base; the port's plain version over its own layout and base."""
-    jp, tp = _plans("powerlaw", gd)
+    jp, tp = _plans(kind, gd)
+    N, E = tp.num_dst, int(tp.emask.shape[0])
     u_shape, e_shape = (N, 2, 64), ((E, 2, 64) if op == "copy_rhs"
                                     else (E, 2, 1))
     u, e = _split(op, _operands(op, u_shape, e_shape, 1))
@@ -309,6 +326,30 @@ def test_plain_matches_pallas_interpret(op, gd):
         atol=0)
 
 
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("kind", ["powerlaw", "tiles"])
+def test_plain_rank_is_the_unrank_gather(kind, op):
+    """``rank=plan.rank_dst`` stores each rank row at its node: bit for bit
+    the rank-order result gathered by ``unrank`` (the gather it replaces),
+    with the residual's base, bf16 tables; the wrapper too."""
+    _, tp = _plans(kind, "bf16")
+    n, n_e = tp.num_dst, int(tp.emask.shape[0])
+    u, e = _split(op, _operands(op, (n, 2, 8), (n_e, 2, 8) if op ==
+                                "copy_rhs" else (n_e, 2, 1), 3))
+    ut, et = (None if x is None else torch.from_numpy(x).to(torch.bfloat16)
+              for x in (u, e))
+    lay = tp.fwd
+    base = tss._residual_base(op, ut, et, tp.res_dst, n)
+    args = (op, ut, et, lay.nidx, lay.eidx, lay.level_rows, lay.level_real,
+            n)
+    ranked = shell_prefix_gspmm_plain(*args, base=base)
+    by_node = shell_prefix_gspmm_plain(*args, base=base, rank=tp.rank_dst)
+    assert torch.equal(by_node,
+                       ranked.index_select(0, tp.unrank_dst.long()))
+    assert torch.equal(shell_prefix_gspmm(*args, base=base,
+                                          rank=tp.rank_dst), by_node)
+
+
 def test_wrapper_checks_its_arguments():
     _, tp = _plans("powerlaw", "f32")
     lay = tp.fwd
@@ -325,6 +366,29 @@ def test_wrapper_checks_its_arguments():
     with pytest.raises(ValueError, match="shorter"):
         shell_prefix_gspmm("copy_lhs", u, None, lay.nidx[:100], lay.eidx,
                            lay.level_rows, lay.level_real, N)
+    # at most SHELL_CAP levels, their real counts non-increasing
+    flat = torch.zeros(33 * 512, dtype=torch.int32)
+    with pytest.raises(ValueError, match="SHELL_CAP"):
+        shell_prefix_gspmm("copy_lhs", u, None, flat, flat, [512] * 33,
+                           [1] * 33, N)
+    real = list(lay.level_real)
+    real[0] = real[1] - 1
+    with pytest.raises(ValueError, match="not increase"):
+        shell_prefix_gspmm("copy_lhs", u, None, lay.nidx, lay.eidx,
+                           lay.level_rows, real, N)
+    # rank: an int32 permutation of the n_out rows, on the tables' device
+    rank = tp.rank_dst.clone()
+    for bad, match in ((rank.long(), "int32"), (rank[:-1], "n_out"),
+                       (torch.zeros_like(rank), "permutation")):
+        with pytest.raises(ValueError, match=match):
+            shell_prefix_gspmm("copy_lhs", u, None, lay.nidx, lay.eidx,
+                               lay.level_rows, lay.level_real, N, rank=bad)
+    shell_prefix_gspmm("copy_lhs", u, None, lay.nidx, lay.eidx,
+                       lay.level_rows, lay.level_real, N, rank=rank)
+    rank[0] = rank[1]  # changed in place after a check: checked again
+    with pytest.raises(ValueError, match="permutation"):
+        shell_prefix_gspmm("copy_lhs", u, None, lay.nidx, lay.eidx,
+                           lay.level_rows, lay.level_real, N, rank=rank)
     # no level and no base: zeros of the message's shape
     empty = torch.zeros(0, dtype=torch.int32)
     out = shell_prefix_gspmm("mul", torch.ones(N, 2, 3), torch.ones(5, 2, 1),
