@@ -208,7 +208,38 @@ the minibatch GraphSAGE paths (no hand kernel), on the zipf graph with
     it (all 0) and any host sync an error, and prints ``bench.py``'s
     ``ms_per_step``, ``steps_per_epoch``, ``edges_per_s`` and ``epoch_s``
     (1 + 2 epochs against 1, best of 2 each), a step's profile, and the
-    epochs' mean losses, which must be finite and fall.
+    epochs' mean losses, which must be finite and fall;
+
+the heterogeneous path (kernel B1 on bipartite relations), R-GCN on a
+graph of ogbn-mag's published counts (``mag_graph``: 736,389 papers,
+1,134,649 authors, 8,740 institutions, 59,965 fields, 21,111,007 edges
+over 4 relations, 128-wide features, 349 classes; the recipe of
+``dgl_tpu/data/synthetic.py:324-395``, vectorised):
+
+21. ``with_spmm_plans(num_hubs=2048)`` (int8 hubs; no relation passes the
+    bitmap or dense gate, which is checked), then the R-GCN of
+    ``examples/rgcn_hetero.py`` as user code (``hetero_rgcn``: two
+    ``HeteroGraphConv`` layers of ``GraphConv``, 128 -> 64 -> 349, OGB's
+    R-GCN widths for ogbn-mag), one counted forward (6 B1 launches:
+    layer 1 skips ``writes`` and ``affiliated_with``, whose source type
+    has no input there), held against the exact f32 path (the graph
+    without plans) at rtol = 2e-2, atol = 2e-2 * max|ref|; gradients as in
+    step 6; one counted step with Adam at 1e-2 and masked cross-entropy on
+    the paper train split (9 launches: the backward of layer 1's
+    ``cites`` and layer 0's ``cites`` and ``writes``), four more with
+    finite, falling losses; B1 against its plain version on ``writes``
+    both ways and ``affiliated_with`` forward (the step's real tables)
+    and backward (a seeded table: institution reaches no loss), at
+    rtol = atol = 1e-5, with its bound and ``embedding_bag``'s time;
+    times, profiles and peak memory;
+22. ``multi_update_all`` (copy_u, sum; cross reducer sum) over the four
+    relations (4 B1 launches) and a ``pull`` over ``writes`` (1), held
+    against the plain branch at rtol = 2e-2, atol = 2e-2 * max|ref|;
+23. ``RGCN(128, 64, 349, num_rels=4, num_bases=2)`` over
+    ``to_homogeneous`` of the same recipe at 1/8 of its counts (242,468
+    nodes, 2,638,877 edges; no hand kernel, every count 0): one forward
+    and one step held against the same model on the CPU at rtol = 1e-4,
+    atol = 1e-4 * max|ref|, times and a step's profile.
 
 Every training input is built outside ``torch.inference_mode()``.
 It prints one JSON object per result line, the kernel table as
@@ -556,7 +587,9 @@ def check_b1(plan, reverse, xg, bags, rate) -> dict:
                            f"{abs_err}")
     lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
         bag_idx, xg, bag_off, mode="sum", include_last_offset=True)
-    lib_err = (lib().float() - want).abs().max().item()
+    # the bags hold the shell levels' edges; the residual enters as base
+    lib_err = (lib().float() + (0 if base is None else base[:n_out])
+               - want).abs().max().item()
     bound, bound_by, stream_ms = kernel_bound(
         level_rows, n_out, rows_used, n_cold, xg.shape[1], base is not None,
         rate)
@@ -635,7 +668,8 @@ def run_steps(model, opt, graph, x, y, mask, first_loss, falling: bool):
 
 
 def grads_of(model, graph, x, y, mask, pattern=None):
-    """Every parameter's gradient of the masked loss with dropout off, and
+    """Every parameter's gradient of the masked loss with dropout off (of
+    those that reach the loss), and
     the ReLU pattern of the pass (the models' ``torch.relu`` calls, as
     masks). Given another pass's ``pattern``, the ReLUs follow it instead
     of their own inputs' signs: the same piecewise-linear function."""
@@ -655,7 +689,10 @@ def grads_of(model, graph, x, y, mask, pattern=None):
         masked_loss(model(graph, x), y, mask).backward()
     finally:
         torch.relu = relu
-    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    # a parameter that reaches no loss (an R-GCN relation whose output
+    # type the loss does not read) has no gradient
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
     model.zero_grad(set_to_none=True)
     model.train()
     return grads, seen
@@ -2935,6 +2972,430 @@ def run_weighted(rate: float, edge_step_ms: float, ptxas: dict,
     return entry
 
 
+# ---------------------------------------------------------------------------
+# R-GCN on ogbn-mag (B1's hub caller on bipartite relations)
+# ---------------------------------------------------------------------------
+
+# ogbn-mag's published counts (OGB): nodes by type, edges by relation, in
+# the order of dgl_tpu/data/synthetic.py:324-395's generator
+MAG_NODES = {"paper": 736_389, "author": 1_134_649, "institution": 8_740,
+             "field": 59_965}
+MAG_EDGES = {("paper", "cites", "paper"): 5_416_271,
+             ("author", "writes", "paper"): 7_145_660,
+             ("author", "affiliated_with", "institution"): 1_043_998,
+             ("paper", "has_topic", "field"): 7_505_078}
+# 128-wide features (ogbn-mag's paper features), 349 venues; OGB's R-GCN
+# baseline for ogbn-mag: hidden_channels=64, num_layers=2
+MAG_FEAT, MAG_HIDDEN, MAG_CLASSES = 128, 64, 349
+MAG_RGCN_DIV = 8  # the homogeneous RGCN cell's cut of every count
+
+
+def mag_graph(div: int = 1, seed: int = 0):
+    """The ogbn-mag-shaped heterograph of ``dgl_tpu/data/synthetic.py:
+    324-395`` (``synthetic_hetero_graph``) at ogbn-mag's counts divided by
+    ``div``, vectorised: 75 % of the citations go to a paper of the
+    citing paper's class, paper features are Gaussian class centroids
+    times 2 plus unit noise, the other types' unit noise, and a 60/20/20
+    split of the papers. The recipe is the reference's; its draws are not
+    (the reference loops over the citations in Python). Returns the edge
+    lists, node counts, features, labels and masks as numpy arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nodes = {nt: round(n / div) for nt, n in MAG_NODES.items()}
+    n_paper = nodes["paper"]
+    labels = rng.integers(0, MAG_CLASSES, n_paper)
+    order = np.argsort(labels, kind="stable")
+    starts = np.searchsorted(labels[order], np.arange(MAG_CLASSES + 1))
+    data = {}
+    for cet, ne in MAG_EDGES.items():
+        st, _, dt = cet
+        ne = round(ne / div)
+        src = rng.integers(0, nodes[st], ne)
+        if st == dt == "paper":
+            c = labels[src]  # every class a citing paper has is non-empty
+            lo, hi = starts[c], starts[c + 1]
+            pick = order[lo + (rng.random(ne) * (hi - lo)).astype(np.int64)]
+            dst = np.where(rng.random(ne) < 0.75, pick,
+                           rng.integers(0, n_paper, ne))
+        else:
+            dst = rng.integers(0, nodes[dt], ne)
+        data[cet] = (src, dst)
+    centroids = rng.standard_normal((MAG_CLASSES, MAG_FEAT),
+                                    dtype=np.float32) * 2.0
+    feats = {"paper": centroids[labels] + rng.standard_normal(
+        (n_paper, MAG_FEAT), dtype=np.float32)}
+    for nt, n in nodes.items():
+        if nt != "paper":
+            feats[nt] = rng.standard_normal((n, MAG_FEAT), dtype=np.float32)
+    perm = rng.permutation(n_paper)
+    n_train, n_val = int(n_paper * 0.6), int(n_paper * 0.2)
+    masks = {}
+    for name, sl in (("train_mask", perm[:n_train]),
+                     ("val_mask", perm[n_train:n_train + n_val]),
+                     ("test_mask", perm[n_train + n_val:])):
+        masks[name] = np.zeros(n_paper, bool)
+        masks[name][sl] = True
+    return {"data": data, "nodes": nodes, "feats": feats, "labels": labels,
+            "masks": masks}
+
+
+def hetero_rgcn(etypes, dims, seed):
+    """The R-GCN of ``examples/rgcn_hetero.py:16-37`` as user code: two
+    ``HeteroGraphConv(aggregate="sum")`` layers of
+    ``GraphConv(allow_zero_in_degree=True)``, one a relation, ReLU between
+    them, widths ``dims``; the paper logits out (its ``["paper"]``).
+    Weights from ``seed``."""
+    import torch
+    from torch import nn
+
+    from dgl_tpu_torch.nn import GraphConv, HeteroGraphConv
+
+    class _Model(nn.Module):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator().manual_seed(seed)
+            self.layer0 = HeteroGraphConv(
+                {et: GraphConv(dims[0], dims[1], allow_zero_in_degree=True,
+                               generator=gen) for et in etypes},
+                aggregate="sum")
+            self.layer1 = HeteroGraphConv(
+                {et: GraphConv(dims[1], dims[2], allow_zero_in_degree=True,
+                               generator=gen) for et in etypes},
+                aggregate="sum")
+
+        def forward(self, graph, inputs):
+            h = {k: torch.relu(v)
+                 for k, v in self.layer0(graph, inputs).items()}
+            return self.layer1(graph, h)["paper"]
+
+    return _Model()
+
+
+def run_mag_core(gp, g, x, tag) -> dict:
+    """``multi_update_all`` over the four relations (one B1 launch each)
+    and one ``pull``, on the plan graph and counted, each held against the
+    plain branch on the graph without plans at rtol = 2e-2,
+    atol = 2e-2 * max|ref|."""
+    import torch
+
+    import dgl_tpu_torch.function as fn
+    from dgl_tpu_torch import _kernels
+
+    out = {}
+    for what, graph in (("plan", gp), ("plain", g)):
+        with graph.local_scope(), torch.inference_mode():
+            graph.ndata["h"] = x
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            graph.multi_update_all(
+                {cet: (fn.copy_u("h", "m"), fn.sum("m", "o"))
+                 for cet in graph.canonical_etypes}, "sum")
+            torch.cuda.synchronize()
+            multi = dict(_kernels.launch_counts)
+            rows = torch.arange(0, graph.num_nodes("paper"), 7,
+                                device=x["paper"].device)
+            _kernels.reset_launch_counts()
+            graph.pull(rows, fn.copy_u("h", "m"), fn.sum("m", "p"),
+                       etype="writes")
+            torch.cuda.synchronize()
+            pull = dict(_kernels.launch_counts)
+            out[what] = ({nt: graph.nodes[nt].data["o"]
+                          for nt in ("paper", "institution", "field")},
+                         graph.nodes["paper"].data["p"], multi, pull)
+    expect_no_other_launch(out["plan"][2], {"shell_prefix_sum": 4},
+                           "multi_update_all over the hub plans")
+    expect_no_other_launch(out["plan"][3], {"shell_prefix_sum": 1},
+                           "pull over the writes hub plan")
+    expect_no_other_launch(out["plain"][2], {}, "the plain multi_update_all")
+    errs = {}
+    pairs = [(f"multi_update_all {nt}", out["plan"][0][nt],
+              out["plain"][0][nt]) for nt in out["plan"][0]]
+    pairs.append(("pull writes", out["plan"][1], out["plain"][1]))
+    for what, got, ref in pairs:
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        if not torch.allclose(got, ref, rtol=2e-2, atol=2e-2 * scale):
+            raise RuntimeError(f"{what} vs the plain branch: max abs err "
+                               f"{err} (max |ref| {scale})")
+        errs[what] = err / scale
+    result = {"multi_update_all_launches": out["plan"][2],
+              "pull_launches": out["plan"][3], "max_rel_err_vs_plain": errs}
+    emit({"phase": "mag_core", "tolerance": "rtol=2e-2, atol=2e-2*max|ref|",
+          **result, **tag})
+    return result
+
+
+def run_mag(rate: float, tag: dict) -> dict:
+    """R-GCN on ogbn-mag at its published counts and widths, over hub
+    plans on every relation (B1 on bipartite relations); returns B1's
+    entry of the kernel table for this path."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.ops import hub_spmm
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mag = mag_graph()
+    data_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    g = dt.heterograph(mag["data"], mag["nodes"])
+    graph_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    gp = g.with_spmm_plans(num_hubs=2048)  # int8 hubs
+    torch.cuda.synchronize()
+    plans_s = time.perf_counter() - t1
+    x = {nt: torch.from_numpy(v).cuda() for nt, v in mag["feats"].items()}
+    y = torch.from_numpy(mag["labels"]).cuda()
+    mask = torch.from_numpy(mag["masks"]["train_mask"]).float().cuda()
+    etypes = g.etypes
+    plans = {}
+    for cet, rel in gp._relations.items():
+        p = rel.hub_plan
+        if p is None or rel.bitmap_plan is not None or (
+                rel.dense_adj is not None):
+            raise RuntimeError(f"{cet}: the plans are not the hub plan alone")
+        plans[cet[1]] = {
+            "num_src": p.num_src, "num_dst": p.num_dst, "hubs": p.num_hubs,
+            "coverage": p.coverage, "precision": p.precision,
+            "a_hub_gb": p.a_hub.numel() * p.a_hub.element_size() / 1e9,
+            "shell_levels": len(p.shell_rows),
+            "reverse_shell_levels": len(p.rev_shell_rows),
+            "residual": p.res_dst is not None,
+            "reverse_residual": p.res_src is not None}
+    del mag
+    model = hetero_rgcn(etypes, (MAG_FEAT, MAG_HIDDEN, MAG_CLASSES),
+                        0).cuda().eval()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    emit({"phase": "mag_graph", "nodes": dict(g._num_src_nodes),
+          "edges": {c[1]: g.num_edges(c) for c in g.canonical_etypes},
+          "data_s": data_s, "graph_s": graph_s, "plans_s": plans_s,
+          "setup_s": setup_s, "plans": plans, **tag})
+
+    # the main path: one counted forward (4 relations in layer 0, 2 in
+    # layer 1: author has no input there)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    with torch.inference_mode():
+        out = model(gp, x)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect_no_other_launch(launches, {"shell_prefix_sum": 6},
+                           "the R-GCN forward")
+    with torch.inference_mode():
+        ref = model(g, x)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    if (tuple(out.shape) != (MAG_NODES["paper"], MAG_CLASSES)
+            or not torch.isfinite(out).all()
+            or not torch.allclose(out, ref, rtol=2e-2, atol=2e-2 * scale)):
+        raise RuntimeError(f"R-GCN hub path vs exact f32 path: max abs err "
+                           f"{err} (max |ref| {scale}), shape "
+                           f"{tuple(out.shape)}")
+    emit({"phase": "mag_main_path", "model": "HeteroGraphConv(GraphConv) "
+          "R-GCN 128-64-349, 2 layers", "launches": launches,
+          "expected_shell_prefix_sum": 6, "peak_memory_gib": peak,
+          "max_abs_err_vs_exact_f32": err, "max_rel_err": err / scale,
+          "tolerance": "rtol=2e-2, atol=2e-2*max|ref|", **tag})
+    del out, ref
+
+    # gradients against the exact path, then one counted step: 3 backward
+    # launches (layer 1's cites, layer 0's cites and writes; institution
+    # and field reach no loss)
+    model.train()
+    grad_check = check_grads(model, gp, g, x, y, mask, "R-GCN")
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    want = {c[1]: gp._relations[c].hub_plan for c in gp.canonical_etypes}
+    tables = {"writes": want["writes"], "affiliated_with":
+              want["affiliated_with"]}
+    with recording(hub_spmm, "shell_prefix_sum") as rec:
+        loss, step_launches, step_peak, step_s = counted_step(
+            model, opt, gp, x, y, mask, {"shell_prefix_sum": 9}, "R-GCN")
+    expect_no_other_launch(step_launches, {"shell_prefix_sum": 9},
+                           "the R-GCN step")
+    losses = run_steps(model, opt, gp, x, y, mask, loss, falling=True)
+    emit({"phase": "mag_train_main_path", "launches": step_launches,
+          "expected_shell_prefix_sum": 9, "peak_memory_gib": step_peak,
+          "first_step_s": step_s, "losses": losses,
+          "grads_vs_exact_f32": grad_check, **tag})
+
+    # B1 against its plain version on the two extremes' real tables:
+    # writes (1.13M author rows into 736,389 papers) both ways, and
+    # affiliated_with (into 8,740 institutions, fewer than the hubs)
+    # forward; its backward never runs on the path (institution reaches
+    # no loss), so a seeded table of dz's shape stands in
+    found = {}
+    for args, _kw in rec:
+        for et, p in tables.items():
+            if args[1] is p.shell_idx:
+                found[f"{et} fwd"] = (p, False, args[0])
+            elif args[1] is p.rev_shell_idx:
+                found[f"{et} bwd"] = (p, True, args[0])
+    del rec
+    aff = tables["affiliated_with"]
+    dz = np.random.default_rng(7).standard_normal((aff.num_dst, MAG_HIDDEN),
+                                                  dtype=np.float32)
+    found["affiliated_with bwd (seeded dz)"] = (
+        aff, True, torch.from_numpy(dz).cuda().to(torch.bfloat16))
+    if sorted(found) != sorted(["writes fwd", "writes bwd",
+                                "affiliated_with fwd",
+                                "affiliated_with bwd (seeded dz)"]):
+        raise RuntimeError(f"recorded B1 calls: {sorted(found)}")
+    shapes = {}
+    with torch.inference_mode():
+        for label, (p, reverse, xg) in found.items():
+            shapes[label] = check_b1(p, reverse, xg.contiguous(),
+                                     cold_bags(p, reverse), rate)
+            emit({"phase": "kernel_vs_plain", "kernel": "shell_prefix_sum",
+                  "shape": f"mag {label} F={xg.shape[1]}", **shapes[label],
+                  **tag})
+    del found
+
+    core = run_mag_core(gp, g, x, tag)
+    model.eval()
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(gp, x), 5)
+        exact_ms = time_ms(lambda: model(g, x), 3)
+        prof = device_profile(lambda: model(gp, x), 3)
+    model.train()
+    step = lambda: train_step(model, opt, gp, x, y, mask)  # noqa: E731
+    timing = {"forward_ms": fwd_ms, "exact_f32_path_forward_ms": exact_ms,
+              "step_ms": time_ms(step, 3)}
+    emit({"phase": "mag_timing", **timing, **tag})
+    emit({"phase": "mag_forward_profile", "calls": 3, **prof, **tag})
+    emit({"phase": "mag_train_profile", "calls": 2,
+          **device_profile(step, 2), **tag})
+    main = shapes["writes fwd"]
+    return {
+        "name": "shell_prefix_sum",
+        "route": "cuda",
+        "source": "dgl_tpu_torch/csrc/shell_prefix_sum.cu",
+        "replaces": "dgl_tpu/ops/shell_pallas.py:110",
+        "launches": launches["shell_prefix_sum"],
+        "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "shape": f"R-GCN ogbn-mag, writes fwd F={MAG_HIDDEN}, n_out="
+                 f"{MAG_NODES['paper']}, times per call; launches: the "
+                 "R-GCN forward",
+        "launches_train_step": step_launches["shell_prefix_sum"],
+        "shapes": {k: {f: v[f] for f in ("F", "n_out", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms", "max_abs_err")}
+                   for k, v in shapes.items()},
+        "forward_ms": fwd_ms, "train_step_ms": timing["step_ms"],
+        "core": core,
+    }
+
+
+def run_rgcn_homogeneous(tag: dict) -> dict:
+    """``RGCN(128, 64, 349, num_rels=4, num_bases=2)`` over
+    ``to_homogeneous`` of the ogbn-mag recipe with every count divided by
+    ``MAG_RGCN_DIV`` (no plan, no hand kernel: every count must stay 0),
+    one forward and one step held against the same model on the CPU at
+    rtol = 1e-4, atol = 1e-4 * max|ref|."""
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.models import RGCN
+
+    t0 = time.perf_counter()
+    mag = mag_graph(MAG_RGCN_DIV, seed=1)
+    hg = dt.heterograph(mag["data"], mag["nodes"], device="cpu")
+    homo = dt.to_homogeneous(hg)
+    x = torch.cat([torch.from_numpy(mag["feats"][nt]) for nt in hg.ntypes])
+    etypes = homo.edata[dt.ETYPE]
+    n_paper = mag["nodes"]["paper"]  # paper is the first type
+    y = torch.from_numpy(mag["labels"])
+    mask = torch.from_numpy(mag["masks"]["train_mask"]).float()
+    del mag, hg
+    gen = torch.Generator().manual_seed(0)
+    cpu = RGCN(MAG_FEAT, MAG_HIDDEN, MAG_CLASSES, num_rels=4, num_bases=2,
+               generator=gen, device="cpu")
+    card = RGCN(MAG_FEAT, MAG_HIDDEN, MAG_CLASSES, num_rels=4, num_bases=2)
+    card.load_state_dict(cpu.state_dict())
+    homo_c = homo.to("cuda")
+    xc, ec, yc, mc = x.cuda(), etypes.cuda(), y.cuda(), mask.cuda()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def step(model, graph, xx, ee, yy, mm):
+        model.zero_grad(set_to_none=True)
+        out = model(graph, xx, ee)
+        loss = masked_loss(out[:n_paper], yy, mm)
+        loss.backward()
+        return out.detach(), loss.detach(), {
+            k: p.grad for k, p in model.named_parameters()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    with torch.inference_mode():
+        fwd = card(homo_c, xc, ec)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(launches, {}, "the homogeneous RGCN forward")
+    fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    out_c, loss_c, grads_c = step(card, homo_c, xc, ec, yc, mc)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    t1 = time.perf_counter()
+    out, loss, grads = step(cpu, homo, x, etypes, y, mask)
+    cpu_s = time.perf_counter() - t1
+    errs = {}
+    pairs = [("forward", fwd, out), ("train forward", out_c, out),
+             ("loss", loss_c, loss)] + [(f"grad {k}", grads_c[k], v)
+                                         for k, v in grads.items()]
+    for what, got, ref in pairs:
+        got = got.cpu()
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        if not torch.allclose(got, ref, rtol=1e-4, atol=1e-4 * scale):
+            raise RuntimeError(f"RGCN on the card vs the CPU, {what}: max "
+                               f"abs err {err} (max |ref| {scale})")
+        errs[what] = err / max(scale, 1e-30)
+    opt = torch.optim.Adam(card.parameters(), lr=LR)
+    train = lambda: train_step(  # noqa: E731
+        _Sliced(card, ec, n_paper), opt, homo_c, xc, yc, mc)
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: card(homo_c, xc, ec), 3)
+    result = {"nodes": homo.num_nodes(), "edges": homo.num_edges(),
+              "setup_s": setup_s, "launches": launches,
+              "forward_ms": fwd_ms, "step_ms": time_ms(train, 3),
+              "forward_peak_memory_gib": fwd_peak,
+              "step_peak_memory_gib": step_peak, "cpu_step_s": cpu_s,
+              "max_rel_err_vs_cpu": errs}
+    emit({"phase": "rgcn_homogeneous", "model": "RGCN 128-64-349, 4 "
+          "relations, 2 bases, self-loop", "cut": f"every ogbn-mag count / "
+          f"{MAG_RGCN_DIV}", "tolerance": "rtol=1e-4, atol=1e-4*max|ref|",
+          **result, **tag})
+    emit({"phase": "rgcn_homogeneous_train_profile", "calls": 2,
+          **device_profile(train, 2), **tag})
+    return result
+
+
+class _Sliced:
+    """``model(graph, x, etypes)[:n]`` as ``train_step`` calls a model."""
+
+    def __init__(self, model, etypes, n):
+        self.model, self.etypes, self.n = model, etypes, n
+
+    def __call__(self, graph, x):
+        return self.model(graph, x, self.etypes)[:self.n]
+
+
 def run() -> dict:
     import torch
 
@@ -2969,6 +3430,9 @@ def run() -> dict:
           **tag})
     run_sage_minibatch(data, tag)
     run_sage_end_to_end(data, tag)
+    del data
+    kernels.append(run_mag(rate, tag))
+    run_rgcn_homogeneous(tag)
     return {"kernels": kernels, "card": card}
 
 
@@ -2982,6 +3446,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this script needs a "
               "CUDA card")
+    t0 = time.perf_counter()
     try:
         result = run()
     except Exception as exc:  # any failed phase fails the run
@@ -2989,6 +3454,7 @@ def main() -> int:
 
         traceback.print_exc()
         _fail(f"{type(exc).__name__}: {exc}")
+    emit({"phase": "total", "seconds": time.perf_counter() - t0})
     emit({"kernels": result["kernels"]})
     print(f"card: {result['card']}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,14 +19,20 @@ fixed-shape MFG blocks (``create_block``) from the host sampler
 (``dataloading.FixedShapeNeighborSampler``) through the uniform-stride
 g-SpMM and edge softmax, and the on-device sampler
 (``sampling.DeviceNeighborSampler``, ``device_seed_batches``) with
-``models.DeviceSAGE``.
+``models.DeviceSAGE``; heterogeneous graphs (``heterograph``,
+``to_homogeneous``, ``to_heterogeneous``, blocks between node types),
+``multi_update_all`` and subset propagation (``pull``, ``push``,
+``send_and_recv``), ``nn.HeteroGraphConv``, ``nn.RelGraphConv`` and
+``models.RGCN``.
 """
 from . import dataloading, function, models, nn, ops, sampling, transforms
-from .base import ALL, EID, NID, DGLError
-from .convert import create_block, graph
+from .base import ALL, EID, ETYPE, NID, NTYPE, DGLError
+from .convert import (create_block, graph, heterograph, to_heterogeneous,
+                      to_homogeneous)
 from .graph import Graph, Relation
 from .params import from_flax_params
 
-__all__ = ["ALL", "EID", "NID", "DGLError", "Graph", "Relation",
-           "create_block", "dataloading", "function", "from_flax_params",
-           "graph", "models", "nn", "ops", "sampling", "transforms"]
+__all__ = ["ALL", "EID", "ETYPE", "NID", "NTYPE", "DGLError", "Graph",
+           "Relation", "create_block", "dataloading", "function",
+           "from_flax_params", "graph", "heterograph", "models", "nn", "ops",
+           "sampling", "to_heterogeneous", "to_homogeneous", "transforms"]

@@ -22,6 +22,9 @@ class _All:
 
 ALL = _All()
 
+# type-id fields of to_homogeneous; original per-type ids
+NTYPE = "_N"
+ETYPE = "_E"
 NID = "_ID"
 EID = "_ID"
 

@@ -13,24 +13,29 @@
    reducer then reads one padded mailbox (``invoke_udf_reduce``) in place
    of the reference's degree buckets, as ``dgl_tpu`` does.
 
-``pull``, ``push``, ``send_and_recv`` and ``multi_update_all`` come in a
-later slice and raise.
+``multi_update_all`` runs each relation's update and combines the results
+per destination type with a cross reducer. ``pull`` runs the full fused
+reduce and writes only the rows asked for; ``send_and_recv`` (and ``push``,
+over a node's out-edges) materialises the messages, keeps the edge subset
+and reduces it by destination, as ``dgl_tpu`` does.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 from . import ops
 from .base import ALL, DGLError, is_all
 from .function.base import MessageFunction, ReduceFunction
-from .graph import Graph
+from .graph import Graph, _asnumpy
 from .ops.sddmm import _gather_target
 from .udf import EdgeBatch, NodeBatch
 
 __all__ = ["message_passing", "invoke_gspmm", "invoke_gsddmm",
-           "invoke_edge_udf", "invoke_udf_reduce"]
+           "invoke_edge_udf", "invoke_udf_reduce", "pull", "push",
+           "send_and_recv"]
 
 
 def _src_frame(g: Graph, cet):
@@ -238,7 +243,11 @@ def apply_nodes(g: Graph, func, v=ALL, ntype=None):
     """``DGLGraph.apply_nodes`` (reference ``heterograph.py:4495``); a node
     subset is computed over all nodes and its rows written. On a block it
     runs over the destination nodes, as the reference's does."""
-    ntype = ntype or g.ntypes[0]
+    if ntype is None:
+        if len(g.ntypes) != 1:
+            raise DGLError("ntype required for graphs with multiple node "
+                           "types")
+        ntype = g.ntypes[0]
     ndata = invoke_node_udf(g, func, ntype)
     frame = g._dst_frames.setdefault(ntype, {})
     if is_all(v):
@@ -247,24 +256,184 @@ def apply_nodes(g: Graph, func, v=ALL, ntype=None):
     return _set_rows(frame, ndata, _ids(v, g.device))
 
 
-def _later(what):
-    raise NotImplementedError(
-        f"{what}: subset propagation and multi-relation updates come in a "
-        "later slice (ROADMAP queue A2)")
+# how per-relation results combine per destination type:
+# multi_update_all's cross reducers, HeteroGraphConv's aggregates
+CROSS_REDUCERS = {
+    "sum": lambda xs: sum(xs[1:], xs[0]),
+    "max": lambda xs: torch.stack(xs).amax(0),
+    "min": lambda xs: torch.stack(xs).amin(0),
+    "mean": lambda xs: torch.stack(xs).mean(0),
+    "stack": lambda xs: torch.stack(xs, 1),
+}
 
 
-def multi_update_all_(g, etype_dict, cross_reducer, apply_node_func=None):
-    _later("multi_update_all")
+def _cross_reduce(vals, cross_reducer):
+    """Combine one field's per-relation results (reference
+    ``core.py:304-318``); a single result passes through unless the
+    reducer is ``stack``."""
+    if cross_reducer not in CROSS_REDUCERS:
+        raise DGLError(f"Unknown cross reducer {cross_reducer!r}")
+    if len(vals) == 1 and cross_reducer != "stack":
+        return vals[0]
+    return CROSS_REDUCERS[cross_reducer](vals)
 
 
-def pull(g, v, message_func, reduce_func, apply_node_func=None, etype=None):
-    _later("pull")
+def multi_update_all_(g: Graph, etype_dict, cross_reducer,
+                      apply_node_func=None):
+    """``DGLGraph.multi_update_all`` (reference ``heterograph.py:5161``;
+    ``dgl_tpu/core.py:278-320``).
+
+    ``etype_dict``: etype -> ``(message, reduce[, apply])``. Each
+    relation's results are combined per destination type and field with
+    ``cross_reducer`` in {sum, max, min, mean, stack} and written into
+    that type's frame; returns them as lists by type and field."""
+    per_dst: Dict[str, Dict[str, list]] = {}
+    for etype, spec in etype_dict.items():
+        cet = g.to_canonical_etype(etype)
+        afunc = spec[2] if len(spec) > 2 else None
+        ndata = message_passing(g, spec[0], spec[1], afunc, etype=cet)
+        store = per_dst.setdefault(cet[2], {})
+        for k, v in ndata.items():
+            store.setdefault(k, []).append(v)
+    for dsttype, fields in per_dst.items():
+        frame = g._dst_frames.setdefault(dsttype, {})
+        for k, vals in fields.items():
+            frame[k] = _cross_reduce(vals, cross_reducer)
+    if apply_node_func is not None:
+        for dsttype in per_dst:
+            apply_nodes(g, apply_node_func, ntype=dsttype)
+    return per_dst
 
 
-def push(g, u, message_func, reduce_func, apply_node_func=None, etype=None):
-    _later("push")
+def _write_rows(frame, data, rows):
+    """Write ``data``'s ``rows`` into ``frame``'s fields of the same shape
+    out of place; a field the frame lacks (or holds in another shape)
+    takes the whole value, as the reference's subset updates do."""
+    for k, val in data.items():
+        base = frame.get(k)
+        if base is not None and base.shape == val.shape:
+            frame[k] = base.index_put((rows,), val[rows])
+        else:
+            frame[k] = val
 
 
-def send_and_recv(g, edges, message_func, reduce_func, apply_node_func=None,
-                  etype=None):
-    _later("send_and_recv")
+def pull(g: Graph, v, message_func, reduce_func, apply_node_func=None,
+         etype=None):
+    """``DGLGraph.pull`` (reference ``heterograph.py:5400``;
+    ``dgl_tpu/core.py:329-354``): the full fused reduce over the relation,
+    of which only the rows ``v`` are written (``apply_node_func`` runs over
+    every destination and its ``v`` rows are written too). Returns the
+    full reduce."""
+    cet = g.to_canonical_etype(etype)
+    ndata = message_passing(g, message_func, reduce_func, None, etype=cet)
+    rows = _ids(v, g.device)
+    dstf = _dst_frame(g, cet)
+    _write_rows(dstf, ndata, rows)
+    if apply_node_func is not None:
+        _write_rows(dstf, apply_node_func(NodeBatch(dict(dstf))), rows)
+    return ndata
+
+
+def _np_ids(ids) -> np.ndarray:
+    return _asnumpy(ids).astype(np.int64)
+
+
+def _subset_udf_reduce(g: Graph, cet, eids: np.ndarray, rfunc, msgdata):
+    """The padded-mailbox UDF reduce over an edge subset: slot ``r`` of
+    node ``d`` holds the subset's r-th edge into ``d`` in the subset's
+    order, the slots laid out on the host from the subset sorted by
+    destination (reference ``core.py:382-413``). Returns the UDF's output
+    and the destinations the subset reaches."""
+    rel = g._relations[cet]
+    dst_np = rel.host_arrays("dst")[0][eids].astype(np.int64)
+    order = np.argsort(dst_np, kind="stable")
+    eids_sorted, dst_sorted = eids[order], dst_np[order]
+    n = rel.num_dst
+    deg = np.bincount(dst_sorted, minlength=n)
+    maxdeg = max(int(deg.max()) if deg.size else 0, 1)
+    cum = np.concatenate(([0], np.cumsum(deg)))
+    rank = np.arange(eids.shape[0]) - cum[dst_sorted]
+    dev = g.device
+    slot = torch.from_numpy(dst_sorted * maxdeg + rank).to(dev)
+    picked = torch.from_numpy(eids_sorted).to(dev)
+    mailbox = {}
+    for k, m in msgdata.items():
+        vs = m.index_select(0, picked)
+        buf = vs.new_zeros((n * maxdeg,) + tuple(vs.shape[1:]))
+        mailbox[k] = buf.index_copy(0, slot, vs).reshape(
+            (n, maxdeg) + tuple(vs.shape[1:]))
+    mask = (torch.arange(maxdeg, device=dev)[None, :]
+            < torch.from_numpy(deg).to(dev)[:, None])
+    out = rfunc(NodeBatch(dict(_dst_frame(g, cet)), mailbox, mask))
+    if not isinstance(out, dict):
+        raise DGLError("Reduce UDF must return a dict of node fields")
+    return out, np.unique(dst_sorted)
+
+
+def _subset_reduce(name: str, msg, dst, n: int):
+    """A builtin reducer over the subset's messages ``msg`` by destination
+    ``dst`` (reference ``core.py:414-429``): sum, mean (over the subset's
+    in-edges), max or min, the last two 0 wherever the result is not
+    finite (a destination the subset does not reach, and an infinite
+    message)."""
+    shape = (n,) + tuple(msg.shape[1:])
+    idx = dst.reshape((-1,) + (1,) * (msg.dim() - 1))
+    if name in ("sum", "mean"):
+        out = msg.new_zeros(shape).index_add(0, dst, msg)
+        if name == "mean":
+            cnt = torch.bincount(dst, minlength=n).to(msg.dtype)
+            out = out / torch.clamp(cnt, min=1).reshape(
+                (n,) + (1,) * (msg.dim() - 1))
+        return out
+    if name not in ("max", "min"):
+        raise DGLError(f"Unknown reduce {name!r}")
+    fill = -torch.inf if name == "max" else torch.inf
+    out = msg.new_full(shape, fill).scatter_reduce(
+        0, idx.expand_as(msg), msg, "amax" if name == "max" else "amin")
+    return torch.where(torch.isfinite(out), out, 0)
+
+
+def send_and_recv(g: Graph, edges, message_func, reduce_func,
+                  apply_node_func=None, etype=None):
+    """``DGLGraph.send_and_recv`` (reference ``heterograph.py:5230``;
+    ``dgl_tpu/core.py:357-445``): the messages of every edge, of which the
+    edges ``edges`` (host ids) are reduced by destination; only the
+    destinations they reach are written (a field the frame lacks takes the
+    whole result). Returns the reduce's fields."""
+    cet = g.to_canonical_etype(etype)
+    rel = g._relations[cet]
+    if isinstance(message_func, MessageFunction):
+        msgdata = invoke_gsddmm(g, cet, message_func)
+    else:
+        msgdata = invoke_edge_udf(g, cet, message_func)
+    eids = np.atleast_1d(_np_ids(edges))
+    if isinstance(reduce_func, ReduceFunction):
+        picked = torch.from_numpy(eids).to(g.device)
+        dst = rel.dst.index_select(0, picked).to(torch.int64)
+        out = {reduce_func.out_field: _subset_reduce(
+            reduce_func.name,
+            msgdata[reduce_func.msg_field].index_select(0, picked), dst,
+            rel.num_dst)}
+        touched = np.unique(rel.host_arrays("dst")[0][eids])
+    else:
+        out, touched = _subset_udf_reduce(g, cet, eids, reduce_func, msgdata)
+    rows = torch.from_numpy(touched.astype(np.int64)).to(g.device)
+    dstf = _dst_frame(g, cet)
+    _write_rows(dstf, out, rows)
+    if apply_node_func is not None:
+        _write_rows(dstf, apply_node_func(NodeBatch(dict(dstf))), rows)
+    return out
+
+
+def push(g: Graph, u, message_func, reduce_func, apply_node_func=None,
+         etype=None):
+    """``DGLGraph.push`` (reference ``heterograph.py:5330``;
+    ``dgl_tpu/core.py:448-459``): ``send_and_recv`` over the out-edges of
+    the nodes ``u``, taken from the CSR's edge ids."""
+    rel = g._relation(etype)
+    indptr, csr_eids = rel.host_arrays("csr_indptr", "csr_eids")
+    u_np = np.atleast_1d(_np_ids(u))
+    eids = (np.concatenate([csr_eids[indptr[i]:indptr[i + 1]] for i in u_np])
+            if u_np.size else np.zeros(0, np.int64))
+    return send_and_recv(g, eids, message_func, reduce_func,
+                         apply_node_func, etype=etype)

@@ -111,6 +111,10 @@ class FixedShapeNeighborSampler(BlockSampler):
         output_nodes, blocks)``, the innermost frontier's (cap_src,) ids
         with -1 padding and the seeds, both int64 on the device, and the
         blocks, innermost first."""
+        if not g.is_homogeneous:
+            raise NotImplementedError(
+                "heterogeneous sampling (several node or edge types): "
+                "ROADMAP queue A9")
         seed_nodes = _asnumpy(seed_nodes).astype(np.int64)
         if seed_nodes.shape[0] > self.batch_size:
             raise DGLError(f"got {seed_nodes.shape[0]} seeds > batch_size "

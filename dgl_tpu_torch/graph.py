@@ -5,11 +5,14 @@ tensors, built once on the host with numpy and moved to the graph's device.
 Padded edges (beyond ``num_edges``) point at the virtual rows
 ``num_src``/``num_dst``, as in the reference. A :class:`Graph` maps
 canonical edge types to relations and keeps node and edge features in plain
-dicts behind ``ndata``/``srcdata``/``dstdata``/``edata`` views.
+dicts, one per type, behind ``ndata``/``srcdata``/``dstdata``/``edata``
+views (``nodes[ntype].data`` and ``edges_view[etype].data`` for one type of
+several).
 
-Ported: the homogeneous graph (one node type, one edge type) and the
+Ported: graphs of any number of node and edge types, and the
 message-flow-graph block (``is_block=True``, reference ``create_block``),
-whose destination nodes have a frame of their own.
+whose destination nodes have frames of their own and may be of other types
+than its sources.
 """
 from __future__ import annotations
 
@@ -285,41 +288,159 @@ class Relation:
 
 
 # ---------------------------------------------------------------------------
-# Data views (ndata / srcdata / dstdata / edata)
+# Data views (ndata / srcdata / dstdata / edata; reference view.py)
 # ---------------------------------------------------------------------------
 
 
-class _FrameView(Mapping):
-    """Dict view of one feature frame with a first-dimension check."""
+class _DataView(Mapping):
+    """A mapping over the frame ``_frame()`` resolves; setting is the
+    subclass's."""
 
-    __slots__ = ("_frame", "_rows", "_what")
-
-    def __init__(self, frame: Dict[str, Any], rows: Tuple[int, ...], what):
-        self._frame = frame
-        self._rows = rows
-        self._what = what
+    __slots__ = ()
 
     def __getitem__(self, key):
-        return self._frame[key]
+        return self._frame()[key]
 
-    def __setitem__(self, key, value):
-        if value.shape[0] not in self._rows:
-            raise DGLError(f"Feature first dim {value.shape[0]} != number "
-                           f"of {self._what} {self._rows[0]}")
-        self._frame[key] = value
+    def __delitem__(self, key):
+        del self._frame()[key]
+
+    def __iter__(self):
+        return iter(self._frame())
+
+    def __len__(self):
+        return len(self._frame())
+
+    def pop(self, key):
+        return self._frame().pop(key)
 
     def update(self, other):
         for key, value in dict(other).items():
             self[key] = value
 
-    def __iter__(self):
-        return iter(self._frame)
-
-    def __len__(self):
-        return len(self._frame)
-
     def __repr__(self):
-        return repr(dict(self._frame))
+        return repr(dict(self._frame()))
+
+
+class HeteroNodeDataView(_DataView):
+    """``g.ndata`` / ``g.srcdata`` / ``g.dstdata`` (counterpart of
+    ``dgl_tpu.graph.HeteroNodeDataView``). With one node type of its role
+    (``"node"``, ``"src"`` or ``"dst"``) it is that type's frame; with
+    several, reading needs ``g.nodes[ntype].data`` and setting takes a dict
+    of per-type values. Values are checked against the type's row count."""
+
+    __slots__ = ("_graph", "_ntype", "_role")
+
+    def __init__(self, graph: "Graph", ntype: Optional[str], role: str):
+        self._graph = graph
+        self._ntype = ntype
+        self._role = role
+
+    def _types(self):
+        g = self._graph
+        if self._role == "src":
+            return g.srctypes
+        if self._role == "dst":
+            return g.dsttypes
+        return g.ntypes
+
+    def _frame(self, ntype=None) -> Dict[str, Any]:
+        nt = ntype if ntype is not None else self._ntype
+        if nt is None:
+            types = self._types()
+            if len(types) != 1:
+                raise DGLError(
+                    "Graph has multiple node types; use g.nodes[ntype].data "
+                    "or pass an explicit ntype.")
+            nt = types[0]
+        frames = (self._graph._dst_frames if self._role == "dst"
+                  else self._graph._node_frames)
+        return frames.setdefault(nt, {})
+
+    def _check_shape(self, ntype, value):
+        g = self._graph
+        n = (g.num_dst_nodes(ntype) if self._role == "dst"
+             else g.num_src_nodes(ntype) if self._role == "src"
+             else g.num_nodes(ntype))
+        if value.shape[0] != n:
+            raise DGLError(f"Feature first dim {value.shape[0]} != number "
+                           f"of {self._role} nodes {n} for ntype {ntype!r}")
+
+    def __setitem__(self, key, value):
+        if self._ntype is None and len(self._types()) > 1:
+            if not isinstance(value, Mapping):
+                raise DGLError("Setting ndata on a graph with multiple node "
+                               "types requires a dict of per-type values.")
+            for nt, v in value.items():
+                self._check_shape(nt, v)
+                self._frame(nt)[key] = v
+            return
+        nt = self._ntype if self._ntype is not None else self._types()[0]
+        self._check_shape(nt, value)
+        self._frame(nt)[key] = value
+
+
+class HeteroEdgeDataView(_DataView):
+    """``g.edata`` (counterpart of ``dgl_tpu.graph.HeteroEdgeDataView``):
+    one edge type's frame; with several, reading needs
+    ``g.edges_view[etype].data`` and setting takes a dict keyed by etype.
+    Values hold ``num_edges`` or the padded count of rows."""
+
+    __slots__ = ("_graph", "_etype")
+
+    def __init__(self, graph: "Graph", etype=None):
+        self._graph = graph
+        self._etype = etype
+
+    def _cet(self, etype=None) -> CanonicalEtype:
+        g = self._graph
+        et = etype if etype is not None else self._etype
+        if et is None and len(g.canonical_etypes) != 1:
+            raise DGLError("Graph has multiple edge types; use "
+                           "g.edges_view[etype].data.")
+        return g.to_canonical_etype(et)
+
+    def _frame(self, etype=None) -> Dict[str, Any]:
+        return self._graph._edge_frames.setdefault(self._cet(etype), {})
+
+    def _set(self, cet, key, value):
+        rel = self._graph._relations[cet]
+        if value.shape[0] not in (rel.num_edges, rel.num_edges_padded):
+            raise DGLError(f"Feature first dim {value.shape[0]} != number "
+                           f"of edges {rel.num_edges} for etype {cet!r}")
+        self._graph._edge_frames.setdefault(cet, {})[key] = value
+
+    def __setitem__(self, key, value):
+        if self._etype is None and len(self._graph.canonical_etypes) > 1:
+            if not isinstance(value, Mapping):
+                raise DGLError("Setting edata on a graph with multiple edge "
+                               "types requires a dict of per-etype values.")
+            for et, v in value.items():
+                self._set(self._cet(et), key, v)
+            return
+        self._set(self._cet(), key, value)
+
+
+class _TypedView:
+    """``g.nodes[ntype].data`` / ``g.edges_view[etype].data``."""
+
+    __slots__ = ("_graph", "_kind")
+
+    def __init__(self, graph, kind):
+        self._graph = graph
+        self._kind = kind
+
+    def __getitem__(self, key):
+        view = (HeteroNodeDataView(self._graph, key, "node")
+                if self._kind == "node"
+                else HeteroEdgeDataView(self._graph, key))
+        return _TypedData(view)
+
+
+class _TypedData:
+    __slots__ = ("data",)
+
+    def __init__(self, view):
+        self.data = view
 
 
 # ---------------------------------------------------------------------------
@@ -328,42 +449,37 @@ class _FrameView(Mapping):
 
 
 class Graph:
-    """Homogeneous graph or block: one node type, one relation, feature
+    """Graph or block of one or more node and edge types, with feature
     frames.
 
-    Counterpart of ``dgl_tpu.graph.Graph`` (reference ``DGLGraph``). A
-    block (``is_block=True``, a message-flow graph) has separate source
-    and destination node spaces: ``srcdata`` (also ``ndata``) holds
-    ``num_src_nodes()`` rows, ``dstdata`` ``num_dst_nodes()`` rows in a
-    frame of its own. On a graph both views share one frame.
+    Counterpart of ``dgl_tpu.graph.Graph`` (reference ``DGLGraph``). Each
+    canonical edge type ``(src_type, etype, dst_type)`` is a
+    :class:`Relation`. A block (``is_block=True``, a message-flow graph)
+    has separate source and destination node spaces, which may hold other
+    types: ``srcdata`` (also ``ndata``) holds ``num_src_nodes()`` rows,
+    ``dstdata`` ``num_dst_nodes()`` rows in frames of their own. On a
+    graph both views share one frame per type.
     """
 
     def __init__(self, relations: Dict[CanonicalEtype, Relation],
                  num_src_nodes: Dict[str, int],
                  num_dst_nodes: Optional[Dict[str, int]] = None,
                  is_block: bool = False):
-        if len(relations) != 1 or len(num_src_nodes) != 1:
-            raise NotImplementedError(
-                "heterogeneous graphs are ported in a later slice "
-                "(ROADMAP queue A1)")
         self._relations = dict(relations)
         self._canonical_etypes = tuple(self._relations)
         self._num_src_nodes = dict(num_src_nodes)
         self._num_dst_nodes = dict(num_dst_nodes if num_dst_nodes is not None
                                    else num_src_nodes)
-        if self._num_dst_nodes.keys() != self._num_src_nodes.keys():
-            raise NotImplementedError(
-                "blocks between node types: heterogeneous graphs "
-                "(ROADMAP queue A1)")
         self._is_block = bool(is_block)
         self._node_frames: Dict[str, Dict[str, Any]] = {}
         # a block's destination nodes have their own frames; a graph's
         # are its node frames
         self._dst_frames = {} if self._is_block else self._node_frames
         self._edge_frames: Dict[CanonicalEtype, Dict[str, Any]] = {}
-        for (st, _, dt) in self._relations:
+        for (st, et, dt) in self._relations:
             if st not in self._num_src_nodes or dt not in self._num_dst_nodes:
-                raise DGLError(f"Unknown node type in relation {st}->{dt}")
+                raise DGLError(f"Unknown node type in relation ({st},{et},"
+                               f"{dt})")
 
     # -- schema ------------------------------------------------------------
 
@@ -372,19 +488,53 @@ class Graph:
         return self._is_block
 
     @property
+    def canonical_etypes(self) -> Tuple[CanonicalEtype, ...]:
+        return self._canonical_etypes
+
+    @property
+    def etypes(self):
+        return [et for _, et, _ in self._canonical_etypes]
+
+    @property
     def ntypes(self):
+        """Node types in the reference's order: the source types, then a
+        block's destination types not among them."""
+        seen = dict.fromkeys(self._num_src_nodes)
+        if self._is_block:
+            seen.update(dict.fromkeys(self._num_dst_nodes))
+        return list(seen)
+
+    @property
+    def srctypes(self):
         return list(self._num_src_nodes)
 
     @property
+    def dsttypes(self):
+        return list(self._num_dst_nodes)
+
+    @property
+    def is_homogeneous(self) -> bool:
+        return len(self.ntypes) == 1 and len(self._canonical_etypes) == 1
+
+    def _first_relation(self) -> Relation:
+        return next(iter(self._relations.values()))
+
+    @property
     def idtype(self):
-        return self._relation().src.dtype
+        return self._first_relation().src.dtype
 
     @property
     def device(self) -> torch.device:
-        return self._relation().device
+        return self._first_relation().device
 
     def to_canonical_etype(self, etype) -> CanonicalEtype:
+        """Resolve an edge type name or triplet (reference
+        ``heterograph.py:1121``)."""
         if etype is None:
+            if len(self._canonical_etypes) != 1:
+                raise DGLError(
+                    "Edge type name must be specified for graphs with "
+                    f"multiple edge types: {self._canonical_etypes}")
             return self._canonical_etypes[0]
         if isinstance(etype, tuple):
             if tuple(etype) not in self._relations:
@@ -393,6 +543,9 @@ class Graph:
         matches = [c for c in self._canonical_etypes if c[1] == etype]
         if not matches:
             raise DGLError(f"Unknown edge type {etype!r}")
+        if len(matches) > 1:
+            raise DGLError(f"Edge type {etype!r} is ambiguous; use a "
+                           f"canonical triplet. Candidates: {matches}")
         return matches[0]
 
     def _relation(self, etype=None) -> Relation:
@@ -401,41 +554,81 @@ class Graph:
     # -- counts --------------------------------------------------------------
 
     def num_nodes(self, ntype: Optional[str] = None) -> int:
-        """The node count; on a block the source nodes', which hold the
-        destination nodes first."""
-        return self._num_src_nodes[ntype or self.ntypes[0]]
+        """A type's node count, or without ``ntype`` the total; on a block
+        the source nodes', which hold the destination nodes first."""
+        if self._is_block:
+            return self.num_src_nodes(ntype)
+        if ntype is None:
+            return sum(self._num_src_nodes.values())
+        if ntype not in self._num_src_nodes:
+            raise DGLError(f"Unknown node type {ntype!r}")
+        return self._num_src_nodes[ntype]
 
     def num_src_nodes(self, ntype: Optional[str] = None) -> int:
-        return self.num_nodes(ntype)
+        if ntype is None:
+            return sum(self._num_src_nodes.values())
+        return self._num_src_nodes[ntype]
 
     def num_dst_nodes(self, ntype: Optional[str] = None) -> int:
-        return self._num_dst_nodes[ntype or self.ntypes[0]]
+        if ntype is None:
+            return sum(self._num_dst_nodes.values())
+        return self._num_dst_nodes[ntype]
 
     def num_edges(self, etype=None) -> int:
+        if etype is None and len(self._canonical_etypes) > 1:
+            return sum(r.num_edges for r in self._relations.values())
         return self._relation(etype).num_edges
 
     # -- data views ----------------------------------------------------------
 
     @property
     def ndata(self):
-        return _FrameView(self._node_frames.setdefault(self.ntypes[0], {}),
-                          (self.num_nodes(),), "nodes")
+        return HeteroNodeDataView(self, None, "node")
 
-    srcdata = ndata
+    @property
+    def srcdata(self):
+        return HeteroNodeDataView(self, None, "src")
 
     @property
     def dstdata(self):
-        return _FrameView(self._dst_frames.setdefault(self.ntypes[0], {}),
-                          (self.num_dst_nodes(),), "dst nodes")
+        return HeteroNodeDataView(self, None, "dst")
 
     @property
     def edata(self):
-        rel = self._relation()
-        frame = self._edge_frames.setdefault(self._canonical_etypes[0], {})
-        return _FrameView(frame, (rel.num_edges, rel.num_edges_padded),
-                          "edges")
+        return HeteroEdgeDataView(self, None)
+
+    @property
+    def nodes(self):
+        """``g.nodes[ntype].data``: one node type's frame."""
+        return _TypedView(self, "node")
+
+    @property
+    def edges_view(self):
+        """``g.edges_view[etype].data``: one edge type's frame."""
+        return _TypedView(self, "edge")
 
     # -- structure queries ---------------------------------------------------
+
+    def edges(self, form: str = "uv", order: str = "eid", etype=None):
+        """Edge endpoints (reference ``heterograph.py`` ``all_edges``), the
+        padded edges included: ``order="eid"`` in edge-id order,
+        ``"srcdst"`` grouped by source."""
+        rel = self._relation(etype)
+        if order == "eid":
+            u, v = rel.src, rel.dst
+            e = torch.arange(rel.num_edges_padded, dtype=u.dtype,
+                             device=u.device)
+        elif order == "srcdst":
+            u, v, e = rel.csr_src, rel.csr_indices, rel.csr_eids
+        else:
+            raise DGLError(f"Unknown edge order {order!r}")
+        if form == "uv":
+            return u, v
+        if form == "all":
+            return u, v, e
+        if form == "eid":
+            return e
+        raise DGLError(f"Unknown form {form!r}")
 
     def in_degrees(self, v=ALL, etype=None):
         deg = self._relation(etype).in_degrees()
@@ -554,7 +747,9 @@ class Graph:
                         bitmap: bool | str = "auto",
                         bitmap_max_bytes: int = 2 << 30,
                         bitmap_min_density: float = 5e-4) -> "Graph":
-        """A copy whose relation carries the reference's SpMM plans.
+        """A copy whose relations carry the reference's SpMM plans, each
+        relation's built and gated on its own (reference
+        ``graph.py:1112-1184``; bipartite relations included).
 
         - A dense-hub plan (:mod:`dgl_tpu_torch.ops.hub_spmm`), always.
         - A packed-bitmap plan (:mod:`dgl_tpu_torch.ops.bitmap_spmm`) when
@@ -595,6 +790,10 @@ class Graph:
             return (f"Block(num_src_nodes={self.num_src_nodes()}, "
                     f"num_dst_nodes={self.num_dst_nodes()}, "
                     f"num_edges={self.num_edges()}, device={self.device})")
+        if not self.is_homogeneous:
+            counts = {c: r.num_edges for c, r in self._relations.items()}
+            return (f"Graph(num_nodes={self._num_src_nodes}, "
+                    f"num_edges={counts}, device={self.device})")
         return (f"Graph(num_nodes={self.num_nodes()}, "
                 f"num_edges={self.num_edges()}, device={self.device})")
 

@@ -2,6 +2,7 @@
 from .device_sage import DeviceSAGE
 from .gat import GAT
 from .gcn import GCN
+from .rgcn import RGCN
 from .sage import GraphSAGE
 
-__all__ = ["DeviceSAGE", "GAT", "GCN", "GraphSAGE"]
+__all__ = ["DeviceSAGE", "GAT", "GCN", "GraphSAGE", "RGCN"]

@@ -1,3 +1,4 @@
 """GNN layers (counterpart of ``dgl_tpu/nn/``), as ``torch.nn`` modules."""
 from .conv import *  # noqa: F401,F403
+from .hetero import HeteroGraphConv  # noqa: F401
 from .utils_nn import EdgeWeightNorm  # noqa: F401

@@ -2,7 +2,8 @@
 from .gatconv import GATConv
 from .graphconv import (GraphConv, check_zero_in_degree, expand_as_pair,
                         precompute_graphconv)
+from .relgraphconv import RelGraphConv
 from .sageconv import SAGEConv
 
-__all__ = ["GATConv", "GraphConv", "SAGEConv", "check_zero_in_degree",
-           "expand_as_pair", "precompute_graphconv"]
+__all__ = ["GATConv", "GraphConv", "RelGraphConv", "SAGEConv",
+           "check_zero_in_degree", "expand_as_pair", "precompute_graphconv"]

@@ -17,6 +17,7 @@ from dgl_tpu_torch import _kernels
 from dgl_tpu_torch.models import GAT, GCN, GraphSAGE
 from dgl_tpu_torch.nn import GATConv
 from dgl_tpu_torch.ops import bitmap_gat as tbg
+from dgl_tpu_torch.ops import hub_spmm
 from dgl_tpu_torch.ops.bitmap_spmm import (
     bitmap_copy_u_sum, bitmap_matmul, bitmap_matmul_plain, build_bitmap_plan,
     unpack_host)
@@ -107,6 +108,82 @@ def test_hub_copy_u_sum_on_card_matches_cpu(card):
     assert _kernels.launch_counts["shell_prefix_sum"] == before + 1
     # same bf16 products and f32 sums, in another order on the card
     torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
+def _bipartite_relation(case):
+    """B1's hub caller on bipartite relations (``num_src != num_dst``), as
+    a heterogeneous graph's ``with_spmm_plans`` builds them:
+
+    - ``few_dst``: 30,000 zipf sources into 300 destinations, far fewer
+      rows than the 2,048 hubs (a forward residual: 400 in-edges a row);
+    - ``empty_dst``: 5,000 sources into 9,000 destinations, 4,000 of them
+      with no in-edge;
+    - ``all_hubs``: 500 sources, every one a hub: no cold edge, so no shell
+      in either direction and no launch.
+    """
+    rng = np.random.default_rng({"few_dst": 1, "empty_dst": 2,
+                                 "all_hubs": 3}[case])
+    n_src, n_dst, e = {"few_dst": (30_000, 300, 120_000),
+                       "empty_dst": (5_000, 9_000, 40_000),
+                       "all_hubs": (500, 7_000, 20_000)}[case]
+    w = 1.0 / np.arange(1, n_src + 1)
+    src = rng.choice(n_src, e, p=w / w.sum())
+    dst = rng.integers(0, n_dst if case != "empty_dst" else 5_000, e)
+    data = {("a", "r", "b"): (src, dst)}
+    g = dt.heterograph(data, {"a": n_src, "b": n_dst}, device="cpu")
+    return g._relation(), n_src, n_dst
+
+
+@pytest.mark.parametrize("case", ["few_dst", "empty_dst", "all_hubs"])
+def test_b1_on_bipartite_hub_plans(card, case):
+    """The plan built on the card equals the CPU's; B1 against its plain
+    version on both directions' shells (rtol = atol = 1e-5, the same sums
+    in the same order), and ``hub_copy_u_sum``'s forward and backward on
+    the card against the CPU (rtol = atol = 1e-4 of max|ref|: bf16
+    products summed in another order), with one launch a direction that
+    has shells and none where it has none."""
+    rel, n_src, n_dst = _bipartite_relation(case)
+    plan = build_hub_plan(rel, 2048, "int8")
+    cplan = build_hub_plan(rel.to(card), 2048, "int8")
+    assert tuple(cplan.a_hub.shape) == (n_dst, plan.num_hubs)
+    torch.testing.assert_close(cplan.a_hub.cpu(), plan.a_hub, rtol=0, atol=0)
+    for f in ("hub_ids", "shell_idx", "rev_shell_idx"):
+        a, b = getattr(cplan, f), getattr(plan, f)
+        assert (a is None) == (b is None)
+        assert b is None or torch.equal(a.cpu(), b)
+    if case == "few_dst":
+        assert n_dst < plan.num_hubs and plan.res_dst is not None
+    if case == "empty_dst":
+        assert int((rel.in_degrees() == 0).sum()) >= 4_000
+    if case == "all_hubs":
+        assert not plan.shell_rows and not plan.rev_shell_rows
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(n_src, 64)).astype(np.float32))
+    dz = torch.from_numpy(rng.normal(size=(n_dst, 64)).astype(np.float32))
+    for reverse, table in ((False, x), (True, dz)):
+        flat, rows, levels, _res, _unrank, n_out = cplan.direction(reverse)
+        if not rows:
+            continue
+        xg = table.to(card).to(torch.bfloat16)
+        base = hub_spmm._residual_base(xg, cplan, reverse)
+        out = shell_prefix_sum(xg, flat, rows, n_out, base=base,
+                               levels=levels)
+        ref = shell_prefix_sum_plain(xg, flat, rows, n_out, base=base)
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        assert out.shape == (n_dst if not reverse else n_src, 64)
+    ref_out = hub_copy_u_sum(plan, x.requires_grad_())
+    (ref_out * dz).sum().backward()
+    xc = x.detach().to(card).requires_grad_()
+    before = _kernels.launch_counts["shell_prefix_sum"]
+    out = hub_copy_u_sum(cplan, xc)
+    (out * dz.to(card)).sum().backward()
+    torch.cuda.synchronize()
+    expect = int(bool(plan.shell_rows)) + int(bool(plan.rev_shell_rows))
+    assert _kernels.launch_counts["shell_prefix_sum"] == before + expect
+    for got, want in ((out.detach(), ref_out.detach()), (xc.grad, x.grad)):
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                   atol=1e-4 * scale)
 
 
 # ---------------------------------------------------------------------------

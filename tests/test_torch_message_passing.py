@@ -415,17 +415,22 @@ def test_apply_edges_and_nodes_subsets():
 
 
 def test_later_paths_raise():
-    _, tg = _graph("simple", seed=12)
-    tg.ndata["h"] = torch.ones(N, 2)
-    msg, red = tfn.copy_u("h", "m"), tfn.sum("m", "o")
-    with pytest.raises(NotImplementedError, match="pull"):
-        tg.pull([0, 1], msg, red)
-    with pytest.raises(NotImplementedError, match="push"):
-        tg.push([0], msg, red)
-    with pytest.raises(NotImplementedError, match="send_and_recv"):
-        tg.send_and_recv([0, 1], msg, red)
-    with pytest.raises(NotImplementedError, match="multi_update_all"):
-        tg.multi_update_all({None: (msg, red)}, "sum")
+    """``pull``, ``push``, ``send_and_recv`` and ``multi_update_all`` run
+    since the heterogeneous slice (they raised before it): the reference's
+    frames on the same graph, field by field."""
+    jg, tg = _graph("simple", seed=12)
+    h = _rand((N, 2), 5)
+    jg.ndata["h"] = jnp.asarray(h)
+    tg.ndata["h"] = torch.from_numpy(h)
+    for g, fn in ((jg, jfn), (tg, tfn)):
+        msg, red = fn.copy_u("h", "m"), fn.sum("m", "o")
+        g.pull([0, 1], msg, red)
+        g.push([0], msg, fn.max("m", "p"))
+        g.send_and_recv([0, 1], msg, fn.mean("m", "s"))
+        g.multi_update_all({None: (msg, red)}, "sum")
+    for field in ("o", "p", "s"):
+        np.testing.assert_allclose(tg.ndata[field].numpy(),
+                                   np.asarray(jg.ndata[field]), **TOL)
 
 
 def test_relation_reverse_and_edge_mask():

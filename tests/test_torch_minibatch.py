@@ -418,11 +418,23 @@ def test_create_block_matches_reference():
                              num_edges=5, device="cpu")
     assert padded.num_edges() == 5
     assert padded._relation().num_edges_padded == 6
-    with pytest.raises(NotImplementedError, match="A1"):
-        dt.create_block({("u", "e", "v"): (src, dst)}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A1"):
-        dt.create_block({("_N", "a", "_N"): (src, dst),
-                         ("_N", "b", "_N"): (src, dst)}, device="cpu")
+    # blocks between node types and of several edge types run since the
+    # heterogeneous slice (they raised before it): the reference's counts
+    # and arrays
+    for data in ({("u", "e", "v"): (src, dst)},
+                 {("_N", "a", "_N"): (src, dst),
+                  ("_N", "b", "_N"): (dst, src)}):
+        jb = dgl_tpu.create_block(data)
+        tb = dt.create_block(data, device="cpu")
+        assert tb.canonical_etypes == jb.canonical_etypes
+        assert tb.ntypes == jb.ntypes
+        for cet in jb.canonical_etypes:
+            assert (tb.num_src_nodes(cet[0]), tb.num_dst_nodes(cet[2])) == (
+                jb.num_src_nodes(cet[0]), jb.num_dst_nodes(cet[2]))
+            for f in dt.Relation.ARRAY_FIELDS:
+                np.testing.assert_array_equal(
+                    getattr(tb._relation(cet), f).numpy(),
+                    np.asarray(getattr(jb._relation(cet), f)))
 
 
 def test_block_frames():
