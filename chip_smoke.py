@@ -181,6 +181,20 @@ levels and residuals printed, ``plans_s``):
      gradients against the per-edge route within 3e-2 L2-relative and the
      loss sum(out**2) within 1e-2, the reference's bound for that route;
      one training step with both dropouts 0.6;
+18d. the conv zoo over the same graph and plans (``run_conv_zoo``):
+     GATv2Conv, DotGatConv, AGNNConv, EGATConv, EdgeGATConv, GINConv
+     (sum), GINEConv, EdgeConv, SGConv (k = 2), APPNPConv (k = 10),
+     TAGConv, ChebConv (k = 3), GCN2Conv with and without edge weights,
+     GatedGraphConv, NNConv (16 -> 16: its per-edge matrices), GMMConv
+     (sum, mean, max) and CFConv, at in 128 and out 256 (4 heads of 64):
+     one forward and one backward on the planned graph with the launches
+     counted (the forward's B1 launches, one a ``copy_u`` sum through the
+     hub plan, and B1w launches, one an other sum or mean through the
+     shell plan, must be ``zoo_convs``' table) and on the graph without
+     plans (none), every output and gradient held at rtol = 2e-2,
+     atol = 2e-2 * max|ref| (the max convs against the plain path
+     following the plan's picks, ``following_plan_max``), and the
+     forward's time on both;
 
 the minibatch GraphSAGE paths (no hand kernel), on the zipf graph with
 ``bench.py``'s ogbn-products widths (100-wide f32 features, labels in
@@ -239,7 +253,16 @@ over 4 relations, 128-wide features, 349 classes; the recipe of
     ``to_homogeneous`` of the same recipe at 1/8 of its counts (242,468
     nodes, 2,638,877 edges; no hand kernel, every count 0): one forward
     and one step held against the same model on the CPU at rtol = 1e-4,
-    atol = 1e-4 * max|ref|, times and a step's profile.
+    atol = 1e-4 * max|ref|, times and a step's profile;
+24. DGL's HGT (``hgt_model``: per-type ``HeteroLinear`` adapters into 256
+    and GELU, two ``HGTConv`` layers of 4 heads of 64 with ``use_norm``
+    and dropout 0.2, a linear classifier to 349 on the paper rows) over
+    ``to_homogeneous`` of the same recipe: at 1/32 of its counts one
+    forward and one step (dropout off) held against the same model on the
+    CPU at rtol = 1e-4, atol = 1e-4 * max|ref|; at 1/8 (242,468 nodes,
+    2,638,877 edges) one counted forward and one counted step (no hand
+    kernel: every count 0) with their peak memory, three more steps with
+    finite, falling losses, times and profiles.
 
 Every training input is built outside ``torch.inference_mode()``.
 It prints one JSON object per result line, the kernel table as
@@ -2969,7 +2992,262 @@ def run_weighted(rate: float, edge_step_ms: float, ptxas: dict,
     entry = run_weighted_gcn(gp, g, x, y, mask, rate,
                              ptxas["shell_prefix_sum"], tag)
     entry["fused_gat"] = run_fused_gat(gp, g, x, y, mask, edge_step_ms, tag)
+    entry["conv_zoo"] = run_conv_zoo(gp, g, x, tag)
     return entry
+
+
+# ---------------------------------------------------------------------------
+# the conv zoo over the arxiv plans (B1 and B1w under new callers)
+# ---------------------------------------------------------------------------
+
+ZOO_OUT, ZOO_HEADS, ZOO_EDGE_FEATS = 256, 4, 16  # in is IN_FEATS (128)
+# NNConv's per-edge (in, out) matrices: (E, in * out) f32, 175 GB at
+# 128 x 256 over the 1,335,586 edges; 16 x 16 takes 1.37 GB
+NNCONV_FEATS = 16
+
+
+def zoo_convs(device="cuda"):
+    """The convs of the zoo phase, weights from seed 0: (name, module,
+    extra inputs, (B1, B1w) launches a forward on the weighted graph's
+    plans). Extra inputs: ``"e"`` (E, 16) edge features, ``"e128"``
+    (E, 128), ``"w"`` (E,) edge weights, ``"x0"`` the initial features,
+    ``"t"`` (E,) edge types in [0, 3), ``"p"`` (E, 2) pseudo-coordinates,
+    ``"x16"`` the input's first 16 columns in place of the input. Copy_u
+    sums go through the hub plan (B1), other sum and mean ops through
+    the shell plan (B1w), max through the shell plan's PyTorch
+    reductions (no kernel)."""
+    import torch
+    from torch import nn
+
+    from dgl_tpu_torch.nn import conv as c
+
+    gen = torch.Generator().manual_seed(0)
+    kw = dict(generator=gen, device=device)
+    F, O, H, FE = IN_FEATS, ZOO_OUT, ZOO_HEADS, ZOO_EDGE_FEATS
+
+    def lin(a, b):
+        m = nn.Linear(a, b)
+        with torch.no_grad():
+            nn.init.xavier_uniform_(m.weight, generator=gen)
+            m.bias.zero_()
+        return m
+
+    return [
+        ("GATv2Conv", c.GATv2Conv(F, O // H, H, **kw), (), (0, 1)),
+        ("DotGatConv", c.DotGatConv(F, O // H, H, **kw), (), (0, 1)),
+        ("AGNNConv", c.AGNNConv(device=device), (), (0, 1)),
+        ("EGATConv", c.EGATConv(F, FE, O // H, FE, H, **kw), ("e",),
+         (0, 1)),
+        ("EdgeGATConv", c.EdgeGATConv(F, FE, O // H, H, **kw), ("e",),
+         (0, 1)),
+        ("GINConv sum", c.GINConv(lin(F, O), "sum", learn_eps=True,
+                                  device=device), (), (1, 0)),
+        ("GINEConv", c.GINEConv(lin(F, O), learn_eps=True, device=device),
+         ("e128",), (0, 1)),
+        ("EdgeConv", c.EdgeConv(F, O, **kw), (), (0, 0)),
+        ("SGConv k=2", c.SGConv(F, O, k=2, **kw), (), (2, 0)),
+        ("APPNPConv k=10", c.APPNPConv(), (), (10, 0)),
+        ("TAGConv k=2", c.TAGConv(F, O, k=2, **kw), (), (2, 0)),
+        ("ChebConv k=3", c.ChebConv(F, O, k=3, **kw), (), (2, 0)),
+        ("GCN2Conv", c.GCN2Conv(F, layer=1, **kw), ("x0",), (1, 0)),
+        ("GCN2Conv weighted", c.GCN2Conv(F, layer=1, **kw), ("x0", "w"),
+         (0, 1)),
+        ("GatedGraphConv", c.GatedGraphConv(F, O, 2, n_etypes=3, **kw),
+         ("t",), (0, 2)),
+        ("NNConv 16-16 mean", c.NNConv(
+            NNCONV_FEATS, NNCONV_FEATS, lin(FE, NNCONV_FEATS ** 2), "mean",
+            **kw), ("x16", "e"), (0, 1)),
+        ("GMMConv sum", c.GMMConv(F, O, 2, 4, "sum", **kw), ("p",), (0, 1)),
+        ("GMMConv mean", c.GMMConv(F, O, 2, 4, "mean", **kw), ("p",),
+         (0, 1)),
+        ("GMMConv max", c.GMMConv(F, O, 2, 4, "max", **kw), ("p",), (0, 0)),
+        ("CFConv", c.CFConv(F, FE, O, O, **kw), ("e",), (0, 1)),
+    ]
+
+
+def zoo_inputs(n, e, device="cuda"):
+    """The zoo's inputs a kind, made with numpy from a seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(6)
+
+    def put(a):
+        return torch.from_numpy(a).to(device)
+
+    return {"e": put(rng.standard_normal((e, ZOO_EDGE_FEATS),
+                                         dtype=np.float32)),
+            "e128": put(rng.standard_normal((e, IN_FEATS),
+                                            dtype=np.float32)),
+            "w": put((rng.random(e) + 0.5).astype(np.float32)),
+            "x0": put(rng.standard_normal((n, IN_FEATS), dtype=np.float32)),
+            "t": put(rng.integers(0, 3, e).astype(np.int64)),
+            "p": put(rng.uniform(-1, 1, (e, 2)).astype(np.float32))}
+
+
+# the zoo's convs that reduce with max (over the shell plan's bf16 rows)
+ZOO_MAX = ("EdgeConv", "GMMConv max")
+
+
+@contextlib.contextmanager
+def following_plan_max(plan):
+    """Within the block, the plain path's max and min g-SpMM pick each
+    destination's messages as the shell ``plan`` picks them, and return
+    the picked messages computed in f32.
+
+    The plan takes the arg-extremum of messages computed in bf16, so where
+    two messages lie within a bf16 step of each other it may pick the
+    other one, and where they round to one value it splits the pick among
+    them in the order of its reductions: either moves that destination's
+    gradient to other edges, a difference of the pick, not of the
+    gradient (as ``check_grads`` follows the plan path's ReLU pattern).
+    The picks are the gradient of the plan's own ``copy_rhs`` extremum of
+    the bf16 messages; the result is the same piecewise-linear function as
+    the plain path's, on the plan path's pieces."""
+    import torch
+
+    from dgl_tpu_torch.ops import shell_spmm, spmm
+
+    plain = spmm._gspmm_cmp
+
+    def follow(op, reduce_op, rel, u, e):
+        if rel.num_edges != rel.num_edges_padded:
+            raise RuntimeError("following_plan_max takes no padded edges")
+        src = rel.src.to(torch.int64)
+
+        def messages(uu, ee):
+            ul = None if uu is None else uu.index_select(0, src)
+            if ul is not None and ee is not None:
+                nd = max(ul.dim(), ee.dim())
+                ul, ee = spmm._expand(ul, nd), spmm._expand(ee, nd)
+            return spmm._binary(op, ul, ee)
+
+        bf = torch.bfloat16
+        m = messages(u, e)  # eid order, f32
+        mb = messages(None if u is None else u.to(bf),
+                      None if e is None else e.to(bf)).float().detach()
+        mb.requires_grad_()
+        with torch.enable_grad():
+            picked = shell_spmm.shell_gspmm_cmp(
+                "copy_rhs", reduce_op, plan, None, mb, rel.in_degrees())
+            pick, = torch.autograd.grad(picked.sum(), mb)
+        dst = rel.dst.to(torch.int64)
+        return m.new_zeros((rel.num_dst,) + tuple(m.shape[1:])).index_add(
+            0, dst, m * pick)
+
+    spmm._gspmm_cmp = follow
+    try:
+        yield
+    finally:
+        spmm._gspmm_cmp = plain
+
+
+def zoo_args(x, kinds, inputs):
+    """A zoo conv's input (``x``, or its first 16 columns for ``"x16"``),
+    its other positional inputs and its keyword inputs."""
+    x = x[:, :NNCONV_FEATS] if "x16" in kinds else x
+    args = [inputs[k] for k in kinds if k not in ("w", "x16")]
+    kw = {"edge_weight": inputs["w"]} if "w" in kinds else {}
+    return x, args, kw
+
+
+def zoo_pass(mod, graph, x, kinds, inputs, cot_seed):
+    """One forward and one backward of ``sum(out * cot)`` (cotangents of
+    the output shapes, seeded): the outputs, the gradients of the input
+    and of every parameter, and the launches of each half."""
+    import torch
+
+    from dgl_tpu_torch import _kernels
+
+    x, args, kw = zoo_args(x, kinds, inputs)
+    x = x.detach().clone().requires_grad_()
+    mod.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    outs = mod(graph, x, *args, **kw)
+    torch.cuda.synchronize()
+    fwd = dict(_kernels.launch_counts)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    gen = torch.Generator(device=x.device).manual_seed(cot_seed)
+    loss = sum((o * torch.randn(o.shape, generator=gen, device=o.device)
+                ).sum() for o in outs)
+    _kernels.reset_launch_counts()
+    loss.backward()
+    torch.cuda.synchronize()
+    bwd = dict(_kernels.launch_counts)
+    tensors = {f"out{i}": o.detach() for i, o in enumerate(outs)}
+    tensors["dx"] = x.grad
+    for k, p in mod.named_parameters():
+        tensors[f"grad {k}"] = (torch.zeros_like(p) if p.grad is None
+                                else p.grad)
+    return tensors, fwd, bwd
+
+
+def run_conv_zoo(gp, g, x, tag: dict) -> dict:
+    """Each conv of ``zoo_convs`` at in 128 and out 256 (4 heads of 64)
+    on the weighted graph's plans (``gp``: the hub plan and the bf16 shell
+    plan) and on the same graph without a plan (``g``), on the card: one
+    forward and one backward each, the launches counted around each half
+    (on ``gp`` the forward's B1 and B1w launches must be the table's, on
+    ``g`` none), every output and gradient of ``gp`` against ``g``'s at
+    rtol = 2e-2, atol = 2e-2 * max|ref| per tensor (the max convs'
+    against ``g`` following the plan path's picks,
+    ``following_plan_max``; their error against ``g``'s own picks is
+    reported beside it), and the forward's time on both graphs. Returns
+    each conv's forward launches on ``gp``."""
+    import torch
+
+    rel = gp._relation()
+    inputs = zoo_inputs(rel.num_src, rel.num_edges_padded, x.device.type)
+    launches = {}
+    t_phase = time.perf_counter()
+    for i, (name, mod, kinds, (n_b1, n_b1w)) in enumerate(zoo_convs(
+            x.device.type)):
+        mod.eval()
+        got, fwd, bwd = zoo_pass(mod, gp, x, kinds, inputs, i)
+        expect_no_other_launch(fwd, {"shell_prefix_sum": n_b1,
+                                     "shell_prefix_gspmm": n_b1w},
+                               f"{name} on the planned graph")
+        ref, fwd_plain, bwd_plain = zoo_pass(mod, g, x, kinds, inputs, i)
+        expect_no_other_launch(fwd_plain, {}, f"{name} without a plan")
+        expect_no_other_launch(bwd_plain, {}, f"{name}'s backward without "
+                               "a plan")
+        own = None
+        if name in ZOO_MAX:  # hold it against the plan path's picks
+            own = ref
+            with following_plan_max(rel.shell_plan):
+                ref, _f, _b = zoo_pass(mod, g, x, kinds, inputs, i)
+        errs = {}
+        for k, r in ref.items():
+            scale = r.abs().max().item()
+            err = (got[k] - r).abs().max().item()
+            if not torch.allclose(got[k], r, rtol=2e-2, atol=2e-2 * scale):
+                raise RuntimeError(f"{name} planned vs plain, {k}: max abs "
+                                   f"err {err} (max |ref| {scale})")
+            errs[k] = err / max(scale, 1e-30)
+        xi, args, kw = zoo_args(x, kinds, inputs)
+        with torch.inference_mode():
+            ms = {"planned": time_ms(lambda: mod(gp, xi, *args, **kw), 3),
+                  "plain": time_ms(lambda: mod(g, xi, *args, **kw), 3)}
+        launches[name] = {"shell_prefix_sum": n_b1,
+                          "shell_prefix_gspmm": n_b1w}
+        extra = {}
+        if own is not None:
+            extra["max_rel_err_vs_plain_own_picks"] = max(
+                (got[k] - r).abs().max().item()
+                / max(r.abs().max().item(), 1e-30) for k, r in own.items())
+        emit({"phase": "conv_zoo", "conv": name, **extra,
+              "forward_launches": {k: v for k, v in fwd.items() if v},
+              "backward_launches": {k: v for k, v in bwd.items() if v},
+              "forward_ms": ms, "max_rel_err_vs_plain": max(errs.values()),
+              "worst": max(errs, key=errs.get),
+              "tolerance": "rtol=2e-2, atol=2e-2*max|ref| per tensor",
+              **tag})
+        del mod, got, ref
+        torch.cuda.empty_cache()
+    emit({"phase": "conv_zoo_total", "convs": len(launches),
+          "seconds": time.perf_counter() - t_phase, **tag})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3068,6 +3346,49 @@ def hetero_rgcn(etypes, dims, seed):
             h = {k: torch.relu(v)
                  for k, v in self.layer0(graph, inputs).items()}
             return self.layer1(graph, h)["paper"]
+
+    return _Model()
+
+
+def hgt_model(ntypes, in_feats, head_size, heads, num_etypes, classes,
+              n_out, dropout=0.2, seed=0, device="cuda"):
+    """The HGT of DGL's example (``examples/pytorch/hgt/model.py``,
+    ``train_acm.py``) as user code of the port's modules: a
+    ``HeteroLinear`` input adapter a node type into ``heads * head_size``
+    and GELU (the exact, erf form, torch's default), the node types
+    concatenated in ``ntypes`` (``to_homogeneous``'s) order, two
+    ``HGTConv`` layers with ``use_norm``, and ``out``, an ``nn.Linear`` to
+    ``classes`` on the first ``n_out`` rows (the paper rows).
+    ``forward(graph, feats, ntype, etype)``. Weights from ``seed``."""
+    import torch
+    from torch import nn
+
+    from dgl_tpu_torch.nn import HeteroLinear, HGTConv
+
+    class _Model(nn.Module):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator().manual_seed(seed)
+            hid = heads * head_size
+            self.adapt = HeteroLinear({nt: in_feats for nt in ntypes}, hid,
+                                      generator=gen, device=device)
+            for i in range(2):
+                self.add_module(f"layer{i}", HGTConv(
+                    hid, head_size, heads, len(ntypes), num_etypes,
+                    dropout=dropout, use_norm=True, generator=gen,
+                    device=device))
+            self.out = nn.Linear(hid, classes)
+            with torch.no_grad():
+                nn.init.xavier_uniform_(self.out.weight, generator=gen)
+                self.out.bias.zero_()
+            self.out.to(device)
+
+        def forward(self, graph, feats, ntype, etype):
+            h = self.adapt(feats)
+            h = torch.cat([nn.functional.gelu(h[nt]) for nt in ntypes])
+            h = self.layer0(graph, h, ntype, etype)
+            h = self.layer1(graph, h, ntype, etype)
+            return self.out(h[:n_out])
 
     return _Model()
 
@@ -3396,6 +3717,194 @@ class _Sliced:
         return self.model(graph, x, self.etypes)[:self.n]
 
 
+# ---------------------------------------------------------------------------
+# HGT on ogbn-mag (no hand kernel: the reference's route is XLA)
+# ---------------------------------------------------------------------------
+
+# DGL's HGT example (examples/pytorch/hgt/train_acm.py): n_hid 256 as 4
+# heads of 64, 2 layers, use_norm, dropout 0.2
+HGT_HEADS, HGT_HEAD_SIZE, HGT_DROPOUT = 4, 64, 0.2
+# every per-edge (E, 256) f32 tensor takes E KB: 21.6 GB at ogbn-mag's
+# 21.1M edges, 2.7 GB at 1/8 (PERF.md section 4 has the reckoning)
+HGT_DIV = 8
+HGT_CHECK_DIV = 32  # the card-vs-CPU comparison's cut (CPU time)
+HGT_STEPS = 4
+
+
+class _HGTCall:
+    """``model(graph, feats, ntype, etype)`` as ``train_step`` calls a
+    model."""
+
+    def __init__(self, model, ntype, etype):
+        self.model, self.ntype, self.etype = model, ntype, etype
+
+    def __call__(self, graph, feats):
+        return self.model(graph, feats, self.ntype, self.etype)
+
+
+def hgt_inputs(div: int, seed: int):
+    """``to_homogeneous`` of the ogbn-mag recipe at 1/``div`` of its counts,
+    on the CPU: the graph, per-type features, node and edge type ids, the
+    paper labels and train mask, the node types and the paper count."""
+    import torch
+
+    import dgl_tpu_torch as dt
+
+    mag = mag_graph(div, seed=seed)
+    hg = dt.heterograph(mag["data"], mag["nodes"], device="cpu")
+    homo = dt.to_homogeneous(hg)
+    return {"graph": homo,
+            "feats": {nt: torch.from_numpy(mag["feats"][nt])
+                      for nt in hg.ntypes},
+            "ntype": homo.ndata[dt.NTYPE], "etype": homo.edata[dt.ETYPE],
+            "y": torch.from_numpy(mag["labels"]),
+            "mask": torch.from_numpy(mag["masks"]["train_mask"]).float(),
+            "ntypes": tuple(hg.ntypes), "n_paper": mag["nodes"]["paper"],
+            "num_etypes": len(hg.canonical_etypes)}
+
+
+def hgt_on(data, device):
+    """``data``'s tensors and graph on ``device``."""
+    return {**data, "graph": data["graph"].to(device),
+            "feats": {k: v.to(device) for k, v in data["feats"].items()},
+            **{k: data[k].to(device) for k in ("ntype", "etype", "y",
+                                                "mask")}}
+
+
+def hgt_for(data, seed=0, device="cuda"):
+    return hgt_model(data["ntypes"], MAG_FEAT, HGT_HEAD_SIZE, HGT_HEADS,
+                     data["num_etypes"], MAG_CLASSES, data["n_paper"],
+                     dropout=HGT_DROPOUT, seed=seed, device=device)
+
+
+def check_hgt_vs_cpu(tag: dict) -> dict:
+    """The HGT at 1/``HGT_CHECK_DIV`` of ogbn-mag's counts on the card
+    against the same model on the CPU (dropout off): one forward (every
+    count 0) and one step's output, loss and gradients at rtol = 1e-4,
+    atol = 1e-4 * max|ref|."""
+    import torch
+
+    from dgl_tpu_torch import _kernels
+
+    cpu_data = hgt_inputs(HGT_CHECK_DIV, seed=2)
+    data = hgt_on(cpu_data, "cuda")
+    cpu = hgt_for(cpu_data, device="cpu").eval()
+    card = hgt_for(data).eval()
+    card.load_state_dict(cpu.state_dict())
+
+    def step(model, d):
+        model.zero_grad(set_to_none=True)
+        out = model(d["graph"], d["feats"], d["ntype"], d["etype"])
+        loss = masked_loss(out, d["y"], d["mask"])
+        loss.backward()
+        return out.detach(), loss.detach(), {
+            k: p.grad for k, p in model.named_parameters()}
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    with torch.inference_mode():
+        fwd = card(data["graph"], data["feats"], data["ntype"],
+                   data["etype"])
+    torch.cuda.synchronize()
+    expect_no_other_launch(dict(_kernels.launch_counts), {},
+                           "the HGT forward")
+    out_c, loss_c, grads_c = step(card, data)
+    t0 = time.perf_counter()
+    out, loss, grads = step(cpu, cpu_data)
+    cpu_s = time.perf_counter() - t0
+    errs = {}
+    pairs = [("forward", fwd, out), ("train forward", out_c, out),
+             ("loss", loss_c, loss)] + [(f"grad {k}", grads_c[k], v)
+                                         for k, v in grads.items()]
+    for what, got, ref in pairs:
+        got = got.cpu()
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        if not torch.allclose(got, ref, rtol=1e-4, atol=1e-4 * scale):
+            raise RuntimeError(f"HGT on the card vs the CPU, {what}: max "
+                               f"abs err {err} (max |ref| {scale})")
+        errs[what] = err / max(scale, 1e-30)
+    g = cpu_data["graph"]
+    result = {"cut": f"every ogbn-mag count / {HGT_CHECK_DIV}",
+              "nodes": g.num_nodes(), "edges": g.num_edges(),
+              "cpu_step_s": cpu_s, "max_rel_err_vs_cpu": max(errs.values()),
+              "worst": max(errs, key=errs.get)}
+    emit({"phase": "hgt_vs_cpu", "tolerance": "rtol=1e-4, "
+          "atol=1e-4*max|ref|", **result, **tag})
+    return result
+
+
+def run_hgt(tag: dict) -> dict:
+    """DGL's HGT (``hgt_model``: per-type adapters into 256 and GELU, two
+    ``HGTConv(256, 64, 4, 4 ntypes, 4 etypes, dropout=0.2,
+    use_norm=True)``, a linear classifier to 349 on the paper rows) over
+    ``to_homogeneous`` of the ogbn-mag recipe at 1/``HGT_DIV`` of its
+    counts: the check against the CPU (``check_hgt_vs_cpu``), then one
+    counted forward (eval; every count 0) and one counted training step
+    (dropout 0.2, masked cross-entropy on the paper train split, Adam at
+    1e-2; every count 0) with their peak memory, ``HGT_STEPS - 1`` more
+    steps with finite, falling losses, the forward and step times and
+    their profiles."""
+    import torch
+
+    from dgl_tpu_torch import _kernels
+
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    check = check_hgt_vs_cpu(tag)
+    t0 = time.perf_counter()
+    cpu_data = hgt_inputs(HGT_DIV, seed=1)
+    data = hgt_on(cpu_data, "cuda")
+    model = hgt_for(data)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    g, feats = data["graph"], data["feats"]
+    call = _HGTCall(model, data["ntype"], data["etype"])
+    model.eval()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    with torch.inference_mode():
+        out = call(g, feats)
+    torch.cuda.synchronize()
+    fwd_launches = dict(_kernels.launch_counts)
+    fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+    expect_no_other_launch(fwd_launches, {}, "the HGT forward")
+    if tuple(out.shape) != (data["n_paper"], MAG_CLASSES) or not (
+            torch.isfinite(out).all()):
+        raise RuntimeError(f"bad HGT output {tuple(out.shape)}")
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: call(g, feats), 3)
+        fwd_prof = device_profile(lambda: call(g, feats), 2)
+    model.train()
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    loss, step_launches, step_peak, _s = counted_step(
+        call, opt, g, feats, data["y"], data["mask"], {}, "HGT")
+    expect_no_other_launch(step_launches, {}, "the HGT training step")
+    losses = [loss] + [train_step(call, opt, g, feats, data["y"],
+                                  data["mask"])
+                       for _ in range(HGT_STEPS - 1)]
+    losses = torch.stack(losses).tolist()
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"HGT training loss not finite or not falling: "
+                           f"{losses}")
+    train = lambda: train_step(  # noqa: E731
+        call, opt, g, feats, data["y"], data["mask"])
+    step_ms = time_ms(train, 3)
+    step_prof = device_profile(train, 2)
+    result = {"nodes": g.num_nodes(), "edges": g.num_edges(),
+              "setup_s": setup_s, "forward_launches": fwd_launches,
+              "step_launches": step_launches, "forward_ms": fwd_ms,
+              "step_ms": step_ms, "forward_peak_memory_gib": fwd_peak,
+              "step_peak_memory_gib": step_peak, "losses": losses,
+              "check": check}
+    emit({"phase": "hgt", "model": "HGT 128-(4x64)x2-349, use_norm, "
+          "dropout 0.2, 4 node and 4 edge types", "cut": f"every ogbn-mag "
+          f"count / {HGT_DIV}", **result, **tag})
+    emit({"phase": "hgt_forward_profile", "calls": 2, **fwd_prof, **tag})
+    emit({"phase": "hgt_train_profile", "calls": 2, **step_prof, **tag})
+    return result
+
+
 def run() -> dict:
     import torch
 
@@ -3422,7 +3931,14 @@ def run() -> dict:
     kernels += run_reddit(rate, ptxas, tag)
     kernels.append(run_hub_cache(rate, tag))
     edge = run_gat_edge(tag)
-    kernels.append(run_weighted(rate, edge["train_step_ms"], ptxas, tag))
+    weighted = run_weighted(rate, edge["train_step_ms"], ptxas, tag)
+    # B1 and B1w under the zoo's callers, launches a forward
+    zoo = weighted.pop("conv_zoo")
+    for entry, name in ((kernels[0], "shell_prefix_sum"),
+                        (weighted, "shell_prefix_gspmm")):
+        entry["conv_zoo_launches_per_forward"] = {
+            conv: n[name] for conv, n in zoo.items() if n[name]}
+    kernels.append(weighted)
     run_dense_cora(tag)
     t0 = time.perf_counter()
     data = minibatch_data("cuda")
@@ -3433,6 +3949,7 @@ def run() -> dict:
     del data
     kernels.append(run_mag(rate, tag))
     run_rgcn_homogeneous(tag)
+    run_hgt(tag)
     return {"kernels": kernels, "card": card}
 
 

@@ -23,7 +23,12 @@ g-SpMM and edge softmax, and the on-device sampler
 ``to_homogeneous``, ``to_heterogeneous``, blocks between node types),
 ``multi_update_all`` and subset propagation (``pull``, ``push``,
 ``send_and_recv``), ``nn.HeteroGraphConv``, ``nn.RelGraphConv`` and
-``models.RGCN``.
+``models.RGCN``; the typed linears (``nn.TypedLinear``,
+``nn.HeteroLinear``, ``nn.HeteroEmbedding``), ``nn.HGTConv`` and the
+convs ``GATv2Conv``, ``DotGatConv``, ``AGNNConv``, ``EGATConv``,
+``EdgeGATConv``, ``GINConv``, ``GINEConv``, ``EdgeConv``, ``SGConv``,
+``APPNPConv``, ``TAGConv``, ``ChebConv``, ``GCN2Conv``,
+``GatedGraphConv``, ``NNConv``, ``GMMConv`` and ``CFConv``.
 """
 from . import dataloading, function, models, nn, ops, sampling, transforms
 from .base import ALL, EID, ETYPE, NID, NTYPE, DGLError

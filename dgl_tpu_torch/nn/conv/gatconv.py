@@ -24,7 +24,6 @@ from an rbg key: the two agree in distribution, not in bits.
 """
 from __future__ import annotations
 
-import math
 from typing import Callable, Optional
 
 import torch
@@ -32,14 +31,8 @@ from torch import nn
 
 from ... import function as fn
 from ...ops.edge_softmax import edge_softmax
+from .._init import flax_init
 from .graphconv import check_zero_in_degree, expand_as_pair
-
-
-def _xavier_uniform_flax(shape, generator):
-    """flax's ``xavier_uniform`` for a (1, H, O) parameter: fan_in = H,
-    fan_out = O (its fans read the last two axes)."""
-    bound = math.sqrt(6.0 / (shape[-2] + shape[-1]))
-    return (torch.rand(shape, generator=generator) * 2 - 1) * bound
 
 
 class GATConv(nn.Module):
@@ -80,8 +73,10 @@ class GATConv(nn.Module):
         self.fc = nn.Linear(in_feats, H * O, bias=False)
         with torch.no_grad():
             nn.init.xavier_uniform_(self.fc.weight, generator=generator)
-        self.attn_l = nn.Parameter(_xavier_uniform_flax((1, H, O), generator))
-        self.attn_r = nn.Parameter(_xavier_uniform_flax((1, H, O), generator))
+        self.attn_l = nn.Parameter(
+            flax_init("xavier_uniform", (1, H, O), generator))
+        self.attn_r = nn.Parameter(
+            flax_init("xavier_uniform", (1, H, O), generator))
         self.res_fc = None
         if residual:
             self.res_fc = nn.Linear(in_feats, H * O, bias=False)

@@ -17,21 +17,14 @@ from torch import nn
 from ... import function as fn
 from ...base import DGLError
 from ...ops import gather_mm
+from .._init import flax_init
 from .graphconv import expand_as_pair
 
 __all__ = ["RelGraphConv"]
 
 
 def _xavier(shape, generator):
-    """flax's ``xavier_uniform`` over ``shape``: fan-in and fan-out are the
-    last two dims times the receptive field of the dims before them."""
-    receptive = 1
-    for d in shape[:-2]:
-        receptive *= d
-    fan_in, fan_out = shape[-2] * receptive, shape[-1] * receptive
-    bound = (6.0 / (fan_in + fan_out)) ** 0.5
-    return nn.Parameter(
-        (torch.rand(shape, generator=generator) * 2 - 1) * bound)
+    return nn.Parameter(flax_init("xavier_uniform", shape, generator))
 
 
 class RelGraphConv(nn.Module):

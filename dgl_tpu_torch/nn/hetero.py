@@ -10,6 +10,7 @@ from torch import nn
 from ..base import DGLError
 from ..core import CROSS_REDUCERS as _AGG_FNS
 from ..graph import Graph
+from .utils_nn import module_key
 
 __all__ = ["HeteroGraphConv"]
 
@@ -24,15 +25,24 @@ class HeteroGraphConv(nn.Module):
     no relation reaches is absent from the output. ``aggregate`` combines
     a type's results: ``sum``, ``max``, ``min``, ``mean`` or ``stack``
     (along dim 1). The modules live in ``self.mods`` (an
-    ``nn.ModuleDict``), so their parameters are ``mods.<etype>.*``.
+    ``nn.ModuleDict``) under ``module_key(etype)``, so their parameters
+    are ``mods.<etype>.*`` for an edge type such as ``"cites"`` and
+    ``mods.~a~db.*`` for ``"a.b"``; ``self.mods[etype]`` does not find an
+    escaped type's module, ``self.module(etype)`` does.
     """
 
     def __init__(self, mods: Dict[str, nn.Module], aggregate: str = "sum"):
         super().__init__()
         if aggregate not in _AGG_FNS:
             raise DGLError(f"Unknown aggregate {aggregate!r}")
-        self.mods = nn.ModuleDict(mods)
+        self._keys = {et: module_key(et) for et in mods}
+        self.mods = nn.ModuleDict({self._keys[et]: m
+                                   for et, m in mods.items()})
         self.aggregate = aggregate
+
+    def module(self, etype: str) -> nn.Module:
+        """The module of edge type ``etype``."""
+        return self.mods[self._keys[etype]]
 
     def forward(self, graph: Graph, inputs, mod_args=None, mod_kwargs=None):
         mod_args = mod_args or {}
@@ -40,12 +50,12 @@ class HeteroGraphConv(nn.Module):
         outputs: Dict[str, list] = {}
         for cet in graph.canonical_etypes:
             st, et, dt = cet
-            if et not in self.mods or st not in inputs:
+            if et not in self._keys or st not in inputs:
                 continue
-            res = self.mods[et](_relation_view(graph, cet),
-                                (inputs[st], inputs.get(dt)),
-                                *mod_args.get(et, ()),
-                                **mod_kwargs.get(et, {}))
+            res = self.module(et)(_relation_view(graph, cet),
+                                  (inputs[st], inputs.get(dt)),
+                                  *mod_args.get(et, ()),
+                                  **mod_kwargs.get(et, {}))
             outputs.setdefault(dt, []).append(res)
         agg = _AGG_FNS[self.aggregate]
         return {dt: agg(vals) for dt, vals in outputs.items()}

@@ -8,7 +8,27 @@ from torch import nn
 from .. import ops
 from ..base import DGLError
 
-__all__ = ["EdgeWeightNorm"]
+__all__ = ["EdgeWeightNorm", "module_key", "pad_edges"]
+
+# names a key of an nn.ModuleDict must not take: its attributes and
+# methods ("type", "to", "train", "keys", ...)
+_RESERVED = frozenset(dir(nn.ModuleDict()))
+_ESC = "~"
+
+
+def module_key(name: str) -> str:
+    """A legal ``nn.ModuleDict`` key for a node or edge type ``name``.
+
+    A name that is not empty, holds no ``.``, names no attribute of
+    ``nn.ModuleDict`` and does not start with ``~`` stays as it is, so
+    ``mods.<etype>`` keeps the type's name. Any other becomes ``~`` and the
+    name with ``~`` written ``~~`` and ``.`` written ``~d``: ``"a.b"`` is
+    ``"~a~db"``, ``"type"`` is ``"~type"`` and ``""`` is ``"~"``. Distinct
+    names get distinct keys."""
+    if name and "." not in name and name not in _RESERVED and not (
+            name.startswith(_ESC)):
+        return name
+    return _ESC + name.replace(_ESC, _ESC * 2).replace(".", _ESC + "d")
 
 
 class EdgeWeightNorm(nn.Module):
@@ -45,6 +65,15 @@ class EdgeWeightNorm(nn.Module):
                 0, dst)
         inv = torch.where(deg_dst > 0, 1.0 / deg_dst, 0.0)
         return w * inv.index_select(0, dst)
+
+
+def pad_edges(x, rel):
+    """Per-edge values of the relation's real edges, padded with zero rows
+    to its padded edge count: padded edges carry nothing."""
+    pad = rel.num_edges_padded - x.shape[0]
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
 
 
 def _clamped(idx, n):

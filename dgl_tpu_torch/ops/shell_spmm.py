@@ -350,6 +350,16 @@ def _g(x, gather_dtype):
     return x.to(torch.bfloat16) if gather_dtype == "bf16" else x
 
 
+def _rounded(x, gather_dtype):
+    """``x`` rounded to the gather dtype but kept in its own type, with
+    the identity's gradient: the values of ``_g(x).to(x.dtype)``, whose
+    backward (through ``index_select``, a scatter-add) sums in ``x``'s
+    type, not in bf16."""
+    if gather_dtype != "bf16":
+        return x
+    return x + (x.to(torch.bfloat16).to(x.dtype) - x).detach()
+
+
 def _msg(op, ul, el):
     """The message of gathered rows (the reference's ``_msg``): computed in
     the operands' type, so bf16 operands give a bf16-rounded message."""
@@ -572,17 +582,24 @@ def shell_edge_softmax(plan: ShellSpMMPlan, logits, norm_by="dst"):
 def shell_gspmm_cmp(op, reduce_op, plan: ShellSpMMPlan, u, e, in_degrees):
     """g-SpMM with the max/min reducer through the shells, differentiated
     by PyTorch's autograd (an arg-extremum rule; a tie splits its gradient
-    evenly). Zero-in-degree rows give 0, as the plain path."""
+    evenly). Zero-in-degree rows give 0, as the plain path.
+
+    The messages are the reference's, the operands and each message
+    rounded to the gather dtype, but carried in f32 (``_rounded``), so the
+    backward sums a node's gradient over its out-edges in f32, as the sum
+    reducer's hand backward does; the reference's autograd sums it in
+    bf16, which at a hub of thousands of out-edges drifts past the plan
+    paths' bound."""
     gd = plan.gather_dtype
-    ub = _g(u, gd) if u is not None and op != "copy_rhs" else None
-    eb = _g(e, gd) if e is not None and op != "copy_lhs" else None
+    ub = _rounded(u, gd) if u is not None and op != "copy_rhs" else None
+    eb = _rounded(e, gd) if e is not None and op != "copy_lhs" else None
     sign = 1.0 if reduce_op == "max" else -1.0
     n8 = _rup(plan.num_dst, 8)
 
     def rows_of(nidx, eidx, mask):
         ul = None if ub is None else ub.index_select(0, nidx)
         el = None if eb is None else eb.index_select(0, eidx)
-        rows = _msg(op, ul, el).to(torch.float32) * sign
+        rows = _rounded(_msg(op, ul, el), gd).to(torch.float32) * sign
         return torch.where(_mask_expand(mask, rows.dim()) > 0, rows,
                            -torch.inf)
 

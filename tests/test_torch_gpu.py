@@ -1085,3 +1085,86 @@ def test_weighted_routes_on_card_match_cpu(card):
     # round to the neighbouring bf16 value
     torch.testing.assert_close(dense, dense_c, rtol=0,
                                atol=2.0 ** -8 * dense_c.abs().max().item())
+
+
+@pytest.mark.parametrize("num_etypes", [3, 40])
+def test_hgtconv_on_card_matches_cpu(card, num_etypes):
+    """HGTConv with ``use_norm`` on the card against the same layer on the
+    CPU: output and every gradient at rtol = 1e-4; no hand kernel. Three
+    relations take ``relation_rows``' row route, 40 its per-edge
+    ``gather_mm`` route."""
+    from dgl_tpu_torch.nn import HGTConv
+
+    rng = np.random.default_rng(8)
+    n, e = 300, 2500
+    src = np.concatenate([rng.integers(0, n, e), np.arange(n)])
+    dst = np.concatenate([rng.integers(0, n, e), np.arange(n)])
+    x = rng.normal(size=(n, 16)).astype(np.float32)
+    ntype = rng.integers(0, 3, n)
+    etype = rng.integers(0, num_etypes, src.shape[0])
+    cot = rng.normal(size=(n, 16)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", card):
+        g = dt.graph((src, dst), num_nodes=n, device=dev)
+        conv = HGTConv(16, 4, 4, 3, num_etypes, use_norm=True,
+                       generator=torch.Generator().manual_seed(0),
+                       device=dev).eval()
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        _kernels.reset_launch_counts()
+        out = conv(g, xt, torch.from_numpy(ntype).to(dev),
+                   torch.from_numpy(etype).to(dev))
+        (out * torch.from_numpy(cot).to(dev)).sum().backward()
+        assert not any(_kernels.launch_counts.values())
+        res[str(dev)] = [out.detach().cpu(), xt.grad.cpu()] + [
+            p.grad.cpu() for p in conv.parameters()]
+    for a, b in zip(res[str(card)], res["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * b.abs().max().item())
+
+
+@pytest.mark.parametrize("name,counts", [
+    ("APPNPConv", {"shell_prefix_sum": (3, 3)}),
+    ("GATv2Conv", {"shell_prefix_gspmm": (1, 1)}),
+])
+def test_planned_convs_launch_b1_and_b1w(card, name, counts):
+    """APPNP (k = 3: one ``copy_u`` sum a hop, through the hub plan's cold
+    tail, B1) and GATv2 (``u_mul_e`` of (E, H, 1) attention against
+    (N, H, O) rows, through the shell plan, B1w) on a planned graph: the
+    launches of the forward and of the backward, (forward, backward) in
+    ``counts``, none of any other kernel; values and gradients as on the
+    CPU, where the wrappers run the plain versions (f32 gathers on the
+    shell plan, so the kernel sums the very values of the plain version;
+    APPNP computes no table, so both sides round the same rows)."""
+    from dgl_tpu_torch.nn import APPNPConv, GATv2Conv
+
+    rng = np.random.default_rng(9)
+    n, e = 500, 6000
+    w = 1.0 / np.arange(1, n + 1)
+    src = np.concatenate([rng.choice(n, e, p=w / w.sum()), np.arange(n)])
+    dst = np.concatenate([rng.integers(0, n, e), np.arange(n)])
+    x = rng.normal(size=(n, 24)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", card):
+        g = dt.graph((src, dst), num_nodes=n, device=dev).with_spmm_plans(
+            num_hubs=32, weighted=True, gather_dtype="f32", bitmap=False,
+            dense_attn=False)
+        conv = (APPNPConv(k=3) if name == "APPNPConv" else GATv2Conv(
+            24, 8, 3, generator=torch.Generator().manual_seed(0),
+            device=dev)).eval()
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        _kernels.reset_launch_counts()
+        out = conv(g, xt)
+        fwd = dict(_kernels.launch_counts)
+        _kernels.reset_launch_counts()
+        out.sum().backward()
+        bwd = dict(_kernels.launch_counts)
+        if dev == card:
+            torch.cuda.synchronize()
+            for k in fwd:
+                f, b = counts.get(k, (0, 0))
+                assert (fwd[k], bwd[k]) == (f, b), (k, fwd[k], bwd[k])
+        res[str(dev)] = [out.detach().cpu(), xt.grad.cpu()] + [
+            p.grad.cpu() for p in conv.parameters()]
+    for a, b in zip(res[str(card)], res["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * b.abs().max().item())
