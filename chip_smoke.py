@@ -66,6 +66,19 @@ the GraphSAGE path (kernel B1, shell prefix sum):
    input, which needs no gradient), runs four more (finite losses), holds
    B1 against its plain version on the backward's real tables, and times
    and profiles the step;
+6a. drives the same GraphSAGE shape with SAGEConv's ``gcn``, ``pool`` and
+    ``lstm`` aggregators on the same plan (``run_sage_aggregators``): a
+    counted forward (``gcn`` 3 B1 launches, ``pool`` and ``lstm`` none:
+    the max and the LSTM's mailbox take the plain branch) and a counted
+    step (5, 0, 0), the output and the gradients against the graph
+    without a plan (``gcn`` at the plan bound, on the plan path's ReLU
+    pattern; ``pool`` and ``lstm`` at rtol = 1e-4, atol = 1e-4 *
+    max|ref|), four more steps (the loss must fall), times, peak memory
+    and profiles;
+6b. ``LabelPropagation(k=10, alpha=0.9)`` of the 40 seeded labels, 10 %
+    of the nodes labelled, on the same plan: 10 B1 launches at F = 40, the
+    result against the graph without a plan at rtol = 2e-2,
+    atol = 2e-2 * max|ref|, and its time beside that graph's;
 
 the Reddit-scale GCN and GAT paths (kernels B2, bitmap SpMM, B3,
 bitmap-flash GAT forward, and B4 and B5, its backward):
@@ -192,9 +205,28 @@ levels and residuals printed, ``plans_s``):
      hub plan, and B1w launches, one an other sum or mean through the
      shell plan, must be ``zoo_convs``' table) and on the graph without
      plans (none), every output and gradient held at rtol = 2e-2,
-     atol = 2e-2 * max|ref| (the max convs against the plain path
-     following the plan's picks, ``following_plan_max``), and the
-     forward's time on both;
+     atol = 2e-2 * max|ref| (the plain path following the planned pass's
+     ReLU pattern, the max convs' also the plan's picks,
+     ``following_plan_max``), and the forward's time on both; also
+     PNAConv (mean, max, min, std times identity,
+     amplification, attenuation) and its tower, DGNConv (mean, dir1-av,
+     dir1-dx over a seeded (N, 3) eigenvector input), GatedGCNConv,
+     TWIRLSConv (4 steps, attention after 2), AtomicConv (4 filters, 4
+     atom types), EGNNConv and GroupRevRes of two GraphConv 64 -> 64
+     (PNA's std also on the plan's roundings,
+     ``following_plan_rounding``);
+18e. the dense convs at Cora's size (``run_dense_convs``), 1433 -> 16:
+     DenseGraphConv, DenseSAGEConv and DenseChebConv against GraphConv,
+     SAGEConv (mean) and ChebConv on the same graph, outputs and
+     gradients at rtol = 1e-4, atol = 1e-4 * max|ref|;
+18f. the graph-transformer layers at Graphormer-base's width
+     (``run_gt``: 768, 32 heads, 64 graphs padded to 51 nodes): the
+     encoders, GraphormerLayer, EGTLayer and LapPosEncoder, the card
+     against the CPU at rtol = 1e-4, atol = 1e-4 * max|ref|;
+18g. the link scorers (EdgePredictor, TransE, TransR) and a NodeEmbedding
+     of 169,343 x 128 with one sparse Adam and one sparse Adagrad update
+     over ids with repeats, the card against the CPU
+     (``run_link_sparse``);
 
 the minibatch GraphSAGE paths (no hand kernel), on the zipf graph with
 ``bench.py``'s ogbn-products widths (100-wide f32 features, labels in
@@ -696,22 +728,10 @@ def grads_of(model, graph, x, y, mask, pattern=None):
     the ReLU pattern of the pass (the models' ``torch.relu`` calls, as
     masks). Given another pass's ``pattern``, the ReLUs follow it instead
     of their own inputs' signs: the same piecewise-linear function."""
-    import torch
-
-    relu, seen = torch.relu, []
-
-    def follow(t):
-        m = (t > 0) if pattern is None else pattern[len(seen)]
-        seen.append(m)
-        return t * m  # relu(t) when m = t > 0, with relu's gradient
-
     model.eval()
     model.zero_grad(set_to_none=True)
-    torch.relu = follow
-    try:
+    with relu_pattern(pattern) as seen:
         masked_loss(model(graph, x), y, mask).backward()
-    finally:
-        torch.relu = relu
     # a parameter that reaches no loss (an R-GCN relation whose output
     # type the loss does not read) has no gradient
     grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
@@ -721,11 +741,34 @@ def grads_of(model, graph, x, y, mask, pattern=None):
     return grads, seen
 
 
-def check_grads(model, gp, g_exact, x, y, mask, what: str) -> dict:
+@contextlib.contextmanager
+def relu_pattern(pattern=None):
+    """Within the block ``torch.relu`` records the masks ``t > 0`` of its
+    calls in the list it yields, or, given another pass's ``pattern``,
+    applies that pass's masks in their order: the same piecewise-linear
+    function on the other pass's pieces, with relu's gradient."""
+    import torch
+
+    relu, seen = torch.relu, []
+
+    def follow(t):
+        m = (t > 0) if pattern is None else pattern[len(seen)]
+        seen.append(m)
+        return t * m  # relu(t) when m = t > 0, with relu's gradient
+
+    torch.relu = follow
+    try:
+        yield seen
+    finally:
+        torch.relu = relu
+
+
+def check_grads(model, gp, g_exact, x, y, mask, what: str,
+                tol: float = 2e-2) -> dict:
     """The plan path's parameter gradients (fresh weights, dropout off)
-    against the exact f32 path's, per parameter at rtol = 2e-2,
-    atol = 2e-2 * max|ref| (the plan paths round aggregated rows to bf16
-    on purpose). The exact path follows the plan path's ReLU pattern: a
+    against the exact f32 path's, per parameter at rtol = ``tol``,
+    atol = ``tol`` * max|ref| (2e-2: the plan paths round aggregated rows
+    to bf16 on purpose). The exact path follows the plan path's ReLU pattern: a
     pre-activation within bf16 rounding of 0 at a node with tens of
     thousands of out-edges (a zipf hub) would otherwise swap a whole row
     of a weight's gradient, a difference of the input, not of the
@@ -734,8 +777,9 @@ def check_grads(model, gp, g_exact, x, y, mask, what: str) -> dict:
     got, pattern = grads_of(model, gp, x, y, mask)
     ref, _ = grads_of(model, g_exact, x, y, mask, pattern)
     free, own = grads_of(model, g_exact, x, y, mask)
-    out = {"tolerance": "rtol=2e-2, atol=2e-2*max|ref| per parameter, "
-                        "exact path on the plan path's ReLU pattern",
+    out = {"tolerance": f"rtol={tol:g}, atol={tol:g}*max|ref| per "
+                        "parameter, exact path on the plan path's ReLU "
+                        "pattern",
            "max_rel_err": {}, "max_rel_err_own_relu_pattern": {},
            "relu_sign_differences": int(sum(
                (a != b).sum().item() for a, b in zip(pattern, own)))}
@@ -746,7 +790,7 @@ def check_grads(model, gp, g_exact, x, y, mask, what: str) -> dict:
         out["max_rel_err_own_relu_pattern"][k] = (
             (got[k] - free[k]).abs().max().item()
             / max(free[k].abs().max().item(), 1e-30))
-        if not (got[k] - r).abs().le(2e-2 * scale + 2e-2 * r.abs()).all():
+        if not (got[k] - r).abs().le(tol * scale + tol * r.abs()).all():
             raise RuntimeError(f"{what}: gradient of {k} vs the exact f32 "
                                f"path: max abs err {err} (max |ref| "
                                f"{scale})")
@@ -833,6 +877,157 @@ def run_sage_training(gp, x, rate: float, tag: dict) -> dict:
         lambda: train_step(model, opt, gp, x, y, mask), 2), **tag})
     return {"launches_train_step": launches["shell_prefix_sum"],
             "train_step_ms": timing["step_ms"], "backward": bwd}
+
+
+# SAGEConv's other aggregators: B1 launches (forward, training step) on
+# the hub-planned graph. gcn sums copy_u as mean does (3 / 5: layer 0's
+# input needs no gradient); pool's max and lstm's mailbox UDF take the
+# plain branch (the hub plan carries copy_u sums and means only)
+SAGE_AGGS = {"gcn": (LAYERS, 2 * LAYERS - 1), "pool": (0, 0),
+             "lstm": (0, 0)}
+LP_K, LP_ALPHA, LP_LABELLED = 10, 0.9, 0.1  # LabelPropagation's phase
+
+
+def run_sage_aggregators(gp, x, tag: dict) -> dict:
+    """GraphSAGE 128-256-256-40 with the ``gcn``, ``pool`` and ``lstm``
+    aggregators on the main path's graph and hub plan (phase a): one
+    counted forward (eval) held against the graph without a plan, the
+    gradients (dropout off) against it on the plan path's ReLU pattern,
+    one counted Adam step (dropout 0.5, the labels of
+    ``run_sage_training``) with its peak memory, four more with finite,
+    falling losses, the forward's and step's times and profiles.
+    ``gcn`` at the plan bound (rtol = 2e-2, atol = 2e-2 * max|ref|),
+    ``pool`` and ``lstm`` at rtol = 1e-4, atol = 1e-4 * max|ref| (they
+    run the same f32 operations on both graphs). Returns each one's
+    launches."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.models import GraphSAGE
+
+    rel = gp._relation()
+    g_exact = dt.graph((rel.src.cpu(), rel.dst.cpu()), num_nodes=N_NODES)
+    y = torch.from_numpy(np.random.default_rng(4).integers(
+        0, CLASSES, N_NODES)).cuda()
+    mask = torch.ones(N_NODES, device=x.device)
+    result = {}
+    for agg, (n_fwd, n_step) in SAGE_AGGS.items():
+        torch.cuda.empty_cache()
+        tol = 2e-2 if agg == "gcn" else 1e-4
+        what = f"GraphSAGE-{agg}"
+        model = GraphSAGE(IN_FEATS, HIDDEN, CLASSES, num_layers=LAYERS,
+                          aggregator_type=agg, dropout=0.5,
+                          generator=torch.Generator().manual_seed(0)).eval()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        with torch.inference_mode():
+            out = model(gp, x)
+        torch.cuda.synchronize()
+        fwd_launches = dict(_kernels.launch_counts)
+        fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+        expect_no_other_launch(fwd_launches, {"shell_prefix_sum": n_fwd},
+                               f"the {what} forward")
+        with torch.inference_mode():
+            ref = model(g_exact, x)
+        if tuple(out.shape) != (N_NODES, CLASSES) or not (
+                torch.isfinite(out).all()):
+            raise RuntimeError(f"{what}: bad output {tuple(out.shape)}")
+        scale = ref.abs().max().item()
+        err = (out - ref).abs().max().item()
+        if not torch.allclose(out, ref, rtol=tol, atol=tol * scale):
+            raise RuntimeError(f"{what} vs the graph without a plan: max "
+                               f"abs err {err} (max |ref| {scale})")
+        del out, ref
+        grad_check = check_grads(model, gp, g_exact, x, y, mask, what, tol)
+        model.train()
+        opt = torch.optim.Adam(model.parameters(), lr=LR)
+        loss, step_launches, step_peak, step_s = counted_step(
+            model, opt, gp, x, y, mask, {"shell_prefix_sum": n_step}, what)
+        expect_no_other_launch(step_launches, {"shell_prefix_sum": n_step},
+                               f"the {what} training step")
+        losses = run_steps(model, opt, gp, x, y, mask, loss, falling=True)
+        model.eval()
+        with torch.inference_mode():
+            fwd_ms = time_ms(lambda: model(gp, x), 3)
+            fwd_prof = device_profile(lambda: model(gp, x), 2)
+        model.train()
+        train = lambda: train_step(model, opt, gp, x, y, mask)  # noqa: E731
+        step_ms = time_ms(train, 3)
+        step_prof = device_profile(train, 1)
+        result[agg] = {"forward_launches": fwd_launches["shell_prefix_sum"],
+                       "step_launches": step_launches["shell_prefix_sum"],
+                       "forward_ms": fwd_ms, "step_ms": step_ms,
+                       "forward_peak_memory_gib": fwd_peak,
+                       "step_peak_memory_gib": step_peak}
+        emit({"phase": "sage_aggregator", "aggregator": agg,
+              "model": f"GraphSAGE 128-256-256-40 ({agg}), dropout 0.5",
+              **result[agg], "forward_vs_exact_f32": {
+                  "max_abs_err": err, "max_rel_err": err / scale,
+                  "tolerance": f"rtol={tol:g}, atol={tol:g}*max|ref|"},
+              "grads_vs_exact_f32": grad_check, "losses": losses,
+              "first_step_s": step_s,
+              "forward_idle_share": fwd_prof["device_idle_share"],
+              "step_idle_share": step_prof["device_idle_share"], **tag})
+        emit({"phase": "sage_aggregator_profile", "aggregator": agg,
+              "forward": fwd_prof, "step": step_prof, **tag})
+        del model, opt
+    return result
+
+
+def run_label_propagation(gp, tag: dict) -> dict:
+    """``LabelPropagation(k=10, alpha=0.9)`` on the main path's graph and
+    hub plan (phase b): the 40 class ids of ``run_sage_training``'s
+    labels, 10 % of the nodes labelled (a seeded mask); one counted call
+    (``k`` B1 launches at F = 40, one a hop) held against the graph
+    without a plan at rtol = 2e-2, atol = 2e-2 * max|ref| (the hub path
+    rounds the gathered rows to bf16), its time and profile."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.nn import LabelPropagation
+
+    rel = gp._relation()
+    g_exact = dt.graph((rel.src.cpu(), rel.dst.cpu()), num_nodes=N_NODES)
+    labels = torch.from_numpy(np.random.default_rng(4).integers(
+        0, CLASSES, N_NODES)).cuda()
+    mask = torch.from_numpy(np.random.default_rng(5).random(N_NODES)
+                            < LP_LABELLED).cuda()
+    lp = LabelPropagation(k=LP_K, alpha=LP_ALPHA)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    with torch.inference_mode():
+        out = lp(gp, labels, mask)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(launches, {"shell_prefix_sum": LP_K},
+                           "LabelPropagation")
+    with torch.inference_mode():
+        ref = lp(g_exact, labels, mask)
+    if tuple(out.shape) != (N_NODES, CLASSES) or not torch.isfinite(
+            out).all():
+        raise RuntimeError(f"LabelPropagation: bad output {tuple(out.shape)}")
+    scale = ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    if not torch.allclose(out, ref, rtol=2e-2, atol=2e-2 * scale):
+        raise RuntimeError(f"LabelPropagation vs the graph without a plan: "
+                           f"max abs err {err} (max |ref| {scale})")
+    with torch.inference_mode():
+        ms = time_ms(lambda: lp(gp, labels, mask), 5)
+        plain_ms = time_ms(lambda: lp(g_exact, labels, mask), 5)
+        prof = device_profile(lambda: lp(gp, labels, mask), 2)
+    result = {"launches": launches["shell_prefix_sum"], "forward_ms": ms,
+              "plain_graph_forward_ms": plain_ms}
+    emit({"phase": "label_propagation", "k": LP_K, "alpha": LP_ALPHA,
+          "labelled": int(mask.sum().item()), **result,
+          "vs_exact_f32": {"max_abs_err": err, "max_rel_err": err / scale,
+                           "tolerance": "rtol=2e-2, atol=2e-2*max|ref|"},
+          "profile": prof, **tag})
+    return result
 
 
 def run_sage(rate: float, tag: dict) -> dict:
@@ -936,6 +1131,9 @@ def run_sage(rate: float, tag: dict) -> dict:
 
     # 6. training: GraphSAGE with dropout, Adam, every node labelled
     train = run_sage_training(gp, x, rate, tag)
+    # 6a, 6b. the other aggregators, and label propagation, on the plan
+    aggs = run_sage_aggregators(gp, x, tag)
+    lp = run_label_propagation(gp, tag)
 
     main = per_shape["layer1 F=256"]
     bwd = train["backward"]
@@ -956,6 +1154,10 @@ def run_sage(rate: float, tag: dict) -> dict:
         "shape": f"layer1 F=256, n_out={N_NODES}, times per call; "
                  "launches: the inference forward",
         "launches_train_step": train["launches_train_step"],
+        "sage_aggregator_launches": {
+            agg: [r["forward_launches"], r["step_launches"]]
+            for agg, r in aggs.items()},
+        "label_propagation_launches": lp["launches"],
         "backward": {k: {f: v[f] for f in ("F", "n_out", "ms", "plain_ms",
                                              "bound_ms", "bound_by",
                                              "library_ms", "max_abs_err")}
@@ -2942,6 +3144,390 @@ def run_dense_cora(tag: dict) -> dict:
     return result
 
 
+DENSE_OUT = 16  # DGL's Cora GCN hidden width (1433 -> 16)
+
+
+def held(got: dict, ref: dict, tol: float, what: str, zero=()) -> dict:
+    """Each tensor of ``got`` against ``ref``'s (moved to its device) at
+    rtol = ``tol``, atol = ``tol`` * max|ref|; fails otherwise. Returns
+    the largest error over that scale of each. The tensors named in
+    ``zero`` are 0 in exact arithmetic, so both sides hold rounding
+    noise: their scale is the largest max|ref| of all the tensors."""
+    import torch
+
+    largest = max(r.abs().max().item() for r in ref.values())
+    errs = {}
+    for k, r in ref.items():
+        g = got[k].detach()
+        r = r.detach().to(g.device)
+        scale = max(largest if k in zero else r.abs().max().item(), 1e-30)
+        err = (g - r).abs().max().item()
+        if not torch.allclose(g, r, rtol=tol, atol=tol * scale):
+            raise RuntimeError(f"{what}, {k}: max abs err {err} (max |ref| "
+                               f"{scale})")
+        errs[k] = err / scale
+    return errs
+
+
+def grads_and_out(fn, params, inputs, cot_seed: int) -> dict:
+    """``fn(*inputs)``'s outputs and the gradients of ``sum(out * cot)``
+    (seeded cotangents, made on the CPU) for the float inputs that
+    require them and for ``params`` (a name -> tensor map)."""
+    import torch
+
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    gen = torch.Generator().manual_seed(cot_seed)
+    cots = [torch.randn(o.shape, generator=gen).to(o.device) for o in outs]
+    loss = sum((o * c).sum() for o, c in zip(outs, cots))
+    tensors = {f"out{i}": o for i, o in enumerate(outs)}
+    wrt = [(f"d input {i}", t) for i, t in enumerate(inputs)
+           if isinstance(t, torch.Tensor) and t.requires_grad]
+    wrt += [(f"grad {k}", p) for k, p in params.items()]
+    grads = torch.autograd.grad(loss, [t for _k, t in wrt],
+                                allow_unused=True)
+    for (k, t), gr in zip(wrt, grads):
+        tensors[k] = torch.zeros_like(t) if gr is None else gr
+    return tensors
+
+
+def run_dense_convs(tag: dict, device="cuda") -> dict:
+    """The dense-adjacency convs on the Cora-shaped graph (phase d),
+    1433 -> 16: ``DenseGraphConv`` on the (N, N) adjacency with the
+    graph's self-loops against ``GraphConv``, ``DenseSAGEConv`` on the
+    adjacency without them (it adds the identity) against
+    ``SAGEConv("mean")``, ``DenseChebConv`` (k = 3) against ``ChebConv``,
+    on the card, the weights shared (seed 0): the output and the gradients
+    of the input and every weight at rtol = 1e-4, atol = 1e-4 * max|ref|
+    (the same f32 sums, dense or gathered; TF32 off), and both forwards'
+    times. No hand kernel: every count stays 0."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.nn import conv as c
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 is on for f32 products")
+    src, dst = cora_graph()
+    g = dt.graph((src, dst), num_nodes=CORA_N, device=device)
+    adj_loops = torch.zeros((CORA_N, CORA_N), device=device)
+    adj_loops[torch.from_numpy(dst).to(device),
+              torch.from_numpy(src).to(device)] = 1
+    adj = adj_loops - torch.eye(CORA_N, device=device)  # one loop a node
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(CORA_N, CORA_FEAT)).astype(np.float32)).to(device)
+    gen = torch.Generator().manual_seed(0)
+    F, O = CORA_FEAT, DENSE_OUT
+    kw = dict(generator=gen, device=device)
+    gc = c.GraphConv(F, O, **kw)
+    sage = c.SAGEConv(F, O, **kw)
+    cheb = c.ChebConv(F, O, k=3, **kw)
+    with torch.no_grad():  # nonzero biases, seeded
+        for m in (gc, sage, cheb):
+            m.bias.copy_(torch.randn(O, generator=gen))
+    dgc = c.DenseGraphConv(F, O, device=device)
+    dsage = c.DenseSAGEConv(F, O, device=device)
+    dcheb = c.DenseChebConv(F, O, 3, device=device)
+    with torch.no_grad():
+        dgc.weight.copy_(gc.weight)
+        dgc.bias.copy_(gc.bias)
+        dsage.fc.weight.copy_(torch.cat([sage.fc_self.weight,
+                                         sage.fc_neigh.weight], 1))
+        dsage.fc.bias.copy_(sage.bias)
+        dcheb.W.copy_(torch.stack([cheb.w0.weight.T, cheb.w1.weight.T,
+                                   cheb.w2.weight.T]))
+        dcheb.bias.copy_(cheb.bias)
+    pairs = {
+        "DenseGraphConv": (dgc, adj_loops, gc, {
+            "weight": "weight", "bias": "bias"}),
+        "DenseSAGEConv": (dsage, adj, sage, {
+            "fc.weight": ("fc_self.weight", "fc_neigh.weight"),
+            "fc.bias": "bias"}),
+        "DenseChebConv": (dcheb, adj_loops, cheb, {
+            "W": ("w0.weight", "w1.weight", "w2.weight"), "bias": "bias"}),
+    }
+    result = {}
+    for i, (name, (dense, a, sparse, names)) in enumerate(pairs.items()):
+        xi = x.clone().requires_grad_()
+        _kernels.reset_launch_counts()
+        got = grads_and_out(dense, dict(dense.named_parameters()), (a, xi),
+                            i)
+        xs = x.clone().requires_grad_()
+        sp = grads_and_out(sparse, dict(sparse.named_parameters()), (g, xs),
+                           i)
+        expect_no_other_launch(dict(_kernels.launch_counts), {},
+                               f"{name} and its graph conv")
+        ref = {"out0": sp["out0"], "d input 1": sp["d input 1"]}
+        got = {k: v for k, v in got.items() if k != "d input 0"}
+        for dk, sk in names.items():
+            if isinstance(sk, str):
+                ref[f"grad {dk}"] = sp[f"grad {sk}"]
+            elif dk == "W":
+                ref[f"grad {dk}"] = torch.stack([sp[f"grad {k}"].T
+                                                 for k in sk])
+            else:
+                ref[f"grad {dk}"] = torch.cat([sp[f"grad {k}"] for k in sk], 1)
+        errs = held(got, ref, 1e-4, f"{name} vs its graph conv")
+        with torch.inference_mode():
+            ms = time_ms(lambda: dense(a, x), 10)
+            graph_ms = time_ms(lambda: sparse(g, x), 10)
+        result[name] = {"forward_ms": ms, "graph_conv_forward_ms": graph_ms}
+        emit({"phase": "dense_conv", "conv": name, "against": type(
+            sparse).__name__, "nodes": CORA_N, "widths": f"{F}-{O}",
+            "max_rel_err": max(errs.values()),
+            "worst": max(errs, key=errs.get),
+            "tolerance": "rtol=1e-4, atol=1e-4*max|ref| per tensor",
+            **result[name], **tag})
+    return result
+
+
+# Graphormer-base's layer (Ying et al., 2021): width 768, 32 heads, FFN
+# 768; a batch of 64 graphs padded to 51 nodes; EGT's edge channels 64
+GT_B, GT_N, GT_D, GT_HEADS, GT_FFN, GT_EDGE = 64, 51, 768, 32, 768, 64
+GT_MAX_DEGREE, GT_MAX_DIST, GT_PATH_LEN, GT_PATH_FEAT = 64, 10, 5, 16
+GT_KERNELS, GT_NODE_TYPES, GT_LAP_K, GT_LAP_DIM = 16, 32, 8, 16
+# the gt pass's gradients that are 0 in exact arithmetic: a bias added to
+# every score of a softmax row (the 3D encoder's last bias, a per-head
+# constant of the attention bias; the key projections' biases)
+GT_ZERO_GRADS = ("grad spatial3d.proj2.bias",
+                 "grad graphormer.attn.k_proj.bias",
+                 "grad lap.attn0.key.bias", "grad lap.attn1.key.bias")
+
+
+def gt_inputs(seed: int = 8):
+    """The gt phase's seeded batch (numpy): node features, graph sizes
+    (the first 51), the padding mask, in/out degrees, shortest-path
+    distances (-1 unreachable), path edge features, 3D coordinates, node
+    types, EGT's pair features and its additive mask, and Laplacian
+    eigenvalues and eigenvectors (NaN past a graph's size, up to k)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(10, GT_N + 1, GT_B)
+    sizes[0] = GT_N
+    real = np.arange(GT_N)[None, :] < sizes[:, None]
+    pad = ~(real[:, :, None] & real[:, None, :])
+    lap_vals = rng.random((GT_B * GT_N, GT_LAP_K)).astype(np.float32)
+    lap_vecs = rng.normal(size=(GT_B * GT_N, GT_LAP_K)).astype(np.float32)
+    short = np.repeat(np.minimum(sizes, GT_LAP_K), GT_N)
+    cut = np.arange(GT_LAP_K)[None, :] >= short[:, None]
+    lap_vals[cut] = np.nan
+    lap_vecs[cut] = np.nan
+    return {
+        "nfeat": rng.normal(size=(GT_B, GT_N, GT_D)).astype(np.float32),
+        "pad": pad,
+        "degrees": rng.integers(0, 80, (GT_B, GT_N, 2)),
+        "dist": rng.integers(-1, GT_MAX_DIST + 3, (GT_B, GT_N, GT_N)),
+        "path": rng.normal(size=(GT_B, GT_N, GT_N, GT_PATH_LEN,
+                                 GT_PATH_FEAT)).astype(np.float32),
+        "coord": rng.normal(size=(GT_B, GT_N, 3)).astype(np.float32),
+        "types": rng.integers(0, GT_NODE_TYPES, (GT_B, GT_N)),
+        "efeat": rng.normal(size=(GT_B, GT_N, GT_N, GT_EDGE)).astype(
+            np.float32),
+        "emask": np.where(pad, -1e9, 0.0).astype(np.float32),
+        "lap_vals": lap_vals, "lap_vecs": lap_vecs}
+
+
+def gt_modules(device):
+    """The gt phase's modules, weights drawn on the CPU from seed 0 (the
+    same on every device)."""
+    import torch
+
+    from dgl_tpu_torch.nn import gt
+
+    gen = torch.Generator().manual_seed(0)
+    kw = dict(generator=gen, device=device)
+    return {
+        "degree": gt.DegreeEncoder(GT_MAX_DEGREE, GT_D, **kw),
+        "spatial": gt.SpatialEncoder(GT_MAX_DIST, GT_HEADS, **kw),
+        "path": gt.PathEncoder(GT_PATH_LEN, GT_PATH_FEAT, GT_HEADS, **kw),
+        "spatial3d": gt.SpatialEncoder3d(GT_KERNELS, GT_HEADS,
+                                         GT_NODE_TYPES, **kw),
+        "lap": gt.LapPosEncoder("Transformer", 2, GT_LAP_K, GT_LAP_DIM,
+                                n_head=2, num_post_layer=1, **kw),
+        "graphormer": gt.GraphormerLayer(GT_D, GT_FFN, GT_HEADS, **kw),
+        "egt": gt.EGTLayer(GT_D, GT_EDGE, GT_HEADS, **kw)}
+
+
+def gt_pass(mods, data, device) -> dict:
+    """The gt phase's pass (eval: dropout off): the node features plus the
+    degree encoding, the attention bias of the spatial, path and 3D
+    encoders, a ``GraphormerLayer`` under the padding mask, an
+    ``EGTLayer`` over the pair features and the Laplacian encoder; the
+    outputs and the gradients of the node and pair features and of every
+    parameter (``grads_and_out``, seeded cotangents)."""
+    import torch
+
+    t = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    nfeat = t["nfeat"].requires_grad_()
+    efeat = t["efeat"].requires_grad_()
+    for m in mods.values():
+        m.eval()
+
+    def fn(nfeat, efeat):
+        h = nfeat + mods["degree"](t["degrees"])
+        bias = (mods["spatial"](t["dist"])
+                + mods["path"](t["dist"], t["path"])
+                + mods["spatial3d"](t["coord"], t["types"]))
+        out = mods["graphormer"](h, bias, t["pad"])
+        n_out, e_out = mods["egt"](out, efeat, t["emask"])
+        return n_out, e_out, mods["lap"](t["lap_vals"], t["lap_vecs"])
+
+    params = {f"{name}.{k}": p for name, m in mods.items()
+              for k, p in m.named_parameters()}
+    return grads_and_out(fn, params, (nfeat, efeat), 3)
+
+
+def run_gt(tag: dict, device="cuda") -> dict:
+    """The graph-transformer layers at Graphormer-base's width (phase e):
+    768 wide, 32 heads, FFN 768, over a seeded batch of 64 graphs padded
+    to 51 nodes with a padding mask; the degree, spatial, path and 3D
+    encoders, ``GraphormerLayer``, ``EGTLayer`` (pair channels 64) and the
+    Laplacian encoder, as ``gt_pass`` composes them, on the card against
+    the same modules and inputs on the CPU: every output and gradient at
+    rtol = 1e-4, atol = 1e-4 * max|ref| (TF32 off; the gradients that are
+    0 in exact arithmetic, ``GT_ZERO_GRADS``, at 1e-4 of the largest
+    max|ref|); the pass's and the
+    Graphormer layer's times and peak memory. No hand kernel: every count
+    stays 0."""
+    import torch
+
+    from dgl_tpu_torch import _kernels
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 is on for f32 products")
+    data = gt_inputs()
+    t0 = time.perf_counter()
+    ref = gt_pass(gt_modules("cpu"), data, "cpu")
+    cpu_s = time.perf_counter() - t0
+    mods = gt_modules(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    got = gt_pass(mods, data, device)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect_no_other_launch(dict(_kernels.launch_counts), {}, "the gt pass")
+    if not all(torch.isfinite(v).all() for v in got.values()):
+        raise RuntimeError("the gt pass gave non-finite values")
+    # gradients of biases that add one value to a whole row of scores,
+    # which the softmax does not see
+    errs = held(got, ref, 1e-4, "gt pass, card vs CPU", zero=GT_ZERO_GRADS)
+    pad = torch.from_numpy(data["pad"]).to(device)
+    x = torch.from_numpy(data["nfeat"]).to(device)
+    layer = mods["graphormer"]
+    with torch.inference_mode():
+        layer_ms = time_ms(lambda: layer(x, None, pad), 10)
+    pass_ms = time_ms(lambda: gt_pass(mods, data, device), 3)
+    result = {"pass_with_grads_ms": pass_ms,
+              "graphormer_layer_forward_ms": layer_ms,
+              "peak_memory_gib": peak}
+    emit({"phase": "gt_layers", "batch": f"{GT_B} graphs x {GT_N} nodes",
+          "width": GT_D, "heads": GT_HEADS, "tensors": len(errs),
+          "max_rel_err": max(errs.values()),
+          "worst": max(errs, key=errs.get), "cpu_s": cpu_s,
+          "tolerance": "rtol=1e-4, atol=1e-4*max|ref| per tensor",
+          **result, **tag})
+    return result
+
+
+LINK_BATCH, LINK_RELS, LINK_RFEATS = 65_536, 16, 64
+
+
+def run_link_sparse(tag: dict, device="cuda") -> dict:
+    """Link predictors and sparse optimisers (phase f), card against CPU:
+    ``EdgePredictor`` (``cos`` then a linear to 16, and ``cat``),
+    ``TransE`` (p = 1) and ``TransR`` (p = 2, 64-wide relation space)
+    over 65,536 seeded 128-wide (head, tail, relation) triples of 16
+    relations, outputs and every gradient at rtol = 1e-4,
+    atol = 1e-4 * max|ref|; then a ``NodeEmbedding`` of arxiv's 169,343
+    rows x 128 and one sparse Adam and one sparse Adagrad update over
+    65,536 ids with repeats (each of 64 ids 64 times, the rest
+    uniform): table and state at rtol = atol = 1e-5 (per-row sums by
+    atomics in another order), rows never touched unchanged exactly, and
+    each update's time."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.nn import (EdgePredictor, NodeEmbedding, TransE,
+                                  TransR, sparse_adagrad_init,
+                                  sparse_adagrad_update, sparse_adam_init,
+                                  sparse_adam_update)
+
+    rng = np.random.default_rng(10)
+    hh = rng.normal(size=(LINK_BATCH, IN_FEATS)).astype(np.float32)
+    ht = rng.normal(size=(LINK_BATCH, IN_FEATS)).astype(np.float32)
+    rels = rng.integers(0, LINK_RELS, LINK_BATCH)
+
+    def mods(device):
+        gen = torch.Generator().manual_seed(0)
+        kw = dict(generator=gen, device=device)
+        return {"EdgePredictor cos": EdgePredictor("cos", IN_FEATS, 16,
+                                                   bias=True, **kw),
+                "EdgePredictor cat": EdgePredictor("cat", IN_FEATS, 1, **kw),
+                "TransE": TransE(LINK_RELS, IN_FEATS, 1, **kw),
+                "TransR": TransR(LINK_RELS, LINK_RFEATS, IN_FEATS, 2, **kw)}
+
+    result = {}
+    pairs = {dev: mods(dev) for dev in ("cpu", device)}
+    _kernels.reset_launch_counts()
+    for i, name in enumerate(pairs["cpu"]):
+        res = {}
+        for dev, ms in pairs.items():
+            m = ms[name]
+            a = torch.from_numpy(hh).to(dev).requires_grad_()
+            b = torch.from_numpy(ht).to(dev)
+            r = torch.from_numpy(rels).to(dev)
+            args = (a, b) if name.startswith("Edge") else (a, b, r)
+            res[dev] = grads_and_out(m, dict(m.named_parameters()), args, i)
+        errs = held(res[device], res["cpu"], 1e-4, f"{name}, card vs CPU")
+        result[name] = max(errs.values())
+    torch.cuda.synchronize()
+    expect_no_other_launch(dict(_kernels.launch_counts), {},
+                           "the link predictors")
+    # sparse optimisers over an arxiv-sized table
+    ids = rng.integers(0, N_NODES, LINK_BATCH)
+    ids[:64 * 64] = np.repeat(rng.choice(N_NODES, 64, replace=False), 64)
+    grads = rng.normal(size=(LINK_BATCH, IN_FEATS)).astype(np.float32)
+    untouched = torch.ones(N_NODES, dtype=torch.bool)
+    untouched[torch.from_numpy(ids)] = False
+    opt_ms = {}
+    for opt, (init, update) in {"adam": (sparse_adam_init,
+                                         sparse_adam_update),
+                                "adagrad": (sparse_adagrad_init,
+                                            sparse_adagrad_update)}.items():
+        out = {}
+        for dev in ("cpu", device):
+            emb = NodeEmbedding(N_NODES, IN_FEATS, seed=0, device=dev)
+            state = init(emb.weight)
+            i_d, g_d = (torch.from_numpy(ids).to(dev),
+                        torch.from_numpy(grads).to(dev))
+            table, new_state = update(emb.weight, state, i_d, g_d, lr=0.01)
+            out[dev] = (emb.weight, table, new_state)
+            if dev == device:
+                opt_ms[opt] = time_ms(
+                    lambda: update(emb.weight, state, i_d, g_d, lr=0.01), 10)
+        (w0, t_cpu, s_cpu), (_w, t_gpu, s_gpu) = out["cpu"], out[device]
+        for a, b in [(t_gpu, t_cpu)] + list(zip(s_gpu, s_cpu)):
+            if not torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-5):
+                raise RuntimeError(f"sparse {opt}: card vs CPU max abs err "
+                                   f"{(a.cpu() - b).abs().max().item()}")
+        if not torch.equal(t_gpu.cpu()[untouched], w0[untouched]):
+            raise RuntimeError(f"sparse {opt} moved untouched rows")
+        if torch.equal(t_gpu.cpu()[~untouched], w0[~untouched]):
+            raise RuntimeError(f"sparse {opt} moved no touched row")
+    emit({"phase": "link_and_sparse_emb", "link_max_rel_err": result,
+          "link_tolerance": "rtol=1e-4, atol=1e-4*max|ref| per tensor",
+          "table": f"{N_NODES} x {IN_FEATS}", "update_ids": LINK_BATCH,
+          "distinct_ids": int(np.unique(ids).size),
+          "sparse_tolerance": "rtol=atol=1e-5; untouched rows exact",
+          "update_ms": opt_ms, **tag})
+    return {"link": result, "update_ms": opt_ms}
+
+
 def run_weighted(rate: float, edge_step_ms: float, ptxas: dict,
                  tag: dict) -> dict:
     """The weighted shell plan's phases on the zipf graph plus self-loops
@@ -3004,6 +3590,10 @@ ZOO_OUT, ZOO_HEADS, ZOO_EDGE_FEATS = 256, 4, 16  # in is IN_FEATS (128)
 # NNConv's per-edge (in, out) matrices: (E, in * out) f32, 175 GB at
 # 128 x 256 over the 1,335,586 edges; 16 x 16 takes 1.37 GB
 NNCONV_FEATS = 16
+# AtomicConv's radial filters (cutoffs, means, scalings) and atom types
+ATOMIC_RBF = ((2.0, 3.5, 5.0, 6.5), (0.0, 1.5, 3.0, 4.5), (4.0, 4.0, 4.0,
+                                                            4.0))
+ATOMIC_TYPES = (1.0, 6.0, 7.0, 8.0)
 
 
 def zoo_convs(device="cuda"):
@@ -3012,10 +3602,18 @@ def zoo_convs(device="cuda"):
     plans). Extra inputs: ``"e"`` (E, 16) edge features, ``"e128"``
     (E, 128), ``"w"`` (E,) edge weights, ``"x0"`` the initial features,
     ``"t"`` (E,) edge types in [0, 3), ``"p"`` (E, 2) pseudo-coordinates,
-    ``"x16"`` the input's first 16 columns in place of the input. Copy_u
-    sums go through the hub plan (B1), other sum and mean ops through
-    the shell plan (B1w), max through the shell plan's PyTorch
-    reductions (no kernel)."""
+    ``"eig"`` (N, 3) eigenvector columns, ``"coord"`` (N, 3)
+    coordinates, ``"d"`` (E, 1) distances, ``"x16"`` the input's first
+    16 columns in place of the input, ``"atoms"`` (N, 1) atomic numbers
+    in its place. Copy_u sums and means go through the hub plan (B1),
+    other sum and mean ops through the shell plan (B1w), max and min
+    through the shell plan's PyTorch reductions (no kernel). So
+    PNA's mean 1 and std 2 (the means of h and h * h) B1; DGN's mean 1 B1
+    and its directional aggregators' |F| norm and two ``u_mul_e`` sums 3
+    B1w; GatedGCN's ``u_mul_e`` and ``copy_e`` sums 2 B1w; TWIRLS's first
+    three steps 3 B1 and the reweighted fourth 1 B1w; AtomicConv's
+    ``copy_e`` sum 1 B1w; EGNN's ``copy_e`` sum and mean 2 B1w;
+    GroupRevRes's two GraphConv groups 2 B1."""
     import torch
     from torch import nn
 
@@ -3062,6 +3660,26 @@ def zoo_convs(device="cuda"):
          (0, 1)),
         ("GMMConv max", c.GMMConv(F, O, 2, 4, "max", **kw), ("p",), (0, 0)),
         ("CFConv", c.CFConv(F, FE, O, O, **kw), ("e",), (0, 1)),
+        ("PNAConv", c.PNAConv(F, O, ("mean", "max", "min", "std"),
+                              ("identity", "amplification", "attenuation"),
+                              **kw), (), (3, 0)),
+        ("PNAConvTower", c.PNAConvTower(F, O, **kw), (), (3, 0)),
+        ("DGNConv", c.DGNConv(F, O, ("mean", "dir1-av", "dir1-dx"), **kw),
+         ("eig",), (1, 3)),
+        # relu looked up at call time, so the plain pass can follow the
+        # planned pass's ReLU pattern (relu_pattern)
+        ("GatedGCNConv", c.GatedGCNConv(F, FE, O, activation=lambda t:
+                                        torch.relu(t), **kw), ("e",),
+         (0, 2)),
+        ("TWIRLSConv attention", c.TWIRLSConv(F, O, O, prop_step=4,
+                                              attention=True, **kw), (),
+         (3, 1)),
+        ("AtomicConv", c.AtomicConv(*ATOMIC_RBF, ATOMIC_TYPES),
+         ("atoms", "d"), (0, 1)),
+        ("EGNNConv", c.EGNNConv(F, O, O, edge_feat_size=FE, **kw),
+         ("coord", "e"), (0, 2)),
+        ("GroupRevRes GraphConv", c.GroupRevRes(
+            lambda i: c.GraphConv(F // 2, F // 2, **kw), 2), (), (2, 0)),
     ]
 
 
@@ -3082,11 +3700,18 @@ def zoo_inputs(n, e, device="cuda"):
             "w": put((rng.random(e) + 0.5).astype(np.float32)),
             "x0": put(rng.standard_normal((n, IN_FEATS), dtype=np.float32)),
             "t": put(rng.integers(0, 3, e).astype(np.int64)),
-            "p": put(rng.uniform(-1, 1, (e, 2)).astype(np.float32))}
+            "p": put(rng.uniform(-1, 1, (e, 2)).astype(np.float32)),
+            "eig": put(rng.standard_normal((n, 3), dtype=np.float32)),
+            "coord": put(rng.standard_normal((n, 3), dtype=np.float32)),
+            "d": put(rng.uniform(0.5, 8.0, (e, 1)).astype(np.float32)),
+            "atoms": put(rng.choice(np.array(ATOMIC_TYPES, np.float32),
+                                    (n, 1)))}
 
 
-# the zoo's convs that reduce with max (over the shell plan's bf16 rows)
-ZOO_MAX = ("EdgeConv", "GMMConv max")
+# the zoo's convs that reduce with max or min (over the shell plan's bf16
+# rows), and of those the ones with PNA's std
+ZOO_MAX = ("EdgeConv", "GMMConv max", "PNAConv", "PNAConvTower")
+ZOO_STD = ("PNAConv", "PNAConvTower")
 
 
 @contextlib.contextmanager
@@ -3142,19 +3767,62 @@ def following_plan_max(plan):
         spmm._gspmm_cmp = plain
 
 
+@contextlib.contextmanager
+def following_plan_rounding():
+    """Within the block, the plain path's ``copy_u`` sums and means round
+    the source table to bf16, and the gradient that flows back to it to
+    bf16, as the hub plan does (its kernel gathers bf16 rows, its
+    backward bf16 rows of ``dz``); the sums stay f32.
+
+    PNA's ``std`` is ``sqrt(max(mu2 - mu^2, 0) + 1e-30)``, whose slope is
+    about 5e14 where the variance is 0. At a node with one distinct
+    in-neighbour row the exact variance is 0, while the plan's, from
+    bf16 rows, is ``bf16(x^2) - bf16(x)^2``: the plan clamps it or keeps a
+    rounding residue, and its gradient there is that residue times the
+    slope (1e11 and more), a difference of the rounding, not of the
+    gradient. With the plan's roundings the plain path's variances, and
+    so its clamp pattern, are the plan's, and it computes the plan path's
+    function with sums in another order."""
+    import torch
+
+    from dgl_tpu_torch.ops import spmm
+
+    class Round(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            return t.to(torch.bfloat16).to(t.dtype)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad.to(torch.bfloat16).to(grad.dtype)
+
+    plain = spmm._gspmm_sum
+
+    def rounded(op, rel, u, e):
+        return plain(op, rel, Round.apply(u) if op == "copy_lhs" else u, e)
+
+    spmm._gspmm_sum = rounded
+    try:
+        yield
+    finally:
+        spmm._gspmm_sum = plain
+
+
 def zoo_args(x, kinds, inputs):
     """A zoo conv's input (``x``, or its first 16 columns for ``"x16"``),
     its other positional inputs and its keyword inputs."""
     x = x[:, :NNCONV_FEATS] if "x16" in kinds else x
-    args = [inputs[k] for k in kinds if k not in ("w", "x16")]
+    x = inputs["atoms"] if "atoms" in kinds else x
+    args = [inputs[k] for k in kinds if k not in ("w", "x16", "atoms")]
     kw = {"edge_weight": inputs["w"]} if "w" in kinds else {}
     return x, args, kw
 
 
-def zoo_pass(mod, graph, x, kinds, inputs, cot_seed):
+def zoo_pass(mod, graph, x, kinds, inputs, cot_seed, pattern=None):
     """One forward and one backward of ``sum(out * cot)`` (cotangents of
     the output shapes, seeded): the outputs, the gradients of the input
-    and of every parameter, and the launches of each half."""
+    and of every parameter, the launches of each half and the forward's
+    ReLU pattern (``relu_pattern``; following ``pattern`` when given)."""
     import torch
 
     from dgl_tpu_torch import _kernels
@@ -3164,7 +3832,8 @@ def zoo_pass(mod, graph, x, kinds, inputs, cot_seed):
     mod.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
     _kernels.reset_launch_counts()
-    outs = mod(graph, x, *args, **kw)
+    with relu_pattern(pattern) as seen:
+        outs = mod(graph, x, *args, **kw)
     torch.cuda.synchronize()
     fwd = dict(_kernels.launch_counts)
     outs = outs if isinstance(outs, tuple) else (outs,)
@@ -3172,15 +3841,16 @@ def zoo_pass(mod, graph, x, kinds, inputs, cot_seed):
     loss = sum((o * torch.randn(o.shape, generator=gen, device=o.device)
                 ).sum() for o in outs)
     _kernels.reset_launch_counts()
-    loss.backward()
+    if loss.requires_grad:  # AtomicConv: no parameter, atoms compared
+        loss.backward()
     torch.cuda.synchronize()
     bwd = dict(_kernels.launch_counts)
     tensors = {f"out{i}": o.detach() for i, o in enumerate(outs)}
-    tensors["dx"] = x.grad
+    tensors["dx"] = torch.zeros_like(x) if x.grad is None else x.grad
     for k, p in mod.named_parameters():
         tensors[f"grad {k}"] = (torch.zeros_like(p) if p.grad is None
                                 else p.grad)
-    return tensors, fwd, bwd
+    return tensors, fwd, bwd, seen
 
 
 def run_conv_zoo(gp, g, x, tag: dict) -> dict:
@@ -3190,10 +3860,13 @@ def run_conv_zoo(gp, g, x, tag: dict) -> dict:
     forward and one backward each, the launches counted around each half
     (on ``gp`` the forward's B1 and B1w launches must be the table's, on
     ``g`` none), every output and gradient of ``gp`` against ``g``'s at
-    rtol = 2e-2, atol = 2e-2 * max|ref| per tensor (the max convs'
-    against ``g`` following the plan path's picks,
-    ``following_plan_max``; their error against ``g``'s own picks is
-    reported beside it), and the forward's time on both graphs. Returns
+    rtol = 2e-2, atol = 2e-2 * max|ref| per tensor, ``g``'s pass
+    following the planned pass's ReLU pattern (``relu_pattern``, as
+    ``check_grads`` does), the max convs' also its picks
+    (``following_plan_max``), PNA's also its roundings
+    (``following_plan_rounding``); the error against ``g``'s pass on its
+    own pattern is reported beside it), and the forward's time on both
+    graphs. Returns
     each conv's forward launches on ``gp``."""
     import torch
 
@@ -3204,19 +3877,25 @@ def run_conv_zoo(gp, g, x, tag: dict) -> dict:
     for i, (name, mod, kinds, (n_b1, n_b1w)) in enumerate(zoo_convs(
             x.device.type)):
         mod.eval()
-        got, fwd, bwd = zoo_pass(mod, gp, x, kinds, inputs, i)
+        got, fwd, bwd, pattern = zoo_pass(mod, gp, x, kinds, inputs, i)
         expect_no_other_launch(fwd, {"shell_prefix_sum": n_b1,
                                      "shell_prefix_gspmm": n_b1w},
                                f"{name} on the planned graph")
-        ref, fwd_plain, bwd_plain = zoo_pass(mod, g, x, kinds, inputs, i)
+        ref, fwd_plain, bwd_plain, _p = zoo_pass(mod, g, x, kinds, inputs,
+                                                 i)
         expect_no_other_launch(fwd_plain, {}, f"{name} without a plan")
         expect_no_other_launch(bwd_plain, {}, f"{name}'s backward without "
                                "a plan")
         own = None
-        if name in ZOO_MAX:  # hold it against the plan path's picks
+        if name in ZOO_MAX or pattern:  # on the plan path's pieces
             own = ref
-            with following_plan_max(rel.shell_plan):
-                ref, _f, _b = zoo_pass(mod, g, x, kinds, inputs, i)
+            with contextlib.ExitStack() as stack:
+                if name in ZOO_MAX:  # its picks
+                    stack.enter_context(following_plan_max(rel.shell_plan))
+                if name in ZOO_STD:  # and PNA's std on its roundings
+                    stack.enter_context(following_plan_rounding())
+                ref, _f, _b, _p = zoo_pass(mod, g, x, kinds, inputs, i,
+                                           pattern or None)
         errs = {}
         for k, r in ref.items():
             scale = r.abs().max().item()
@@ -3232,8 +3911,8 @@ def run_conv_zoo(gp, g, x, tag: dict) -> dict:
         launches[name] = {"shell_prefix_sum": n_b1,
                           "shell_prefix_gspmm": n_b1w}
         extra = {}
-        if own is not None:
-            extra["max_rel_err_vs_plain_own_picks"] = max(
+        if own is not None:  # the plain path on its own pieces
+            extra["max_rel_err_vs_plain_own_pattern"] = max(
                 (got[k] - r).abs().max().item()
                 / max(r.abs().max().item(), 1e-30) for k, r in own.items())
         emit({"phase": "conv_zoo", "conv": name, **extra,
@@ -3940,6 +4619,9 @@ def run() -> dict:
             conv: n[name] for conv, n in zoo.items() if n[name]}
     kernels.append(weighted)
     run_dense_cora(tag)
+    run_dense_convs(tag)
+    run_gt(tag)
+    run_link_sparse(tag)
     t0 = time.perf_counter()
     data = minibatch_data("cuda")
     emit({"phase": "minibatch_data", "setup_s": time.perf_counter() - t0,

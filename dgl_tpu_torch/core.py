@@ -154,8 +154,9 @@ def invoke_udf_reduce(g: Graph, cet, rfunc: Callable, msgdata: Dict):
     for k, v in msgdata.items():
         vs = v.index_select(0, rel.csc_eids[:E])
         buf = vs.new_zeros((n * maxdeg,) + tuple(vs.shape[1:]))
-        mailbox[k] = buf.index_copy(0, slot, vs).reshape(
-            (n, maxdeg) + tuple(vs.shape[1:]))
+        # in place: the zero buffer is the mailbox (no second copy)
+        buf.index_copy_(0, slot, vs)
+        mailbox[k] = buf.reshape((n, maxdeg) + tuple(vs.shape[1:]))
     deg = rel.in_degrees()
     mask = (torch.arange(maxdeg, device=deg.device)[None, :]
             < deg[:, None])

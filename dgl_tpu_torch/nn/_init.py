@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["flax_init", "dense"]
+__all__ = ["flax_init", "dense", "embed"]
 
 
 def _fans(shape):
@@ -68,3 +68,14 @@ def dense(in_feats: int, out_feats: int, bias: bool = True,
         if bias:
             lin.bias.zero_()
     return lin
+
+
+def embed(num: int, dim: int,
+          generator: Optional[torch.Generator] = None) -> nn.Embedding:
+    """An ``nn.Embedding`` drawn as flax's ``Embed`` draws it: normal with
+    standard deviation ``1 / sqrt(dim)``."""
+    emb = nn.Embedding(num, dim)
+    with torch.no_grad():
+        emb.weight.copy_(flax_init("normal", (num, dim), generator,
+                                   std=dim ** -0.5))
+    return emb

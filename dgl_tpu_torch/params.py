@@ -12,10 +12,18 @@ __all__ = ["from_flax_params"]
 
 _LEAF_NAMES = {"scale": "weight", "embedding": "weight"}
 _GRU_GATES = frozenset(("ir", "iz", "in", "hr", "hz", "hn"))
+_LSTM_GATES = ("i", "f", "g", "o")  # flax's and torch's order alike
+# flax's automatic names of a lone wrapped module, whose subtree the port
+# holds in the wrapping module itself: the PNA and DGN towers' convs and
+# the masked LSTM step's cell
+_WRAPPERS = frozenset(("PNAConv_0", "DGNConv_0", "OptimizedLSTMCell_0"))
 # flax's per-type child prefix -> (the port's ModuleDict, the leaf every
-# such child holds, or None for any module)
+# such child holds, or None for any module); ``Dense_<i>`` (an MLP's
+# unnamed layers) and ``layers_<i>`` (a tuple field's modules) become the
+# port's ``layers.<i>``
 _TYPED = {"mods_": ("mods", None), "linear_": ("linears", "kernel"),
-          "embed_": ("embeds", "embedding")}
+          "embed_": ("embeds", "embedding"), "Dense_": ("layers", "kernel"),
+          "layers_": ("layers", None)}
 
 
 def from_flax_params(params: Mapping[str, Any],
@@ -36,7 +44,15 @@ def from_flax_params(params: Mapping[str, Any],
     dim)); a ``GRUCell`` (children ``ir``, ``iz``, ``in``, ``hr``, ``hz``,
     ``hn``) becomes ``torch.nn.GRUCell``'s ``weight_ih``/``weight_hh``
     (the gates stacked r, z, n) and ``bias_ih``/``bias_hh`` (flax has no
-    ``hr`` and ``hz`` bias: those parts are 0).
+    ``hr`` and ``hz`` bias: those parts are 0). An
+    ``OptimizedLSTMCell`` (children ``ii``, ``if``, ``ig``, ``io`` without
+    bias, ``hi``, ``hf``, ``hg``, ``ho`` with one) becomes
+    ``torch.nn.LSTMCell``'s ``weight_ih``/``weight_hh`` (the gates stacked
+    i, f, g, o), ``bias_ih`` 0 and ``bias_hh`` the ``h*`` biases. A
+    subtree named ``PNAConv_0``, ``DGNConv_0`` or ``OptimizedLSTMCell_0``
+    (a module that another wraps alone) lands on the wrapping module's
+    own names; children all named ``Dense_<i>`` or all ``layers_<i>``
+    land on ``layers.<i>``.
 
     The per-type children of the reference's ``HeteroGraphConv``,
     ``HeteroLinear`` and ``HeteroEmbedding`` (a subtree whose children are
@@ -62,10 +78,18 @@ def from_flax_params(params: Mapping[str, Any],
         for name, value in tree.items():
             if isinstance(value, Mapping):
                 sub = path + name
+                if name in _WRAPPERS:
+                    if _is_lstm(value):
+                        out.update(_lstm_cell(value, prefix))
+                    else:
+                        walk(value, sub + "/", prefix)
+                    continue
                 port = (typed(name) if typed is not None else name)
                 port = rename.get(sub, prefix + port)
                 if set(value) == _GRU_GATES:
                     out.update(_gru_cell(value, port + "."))
+                elif _is_lstm(value):
+                    out.update(_lstm_cell(value, port + "."))
                 else:
                     walk(value, sub + "/", port + ".")
                 continue
@@ -113,3 +137,23 @@ def _gru_cell(tree, prefix):
              "bias_hh": [bias(g) for g in ("hr", "hz", "hn")]}
     return {prefix + k: torch.from_numpy(np.ascontiguousarray(
         np.concatenate(v))) for k, v in stack.items()}
+
+
+def _is_lstm(tree) -> bool:
+    return set(tree) == {k + g for k in "ih" for g in _LSTM_GATES}
+
+
+def _lstm_cell(tree, prefix):
+    """flax ``OptimizedLSTMCell`` parameters as ``torch.nn.LSTMCell``'s:
+    the input kernels carry no bias (``bias_ih`` is 0)."""
+    def kernel(g):
+        return np.array(tree[g]["kernel"], dtype=np.float32).T
+
+    w_ih = np.concatenate([kernel("i" + g) for g in _LSTM_GATES])
+    w_hh = np.concatenate([kernel("h" + g) for g in _LSTM_GATES])
+    b_hh = np.concatenate([np.array(tree["h" + g]["bias"], dtype=np.float32)
+                           for g in _LSTM_GATES])
+    arrays = {"weight_ih": w_ih, "weight_hh": w_hh,
+              "bias_ih": np.zeros_like(b_hh), "bias_hh": b_hh}
+    return {prefix + k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in arrays.items()}

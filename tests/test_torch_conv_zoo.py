@@ -1,7 +1,10 @@
 """The port's conv layers GATv2Conv, DotGatConv, AGNNConv, EGATConv,
 EdgeGATConv, GINConv, GINEConv, EdgeConv, SGConv, APPNPConv, TAGConv,
-ChebConv, GCN2Conv, GatedGraphConv, NNConv, GMMConv and CFConv against
-their ``dgl_tpu`` counterparts, one parametrised test.
+ChebConv, GCN2Conv, GatedGraphConv, NNConv, GMMConv, CFConv, PNAConv,
+PNAConvTower, DGNConv, DGNConvTower, GatedGCNConv, TWIRLSConv,
+AtomicConv, EGNNConv and GroupRevRes against their ``dgl_tpu``
+counterparts, one parametrised test; TWIRLS's attention on its own test
+(a graph without self-loops, see there).
 
 Each case runs once on a plain graph and once on the same graph with
 ``with_spmm_plans(num_hubs=8, weighted=True, bitmap=False,
@@ -33,6 +36,7 @@ from flax import linen as fnn
 
 import dgl_tpu
 from dgl_tpu.nn import conv as jc
+from dgl_tpu.nn.conv import dgnconv as jdgn, pnaconv as jpna
 import dgl_tpu_torch as dt
 from dgl_tpu_torch.nn import conv as tc
 from dgl_tpu_torch.ops import hub_spmm, shell_prefix
@@ -68,7 +72,9 @@ def graphs():
 # B1's and B1w's wrappers on the planned graph)
 # extra inputs: "e" (E, FE) edge features, "w" (E,) positive weights,
 # "x0" the initial features, "t" (E,) edge types in [0, 3), "p" (E, 2)
-# pseudo-coordinates
+# pseudo-coordinates, "eig" (N, 3) eigenvector columns, "coord" (N, 3)
+# coordinates, "d" (E, 1) distances; "atoms" takes the input's place with
+# (N, 1) atomic numbers
 CASES = {
     "gatv2": (lambda: jc.GATv2Conv(F, O, H),
               lambda: tc.GATv2Conv(F, O, H, device="cpu"), (), (0, 1)),
@@ -143,7 +149,63 @@ CASES = {
     "cfconv": (lambda: jc.CFConv(F, FE, 10, O),
                lambda: tc.CFConv(F, FE, 10, O, device="cpu"), ("e",),
                (0, 1)),
+    # mean 1 B1, std 2 (the means of h and h * h), max and min none
+    "pna": (lambda: jc.PNAConv(F, O),
+            lambda: tc.PNAConv(F, O, device="cpu"), (), (3, 0)),
+    "pna_sum_var_moment3_residual": (
+        lambda: jc.PNAConv(F, F, ("sum", "var", "moment3"),
+                           ("identity", "attenuation"), delta=1.5),
+        lambda: tc.PNAConv(F, F, ("sum", "var", "moment3"),
+                           ("identity", "attenuation"), delta=1.5,
+                           device="cpu"), (), (4, 1)),
+    "pna_edge": (lambda: jc.PNAConv(F, O, ("mean", "max"), edge_feat_size=FE),
+                 lambda: tc.PNAConv(F, O, ("mean", "max"), edge_feat_size=FE,
+                                    device="cpu"), ("e",), (0, 1)),
+    "pna_tower": (lambda: jpna.PNAConvTower(F, O),
+                  lambda: tc.PNAConvTower(F, O, device="cpu"), (), (3, 0)),
+    # mean 1 B1; |F|'s copy_e sum, then a u_mul_e sum per dir aggregator
+    "dgn": (lambda: jc.DGNConv(F, O),
+            lambda: tc.DGNConv(F, O, device="cpu"), ("eig",), (1, 3)),
+    "dgn_tower": (lambda: jdgn.DGNConvTower(
+                      F, O, ("sum", "max", "dir2-av"),
+                      ("identity", "amplification")),
+                  lambda: tc.DGNConvTower(F, O, ("sum", "max", "dir2-av"),
+                                          ("identity", "amplification"),
+                                          device="cpu"), ("eig",), (1, 2)),
+    "gatedgcn": (lambda: jc.GatedGCNConv(F, FE, O),
+                 lambda: tc.GatedGCNConv(F, FE, O, device="cpu"), ("e",),
+                 (0, 2)),
+    "gatedgcn_residual_no_norm": (
+        lambda: jc.GatedGCNConv(F, F, F, batch_norm=False),
+        lambda: tc.GatedGCNConv(F, F, F, batch_norm=False, device="cpu"),
+        ("eF",), (0, 2)),
+    "twirls": (lambda: jc.TWIRLSConv(F, O, 16, prop_step=4),
+               lambda: tc.TWIRLSConv(F, O, 16, prop_step=4, device="cpu"),
+               (), (4, 0)),
+    "atomic": (lambda: jc.AtomicConv((2.0, 3.0, 4.0), (0.5, 1.5, 2.5),
+                                     (1.0, 2.0, 4.0)),
+               lambda: tc.AtomicConv((2.0, 3.0, 4.0), (0.5, 1.5, 2.5),
+                                     (1.0, 2.0, 4.0)), ("atoms", "d"),
+               (0, 1)),
+    "atomic_types": (lambda: jc.AtomicConv((2.0, 3.0), (0.5, 1.5),
+                                           (1.0, 2.0), (1.0, 6.0, 8.0)),
+                     lambda: tc.AtomicConv((2.0, 3.0), (0.5, 1.5),
+                                           (1.0, 2.0), (1.0, 6.0, 8.0)),
+                     ("atoms", "d"), (0, 1)),
+    "egnn": (lambda: jc.EGNNConv(F, 16, O, edge_feat_size=FE),
+             lambda: tc.EGNNConv(F, 16, O, edge_feat_size=FE, device="cpu"),
+             ("coord", "e"), (0, 2)),
+    "grouprevres_graphconv": (
+        lambda: jc.GroupRevRes(lambda i: jc.GraphConv(F // 2, F // 2), 2),
+        lambda: tc.GroupRevRes(lambda i: tc.GraphConv(F // 2, F // 2,
+                                                      device="cpu"), 2),
+        (), (2, 0)),
 }
+
+# flax names a module that a factory builds by its class: the port keeps
+# the groups' modules in ``gnns``
+RENAME = {"grouprevres_graphconv": {"GraphConv_0": "gnns.0",
+                                    "GraphConv_1": "gnns.1"}}
 
 
 def _extras(kinds, E):
@@ -162,6 +224,13 @@ def _extras(kinds, E):
             out.append(rng.integers(0, 3, E).astype(np.int32))
         elif k == "p":
             out.append(rng.uniform(-1, 1, (E, 2)).astype(np.float32))
+        elif k in ("eig", "coord"):
+            out.append(_rand((N, 3), 14))
+        elif k == "d":
+            out.append(rng.uniform(0.3, 4.5, (E, 1)).astype(np.float32))
+        elif k == "atoms":
+            out.append(rng.choice([1.0, 6.0, 7.0, 8.0], (N, 1)).astype(
+                np.float32))
     return out
 
 
@@ -171,7 +240,7 @@ def _call_args(kinds, g, x, extras, to):
     for k, v in zip(kinds, extras):
         if k == "w":
             kw["edge_weight"] = to(v)
-        else:
+        elif k != "atoms":  # atoms stand in for the input, x
             args.append(to(v))
     return args, kw
 
@@ -221,17 +290,24 @@ def counted(monkeypatch):
 @pytest.mark.parametrize("planned", [False, True], ids=["plain", "planned"])
 @pytest.mark.parametrize("name", list(CASES))
 def test_conv_matches(graphs, counted, name, planned):
-    jfac, tfac, kinds, (n_b1, n_b1w) = CASES[name]
-    jg, tg = graphs[planned]
+    _check_case(name, CASES[name], graphs[planned], planned, counted)
+
+
+def _check_case(name, case, graph_pair, planned, counted):
+    jfac, tfac, kinds, (n_b1, n_b1w) = case
+    jg, tg = graph_pair
     E = tg._relation().num_edges_padded
     x = _rand((N, F), 1)
     extras = _extras(kinds, E)
+    if "atoms" in kinds:
+        x = extras[kinds.index("atoms")]
     jmod, tmod = jfac(), tfac().eval()
     jargs = lambda xx: _call_args(kinds, jg, xx, extras, jnp.asarray)  # noqa
     targs = lambda xx: _call_args(kinds, tg, xx, extras,  # noqa: E731
                                   torch.from_numpy)
     params = _params(jmod, jargs, x)
-    sd = dt.from_flax_params(params.get("params", {}))
+    rename = RENAME.get(name)
+    sd = dt.from_flax_params(params.get("params", {}), rename)
     state = tmod.state_dict()
     assert set(sd) <= set(state)
     # buffers only: EdgeConv's batch statistics (flax's start, mean 0 and
@@ -260,8 +336,9 @@ def test_conv_matches(graphs, counted, name, planned):
     outs = _outputs(tmod(*a, **kw))
     if planned:
         assert (counted["b1"], counted["b1w"]) == (n_b1, n_b1w), counted
-    sum((o * torch.from_numpy(c)).sum() for o, c in zip(outs, cots)
-        ).backward()
+    loss = sum((o * torch.from_numpy(c)).sum() for o, c in zip(outs, cots))
+    if loss.requires_grad:  # AtomicConv has no parameter
+        loss.backward()
     rtol = 2e-2 if planned else 1e-4
 
     def close(got, want, what):
@@ -273,11 +350,52 @@ def test_conv_matches(graphs, counted, name, planned):
     assert len(outs) == len(ref)
     for i, (o, r) in enumerate(zip(outs, ref)):
         close(o.detach().numpy(), r, f"{name} out {i}")
-    close(xt.grad.numpy(), gx, f"{name} dx")
-    want = dt.from_flax_params(gp.get("params", {}))
+    # an input read only by comparisons (AtomicConv's atoms) has no
+    # gradient: the reference's is 0
+    close(np.zeros(x.shape, np.float32) if xt.grad is None
+          else xt.grad.numpy(), gx, f"{name} dx")
+    want = dt.from_flax_params(gp.get("params", {}), rename)
     got = {k: p.grad for k, p in tmod.named_parameters()}
     assert set(want) == set(got), (set(want), set(got))
     for k, v in want.items():
         g = (np.zeros(v.shape, np.float32) if got[k] is None
              else got[k].numpy())
         close(g, v.numpy(), f"{name} grad {k}")
+
+
+@pytest.fixture(scope="module")
+def loopless():
+    """The zoo's edges without self-loops, plain and planned."""
+    src, dst = _edges()
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    jg = dgl_tpu.graph((src, dst), num_nodes=N)
+    tg = dt.graph((src, dst), num_nodes=N, device="cpu")
+    kw = dict(num_hubs=8, weighted=True, bitmap=False, dense_attn=False)
+    return {False: (jg, tg),
+            True: (jg.with_spmm_plans(**kw), tg.with_spmm_plans(**kw))}
+
+
+TWIRLS_ATTN = (lambda: jc.TWIRLSConv(F, O, 16, prop_step=4, attention=True),
+               lambda: tc.TWIRLSConv(F, O, 16, prop_step=4, attention=True,
+                                     device="cpu"), (), (3, 1))
+
+
+@pytest.mark.parametrize("planned", [False, True], ids=["plain", "planned"])
+def test_twirls_attention_matches(loopless, counted, planned):
+    """TWIRLSConv with attention: 3 ``copy_u`` steps (B1), then the
+    reweighted step (B1w), on a graph without self-loops. The reference's
+    distance is ``jnp.linalg.norm``, whose gradient at 0 (a self-loop) is
+    NaN; the port's ``vector_norm`` gives 0 there (ROADMAP queue C)."""
+    _check_case("twirls_attention", TWIRLS_ATTN, loopless[planned], planned,
+                counted)
+
+
+def test_twirls_attention_self_loop_gradient(graphs):
+    """On the graph with self-loops the port's gradients stay finite."""
+    tg = graphs[False][1]
+    mod = TWIRLS_ATTN[1]()
+    x = torch.from_numpy(_rand((N, F), 1)).requires_grad_()
+    mod(tg, x).sum().backward()
+    assert torch.isfinite(x.grad).all()
+    assert all(torch.isfinite(p.grad).all() for p in mod.parameters())

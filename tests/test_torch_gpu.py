@@ -1168,3 +1168,62 @@ def test_planned_convs_launch_b1_and_b1w(card, name, counts):
     for a, b in zip(res[str(card)], res["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=1e-4 * b.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# SAGEConv's gcn aggregator and LabelPropagation over a hub plan
+# ---------------------------------------------------------------------------
+
+
+def test_sage_gcn_and_label_propagation_launch_b1(card, monkeypatch):
+    """GraphSAGE 16-32-32-8 with the ``gcn`` aggregator over a hub plan
+    (``reorder_for_spmm(num_hubs=64, precision="int8")``) on the card: 3
+    B1 launches a forward and 5 a training step (layer 0's input needs no
+    gradient), none of any other kernel; ``LabelPropagation(k=4)``: 4
+    launches. Each output against the same call with B1's plain version in
+    place of the kernel, on the same card (they sum the same bf16 rows in
+    the same order): rtol = atol = 1e-5 (the kernel matches its plain
+    version exactly; the rest is the same operations)."""
+    from dgl_tpu_torch.nn import LabelPropagation
+    from dgl_tpu_torch.ops import shell_prefix
+
+    g = _zipf_graph(3000, 30000, 5, card)
+    gp, _ = dt.transforms.reorder_for_spmm(g, num_hubs=64, precision="int8")
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(3000, 16)).astype(
+        np.float32)).to(card)
+    y = torch.from_numpy(rng.integers(0, 8, 3000)).to(card)
+    mask = torch.from_numpy(rng.random(3000) < 0.1).to(card)
+    model = GraphSAGE(16, 32, 8, num_layers=3, aggregator_type="gcn",
+                      dropout=0.0, generator=torch.Generator().manual_seed(0),
+                      device=card)
+    lp = LabelPropagation(k=4)
+
+    def run():
+        _kernels.reset_launch_counts()
+        out = model(gp, x)
+        fwd = dict(_kernels.launch_counts)
+        _kernels.reset_launch_counts()
+        torch.nn.functional.cross_entropy(out, y).backward()
+        step = fwd["shell_prefix_sum"] + _kernels.launch_counts[
+            "shell_prefix_sum"]
+        grads = [p.grad.clone() for p in model.parameters()]
+        model.zero_grad(set_to_none=True)
+        _kernels.reset_launch_counts()
+        labels = lp(gp, y, mask)
+        torch.cuda.synchronize()
+        return fwd, step, dict(_kernels.launch_counts), [
+            out.detach(), labels] + grads
+
+    fwd, step, lp_launches, got = run()
+    assert fwd == {**{k: 0 for k in fwd}, "shell_prefix_sum": 3}
+    assert step == 5
+    assert lp_launches == {**{k: 0 for k in lp_launches},
+                           "shell_prefix_sum": 4}
+    monkeypatch.setattr(hub_spmm, "shell_prefix_sum",
+                        lambda t, idx, rows, n, base=None, levels=None:
+                        shell_prefix.shell_prefix_sum_plain(t, idx, rows, n,
+                                                            base))
+    _f, _s, _l, ref = run()
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -75,6 +75,28 @@ _CALLS = {
     "device_seed_batches": "dt.sampling.device_seed_batches("
                            "torch.Generator(), 10, 4{})",
     "DeviceSAGE": "dt.models.DeviceSAGE(4, 8, 2{})",
+    "PNAConv": "dt.nn.PNAConv(4, 8{})",
+    "DGNConv": "dt.nn.DGNConv(4, 8{})",
+    "GatedGCNConv": "dt.nn.GatedGCNConv(4, 3, 8{})",
+    "TWIRLSConv": "dt.nn.TWIRLSConv(4, 8, 6, 2{})",
+    "EGNNConv": "dt.nn.EGNNConv(4, 6, 8{})",
+    "DenseGraphConv": "dt.nn.DenseGraphConv(4, 8{})",
+    "DenseSAGEConv": "dt.nn.DenseSAGEConv(4, 8{})",
+    "DenseChebConv": "dt.nn.DenseChebConv(4, 8, 2{})",
+    "WeightBasis": "dt.nn.WeightBasis((4, 8), 2, 3{})",
+    "EdgePredictor": "dt.nn.EdgePredictor('cat', 4, 2{})",
+    "TransE": "dt.nn.TransE(3, 4{})",
+    "TransR": "dt.nn.TransR(3, 4, 5{})",
+    "NodeEmbedding": "dt.nn.NodeEmbedding(10, 4{})",
+    "BiasedMHA": "dt.nn.BiasedMHA(8, 2{})",
+    "GraphormerLayer": "dt.nn.GraphormerLayer(8, 16, 2{})",
+    "EGTLayer": "dt.nn.EGTLayer(8, 4, 2{})",
+    "DegreeEncoder": "dt.nn.DegreeEncoder(5, 8{})",
+    "LapPosEncoder": "dt.nn.LapPosEncoder('Transformer', 1, 3, 8{})",
+    "PathEncoder": "dt.nn.PathEncoder(3, 4{})",
+    "SpatialEncoder": "dt.nn.SpatialEncoder(4{})",
+    "SpatialEncoder3d": "dt.nn.SpatialEncoder3d(4{})",
+    "MLP": "dt.nn.MLP(4, (8, 2){})",
 }
 
 _PROBE = """
