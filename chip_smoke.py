@@ -294,7 +294,39 @@ over 4 relations, 128-wide features, 349 classes; the recipe of
     CPU at rtol = 1e-4, atol = 1e-4 * max|ref|; at 1/8 (242,468 nodes,
     2,638,877 edges) one counted forward and one counted step (no hand
     kernel: every count 0) with their peak memory, three more steps with
-    finite, falling losses, times and profiles.
+    finite, falling losses, times and profiles;
+
+the sparse-matrix API and the graph utilities (B1 in the recipe only):
+
+25. ``sparse_gcn``: DGL's sparse-API GCN (``examples/sparse/gcn.py``) at
+    the arxiv GCN widths, 128-256-256-40, over ``D^-1/2 (A + I) D^-1/2``
+    of ``to_bidirected(remove_self_loop(g))`` on the zipf graph, built as
+    the example builds it (``sparse_gcn_matrix``; ``setup_s``): one
+    counted forward and backward (every kernel count 0: ``spmm`` runs the
+    plain g-SpMM of the reversed relation, which has no plan), output and
+    gradients against three ``GraphConv(norm="both")`` layers with the
+    same weights on the graph plus self-loops and against the same model
+    on the CPU at rtol = 1e-4, atol = 1e-4 * max|ref| (on the sparse
+    pass's ReLU pattern, as ``check_grads``), every sparse op of
+    ``sparse_op_cases`` card against CPU at 1e-5 and timed, five Adam
+    steps with a falling loss, times and profiles;
+26. ``gcn_recipe``: ``examples/gcn_cora.py``'s recipe at arxiv scale,
+    ``add_self_loop(remove_self_loop(g))`` and ``with_spmm_plans(
+    weighted=True)``, ``GCN(128, 256, 40, num_layers=3)``: a counted
+    forward (3 B1 launches) and step (5), against the graph without plans
+    at rtol = 2e-2, atol = 2e-2 * max|ref| (gradients as in step 6), five
+    steps with a falling loss, times and a profile; then each host
+    transform of ``recipe_transforms`` at this size, timed, its card
+    result equal to the CPU's, ``khop_graph`` and ``line_graph`` on a
+    2,000-node ``rand_graph``, and the zipf graph's two-hop path counts;
+27. ``batched_readout``: OGB's molhiv GIN (five ``GINConv`` sum layers,
+    MLP 300-300, ``mean_nodes``, a linear to one logit) over a ``batch``
+    of 32 random molhiv-sized graphs (``molhiv_graphs``): a counted BCE
+    step (every kernel count 0), logits and gradients against the CPU at
+    rtol = 1e-4 on the card pass's ReLU pattern, five Adam steps with a
+    falling loss, times and profiles; then on a batch of 4,096 such
+    graphs each readout of ``readout_cases`` card against CPU at 1e-5,
+    and ``unbatch``, ``slice_batch`` and ``pad_batch`` equal to the CPU's.
 
 Every training input is built outside ``torch.inference_mode()``.
 It prints one JSON object per result line, the kernel table as
@@ -4584,6 +4616,723 @@ def run_hgt(tag: dict) -> dict:
     return result
 
 
+# -- the sparse-matrix API and the graph utilities (phases sparse_gcn,
+# gcn_recipe and batched_readout) ------------------------------------------
+
+SPARSE_GCN_DIMS = (IN_FEATS, HIDDEN, HIDDEN, CLASSES)  # examples/sparse/gcn.py
+SPARSE_OP_WIDTH, SPARSE_OP_HEADS = 16, 4
+RECIPE_SEEDS, RECIPE_KHOP_SEEDS = 1024, 64
+SMALL_GRAPH_NODES, SMALL_GRAPH_EDGES = 2000, 10_000  # khop/line graph
+# OGB's GIN baseline for ogbg-molhiv (ogb/examples/graphproppred/mol:
+# 5 layers, embedding 300, mean readout, batch 32); molhiv's mean graph:
+# 25.5 nodes and 27.5 undirected edges
+GIN_LAYERS, GIN_DIM, GIN_BATCH = 5, 300, 32
+MOL_NODES, MOL_EDGES = 25.5, 27.5
+READOUT_GRAPHS = 4096
+
+
+def sparse_gcn_matrix(g):
+    """DGL's sparse-API GCN matrix (``examples/sparse/gcn.py``) on ``g``'s
+    device: ``gs = to_bidirected(remove_self_loop(g))``, ``A = gs.adj()``,
+    ``A_hat = A + I`` (a merge of patterns on the host), ``D =
+    diag(A_hat.sum(0) ** -0.5)`` and ``D @ A_hat @ D`` (two host spspmm).
+    Returns ``gs`` and the matrix."""
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import sparse as dsp
+
+    gs = dt.to_bidirected(dt.remove_self_loop(g))
+    A = gs.adj()
+    A_hat = A + dsp.identity(A.shape, device=g.device)
+    D = dsp.diag(A_hat.sum(0) ** -0.5)
+    return gs, D @ A_hat @ D
+
+
+def sparse_gcn_params(dims, seed: int, device):
+    """Xavier-uniform weights and small biases from ``torch.Generator``
+    seed ``seed``, as leaf tensors on ``device``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    params = []
+    for a, b in zip(dims[:-1], dims[1:]):
+        bound = math.sqrt(6.0 / (a + b))
+        w = (torch.rand(a, b, generator=gen) * 2 - 1) * bound
+        bias = (torch.rand(b, generator=gen) * 2 - 1) * 0.1
+        params.append((w.to(device).requires_grad_(),
+                       bias.to(device).requires_grad_()))
+    return params
+
+
+def sparse_gcn_forward(A_norm, x, params):
+    """``A_norm @ (X @ W) + b`` a layer, ReLU between them."""
+    import torch
+
+    h = x
+    for i, (w, b) in enumerate(params):
+        h = A_norm @ (h @ w) + b
+        if i != len(params) - 1:
+            h = torch.relu(h)
+    return h
+
+
+def graphconv_stack(params, device):
+    """``GraphConv(norm="both")`` layers holding ``params``."""
+    import torch
+
+    from dgl_tpu_torch.nn import GraphConv
+
+    convs = torch.nn.ModuleList(
+        GraphConv(w.shape[0], w.shape[1], device=device) for w, _ in params)
+    with torch.no_grad():
+        for conv, (w, b) in zip(convs, params):
+            conv.weight.copy_(w)
+            conv.bias.copy_(b)
+    return convs
+
+
+def graphconv_forward(convs, g, x):
+    import torch
+
+    h = x
+    for i, conv in enumerate(convs):
+        h = conv(g, h)
+        if i != len(convs) - 1:
+            h = torch.relu(h)
+    return h
+
+
+def held_against(got, ref, tol: float, what: str) -> dict:
+    """``held`` for one tensor of ``ref``'s shape (any devices)."""
+    if tuple(got.shape) != tuple(ref.shape):
+        raise RuntimeError(f"{what}: shape {tuple(got.shape)} vs "
+                           f"{tuple(ref.shape)}")
+    return {"max_rel_err": held({"t": got}, {"t": ref}, tol, what)["t"]}
+
+
+def same_matrix(a, b, what: str) -> dict:
+    """Two sparse matrices with equal indices and values within 1e-5."""
+    import torch
+
+    if a.shape != b.shape or a.nnz != b.nnz:
+        raise RuntimeError(f"{what}: shape/nnz {a.shape}/{a.nnz} vs "
+                           f"{b.shape}/{b.nnz}")
+    for f in ("row", "col"):
+        if not torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()):
+            raise RuntimeError(f"{what}: {f} differs")
+    return held_against(a.val, b.val, 1e-5, what)
+
+
+def sparse_op_cases(A, seed: int = 6):
+    """Every sparse op of phase a on matrix ``A`` (its device), with dense
+    operands drawn from ``seed``: name -> thunk giving a tensor or a
+    SparseMatrix."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import sparse as dsp
+
+    n, m = A.shape
+    dev = A.val.device
+    rng = np.random.default_rng(seed)
+
+    def put(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev)
+
+    d, h = SPARSE_OP_WIDTH, SPARSE_OP_HEADS
+    x1, x2 = put(n, d), put(d, m)
+    b1, b2 = put(n, d, h), put(d, m, h)
+    v = put(n)
+    AH = dsp.val_like(A, put(A.val.shape[0], h))
+    D = dsp.diag(put(n).abs() + 0.5)
+    cases = {
+        "softmax dim=1": lambda: dsp.softmax(A, 1),
+        "softmax dim=0": lambda: dsp.softmax(A, 0),
+        "sddmm": lambda: dsp.sddmm(A, x1, x2),
+        f"bsddmm H={h}": lambda: dsp.bsddmm(AH, b1, b2),
+        "sp_add_v": lambda: dsp.sp_add_v(A, v),
+        "spspmm D @ A": lambda: dsp.spspmm(D, A),
+        "coalesce": lambda: A.coalesce(),
+    }
+    for op in ("smax", "smin", "smean", "sprod"):
+        for dim in (0, 1, None):
+            cases[f"{op} dim={dim}"] = (
+                lambda op=op, dim=dim: getattr(dsp, op)(A, dim))
+    return cases
+
+
+def matrix_to(A, device):
+    """A sparse matrix moved to ``device``."""
+    from dgl_tpu_torch.sparse import SparseMatrix
+
+    return SparseMatrix(A._rel.to(device), A.val.to(device))
+
+
+def run_sparse_gcn(tag: dict, device="cuda") -> dict:
+    """Phase a: DGL's sparse-API GCN at ogbn-arxiv's GCN widths on the zipf
+    graph; no hand kernel (the spmm's reversed relation has no plan)."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.sparse import SparseMatrix
+
+    src, dst = zipf_graph(0)
+    g = dt.graph((src, dst), num_nodes=N_NODES, device=device)
+    t0 = time.perf_counter()
+    gs, A_norm = sparse_gcn_matrix(g)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if not isinstance(A_norm, SparseMatrix):
+        raise RuntimeError("the GCN matrix is not a SparseMatrix")
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(N_NODES, IN_FEATS)).astype(np.float32)).to(device)
+    y = torch.from_numpy(np.random.default_rng(4).integers(
+        0, CLASSES, N_NODES)).to(device)
+    mask = torch.ones(N_NODES, device=device)
+    params = sparse_gcn_params(SPARSE_GCN_DIMS, 0, device)
+
+    def loss_of(out):
+        return masked_loss(out, y, mask)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    with relu_pattern() as pattern:
+        out = sparse_gcn_forward(A_norm, x, params)
+    loss_of(out).backward()
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(launches, {}, "the sparse GCN forward and "
+                                         "backward")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if tuple(out.shape) != (N_NODES, CLASSES) or not torch.isfinite(
+            out).all():
+        raise RuntimeError(f"sparse GCN: bad output {tuple(out.shape)}")
+    grads = [(w.grad.clone(), b.grad.clone()) for w, b in params]
+    emit({"phase": "sparse_gcn_main_path", "model": "sparse-API GCN "
+          "128-256-256-40, A_norm = D^-1/2 (A + I) D^-1/2",
+          "graph": {"nodes": N_NODES, "edges": N_EDGES,
+                    "bidirected_edges": gs.num_edges(),
+                    "A_norm_nnz": A_norm.nnz},
+          "setup_s": setup_s, "launches": launches,
+          "hand_kernels": "none: spmm runs g-SpMM on the reversed relation, "
+                          "which carries no plan",
+          "peak_memory_gib": peak, **tag})
+
+    # 1. the same function as GraphConv(norm="both") on gs plus self-loops,
+    # on the sparse pass's ReLU pattern (a pre-activation within rounding
+    # of 0 would otherwise swap a unit's gradient: see check_grads)
+    gl = dt.add_self_loop(gs)
+    convs = graphconv_stack(params, device)
+    with relu_pattern(pattern):
+        ref = graphconv_forward(convs, gl, x)
+    loss_of(ref).backward()
+    with torch.no_grad(), relu_pattern() as own:
+        graphconv_forward(convs, gl, x)
+    flips = int(sum((a != b).sum().item() for a, b in zip(pattern, own)))
+    vs_conv = {"output": held_against(out, ref, 1e-4, "sparse GCN vs "
+                                      "GraphConv"),
+               "relu_sign_differences_own_pattern": flips}
+    for i, ((gw, gb), conv) in enumerate(zip(grads, convs)):
+        vs_conv[f"grad W{i}"] = held_against(gw, conv.weight.grad, 1e-4,
+                                             f"sparse GCN grad W{i}")
+        vs_conv[f"grad b{i}"] = held_against(gb, conv.bias.grad, 1e-4,
+                                             f"sparse GCN grad b{i}")
+    # 2. the same sparse GCN on the CPU, its matrix built there
+    t0 = time.perf_counter()
+    g_cpu = g.to("cpu")
+    _, A_cpu = sparse_gcn_matrix(g_cpu)
+    matrix_err = same_matrix(A_norm, A_cpu, "A_norm on the card vs the CPU")
+    p_cpu = [(w.detach().cpu().requires_grad_(),
+              b.detach().cpu().requires_grad_()) for w, b in params]
+    with relu_pattern([m.cpu() for m in pattern]):
+        out_cpu = sparse_gcn_forward(A_cpu, x.cpu(), p_cpu)
+    masked_loss(out_cpu, y.cpu(), mask.cpu()).backward()
+    vs_cpu = {"A_norm": matrix_err,
+              "output": held_against(out, out_cpu, 1e-4, "sparse GCN vs "
+                                     "the CPU")}
+    for i, ((gw, gb), (w, b)) in enumerate(zip(grads, p_cpu)):
+        vs_cpu[f"grad W{i}"] = held_against(gw, w.grad, 1e-4,
+                                            f"CPU grad W{i}")
+        vs_cpu[f"grad b{i}"] = held_against(gb, b.grad, 1e-4,
+                                            f"CPU grad b{i}")
+    emit({"phase": "sparse_gcn_checks", "vs_graphconv_both": vs_conv,
+          "vs_cpu": vs_cpu, "cpu_s": time.perf_counter() - t0,
+          "tolerance": "rtol=1e-4, atol=1e-4*max|ref| (the same f32 sums "
+                       "in another order), on the sparse pass's ReLU "
+                       "pattern", **tag})
+    del convs, ref, gl, out_cpu, p_cpu, pattern, own
+
+    # 3. every sparse op, the card against the CPU, and its time
+    ops, on_cpu = sparse_op_cases(A_norm), sparse_op_cases(A_cpu)
+    op_results = {}
+    for name, fn in ops.items():
+        got, want = fn(), on_cpu[name]()
+        if isinstance(got, SparseMatrix):
+            err = same_matrix(got, want, name)
+        else:
+            err = held_against(got, want, 1e-5, name)
+        host = name.startswith(("spspmm", "coalesce"))
+        op_results[name] = {**err, "ms": time_ms(fn, 2 if host else 10,
+                                                 warmup=1)}
+    emit({"phase": "sparse_ops", "matrix": "A_norm", "nnz": A_norm.nnz,
+          "width": SPARSE_OP_WIDTH, "ops": op_results,
+          "tolerance": "indices exact, values rtol=1e-5, "
+                       "atol=1e-5*max|ref|", **tag})
+    del ops, on_cpu, A_cpu, g_cpu
+
+    # 4. a few Adam steps (the loss must fall), times and profiles
+    opt = torch.optim.Adam([t for p in params for t in p], lr=LR)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(sparse_gcn_forward(A_norm, x, params))
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = torch.stack([step() for _ in range(TRAIN_STEPS)]).tolist()
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"sparse GCN training loss: {losses}")
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: sparse_gcn_forward(A_norm, x, params), 5)
+        prof = device_profile(lambda: sparse_gcn_forward(A_norm, x, params),
+                              2)
+    step_ms = time_ms(step, 3)
+    emit({"phase": "sparse_gcn_timing", "forward_ms": fwd_ms,
+          "train_step_ms": step_ms, "losses": losses,
+          "forward_profile": prof, "step_profile": device_profile(step, 2),
+          **tag})
+    return {"setup_s": setup_s, "forward_ms": fwd_ms, "step_ms": step_ms}
+
+
+def same_graph_on(a, b, what: str) -> None:
+    """Two graphs (any devices) with equal schema, counts, relation arrays
+    (dtypes included), frames and batch sizes."""
+    import torch
+
+    def eq(x, y, where):
+        if not isinstance(x, torch.Tensor):
+            if x != y:
+                raise RuntimeError(f"{what}: {where} differs")
+            return
+        x, y = x.detach().cpu(), y.detach().cpu()
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+            raise RuntimeError(f"{what}: {where} differs")
+
+    if (a.canonical_etypes != b.canonical_etypes
+            or a._num_src_nodes != b._num_src_nodes
+            or a._num_dst_nodes != b._num_dst_nodes):
+        raise RuntimeError(f"{what}: schema or counts differ")
+    for cet, ra in a._relations.items():
+        rb = b._relations[cet]
+        eq(ra.num_edges, rb.num_edges, f"{cet} num_edges")
+        for f in ra.ARRAY_FIELDS:
+            eq(getattr(ra, f), getattr(rb, f), f"{cet} {f}")
+    for name in ("_node_frames", "_dst_frames", "_edge_frames"):
+        fa, fb = getattr(a, name), getattr(b, name)
+        if {k for k, v in fa.items() if v} != {k for k, v in fb.items()
+                                               if v}:
+            raise RuntimeError(f"{what}: {name} keys differ")
+        for k, frame in fa.items():
+            if set(frame) != set(fb.get(k, {})):
+                raise RuntimeError(f"{what}: {name}[{k}] keys differ")
+            for key, v in frame.items():
+                eq(v, fb[k][key], f"{name}[{k}][{key}]")
+    eq(a.batch_size, b.batch_size, "batch_size")
+    if a._batch_num_nodes is not None:
+        for nt in a.ntypes:
+            eq(a.batch_num_nodes(nt), b.batch_num_nodes(nt), "batch nodes")
+        for cet in a.canonical_etypes:
+            eq(a.batch_num_edges(cet), b.batch_num_edges(cet), "batch edges")
+
+
+def same_result(a, b, what: str) -> None:
+    """Transform results (graphs, tensors, tuples of them) equal."""
+    import torch
+
+    from dgl_tpu_torch import Graph
+
+    if isinstance(a, Graph):
+        same_graph_on(a, b, what)
+    elif isinstance(a, (tuple, list)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_result(x, y, f"{what}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        if not torch.equal(a.cpu(), b.cpu()) or a.dtype != b.dtype:
+            raise RuntimeError(f"{what}: tensors differ")
+    elif a != b:
+        raise RuntimeError(f"{what}: {a} != {b}")
+
+
+def recipe_transforms(n: int, e: int, seed: int = 9):
+    """The host transforms phase b times: name -> fn(module, g) with their
+    random arguments drawn once from ``seed`` for a graph of ``n`` nodes
+    and ``e`` edges."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    drop = rng.choice(e, e // 10, replace=False)
+    new_u, new_v = rng.integers(0, n, 1000), rng.integers(0, n, 1000)
+    gone = rng.choice(n, 1000, replace=False)
+    half_nodes = np.sort(rng.choice(n, n // 2, replace=False))
+    half_edges = rng.choice(e, e // 2, replace=False)
+    seeds = rng.choice(n, RECIPE_SEEDS, replace=False)
+    khop_seeds = rng.choice(n, RECIPE_KHOP_SEEDS, replace=False)
+    return {
+        "to_simple": lambda m, g: m.to_simple(g, writeback_mapping=True),
+        "reverse": lambda m, g: m.reverse(g),
+        "add_reverse_edges": lambda m, g: m.add_reverse_edges(g),
+        "to_bidirected": lambda m, g: m.to_bidirected(g, copy_ndata=True),
+        "remove_edges 10%": lambda m, g: m.remove_edges(g, drop,
+                                                        store_ids=True),
+        "add_edges 1000": lambda m, g: m.add_edges(g, new_u, new_v),
+        "add_nodes 1000": lambda m, g: m.add_nodes(g, 1000),
+        "remove_nodes 1000": lambda m, g: m.remove_nodes(g, gone),
+        "node_subgraph half": lambda m, g: m.node_subgraph(g, half_nodes),
+        "edge_subgraph half": lambda m, g: m.edge_subgraph(g, half_edges),
+        "in_subgraph 1024": lambda m, g: m.in_subgraph(g, seeds),
+        "out_subgraph 1024": lambda m, g: m.out_subgraph(g, seeds),
+        "khop_in_subgraph k=2, 64": lambda m, g: m.khop_in_subgraph(
+            g, khop_seeds, 2),
+        "to_block 1024": lambda m, g: m.to_block(m.in_subgraph(g, seeds),
+                                                 seeds),
+        "compact_graphs 1024": lambda m, g: m.compact_graphs(
+            m.in_subgraph(g, seeds)),
+    }
+
+
+def run_gcn_recipe(tag: dict, device="cuda") -> dict:
+    """Phase b: ``examples/gcn_cora.py``'s recipe at arxiv scale
+    (``add_self_loop(remove_self_loop(g))``, ``with_spmm_plans(weighted=
+    True)``, ``GCN(128, 256, 40, num_layers=3)``): B1 on every layer's
+    ``copy_u`` sum; then the host transforms, card against CPU."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.models import GCN
+
+    src, dst = zipf_graph(0)
+    g = dt.graph((src, dst), num_nodes=N_NODES, device=device)
+    t0 = time.perf_counter()
+    gr = dt.add_self_loop(dt.remove_self_loop(g))
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gp = gr.with_spmm_plans(weighted=True)
+    torch.cuda.synchronize()
+    plans_s = time.perf_counter() - t0
+    rel = gp._relation()
+    if rel.hub_plan is None or rel.shell_plan is None:
+        raise RuntimeError("the recipe's graph lacks its hub or shell plan")
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(N_NODES, IN_FEATS)).astype(np.float32)).to(device)
+    y = torch.from_numpy(np.random.default_rng(4).integers(
+        0, CLASSES, N_NODES)).to(device)
+    mask = torch.ones(N_NODES, device=device)
+    model = GCN(IN_FEATS, HIDDEN, CLASSES, num_layers=LAYERS,
+                generator=torch.Generator().manual_seed(0),
+                device=device).eval()
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    with torch.inference_mode():
+        out = model(gp, x)
+    torch.cuda.synchronize()
+    fwd_launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(fwd_launches, {"shell_prefix_sum": LAYERS},
+                           "the GCN recipe's forward")
+    with torch.inference_mode():
+        ref = model(gr, x)
+    vs_exact = held_against(out, ref, 2e-2, "GCN recipe vs the graph "
+                            "without plans")
+    grads = check_grads(model, gp, gr, x, y, mask, "GCN recipe")
+    emit({"phase": "gcn_recipe_main_path", "model": "GCN 128-256-256-40, "
+          "norm both, add_self_loop(remove_self_loop(g)) with "
+          "with_spmm_plans(weighted=True)", "edges": gr.num_edges(),
+          "transform_s": transform_s, "plans_s": plans_s,
+          "launches": fwd_launches, "vs_exact_f32": vs_exact,
+          "grads_vs_exact_f32": grads,
+          "tolerance": "rtol=2e-2, atol=2e-2*max|ref|", **tag})
+    model.train()
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    loss, step_launches, peak, step_s = counted_step(
+        model, opt, gp, x, y, mask,
+        {"shell_prefix_sum": 2 * LAYERS - 1, "shell_prefix_gspmm": 0},
+        "GCN recipe")
+    expect_no_other_launch(step_launches,
+                           {"shell_prefix_sum": 2 * LAYERS - 1},
+                           "the GCN recipe's step")
+    losses = run_steps(model, opt, gp, x, y, mask, loss, falling=True)
+    step = lambda: train_step(model, opt, gp, x, y, mask)  # noqa: E731
+    step_ms = time_ms(step, 5)
+    model.eval()
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(gp, x), 10)
+        exact_ms = time_ms(lambda: model(gr, x), 5)
+    model.train()
+    emit({"phase": "gcn_recipe_training", "launches": step_launches,
+          "losses": losses, "peak_memory_gib": peak, "first_step_s": step_s,
+          "forward_ms": fwd_ms, "exact_path_forward_ms": exact_ms,
+          "train_step_ms": step_ms, "step_profile": device_profile(step, 2),
+          **tag})
+    del model, opt, gp, out, ref
+
+    # the host transforms at this scale, card against CPU
+    rng = np.random.default_rng(5)
+    g.ndata["x"] = torch.from_numpy(rng.normal(size=(N_NODES, 4)).astype(
+        np.float32)).to(device)
+    g.edata["w"] = torch.from_numpy(rng.random(N_EDGES).astype(
+        np.float32)).to(device)
+    g_cpu = g.to("cpu")
+    g.edges()  # the card graph's host arrays are read on first use
+    timings = {}
+    for name, fn in recipe_transforms(N_NODES, N_EDGES).items():
+        t0 = time.perf_counter()
+        got = fn(dt, g)
+        torch.cuda.synchronize()
+        timings[name] = {"card_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        want = fn(dt, g_cpu)
+        timings[name]["cpu_s"] = time.perf_counter() - t0
+        same_result(got, want, name)
+        out_g = got[0] if isinstance(got, tuple) else got
+        timings[name]["edges"] = out_g.num_edges()
+    small = dt.rand_graph(SMALL_GRAPH_NODES, SMALL_GRAPH_EDGES, seed=3,
+                          device=device)
+    small_cpu = dt.rand_graph(SMALL_GRAPH_NODES, SMALL_GRAPH_EDGES, seed=3,
+                              device="cpu")
+    for name, fn in (("khop_graph k=2", lambda s: dt.khop_graph(s, 2)),
+                     ("line_graph", lambda s: dt.line_graph(s))):
+        t0 = time.perf_counter()
+        got = fn(small)
+        torch.cuda.synchronize()
+        timings[name] = {"card_s": time.perf_counter() - t0,
+                         "graph": f"rand_graph({SMALL_GRAPH_NODES}, "
+                                  f"{SMALL_GRAPH_EDGES})",
+                         "edges": got.num_edges()}
+        same_result(got, fn(small_cpu), name)
+    ind = gr.in_degrees().cpu().numpy().astype(np.int64)
+    outd = gr.out_degrees().cpu().numpy().astype(np.int64)
+    deg = dt.to_bidirected(gr).in_degrees().cpu().numpy().astype(np.int64)
+    emit({"phase": "graph_transforms", "graph": {"nodes": N_NODES,
+                                                 "edges": N_EDGES},
+          "transforms": timings,
+          "two_hop_paths_recipe_graph": int((ind * outd).sum()),
+          "two_hop_paths_bidirected": int((deg * deg).sum()),
+          "two_hop_paths": "line_graph's and khop_graph(k=2)'s edge count "
+                           "at zipf scale: sum of in * out degrees",
+          "check": "card result equal to the CPU result (arrays, dtypes, "
+                   "frames)", **tag})
+    return {"forward_launches": fwd_launches["shell_prefix_sum"],
+            "step_launches": step_launches["shell_prefix_sum"],
+            "forward_ms": fwd_ms, "step_ms": step_ms}
+
+
+def molhiv_graphs(count: int, seed: int, device):
+    """``count`` random graphs with ogbg-molhiv's mean size: node counts
+    Poisson(25.5) (at least 2), undirected edge counts Poisson(27.5), drawn
+    with ``rand_graph`` and made undirected with ``to_bidirected``."""
+    import numpy as np
+
+    import dgl_tpu_torch as dt
+
+    rng = np.random.default_rng(seed)
+    nodes = np.maximum(rng.poisson(MOL_NODES, count), 2)
+    edges = np.maximum(rng.poisson(MOL_EDGES, count), 1)
+    return [dt.to_bidirected(dt.rand_graph(int(n), int(e), seed=seed + i,
+                                           device=device))
+            for i, (n, e) in enumerate(zip(nodes, edges))]
+
+
+def gin_model(device, seed: int = 0):
+    """Five ``GINConv`` layers (sum) with a 300-300 MLP each and ReLU
+    between them, ``mean_nodes`` and a linear to one logit: OGB's GIN for
+    ogbg-molhiv, fed 300-wide node embeddings; weights drawn after
+    ``torch.manual_seed(seed)``."""
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch.nn import GINConv
+
+    class GIN(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.convs = torch.nn.ModuleList(
+                GINConv(torch.nn.Sequential(
+                    torch.nn.Linear(GIN_DIM, GIN_DIM), torch.nn.ReLU(),
+                    torch.nn.Linear(GIN_DIM, GIN_DIM)), "sum", device=device)
+                for _ in range(GIN_LAYERS))
+            self.out = torch.nn.Linear(GIN_DIM, 1)
+
+        def forward(self, g, h):
+            for i, conv in enumerate(self.convs):
+                h = conv(g, h)
+                if i != len(self.convs) - 1:
+                    h = torch.relu(h)
+            with g.local_scope():
+                g.ndata["h"] = h
+                return self.out(dt.mean_nodes(g, "h"))[:, 0]
+
+    torch.manual_seed(seed)
+    return GIN().to(device)
+
+
+def readout_cases(bg, seed: int = 7):
+    """The readouts of phase c over batch ``bg`` (its device)."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+
+    rng = np.random.default_rng(seed)
+    dev = bg.device
+    g = bg.local_var()
+    g.ndata["x"] = torch.from_numpy(rng.normal(
+        size=(bg.num_nodes(), 8)).astype(np.float32)).to(dev)
+    g.edata["w"] = torch.from_numpy(rng.normal(
+        size=(bg.num_edges(), 8)).astype(np.float32)).to(dev)
+    gf = torch.from_numpy(rng.normal(size=(bg.batch_size, 8)).astype(
+        np.float32)).to(dev)
+    return g, {
+        "sum_nodes": lambda: dt.sum_nodes(g, "x"),
+        "mean_nodes": lambda: dt.mean_nodes(g, "x"),
+        "max_nodes": lambda: dt.max_nodes(g, "x"),
+        "sum_edges": lambda: dt.sum_edges(g, "w"),
+        "mean_edges": lambda: dt.mean_edges(g, "w"),
+        "max_edges": lambda: dt.max_edges(g, "w"),
+        "softmax_nodes": lambda: dt.softmax_nodes(g, "x"),
+        "topk_nodes k=5 sortby=0": lambda: dt.topk_nodes(g, "x", 5,
+                                                         sortby=0),
+        "broadcast_nodes": lambda: dt.broadcast_nodes(g, gf),
+    }
+
+
+def run_batched_readout(tag: dict, device="cuda") -> dict:
+    """Phase c: graph classification at OGB's GIN widths for ogbg-molhiv
+    (no hand kernel), then the readouts and batch utilities on a batch of
+    4,096 such graphs, card against CPU."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+
+    t0 = time.perf_counter()
+    graphs = molhiv_graphs(GIN_BATCH, 0, device)
+    bg = dt.batch(graphs)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(bg.num_nodes(), GIN_DIM)).astype(
+        np.float32)).to(device)
+    y = torch.from_numpy(rng.integers(0, 2, GIN_BATCH).astype(
+        np.float32)).to(device)
+    model = gin_model(device)
+    bce = torch.nn.functional.binary_cross_entropy_with_logits
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = bce(model(bg, x), y)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    # the first step, counted; its logits and gradients against the CPU's
+    # on its ReLU pattern (check_grads explains why)
+    model_cpu = gin_model("cpu")
+    model_cpu.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    with relu_pattern() as pattern:
+        out = model(bg, x)
+    loss = bce(out, y)
+    loss.backward()
+    torch.cuda.synchronize()
+    expect_no_other_launch(dict(_kernels.launch_counts), {},
+                           "the GIN forward and backward")
+    with relu_pattern([m.cpu() for m in pattern]):
+        out_cpu = model_cpu(bg.to("cpu"), x.cpu())
+    bce(out_cpu, y.cpu()).backward()
+    with torch.no_grad(), relu_pattern() as own:
+        model_cpu(bg.to("cpu"), x.cpu())
+    checks = {"logits": held_against(out, out_cpu, 1e-4,
+                                     "GIN logits vs the CPU"),
+              "relu_sign_differences_own_pattern": int(sum(
+                  (a.cpu() != b).sum().item() for a, b in zip(pattern,
+                                                              own)))}
+    cpu_grads = dict(model_cpu.named_parameters())
+    for k, p in model.named_parameters():
+        checks[f"grad {k}"] = held_against(p.grad, cpu_grads[k].grad, 1e-4,
+                                           f"GIN grad {k}")
+    opt.step()
+    losses = [loss.item()] + torch.stack(
+        [step() for _ in range(TRAIN_STEPS - 1)]).tolist()
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"GIN training loss: {losses}")
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: model(bg, x), 10)
+        fwd_prof = device_profile(lambda: model(bg, x), 5)
+    step_ms = time_ms(step, 10)
+    step_prof = device_profile(step, 5)
+    emit({"phase": "batched_readout_gin", "model": "GIN 5 x GINConv(sum, "
+          "MLP 300-300), mean_nodes, linear to 1, BCE, Adam 1e-3",
+          "batch": {"graphs": GIN_BATCH, "nodes": bg.num_nodes(),
+                    "edges": bg.num_edges()}, "batch_s": batch_s,
+          "vs_cpu": checks, "tolerance": "rtol=1e-4, atol=1e-4*max|ref|, "
+          "the CPU on the card pass's ReLU pattern", "losses": losses, "forward_ms": fwd_ms, "train_step_ms": step_ms,
+          "forward_profile": fwd_prof, "step_profile": step_prof, **tag})
+
+    # the readouts and batch utilities on 4,096 graphs, card against CPU
+    t0 = time.perf_counter()
+    many_cpu = molhiv_graphs(READOUT_GRAPHS, 100, "cpu")
+    big_cpu = dt.batch(many_cpu)
+    big = big_cpu.to(device)
+    build_s = time.perf_counter() - t0
+    g_card, on_card = readout_cases(big)
+    g_host, on_cpu = readout_cases(big_cpu)
+    results = {}
+    for name, fn in on_card.items():
+        got, want = fn(), on_cpu[name]()
+        if isinstance(got, tuple):
+            err = held_against(got[0], want[0], 1e-5, name)
+            same_result(got[1], want[1], f"{name} ids")
+        else:
+            err = held_against(got, want, 1e-5, name)
+        results[name] = {**err, "ms": time_ms(fn, 10)}
+    t0 = time.perf_counter()
+    parts = dt.unbatch(g_card)
+    unbatch_s = time.perf_counter() - t0
+    for i, (a, b) in enumerate(zip(parts, dt.unbatch(g_host))):
+        same_graph_on(a, b, f"unbatch graph {i}")
+    same_graph_on(dt.batch(parts), g_host, "batch(unbatch(bg))")
+    for gid in (0, READOUT_GRAPHS // 3, READOUT_GRAPHS - 1):
+        same_graph_on(dt.slice_batch(g_card, gid, store_ids=True),
+                      dt.slice_batch(g_host, gid, store_ids=True),
+                      f"slice_batch {gid}")
+    shape = (READOUT_GRAPHS + 8, big.num_nodes() + 100,
+             big.num_edges() + 100)
+    t0 = time.perf_counter()
+    padded, gmask = dt.pad_batch(parts, *shape)
+    pad_s = time.perf_counter() - t0
+    ref_pad, ref_mask = dt.pad_batch(dt.unbatch(g_host), *shape)
+    same_graph_on(padded, ref_pad, "pad_batch")
+    same_result(gmask, ref_mask, "pad_batch mask")
+    emit({"phase": "batched_readout_ops", "graphs": READOUT_GRAPHS,
+          "nodes": big.num_nodes(), "edges": big.num_edges(),
+          "build_s": build_s, "ops": results, "unbatch_s": unbatch_s,
+          "pad_batch_s": pad_s, "pad_batch_shape": shape,
+          "tolerance": "values rtol=1e-5, atol=1e-5*max|ref|; ids, "
+                       "graphs and masks exact", **tag})
+    return {"forward_ms": fwd_ms, "step_ms": step_ms}
+
+
+
 def run() -> dict:
     import torch
 
@@ -4632,6 +5381,15 @@ def run() -> dict:
     kernels.append(run_mag(rate, tag))
     run_rgcn_homogeneous(tag)
     run_hgt(tag)
+    t0 = time.perf_counter()
+    run_sparse_gcn(tag)
+    recipe = run_gcn_recipe(tag)
+    run_batched_readout(tag)
+    emit({"phase": "graph_utilities_total",
+          "seconds": time.perf_counter() - t0, **tag})
+    kernels[0]["gcn_recipe_launches"] = {
+        "forward": recipe["forward_launches"],
+        "train_step": recipe["step_launches"]}
     return {"kernels": kernels, "card": card}
 
 

@@ -28,16 +28,65 @@ g-SpMM and edge softmax, and the on-device sampler
 convs ``GATv2Conv``, ``DotGatConv``, ``AGNNConv``, ``EGATConv``,
 ``EdgeGATConv``, ``GINConv``, ``GINEConv``, ``EdgeConv``, ``SGConv``,
 ``APPNPConv``, ``TAGConv``, ``ChebConv``, ``GCN2Conv``,
-``GatedGraphConv``, ``NNConv``, ``GMMConv`` and ``CFConv``.
+``GatedGraphConv``, ``NNConv``, ``GMMConv`` and ``CFConv``; the
+sparse-matrix API (``sparse``, ``Graph.adj``), the graph queries,
+constructors (``from_scipy``, ``rand_graph``, ...), structural transforms
+(``add_self_loop``, ``to_bidirected``, ``to_block``, ...), subgraphs,
+``batch`` and the readouts.
 """
-from . import dataloading, function, models, nn, ops, sampling, transforms
+from . import (dataloading, function, models, nn, ops, readout, sampling,
+               sparse, transforms)
+from . import subgraph as subgraph_module
 from .base import ALL, EID, ETYPE, NID, NTYPE, DGLError
-from .convert import (create_block, graph, heterograph, to_heterogeneous,
-                      to_homogeneous)
+from .batch import batch, pad_batch, slice_batch, stack_graphs, unbatch
+from .convert import (bipartite_from_networkx, bipartite_from_scipy,
+                      block_to_graph, create_block, from_networkx,
+                      from_scipy, graph, hetero_from_shared_memory,
+                      heterograph, rand_bipartite, rand_graph,
+                      to_heterogeneous, to_homogeneous, to_networkx)
 from .graph import Graph, Relation
 from .params import from_flax_params
+from .readout import (broadcast_edges, broadcast_nodes, max_edges, max_nodes,
+                      mean_edges, mean_nodes, readout_edges, readout_nodes,
+                      softmax_edges, softmax_nodes, sum_edges, sum_nodes,
+                      topk_edges, topk_nodes)
+from .subgraph import (edge_subgraph, edge_type_subgraph, in_subgraph,
+                       khop_in_subgraph, khop_out_subgraph, node_subgraph,
+                       node_type_subgraph, out_subgraph)
+from .transforms.functional import (
+    add_edges, add_nodes, add_reverse_edges, add_self_loop, compact_graphs,
+    is_bidirected, khop_adj, khop_graph, line_graph, norm_by_dst,
+    remove_edges, remove_nodes, remove_self_loop, reorder_graph, reverse,
+    to_bfloat16, to_bidirected, to_block, to_double, to_float, to_half,
+    to_simple, to_simple_graph, update_graph_structure)
 
-__all__ = ["ALL", "EID", "ETYPE", "NID", "NTYPE", "DGLError", "Graph",
-           "Relation", "create_block", "dataloading", "function",
-           "from_flax_params", "graph", "heterograph", "models", "nn", "ops",
-           "sampling", "to_heterogeneous", "to_homogeneous", "transforms"]
+DGLGraph = Graph
+
+__all__ = [
+    "ALL", "EID", "ETYPE", "NID", "NTYPE", "DGLError", "Graph", "DGLGraph",
+    "Relation",
+    # construction
+    "graph", "heterograph", "create_block", "from_scipy", "from_networkx",
+    "to_networkx", "bipartite_from_scipy", "bipartite_from_networkx",
+    "block_to_graph", "hetero_from_shared_memory", "to_homogeneous",
+    "to_heterogeneous", "rand_graph", "rand_bipartite", "from_flax_params",
+    # batching and readout
+    "batch", "unbatch", "stack_graphs", "pad_batch", "slice_batch",
+    "readout_nodes", "readout_edges", "sum_nodes", "mean_nodes",
+    "max_nodes", "sum_edges", "mean_edges", "max_edges", "softmax_nodes",
+    "softmax_edges", "broadcast_nodes", "broadcast_edges", "topk_nodes",
+    "topk_edges",
+    # subgraphs and structure
+    "node_subgraph", "edge_subgraph", "in_subgraph", "out_subgraph",
+    "khop_in_subgraph", "khop_out_subgraph", "node_type_subgraph",
+    "edge_type_subgraph", "add_self_loop", "remove_self_loop",
+    "add_reverse_edges", "add_edges", "remove_edges", "add_nodes",
+    "remove_nodes", "to_bidirected", "to_simple", "to_simple_graph",
+    "khop_adj", "khop_graph", "to_block", "reverse", "line_graph",
+    "compact_graphs", "reorder_graph", "norm_by_dst", "is_bidirected",
+    "update_graph_structure", "to_float", "to_double", "to_half",
+    "to_bfloat16",
+    # namespaces
+    "dataloading", "function", "models", "nn", "ops", "readout",
+    "sampling", "sparse", "subgraph_module", "transforms",
+]

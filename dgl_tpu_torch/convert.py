@@ -4,7 +4,11 @@
 - ``heterograph()``: from a dict of canonical edge type -> ``(src, dst)``;
 - ``create_block()``: a message-flow-graph block of one or more edge types;
 - ``to_homogeneous()`` / ``to_heterogeneous()``: one node and edge space
-  with type-id fields, and back.
+  with type-id fields, and back;
+- ``from_scipy()``, ``bipartite_from_scipy()``, ``from_networkx()``,
+  ``bipartite_from_networkx()``, ``to_networkx()``, ``rand_graph()``,
+  ``rand_bipartite()`` and ``block_to_graph()`` (``networkx`` is imported
+  inside the functions that need it).
 
 The index tensors are built on the host and placed on ``device``.
 """
@@ -19,7 +23,10 @@ from .base import EID, ETYPE, NID, NTYPE
 from .graph import CanonicalEtype, Graph, Relation, _asnumpy
 
 __all__ = ["graph", "heterograph", "create_block", "to_homogeneous",
-           "to_heterogeneous"]
+           "to_heterogeneous", "from_scipy", "from_networkx", "rand_graph",
+           "rand_bipartite", "to_networkx", "bipartite_from_scipy",
+           "bipartite_from_networkx", "block_to_graph",
+           "hetero_from_shared_memory"]
 
 
 def _infer_num_nodes(src, dst) -> int:
@@ -186,3 +193,132 @@ def to_heterogeneous(g: Graph, ntypes, etypes, ntype_field=NTYPE,
         data_dict[(st, et, dt)] = (local_ids[s], local_ids[d])
     return heterograph(data_dict, num_nodes_dict, idtype=g.idtype,
                        device=g.device)
+
+
+def from_scipy(sp_mat, idtype=torch.int32, eweight_name=None,
+               device="cuda") -> Graph:
+    """A graph from a scipy sparse matrix's COO entries (reference
+    ``convert.py:1149``): ``max(shape)`` nodes, the values as edge feature
+    ``eweight_name``."""
+    coo = sp_mat.tocoo()
+    g = graph((coo.row.astype(np.int64), coo.col.astype(np.int64)),
+              num_nodes=max(coo.shape[0], coo.shape[1]), idtype=idtype,
+              device=device)
+    if eweight_name is not None:
+        g.edata[eweight_name] = torch.from_numpy(
+            np.ascontiguousarray(coo.data)).to(device)
+    return g
+
+
+def from_networkx(nx_graph, node_attrs=None, edge_attrs=None,
+                  idtype=torch.int32, device="cuda") -> Graph:
+    """A graph from a networkx graph, nodes numbered in its node order
+    (reference ``convert.py:1387``); an undirected graph gives both
+    directions."""
+    if not nx_graph.is_directed():
+        nx_graph = nx_graph.to_directed()
+    nodes = list(nx_graph.nodes())
+    relabel = {n: i for i, n in enumerate(nodes)}
+    src = np.array([relabel[u] for u, _ in nx_graph.edges()], dtype=np.int64)
+    dst = np.array([relabel[v] for _, v in nx_graph.edges()], dtype=np.int64)
+    g = graph((src, dst), num_nodes=len(nodes), idtype=idtype, device=device)
+    for attr in node_attrs or ():
+        g.ndata[attr] = torch.from_numpy(np.stack(
+            [np.asarray(nx_graph.nodes[n][attr]) for n in nodes])).to(device)
+    for attr in edge_attrs or ():
+        g.edata[attr] = torch.from_numpy(np.stack(
+            [np.asarray(nx_graph.edges[e][attr])
+             for e in nx_graph.edges()])).to(device)
+    return g
+
+
+def rand_graph(num_nodes: int, num_edges: int, idtype=torch.int32,
+               seed=None, device="cuda") -> Graph:
+    """Uniform random graph: sources, then destinations, drawn from
+    ``np.random.default_rng(seed)`` (the JAX package's draws, so equal seeds
+    give equal graphs)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, num_nodes, size=num_edges)
+    dst = rng.integers(0, num_nodes, size=num_edges)
+    return graph((src, dst), num_nodes=num_nodes, idtype=idtype,
+                 device=device)
+
+
+def rand_bipartite(utype, etype, vtype, num_src, num_dst, num_edges,
+                   idtype=torch.int32, seed=None, device="cuda") -> Graph:
+    """Uniform random bipartite graph, drawn as ``rand_graph`` draws."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, num_src, size=num_edges)
+    dst = rng.integers(0, num_dst, size=num_edges)
+    return heterograph({(utype, etype, vtype): (src, dst)},
+                       {utype: num_src, vtype: num_dst}, idtype=idtype,
+                       device=device)
+
+
+def to_networkx(g: Graph, node_attrs=None, edge_attrs=None):
+    """Module-level form of ``Graph.to_networkx``."""
+    return g.to_networkx(node_attrs=node_attrs, edge_attrs=edge_attrs)
+
+
+def bipartite_from_scipy(sp_mat, utype, etype, vtype, eweight_name=None,
+                         idtype=torch.int32, device="cuda") -> Graph:
+    """A bipartite graph from a scipy sparse matrix (rows ``utype``,
+    columns ``vtype``)."""
+    coo = sp_mat.tocoo()
+    cet = (utype, etype, vtype)
+    g = heterograph({cet: (np.asarray(coo.row), np.asarray(coo.col))},
+                    {utype: coo.shape[0], vtype: coo.shape[1]},
+                    idtype=idtype, device=device)
+    if eweight_name is not None:
+        w = np.zeros(g._relations[cet].num_edges_padded, coo.data.dtype)
+        w[: coo.data.shape[0]] = coo.data
+        g._edge_frames.setdefault(cet, {})[eweight_name] = (
+            torch.from_numpy(w).to(device))
+    return g
+
+
+def bipartite_from_networkx(nx_graph, utype, etype, vtype,
+                            idtype=torch.int32, device="cuda") -> Graph:
+    """A bipartite graph from a networkx bipartite graph: nodes with
+    ``bipartite == 0`` become ``utype`` rows, in sorted order."""
+    top = sorted(n for n, d in nx_graph.nodes(data=True)
+                 if d.get("bipartite") == 0)
+    bottom = sorted(n for n, d in nx_graph.nodes(data=True)
+                    if d.get("bipartite") == 1)
+    uid = {n: i for i, n in enumerate(top)}
+    vid = {n: i for i, n in enumerate(bottom)}
+    src, dst = [], []
+    for a, b in nx_graph.edges():
+        if a in uid and b in vid:
+            src.append(uid[a])
+            dst.append(vid[b])
+        elif b in uid and a in vid:
+            src.append(uid[b])
+            dst.append(vid[a])
+    return heterograph({(utype, etype, vtype): (np.asarray(src, np.int64),
+                                                np.asarray(dst, np.int64))},
+                       {utype: len(top), vtype: len(bottom)}, idtype=idtype,
+                       device=device)
+
+
+def block_to_graph(block: Graph) -> Graph:
+    """A block as a plain bipartite graph whose source and destination
+    types get ``_src``/``_dst`` suffixes, frames carried, on the block's
+    device."""
+    data_dict, nn = {}, {}
+    for (st, et, dt), rel in block._relations.items():
+        data_dict[(f"{st}_src", et, f"{dt}_dst")] = rel.host_edges()
+        nn[f"{st}_src"] = rel.num_src
+        nn[f"{dt}_dst"] = rel.num_dst
+    g = heterograph(data_dict, nn, idtype=block.idtype, device=block.device)
+    for nt, frame in block._node_frames.items():
+        g._node_frames.setdefault(f"{nt}_src", {}).update(frame)
+    for nt, frame in block._dst_frames.items():
+        g._node_frames.setdefault(f"{nt}_dst", {}).update(frame)
+    return g
+
+
+def hetero_from_shared_memory(name: str) -> Graph:
+    raise NotImplementedError(
+        "hetero_from_shared_memory comes with multiprocessing_mod: ROADMAP "
+        "queue A12")

@@ -210,7 +210,9 @@ class Relation:
         return self._copy_with(bitmap_plan=plan)
 
     def to(self, device) -> "Relation":
-        arrays = {f: getattr(self, f).to(device) for f in Relation.ARRAY_FIELDS}
+        arrays = {f: None if getattr(self, f) is None
+                  else getattr(self, f).to(device)
+                  for f in Relation.ARRAY_FIELDS}
         plans = {k: None if getattr(self, k) is None
                  else getattr(self, k).to(device)
                  for k in ("hub_plan", "shell_plan", "bitmap_plan",
@@ -233,11 +235,43 @@ class Relation:
                 self._host[f] = getattr(self, f).cpu().numpy()
         return tuple(self._host[f] for f in fields)
 
+    def host_edges(self):
+        """The real edges' endpoints as (cached) host arrays."""
+        src, dst = self.host_arrays("src", "dst")
+        return src[: self.num_edges], dst[: self.num_edges]
+
     def in_degrees(self) -> torch.Tensor:
+        if self.csc_indptr is None:
+            raise DGLError(
+                "CSC format not materialized on this graph; request it "
+                "with g.formats(['csc', ...]) (format-restricted build)")
         return self.csc_indptr[1:] - self.csc_indptr[:-1]
 
     def out_degrees(self) -> torch.Tensor:
+        if self.csr_indptr is None:
+            raise DGLError(
+                "CSR format not materialized on this graph; request it "
+                "with g.formats(['csr', ...]) (format-restricted build)")
         return self.csr_indptr[1:] - self.csr_indptr[:-1]
+
+    def first_eids(self, u, v) -> np.ndarray:
+        """On the host, the id of the first edge ``u[i] -> v[i]`` in CSR
+        order (the smallest such id: a source's CSR run keeps edge-id
+        order), -1 where there is none; one sorted search over the real
+        edges' ``src * num_dst + dst`` keys, built once a relation."""
+        if "edge_key_order" not in self._host:
+            src, dst = self.host_edges()
+            keys = src.astype(np.int64) * self.num_dst + dst
+            order = np.argsort(keys, kind="stable")
+            self._host["edge_key_order"] = (keys[order], order)
+        keys, order = self._host["edge_key_order"]
+        q = (np.asarray(u, np.int64) * self.num_dst
+             + np.asarray(v, np.int64))
+        pos = np.searchsorted(keys, q)
+        hit = pos < keys.shape[0]
+        hit[hit] = keys[pos[hit]] == q[hit]
+        return np.where(hit, order[np.minimum(pos, max(len(order) - 1, 0))]
+                        if len(order) else -1, -1)
 
     def edge_mask(self) -> torch.Tensor:
         """Boolean (E_padded,) mask of the real (non-padding) edges."""
@@ -461,6 +495,10 @@ class Graph:
     graph both views share one frame per type.
     """
 
+    # per-type graph sizes of a batch (``batch.py``); None: one graph
+    _batch_num_nodes = None
+    _batch_num_edges = None
+
     def __init__(self, relations: Dict[CanonicalEtype, Relation],
                  num_src_nodes: Dict[str, int],
                  num_dst_nodes: Optional[Dict[str, int]] = None,
@@ -578,6 +616,12 @@ class Graph:
         if etype is None and len(self._canonical_etypes) > 1:
             return sum(r.num_edges for r in self._relations.values())
         return self._relation(etype).num_edges
+
+    def number_of_nodes(self, ntype: Optional[str] = None) -> int:
+        return self.num_nodes(ntype)
+
+    def number_of_edges(self, etype=None) -> int:
+        return self.num_edges(etype)
 
     # -- data views ----------------------------------------------------------
 
@@ -709,6 +753,11 @@ class Graph:
                           for nt, f in self._dst_frames.items()})
         g._edge_frames = {et: {k: v.to(device) for k, v in f.items()}
                           for et, f in self._edge_frames.items()}
+        for attr in ("_batch_num_nodes", "_batch_num_edges"):
+            counts = getattr(self, attr)
+            if counts is not None:
+                setattr(g, attr, {k: v.to(device)
+                                  for k, v in counts.items()})
         return g
 
     # -- SpMM plans ----------------------------------------------------------
@@ -785,6 +834,421 @@ class Graph:
         g._relations = rels
         return g
 
+    # -- batch info (reference ``python/dgl/batch.py``) ---------------------
+
+    @property
+    def batch_size(self) -> int:
+        if self._batch_num_nodes is None:
+            return 1
+        for v in self._batch_num_nodes.values():
+            return int(v.shape[0])
+        return 1
+
+    def _one_ntype(self, role: str) -> str:
+        types = self.srctypes if role == "src" else self.dsttypes
+        if len(types) != 1:
+            raise DGLError("ntype must be given for graphs with multiple "
+                           "node types")
+        return types[0]
+
+    def batch_num_nodes(self, ntype: Optional[str] = None) -> torch.Tensor:
+        """Nodes of each graph of a batch (one graph: all of them)."""
+        nt = ntype or self._one_ntype("src")
+        if self._batch_num_nodes is None:
+            return torch.tensor([self.num_nodes(nt)], device=self.device)
+        return self._batch_num_nodes[nt]
+
+    def batch_num_edges(self, etype=None) -> torch.Tensor:
+        """Edges of each graph of a batch (one graph: all of them)."""
+        cet = self.to_canonical_etype(etype)
+        if self._batch_num_edges is None:
+            return torch.tensor([self.num_edges(cet)], device=self.device)
+        return self._batch_num_edges[cet]
+
+    def set_batch_num_nodes(self, d):
+        if not isinstance(d, dict):
+            d = {self._one_ntype("src"): d}
+        self._batch_num_nodes = {
+            k: torch.as_tensor(_asnumpy(v), device=self.device)
+            for k, v in d.items()}
+
+    def set_batch_num_edges(self, d):
+        if not isinstance(d, dict):
+            d = {self.canonical_etypes[0]: d}
+        self._batch_num_edges = {
+            self.to_canonical_etype(k): torch.as_tensor(
+                _asnumpy(v), device=self.device) for k, v in d.items()}
+
+    # -- queries (reference ``heterograph.py``) -------------------------------
+
+    def _on_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def nodes_ids(self, ntype: Optional[str] = None) -> torch.Tensor:
+        """All node ids of a type (reference ``nodes()``)."""
+        n = self.num_nodes(ntype) if ntype else self.num_nodes(
+            self.ntypes[0] if len(self.ntypes) == 1 else None)
+        return torch.arange(n, dtype=self.idtype, device=self.device)
+
+    def all_edges(self, form="uv", order="eid", etype=None):
+        return self.edges(form=form, order=order, etype=etype)
+
+    def find_edges(self, eid, etype=None):
+        """Endpoints of the edges ``eid``."""
+        rel = self._relation(etype)
+        eid = torch.as_tensor(_asnumpy(eid), device=rel.device).long()
+        return rel.src[eid], rel.dst[eid]
+
+    def has_nodes(self, vids, ntype=None):
+        nt = ntype or (self.ntypes[0] if len(self.ntypes) == 1 else None)
+        v = torch.atleast_1d(torch.as_tensor(_asnumpy(vids),
+                                             device=self.device))
+        out = (v >= 0) & (v < self.num_nodes(nt))
+        return out if np.ndim(_asnumpy(vids)) else out[0]
+
+    def has_edges_between(self, u, v, etype=None):
+        """Whether each ``u[i] -> v[i]`` is an edge: a 0-dim tensor for a
+        single pair, as in the reference."""
+        rel = self._relation(etype)
+        u = np.atleast_1d(_asnumpy(u))
+        v = np.atleast_1d(_asnumpy(v))
+        res = self._on_device(rel.first_eids(u, v) >= 0)
+        return res if res.shape[0] > 1 else res[0]
+
+    def edge_ids(self, u, v, etype=None):
+        """The id of edge ``u[i] -> v[i]``, the first in CSR order (the
+        smallest id) among multi-edges; raises for a missing edge."""
+        rel = self._relation(etype)
+        u = np.atleast_1d(_asnumpy(u))
+        v = np.atleast_1d(_asnumpy(v))
+        eids = rel.first_eids(u, v)
+        missing = np.nonzero(eids < 0)[0]
+        if missing.size:
+            i = missing[0]
+            raise DGLError(f"Edge ({u[i]},{v[i]}) does not exist")
+        return self._on_device(eids.astype(_np_idtype(self.idtype)))
+
+    def successors(self, u, etype=None):
+        rel = self._relation(etype)
+        indptr, indices = rel.host_arrays("csr_indptr", "csr_indices")
+        u = int(u)
+        return self._on_device(indices[indptr[u]: indptr[u + 1]])
+
+    def predecessors(self, v, etype=None):
+        rel = self._relation(etype)
+        indptr, indices = rel.host_arrays("csc_indptr", "csc_indices")
+        v = int(v)
+        return self._on_device(indices[indptr[v]: indptr[v + 1]])
+
+    def _edges_of(self, rel, eids, form):
+        src, dst = rel.host_arrays("src", "dst")
+        if form == "eid":
+            return self._on_device(eids)
+        if form == "uv":
+            return self._on_device(src[eids]), self._on_device(dst[eids])
+        if form == "all":
+            return (self._on_device(src[eids]), self._on_device(dst[eids]),
+                    self._on_device(eids))
+        raise DGLError(f"Unknown form {form!r}")
+
+    def in_edges(self, v, form: str = "uv", etype=None):
+        """In-edges of the nodes ``v``, node by node in CSC order."""
+        rel = self._relation(etype)
+        indptr, eids = rel.host_arrays("csc_indptr", "csc_eids")
+        seeds = np.atleast_1d(_asnumpy(v)).astype(np.int64)
+        return self._edges_of(rel, ragged_gather(indptr, eids, seeds), form)
+
+    def out_edges(self, u, form: str = "uv", etype=None):
+        """Out-edges of the nodes ``u``, node by node in CSR order."""
+        rel = self._relation(etype)
+        indptr, eids = rel.host_arrays("csr_indptr", "csr_eids")
+        seeds = np.atleast_1d(_asnumpy(u)).astype(np.int64)
+        return self._edges_of(rel, ragged_gather(indptr, eids, seeds), form)
+
+    def node_attr_schemes(self, ntype=None):
+        nt = ntype or (self.ntypes[0] if len(self.ntypes) == 1 else None)
+        frame = self._node_frames.get(nt, {})
+        return {k: (tuple(v.shape[1:]), v.dtype) for k, v in frame.items()}
+
+    # -- structure facts ------------------------------------------------------
+
+    @property
+    def is_multigraph(self) -> bool:
+        return any(r.has_multi_edges() for r in self._relations.values())
+
+    def metagraph(self):
+        """networkx MultiDiGraph over the node types (reference
+        ``metagraph``)."""
+        import networkx as nx
+
+        mg = nx.MultiDiGraph()
+        mg.add_nodes_from(self.ntypes)
+        for st, et, dt in self.canonical_etypes:
+            mg.add_edge(st, dt, key=et)
+        return mg
+
+    def get_ntype_id(self, ntype) -> int:
+        if ntype is None:
+            if len(self.ntypes) != 1:
+                raise DGLError("ntype required")
+            return 0
+        try:
+            return self.ntypes.index(ntype)
+        except ValueError:
+            raise DGLError(f"Unknown node type {ntype!r}") from None
+
+    def get_etype_id(self, etype) -> int:
+        return self.canonical_etypes.index(self.to_canonical_etype(etype))
+
+    @property
+    def is_unibipartite(self) -> bool:
+        """True when the source and destination node types are disjoint."""
+        srcs = {cet[0] for cet in self.canonical_etypes}
+        dsts = {cet[2] for cet in self.canonical_etypes}
+        return not srcs & dsts
+
+    def number_of_src_nodes(self, ntype: Optional[str] = None) -> int:
+        return self.num_src_nodes(ntype)
+
+    def number_of_dst_nodes(self, ntype: Optional[str] = None) -> int:
+        return self.num_dst_nodes(ntype)
+
+    # -- copies and views -----------------------------------------------------
+
+    def reverse(self, copy_ndata=True, copy_edata=True) -> "Graph":
+        """Every relation reversed, without plans (reference
+        ``dgl.reverse``)."""
+        rels = {(dt, et, st): rel.reverse()
+                for (st, et, dt), rel in self._relations.items()}
+        g = Graph(rels, num_src_nodes=dict(self._num_dst_nodes),
+                  num_dst_nodes=dict(self._num_src_nodes))
+        if copy_ndata:
+            for nt, f in self._node_frames.items():
+                g._node_frames[nt] = dict(f)
+        if copy_edata:
+            for (st, et, dt), f in self._edge_frames.items():
+                g._edge_frames[(dt, et, st)] = dict(f)
+        return g
+
+    def local_var(self) -> "Graph":
+        """A view sharing the structure whose frames are copies."""
+        g = self.structural_clone()
+        g._node_frames = {nt: dict(f) for nt, f in self._node_frames.items()}
+        g._dst_frames = (g._node_frames if not self._is_block else
+                         {nt: dict(f) for nt, f in self._dst_frames.items()})
+        g._edge_frames = {et: dict(f) for et, f in self._edge_frames.items()}
+        return g
+
+    def clone(self) -> "Graph":
+        return self.local_var()
+
+    def cpu(self) -> "Graph":
+        return self.to("cpu")
+
+    def astype(self, idtype) -> "Graph":
+        """The index tensors cast to ``idtype``; plans are left behind
+        (their index arrays keep theirs)."""
+        _np_idtype(idtype)
+
+        def conv(rel: Relation) -> Relation:
+            arrays = {f: None if getattr(rel, f) is None
+                      else getattr(rel, f).to(idtype)
+                      for f in Relation.ARRAY_FIELDS}
+            return rel._copy_with(hub_plan=None, shell_plan=None,
+                                  bitmap_plan=None, dense_adj=None,
+                                  _host={}, **arrays)
+
+        g = self.structural_clone()
+        g._relations = {k: conv(r) for k, r in self._relations.items()}
+        return g
+
+    def long(self) -> "Graph":
+        return self.astype(torch.int64)
+
+    def int(self) -> "Graph":
+        return self.astype(torch.int32)
+
+    def to_networkx(self, node_attrs=None, edge_attrs=None):
+        """A networkx MultiDiGraph of a graph of one edge type, each edge
+        with its id as ``id`` (reference ``to_networkx``)."""
+        import networkx as nx
+
+        nxg = nx.MultiDiGraph()
+        nxg.add_nodes_from(range(self.num_nodes()))
+        src, dst = self._relation(None).host_edges()
+        cet = self.canonical_etypes[0]
+        efr = {k: _asnumpy(self._edge_frames[cet][k])
+               for k in edge_attrs or ()}
+        for i, (u, v) in enumerate(zip(src, dst)):
+            nxg.add_edge(int(u), int(v), id=i,
+                         **{k: a[i] for k, a in efr.items()})
+        if node_attrs:
+            nt = self.ntypes[0]
+            for k in node_attrs:
+                vals = _asnumpy(self._node_frames[nt][k])
+                for i in range(self.num_nodes()):
+                    nxg.nodes[i][k] = vals[i]
+        return nxg
+
+    # -- frames and formats ---------------------------------------------------
+
+    def set_n_initializer(self, initializer, field=None, ntype=None):
+        """A default for new node rows (reference ``set_n_initializer``):
+        ``add_nodes`` fills with ``initializer(shape, dtype)``, not 0."""
+        self.__dict__.setdefault("_n_initializers", {})[
+            (ntype, field)] = initializer
+
+    def set_e_initializer(self, initializer, field=None, etype=None):
+        self.__dict__.setdefault("_e_initializers", {})[
+            (etype, field)] = initializer
+
+    def _get_initializer(self, kind, field, type_key):
+        store = self.__dict__.get(
+            "_n_initializers" if kind == "node" else "_e_initializers", {})
+        for key in ((type_key, field), (None, field), (type_key, None),
+                    (None, None)):
+            if key in store:
+                return store[key]
+        return None
+
+    def formats(self, formats=None):
+        """Without arguments, which sparse formats every relation holds;
+        with a list, a copy whose relations hold only those (COO always),
+        rebuilt from the COO on the host (reference
+        ``heterograph.py:6090``). An op that needs a missing format
+        raises."""
+        if formats is None:
+            rels = list(self._relations.values())
+            created = ["coo"]
+            if all(r.csr_indptr is not None for r in rels):
+                created.append("csr")
+            if all(r.csc_indptr is not None for r in rels):
+                created.append("csc")
+            return {"created": created,
+                    "not created": [f for f in ("coo", "csr", "csc")
+                                    if f not in created]}
+        if isinstance(formats, str):
+            formats = [formats]
+        g = self.structural_clone()
+        rels = {}
+        for k, r in self._relations.items():
+            src, dst = r.host_arrays("src", "dst")
+            new = Relation.from_coo(src, dst, r.num_src, r.num_dst,
+                                    idtype=r.src.dtype,
+                                    num_edges=r.num_edges, device=r.device)
+            for fmt in ("csr", "csc"):
+                if fmt not in formats:
+                    new = new._copy_with(**{
+                        f: None for f in Relation.ARRAY_FIELDS
+                        if f.startswith(fmt + "_")})
+                    setattr(new, f"max_{'out' if fmt == 'csr' else 'in'}"
+                                 "_degree", -1)
+            new._host = {}
+            rels[k] = new
+        g._relations = rels
+        return g
+
+    # -- sparse matrices ------------------------------------------------------
+
+    def adj(self, etype=None, eweight_name=None):
+        """The adjacency as a :class:`~dgl_tpu_torch.sparse.SparseMatrix`
+        of shape (num_src, num_dst) over this relation, plans and padded
+        edges included: values 1 (0 on padded edges) or the edge feature
+        ``eweight_name``."""
+        from .sparse.sparse_matrix import SparseMatrix
+
+        cet = self.to_canonical_etype(etype)
+        rel = self._relations[cet]
+        if eweight_name is not None:
+            return SparseMatrix(rel, self._edge_frames[cet][eweight_name])
+        return SparseMatrix(rel, rel.edge_mask().to(torch.float32))
+
+    def adjacency_matrix(self, transpose=False, etype=None):
+        a = self.adj(etype=etype)
+        return a.T if transpose else a
+
+    def inc(self, typestr="both", etype=None):
+        """The (N, E) incidence matrix: ``in``, ``out`` or ``both`` (+1 at
+        the destination, -1 at the source, self-loops left out)."""
+        from .sparse.sparse_matrix import from_coo
+
+        rel = self._relation(etype)
+        E = rel.num_edges
+        src, dst = rel.host_edges()
+        eid = np.arange(E, dtype=src.dtype)
+        n, dev = self.num_nodes(), self.device
+        ones = torch.ones(E, dtype=torch.float32, device=dev)
+        if typestr == "in":
+            return from_coo(dst, eid, ones, (n, E), device=dev)
+        if typestr == "out":
+            return from_coo(src, eid, ones, (n, E), device=dev)
+        keep = src != dst
+        k = int(keep.sum())
+        rows = np.concatenate([dst[keep], src[keep]])
+        cols = np.concatenate([np.nonzero(keep)[0]] * 2)
+        vals = np.concatenate([np.ones(k, np.float32),
+                               -np.ones(k, np.float32)])
+        return from_coo(rows, cols, vals, (n, E), device=dev)
+
+    incidence_matrix = inc
+
+    # -- subgraphs (``subgraph.py``) and transforms (``transforms/``) ---------
+
+    def subgraph(self, nodes, *, relabel_nodes=True, store_ids=True):
+        from .subgraph import node_subgraph
+
+        return node_subgraph(self, nodes, relabel_nodes=relabel_nodes,
+                             store_ids=store_ids)
+
+    def edge_subgraph(self, edges, *, relabel_nodes=True, store_ids=True):
+        from .subgraph import edge_subgraph
+
+        return edge_subgraph(self, edges, relabel_nodes=relabel_nodes,
+                             store_ids=store_ids)
+
+    def node_type_subgraph(self, ntypes):
+        from .subgraph import node_type_subgraph
+
+        return node_type_subgraph(self, ntypes)
+
+    def edge_type_subgraph(self, etypes):
+        from .subgraph import edge_type_subgraph
+
+        return edge_type_subgraph(self, etypes)
+
+    def filter_nodes(self, predicate, ntype=None):
+        """Ids of the nodes where ``predicate(NodeBatch)`` holds."""
+        from .udf import NodeBatch
+
+        nt = ntype or (self.ntypes[0] if len(self.ntypes) == 1 else None)
+        if nt is None:
+            raise DGLError("ntype required")
+        mask = predicate(NodeBatch(dict(self._node_frames.get(nt, {}))))
+        return torch.nonzero(torch.as_tensor(mask)).reshape(-1)
+
+    def filter_edges(self, predicate, etype=None):
+        """Ids of the real edges where ``predicate(EdgeBatch)`` holds; the
+        padded edges' endpoints read the last row, as in the reference."""
+        from .udf import EdgeBatch
+
+        cet = self.to_canonical_etype(etype)
+        rel = self._relations[cet]
+        s = rel.src.long().clamp(max=max(rel.num_src - 1, 0))
+        d = rel.dst.long().clamp(max=max(rel.num_dst - 1, 0))
+        srcf = self._node_frames.get(cet[0], {})
+        dstf = self._dst_frames.get(cet[2], {})
+        batch = EdgeBatch({k: v[s] for k, v in srcf.items()},
+                          dict(self._edge_frames.get(cet, {})),
+                          {k: v[d] for k, v in dstf.items()},
+                          edges=(rel.src, rel.dst))
+        mask = torch.as_tensor(predicate(batch)) & rel.edge_mask()
+        return torch.nonzero(mask).reshape(-1)
+
+    def shared_memory(self, name: str, formats=None):
+        raise NotImplementedError(
+            "Graph.shared_memory comes with multiprocessing_mod: ROADMAP "
+            "queue A12")
+
     def __repr__(self):
         if self._is_block:
             return (f"Block(num_src_nodes={self.num_src_nodes()}, "
@@ -796,6 +1260,50 @@ class Graph:
                     f"num_edges={counts}, device={self.device})")
         return (f"Graph(num_nodes={self.num_nodes()}, "
                 f"num_edges={self.num_edges()}, device={self.device})")
+
+
+def _delegate_transform(name):
+    def method(self, *args, **kwargs):
+        from .transforms import functional
+
+        return getattr(functional, name)(self, *args, **kwargs)
+
+    method.__name__ = name
+    method.__doc__ = (f"Method form of ``transforms.functional.{name}`` "
+                      "(reference ``heterograph.py``).")
+    return method
+
+
+for _name in ("add_edges", "remove_edges", "add_nodes", "remove_nodes",
+              "line_graph", "to_simple", "add_self_loop",
+              "remove_self_loop", "khop_graph"):
+    setattr(Graph, _name, _delegate_transform(_name))
+
+
+def ragged_gather(indptr, eids, seeds):
+    """All of the seeds' CSR/CSC runs ``eids[indptr[s]:indptr[s + 1]]``,
+    seed after seed, as one host array (int64 when empty)."""
+    if seeds.size == 0:
+        return np.zeros(0, np.int64)
+    starts = indptr[seeds]
+    lens = indptr[seeds + 1] - starts
+    total = int(lens.sum())
+    if total == 0:
+        return np.zeros(0, np.int64)
+    reps = np.repeat(starts - np.concatenate([[0], np.cumsum(lens)[:-1]]),
+                     lens)
+    return np.asarray(eids)[np.arange(total) + reps]
+
+
+def unique_first_occurrence(cat: np.ndarray):
+    """The distinct values of ``cat`` in order of first occurrence, and
+    each element's index among them."""
+    uniq_sorted, first_idx, inv_sorted = np.unique(
+        cat, return_index=True, return_inverse=True)
+    order = np.argsort(first_idx)
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.shape[0])
+    return uniq_sorted[order], rank[inv_sorted.reshape(-1)]
 
 
 def with_dense_plans(r: Relation, dense_attn: bool | str = "auto",

@@ -2,7 +2,9 @@
 ``dgl_tpu/ops/segment.py``; reference ``python/dgl/ops/segment.py``).
 
 ``segment_reduce`` takes segment lengths, as the reference's
-``SegmentReduce`` does; the lengths must sum to ``value.shape[0]``.
+``SegmentReduce`` does. Rows past the lengths' sum belong to the last
+segment, as ``dgl_tpu``'s ``jnp.repeat(..., total_repeat_length)`` puts
+them (the readouts meet such rows in a padded graph's edge frames).
 ``segment_mm`` is the per-relation dense matmul of TypedLinear / R-GCN.
 Plain PyTorch: the JAX package has no Pallas kernel for these, and
 PyTorch's autograd differentiates them.
@@ -21,10 +23,12 @@ __all__ = ["segment_reduce", "segment_softmax", "segment_mm"]
 
 
 def _seg_ids(seglen, total):
-    n = seglen.shape[0]
-    return torch.repeat_interleave(
-        torch.arange(n, device=seglen.device), seglen.to(torch.int64),
-        output_size=total)
+    """The segment of each of ``total`` rows (no read on the host): the
+    last segment's past the lengths' sum."""
+    ends = torch.cumsum(seglen.to(torch.int64), 0)
+    pos = torch.arange(total, device=seglen.device)
+    return torch.searchsorted(ends, pos, right=True).clamp(
+        max=max(seglen.shape[0] - 1, 0))
 
 
 def _segment_cmp(ids, value, n, reducer):
@@ -49,7 +53,9 @@ def segment_reduce(seglen, value, reducer="sum"):
             out = out / deg.reshape((n,) + (1,) * (out.dim() - 1))
         return out
     if reducer in ("max", "min"):
-        return _segment_cmp(ids, value, n, reducer)
+        out = _segment_cmp(ids, value, n, reducer)
+        has = (seglen > 0).reshape((n,) + (1,) * (out.dim() - 1))
+        return torch.where(has, out, 0)
     raise DGLError(f"Unknown reducer {reducer!r}")
 
 

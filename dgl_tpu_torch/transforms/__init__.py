@@ -1,4 +1,3 @@
 """Graph transforms (counterpart of ``dgl_tpu/transforms/``)."""
-from .functional import reorder_for_spmm, reorder_graph
-
-__all__ = ["reorder_for_spmm", "reorder_graph"]
+from .functional import *  # noqa: F401,F403
+from .functional import __all__

@@ -1227,3 +1227,132 @@ def test_sage_gcn_and_label_propagation_launch_b1(card, monkeypatch):
     _f, _s, _l, ref = run()
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_sparse_gcn_on_card_matches_cpu_and_graphconv(card):
+    """Phase ``sparse_gcn``'s core checks at a small size: the sparse-API
+    GCN's matrix (indices exact, values 1e-5), output and gradients on the
+    card against the CPU and against ``GraphConv(norm="both")`` on the
+    graph plus self-loops (rtol = 1e-4, atol = 1e-4 * max|ref|: the same
+    f32 sums in another order), no hand kernel launched; every sparse op
+    of the phase, the card against the CPU (rtol = 1e-5)."""
+    import chip_smoke as cs
+    from dgl_tpu_torch.sparse import SparseMatrix
+
+    g = _zipf_graph(3000, 20000, 8, card)
+    dims = (16, 32, 32, 5)
+    out, grads, pattern = {}, {}, None
+    for dev, gg in (("cuda", g), ("cpu", g.to("cpu"))):
+        gs, A = cs.sparse_gcn_matrix(gg)
+        params = cs.sparse_gcn_params(dims, 0, dev)
+        x = torch.from_numpy(np.random.default_rng(1).normal(
+            size=(3000, 16)).astype(np.float32)).to(dev)
+        _kernels.reset_launch_counts()
+        # every pass on the card pass's ReLU pattern (chip_smoke's
+        # check_grads explains why)
+        with cs.relu_pattern(pattern and [m.cpu() for m in pattern]) as seen:
+            out[dev] = cs.sparse_gcn_forward(A, x, params)
+        (out[dev] ** 2).sum().backward()
+        if dev == "cuda":
+            assert not any(_kernels.launch_counts.values())
+            A_card, pattern = A, seen
+            convs = cs.graphconv_stack(params, dev)
+            with cs.relu_pattern(pattern):
+                ref = cs.graphconv_forward(convs, dt.add_self_loop(gs), x)
+            (ref ** 2).sum().backward()
+            cs.held_against(out[dev], ref, 1e-4, "vs GraphConv")
+            for (w, b), conv in zip(params, convs):
+                cs.held_against(w.grad, conv.weight.grad, 1e-4, "grad W")
+                cs.held_against(b.grad, conv.bias.grad, 1e-4, "grad b")
+        else:
+            cs.same_matrix(A_card, A, "A_norm")
+        grads[dev] = [t.grad for p in params for t in p]
+    cs.held_against(out["cuda"], out["cpu"], 1e-4, "vs the CPU")
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        cs.held_against(a, b, 1e-4, "grad vs the CPU")
+    on_card = cs.sparse_op_cases(A_card)
+    on_cpu = cs.sparse_op_cases(cs.matrix_to(A_card, "cpu"))
+    for name, fn in on_card.items():
+        got, want = fn(), on_cpu[name]()
+        if isinstance(got, SparseMatrix):
+            cs.same_matrix(got, want, name)
+        else:
+            cs.held_against(got, want, 1e-5, name)
+
+
+def test_gcn_recipe_on_card_launches_b1(card):
+    """Phase ``gcn_recipe``'s count at a small size: the recipe's graph
+    with ``with_spmm_plans(num_hubs=64, weighted=True)`` and GCN 16-32-32-5
+    launch B1 3 times a forward and 5 a step (layer 0's input needs no
+    gradient) and no other kernel; the output within the plan path's
+    2e-2 of the graph without plans; and the recipe's transforms (at this
+    size) give the CPU's graphs."""
+    import chip_smoke as cs
+
+    g = _zipf_graph(3000, 20000, 9, card)
+    gr = dt.add_self_loop(dt.remove_self_loop(g))
+    gp = gr.with_spmm_plans(num_hubs=64, weighted=True)
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(3000, 16)).astype(np.float32)).to(card)
+    model = GCN(16, 32, 5, num_layers=3, dropout=0.0,
+                generator=torch.Generator().manual_seed(0), device=card)
+    _kernels.reset_launch_counts()
+    out = model(gp, x)
+    fwd = dict(_kernels.launch_counts)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert fwd == {**{k: 0 for k in fwd}, "shell_prefix_sum": 3}
+    assert dict(_kernels.launch_counts) == {
+        **{k: 0 for k in fwd}, "shell_prefix_sum": 5}
+    cs.held_against(out, model(gr, x), 2e-2, "vs the graph without plans")
+    g.ndata["x"] = x
+    g_cpu = g.to("cpu")
+    for name, fn in cs.recipe_transforms(3000, 20000).items():
+        cs.same_result(fn(dt, g), fn(dt, g_cpu), name)
+
+
+def test_batched_readout_on_card_matches_cpu(card):
+    """Phase ``batched_readout``'s core checks at a small size: the GIN's
+    logits and gradients on a batch of 8 molhiv-sized graphs against the
+    CPU on the card pass's ReLU pattern (rtol = 1e-4), no hand kernel;
+    the readouts on 256 graphs at
+    rtol = 1e-5, ``unbatch``, ``slice_batch`` and ``pad_batch`` exact."""
+    import chip_smoke as cs
+
+    bg = dt.batch(cs.molhiv_graphs(8, 0, card))
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(bg.num_nodes(), cs.GIN_DIM)).astype(np.float32))
+    outs, grads, pattern = {}, {}, None
+    for dev in ("cuda", "cpu"):
+        model = cs.gin_model(dev)
+        _kernels.reset_launch_counts()
+        with cs.relu_pattern(pattern and [m.cpu() for m in pattern]) as seen:
+            outs[dev] = model(bg.to(dev), x.to(dev))
+        pattern = pattern or seen
+        outs[dev].square().sum().backward()
+        grads[dev] = [p.grad for p in model.parameters()]
+    assert not any(_kernels.launch_counts.values())
+    cs.held_against(outs["cuda"], outs["cpu"], 1e-4, "GIN logits")
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        cs.held_against(a, b, 1e-4, "GIN grad")
+    big_cpu = dt.batch(cs.molhiv_graphs(256, 5, "cpu"))
+    big = big_cpu.to(card)
+    g_card, on_card = cs.readout_cases(big)
+    g_host, on_cpu = cs.readout_cases(big_cpu)
+    for name, fn in on_card.items():
+        got, want = fn(), on_cpu[name]()
+        if isinstance(got, tuple):
+            cs.held_against(got[0], want[0], 1e-5, name)
+            cs.same_result(got[1], want[1], name)
+        else:
+            cs.held_against(got, want, 1e-5, name)
+    parts = dt.unbatch(g_card)
+    for a, b in zip(parts, dt.unbatch(g_host)):
+        cs.same_graph_on(a, b, "unbatch")
+    cs.same_graph_on(dt.slice_batch(g_card, 100, store_ids=True),
+                     dt.slice_batch(g_host, 100, store_ids=True), "slice")
+    shape = (260, big.num_nodes() + 10, big.num_edges() + 10)
+    pc, mc = dt.pad_batch(parts, *shape)
+    ph, mh = dt.pad_batch(dt.unbatch(g_host), *shape)
+    cs.same_graph_on(pc, ph, "pad_batch")
+    cs.same_result(mc, mh, "pad_batch mask")

@@ -97,6 +97,28 @@ _CALLS = {
     "SpatialEncoder": "dt.nn.SpatialEncoder(4{})",
     "SpatialEncoder3d": "dt.nn.SpatialEncoder3d(4{})",
     "MLP": "dt.nn.MLP(4, (8, 2){})",
+    "sparse.from_coo": "dt.sparse.from_coo(np.array([0, 1]), "
+                       "np.array([1, 2]){})",
+    "sparse.from_csr": "dt.sparse.from_csr(np.array([0, 1, 2]), "
+                       "np.array([1, 0]){})",
+    "sparse.from_csc": "dt.sparse.from_csc(np.array([0, 1, 2]), "
+                       "np.array([1, 0]){})",
+    "sparse.diag": "dt.sparse.diag(np.ones(3, np.float32){})",
+    "sparse.identity": "dt.sparse.identity((3, 4){})",
+    "sparse.from_scipy": "dt.sparse.from_scipy(__import__('scipy.sparse')"
+                         ".sparse.eye(3, format='csr'){})",
+    "from_scipy": "dt.from_scipy(__import__('scipy.sparse').sparse.eye(3)"
+                  "{})",
+    "bipartite_from_scipy": "dt.bipartite_from_scipy(__import__("
+                            "'scipy.sparse').sparse.eye(3), 'u', 'e', 'v'"
+                            "{})",
+    "rand_graph": "dt.rand_graph(5, 8, seed=0{})",
+    "rand_bipartite": "dt.rand_bipartite('u', 'e', 'v', 4, 5, 8, seed=0{})",
+    "from_networkx": "dt.from_networkx(__import__('networkx').path_graph(3)"
+                     "{})",
+    "bipartite_from_networkx": "dt.bipartite_from_networkx(__import__("
+                               "'networkx').complete_bipartite_graph(2, 3),"
+                               " 'u', 'e', 'v'{})",
 }
 
 _PROBE = """
