@@ -326,7 +326,48 @@ the sparse-matrix API and the graph utilities (B1 in the recipe only):
     rtol = 1e-4 on the card pass's ReLU pattern, five Adam steps with a
     falling loss, times and profiles; then on a batch of 4,096 such
     graphs each readout of ``readout_cases`` card against CPU at 1e-5,
-    and ``unbatch``, ``slice_batch`` and ``pad_batch`` equal to the CPU's.
+    and ``unbatch``, ``slice_batch`` and ``pad_batch`` equal to the CPU's;
+
+the rest of the graph utilities (B1 under SIGN, B1w under GDC):
+
+28. ``sign_diffusion``: ``SIGNDiffusion(k=3)`` (DGL's SIGN example) with
+    ``gcn``, ``ppr`` and ``raw`` at F = 128 on the arxiv zipf graph with
+    ``reorder_for_spmm``'s hub plan: a counted call each (3 B1 launches,
+    one a hop), every recorded B1 call against its plain version at 1e-5,
+    each hop against the same graph without plans at rtol = 2e-2,
+    atol = 2e-2 * max|ref|, that graph's card result against the CPU's at
+    1e-5, times and a profile;
+29. ``gdc_gcn``: ``GDC("ppr")`` and ``GDC("heat")`` at their defaults on
+    the Cora-sized graph (dense on the host; the diffused graph equal to
+    the CPU's), then the weighted GCN 1433-16-7 with the diffusion's
+    weights over ``with_spmm_plans(weighted=True, bitmap=False,
+    dense_attn=False)``: a counted forward (2 B1w launches) and step (4),
+    output and gradients against the graph without plans at 2e-2, each
+    forward B1w call against its plain version (exact) with its bound and
+    ``torch.sparse.mm``, times;
+30. ``graphormer``: ``prepare_batch`` of 128 molhiv-sized graphs and
+    Graphormer-base (12 layers, 768, 32 heads, max_degree 64, max_dist 5):
+    the card against the CPU (in f64) on 16 of them (logits and
+    gradients at rtol = 1e-4, atol = 1e-4 * max|ref|, on the card pass's
+    ReLU pattern),
+    a counted BCE/Adam step (no kernel), five steps, times, peak memory
+    and profiles;
+31. ``gin_glob``: ``models.GIN`` (5 x 300, sum readout) over phase 27's
+    32 graphs, logits against the CPU at 1e-5 and gradients at 1e-4, five
+    steps, times; every ``nn.glob`` pooling class over 4,096 such graphs
+    against the CPU at 1e-5, timed;
+32. ``point_cloud``: DGCNN's ``SegmentedKNNGraph(20)`` over 32 clouds of
+    1,024 random points (edges equal to the CPU's but for float32
+    near-ties, ``knn_near_ties``), its first ``EdgeConv`` 3 -> 64 against
+    the CPU at 1e-5, PointNet++'s ``farthest_point_sampler`` of 512 and
+    the segmented ``knn`` query (both exact), times;
+33. ``graph_utilities``: the dense encodings and paths at Cora's size,
+    the linear utilities and module transforms on the zipf graph, the
+    others on ``rand_graph(2000, 10000)``, ``laplacian_lambda_max`` over
+    256 molhiv-sized graphs and the Child-Sum Tree-LSTM of
+    ``examples/tree_lstm.py`` over ``prop_nodes_topo`` on 256 random
+    trees: each card result against the CPU's (exact, device values at
+    1e-5), timed.
 
 Every training input is built outside ``torch.inference_mode()``.
 It prints one JSON object per result line, the kernel table as
@@ -2670,7 +2711,7 @@ def zipf_loops_graph():
     return np.concatenate([src, loops]), np.concatenate([dst, loops])
 
 
-def weighted_gcn(dims, dropout, seed):
+def weighted_gcn(dims, dropout, seed, allow_zero_in_degree=False):
     """GraphConv(norm="none") layers of widths ``dims`` over normalised
     edge weights, as DGL users compose them for a weighted graph:
     ``EdgeWeightNorm("both")`` once into ``g.edata["w"]``, each layer
@@ -2686,7 +2727,8 @@ def weighted_gcn(dims, dropout, seed):
             super().__init__()
             gen = torch.Generator().manual_seed(seed)
             self.convs = nn.ModuleList(
-                GraphConv(a, b, norm="none", generator=gen)
+                GraphConv(a, b, norm="none", generator=gen,
+                          allow_zero_in_degree=allow_zero_in_degree)
                 for a, b in zip(dims[:-1], dims[1:]))
             self.dropout = nn.Dropout(dropout)
 
@@ -4950,7 +4992,9 @@ def same_graph_on(a, b, what: str) -> None:
 
 
 def same_result(a, b, what: str) -> None:
-    """Transform results (graphs, tensors, tuples of them) equal."""
+    """Transform results (graphs, tensors, host arrays, tuples and lists of
+    them) equal."""
+    import numpy as np
     import torch
 
     from dgl_tpu_torch import Graph
@@ -4958,11 +5002,16 @@ def same_result(a, b, what: str) -> None:
     if isinstance(a, Graph):
         same_graph_on(a, b, what)
     elif isinstance(a, (tuple, list)):
+        if len(a) != len(b):
+            raise RuntimeError(f"{what}: lengths {len(a)} vs {len(b)}")
         for i, (x, y) in enumerate(zip(a, b)):
             same_result(x, y, f"{what}[{i}]")
     elif isinstance(a, torch.Tensor):
         if not torch.equal(a.cpu(), b.cpu()) or a.dtype != b.dtype:
             raise RuntimeError(f"{what}: tensors differ")
+    elif isinstance(a, np.ndarray):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise RuntimeError(f"{what}: arrays differ")
     elif a != b:
         raise RuntimeError(f"{what}: {a} != {b}")
 
@@ -5333,6 +5382,813 @@ def run_batched_readout(tag: dict, device="cuda") -> dict:
 
 
 
+# -- the rest of the graph utilities (phases sign_diffusion, gdc_gcn,
+# graphormer, gin_glob, point_cloud and graph_utils) -----------------------
+
+# DGL's SIGN example (examples/pytorch/sign: R = 3 hops) at arxiv widths
+SIGN_HOPS, SIGN_OPS = 3, ("gcn", "ppr", "raw")
+# Graphormer-base (examples/core/Graphormer; the paper's base model):
+# 12 layers, hidden 768, 32 heads; over ogbg-molhiv-sized graphs with its
+# 9 atom features (random floats here), one logit
+GRAPHORMER = dict(num_layers=12, hidden=768, heads=32, max_degree=64,
+                  max_dist=5)
+GRAPHORMER_GRAPHS, GRAPHORMER_CHECK_GRAPHS, MOL_ATOM_FEATS = 128, 16, 9
+GLOB_GRAPHS, GLOB_FEAT = 4096, 64
+# DGL's DGCNN on ModelNet40 (examples/pytorch/pointcloud/edgeconv: k = 20,
+# batch 32 clouds of 1,024 points, the first EdgeConv 3 -> 64); PointNet++
+# samples 512 of them
+CLOUDS, CLOUD_POINTS, CLOUD_K, CLOUD_OUT, FPS_POINTS = 32, 1024, 20, 64, 512
+# examples/tree_lstm.py: random trees of up to 12 nodes, x 16, h 32
+TREES, TREE_MAX_NODES, TREE_X, TREE_H = 256, 12, 16, 32
+
+
+def record_b1():
+    """``recording`` of kernel B1's wrapper as the hub plan calls it."""
+    from dgl_tpu_torch.ops import hub_spmm
+
+    return recording(hub_spmm, "shell_prefix_sum")
+
+
+def b1_calls_exact(calls, what: str) -> float:
+    """Each recorded B1 call run again against its plain version on the
+    card at rtol = atol = 1e-5 (the same f32 sums in the same order);
+    returns the largest abs error."""
+    import torch
+
+    from dgl_tpu_torch.ops.shell_prefix import (shell_prefix_sum,
+                                                shell_prefix_sum_plain)
+
+    worst = 0.0
+    for a, k in calls:
+        got = shell_prefix_sum(*a, **k)
+        want = shell_prefix_sum_plain(*a, base=k.get("base"))
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+            raise RuntimeError(f"{what}: B1 vs plain, max abs err {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def strip_plans(g):
+    """The graph without its plans (the same relation arrays)."""
+    g2 = g.local_var()
+    g2._relations = {c: r._copy_with(hub_plan=None, shell_plan=None,
+                                     bitmap_plan=None, dense_adj=None)
+                     for c, r in g._relations.items()}
+    return g2
+
+
+def sign_hops(g, op):
+    """``SIGNDiffusion(k=3)`` of ``ndata['feat']`` with ``op``: its hops."""
+    from dgl_tpu_torch.transforms import SIGNDiffusion
+
+    SIGNDiffusion(SIGN_HOPS, diffuse_op=op)(g)
+    return [g.ndata.pop(f"out_feat_{i}") for i in range(1, SIGN_HOPS + 1)]
+
+
+def run_sign_diffusion(tag: dict, device="cuda") -> dict:
+    """Phase sign_diffusion: SIGN's precomputed diffusions (k = 3) at F =
+    128 on the arxiv zipf graph with ``reorder_for_spmm``'s hub plan, B1 a
+    hop, for each op; each hop against the graph without plans at the
+    plan bound, that graph's card result against the CPU's at 1e-5."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+
+    t0 = time.perf_counter()
+    src, dst = zipf_graph(0)
+    gp, _perm = dt.transforms.reorder_for_spmm(
+        dt.graph((src, dst), num_nodes=N_NODES, device=device),
+        num_hubs=2048, precision="int8")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if gp._relation().hub_plan is None:
+        raise RuntimeError("sign_diffusion: the graph has no hub plan")
+    g_plain = strip_plans(gp)
+    g_cpu = g_plain.to("cpu")
+    x = torch.from_numpy(np.random.default_rng(11).normal(
+        size=(N_NODES, IN_FEATS)).astype(np.float32))
+    for g in (gp, g_plain, g_cpu):
+        g.ndata["feat"] = x.to(g.device)
+    out = {"setup_s": setup_s, "launches": {}, "vs_plain": {},
+           "plain_vs_cpu": {}, "ms": {}, "plain_ms": {}}
+    worst = 0.0
+    for op in SIGN_OPS:
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        with torch.inference_mode(), record_b1() as calls:
+            hops = sign_hops(gp, op)
+        torch.cuda.synchronize()
+        launches = dict(_kernels.launch_counts)
+        expect_no_other_launch(launches, {"shell_prefix_sum": SIGN_HOPS},
+                               f"SIGNDiffusion({op})")
+        out["launches"][op] = launches["shell_prefix_sum"]
+        worst = max(worst, b1_calls_exact(calls, f"SIGN {op}"))
+        del calls
+        with torch.inference_mode():
+            plain = sign_hops(g_plain, op)
+            cpu = sign_hops(g_cpu, op)
+            out["vs_plain"][op] = [
+                held_against(a, b, 2e-2, f"SIGN {op} hop {i + 1} vs the "
+                             "graph without plans")["max_rel_err"]
+                for i, (a, b) in enumerate(zip(hops, plain))]
+            out["plain_vs_cpu"][op] = [
+                held_against(a, b, 1e-5, f"SIGN {op} hop {i + 1}, card "
+                             "vs CPU")["max_rel_err"]
+                for i, (a, b) in enumerate(zip(plain, cpu))]
+            out["ms"][op] = time_ms(lambda: sign_hops(gp, op), 5)
+            out["plain_ms"][op] = time_ms(lambda: sign_hops(g_plain, op), 3)
+    with torch.inference_mode():
+        prof = device_profile(lambda: sign_hops(gp, "gcn"), 2)
+    out["b1_max_abs_err_vs_plain"] = worst
+    emit({"phase": "sign_diffusion", "transform": "SIGNDiffusion(k=3), F = "
+          f"{IN_FEATS}, reorder_for_spmm(num_hubs=2048, int8)",
+          "nodes": N_NODES, "edges": N_EDGES, **out,
+          "tolerance": "each hop vs the graph without plans rtol=2e-2, "
+                       "atol=2e-2*max|ref|; that graph card vs CPU 1e-5; "
+                       "B1 vs plain 1e-5", "gcn_profile": prof, **tag})
+    return out
+
+
+def run_gdc_gcn(rate: float, tag: dict, device="cuda") -> dict:
+    """Phase gdc_gcn: ``GDC("ppr")`` and ``GDC("heat")`` at their defaults
+    on the Cora-sized graph (dense n x n on the host), the diffused graph
+    card against CPU; then the weighted GCN 1433-16-7 with the diffusion's
+    weights over ``with_spmm_plans(weighted=True)``: B1w launches counted,
+    output and gradients against the graph without plans, every recorded
+    B1w call against its plain version."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.ops import shell_prefix
+    from dgl_tpu_torch.transforms import GDC
+
+    src, dst = cora_graph()
+    g = dt.graph((src, dst), num_nodes=CORA_N, device=device)
+    g_cpu = g.to("cpu")
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(CORA_N, CORA_FEAT)).astype(
+        np.float32)).to(device)
+    y = torch.from_numpy(rng.integers(0, CORA_CLASSES, CORA_N)).to(device)
+    mask = torch.ones(CORA_N, device=device)
+    dims = (CORA_FEAT, DENSE_OUT, CORA_CLASSES)
+    result = {}
+    for diffusion in ("ppr", "heat"):
+        t0 = time.perf_counter()
+        gd = GDC(diffusion)(g)
+        torch.cuda.synchronize()
+        diffuse_s = time.perf_counter() - t0
+        same_graph_on(gd, GDC(diffusion)(g_cpu), f"GDC({diffusion})")
+        t0 = time.perf_counter()
+        gp = gd.with_spmm_plans(weighted=True, bitmap=False,
+                                dense_attn=False)
+        torch.cuda.synchronize()
+        plans_s = time.perf_counter() - t0
+        if gp._relation().shell_plan is None:
+            raise RuntimeError("GDC graph: no shell plan")
+        # a sparsified diffusion can leave a node without in-edges
+        model = weighted_gcn(dims, 0.5, 0, allow_zero_in_degree=True).to(
+            device).eval()
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        with torch.inference_mode(), recording(
+                shell_prefix, "shell_prefix_gspmm") as calls:
+            out = model(gp, x)
+        torch.cuda.synchronize()
+        fwd_launches = dict(_kernels.launch_counts)
+        expect_no_other_launch(fwd_launches, {"shell_prefix_gspmm": 2},
+                               f"the GDC({diffusion}) GCN forward")
+        with torch.inference_mode():
+            ref = model(gd, x)
+        vs_exact = held_against(out, ref, 2e-2, f"GDC({diffusion}) GCN vs "
+                                "the graph without plans")
+        plan = gp._relation().shell_plan
+        csr = weights_csr(gp._relation(), gp.edata["w"], False)
+        kernel = {}
+        with torch.inference_mode():
+            for i, (a, k) in enumerate(calls):
+                r = check_gspmm(a, k, plan, False, csr, rate)
+                r.pop("ptxas_key")
+                kernel[f"layer{i} F={r['F']}"] = r
+        del calls
+        model.train()
+        grads = check_grads(model, gp, gd, x, y, mask, f"GDC({diffusion}) "
+                            "GCN")
+        opt = torch.optim.Adam(model.parameters(), lr=LR)
+        # the backward sums dZ over both layers: layer 0 projects 1433 ->
+        # 16 first, so its aggregation's input needs a gradient too
+        loss, step_launches, peak, _ = counted_step(
+            model, opt, gp, x, y, mask, {"shell_prefix_gspmm": 4},
+            f"GDC({diffusion}) GCN")
+        expect_no_other_launch(step_launches, {"shell_prefix_gspmm": 4},
+                               f"the GDC({diffusion}) GCN step")
+        losses = run_steps(model, opt, gp, x, y, mask, loss, falling=False)
+        model.eval()
+        with torch.inference_mode():
+            fwd_ms = time_ms(lambda: model(gp, x), 10)
+            exact_ms = time_ms(lambda: model(gd, x), 10)
+        model.train()
+        step_ms = time_ms(lambda: train_step(model, opt, gp, x, y, mask), 5)
+        result[diffusion] = {
+            "edges": gd.num_edges(), "diffuse_s": diffuse_s,
+            "plans_s": plans_s, "forward_launches": fwd_launches,
+            "step_launches": step_launches, "vs_exact_f32": vs_exact,
+            "grads_vs_exact_f32": grads, "losses": losses,
+            "forward_ms": fwd_ms, "exact_path_forward_ms": exact_ms,
+            "train_step_ms": step_ms, "peak_memory_gib": peak,
+            "kernel_vs_plain": kernel}
+        emit({"phase": f"gdc_gcn_{diffusion}", "model": "GDC "
+              f"{diffusion} (defaults) then GraphConv(norm='none') "
+              "1433-16-7 with its weights", "nodes": CORA_N, **result[
+                  diffusion], "tolerance": "diffused graph card vs CPU "
+              "exact; GCN vs the graph without plans rtol=2e-2, "
+              "atol=2e-2*max|ref|; B1w vs plain exact", **tag})
+    return result
+
+
+def graphormer_model(device, seed: int = 0):
+    import torch
+
+    from dgl_tpu_torch.models import Graphormer
+
+    return Graphormer(MOL_ATOM_FEATS, GRAPHORMER["hidden"], 1,
+                      num_layers=GRAPHORMER["num_layers"],
+                      num_heads=GRAPHORMER["heads"],
+                      max_degree=GRAPHORMER["max_degree"],
+                      max_dist=GRAPHORMER["max_dist"],
+                      generator=torch.Generator().manual_seed(seed),
+                      device=device)
+
+
+def with_atoms(graphs, seed: int):
+    """``ndata['feat']``: 9 random floats a node (molhiv's atom features)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    for g in graphs:
+        g.ndata["feat"] = torch.from_numpy(rng.normal(
+            size=(g.num_nodes(), MOL_ATOM_FEATS)).astype(np.float32)).to(
+            g.device)
+    return graphs
+
+
+def run_graphormer(tag: dict, device="cuda") -> dict:
+    """Phase graphormer: ``prepare_batch`` of 128 molhiv-sized graphs
+    (host BFS distances) and Graphormer-base (12 x 768, 32 heads) forward
+    and BCE/Adam step; no hand kernel. The card against the CPU (in f64)
+    on the first 16 graphs (dropout off), output and gradients at 1e-4."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.models import prepare_batch
+
+    graphs = with_atoms(molhiv_graphs(GRAPHORMER_GRAPHS, 21, device), 22)
+    t0 = time.perf_counter()
+    batch = prepare_batch(graphs, max_dist=GRAPHORMER["max_dist"])
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    y = torch.from_numpy(np.random.default_rng(23).integers(
+        0, 2, GRAPHORMER_GRAPHS).astype(np.float32)).to(device)
+    model = graphormer_model(device)
+    bce = torch.nn.functional.binary_cross_entropy_with_logits
+
+    # the card against the CPU on a slice of the batch, dropout off, the
+    # CPU on the card pass's ReLU pattern (check_grads explains why) and in
+    # f64: the last layer's query gradients reach the loss through one
+    # softmax row a graph, a difference of near-equal terms, so two f32
+    # passes differ there by about 1e-4 of max|ref| (9.99e-5 in a run
+    # against an f32 CPU); against f64 the check sees the card's rounding
+    model.eval()
+    cpu_model = graphormer_model("cpu").double()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    cpu_model.eval()
+    part = prepare_batch(graphs[:GRAPHORMER_CHECK_GRAPHS],
+                         max_dist=GRAPHORMER["max_dist"])
+    checks = {}
+    outs = {}
+    pattern = None
+
+    def inputs(dev, dtype):
+        return [t.to(dev, dtype) if t.is_floating_point() else t.to(dev)
+                for t in part]
+
+    for name, m, dev, dtype in (("card", model, device, torch.float32),
+                                ("cpu", cpu_model, "cpu", torch.float64)):
+        m.zero_grad(set_to_none=True)
+        with relu_pattern(pattern and [t.cpu() for t in pattern]) as seen:
+            o = m(*inputs(dev, dtype))[:, 0]
+        pattern = seen
+        bce(o, y[:GRAPHORMER_CHECK_GRAPHS].to(dev, dtype)).backward()
+        outs[name] = (o.detach().float(), {k: p.grad.float() for k, p in
+                                           m.named_parameters()})
+    with torch.no_grad(), relu_pattern() as own:
+        cpu_model(*inputs("cpu", torch.float64))
+    checks["relu_sign_differences_own_pattern"] = int(sum(
+        (a.cpu() != b).sum().item() for a, b in zip(pattern, own)))
+    checks["logits"] = held_against(outs["card"][0], outs["cpu"][0], 1e-4,
+                                    "Graphormer logits vs CPU")
+    # k_proj's bias shifts every score of a query alike: its gradient is 0
+    # in exact arithmetic, held at the scale of all the gradients
+    zero = {k for k in outs["cpu"][1] if k.endswith("attn.k_proj.bias")}
+    checks["grads"] = held(outs["card"][1], outs["cpu"][1], 1e-4,
+                           "Graphormer gradients vs CPU", zero=zero)
+    del outs, cpu_model
+
+    model.train()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = bce(model(*batch)[:, 0], y)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    losses = [step()]
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    expect_no_other_launch(dict(_kernels.launch_counts), {},
+                           "the Graphormer step")
+    losses = torch.stack(losses + [step() for _ in range(TRAIN_STEPS - 1)]
+                         ).tolist()
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"Graphormer losses {losses}")
+    model.eval()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: model(*batch), 5)
+        fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+        fwd_prof = device_profile(lambda: model(*batch), 2)
+    model.train()
+    step_ms = time_ms(step, 3)
+    result = {"graphs": GRAPHORMER_GRAPHS, "padded_nodes":
+              int(batch[0].shape[1]), "prepare_batch_s": prepare_s,
+              "forward_ms": fwd_ms, "train_step_ms": step_ms,
+              "forward_peak_memory_gib": fwd_peak,
+              "step_peak_memory_gib": step_peak, "losses": losses}
+    emit({"phase": "graphormer", "model": "Graphormer {num_layers} x "
+          "{hidden}, {heads} heads, max_degree {max_degree}, max_dist "
+          "{max_dist}, 9 -> 1, BCE, Adam 1e-4".format(**GRAPHORMER), **result,
+          "vs_cpu": checks, "check_graphs": GRAPHORMER_CHECK_GRAPHS,
+          "tolerance": "rtol=1e-4, atol=1e-4*max|ref| (k_proj biases: of "
+                       "the largest gradient), the CPU in f64 on the card "
+                       "pass's ReLU pattern", "forward_profile": fwd_prof,
+          "step_profile": device_profile(step, 2), **tag})
+    return result
+
+
+def glob_modules(device, seed: int = 0):
+    """Every pooling class of ``nn.glob`` at width 64, weights from
+    ``seed``."""
+    import torch
+
+    from dgl_tpu_torch.nn import glob
+
+    gen = torch.Generator().manual_seed(seed)
+    kw = dict(generator=gen, device=device)
+    F = GLOB_FEAT
+    torch.manual_seed(seed)
+    return {
+        "SumPooling": glob.SumPooling(), "AvgPooling": glob.AvgPooling(),
+        "MaxPooling": glob.MaxPooling(),
+        "SortPooling k=10": glob.SortPooling(10),
+        "GlobalAttentionPooling": glob.GlobalAttentionPooling(
+            torch.nn.Linear(F, 1), torch.nn.Linear(F, F)).to(device),
+        "Set2Set n_iters=3": glob.Set2Set(F, 3, **kw),
+        "WeightAndSum": glob.WeightAndSum(F, **kw),
+        "SetTransformerEncoder sab x2": glob.SetTransformerEncoder(
+            F, 4, 16, 2 * F, n_layers=2, **kw),
+        "SetTransformerEncoder isab m=8": glob.SetTransformerEncoder(
+            F, 4, 16, 2 * F, n_layers=1, block_type="isab", m=8, **kw),
+        "SetTransformerDecoder k=4": glob.SetTransformerDecoder(
+            F, 4, 16, 2 * F, n_layers=1, k=4, **kw),
+    }
+
+
+def run_gin_glob(tag: dict, device="cuda") -> dict:
+    """Phase gin_glob: ``models.GIN`` (5 x 300, sum readout, one logit)
+    over the 32 molhiv-sized graphs of phase batched_readout, forward and
+    step, card against CPU; then every ``nn.glob`` pooling class over
+    4,096 such graphs, card against CPU at 1e-5."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.models import GIN
+
+    bg = dt.batch(molhiv_graphs(GIN_BATCH, 0, device))
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(bg.num_nodes(), GIN_DIM)).astype(
+        np.float32)).to(device)
+    y = torch.from_numpy(rng.integers(0, 2, GIN_BATCH).astype(
+        np.float32)).to(device)
+    bce = torch.nn.functional.binary_cross_entropy_with_logits
+    model = GIN(GIN_DIM, GIN_DIM, 1, num_layers=GIN_LAYERS,
+                generator=torch.Generator().manual_seed(0), device=device)
+    cpu_model = GIN(GIN_DIM, GIN_DIM, 1, num_layers=GIN_LAYERS,
+                    device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    checks, grads = {}, {}
+    for name, m, g, xx, yy in (("card", model, bg, x, y),
+                               ("cpu", cpu_model.eval(), bg.to("cpu"),
+                                x.cpu(), y.cpu())):
+        m.eval()
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        out = m(g, xx)[:, 0]
+        bce(out, yy).backward()
+        torch.cuda.synchronize()
+        expect_no_other_launch(dict(_kernels.launch_counts), {},
+                               "the GIN forward and backward")
+        grads[name] = (out.detach(), {k: p.grad for k, p in
+                                      m.named_parameters()})
+    checks["logits"] = held_against(grads["card"][0], grads["cpu"][0], 1e-5,
+                                    "GIN logits vs CPU")
+    checks["grads"] = held(grads["card"][1], grads["cpu"][1], 1e-4,
+                           "GIN gradients vs CPU")
+    model.train()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = bce(model(bg, x)[:, 0], y)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = torch.stack([step() for _ in range(TRAIN_STEPS)]).tolist()
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"GIN losses {losses}")
+    model.eval()
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: model(bg, x), 10)
+    model.train()
+    step_ms = time_ms(step, 10)
+    emit({"phase": "gin_glob_gin", "model": "models.GIN 5 x 300, sum "
+          "readout, per-layer logits summed, 1 logit, BCE, Adam 1e-3",
+          "batch": {"graphs": GIN_BATCH, "nodes": bg.num_nodes(),
+                    "edges": bg.num_edges()}, "vs_cpu": checks,
+          "tolerance": "logits rtol=1e-5, atol=1e-5*max|ref|; gradients "
+                       "1e-4", "losses": losses, "forward_ms": fwd_ms,
+          "train_step_ms": step_ms,
+          "step_profile": device_profile(step, 5), **tag})
+
+    t0 = time.perf_counter()
+    big_cpu = dt.batch(molhiv_graphs(GLOB_GRAPHS, 100, "cpu"))
+    big = big_cpu.to(device)
+    build_s = time.perf_counter() - t0
+    feat = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(big.num_nodes(), GLOB_FEAT)).astype(np.float32))
+    card_mods, cpu_mods = glob_modules(device), glob_modules("cpu")
+    pools = {}
+    with torch.no_grad():
+        for name, mod in card_mods.items():
+            cpu_mods[name].load_state_dict({k: v.cpu() for k, v in
+                                            mod.state_dict().items()})
+            mod.eval()
+            cpu_mods[name].eval()
+            xg = feat.to(device)
+            got = mod(big, xg)
+            want = cpu_mods[name](big_cpu, feat)
+            pools[name] = {**held_against(got, want, 1e-5, name),
+                           "shape": list(got.shape),
+                           "ms": time_ms(lambda: mod(big, xg), 5)}
+    emit({"phase": "gin_glob_pooling", "graphs": GLOB_GRAPHS,
+          "nodes": big.num_nodes(), "edges": big.num_edges(),
+          "feat": GLOB_FEAT, "build_s": build_s, "pooling": pools,
+          "tolerance": "rtol=1e-5, atol=1e-5*max|ref|", **tag})
+    return {"gin_forward_ms": fwd_ms, "gin_step_ms": step_ms}
+
+
+def knn_near_ties(got_src, want_src, x, k: int) -> int:
+    """kNN source lists (query-major, ``k`` a query) equal on two devices
+    but for slots whose two neighbours' float64 squared distances to the
+    query agree within 1e-5 of the largest squared norm (a float32
+    rounding tie; ``tests/test_torch_transforms_pe.py`` states the rule);
+    returns the number of such slots."""
+    import numpy as np
+
+    got = got_src.cpu().numpy().reshape(-1, k)
+    want = want_src.cpu().numpy().reshape(-1, k)
+    x = x.cpu().numpy().astype(np.float64)
+    differ = got != want
+    if differ.any():
+        q = np.nonzero(differ)[0]
+        dg = ((x[q] - x[got[differ]]) ** 2).sum(-1)
+        dw = ((x[q] - x[want[differ]]) ** 2).sum(-1)
+        tol = 1e-5 * float((x * x).sum(1).max())
+        if not np.all(np.abs(dg - dw) <= tol):
+            raise RuntimeError(f"kNN lists differ beyond near-ties: "
+                               f"{np.abs(dg - dw).max()} > {tol}")
+    return int(differ.sum())
+
+
+def run_point_cloud(tag: dict, device="cuda") -> dict:
+    """Phase point_cloud: DGCNN's graph, ``SegmentedKNNGraph(20)`` over 32
+    clouds of 1,024 random 3-D points, and its first ``EdgeConv`` 3 -> 64;
+    PointNet++'s ``farthest_point_sampler`` of 512 points a cloud; the
+    segmented ``knn`` query. Each against the CPU."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch.geometry import farthest_point_sampler
+    from dgl_tpu_torch.nn import EdgeConv, SegmentedKNNGraph
+
+    pos_cpu = torch.from_numpy(np.random.default_rng(31).random(
+        (CLOUDS, CLOUD_POINTS, 3)).astype(np.float32))
+    pos = pos_cpu.to(device)
+    flat, flat_cpu = pos.reshape(-1, 3), pos_cpu.reshape(-1, 3)
+    segs = [CLOUD_POINTS] * CLOUDS
+    knn = SegmentedKNNGraph(CLOUD_K)
+    t0 = time.perf_counter()
+    g = knn(flat, segs)
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t0
+    g_cpu = knn(flat_cpu, segs)
+    if not torch.equal(g.edges()[1].cpu(), g_cpu.edges()[1]):
+        raise RuntimeError("SegmentedKNNGraph: destinations differ")
+    swaps = knn_near_ties(g.edges()[0], g_cpu.edges()[0], flat_cpu, CLOUD_K)
+    conv = EdgeConv(3, CLOUD_OUT, generator=torch.Generator().manual_seed(0),
+                    device=device)
+    conv_cpu = EdgeConv(3, CLOUD_OUT, device="cpu")
+    conv_cpu.load_state_dict({k: v.cpu() for k, v in
+                              conv.state_dict().items()})
+    with torch.no_grad():
+        h = conv(g, flat)
+        conv_check = held_against(h, conv_cpu(g.to("cpu"), flat_cpu), 1e-5,
+                                  "EdgeConv on the kNN graph vs CPU")
+        conv_ms = time_ms(lambda: conv(g, flat), 10)
+    knn_ms = time_ms(lambda: knn(flat, segs), 3)
+    t0 = time.perf_counter()
+    picks = farthest_point_sampler(pos, FPS_POINTS)
+    torch.cuda.synchronize()
+    fps_s = time.perf_counter() - t0
+    same_result(picks, farthest_point_sampler(pos_cpu, FPS_POINTS),
+                "farthest_point_sampler")
+    fps_ms = time_ms(lambda: farthest_point_sampler(pos, FPS_POINTS), 3)
+    query = dt.knn(CLOUD_K, flat, segs)
+    same_result(query, dt.knn(CLOUD_K, flat_cpu, segs), "knn query")
+    result = {"clouds": CLOUDS, "points": CLOUD_POINTS, "k": CLOUD_K,
+              "edges": g.num_edges(), "knn_graph_first_s": knn_s,
+              "knn_graph_ms": knn_ms, "near_tie_swaps_vs_cpu": swaps,
+              "edgeconv_vs_cpu": conv_check, "edgeconv_ms": conv_ms,
+              "fps_points": FPS_POINTS, "fps_first_s": fps_s,
+              "fps_ms": fps_ms}
+    emit({"phase": "point_cloud", **result, "check": "kNN edges equal to "
+          "the CPU's but near-ties (knn_near_ties); EdgeConv rtol=1e-5, "
+          "atol=1e-5*max|ref|; FPS picks and the knn query exact", **tag})
+    return result
+
+
+def tree_lstm_forest(count: int, seed: int, device):
+    """``examples/tree_lstm.py``'s random trees (edges child -> parent),
+    batched, with 16-wide node inputs."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+
+    rng = np.random.default_rng(seed)
+    trees = []
+    for _ in range(count):
+        n = int(rng.integers(3, TREE_MAX_NODES))
+        parents = [int(rng.integers(0, i)) for i in range(1, n)]
+        trees.append(dt.graph((np.arange(1, n), np.array(parents)),
+                              num_nodes=n, device=device))
+    forest = dt.batch(trees)
+    forest.ndata["x"] = torch.from_numpy(rng.normal(
+        size=(forest.num_nodes(), TREE_X)).astype(np.float32)).to(device)
+    return forest
+
+
+def tree_lstm_states(forest, weights):
+    """The Child-Sum Tree-LSTM cell of ``examples/tree_lstm.py`` through
+    ``prop_nodes_topo``, leaves first: a UDF mailbox reduce over the
+    children, the gates in the apply function. Returns every node's h."""
+    import torch
+
+    import dgl_tpu_torch as dt
+
+    w = {k: v.to(forest.device) for k, v in weights.items()}
+    g = forest.local_var()
+    zeros = torch.zeros((g.num_nodes(), TREE_H), device=g.device)
+    g.ndata.update({"iou_x": g.ndata["x"] @ w["W_iou"], "h": zeros,
+                    "c": zeros, "h_sum": zeros, "c_f": zeros})
+
+    def msg(edges):
+        return {"h": edges.src["h"], "c": edges.src["c"]}
+
+    def reduce(nodes):
+        mask = nodes.mailbox_mask[..., None]
+        f = torch.sigmoid(nodes.mailbox["h"] @ w["U_f"] + w["b_f"])
+        return {"h_sum": (nodes.mailbox["h"] * mask).sum(1),
+                "c_f": (f * nodes.mailbox["c"] * mask).sum(1)}
+
+    def apply(nodes):
+        iou = (nodes.data["iou_x"] + nodes.data["h_sum"] @ w["U_iou"]
+               + w["b_iou"])
+        i, o, u = iou.split(TREE_H, dim=-1)
+        c = torch.sigmoid(i) * torch.tanh(u) + nodes.data["c_f"]
+        return {"h": torch.sigmoid(o) * torch.tanh(c), "c": c}
+
+    dt.prop_nodes_topo(g, msg, reduce, apply)
+    return g.ndata["h"]
+
+
+def utility_cases(n: int, seed: int = 14):
+    """Phase graph_utilities' calls on a graph of ``n`` nodes: name ->
+    fn(module, g), random arguments drawn once from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tags = rng.integers(0, 40, n)
+    tf = lambda m: m.transforms  # noqa: E731
+    return {
+        "rcmk_perm": lambda m, g: m.rcmk_perm(g),
+        "reorder_graph rcmk": lambda m, g: m.reorder_graph(g, "rcmk"),
+        "sort_csr_by_tag 40": lambda m, g: m.sort_csr_by_tag(g, tags),
+        "sort_csc_by_tag 40": lambda m, g: m.sort_csc_by_tag(g, tags),
+        "to_levi": lambda m, g: m.transforms.to_levi(g),
+        "adj_sum_graph g + reverse": lambda m, g: m.adj_sum_graph(
+            [g, m.reverse(g)], "w"),
+        "shortest_dist root 0 paths": lambda m, g: m.shortest_dist(
+            g, root=0, return_paths=True),
+        "bfs_nodes_generator": lambda m, g: tuple(
+            m.traversal.bfs_nodes_generator(g, 0)),
+        "bfs_edges_generator": lambda m, g: tuple(
+            m.traversal.bfs_edges_generator(g, 0)),
+        # (these two write one frame of their input: their values)
+        "GCNNorm": lambda m, g: tf(m).GCNNorm()(g.local_var()).edata["w"],
+        "RowFeatNormalizer": lambda m, g: tf(m).RowFeatNormalizer(
+            True, node_feat_names=["x"])(g.local_var()).ndata["x"],
+        "FeatMask": lambda m, g: tf(m).FeatMask(
+            node_feat_names=["x"], seed=1)(g.local_var()),
+        "DropNode 0.1": lambda m, g: tf(m).DropNode(0.1, seed=2)(g),
+        "DropEdge 0.1": lambda m, g: tf(m).DropEdge(0.1, seed=3)(g),
+        "AddEdge 0.1": lambda m, g: tf(m).AddEdge(0.1, seed=4)(g),
+        "NodeShuffle": lambda m, g: tf(m).NodeShuffle(seed=5)(g),
+        "AddReverse": lambda m, g: tf(m).AddReverse()(g),
+        "AddSelfLoop": lambda m, g: tf(m).AddSelfLoop()(g),
+    }
+
+
+def small_cases(seed: int = 15):
+    """The calls whose algorithms grow faster than the edges, on
+    ``rand_graph(2000, 10000)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w = rng.random(SMALL_GRAPH_EDGES).astype(np.float32)
+    pts = rng.random((SMALL_GRAPH_NODES, 3)).astype(np.float32)
+    return {
+        "metapath_reachable_graph 2 hops": lambda m, g:
+            m.metapath_reachable_graph(g, ["_E", "_E"]),
+        "adj_product_graph g @ g": lambda m, g: m.adj_product_graph(
+            g, g, "w"),
+        "dfs_edges_generator": lambda m, g: tuple(
+            m.traversal.dfs_edges_generator(g, 0)),
+        "dfs_labeled_edges_generator": lambda m, g:
+            m.traversal.dfs_labeled_edges_generator(g, 0, False, True, True),
+        "neighbor_matching": lambda m, g: m.geometry.neighbor_matching(
+            g, torch_like(w, g)),
+        "radius_graph 0.05": lambda m, g: m.radius_graph(
+            torch_like(pts, g), 0.05, get_distances=True),
+        "khop_graph via KHopGraph(2)": lambda m, g:
+            m.transforms.KHopGraph(2)(g),
+    }
+
+
+def torch_like(a, g):
+    """A numpy array as a tensor on ``g``'s device."""
+    import torch
+
+    return torch.from_numpy(a).to(g.device)
+
+
+def dense_cases():
+    """The dense n x n utilities, at Cora's size."""
+    return {
+        "random_walk_pe k=16": lambda m, g: m.random_walk_pe(g, 16),
+        "lap_pe k=8": lambda m, g: m.lap_pe(g, 8, return_eigval=True),
+        "svd_pe k=8": lambda m, g: m.svd_pe(g, 8),
+        "double_radius_node_labeling": lambda m, g:
+            m.double_radius_node_labeling(g, 0, 1),
+        "shortest_dist all pairs": lambda m, g: m.shortest_dist(g),
+    }
+
+
+DEVICE_VALUES = ("GCNNorm", "RowFeatNormalizer")  # rtol 1e-5, not exact
+
+
+def timed_pair(cases, g, g_cpu, timings, **info):
+    """Each case on the card graph and the CPU graph, timed, results
+    equal (``same_result``), but for the values the card computes
+    (``DEVICE_VALUES``), held at rtol = 1e-5, atol = 1e-5 * max|ref|."""
+    import torch
+
+    import dgl_tpu_torch as dt
+
+    for name, fn in cases.items():
+        t0 = time.perf_counter()
+        got = fn(dt, g)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = fn(dt, g_cpu)
+        cpu_s = time.perf_counter() - t0
+        err = {}
+        if name in DEVICE_VALUES:
+            err = held_against(got, want, 1e-5, name)
+        else:
+            same_result(got, want, name)
+        timings[name] = {"card_s": card_s, "cpu_s": cpu_s, **err, **info}
+
+
+def run_graph_utils(tag: dict, device="cuda") -> dict:
+    """Phase graph_utilities: every other new utility at the largest size
+    its algorithm allows, card against CPU (indices and host numpy exact,
+    device values within 1e-5), seconds each: the dense ones at Cora's
+    size (``ppr`` and ``heat_kernel``: phase gdc_gcn), the linear ones on
+    the arxiv zipf graph, the others on ``rand_graph(2000, 10000)``; then
+    ``laplacian_lambda_max`` over 256 molhiv-sized graphs and the
+    Child-Sum Tree-LSTM over ``prop_nodes_topo`` on 256 random trees."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+
+    timings = {}
+    src, dst = cora_graph()
+    g = dt.graph((src, dst), num_nodes=CORA_N, device=device)
+    timed_pair(dense_cases(), g, g.to("cpu"), timings,
+               graph=f"Cora-sized, {CORA_N} nodes")
+    src, dst = zipf_graph(0)
+    g = dt.graph((src, dst), num_nodes=N_NODES, device=device)
+    rng = np.random.default_rng(16)
+    g.ndata["x"] = torch.from_numpy(rng.random((N_NODES, 4)).astype(
+        np.float32)).to(device)
+    g.edata["w"] = torch.from_numpy(rng.random(N_EDGES).astype(
+        np.float32)).to(device)
+    g_cpu = g.to("cpu")
+    g.edges()  # the card graph's host arrays are read on first use
+    timed_pair(utility_cases(N_NODES), g, g_cpu, timings, graph="arxiv zipf")
+    small = dt.rand_graph(SMALL_GRAPH_NODES, SMALL_GRAPH_EDGES, seed=3,
+                          device=device)
+    small.edata["w"] = torch.from_numpy(np.random.default_rng(17).random(
+        SMALL_GRAPH_EDGES).astype(np.float32)).to(device)
+    timed_pair(small_cases(), small, small.to("cpu"), timings,
+               graph=f"rand_graph({SMALL_GRAPH_NODES}, {SMALL_GRAPH_EDGES})")
+
+    mols = dt.batch(molhiv_graphs(256, 41, device))
+    t0 = time.perf_counter()
+    lam = dt.laplacian_lambda_max(mols)
+    lam_s = time.perf_counter() - t0
+    lam_cpu = dt.laplacian_lambda_max(mols.to("cpu"))
+    if not np.allclose(lam, lam_cpu, rtol=1e-9, atol=0):
+        raise RuntimeError("laplacian_lambda_max: card and CPU differ")
+    timings["laplacian_lambda_max 256 molhiv graphs"] = {
+        "card_s": lam_s, "max_rel_diff_vs_cpu": float(np.max(
+            np.abs(np.subtract(lam, lam_cpu)) / np.abs(lam_cpu))),
+        "tolerance": "rtol=1e-9 (ARPACK's random start)"}
+
+    forest = tree_lstm_forest(TREES, 18, device)
+    gen = torch.Generator().manual_seed(19)
+    shapes = {"W_iou": (TREE_X, 3 * TREE_H), "U_iou": (TREE_H, 3 * TREE_H),
+              "b_iou": (3 * TREE_H,), "U_f": (TREE_H, TREE_H),
+              "b_f": (TREE_H,)}
+    weights = {k: torch.randn(s, generator=gen) * 0.3
+               for k, s in shapes.items()}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        h = tree_lstm_states(forest, weights)
+        torch.cuda.synchronize()
+        tree_s = time.perf_counter() - t0
+        h_cpu = tree_lstm_states(forest.to("cpu"), weights)
+    frontiers = len(dt.traversal.topological_nodes_generator(forest))
+    timings["prop_nodes_topo Tree-LSTM"] = {
+        "card_s": tree_s, "trees": TREES, "nodes": forest.num_nodes(),
+        "frontiers": frontiers,
+        **held_against(h, h_cpu, 1e-5, "Tree-LSTM card vs CPU")}
+    emit({"phase": "graph_utilities", "utilities": timings,
+          "check": "card result equal to the CPU's (indices, host values, "
+                   "graphs, frames); device values rtol=1e-5, "
+                   "atol=1e-5*max|ref|", **tag})
+    return timings
+
+
 def run() -> dict:
     import torch
 
@@ -5390,6 +6246,20 @@ def run() -> dict:
     kernels[0]["gcn_recipe_launches"] = {
         "forward": recipe["forward_launches"],
         "train_step": recipe["step_launches"]}
+    t0 = time.perf_counter()
+    sign = run_sign_diffusion(tag)
+    gdc = run_gdc_gcn(rate, tag)
+    run_graphormer(tag)
+    run_gin_glob(tag)
+    run_point_cloud(tag)
+    run_graph_utils(tag)
+    emit({"phase": "graph_utilities_rest_total",
+          "seconds": time.perf_counter() - t0, **tag})
+    kernels[0]["sign_diffusion_launches_per_call"] = sign["launches"]
+    weighted["gdc_gcn_launches"] = {
+        d: {"forward": r["forward_launches"]["shell_prefix_gspmm"],
+            "train_step": r["step_launches"]["shell_prefix_gspmm"]}
+        for d, r in gdc.items()}
     return {"kernels": kernels, "card": card}
 
 

@@ -32,10 +32,13 @@ convs ``GATv2Conv``, ``DotGatConv``, ``AGNNConv``, ``EGATConv``,
 sparse-matrix API (``sparse``, ``Graph.adj``), the graph queries,
 constructors (``from_scipy``, ``rand_graph``, ...), structural transforms
 (``add_self_loop``, ``to_bidirected``, ``to_block``, ...), subgraphs,
-``batch`` and the readouts.
+``batch`` and the readouts; the rest of the graph utilities (positional
+encodings, kNN and radius graphs, shortest paths, diffusions, tag sorts,
+the module transforms), ``traversal`` and ``propagate``, ``geometry``,
+``nn.factory``, ``nn.glob``, ``models.GIN`` and ``models.Graphormer``.
 """
-from . import (dataloading, function, models, nn, ops, readout, sampling,
-               sparse, transforms)
+from . import (dataloading, function, geometry, models, nn, ops, propagate,
+               readout, sampling, sparse, transforms, traversal)
 from . import subgraph as subgraph_module
 from .base import ALL, EID, ETYPE, NID, NTYPE, DGLError
 from .batch import batch, pad_batch, slice_batch, stack_graphs, unbatch
@@ -53,12 +56,19 @@ from .readout import (broadcast_edges, broadcast_nodes, max_edges, max_nodes,
 from .subgraph import (edge_subgraph, edge_type_subgraph, in_subgraph,
                        khop_in_subgraph, khop_out_subgraph, node_subgraph,
                        node_type_subgraph, out_subgraph)
+from .propagate import (prop_edges, prop_edges_dfs, prop_nodes,
+                        prop_nodes_bfs, prop_nodes_topo)
 from .transforms.functional import (
-    add_edges, add_nodes, add_reverse_edges, add_self_loop, compact_graphs,
-    is_bidirected, khop_adj, khop_graph, line_graph, norm_by_dst,
+    add_edges, add_nodes, add_reverse_edges, add_self_loop, adj_product_graph,
+    adj_sum_graph, compact_graphs, double_radius_node_labeling,
+    is_bidirected, khop_adj, khop_graph, knn, knn_graph,
+    lap_pe, laplacian_lambda_max, laplacian_pe, line_graph,
+    metapath_reachable_graph, metis_perm, norm_by_dst,
+    pairwise_squared_distance, radius_graph, random_walk_pe, rcmk_perm,
     remove_edges, remove_nodes, remove_self_loop, reorder_graph, reverse,
-    to_bfloat16, to_bidirected, to_block, to_double, to_float, to_half,
-    to_simple, to_simple_graph, update_graph_structure)
+    segmented_knn_graph, shortest_dist, sort_csc_by_tag, sort_csr_by_tag,
+    svd_pe, to_bfloat16, to_bidirected, to_block, to_double, to_float,
+    to_half, to_simple, to_simple_graph, update_graph_structure)
 
 DGLGraph = Graph
 
@@ -85,8 +95,17 @@ __all__ = [
     "khop_adj", "khop_graph", "to_block", "reverse", "line_graph",
     "compact_graphs", "reorder_graph", "norm_by_dst", "is_bidirected",
     "update_graph_structure", "to_float", "to_double", "to_half",
-    "to_bfloat16",
+    "to_bfloat16", "knn_graph", "segmented_knn_graph", "radius_graph",
+    "knn", "pairwise_squared_distance", "laplacian_lambda_max",
+    "random_walk_pe", "lap_pe", "laplacian_pe", "svd_pe", "shortest_dist",
+    "double_radius_node_labeling", "metapath_reachable_graph",
+    "adj_product_graph", "adj_sum_graph", "sort_csr_by_tag",
+    "sort_csc_by_tag", "rcmk_perm", "metis_perm",
+    # ordered propagation
+    "prop_nodes", "prop_edges", "prop_nodes_bfs", "prop_nodes_topo",
+    "prop_edges_dfs",
     # namespaces
-    "dataloading", "function", "models", "nn", "ops", "readout",
-    "sampling", "sparse", "subgraph_module", "transforms",
+    "dataloading", "function", "geometry", "models", "nn", "ops",
+    "propagate", "readout", "sampling", "sparse", "subgraph_module",
+    "transforms", "traversal",
 ]

@@ -733,6 +733,22 @@ class Graph:
         return core.send_and_recv(self, edges, message_func, reduce_func,
                                   apply_node_func, etype=etype)
 
+    def prop_nodes(self, nodes_generator, message_func, reduce_func,
+                   apply_node_func=None, etype=None):
+        from . import propagate
+
+        return propagate.prop_nodes(self, nodes_generator, message_func,
+                                    reduce_func, apply_node_func,
+                                    etype=etype)
+
+    def prop_edges(self, edges_generator, message_func, reduce_func,
+                   apply_node_func=None, etype=None):
+        from . import propagate
+
+        return propagate.prop_edges(self, edges_generator, message_func,
+                                    reduce_func, apply_node_func,
+                                    etype=etype)
+
     def local_scope(self):
         """Context manager isolating frame mutations."""
         return _LocalScope(self)

@@ -2,7 +2,10 @@
 from .device_sage import DeviceSAGE
 from .gat import GAT
 from .gcn import GCN
+from .gin import GIN
+from .graphormer import Graphormer, prepare_batch
 from .rgcn import RGCN
 from .sage import GraphSAGE
 
-__all__ = ["DeviceSAGE", "GAT", "GCN", "GraphSAGE", "RGCN"]
+__all__ = ["DeviceSAGE", "GAT", "GCN", "GIN", "Graphormer", "GraphSAGE",
+           "RGCN", "prepare_batch"]

@@ -11,6 +11,8 @@ from .conv.pna_helpers import (  # noqa: F401
     get_aggregate_fn, scale_amplification, scale_attenuation,
     scale_identity)
 from .conv.pnaconv import PNAConvTower  # noqa: F401
+from .factory import KNNGraph, RadiusGraph, SegmentedKNNGraph  # noqa: F401
+from .glob import *  # noqa: F401,F403
 from .conv.twirlsconv import (AX, MLP, Attention, D_power_bias_X,  # noqa: F401
                               D_power_X, Propagate, PropagateNoPrecond,
                               normalized_AX)

@@ -24,6 +24,10 @@ _WRAPPERS = frozenset(("PNAConv_0", "DGNConv_0", "OptimizedLSTMCell_0"))
 _TYPED = {"mods_": ("mods", None), "linear_": ("linears", "kernel"),
           "embed_": ("embeds", "embedding"), "Dense_": ("layers", "kernel"),
           "layers_": ("layers", None)}
+# flax's automatic names of a module's children -> the port's names,
+# for child sets that name no per-type or per-layer list: GIN's _MLP
+_CHILDREN = {frozenset(("Dense_0", "LayerNorm_0", "Dense_1")): {
+    "Dense_0": "linear0", "LayerNorm_0": "norm", "Dense_1": "linear1"}}
 
 
 def from_flax_params(params: Mapping[str, Any],
@@ -52,7 +56,9 @@ def from_flax_params(params: Mapping[str, Any],
     subtree named ``PNAConv_0``, ``DGNConv_0`` or ``OptimizedLSTMCell_0``
     (a module that another wraps alone) lands on the wrapping module's
     own names; children all named ``Dense_<i>`` or all ``layers_<i>``
-    land on ``layers.<i>``.
+    land on ``layers.<i>``; GIN's ``_MLP`` children ``Dense_0``,
+    ``LayerNorm_0`` and ``Dense_1`` land on ``linear0``, ``norm`` and
+    ``linear1``.
 
     The per-type children of the reference's ``HeteroGraphConv``,
     ``HeteroLinear`` and ``HeteroEmbedding`` (a subtree whose children are
@@ -108,11 +114,15 @@ def from_flax_params(params: Mapping[str, Any],
 def _typed_children(tree):
     """For a subtree whose children are all per-type modules of one kind
     (``_TYPED``), the map from a child's flax name to the port's
-    ``<dict>.<module_key(type)>``; else None."""
+    ``<dict>.<module_key(type)>``; for one whose child names ``_CHILDREN``
+    lists, the map it gives; else None."""
     from .nn.utils_nn import module_key
 
     if not tree:
         return None
+    names = _CHILDREN.get(frozenset(tree))
+    if names is not None:
+        return names.__getitem__
     for flax_prefix, (attr, leaf) in _TYPED.items():
         if all(name.startswith(flax_prefix) and isinstance(v, Mapping)
                and (leaf is None or leaf in v) for name, v in tree.items()):

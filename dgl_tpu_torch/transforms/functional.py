@@ -2,21 +2,28 @@
 
 Structure changes run on the host with numpy (scipy where the reference
 uses it) and return new graphs on the input graph's device, with the
-reference's edge order. Ported: the structural transforms
-(``add_self_loop``, ``remove_self_loop``, ``add_reverse_edges``,
-``add_edges``, ``remove_edges``, ``add_nodes``, ``remove_nodes``,
-``to_bidirected``, ``to_simple``, ``reverse``, ``khop_adj``,
-``khop_graph``, ``compact_graphs``, ``to_block``, ``line_graph``,
-``norm_by_dst``, ``is_bidirected``, ``update_graph_structure``), the frame
-casts (``to_float``, ``to_double``, ``to_half``, ``to_bfloat16``), the
-relabelling that the SpMM plans need, ``reorder_graph`` with a given
-permutation and ``reorder_for_spmm`` (hub plan, and with ``weighted=True``
-the shell plan). The positional encodings, the point-cloud graphs, the
-diffusions and the other orders come later (ROADMAP queue A9).
+reference's edge order: the structural transforms (``add_self_loop``
+through ``update_graph_structure``), the frame casts, the relation algebra
+(``metapath_reachable_graph``, ``adj_product_graph``, ``adj_sum_graph``,
+``to_levi``, ``sort_csr_by_tag``, ``sort_csc_by_tag``), the orders
+(``reorder_graph``, ``rcmk_perm``, ``reorder_for_spmm``), the positional
+encodings (``random_walk_pe``, ``lap_pe``, ``svd_pe``,
+``laplacian_lambda_max``), the paths (``shortest_dist``,
+``double_radius_node_labeling``) and the dense diffusions (``ppr``,
+``heat_kernel``): the same numpy and scipy calls as the reference, whose
+eigen- and singular vectors, thresholds and ties they therefore share.
+
+On the device, in torch: ``knn_graph`` (float32 distances, ties to the
+lower index), ``segmented_knn_graph``, ``pairwise_squared_distance``,
+``norm_by_dst`` and ``sign_diffusion`` (``update_all``, so a graph's hub
+plan runs kernel B1). ``radius_graph`` and the segmented query ``knn`` are
+host numpy. The point-cloud functions return their graphs and tensors on
+``device``: by default the points' own device when they are a tensor,
+else the card.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +39,13 @@ __all__ = [
     "compact_graphs", "to_block", "line_graph", "norm_by_dst",
     "is_bidirected", "update_graph_structure", "to_float", "to_double",
     "to_half", "to_bfloat16", "reorder_graph", "reorder_for_spmm",
+    "pairwise_squared_distance", "knn_graph", "segmented_knn_graph",
+    "radius_graph", "knn", "laplacian_lambda_max", "random_walk_pe",
+    "lap_pe", "laplacian_pe", "svd_pe", "shortest_dist",
+    "double_radius_node_labeling", "ppr", "heat_kernel", "sign_diffusion",
+    "metapath_reachable_graph", "adj_product_graph", "adj_sum_graph",
+    "to_levi", "sort_csr_by_tag", "sort_csc_by_tag", "rcmk_perm",
+    "metis_perm",
 ]
 
 
@@ -530,20 +544,26 @@ def reorder_graph(g: Graph, node_permute_algo: str = "rcmk",
                   permute_config=None) -> Graph:
     """Relabel nodes (reference ``functional.py`` ``reorder_graph``).
 
-    ``node_permute_algo='custom'`` takes ``permute_config['nodes_perm']``:
-    ``perm[i]`` is the old id of new node ``i``. Edges keep their ids and
-    order; node features are carried over permuted. The 'rcmk' and 'metis'
-    orders come with the graph utilities (ROADMAP queue A9)."""
-    if node_permute_algo != "custom":
-        if node_permute_algo in ("rcmk", "metis"):
-            raise NotImplementedError(
-                f"reorder_graph({node_permute_algo!r}): ROADMAP queue A9")
+    ``node_permute_algo`` is ``'rcmk'`` (``rcmk_perm``) or ``'custom'``
+    (``permute_config['nodes_perm']``): ``perm[i]`` is the old id of new
+    node ``i``. Edges keep their ids and order; node features are carried
+    over permuted. The ``'metis'`` order needs the multilevel partitioner
+    (ROADMAP queue A11)."""
+    if node_permute_algo == "rcmk":
+        perm = _rcmk_host(g)
+    elif node_permute_algo == "custom":
+        perm = _asnumpy((permute_config or {})["nodes_perm"])
+    elif node_permute_algo == "metis":
+        raise NotImplementedError(
+            "reorder_graph('metis'): the multilevel partitioner is ROADMAP "
+            "queue A11")
+    else:
         raise DGLError(f"Unknown node_permute_algo {node_permute_algo!r}")
     n = g.num_nodes()
     rel = g._relation(None)
     src, dst = rel.host_arrays("src", "dst")
     src, dst = src[: rel.num_edges], dst[: rel.num_edges]
-    perm = np.asarray((permute_config or {})["nodes_perm"], np.int64)
+    perm = np.asarray(perm, np.int64)
     new_of_old = np.empty(n, dtype=np.int64)
     new_of_old[perm] = np.arange(n)
     cet = g.to_canonical_etype(None)
@@ -610,3 +630,603 @@ def reorder_for_spmm(g: Graph, num_hubs=2048, precision: str = "int8",
         rel2 = rel2.with_shell_plan(build_shell_plan(rel2, gather_dtype))
     g2._relations = {key: with_dense_plans(rel2)}
     return g2, perm
+
+
+# ---------------------------------------------------------------------------
+# point clouds: distances, neighbour graphs
+# ---------------------------------------------------------------------------
+
+
+def _points_device(x, device):
+    """``device``, or by default the points' own device when they are a
+    tensor, else the card."""
+    if device is not None:
+        return torch.device(device)
+    return x.device if isinstance(x, torch.Tensor) else torch.device("cuda")
+
+
+def _points(x, device) -> torch.Tensor:
+    return torch.as_tensor(_asnumpy(x) if not isinstance(x, torch.Tensor)
+                           else x, dtype=torch.float32,
+                           device=_points_device(x, device))
+
+
+def pairwise_squared_distance(x, *, device=None) -> torch.Tensor:
+    """(N, N) squared euclidean distances ``|x_i|² − 2 x_i·x_j + |x_j|²``
+    in float32."""
+    x = _points(x, device)
+    sq = (x * x).sum(1)
+    return sq[:, None] - 2 * (x @ x.T) + sq[None, :]
+
+
+def _knn_indices(x: torch.Tensor, k: int, dist: str) -> torch.Tensor:
+    """Each point's ``k`` nearest points (itself included), nearest first,
+    a tie to the lower index, as the reference's ``lax.top_k`` of the
+    negated distances orders them: (N, k) int64."""
+    if dist == "cosine":
+        xn = x / (torch.linalg.vector_norm(x, dim=1, keepdim=True) + 1e-12)
+        d = -(xn @ xn.T)
+    else:
+        d = pairwise_squared_distance(x)
+    return torch.sort(d, dim=1, stable=True).indices[:, :k]
+
+
+def knn_graph(x, k: int, algorithm: str = "bruteforce",
+              dist: str = "euclidean", *, device=None) -> Graph:
+    """The k-nearest-neighbour graph of the points ``x`` (N, D) (reference
+    ``functional.py`` ``knn_graph``): an edge from each of a point's
+    ``min(k, N)`` nearest points (itself included), nearest first, to the
+    point; ``dist`` is ``"euclidean"`` or ``"cosine"``."""
+    from .. import convert
+
+    x = _points(x, device)
+    n = x.shape[0]
+    k = min(k, n)
+    src = _knn_indices(x, k, dist).reshape(-1).cpu().numpy()
+    dst = np.repeat(np.arange(n), k)
+    return convert.graph((src, dst), num_nodes=n, device=x.device)
+
+
+def segmented_knn_graph(x, k: int, segs, dist: str = "euclidean", *,
+                        device=None) -> Graph:
+    """``knn_graph`` of each segment of ``segs`` points on its own, as one
+    graph over all the points (reference ``segmented_knn_graph``)."""
+    from .. import convert
+
+    x = _points(x, device)
+    offs = np.concatenate([[0], np.cumsum(_asnumpy(segs))]).astype(np.int64)
+    srcs, dsts = [], []
+    for lo, hi in zip(offs[:-1], offs[1:]):
+        kk = min(k, hi - lo)
+        srcs.append(_knn_indices(x[lo:hi], kk, dist).reshape(-1).cpu()
+                    .numpy() + lo)
+        dsts.append(np.repeat(np.arange(lo, hi), kk))
+    return convert.graph((np.concatenate(srcs), np.concatenate(dsts)),
+                         num_nodes=x.shape[0], device=x.device)
+
+
+def radius_graph(x, r: float, dist: str = "euclidean",
+                 get_distances: bool = False, *, device=None):
+    """An edge ``j -> i`` wherever ``dist(i, j) <= r``, no self-loops, in
+    row-major order (reference ``radius_graph``; host numpy in the points'
+    dtype). With ``get_distances`` also the (E, 1) distances."""
+    from .. import convert
+
+    device = _points_device(x, device)
+    x = _asnumpy(x)
+    if dist == "cosine":
+        xn = x / (np.linalg.norm(x, axis=1, keepdims=True) + 1e-12)
+        d = 1.0 - xn @ xn.T
+    else:
+        sq = np.sum(x * x, axis=1)
+        d = np.sqrt(np.maximum(sq[:, None] - 2 * (x @ x.T) + sq[None, :], 0))
+    np.fill_diagonal(d, np.inf)
+    src, dst = np.nonzero(d <= r)
+    g = convert.graph((src, dst), num_nodes=x.shape[0], device=device)
+    if get_distances:
+        return g, _put(d[src, dst][:, None], device)
+    return g
+
+
+def knn(k: int, x, x_segs, y=None, y_segs=None,
+        algorithm: str = "bruteforce", dist: str = "euclidean", *,
+        device=None) -> torch.Tensor:
+    """Segmented k-nearest-neighbour query (reference ``functional.py``
+    ``knn``, C++ ``_CAPI_DGLKNN``): for each point of each segment of
+    ``y`` (default ``x``), the ``k`` nearest points of the same segment of
+    ``x``, in float64 on the host, nearest first, ties in index order (a
+    stable argsort). Returns (2, len(y) * k) int64: row 0 the ``x``
+    indices, row 1 the ``y`` (query) indices.
+
+    The reference module also defines an alias of ``knn_graph`` under this
+    name (``functional.py:970``); this later definition shadows it there,
+    and only this one is ported."""
+    device = _points_device(x, device)
+    x = _asnumpy(x).astype(np.float64)
+    x_segs = _asnumpy(x_segs).astype(np.int64)
+    if y is None:
+        y, y_segs = x, x_segs
+    else:
+        y = _asnumpy(y).astype(np.float64)
+        y_segs = _asnumpy(y_segs).astype(np.int64)
+    if x_segs.shape != y_segs.shape:
+        raise DGLError("x_segs and y_segs must have the same length")
+    if dist == "cosine":
+        x = x / (np.linalg.norm(x, axis=1, keepdims=True) + 1e-5)
+        y = y / (np.linalg.norm(y, axis=1, keepdims=True) + 1e-5)
+    elif dist != "euclidean":
+        raise DGLError(f"unknown dist {dist!r}")
+    x_off = np.concatenate([[0], np.cumsum(x_segs)])
+    y_off = np.concatenate([[0], np.cumsum(y_segs)])
+    src = np.empty(y.shape[0] * k, dtype=np.int64)
+    dst = np.empty(y.shape[0] * k, dtype=np.int64)
+    for s in range(x_segs.shape[0]):
+        xs = x[x_off[s]: x_off[s + 1]]
+        ys = y[y_off[s]: y_off[s + 1]]
+        if xs.shape[0] < k:
+            raise DGLError(f"segment {s} has {xs.shape[0]} x-points < k={k}")
+        d = ((ys[:, None, :] - xs[None, :, :]) ** 2).sum(-1)
+        nn = np.argsort(d, axis=1, kind="stable")[:, :k] + x_off[s]
+        src[y_off[s] * k: y_off[s + 1] * k] = nn.reshape(-1)
+        dst[y_off[s] * k: y_off[s + 1] * k] = np.repeat(
+            np.arange(y_off[s], y_off[s + 1], dtype=np.int64), k)
+    return _put(np.stack([src, dst]), device)
+
+
+# ---------------------------------------------------------------------------
+# spectral and positional encodings (host numpy, dense n x n)
+# ---------------------------------------------------------------------------
+
+
+def _dense_adj(g: Graph, weights=None, assign: bool = False) -> np.ndarray:
+    """The (n, n) float64 adjacency: multi-edges summed (of ``weights``,
+    default 1), or with ``assign`` set to 1."""
+    n = g.num_nodes()
+    src, dst = g._relation(None).host_edges()
+    a = np.zeros((n, n), np.float64)
+    if assign:
+        a[src, dst] = 1.0
+    else:
+        np.add.at(a, (src, dst), 1.0 if weights is None else weights)
+    return a
+
+
+def _edge_weights(g: Graph, eweight_name) -> Optional[np.ndarray]:
+    if not eweight_name:
+        return None
+    rel = g._relation(None)
+    return _asnumpy(g._edge_frames[g.canonical_etypes[0]][eweight_name])[
+        : rel.num_edges]
+
+
+def laplacian_lambda_max(g: Graph) -> List[float]:
+    """The largest eigenvalue of each batched graph's normalized Laplacian
+    ``I − D^-1/2 A D^-1/2`` (scipy ``eigsh``; ``eigvals`` up to 2 nodes)."""
+    import scipy.sparse as sp
+    from scipy.sparse import linalg as spla
+
+    from ..batch import unbatch
+
+    out = []
+    for gg in (unbatch(g) if g.batch_size > 1 else [g]):
+        n = gg.num_nodes()
+        src, dst = gg._relation(None).host_edges()
+        adj = sp.csr_matrix((np.ones(src.size), (src, dst)), shape=(n, n))
+        deg = np.asarray(adj.sum(axis=1)).ravel()
+        dinv = sp.diags(1.0 / np.sqrt(np.maximum(deg, 1e-12)))
+        lap = sp.eye(n) - dinv @ adj @ dinv
+        if n <= 2:
+            out.append(float(np.linalg.eigvals(lap.toarray()).real.max()))
+        else:
+            out.append(float(spla.eigsh(lap, 1, which="LM",
+                                        return_eigenvectors=False)[0]))
+    return out
+
+
+def random_walk_pe(g: Graph, k: int,
+                   eweight_name: Optional[str] = None) -> torch.Tensor:
+    """The diagonals of the random-walk matrix's powers 1..k, (N, k)
+    float32 (reference ``random_walk_pe``)."""
+    a = _dense_adj(g, _edge_weights(g, eweight_name))
+    rw = a / np.maximum(a.sum(axis=1, keepdims=True), 1e-12)
+    pe, m = [], rw.copy()
+    for _ in range(k):
+        pe.append(np.diagonal(m).copy())
+        m = m @ rw
+    return _put(np.stack(pe, axis=1).astype(np.float32), g.device)
+
+
+def lap_pe(g: Graph, k: int, padding: bool = False,
+           return_eigval: bool = False):
+    """The eigenvectors of the normalized Laplacian's 2nd to (k+1)-th
+    smallest eigenvalues, (N, k) float32, zero-padded with ``padding``
+    (reference ``lap_pe``: ``np.linalg.eig``, whose signs and bases of
+    repeated eigenvalues the result shares)."""
+    n = g.num_nodes()
+    a = _dense_adj(g)
+    dinv = 1.0 / np.sqrt(np.maximum(a.sum(axis=1), 1e-12))
+    lap = np.eye(n) - (dinv[:, None] * a * dinv[None, :])
+    if not padding and n <= k:
+        raise DGLError(f"need num_nodes > k ({n} <= {k}); use padding=True")
+    vals, vecs = np.linalg.eig(lap)
+    order = np.argsort(vals.real)
+    vals, vecs = vals.real[order], vecs.real[:, order]
+    kk = min(k, max(n - 1, 0))
+    pe, ev = vecs[:, 1: kk + 1], vals[1: kk + 1]
+    if pe.shape[1] < k:
+        pe = np.pad(pe, ((0, 0), (0, k - pe.shape[1])))
+        ev = np.pad(ev, (0, k - ev.shape[0]))
+    pe = _put(pe.astype(np.float32), g.device)
+    if return_eigval:
+        return pe, _put(ev.astype(np.float32), g.device)
+    return pe
+
+
+def laplacian_pe(g: Graph, k: int, padding: bool = False,
+                 return_eigval: bool = False):
+    """Deprecated reference alias of ``lap_pe``."""
+    return lap_pe(g, k, padding=padding, return_eigval=return_eigval)
+
+
+def svd_pe(g: Graph, k: int, padding: bool = False, random_flip: bool = True,
+           seed: int = 0) -> torch.Tensor:
+    """The top-k left and right singular vectors of the 0/1 adjacency
+    scaled by the singular values' square roots, (N, 2k) float32; with
+    ``random_flip`` each pair's sign drawn from
+    ``np.random.default_rng(seed)`` (reference ``svd_pe``)."""
+    n = g.num_nodes()
+    if not padding and n < k:
+        raise DGLError(f"need num_nodes >= k ({n} < {k}); use padding=True")
+    u, s, vt = np.linalg.svd(_dense_adj(g, assign=True))
+    kk = min(k, n)
+    sq = np.sqrt(s[:kk])
+    pu, pv = u[:, :kk] * sq, vt[:kk].T * sq
+    if random_flip:
+        rng = np.random.default_rng(seed)
+        signs = np.where(rng.random(kk) < 0.5, -1.0, 1.0)
+        pu, pv = pu * signs, pv * signs
+    pe = np.concatenate([pu, pv], axis=1)
+    if kk < k:
+        pe = np.pad(pe, ((0, 0), (0, 2 * (k - kk))))
+    return _put(pe.astype(np.float32), g.device)
+
+
+# ---------------------------------------------------------------------------
+# paths
+# ---------------------------------------------------------------------------
+
+
+def _shortest_dist_host(g: Graph, root=None, return_paths: bool = False):
+    """``shortest_dist`` on the host: int64 numpy arrays."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import shortest_path
+
+    n = g.num_nodes()
+    rel = g._relation(None)
+    src, dst = rel.host_edges()
+    adj = sp.csr_matrix((np.ones(src.size), (src, dst)), shape=(n, n))
+    if not return_paths:
+        d = shortest_path(adj, method="D", unweighted=True, indices=root)
+        return np.where(np.isinf(d), -1, d).astype(np.int64)
+    if root is None:
+        raise NotImplementedError("return_paths requires a root")
+    d, pred = shortest_path(adj, method="D", unweighted=True,
+                            return_predecessors=True, indices=root)
+    d = np.where(np.isinf(d), -1, d).astype(np.int64)
+    # walk every node's predecessor chain back to the root at once: step s
+    # of node t's walk is hop d[t] - 1 - s of its path; a hop's edge is the
+    # first edge id of its (u, v) pair
+    paths = np.full((n, max(int(d.max()), 1)), -1, np.int64)
+    cur = np.arange(n)
+    for step in range(int(d.max())):
+        t = np.nonzero(d > step)[0]
+        p = pred[cur[t]]
+        paths[t, d[t] - 1 - step] = rel.first_eids(p, cur[t])
+        cur[t] = p
+    return d, paths
+
+
+def shortest_dist(g: Graph, root=None, return_paths: bool = False):
+    """Unweighted shortest-path distances (scipy's BFS), int64, -1 where
+    unreachable: (N, N), or (N,) from ``root`` (reference
+    ``shortest_dist``). With ``return_paths`` (and a root) also the
+    (N, max(dist)) edge ids of each path, -1-padded; a hop over parallel
+    edges takes the pair's first edge id."""
+    out = _shortest_dist_host(g, root, return_paths)
+    if return_paths:
+        return tuple(_put(a, g.device) for a in out)
+    return _put(out, g.device)
+
+
+def double_radius_node_labeling(g: Graph, src: int, dst: int):
+    """DRNL labels for SEAL link prediction (reference
+    ``double_radius_node_labeling``): ``1 + min(ds, dt) + (d//2)(d//2 +
+    d%2 − 1)`` with ``d = ds + dt``; 1 at ``src`` and ``dst``, 0 where
+    unreachable. int64."""
+    d_all = _shortest_dist_host(g)
+    ds = d_all[src].astype(np.float64)
+    dt = d_all[dst].astype(np.float64)
+    ds[ds < 0] = np.inf
+    dt[dt < 0] = np.inf
+    d = ds + dt
+    with np.errstate(invalid="ignore"):
+        z = 1 + np.minimum(ds, dt) + (d // 2) * ((d // 2) + (d % 2) - 1)
+    z[src] = 1.0
+    z[dst] = 1.0
+    z[~np.isfinite(z)] = 0.0
+    return _put(z.astype(np.int64), g.device)
+
+
+# ---------------------------------------------------------------------------
+# diffusions
+# ---------------------------------------------------------------------------
+
+
+def _transition_matrix(g: Graph, eweight_name=None):
+    """The column-normalized (in-edge rows) transition matrix, scipy CSR,
+    and the node count."""
+    import scipy.sparse as sp
+
+    n = g.num_nodes()
+    src, dst = g._relation(None).host_edges()
+    w = _edge_weights(g, eweight_name)
+    a = sp.csr_matrix((np.ones(src.size) if w is None else w, (dst, src)),
+                      shape=(n, n))
+    deg = np.asarray(a.sum(axis=0)).ravel()
+    return a @ sp.diags(1.0 / np.maximum(deg, 1e-12)), n
+
+
+def ppr(g: Graph, alpha: float = 0.15, eweight_name=None, eps=None,
+        avg_degree: int = 5) -> Graph:
+    """Personalized-PageRank diffusion ``alpha (I − (1 − alpha) T)^-1``,
+    dense on the host, sparsified (reference ``ppr``): the graph of the
+    kept entries, their weights in ``edata['w']``."""
+    t_mat, n = _transition_matrix(g, eweight_name)
+    s = alpha * np.linalg.inv(np.eye(n) - (1 - alpha) * t_mat.toarray())
+    return _sparsify_diffusion(g, s, eps, avg_degree)
+
+
+def heat_kernel(g: Graph, t: float = 5.0, eweight_name=None, eps=None,
+                avg_degree: int = 5, k: int = 10) -> Graph:
+    """Heat-kernel diffusion ``exp(t (T − I))`` by its Taylor series to
+    order ``k``, dense on the host, sparsified (reference
+    ``heat_kernel``)."""
+    t_mat, n = _transition_matrix(g, eweight_name)
+    m = np.asarray(t_mat.todense())
+    acc = np.eye(n)
+    term = np.eye(n)
+    for i in range(1, k + 1):
+        term = np.asarray((t / i) * (term @ (m - np.eye(n))))
+        acc = acc + term
+    return _sparsify_diffusion(g, acc, eps, avg_degree)
+
+
+def _sparsify_diffusion(g: Graph, s: np.ndarray, eps, avg_degree: int):
+    """Keep the entries of ``s`` at least ``eps`` (default: the
+    ``avg_degree * n``-th largest, with every entry equal to it), an edge
+    ``u -> d`` of weight ``s[d, u]``, in row-major order of ``s``; node
+    frames kept, edge frames replaced by ``w``."""
+    n = s.shape[0]
+    if eps is None:
+        k = min(avg_degree * n, s.size - 1)
+        eps = np.sort(s.ravel())[-k] if k > 0 else 0.0
+    s = np.where(s >= max(eps, 1e-12), s, 0.0)
+    dstn, srcn = np.nonzero(s)
+    w = s[dstn, srcn]
+    out = _rebuild(g, g.to_canonical_etype(None), srcn, dstn)
+    out._edge_frames[out.canonical_etypes[0]] = {
+        "w": _put(w.astype(np.float32), g.device)}
+    return out
+
+
+def sign_diffusion(g: Graph, k: int, in_feat_name: str = "feat",
+                   out_feat_name: str = "out_feat", eweight_name=None,
+                   diffuse_op: str = "gcn", alpha: float = 0.2) -> Graph:
+    """SIGN's precomputed diffusions (reference ``sign_diffusion``): writes
+    ``ndata[f"{out_feat_name}_{i}"]`` for hops i = 1..k, each hop one
+    ``update_all(copy_u, sum)`` (``"gcn"``, ``"ppr"``: scaled by the out-
+    and in-degrees clamped at 1, to the power -1/2; ``"ppr"`` then mixes
+    ``alpha`` of the input back in) or ``update_all(copy_u, mean)``
+    (``"raw"``, ``"rw"``). On a graph with a hub plan each hop's sum runs
+    kernel B1. ``eweight_name`` is accepted and, as in the reference,
+    not read."""
+    from .. import function as fn
+
+    h = g.ndata[in_feat_name]
+    rel = g._relation(None)
+    if diffuse_op in ("gcn", "ppr"):
+        ni = torch.rsqrt(torch.clamp(rel.in_degrees().to(h.dtype),
+                                     min=1))[:, None]
+        no = torch.rsqrt(torch.clamp(rel.out_degrees().to(h.dtype),
+                                     min=1))[:, None]
+    for i in range(1, k + 1):
+        with g.local_scope() as gg:
+            if diffuse_op in ("gcn", "ppr"):
+                gg.srcdata["h"] = h * no
+                gg.update_all(fn.copy_u("h", "m"), fn.sum("m", "h"))
+                nxt = gg.dstdata["h"] * ni
+            elif diffuse_op in ("raw", "rw"):
+                gg.srcdata["h"] = h
+                gg.update_all(fn.copy_u("h", "m"), fn.mean("m", "h"))
+                nxt = gg.dstdata["h"]
+            else:
+                raise DGLError(f"Unknown diffuse_op {diffuse_op!r}")
+        if diffuse_op == "ppr":
+            nxt = (1 - alpha) * nxt + alpha * g.ndata[in_feat_name]
+        h = nxt
+        g.ndata[f"{out_feat_name}_{i}"] = h
+    return g
+
+
+# ---------------------------------------------------------------------------
+# relation algebra
+# ---------------------------------------------------------------------------
+
+
+def metapath_reachable_graph(g: Graph, metapath: Sequence) -> Graph:
+    """The pairs joined by a path along ``metapath``'s edge types (scipy
+    products of the 0/1 adjacencies), one edge each in the product's COO
+    order; the end types' node frames kept (reference
+    ``metapath_reachable_graph``)."""
+    import scipy.sparse as sp
+
+    from .. import convert
+
+    cets = [g.to_canonical_etype(et) for et in metapath]
+    mat = None
+    for cet in cets:
+        src, dst = g._relations[cet].host_edges()
+        m = sp.csr_matrix((np.ones(src.size), (src, dst)),
+                          shape=(g.num_nodes(cet[0]), g.num_nodes(cet[2])))
+        mat = m if mat is None else mat @ m
+    mat = (mat > 0).tocoo()
+    st, dt = cets[0][0], cets[-1][2]
+    if st == dt:
+        out = convert.graph((mat.row, mat.col), num_nodes=g.num_nodes(st),
+                            device=g.device)
+        out._node_frames.setdefault("_N", {}).update(
+            g._node_frames.get(st, {}))
+        return out
+    out = convert.heterograph({(st, "_E", dt): (mat.row, mat.col)},
+                              {st: g.num_nodes(st), dt: g.num_nodes(dt)},
+                              device=g.device)
+    for nt in (st, dt):
+        out._node_frames.setdefault(nt, {}).update(g._node_frames.get(nt, {}))
+    return out
+
+
+def adj_product_graph(A: Graph, B: Graph, weight_name: str) -> Graph:
+    """The graph of the product of two graphs' weighted adjacencies
+    (scipy; reference ``adj_product_graph``)."""
+    return _adj_combine(A, B, weight_name, "product")
+
+
+def adj_sum_graph(graphs, weight_name: str) -> Graph:
+    """The graph of the sum of same-shape graphs' weighted adjacencies
+    (reference ``adj_sum_graph``)."""
+    out = graphs[0]
+    for g in graphs[1:]:
+        out = _adj_combine(out, g, weight_name, "sum")
+    return out
+
+
+def _adj_combine(A: Graph, B: Graph, weight_name: str, op: str) -> Graph:
+    """``A @ B`` or ``A + B`` of the ``weight_name``-weighted adjacencies as
+    scipy CSR, zeros dropped: a graph in the result's COO order, its
+    weights (float32) in ``edata[weight_name]``."""
+    import scipy.sparse as sp
+
+    from .. import convert
+
+    def mat(g):
+        rel = g._relation(None)
+        src, dst = rel.host_edges()
+        w = _asnumpy(g.edata[weight_name])[: rel.num_edges]
+        return sp.coo_matrix((w, (src, dst)),
+                             shape=(rel.num_src, rel.num_dst)).tocsr()
+
+    c = (mat(A) @ mat(B)) if op == "product" else (mat(A) + mat(B)).tocsr()
+    c.eliminate_zeros()
+    coo = c.tocoo()
+    g = convert.graph((coo.row, coo.col), num_nodes=max(c.shape),
+                      device=A.device)
+    g.edata[weight_name] = _put(coo.data.astype(np.float32), A.device)
+    return g
+
+
+def to_levi(g: Graph) -> Graph:
+    """The Levi graph (reference ``to_levi``): node types ``node`` and
+    ``edge``, a ``belongs`` edge from each edge's source to it and a
+    ``points`` edge from it to its destination; node frames on ``node``,
+    edge frames on ``edge``."""
+    from .. import convert
+
+    rel = g._relation(None)
+    src, dst = rel.host_edges()
+    eids = np.arange(rel.num_edges, dtype=np.int64)
+    out = convert.heterograph(
+        {("node", "belongs", "edge"): (src, eids),
+         ("edge", "points", "node"): (eids, dst)},
+        num_nodes_dict={"node": g.num_nodes(), "edge": rel.num_edges},
+        device=g.device)
+    out._node_frames.setdefault("node", {}).update(
+        g._node_frames.get(g.ntypes[0], {}))
+    out._node_frames.setdefault("edge", {}).update(
+        g._edge_frames.get(g.canonical_etypes[0], {}))
+    return out
+
+
+def _sort_by_tag(g: Graph, tag, which: str, tag_offset_name: str) -> Graph:
+    """The edges reordered by (row, tag of the neighbour), stably
+    (``np.lexsort``); the old ids in ``edata[EID]`` and each row's tag
+    block offsets, (rows, tags + 1), in ``ndata[tag_offset_name]``."""
+    from .. import convert
+
+    rel = g._relation(None)
+    E = rel.num_edges
+    src, dst = rel.host_edges()
+    t = _asnumpy(tag).astype(np.int64)
+    num_tags = int(t.max()) + 1 if t.size else 1
+    if which == "csr":
+        row, nbr, n_rows = src, dst, rel.num_src
+    else:
+        row, nbr, n_rows = dst, src, rel.num_dst
+    key = t[nbr]
+    order = np.lexsort((key, row))
+    out = convert.graph((src[order], dst[order]), num_nodes=g.num_nodes(),
+                        idtype=g.idtype, device=g.device)
+    out._node_frames.setdefault(g.ntypes[0], {}).update(
+        g._node_frames.get(g.ntypes[0], {}))
+    on_dev = _put(order, g.device)
+    ef = out._edge_frames.setdefault(out.canonical_etypes[0], {})
+    for k, v in g._edge_frames.get(g.canonical_etypes[0], {}).items():
+        ef[k] = v[on_dev] if v.shape[0] == E else v
+    ef[EID] = on_dev
+    counts = np.zeros((n_rows, num_tags), np.int64)
+    np.add.at(counts, (row, key), 1)
+    offsets = np.zeros((n_rows, num_tags + 1), np.int64)
+    offsets[:, 1:] = np.cumsum(counts, axis=1)
+    out._node_frames.setdefault(out.ntypes[0], {})[tag_offset_name] = _put(
+        offsets, g.device)
+    return out
+
+
+def sort_csr_by_tag(g: Graph, tag, tag_offset_name: str = "_TAG_OFFSET"):
+    """Each node's out-neighbours made contiguous by tag (reference
+    ``sort_csr_by_tag``, C++ ``CSRSortByTag``): the new graph's edges come
+    in the sorted order, so its CSR rows are tag-ordered."""
+    return _sort_by_tag(g, tag, "csr", tag_offset_name)
+
+
+def sort_csc_by_tag(g: Graph, tag, tag_offset_name: str = "_TAG_OFFSET"):
+    """Like ``sort_csr_by_tag`` for the in-neighbours (CSC rows)."""
+    return _sort_by_tag(g, tag, "csc", tag_offset_name)
+
+
+# ---------------------------------------------------------------------------
+# orders
+# ---------------------------------------------------------------------------
+
+
+def _rcmk_host(g: Graph) -> np.ndarray:
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    src, dst = g._relation(None).host_edges()
+    n = g.num_nodes()
+    a = sp.coo_matrix((np.ones(src.size), (src, dst)), shape=(n, n)).tocsr()
+    return np.asarray(reverse_cuthill_mckee(a + a.T))
+
+
+def rcmk_perm(g: Graph) -> torch.Tensor:
+    """The reverse Cuthill-McKee order of the symmetrized graph (scipy),
+    ``perm[i]`` the old id of new node ``i``, int64 on the graph's
+    device."""
+    return _put(_rcmk_host(g).astype(np.int64), g.device)
+
+
+def metis_perm(g: Graph, k: int):
+    """The order grouping the multilevel partitioner's ``k`` parts (the
+    reference's ``metis_perm``): the partitioner is ROADMAP queue A11."""
+    raise NotImplementedError(
+        "metis_perm: the multilevel partitioner is ROADMAP queue A11")

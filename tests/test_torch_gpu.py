@@ -1356,3 +1356,66 @@ def test_batched_readout_on_card_matches_cpu(card):
     ph, mh = dt.pad_batch(dt.unbatch(g_host), *shape)
     cs.same_graph_on(pc, ph, "pad_batch")
     cs.same_result(mc, mh, "pad_batch mask")
+
+
+def test_sign_diffusion_on_card_launches_b1(card):
+    """``SIGNDiffusion(k=3)`` over a small hub plan: one B1 launch a hop
+    for each op, every hop within the plan bound of the graph without
+    plans, and B1 against its plain version on the hops' real tables."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(0)
+    n, e = 3000, 20000
+    src = np.minimum(rng.zipf(1.5, e) - 1, n - 1)
+    dst = rng.integers(0, n, e)
+    gp, _ = dt.transforms.reorder_for_spmm(
+        dt.graph((src, dst), num_nodes=n, device=card), num_hubs=64)
+    g_plain = cs.strip_plans(gp)
+    x = torch.from_numpy(rng.normal(size=(n, 32)).astype(np.float32))
+    for g in (gp, g_plain):
+        g.ndata["feat"] = x.to(card)
+    for op in cs.SIGN_OPS:
+        _kernels.reset_launch_counts()
+        with torch.inference_mode(), cs.record_b1() as calls:
+            hops = cs.sign_hops(gp, op)
+        torch.cuda.synchronize()
+        cs.expect_no_other_launch(dict(_kernels.launch_counts),
+                                  {"shell_prefix_sum": cs.SIGN_HOPS}, op)
+        cs.b1_calls_exact(calls, op)
+        with torch.inference_mode():
+            for a, b in zip(hops, cs.sign_hops(g_plain, op)):
+                cs.held_against(a, b, 2e-2, f"{op} vs no plan")
+
+
+def test_farthest_point_sampler_on_card_matches_cpu(card):
+    from dgl_tpu_torch.geometry import farthest_point_sampler
+
+    pos = torch.from_numpy(np.random.default_rng(1).random(
+        (4, 700, 3)).astype(np.float32))
+    for start in (None, 5):
+        got = farthest_point_sampler(pos.to(card), 300, start)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), farthest_point_sampler(pos, 300,
+                                                             start))
+
+
+def test_knn_graph_on_card_matches_cpu(card):
+    """Edges equal to the CPU's but for float32 near-ties
+    (``chip_smoke.knn_near_ties``); on integer points, where every
+    distance is exact, identical, ties to the lower index."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.random((900, 3)).astype(np.float32))
+    for dist in ("euclidean", "cosine"):
+        got = dt.knn_graph(x.to(card), 12, dist=dist)
+        want = dt.knn_graph(x, 12, dist=dist)
+        assert torch.equal(got.edges()[1].cpu(), want.edges()[1])
+        if dist == "euclidean":
+            cs.knn_near_ties(got.edges()[0], want.edges()[0], x, 12)
+    grid = torch.from_numpy(rng.integers(0, 5, (400, 2)).astype(np.float32))
+    got = dt.knn_graph(grid.to(card), 9)
+    cs.same_graph_on(got, dt.knn_graph(grid, 9), "integer points")
+    seg = dt.segmented_knn_graph(x.to(card), 7, [300, 600])
+    assert torch.equal(seg.edges()[1].cpu(), dt.segmented_knn_graph(
+        x, 7, [300, 600]).edges()[1])

@@ -119,6 +119,31 @@ _CALLS = {
     "bipartite_from_networkx": "dt.bipartite_from_networkx(__import__("
                                "'networkx').complete_bipartite_graph(2, 3),"
                                " 'u', 'e', 'v'{})",
+    "knn_graph": "dt.knn_graph(np.eye(5, 3, dtype=np.float32), 2{})",
+    "segmented_knn_graph": "dt.segmented_knn_graph(np.eye(5, 3), 2, [2, 3]"
+                           "{})",
+    "radius_graph": "dt.radius_graph(np.eye(5, 3), 0.5{})",
+    "knn": "dt.knn(2, np.eye(5, 3), [5]{})",
+    "pairwise_squared_distance": "dt.pairwise_squared_distance("
+                                 "np.eye(5, 3){})",
+    "farthest_point_sampler": "dt.geometry.farthest_point_sampler("
+                              "np.eye(5, 3)[None], 2{})",
+    "KNNGraph": "dt.nn.KNNGraph(2)(np.eye(5, 3){})",
+    "SegmentedKNNGraph": "dt.nn.SegmentedKNNGraph(2)(np.eye(5, 3), [2, 3]"
+                         "{})",
+    "RadiusGraph": "dt.nn.RadiusGraph(0.5)(np.eye(5, 3){})",
+    "Set2Set": "dt.nn.Set2Set(4, 2{})",
+    "WeightAndSum": "dt.nn.WeightAndSum(4{})",
+    "MultiHeadAttention": "dt.nn.MultiHeadAttention(4, 2, 3, 8{})",
+    "SetAttentionBlock": "dt.nn.SetAttentionBlock(4, 2, 3, 8{})",
+    "InducedSetAttentionBlock": "dt.nn.InducedSetAttentionBlock(2, 4, 2, 3,"
+                                " 8{})",
+    "PMALayer": "dt.nn.PMALayer(2, 4, 2, 3, 8{})",
+    "SetTransformerEncoder": "dt.nn.SetTransformerEncoder(4, 2, 3, 8{})",
+    "SetTransformerDecoder": "dt.nn.SetTransformerDecoder(4, 2, 3, 8, 1, 2"
+                             "{})",
+    "GIN": "dt.models.GIN(4, 8, 2{})",
+    "Graphormer": "dt.models.Graphormer(4, 8, 2, num_heads=2{})",
 }
 
 _PROBE = """
@@ -156,3 +181,40 @@ def test_entry_point_defaults_to_cuda(name, default_device_errors):
     err = default_device_errors[name]
     assert err is not None, f"{name} ran on the CPU without being asked"
     assert "cuda" in err.lower(), err
+
+
+# the modules of the graph-utilities slice, each scanned above and
+# importable without JAX
+SLICE_MODULES = ("transforms.functional", "transforms.module", "traversal",
+                 "propagate", "geometry", "geometry.fps",
+                 "geometry.edge_coarsening", "nn.factory", "nn.glob",
+                 "models.gin", "models.graphormer")
+
+
+@pytest.mark.parametrize("name", SLICE_MODULES)
+def test_slice_module_is_scanned_and_exports_its_names(name):
+    import importlib
+
+    mod = importlib.import_module(f"dgl_tpu_torch.{name}")
+    path = os.path.relpath(mod.__file__, ROOT)
+    assert os.path.join(ROOT, path) in _port_files(), path
+    for attr in getattr(mod, "__all__", ()):
+        assert hasattr(mod, attr), (name, attr)
+
+
+def test_reorder_orders():
+    """``reorder_graph('rcmk')`` runs (scipy's reverse Cuthill-McKee); the
+    METIS order needs the multilevel partitioner, ROADMAP queue A11."""
+    import numpy as np
+
+    import dgl_tpu_torch as dt
+
+    g = dt.graph((np.array([0, 1, 2, 3]), np.array([1, 2, 3, 0])),
+                 num_nodes=5, device="cpu")
+    out = dt.reorder_graph(g, "rcmk")
+    assert sorted(out.ndata[dt.NID].tolist()) == list(range(5))
+    assert out.num_edges() == 4
+    with pytest.raises(NotImplementedError, match="A11"):
+        dt.reorder_graph(g, "metis")
+    with pytest.raises(NotImplementedError, match="A11"):
+        dt.metis_perm(g, 2)
