@@ -256,6 +256,40 @@ the minibatch GraphSAGE paths (no hand kernel), on the zipf graph with
     (1 + 2 epochs against 1, best of 2 each), a step's profile, and the
     epochs' mean losses, which must be finite and fall;
 
+the host samplers and dataloading (no hand kernel: every count must stay
+0), on a graph of ogbn-products' counts (``products_graph``: 2,449,029
+nodes, 61,859,140 pairs of the SBM recipe stored both ways in order,
+123,718,280 edges, 100-wide features, 47 classes; a CPU copy beside it):
+
+20a. ``products_sage_minibatch``: DGL's ``node_classification.py``,
+     GraphSAGE 100-256-256-47 (mean, dropout 0.5) over
+     ``NeighborSampler([10, 10, 10])`` blocks through the ``DataLoader``
+     (batch 1,024, shuffled, the prefetch thread), Adam at 1e-3; the
+     first batches with the thread equal to those sampled inline and to
+     the CPU graph's, id for id and frame for frame; the first step's
+     loss and gradients (dropout off) against the CPU at rtol = 1e-4,
+     atol = 1e-4 * max|ref|, on the card pass's ReLU pattern; 5 counted
+     steps with finite losses, the loader's buffered batches drained,
+     3 more that each wait on the sampling thread (``ms_per_step``,
+     ``edges_per_s`` over sampled edges), 2 profiled
+     (``device_idle_share``); then the same with ``LaborSampler``, and
+     one batch of 4,096 nodes through ``MultiLayerFullNeighborSampler(1)``
+     into the first layer, against the CPU;
+20b. ``products_link_prediction``: DGL's ``link_pred.py``,
+     ``as_edge_prediction_sampler(NeighborSampler([15, 10, 5]),
+     exclude="reverse_id", negative_sampler=Uniform(1))``, batch 512
+     seed edges, a SAGE encoder 100-256-256-256 and the dot-product
+     scorer, ``-log sigmoid`` of the pairs and negatives; the pair graph
+     holds the seed edges, no block holds a seed edge or its reverse, the
+     batches and the first step against the CPU as in 20a;
+20c. ``host_samplers``: every host sampler once with the graph on the
+     card and once on the CPU, the results equal, each one's time on
+     each: the per-seed ones on the products graph, the rest on the arxiv
+     zipf graph, PinSAGE and ``DeviceNeighborSampler.sample_from`` (its
+     picks equal to ``_pick``'s on its own draws) on item -> user graphs
+     of that graph's edges, and DeepWalk (dim 128, walks of 40, window 5)
+     steps, their losses against the CPU at 1e-4;
+
 the heterogeneous path (kernel B1 on bipartite relations), R-GCN on a
 graph of ogbn-mag's published counts (``mag_graph``: 736,389 papers,
 1,134,649 authors, 8,740 institutions, 59,965 fields, 21,111,007 edges
@@ -278,6 +312,16 @@ over 4 relations, 128-wide features, 349 classes; the recipe of
     and backward (a seeded table: institution reaches no loss), at
     rtol = atol = 1e-5, with its bound and ``embedding_bag``'s time;
     times, profiles and peak memory;
+21a. ``mag_rgcn_minibatch``: the same R-GCN over
+     ``HeteroFixedShapeNeighborSampler`` blocks of the same graph
+     (fanouts [25, 20], ``hetero_rgcn.py``'s, on every relation into a
+     sampled type; batch 1,024 papers): the blocks equal to the CPU's and
+     of the same shapes every batch, the first step against the CPU at
+     1e-4, 5 counted steps each sampling its batch inline
+     (``ms_per_step`` with the sampling, ``step_ms`` without), the
+     per-type slot caps; then
+     ``sample_etype_neighbors`` over ``to_homogeneous`` of the graph,
+     card against CPU;
 22. ``multi_update_all`` (copy_u, sum; cross reducer sum) over the four
     relations (4 B1 launches) and a ``pull`` over ``writes`` (1), held
     against the plain branch at rtol = 2e-2, atol = 2e-2 * max|ref|;
@@ -379,6 +423,7 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -4346,6 +4391,14 @@ def run_mag(rate: float, tag: dict) -> dict:
     emit({"phase": "mag_forward_profile", "calls": 3, **prof, **tag})
     emit({"phase": "mag_train_profile", "calls": 2,
           **device_profile(step, 2), **tag})
+    t0 = time.perf_counter()
+    train_ids = torch.nonzero(mask).flatten().cpu().numpy()
+    del gp, opt
+    torch.cuda.empty_cache()
+    run_mag_minibatch(g, x, y, train_ids, tag)
+    run_mag_etype_sampler(g, tag)
+    emit({"phase": "mag_samplers_total", "seconds": time.perf_counter() - t0,
+          **tag})
     main = shapes["writes fwd"]
     return {
         "name": "shell_prefix_sum",
@@ -5006,6 +5059,11 @@ def same_result(a, b, what: str) -> None:
             raise RuntimeError(f"{what}: lengths {len(a)} vs {len(b)}")
         for i, (x, y) in enumerate(zip(a, b)):
             same_result(x, y, f"{what}[{i}]")
+    elif isinstance(a, dict):
+        if set(a) != set(b):
+            raise RuntimeError(f"{what}: keys {set(a)} vs {set(b)}")
+        for k in a:
+            same_result(a[k], b[k], f"{what}[{k!r}]")
     elif isinstance(a, torch.Tensor):
         if not torch.equal(a.cpu(), b.cpu()) or a.dtype != b.dtype:
             raise RuntimeError(f"{what}: tensors differ")
@@ -6189,6 +6247,819 @@ def run_graph_utils(tag: dict, device="cuda") -> dict:
     return timings
 
 
+# ---------------------------------------------------------------------------
+# the host samplers and dataloading: products-scale GraphSAGE (node
+# classification and link prediction), the minibatch R-GCN on ogbn-mag,
+# and every host sampler card against CPU
+# ---------------------------------------------------------------------------
+
+PRODUCTS_N, PRODUCTS_PAIRS = 2_449_029, 61_859_140  # ogbn-products
+PRODUCTS_FEAT, PRODUCTS_CLASSES, PRODUCTS_HIDDEN = 100, 47, 256
+# examples/pytorch/graphsage/node_classification.py: fanouts, batch, Adam
+PRODUCTS_FANOUTS, PRODUCTS_BATCH, PRODUCTS_LR = [10, 10, 10], 1024, 1e-3
+PRODUCTS_STEPS = 5
+STEADY_STEPS = 3  # after the main path: the loader's steady state
+DRAIN = 2 + 2  # the DataLoader's num_prefetch, plus two: see timed_training
+PRODUCTS_INFER_BATCH = 4096
+# examples/pytorch/graphsage/link_pred.py
+LINK_PRED_FANOUTS, LINK_PRED_BATCH = [15, 10, 5], 512
+# examples/pytorch/ogb/ogbn-mag/hetero_rgcn.py
+MAG_MB_FANOUTS, MAG_MB_BATCH = [25, 20], 1024
+SAMPLER_SEEDS = 1024  # the per-seed samplers' seeds in host_samplers
+DEEPWALK_SEEDS, DEEPWALK_STEPS = 256, 3
+
+
+def products_graph(seed: int = 45, device="cuda") -> dict:
+    """A synthetic graph at ogbn-products' counts: the SBM recipe of
+    ``dgl_tpu/data/synthetic.py:114-126`` (47 classes, homophily 0.8,
+    gaussian 100-wide features, the recipe's 60 % train split), its
+    61,859,140 pairs stored both ways in order (edge ``i``'s reverse is
+    ``i +- 61,859,140``), neither deduplicated nor sorted. Returns the
+    graph on ``device`` with ``feat`` and ``label``, its copy on the CPU,
+    the train ids, the reverse edge ids and the set-up seconds."""
+    import numpy as np
+
+    import dgl_tpu_torch as dt
+
+    t0 = time.perf_counter()
+    n, e = PRODUCTS_N, PRODUCTS_PAIRS
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, PRODUCTS_CLASSES, n)
+    src = rng.integers(0, n, e)
+    intra = rng.random(e) < 0.8
+    order = np.argsort(labels, kind="stable")
+    gstart = np.searchsorted(labels[order], np.arange(PRODUCTS_CLASSES + 1))
+    lo = gstart[labels[src]]
+    width = np.maximum(gstart[labels[src] + 1] - lo, 1)
+    same = order[lo + (rng.random(e) * width).astype(np.int64)]
+    dst = np.where(intra, same, rng.integers(0, n, e))
+    del intra, lo, width, same
+    centroids = rng.normal(size=(PRODUCTS_CLASSES, PRODUCTS_FEAT)) * 2.0
+    feat = (centroids[labels] + rng.normal(size=(n, PRODUCTS_FEAT))).astype(
+        np.float32)
+    train = np.sort(rng.permutation(n)[:int(n * 0.6)])
+    data_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    g = dt.graph((np.concatenate([src, dst]), np.concatenate([dst, src])),
+                 num_nodes=n, device=device)
+    del src, dst
+    graph_s = time.perf_counter() - t1
+    g.ndata["feat"] = _on(feat, device)
+    g.ndata["label"] = _on(labels, device)
+    reverse = np.concatenate([np.arange(e, 2 * e), np.arange(e)])
+    t1 = time.perf_counter()
+    g_cpu = g.to("cpu")
+    return {"g": g, "g_cpu": g_cpu, "train": train, "reverse": reverse,
+            "data_s": data_s, "graph_s": graph_s,
+            "cpu_copy_s": time.perf_counter() - t1,
+            "setup_s": time.perf_counter() - t0}
+
+
+def _on(a, device):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def block_edges(blocks) -> int:
+    """The sampled edges of a batch's blocks: a ragged block's edges, a
+    fixed-shape block's unmasked slots."""
+    total = 0
+    for b in blocks:
+        for cet, rel in b._relations.items():
+            mask = b._edge_frames.get(cet, {}).get("_mask")
+            total += rel.num_edges if mask is None else int(mask.sum())
+    return total
+
+
+def first_batches(make_sampler, g, g_cpu, ids, batch, device, count=2):
+    """The loader's first ``count`` batches sampled inline (each timed,
+    before any sampling thread exists), the first one over the CPU graph,
+    and the same batches with the prefetch thread, each from a sampler and
+    loader of the same seeds; the CPU's and the thread's must equal the
+    inline ones. Returns the threaded loader's iterator (the batches it
+    gave first in front), and the inline batches' host seconds, the first
+    one's (the host library's build, the int64 CSC) first."""
+    import itertools
+
+    from dgl_tpu_torch.dataloading import DataLoader
+
+    def loader(graph, dev, thread):
+        return DataLoader(graph, ids, make_sampler(), batch_size=batch,
+                          shuffle=True, seed=0, device=dev,
+                          use_prefetch_thread=thread)
+
+    inline, sample_s = [], []
+    inline_it = iter(loader(g, device, False))
+    for _ in range(count + 1):  # the first pays the one-time host work
+        t0 = time.perf_counter()
+        inline.append(next(inline_it))
+        _sync(device)
+        sample_s.append(time.perf_counter() - t0)
+    del inline_it
+    cpu = next(iter(loader(g_cpu, "cpu", False)))
+    same_result(inline[0], cpu, "the first batch on the card vs the CPU")
+    del cpu
+    it = iter(loader(g, device, True))
+    threaded = [next(it) for _ in range(count)]
+    for i, (a, b) in enumerate(zip(threaded, inline)):
+        same_result(a, b, f"batch {i} with the prefetch thread vs without")
+    return itertools.chain(threaded, it), sample_s
+
+
+def sage_loss(model, blocks, pattern=None):
+    """node_classification.py's loss over the blocks' own features and
+    labels, the ReLUs recorded (or following ``pattern``)."""
+    import torch.nn.functional as F
+
+    with relu_pattern(pattern) as seen:
+        logits = model(blocks, blocks[0].srcdata["feat"])
+        loss = F.cross_entropy(logits, blocks[-1].dstdata["label"])
+    return loss, seen
+
+
+def step_vs_cpu(model, make_cpu_model, loss_fn, batch, tol=1e-4) -> dict:
+    """The first step's loss and gradients on the card against the CPU's
+    (dropout off, the CPU pass on the card pass's ReLU pattern) at
+    rtol = ``tol``, atol = ``tol`` * max|ref|."""
+    from dgl_tpu_torch.dataloading.dataloader import to_device
+
+    model_cpu = make_cpu_model()
+    model_cpu.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    model.eval()
+    model_cpu.eval()
+    loss, pattern = loss_fn(model, batch)
+    loss.backward()
+    ref, _ = loss_fn(model_cpu, to_device(batch, "cpu"),
+                     [p.cpu() for p in pattern])
+    ref.backward()
+    got = {"loss": loss.detach()}
+    want = {"loss": ref.detach()}
+    for (k, p), q in zip(model.named_parameters(), model_cpu.parameters()):
+        if q.grad is not None:
+            got[k], want[k] = p.grad, q.grad
+    errs = held(got, want, tol, "the first step on the card vs the CPU")
+    model.zero_grad(set_to_none=True)
+    model.train()
+    return errs
+
+
+def train_loop(model, opt, loss_fn, batches, steps, device):
+    """``steps`` steps over the next batches of the iterator ``batches``,
+    with the launch counts read around them; returns the losses, the
+    wall time a step (waits on the sampler included), the card's time a
+    step, the sampled edges a second and the launch counts."""
+    import torch
+
+    from dgl_tpu_torch import _kernels
+
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    losses, step_s, edges = [], [], 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        batch = next(batches)
+        t1 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch)[0]
+        loss.backward()
+        opt.step()
+        _sync(device)
+        step_s.append(time.perf_counter() - t1)
+        losses.append(loss.item())
+        edges += block_edges(batch[-1])
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(launches, {}, "a minibatch training loop")
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"non-finite minibatch losses: {losses}")
+    return {"losses": losses, "launches": launches,
+            "ms_per_step": wall / steps * 1e3,
+            "step_ms": sum(step_s) / steps * 1e3,
+            "edges_per_s": edges / wall, "sampled_edges": edges,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def timed_training(model, opt, loss_fn, batches, device) -> dict:
+    """The main path (``PRODUCTS_STEPS`` counted steps, the first batches
+    already prefetched), then the loader's buffer drained (``DRAIN``
+    batches taken without a step: the ``num_prefetch`` queued, the one its
+    thread holds, and one that waits for the thread), then
+    ``STEADY_STEPS`` more, each of which waits for a batch the thread
+    starts sampling as the step before it starts, as an epoch's later
+    steps do: ``ms_per_step`` and ``edges_per_s`` are theirs. Then two
+    profiled steps."""
+    res = train_loop(model, opt, loss_fn, batches, PRODUCTS_STEPS, device)
+    t0 = time.perf_counter()
+    for _ in range(DRAIN):
+        next(batches)
+    drain_s = time.perf_counter() - t0
+    steady = train_loop(model, opt, loss_fn, batches, STEADY_STEPS, device)
+    res.update({"counted_ms_per_step": res["ms_per_step"],
+                "drained_batches": DRAIN, "drain_ms": drain_s * 1e3,
+                "steady_step_ms": steady["step_ms"],
+                "ms_per_step": steady["ms_per_step"],
+                "edges_per_s": steady["edges_per_s"],
+                "steady_losses": steady["losses"]})
+    res.update(profiled_steps(model, opt, loss_fn, batches))
+    return res
+
+
+def profiled_steps(model, opt, loss_fn, it) -> dict:
+    """``device_profile`` of two more loader steps (one warm inside the
+    trace): the device's idle share while the loop waits on the
+    sampler."""
+    def step():
+        batch = next(it)
+        opt.zero_grad(set_to_none=True)
+        loss_fn(model, batch)[0].backward()
+        opt.step()
+
+    prof = device_profile(step, 1)
+    return {k: prof[k] for k in ("wall_ms_per_call",
+                                 "device_busy_ms_per_call",
+                                 "device_idle_share",
+                                 "kernel_launches_per_call")}
+
+
+def run_products_sage(pg, tag: dict, device="cuda") -> dict:
+    """Phase products_sage_minibatch: node_classification.py's GraphSAGE
+    100-256-256-47 (mean) over ``NeighborSampler([10, 10, 10])`` blocks
+    through the ``DataLoader`` (batch 1,024, shuffled, the prefetch
+    thread), Adam at 1e-3; then the same with ``LaborSampler``, and one
+    batch of 4,096 nodes through ``MultiLayerFullNeighborSampler(1)``
+    into the first layer."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch.dataloading import (DataLoader, LaborSampler,
+                                           MultiLayerFullNeighborSampler,
+                                           NeighborSampler)
+    from dgl_tpu_torch.models import GraphSAGE
+
+    g, g_cpu, train = pg["g"], pg["g_cpu"], pg["train"]
+
+    def model_on(dev):
+        return GraphSAGE(PRODUCTS_FEAT, PRODUCTS_HIDDEN, PRODUCTS_CLASSES,
+                         num_layers=3, dropout=0.5,
+                         generator=torch.Generator().manual_seed(0),
+                         device=dev)
+
+    out = {}
+    for name, make in (
+            ("neighbor", lambda: NeighborSampler(PRODUCTS_FANOUTS, seed=0)),
+            ("labor", lambda: LaborSampler(PRODUCTS_FANOUTS, seed=0))):
+        t_phase = time.perf_counter()
+        batches, sample_s = first_batches(make, g, g_cpu, train,
+                                          PRODUCTS_BATCH, device)
+        first = next(batches)
+        model = model_on(device)
+        check = step_vs_cpu(model, lambda: model_on("cpu"), sage_loss,
+                            first[2])
+        opt = torch.optim.Adam(model.parameters(), lr=PRODUCTS_LR)
+        res = timed_training(model, opt, lambda m, b: sage_loss(m, b[2]),
+                             itertools.chain([first], batches), device)
+        del batches
+        blocks = first[2]
+        res.update({
+            "sampler": name,
+            "sample_ms": float(np.mean(sample_s[1:])) * 1e3,
+            "first_sample_ms": sample_s[0] * 1e3,
+            "frontier_nodes": [b.num_src_nodes() for b in blocks]
+            + [blocks[-1].num_dst_nodes()],
+            "block_edges": [b.num_edges() for b in blocks],
+            "first_step_vs_cpu": check,
+            "tolerance": "rtol=1e-4, atol=1e-4*max|ref| (dropout off, the "
+                         "CPU on the card pass's ReLU pattern)",
+            "phase_s": time.perf_counter() - t_phase})
+        emit({"phase": "products_sage_minibatch", **res, **tag})
+        out[name] = res
+
+    # the first step of layer-wise inference: every in-edge of 4,096 nodes
+    # into the first layer
+    ids = np.random.default_rng(1).permutation(PRODUCTS_N)[
+        :PRODUCTS_INFER_BATCH]
+    layer = model.sage0.eval()
+    full = []
+    for graph, dev in ((g, device), (g_cpu, "cpu")):
+        t0 = time.perf_counter()
+        batch = next(iter(DataLoader(graph, ids,
+                                     MultiLayerFullNeighborSampler(1),
+                                     batch_size=PRODUCTS_INFER_BATCH,
+                                     device=dev, use_prefetch_thread=False)))
+        _sync(dev)
+        sample = time.perf_counter() - t0
+        block = batch[2][0]
+        lay = layer if dev == device else model_on("cpu").sage0.eval()
+        if dev != device:
+            lay.load_state_dict({k: v.cpu()
+                                 for k, v in layer.state_dict().items()})
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            h = lay(block, block.srcdata["feat"])
+            _sync(dev)
+        full.append((batch, h, sample, time.perf_counter() - t0))
+    same_result(full[0][0], full[1][0], "the full-neighbour block")
+    err = held_against(full[0][1], full[1][1], 1e-4, "layer-wise inference")
+    res = {"seeds": PRODUCTS_INFER_BATCH,
+           "block_edges": full[0][0][2][0].num_edges(),
+           "src_nodes": full[0][0][2][0].num_src_nodes(),
+           "sample_ms": full[0][2] * 1e3, "layer_ms": full[0][3] * 1e3,
+           "cpu_sample_ms": full[1][2] * 1e3, "cpu_layer_ms": full[1][3] * 1e3,
+           "vs_cpu": err}
+    emit({"phase": "products_layerwise_inference", **res, **tag})
+    out["layerwise_inference"] = res
+    return out
+
+
+def link_loss(model, batch, pattern=None):
+    """link_pred.py's loss: the dot product of the endpoints' encodings,
+    ``-log sigmoid(pos) - log sigmoid(-neg)``, each a mean."""
+    import torch.nn.functional as F
+
+    from dgl_tpu_torch.nn import EdgePredictor
+
+    _, pair, neg, blocks = batch
+    with relu_pattern(pattern) as seen:
+        h = model(blocks, blocks[0].srcdata["feat"])
+    score = EdgePredictor("dot")
+    ps, pd = pair.edges()
+    ns, nd = neg.edges()
+    pos = score(h[ps.long()], h[pd.long()]).squeeze(-1)
+    negs = score(h[ns.long()], h[nd.long()]).squeeze(-1)
+    loss = -F.logsigmoid(pos).mean() - F.logsigmoid(-negs).mean()
+    return loss, seen
+
+
+def run_products_link(pg, tag: dict, device="cuda") -> dict:
+    """Phase products_link_prediction: link_pred.py's recipe over the
+    products graph: ``as_edge_prediction_sampler(NeighborSampler([15, 10,
+    5]), exclude="reverse_id", negative_sampler=Uniform(1))``, batch 512
+    seed edges, a 3-layer SAGE encoder 100-256-256-256 and the dot-product
+    scorer, Adam at 1e-3, 5 steps."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch.base import EID, NID
+    from dgl_tpu_torch.dataloading import (NeighborSampler, Uniform,
+                                           as_edge_prediction_sampler)
+    from dgl_tpu_torch.models import GraphSAGE
+
+    t_phase = time.perf_counter()
+    g, g_cpu, reverse = pg["g"], pg["g_cpu"], pg["reverse"]
+
+    def make():
+        return as_edge_prediction_sampler(
+            NeighborSampler(LINK_PRED_FANOUTS, seed=0), exclude="reverse_id",
+            reverse_eids=reverse, negative_sampler=Uniform(1, seed=0))
+
+    def model_on(dev):
+        return GraphSAGE(PRODUCTS_FEAT, PRODUCTS_HIDDEN, PRODUCTS_HIDDEN,
+                         num_layers=3, dropout=0.0,
+                         generator=torch.Generator().manual_seed(0),
+                         device=dev)
+
+    seed_edges = np.arange(g.num_edges())
+    batches, sample_s = first_batches(make, g, g_cpu, seed_edges,
+                                      LINK_PRED_BATCH, device)
+    firsts = [next(batches), next(batches)]
+    # no seed edge, and no reverse of one, in the batches' blocks
+    order = np.random.default_rng(0).permutation(seed_edges.shape[0])
+    src, dst = g._relation().host_edges()
+    leaks = 0
+    for i, (_, pair, neg, blocks) in enumerate(firsts):
+        seeds = order[i * LINK_PRED_BATCH:(i + 1) * LINK_PRED_BATCH]
+        banned = torch.from_numpy(np.concatenate([seeds, reverse[seeds]]))
+        nid = pair.ndata[NID].cpu().numpy()
+        ps, pd = (t.cpu().numpy() for t in pair.edges())
+        if not np.array_equal(
+                np.sort(nid[ps].astype(np.int64) * PRODUCTS_N + nid[pd]),
+                np.sort(src[seeds].astype(np.int64) * PRODUCTS_N
+                        + dst[seeds])):
+            raise RuntimeError("the pair graph holds other edges than the "
+                               "batch's seed edges")
+        for b in blocks:
+            leaks += int(torch.isin(b.edata[EID].cpu(), banned).sum())
+    if leaks:
+        raise RuntimeError(f"{leaks} seed edges or their reverses in the "
+                           "link prediction blocks")
+    model = model_on(device)
+    check = step_vs_cpu(model, lambda: model_on("cpu"), link_loss,
+                        firsts[0])
+    opt = torch.optim.Adam(model.parameters(), lr=PRODUCTS_LR)
+    res = timed_training(model, opt, link_loss,
+                         itertools.chain(firsts, batches), device)
+    del batches
+    blocks = firsts[0][3]
+    res.update({
+        "sample_ms": float(np.mean(sample_s[1:])) * 1e3,
+        "first_sample_ms": sample_s[0] * 1e3,
+        "frontier_nodes": [b.num_src_nodes() for b in blocks]
+        + [blocks[-1].num_dst_nodes()],
+        "block_edges": [b.num_edges() for b in blocks],
+        "pair_edges": firsts[0][1].num_edges(),
+        "negative_edges": firsts[0][2].num_edges(),
+        "excluded_leaks": leaks, "first_step_vs_cpu": check,
+        "tolerance": "rtol=1e-4, atol=1e-4*max|ref| (the CPU on the card "
+                     "pass's ReLU pattern)",
+        "phase_s": time.perf_counter() - t_phase})
+    emit({"phase": "products_link_prediction", **res, **tag})
+    return res
+
+
+def rgcn_blocks(model, blocks, inputs, pattern=None):
+    """``hetero_rgcn``'s two layers over two blocks: the paper logits."""
+    import torch
+
+    with relu_pattern(pattern) as seen:
+        h = {k: torch.relu(v)
+             for k, v in model.layer0(blocks[0], inputs).items()}
+        out = model.layer1(blocks[1], h)["paper"]
+    return out, seen
+
+
+def run_mag_minibatch(g, feats, labels, train, tag: dict,
+                      device="cuda") -> dict:
+    """Phase mag_rgcn_minibatch: ``hetero_rgcn``'s 128-64-349 R-GCN over
+    ``HeteroFixedShapeNeighborSampler`` blocks of ``run_mag``'s graph,
+    fanouts [25, 20] (hetero_rgcn.py's) on every relation into a sampled
+    type, 1,024 paper seeds a batch, Adam at 1e-2, 5 steps."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from dgl_tpu_torch.base import NID
+    from dgl_tpu_torch.dataloading import HeteroFixedShapeNeighborSampler
+    from dgl_tpu_torch.dataloading.dataloader import to_device
+
+    t_phase = time.perf_counter()
+    g_cpu = g.to("cpu")
+    fanouts = [{cet: f for cet in g.canonical_etypes}
+               for f in MAG_MB_FANOUTS]
+
+    def make(dev):
+        return HeteroFixedShapeNeighborSampler(
+            g, fanouts, MAG_MB_BATCH, seed_ntype="paper", seed=0,
+            device=dev)
+
+    sampler = make(device)
+    seeds = np.random.default_rng(2).permutation(train)[
+        :MAG_MB_BATCH * (PRODUCTS_STEPS + 1)].reshape(-1, MAG_MB_BATCH)
+    seeds[-1, -5:] = -1  # a short batch: the last one's tail is padding
+    batches, sample_s = [], []
+    for s in seeds:
+        t0 = time.perf_counter()
+        batches.append(sampler.sample_blocks(g, s[s >= 0]))
+        _sync(device)
+        sample_s.append(time.perf_counter() - t0)
+    cpu = make("cpu").sample_blocks(g_cpu, seeds[0])
+    same_result(batches[0], cpu, "the hetero blocks on the card vs the CPU")
+    shapes = {tuple((tuple(b._num_src_nodes.items()),
+                     tuple(b._num_dst_nodes.items()),
+                     tuple((c, r.num_edges_padded)
+                           for c, r in b._relations.items()))
+                    for b in blk) for _, _, blk in batches}
+    if len(shapes) != 1:
+        raise RuntimeError(f"hetero block shapes vary: {len(shapes)}")
+
+    def inputs(blocks, x):
+        src = blocks[0]._node_frames
+        return {nt: x[nt][src[nt][NID]] * src[nt]["_mask"][:, None]
+                for nt in blocks[0].srctypes}
+
+    def loss_fn(model, batch, pattern=None, x=feats, y=labels):
+        blocks = batch[2]
+        logits, seen = rgcn_blocks(model, blocks, inputs(blocks, x), pattern)
+        dst = blocks[-1]._dst_frames["paper"]
+        m = dst["_mask"].to(torch.float32)
+        ce = F.cross_entropy(logits, y[dst[NID]], reduction="none")
+        return (ce * m).sum() / m.sum(), seen
+
+    model = hetero_rgcn(g.etypes, (MAG_FEAT, MAG_HIDDEN, MAG_CLASSES),
+                        0).to(device)
+    feats_cpu = {k: v.cpu() for k, v in feats.items()}
+    labels_cpu = labels.cpu()
+
+    def cpu_loss(m, b, pattern=None):
+        return loss_fn(m, b, pattern, feats_cpu, labels_cpu)
+
+    # hetero_rgcn makes its GraphConvs on the card: the CPU copy moves
+    model_cpu = hetero_rgcn(g.etypes, (MAG_FEAT, MAG_HIDDEN, MAG_CLASSES),
+                            0).cpu()
+    model_cpu.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    loss, pattern = loss_fn(model, batches[0])
+    loss.backward()
+    ref, _ = cpu_loss(model_cpu, to_device(batches[0], "cpu"),
+                      [p.cpu() for p in pattern])
+    ref.backward()
+    got, want = {"loss": loss.detach()}, {"loss": ref.detach()}
+    for (k, p), q in zip(model.named_parameters(), model_cpu.parameters()):
+        if q.grad is not None:
+            got[k], want[k] = p.grad, q.grad
+    check = held(got, want, 1e-4, "the R-GCN minibatch step vs the CPU")
+    model.zero_grad(set_to_none=True)
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    # each step samples its batch inline, as a loop over the sampler does:
+    # ms_per_step counts the sampling, step_ms the card's part alone
+    inline = (sampler.sample_blocks(g, s[s >= 0]) for s in seeds[1:])
+    res = train_loop(model, opt, loss_fn, inline, PRODUCTS_STEPS, device)
+    prof = device_profile(lambda: loss_fn(model, batches[0])[0].backward(),
+                          2)
+    res.update({
+        "sample_ms": float(np.mean(sample_s[1:])) * 1e3,
+        "first_sample_ms": sample_s[0] * 1e3,
+        "slot_caps": [{nt: c for nt, c in layer.items()}
+                      for layer in sampler.caps],
+        "real_edges_first_batch": {
+            str(c): int(b._edge_frames[c]["_mask"].sum())
+            for b in batches[0][2] for c in b.canonical_etypes},
+        "first_step_vs_cpu": check,
+        "tolerance": "rtol=1e-4, atol=1e-4*max|ref| (the CPU on the card "
+                     "pass's ReLU pattern)",
+        "step_device_idle_share": prof["device_idle_share"],
+        "phase_s": time.perf_counter() - t_phase})
+    emit({"phase": "mag_rgcn_minibatch", **res, **tag})
+    return res
+
+
+def timed_on_both(cases, g, g_cpu, timings, **info):
+    """Each case (a function of the graph) on the card graph and on the
+    CPU graph, timed, the results equal (``same_result``). A first,
+    untimed call on the card pays the one-time host work (the int64
+    index and float64 weight copies, which the two graphs share)."""
+    for name, fn in cases.items():
+        fn(g)
+        _sync(g.device)
+        t0 = time.perf_counter()
+        got = fn(g)
+        _sync(g.device)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = fn(g_cpu)
+        cpu_s = time.perf_counter() - t0
+        same_result(got, want, name)
+        timings[name] = {"card_s": card_s, "cpu_s": cpu_s, **info}
+
+
+def per_seed_cases(seeds, reverse_half: int):
+    """The samplers that pick per seed, each a function of the graph
+    (which holds ``w`` and ``timestamp``)."""
+    import numpy as np
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import sampling as S
+    from dgl_tpu_torch.dataloading import (CappedNeighborSampler,
+                                           FixedShapeNeighborSampler)
+
+    excl = np.concatenate([np.arange(0, reverse_half, 997),
+                           np.arange(reverse_half, 2 * reverse_half, 991)])
+    return {
+        "sample_neighbors prob": lambda g: S.sample_neighbors(
+            g, seeds, 10, prob="w", seed=1),
+        "sample_neighbors replace": lambda g: S.sample_neighbors(
+            g, seeds, 25, replace=True, seed=2),
+        "sample_neighbors exclude_edges": lambda g: S.sample_neighbors(
+            g, seeds, 10, exclude_edges=excl, seed=3),
+        "Graph.sample_neighbors out": lambda g: g.sample_neighbors(
+            seeds, 5, edge_dir="out", seed=4),
+        "sample_neighbors_fixed prob": lambda g: S.sample_neighbors_fixed(
+            g, seeds, 10, prob="w", seed=5),
+        "select_topk": lambda g: S.select_topk(g, 5, "w", nodes=seeds),
+        "sample_neighbors_fused": lambda g: S.sample_neighbors_fused(
+            g, seeds, 10, seed=6),
+        "temporal_sample_neighbors": lambda g: S.temporal_sample_neighbors(
+            g, seeds[:256], 10, seed=7),
+        "sample_labors": lambda g: S.sample_labors(g, seeds, 10,
+                                                   random_seed=8),
+        "sample_labors importance_sampling=2": lambda g: S.sample_labors(
+            g, seeds, 10, importance_sampling=2, random_seed=9),
+        "FixedShapeNeighborSampler prob": lambda g: FixedShapeNeighborSampler(
+            [10, 10], len(seeds), prob="w", seed=10,
+            device=g.device).sample_blocks(g, seeds),
+        "CappedNeighborSampler": lambda g: CappedNeighborSampler(
+            [10, 10], 4096, False, seed=11).sample(g, seeds),
+        "in_subgraph_sample": lambda g: S.in_subgraph_sample(g, seeds[:64]),
+        "random_walk": lambda g: S.random_walk(g, seeds, length=40, seed=12),
+        "random_walk restart_prob": lambda g: S.random_walk(
+            g, seeds[:256], length=20, restart_prob=0.1, seed=13),
+        "node2vec_random_walk": lambda g: S.node2vec_random_walk(
+            g, seeds[:64], 0.5, 2.0, 10, seed=14),
+        "dt.in_subgraph": lambda g: dt.in_subgraph(g, seeds[:64]),
+    }
+
+
+def other_cases(n: int):
+    """The samplers that do not pick per seed, on the arxiv zipf graph."""
+    import numpy as np
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import sampling as S
+    from dgl_tpu_torch.dataloading import (NeighborSampler, SAINTSampler,
+                                           ShaDowKHopSampler, SpotTarget,
+                                           Uniform,
+                                           as_edge_prediction_sampler)
+
+    seeds = np.random.default_rng(15).permutation(n)[:1024]
+    tags = np.random.default_rng(16).integers(0, 4, n)
+
+    def biased(g):
+        return S.sample_neighbors_biased(dt.sort_csc_by_tag(g, tags), seeds,
+                                         10, bias=[0.5, 1.0, 2.0, 0.0],
+                                         seed=17)
+
+    def spot(g):
+        eids = np.arange(0, g.num_edges(), 1009)
+        return as_edge_prediction_sampler(
+            NeighborSampler([5, 5], seed=18),
+            exclude=SpotTarget(g, degree_threshold=20),
+            negative_sampler=Uniform(2, seed=18)).sample(g, eids)
+
+    return {
+        "sample_neighbors_biased": biased,
+        "global_uniform_negative_sampling": lambda g: (
+            S.global_uniform_negative_sampling(g, 100_000, seed=19)),
+        "SAINTSampler node": lambda g: SAINTSampler(
+            "node", 8000, seed=20).sample(g),
+        "SAINTSampler edge": lambda g: SAINTSampler(
+            "edge", 20000, seed=20).sample(g),
+        "SAINTSampler walk": lambda g: SAINTSampler(
+            "walk", (2000, 4), seed=20).sample(g),
+        "ShaDowKHopSampler": lambda g: ShaDowKHopSampler(
+            [10, 5], seed=21).sample(g, seeds[:256]),
+        "SpotTarget edge prediction": spot,
+        "pack_traces": lambda g: S.pack_traces(*S.random_walk(
+            g, seeds, length=10, restart_prob=0.2, seed=22)),
+    }
+
+
+def bipartite_cases(n: int):
+    """PinSAGE and the device sampler on graphs of two node types built
+    from the zipf graph's edges (items -> users)."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import sampling as S
+    from dgl_tpu_torch.sampling.device_sampler import _pick
+
+    seeds = np.random.default_rng(23).permutation(n)[:1024]
+
+    def pinsage(g):
+        return S.PinSAGESampler(g, "item", "user", 3, 0.5, 10, 10,
+                                seed=24)(seeds)
+
+    def device_sampler(g):
+        """One layer of ``DeviceNeighborSampler.sample_from`` over the one
+        edge type from the graph's device generator, and the picks the
+        same draws give through ``_pick`` on the CPU."""
+        one = g.edge_type_subgraph(["liked-by"])
+        gen = torch.Generator(device=one.device).manual_seed(25)
+        state = gen.get_state()
+        ids = torch.from_numpy(seeds[:512]).to(one.device)
+        mfg = S.DeviceNeighborSampler([10]).sample_from(gen, one, ids)
+        gen.set_state(state)
+        u = torch.rand((ids.shape[0], 10), generator=gen,
+                       device=one.device).cpu()
+        rel = one._relation().to("cpu")
+        indptr = rel.csc_indptr.to(torch.int32)
+        start = indptr[ids.cpu()]
+        deg = indptr[ids.cpu() + 1] - start
+        pos, mask = _pick(u, start, deg, 10, "unique")
+        want = rel.csc_indices.to(torch.int32)[pos.clamp(
+            max=rel.csc_indices.shape[0] - 1).long()]
+        if not (torch.equal(mfg.masks[0].cpu(), mask)
+                and torch.equal(mfg.nbrs[0].cpu()[mask], want[mask])):
+            raise RuntimeError("DeviceNeighborSampler.sample_from: the "
+                               "picks differ from _pick's on its draws")
+        # the draws are each device's own: what both must give is the
+        # agreement with _pick above
+        return int(mfg.nbrs[0].shape[0])
+
+    return {"PinSAGESampler": pinsage,
+            "DeviceNeighborSampler.sample_from": device_sampler}
+
+
+def run_host_samplers(pg, tag: dict, device="cuda") -> dict:
+    """Phase host_samplers: every host sampler once with the graph on the
+    card and once with it on the CPU, the results equal; each one's time
+    on each. The per-seed samplers on the products graph (1,024 seeds),
+    the rest on the arxiv zipf graph, PinSAGE and the device sampler on
+    item -> user graphs of the zipf graph's edges; then DeepWalk (dim 128,
+    walks of 40, window 5) steps on the zipf graph, the loss against the
+    CPU."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch.nn import DeepWalk
+
+    t_phase = time.perf_counter()
+    timings = {}
+    g, g_cpu = pg["g"], pg["g_cpu"]
+    rng = np.random.default_rng(26)
+    w = rng.random(g.num_edges()).astype(np.float32)
+    ts = rng.random(g.num_nodes()).astype(np.float32)
+    for graph in (g, g_cpu):
+        graph.edata["w"] = _on(w, graph.device)
+        graph.ndata["timestamp"] = _on(ts, graph.device)
+    del w
+    seeds = np.random.default_rng(27).permutation(PRODUCTS_N)[
+        :SAMPLER_SEEDS]
+    timed_on_both(per_seed_cases(seeds, PRODUCTS_PAIRS), g, g_cpu, timings,
+                  graph="products")
+    for graph in (g, g_cpu):
+        del graph.edata["w"], graph.ndata["timestamp"]
+
+    src, dst = zipf_graph(0)
+    z = dt.graph((src, dst), num_nodes=N_NODES, device=device)
+    z_cpu = z.to("cpu")
+    timed_on_both(other_cases(N_NODES), z, z_cpu, timings, graph="arxiv zipf")
+    counts = {"item": N_NODES, "user": N_NODES}
+    data = {("item", "liked-by", "user"): (src, dst),
+            ("user", "likes", "item"): (dst, src)}
+    b = dt.heterograph(data, counts, device=device)
+    timed_on_both(bipartite_cases(N_NODES), b, b.to("cpu"), timings,
+                  graph="arxiv zipf, item -> user")
+
+    # DeepWalk: the batches are host draws (equal on both sides), the loss
+    # and its SGD steps on each device
+    losses = {}
+    for dev, graph in ((device, z), ("cpu", z_cpu)):
+        model = DeepWalk(N_NODES, emb_dim=128, walk_length=40, window_size=5,
+                         generator=torch.Generator().manual_seed(0),
+                         device=dev)
+        opt = torch.optim.SGD(model.parameters(), lr=0.5)
+        rng = np.random.default_rng(28)
+        t0 = time.perf_counter()
+        out = []
+        for _ in range(DEEPWALK_STEPS):
+            batch = model.sample_batch(
+                graph, rng.integers(0, N_NODES, DEEPWALK_SEEDS), rng)
+            opt.zero_grad(set_to_none=True)
+            loss = model(*batch)
+            loss.backward()
+            opt.step()
+            out.append(loss.detach())
+        _sync(dev)
+        losses[dev] = (torch.stack(out).cpu(), time.perf_counter() - t0,
+                       batch[0].shape[0])
+    err = held_against(losses[device][0], losses["cpu"][0], 1e-4,
+                       "DeepWalk losses card vs CPU")
+    if not torch.isfinite(losses[device][0]).all():
+        raise RuntimeError("DeepWalk: non-finite loss")
+    timings["DeepWalk"] = {
+        "card_s": losses[device][1], "cpu_s": losses["cpu"][1],
+        "steps": DEEPWALK_STEPS, "pairs_last_step": losses[device][2],
+        "losses": losses[device][0].tolist(), "vs_cpu": err,
+        "tolerance": "rtol=1e-4, atol=1e-4*max|ref|"}
+    emit({"phase": "host_samplers", "samplers": timings,
+          "check": "card result equal to the CPU's (ids, graphs, frames); "
+                   "DeepWalk's losses at 1e-4",
+          "phase_s": time.perf_counter() - t_phase, **tag})
+    return timings
+
+
+def run_mag_etype_sampler(g, tag: dict) -> dict:
+    """``sample_etype_neighbors`` over ``to_homogeneous`` of the mag graph
+    (edge ids grouped by type), card against CPU."""
+    import numpy as np
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import sampling as S
+
+    t0 = time.perf_counter()
+    h = dt.to_homogeneous(g)
+    homo_s = time.perf_counter() - t0
+    counts = [g.num_edges(c) for c in g.canonical_etypes]
+    offset = np.concatenate([[0], np.cumsum(counts)])
+    seeds = np.random.default_rng(29).permutation(h.num_nodes())[:4096]
+    cases = {
+        "sample_etype_neighbors": lambda x: S.sample_etype_neighbors(
+            x, seeds, offset, np.array([10, 10, 5, 5]), seed=30),
+        "sample_etype_neighbors keep-all and exclude": lambda x: (
+            S.sample_etype_neighbors(x, seeds[:256], offset,
+                                     np.array([-1, 5, 2, -1]),
+                                     exclude_edges=np.arange(0, offset[-1],
+                                                             97), seed=31)),
+    }
+    timings = {}
+    timed_on_both(cases, h, h.to("cpu"), timings,
+                  graph="to_homogeneous(mag)")
+    emit({"phase": "host_samplers_mag", "samplers": timings,
+          "to_homogeneous_s": homo_s, **tag})
+    return timings
+
+
 def run() -> dict:
     import torch
 
@@ -6234,6 +7105,19 @@ def run() -> dict:
     run_sage_minibatch(data, tag)
     run_sage_end_to_end(data, tag)
     del data
+    t0 = time.perf_counter()
+    pg = products_graph()
+    emit({"phase": "products_graph", "nodes": PRODUCTS_N,
+          "edges": pg["g"].num_edges(),
+          **{k: pg[k] for k in ("data_s", "graph_s", "cpu_copy_s",
+                                "setup_s")}, **tag})
+    run_products_sage(pg, tag)
+    run_products_link(pg, tag)
+    run_host_samplers(pg, tag)
+    del pg
+    torch.cuda.empty_cache()
+    emit({"phase": "samplers_total", "seconds": time.perf_counter() - t0,
+          **tag})
     kernels.append(run_mag(rate, tag))
     run_rgcn_homogeneous(tag)
     run_hgt(tag)

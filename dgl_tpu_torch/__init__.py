@@ -35,7 +35,12 @@ constructors (``from_scipy``, ``rand_graph``, ...), structural transforms
 ``batch`` and the readouts; the rest of the graph utilities (positional
 encodings, kNN and radius graphs, shortest paths, diffusions, tag sorts,
 the module transforms), ``traversal`` and ``propagate``, ``geometry``,
-``nn.factory``, ``nn.glob``, ``models.GIN`` and ``models.Graphormer``.
+``nn.factory``, ``nn.glob``, ``models.GIN`` and ``models.Graphormer``;
+the host samplers (``sampling``: neighbour, LABOR, random walks, negative
+pairs, PinSAGE) and the rest of ``dataloading`` (the ragged and
+heterogeneous samplers, edge prediction, the subgraph samplers, the
+collators and the prefetching ``DataLoader``), and ``nn.DeepWalk`` and
+``nn.MetaPath2Vec``.
 """
 from . import (dataloading, function, geometry, models, nn, ops, propagate,
                readout, sampling, sparse, transforms, traversal)

@@ -70,20 +70,153 @@ def library() -> ctypes.CDLL:
                 i64p, i64p, i64p, i64p, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_int, ctypes.c_uint64, i64p, i64p, i64p, i64p, u8p]
             lib.build_padded_block.restype = None
+            f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+            u64 = ctypes.c_uint64
+            lib.sample_neighbors_fixed.argtypes = [
+                i64p, i64p, i64p, i64p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int, u64, i64p, i64p, u8p]
+            lib.sample_neighbors_prob.argtypes = [
+                i64p, i64p, i64p, f64p, i64p, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int, u64, i64p, i64p, u8p]
+            lib.select_topk_rows.argtypes = [
+                i64p, i64p, i64p, f64p, i64p, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int, i64p, i64p, u8p]
+            lib.unique_and_compact.argtypes = [i64p, ctypes.c_int64, i64p,
+                                               i64p]
+            lib.unique_and_compact.restype = ctypes.c_int64
+            lib.random_walk_uniform.argtypes = [
+                i64p, i64p, i64p, ctypes.c_int64, ctypes.c_int64, u64, i64p]
+            lib.sample_neighbors_etype.argtypes = [
+                i64p, i64p, i64p, i64p, ctypes.c_int64, i64p, i64p,
+                ctypes.c_int64, ctypes.c_int, u64, i64p, i64p, u8p]
+            for name in ("sample_neighbors_fixed", "sample_neighbors_prob",
+                         "select_topk_rows", "random_walk_uniform",
+                         "sample_neighbors_etype"):
+                getattr(lib, name).restype = None
             _lib = lib
         return _lib
 
 
-def csc_int64(rel):
-    """The relation's host CSC (``indptr``, ``indices``, ``eids``) as
-    contiguous int64, converted once and kept with the relation's other
-    host copies."""
-    key = "_csc_int64"
-    if key not in rel._host:
-        rel._host[key] = tuple(
-            np.ascontiguousarray(a, np.int64) for a in rel.host_arrays(
-                "csc_indptr", "csc_indices", "csc_eids"))
-    return rel._host[key]
+def int64_arrays(rel, *fields):
+    """The relation's host index arrays ``fields`` as contiguous int64,
+    each converted once and kept with the relation's other host copies
+    (at 10^8 edges a conversion a call would cost more than the pick)."""
+    out = []
+    for f in fields:
+        key = ("int64", f)
+        if key not in rel._host:
+            rel._host[key] = np.ascontiguousarray(rel.host_arrays(f)[0],
+                                                  np.int64)
+        out.append(rel._host[key])
+    return tuple(out)
+
+
+def _i64(a):
+    return np.ascontiguousarray(a, np.int64)
+
+
+def _check_seeds(seeds, indptr, padding: bool = False):
+    """Seed ids must be rows of the CSR (or -1, a padding slot, where
+    ``padding``): the C++ reads ``indptr`` at them unchecked."""
+    lo = -1 if padding else 0
+    if seeds.size and (seeds.min() < lo or seeds.max() >= indptr.shape[0] - 1):
+        raise ValueError(f"seed ids out of range [{lo}, "
+                         f"{indptr.shape[0] - 1}): [{int(seeds.min())}, "
+                         f"{int(seeds.max())}]")
+
+
+def _rowwise(fn, seeds, width):
+    """Call a row-wise pick that fills (num_seeds, width) neighbours, edge
+    ids and a mask; returns them, the mask as bool."""
+    n = seeds.shape[0]
+    nbr = np.empty((n, width), np.int64)
+    eid = np.empty((n, width), np.int64)
+    mask = np.empty((n, width), np.uint8)
+    fn(nbr.reshape(-1), eid.reshape(-1), mask.reshape(-1))
+    return nbr, eid, mask.astype(bool)
+
+
+def sample_neighbors_fixed(indptr, indices, eids, seeds, fanout: int,
+                           replace: bool, seed: int):
+    """Up to ``fanout`` uniform picks a seed row (``host_ops.cpp``'s
+    ``sample_neighbors_fixed``): (num_seeds, fanout) neighbours, edge ids
+    and mask. A row of degree at most ``fanout`` (without ``replace``)
+    takes all its edges in order; the draws of row ``s`` are a function of
+    ``(seed, s)`` alone."""
+    lib = library()
+    indptr, indices, eids, seeds = map(_i64, (indptr, indices, eids, seeds))
+    _check_seeds(seeds, indptr)
+    fanout = int(fanout)
+    return _rowwise(lambda nbr, eid, mask: lib.sample_neighbors_fixed(
+        indptr, indices, eids, seeds, seeds.shape[0], fanout, int(replace),
+        np.uint64(seed).item(), nbr, eid, mask), seeds, fanout)
+
+
+def sample_neighbors_prob(indptr, indices, eids, prob, seeds, fanout: int,
+                          replace: bool, seed: int):
+    """The weighted row-wise pick (``sample_neighbors_prob``): only edges
+    of positive ``prob`` (indexed by edge id) are candidates."""
+    lib = library()
+    indptr, indices, eids, seeds = map(_i64, (indptr, indices, eids, seeds))
+    prob = np.ascontiguousarray(prob, np.float64)
+    _check_seeds(seeds, indptr)
+    fanout = int(fanout)
+    return _rowwise(lambda nbr, eid, mask: lib.sample_neighbors_prob(
+        indptr, indices, eids, prob, seeds, seeds.shape[0], fanout,
+        int(replace), np.uint64(seed).item(), nbr, eid, mask), seeds, fanout)
+
+
+def select_topk_rows(indptr, indices, eids, weight, seeds, k: int,
+                     descending: bool):
+    """Each seed row's ``k`` edges of largest (``descending``) or smallest
+    ``weight`` (indexed by edge id), ``select_topk_rows``."""
+    lib = library()
+    indptr, indices, eids, seeds = map(_i64, (indptr, indices, eids, seeds))
+    weight = np.ascontiguousarray(weight, np.float64)
+    _check_seeds(seeds, indptr)
+    k = int(k)
+    return _rowwise(lambda nbr, eid, mask: lib.select_topk_rows(
+        indptr, indices, eids, weight, seeds, seeds.shape[0], k,
+        int(descending), nbr, eid, mask), seeds, k)
+
+
+def unique_and_compact(ids):
+    """The distinct ids in order of first occurrence and each id's index
+    among them (``unique_and_compact``'s hash map)."""
+    lib = library()
+    ids = _i64(ids)
+    uniq = np.empty_like(ids)
+    relabel = np.empty_like(ids)
+    k = lib.unique_and_compact(ids, ids.shape[0], uniq, relabel)
+    return uniq[:k], relabel
+
+
+def random_walk_uniform(indptr, indices, seeds, length: int, seed: int):
+    """(num_seeds, length + 1) uniform walks over a CSR, -1 after a walk
+    stops at a node without out-edges (``random_walk_uniform``)."""
+    lib = library()
+    indptr, indices, seeds = map(_i64, (indptr, indices, seeds))
+    _check_seeds(seeds, indptr)
+    traces = np.empty((seeds.shape[0], int(length) + 1), np.int64)
+    lib.random_walk_uniform(indptr, indices, seeds, seeds.shape[0],
+                            int(length), np.uint64(seed).item(),
+                            traces.reshape(-1))
+    return traces
+
+
+def sample_neighbors_etype(indptr, indices, eids, type_per_edge, fanouts,
+                           seeds, replace: bool, seed: int):
+    """Per-edge-type picks (``sample_neighbors_etype``): (num_seeds,
+    sum(fanouts)) neighbours, edge ids and mask, type ``t``'s picks in
+    slots ``[offs[t], offs[t] + fanouts[t])``; a seed of -1 gets none."""
+    lib = library()
+    indptr, indices, eids, type_per_edge, fanouts, seeds = map(
+        _i64, (indptr, indices, eids, type_per_edge, fanouts, seeds))
+    _check_seeds(seeds, indptr, padding=True)
+    return _rowwise(lambda nbr, eid, mask: lib.sample_neighbors_etype(
+        indptr, indices, eids, type_per_edge, fanouts.shape[0], fanouts,
+        seeds, seeds.shape[0], int(replace), np.uint64(seed).item(), nbr,
+        eid, mask), seeds, int(fanouts.sum()))
 
 
 def build_padded_block(indptr, indices, eids, seed_ids, fanout: int,
@@ -95,9 +228,7 @@ def build_padded_block(indptr, indices, eids, seed_ids, fanout: int,
     sources, destinations, edge ids and mask."""
     lib = library()  # its argtypes refuse arrays not contiguous int64
     seed_ids = np.ascontiguousarray(seed_ids, np.int64)
-    if seed_ids.size and seed_ids.max() >= indptr.shape[0] - 1:
-        raise ValueError(f"seed id {int(seed_ids.max())} out of range "
-                         f"[0, {indptr.shape[0] - 1})")
+    _check_seeds(seed_ids, indptr, padding=True)
     cap_dst = seed_ids.shape[0]
     cap_src = cap_dst * (1 + fanout)
     e_cap = cap_dst * fanout

@@ -115,7 +115,7 @@ class Relation:
 
         ``num_edges`` < len(src) marks the tail as padding (padded edges
         must already point at the virtual rows ``num_src``/``num_dst``).
-        The sorts are stable numpy argsorts: ties keep edge-id order.
+        The sorts are stable: ties keep edge-id order.
         """
         src = _asnumpy(src)
         dst = _asnumpy(dst)
@@ -140,8 +140,10 @@ class Relation:
                     f"min={real_dst.min()}, max={real_dst.max()}")
 
         def build_index(major, nrows):
-            # +1: the padding row; padded edges sort to the end
-            order = np.argsort(major, kind="stable").astype(np_id)
+            # +1: the padding row; padded edges sort to the end. torch's
+            # stable sort gives numpy's stable argsort, on several threads
+            order = torch.sort(torch.from_numpy(major), stable=True)[
+                1].numpy().astype(np_id)
             counts = np.bincount(major, minlength=nrows + 1)
             indptr = np.concatenate(([0], np.cumsum(counts)))
             return indptr[: nrows + 1].astype(np_id), order, major[order]
@@ -1278,15 +1280,16 @@ class Graph:
                 f"num_edges={self.num_edges()}, device={self.device})")
 
 
-def _delegate_transform(name):
+def _delegate_transform(name, module="transforms.functional"):
     def method(self, *args, **kwargs):
-        from .transforms import functional
+        import importlib
 
-        return getattr(functional, name)(self, *args, **kwargs)
+        mod = importlib.import_module(f".{module}", package=__package__)
+        return getattr(mod, name)(self, *args, **kwargs)
 
     method.__name__ = name
-    method.__doc__ = (f"Method form of ``transforms.functional.{name}`` "
-                      "(reference ``heterograph.py``).")
+    method.__doc__ = (f"Method form of ``{module}.{name}`` (reference "
+                      "``heterograph.py``).")
     return method
 
 
@@ -1294,6 +1297,10 @@ for _name in ("add_edges", "remove_edges", "add_nodes", "remove_nodes",
               "line_graph", "to_simple", "add_self_loop",
               "remove_self_loop", "khop_graph"):
     setattr(Graph, _name, _delegate_transform(_name))
+Graph.sample_neighbors = _delegate_transform("sample_neighbors",
+                                             "sampling.neighbor")
+Graph.global_uniform_negative_sampling = _delegate_transform(
+    "global_uniform_negative_sampling", "sampling.negative")
 
 
 def ragged_gather(indptr, eids, seeds):
@@ -1312,14 +1319,18 @@ def ragged_gather(indptr, eids, seeds):
 
 
 def unique_first_occurrence(cat: np.ndarray):
-    """The distinct values of ``cat`` in order of first occurrence, and
-    each element's index among them."""
-    uniq_sorted, first_idx, inv_sorted = np.unique(
-        cat, return_index=True, return_inverse=True)
-    order = np.argsort(first_idx)
-    rank = np.empty_like(order)
-    rank[order] = np.arange(order.shape[0])
-    return uniq_sorted[order], rank[inv_sorted.reshape(-1)]
+    """The distinct values of the int64 ids ``cat`` in order of first
+    occurrence, and each element's index among them (host arrays). Sorts
+    and scatters with torch on the host: several threads, where
+    ``np.unique`` takes one."""
+    ids = torch.from_numpy(np.ascontiguousarray(cat, np.int64).reshape(-1))
+    uniq, inv = torch.unique(ids, return_inverse=True)
+    first = torch.full(uniq.shape, ids.shape[0], dtype=torch.int64)
+    first.scatter_reduce_(0, inv, torch.arange(ids.shape[0]), reduce="amin")
+    order = torch.sort(first)[1]  # first occurrences are distinct
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.shape[0])
+    return uniq[order].numpy(), rank[inv].numpy()
 
 
 def with_dense_plans(r: Relation, dense_attn: bool | str = "auto",

@@ -19,6 +19,7 @@ from .conv.twirlsconv import (AX, MLP, Attention, D_power_bias_X,  # noqa: F401
 from .gt import *  # noqa: F401,F403
 from .hetero import HeteroGraphConv  # noqa: F401
 from .link import EdgePredictor, TransE, TransR  # noqa: F401
+from .network_emb import DeepWalk, MetaPath2Vec  # noqa: F401
 from .linear import (HeteroEmbedding, HeteroLinear, TypedLinear,  # noqa: F401
                      bmm_maybe_select, matmul_maybe_select)
 from .sparse_emb import (NodeEmbedding, sparse_adagrad_init,  # noqa: F401

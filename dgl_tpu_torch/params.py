@@ -45,7 +45,8 @@ def from_flax_params(params: Mapping[str, Any],
     ``h_bias``, whose port modules keep the reference's shapes.
 
     An ``Embed.embedding`` becomes ``nn.Embedding.weight`` (both (num,
-    dim)); a ``GRUCell`` (children ``ir``, ``iz``, ``in``, ``hr``, ``hz``,
+    dim)), so DeepWalk's and MetaPath2Vec's ``node_embed`` and
+    ``context_embed`` tables land on theirs; a ``GRUCell`` (children ``ir``, ``iz``, ``in``, ``hr``, ``hz``,
     ``hn``) becomes ``torch.nn.GRUCell``'s ``weight_ih``/``weight_hh``
     (the gates stacked r, z, n) and ``bias_ih``/``bias_hh`` (flax has no
     ``hr`` and ``hz`` bias: those parts are 0). An

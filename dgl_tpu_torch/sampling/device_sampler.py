@@ -148,11 +148,9 @@ class DeviceNeighborSampler:
 
     def sample_from(self, gen: torch.Generator, g, seeds,
                     **kw) -> DeviceMFG:
-        """:meth:`sample` over a graph's relation (its CSC as int32)."""
-        if not g.is_homogeneous:
-            raise NotImplementedError(
-                "heterogeneous sampling (several node or edge types): "
-                "ROADMAP queue A9")
+        """:meth:`sample` over a graph's one relation (its CSC as int32),
+        which may join two node types; a graph of several edge types
+        raises ``DGLError``, as the reference does."""
         rel = g._relation(None)
         return self.sample(gen, rel.csc_indptr.to(torch.int32),
                            rel.csc_indices.to(torch.int32), seeds, **kw)

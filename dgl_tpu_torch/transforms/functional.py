@@ -380,8 +380,6 @@ def to_block(g: Graph, dst_nodes=None, include_dst_in_src: bool = True,
     first in the source space (``include_dst_in_src``), then the other
     sources in first-occurrence order; ``NID``/``EID`` and the frames
     carried over."""
-    from .. import convert
-
     if dst_nodes is None:
         dst_nodes = {}
         for cet in g.canonical_etypes:
@@ -392,21 +390,40 @@ def to_block(g: Graph, dst_nodes=None, include_dst_in_src: bool = True,
         dst_nodes = {g.ntypes[0]: _asnumpy(dst_nodes)}
     dst_nodes = {nt: _asnumpy(v).astype(np.int64) for nt, v in dst_nodes.items()}
     empty = np.zeros(0, np.int64)
-
-    # destination positions by a stable search against the seed order
     kept = {}
     for cet in g.canonical_etypes:
         s, d = g._relations[cet].host_edges()
-        dst_arr = dst_nodes.get(cet[2], empty)
-        order = np.argsort(dst_arr, kind="stable")
-        sorted_d = dst_arr[order]
-        pos = np.searchsorted(sorted_d, d)
-        safe = np.minimum(pos, max(sorted_d.shape[0] - 1, 0))
-        keep = ((sorted_d[safe] == d) if sorted_d.size
-                else np.zeros(d.shape, bool))
-        new_d = order[pos[keep]] if sorted_d.size else empty
-        kept[cet] = (s[keep], new_d, np.nonzero(keep)[0])
+        new_d = dst_slots(d, dst_nodes.get(cet[2], empty),
+                          g.num_nodes(cet[2]))
+        keep = np.nonzero(new_d >= 0)[0]
+        kept[cet] = (s[keep], new_d[keep], keep)
+    return block_from_edges(g, dst_nodes, kept, include_dst_in_src)
 
+
+def dst_slots(d: np.ndarray, dst_arr: np.ndarray, num_dst: int) -> np.ndarray:
+    """Each edge's destination's position in ``dst_arr`` (its first
+    occurrence there), or -1 where ``dst_arr`` lacks it: a dense lookup
+    over the ``num_dst`` node ids."""
+    uniq, first = np.unique(dst_arr, return_index=True)
+    ok = (uniq >= 0) & (uniq < num_dst)
+    slot = np.full(num_dst, -1, np.int64)
+    slot[uniq[ok]] = first[ok]
+    return slot[d]
+
+
+def block_from_edges(g: Graph, dst_nodes: Mapping, kept: Mapping,
+                     include_dst_in_src: bool = True,
+                     own_eids: bool = False) -> Graph:
+    """The block of ``to_block`` from its edges: ``kept[cet]`` holds a
+    canonical edge type's (source node ids of ``g``, destination positions
+    in ``dst_nodes[cet[2]]``, edge ids of ``g``). The destination nodes
+    come first in the source space (``include_dst_in_src``), then the
+    other sources in first-occurrence order; ``NID``/``EID`` and ``g``'s
+    frames carried over. With ``own_eids`` the block's ``EID`` is the
+    given edge ids even where ``g`` has an ``EID`` frame."""
+    from .. import convert
+
+    empty = np.zeros(0, np.int64)
     # source slots: one first-occurrence unique a node type over the
     # destination prefix and the kept sources in edge-type order
     src_ids_of, seg_of = {}, {}
@@ -447,7 +464,8 @@ def to_block(g: Graph, dst_nodes=None, include_dst_in_src: bool = True,
         ef = block._edge_frames.setdefault(cet, {})
         ef[EID] = eids
         for k, v in g._edge_frames.get(cet, {}).items():
-            ef[k] = v[eids]
+            if not (own_eids and k == EID):
+                ef[k] = v[eids]
     return block
 
 

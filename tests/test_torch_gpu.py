@@ -1419,3 +1419,109 @@ def test_knn_graph_on_card_matches_cpu(card):
     seg = dt.segmented_knn_graph(x.to(card), 7, [300, 600])
     assert torch.equal(seg.edges()[1].cpu(), dt.segmented_knn_graph(
         x, 7, [300, 600]).edges()[1])
+
+
+def _sampler_graph(card, n=3000, e=30000, seed=11):
+    """A zipf graph on the card with features, labels and edge weights."""
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, n + 1)
+    g = dt.graph((rng.choice(n, e, p=w / w.sum()), rng.integers(0, n, e)),
+                 num_nodes=n, device=card)
+    g.ndata["feat"] = torch.from_numpy(rng.normal(size=(n, 8)).astype(
+        np.float32)).to(card)
+    g.ndata["label"] = torch.from_numpy(rng.integers(0, 4, n)).to(card)
+    g.edata["w"] = torch.from_numpy(rng.random(e).astype(np.float32)).to(
+        card)
+    return g
+
+
+@pytest.mark.parametrize("name", ["neighbor", "labor", "fixed_prob",
+                                  "edge_prediction", "hetero_fixed"])
+def test_sampler_on_card_matches_cpu(card, name):
+    """The host samplers pick the same edges for a graph on the card as
+    for its copy on the CPU; the card's blocks lie on the card."""
+    import chip_smoke as cs
+    from dgl_tpu_torch import dataloading as dl
+
+    g = _sampler_graph(card)
+    seeds = np.random.default_rng(3).permutation(3000)[:128]
+    makers = {
+        "neighbor": lambda dev: dl.NeighborSampler([5, 5], prob="w",
+                                                   seed=1),
+        "labor": lambda dev: dl.LaborSampler([5, 5], importance_sampling=1,
+                                             seed=1),
+        "fixed_prob": lambda dev: dl.FixedShapeNeighborSampler(
+            [4, 4], 128, prob="w", seed=1, device=dev),
+        "edge_prediction": lambda dev: dl.as_edge_prediction_sampler(
+            dl.NeighborSampler([4, 4], seed=1), exclude="self",
+            negative_sampler=dl.Uniform(2, seed=1)),
+    }
+    if name == "hetero_fixed":
+        src, dst = g.edges()
+        hg = dt.heterograph({("a", "to", "b"): (src.cpu(), dst.cpu()),
+                             ("b", "back", "a"): (dst.cpu(), src.cpu())},
+                            {"a": 3000, "b": 3000}, device=card)
+        fan = [{"to": 3, "back": 2}, {"to": 4, "back": 0}]
+        got = dl.HeteroFixedShapeNeighborSampler(
+            hg, fan, 128, seed_ntype="b", seed=1, device=card).sample_blocks(
+                hg, seeds)
+        want = dl.HeteroFixedShapeNeighborSampler(
+            hg, fan, 128, seed_ntype="b", seed=1, device="cpu").sample_blocks(
+                hg.to("cpu"), seeds)
+    else:
+        got = makers[name](card).sample(g, seeds)
+        want = makers[name]("cpu").sample(g.to("cpu"), seeds)
+    cs.same_result(got, want, name)
+    assert got[-1][0].device.type == "cuda"
+
+
+def test_dataloader_prefetch_thread_on_card(card):
+    """The batches the prefetch thread moves to the card equal the ones
+    sampled inline, and a training step over them runs."""
+    import chip_smoke as cs
+    from dgl_tpu_torch import dataloading as dl
+
+    g = _sampler_graph(card)
+    ids = torch.arange(0, 3000, 2)
+
+    def loader(thread):
+        return dl.DataLoader(g, ids, dl.NeighborSampler([4, 4], seed=2),
+                             batch_size=256, shuffle=True, seed=3,
+                             use_prefetch_thread=thread, device=card)
+
+    threaded, inline = list(loader(True)), list(loader(False))
+    assert len(threaded) == len(inline) == 6
+    cs.same_result(threaded, inline, "thread vs inline")
+    model = GraphSAGE(8, 16, 4, num_layers=2, dropout=0.0,
+                      generator=torch.Generator().manual_seed(0),
+                      device=card)
+    _kernels.reset_launch_counts()
+    for _, _, blocks in threaded:
+        logits = model(blocks, blocks[0].srcdata["feat"])
+        torch.nn.functional.cross_entropy(
+            logits, blocks[-1].dstdata["label"]).backward()
+    torch.cuda.synchronize()
+    assert not any(_kernels.launch_counts.values())
+
+
+def test_deepwalk_step_on_card_matches_cpu(card):
+    """One DeepWalk batch (host draws, equal on both sides) and one SGD
+    step: the loss and both tables' gradients against the CPU at
+    rtol = 1e-5, atol = 1e-5 * max|ref|."""
+    import chip_smoke as cs
+    from dgl_tpu_torch.nn import DeepWalk
+
+    g = _sampler_graph(card, n=500, e=4000)
+    out = {}
+    for dev, graph in ((card, g), ("cpu", g.to("cpu"))):
+        model = DeepWalk(500, emb_dim=16, walk_length=10, window_size=3,
+                         generator=torch.Generator().manual_seed(0),
+                         device=dev)
+        batch = model.sample_batch(graph, np.arange(0, 500, 5),
+                                   np.random.default_rng(4))
+        loss = model(*batch)
+        loss.backward()
+        out[str(dev)] = (batch, {"loss": loss.detach(), **{
+            k: p.grad for k, p in model.named_parameters()}})
+    cs.same_result(out[str(card)][0], out["cpu"][0], "DeepWalk batch")
+    cs.held(out[str(card)][1], out["cpu"][1], 1e-5, "DeepWalk step")

@@ -480,13 +480,14 @@ def test_heterographconv_matches(mag, aggregate):
 
 
 def test_heterogeneous_sampling_raises(mag):
-    """The samplers take one relation; heterogeneous sampling is a later
-    slice and says so (ROADMAP queue A9)."""
+    """The homogeneous samplers take one relation: on a graph of several
+    edge types they raise ``DGLError`` resolving it, as the reference
+    does (``HeteroFixedShapeNeighborSampler`` samples such graphs)."""
     _, tg = mag
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(dt.DGLError, match="multiple edge types"):
         dt.dataloading.FixedShapeNeighborSampler([2], 4).sample_blocks(
             tg, np.array([0, 1]))
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(dt.DGLError, match="multiple edge types"):
         dt.sampling.DeviceNeighborSampler([2]).sample_from(
             torch.Generator(), tg, torch.tensor([0, 1]))
 

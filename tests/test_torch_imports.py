@@ -144,6 +144,25 @@ _CALLS = {
                              "{})",
     "GIN": "dt.models.GIN(4, 8, 2{})",
     "Graphormer": "dt.models.Graphormer(4, 8, 2, num_heads=2{})",
+    "DataLoader": "list(dt.dataloading.DataLoader(dt.graph((np.array([0, 1]),"
+                  " np.array([1, 2])), num_nodes=3, device='cpu'), "
+                  "np.array([1, 2]), dt.dataloading.NeighborSampler([1]), "
+                  "use_prefetch_thread=False{}))",
+    "DataLoader prefetch thread": (
+        "list(dt.dataloading.DataLoader(dt.graph((np.array([0, 1]), "
+        "np.array([1, 2])), num_nodes=3, device='cpu'), np.array([1, 2]), "
+        "dt.dataloading.NeighborSampler([1]){}))"),
+    "GraphDataLoader": "list(dt.dataloading.GraphDataLoader([dt.graph(("
+                       "np.array([0]), np.array([1])), num_nodes=2, "
+                       "device='cpu')]{}))",
+    "GraphCollator": "dt.dataloading.GraphCollator(*[]{}).collate([1, 2])",
+    "HeteroFixedShapeNeighborSampler": (
+        "(lambda hg: dt.dataloading.HeteroFixedShapeNeighborSampler(hg, "
+        "[{{('u', 'e', 'v'): 1}}], 2, seed_ntype='v'{}).sample_blocks(hg, "
+        "np.array([0])))(dt.heterograph({{('u', 'e', 'v'): (np.array([0, 1]),"
+        " np.array([0, 1]))}}, device='cpu'))"),
+    "DeepWalk": "dt.nn.DeepWalk(5, 4{})",
+    "MetaPath2Vec": "dt.nn.MetaPath2Vec(5, 4{})",
 }
 
 _PROBE = """
@@ -191,6 +210,18 @@ SLICE_MODULES = ("transforms.functional", "transforms.module", "traversal",
                  "models.gin", "models.graphormer")
 
 
+# the modules of the samplers-and-dataloading slice
+SLICE_MODULES += ("_host", "sampling.neighbor", "sampling.labor",
+                  "sampling.negative", "sampling.randomwalks",
+                  "sampling.pinsage", "sampling.utils", "dataloading.base",
+                  "dataloading.neighbor_sampler",
+                  "dataloading.negative_sampler", "dataloading.collators",
+                  "dataloading.dataloader", "dataloading.graph_loader",
+                  "dataloading.subgraph_samplers", "dataloading.capped",
+                  "dataloading.spot_target", "dataloading.worker_utils",
+                  "dataloading.hetero_sampler", "nn.network_emb")
+
+
 @pytest.mark.parametrize("name", SLICE_MODULES)
 def test_slice_module_is_scanned_and_exports_its_names(name):
     import importlib
@@ -218,3 +249,22 @@ def test_reorder_orders():
         dt.reorder_graph(g, "metis")
     with pytest.raises(NotImplementedError, match="A11"):
         dt.metis_perm(g, 2)
+
+
+def test_cluster_gcn_sampler_needs_the_partitioner():
+    """Cluster-GCN's partition is the multilevel partitioner's, ROADMAP
+    queue A11; no sampler raises naming A9 any more."""
+    import numpy as np
+
+    import dgl_tpu_torch as dt
+
+    g = dt.graph((np.array([0, 1]), np.array([1, 2])), num_nodes=3,
+                 device="cpu")
+    with pytest.raises(NotImplementedError, match="A11"):
+        dt.dataloading.ClusterGCNSampler(g, 2)
+    for dirpath, _dirs, names in os.walk(os.path.join(ROOT,
+                                                      "dgl_tpu_torch")):
+        for n in names:
+            if n.endswith(".py"):
+                with open(os.path.join(dirpath, n), encoding="utf-8") as f:
+                    assert "queue A9" not in f.read(), n

@@ -43,6 +43,8 @@ from dgl_tpu_torch.dataloading import FixedShapeNeighborSampler
 from dgl_tpu_torch.models import GraphSAGE
 from dgl_tpu_torch.nn import GATConv
 
+from test_torch_sampling import reference_native
+
 N, E, BATCH, FANOUTS = 2000, 12_000, 64, [3, 5]
 
 
@@ -115,13 +117,34 @@ def _assert_blocks_equal(jres, tres):
                                       jframe["_mask"])
 
 
-@pytest.mark.parametrize("case", ["plain", "replace", "exclude"])
-def test_blocks_match_reference(graphs, case):
+@pytest.fixture(scope="module")
+def weighted_graphs():
+    """The zipf graph with edge weights ``w``, a fifth of them 0."""
+    src, dst = _zipf()
+    jg = dgl_tpu.graph((src, dst), num_nodes=N)
+    tg = dt.graph((src, dst), num_nodes=N, device="cpu")
+    rng = np.random.default_rng(9)
+    w = rng.random(E).astype(np.float32)
+    w[rng.random(E) < 0.2] = 0.0
+    jg.edata["w"], tg.edata["w"] = jnp.asarray(w), torch.from_numpy(w)
+    return jg, tg
+
+
+@pytest.mark.parametrize("case", ["plain", "replace", "exclude", "prob",
+                                  "prob_replace"])
+def test_blocks_match_reference(graphs, weighted_graphs, case):
     """Two successive batches (the generator advances between them),
-    without and with replacement, and with excluded edges rerouted to the
-    sink."""
-    jg, tg = graphs
-    js, ts = _both_samplers(replace=case == "replace")
+    without and with replacement, with excluded edges rerouted to the
+    sink, and weighted by an edge feature (``sample_neighbors_prob``'s
+    picks, relabelled as the reference's loop does)."""
+    reference_native()
+    kw = dict(replace=case.endswith("replace"))
+    if case.startswith("prob"):
+        jg, tg = weighted_graphs
+        kw["prob"] = "w"
+    else:
+        jg, tg = graphs
+    js, ts = _both_samplers(**kw)
     exclude = None
     if case == "exclude":
         exclude = np.random.default_rng(3).choice(E, E // 4, replace=False)
@@ -159,7 +182,9 @@ def test_sampler_refuses(graphs):
     with pytest.raises(DGLError, match="batch_size"):
         FixedShapeNeighborSampler([2], 4, device="cpu").sample_blocks(
             tg, np.arange(5))
-    with pytest.raises(NotImplementedError, match="A9"):
+    # a weight the graph does not hold (the reference draws uniformly in
+    # numpy then, which the port does not reproduce)
+    with pytest.raises(DGLError, match="'w' not found"):
         FixedShapeNeighborSampler([2], 4, prob="w", device="cpu"
                                   ).sample_blocks(tg, np.arange(3))
     with pytest.raises(ValueError, match="out of range"):
