@@ -227,6 +227,18 @@ levels and residuals printed, ``plans_s``):
      of 169,343 x 128 with one sparse Adam and one sparse Adagrad update
      over ids with repeats, the card against the CPU
      (``run_link_sparse``);
+18h. ``explain_gcn`` (after the conv zoo, on the same graphs): GNNExplainer
+     over the weighted GCN 128-256-256-40 (eval; ``explain_gcn_fn``:
+     ``EdgeWeightNorm("both")`` of the explainer's edge mask, then the
+     layers): the first epoch's loss and mask gradients on the weighted
+     plan against the graph without plans at rtol = 2e-2,
+     atol = 2e-2 * max|ref| (on the plan pass's ReLU pattern); then
+     ``explain_graph`` at 100 epochs with the launch counts read around
+     it (B1w 7 an epoch: 4 forward, 3 backward, and 4 for the target
+     pass), masks in [0, 1], timed; ``explain_node`` on the node with the
+     most in-edges (3 hops; the subgraph carries no plan, no launch) of the graph
+     without plans against its CPU copy at rtol = 1e-4,
+     atol = 1e-4 * max|ref|;
 
 the minibatch GraphSAGE paths (no hand kernel), on the zipf graph with
 ``bench.py``'s ogbn-products widths (100-wide f32 features, labels in
@@ -322,6 +334,12 @@ over 4 relations, 128-wide features, 349 classes; the recipe of
      per-type slot caps; then
      ``sample_etype_neighbors`` over ``to_homogeneous`` of the graph,
      card against CPU;
+21b. ``explain_rgcn``: HeteroGNNExplainer on the same R-GCN (eval, each
+     relation's edge mask through ``mod_kwargs`` as its GraphConv's
+     ``edge_weight``), ``explain_node("paper", ...)`` on the most cited
+     paper with ``num_hops=2`` and 100 epochs (no launch), against the
+     same explainer on the graph's CPU copy at rtol = 1e-4,
+     atol = 1e-4 * max|ref|;
 22. ``multi_update_all`` (copy_u, sum; cross reducer sum) over the four
     relations (4 B1 launches) and a ``pull`` over ``writes`` (1), held
     against the plain branch at rtol = 2e-2, atol = 2e-2 * max|ref|;
@@ -411,7 +429,40 @@ the rest of the graph utilities (B1 under SIGN, B1w under GDC):
     256 molhiv-sized graphs and the Child-Sum Tree-LSTM of
     ``examples/tree_lstm.py`` over ``prop_nodes_topo`` on 256 random
     trees: each card result against the CPU's (exact, device values at
-    1e-5), timed.
+    1e-5), timed;
+
+the multilevel partitioner and the explainers (no hand kernel: every count
+must stay 0):
+
+34. ``cluster_gcn``: DGL's Cluster-GCN recipe
+    (``examples/pytorch/cluster_gcn/cluster_gcn.py``) on the arxiv zipf
+    graph with 128-wide features, 40 classes and a 60 % training mask:
+    ``ClusterGCNSampler`` (70 parts, products' part size; the assignment
+    equal to the one of the graph's CPU copy, both timed, the edge cut
+    and part sizes printed), the ``DataLoader`` over the part ids (7 a
+    batch, products' tenth of the graph; the first batches equal to the
+    CPU's and the prefetch thread's to the inline ones), GraphSAGE
+    128-256-256-40 (mean, dropout 0.5), Adam at 1e-3 with weight decay
+    5e-4; the first step against the CPU at rtol = 1e-4, one epoch of
+    10 batches with the launch counts read around it (``step_ms``, the
+    card's part), ``sample_ms`` (a batch sampled inline), another epoch
+    from a fresh loader (``epoch_s``, ``ms_per_step``: its thread starts
+    with the epoch), peak memory and the idle share of two profiled
+    steps;
+35. ``partition_utilities``: ``metis_partition_assignment``,
+    ``partition_graph`` with ``load_partition``, ``load_assignment`` and
+    ``load_partition_book``, ``metis_partition(extra_cached_hops=1,
+    reshuffle=True)``, ``reorder_graph(g, "metis")`` and ``metis_perm`` on
+    ``rand_graph(2000, 10000)``, ``hetero_partition_assignment`` and
+    ``partition_hetero_graph`` on the mag recipe at 1/2000: each card
+    result equal to the CPU's, timed on both;
+36. ``explain_gin``: OGB's molhiv GIN with a two-logit head and edge
+    weights (``gin_explain_model``) over 32 random molhiv-sized graphs:
+    PGExplainer (20 epochs, then ``explain_graph``; its noise the seed's
+    on both devices) against the CPU at rtol = 1e-4 (loss, MLP,
+    probabilities, mask), SubgraphX at its defaults on the first graph
+    (the node set exactly, the score at 1e-4), and HeteroPGExplainer and
+    HeteroSubgraphX on a small random heterograph the same way.
 
 Every training input is built outside ``torch.inference_mode()``.
 It prints one JSON object per result line, the kernel table as
@@ -3698,6 +3749,7 @@ def run_weighted(rate: float, edge_step_ms: float, ptxas: dict,
                              ptxas["shell_prefix_sum"], tag)
     entry["fused_gat"] = run_fused_gat(gp, g, x, y, mask, edge_step_ms, tag)
     entry["conv_zoo"] = run_conv_zoo(gp, g, x, tag)
+    entry["explain_gcn"] = run_explain_gcn(gp, g, x, tag)
     return entry
 
 
@@ -4397,6 +4449,7 @@ def run_mag(rate: float, tag: dict) -> dict:
     torch.cuda.empty_cache()
     run_mag_minibatch(g, x, y, train_ids, tag)
     run_mag_etype_sampler(g, tag)
+    run_explain_rgcn(g, x, tag)
     emit({"phase": "mag_samplers_total", "seconds": time.perf_counter() - t0,
           **tag})
     main = shapes["writes fwd"]
@@ -7060,6 +7113,665 @@ def run_mag_etype_sampler(g, tag: dict) -> dict:
     return timings
 
 
+# ---------------------------------------------------------------------------
+# the multilevel partitioner: Cluster-GCN and the partition utilities
+# ---------------------------------------------------------------------------
+
+# examples/pytorch/cluster_gcn/cluster_gcn.py on ogbn-products: 1,000 parts
+# of about 2,449 nodes, 100 parts a batch. On the arxiv zipf graph: 70
+# parts (about 2,419 nodes each) and 7 a batch, a tenth of the graph.
+CLUSTER_PARTS, CLUSTER_BATCH = 70, 7
+CLUSTER_LR, CLUSTER_WD = 1e-3, 5e-4  # the recipe's Adam
+
+
+def cluster_loss(model, sg, pattern=None):
+    """cluster_gcn.py's loss: cross-entropy over the subgraph's training
+    nodes, the ReLUs recorded (or following ``pattern``)."""
+    import torch.nn.functional as F
+
+    with relu_pattern(pattern) as seen:
+        logits = model(sg, sg.ndata["feat"])
+        m = sg.ndata["train_mask"]
+        loss = F.cross_entropy(logits[m], sg.ndata["label"][m])
+    return loss, seen
+
+
+def cluster_graph(device, seed: int = 47):
+    """The arxiv zipf graph with 128-wide features, 40 classes and a 60 %
+    training mask, drawn from ``seed``."""
+    import numpy as np
+
+    import dgl_tpu_torch as dt
+
+    src, dst = zipf_graph(0)
+    n = N_NODES
+    g = dt.graph((src, dst), num_nodes=n, device=device)
+    rng = np.random.default_rng(seed)
+    g.ndata["feat"] = _on(rng.standard_normal((n, IN_FEATS),
+                                              dtype=np.float32), device)
+    g.ndata["label"] = _on(rng.integers(0, CLASSES, n), device)
+    g.ndata["train_mask"] = _on(rng.random(n) < 0.6, device)
+    return g
+
+
+def run_cluster_gcn(tag: dict, device="cuda") -> dict:
+    """Phase cluster_gcn: DGL's Cluster-GCN recipe, GraphSAGE 128-256-256-40
+    (mean, dropout 0.5) over ``ClusterGCNSampler``'s subgraphs through the
+    ``DataLoader`` (``CLUSTER_PARTS`` parts, ``CLUSTER_BATCH`` a batch,
+    shuffled), Adam at 1e-3 with weight decay 5e-4, one epoch. The
+    assignment against the CPU graph's, the first batch against the CPU's,
+    the first step against the CPU at 1e-4; induced subgraphs carry no
+    plan, so every kernel count stays 0."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.dataloading import ClusterGCNSampler, DataLoader
+    from dgl_tpu_torch.distributed import (edge_cut,
+                                           metis_partition_assignment)
+    from dgl_tpu_torch.models import GraphSAGE
+
+    t_phase = time.perf_counter()
+    g = cluster_graph(device)
+    g_cpu = g.to("cpu")
+    setup_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    sampler = ClusterGCNSampler(g, CLUSTER_PARTS)
+    partition_s = time.perf_counter() - t0
+    parts = np.empty(g.num_nodes(), np.int64)
+    for p, ids in enumerate(sampler.part_nodes):
+        parts[ids] = p
+    t0 = time.perf_counter()
+    cpu_parts = metis_partition_assignment(g_cpu, CLUSTER_PARTS)
+    cpu_partition_s = time.perf_counter() - t0
+    if not np.array_equal(parts, cpu_parts):
+        raise RuntimeError("the assignment of the card's graph differs from "
+                           "the CPU copy's")
+    sizes = np.bincount(parts, minlength=CLUSTER_PARTS)
+    cut = edge_cut(g, parts)
+    ids = np.arange(CLUSTER_PARTS)
+    it, sample_s = first_batches(lambda: sampler, g, g_cpu, ids,
+                                 CLUSTER_BATCH, device)
+
+    def make_model(dev):
+        return GraphSAGE(IN_FEATS, HIDDEN, CLASSES, num_layers=LAYERS,
+                         generator=torch.Generator().manual_seed(0),
+                         device=dev)
+
+    model = make_model(device)
+    first = next(it)
+    check = step_vs_cpu(model, lambda: make_model("cpu"), cluster_loss,
+                        first)
+    opt = torch.optim.Adam(model.parameters(), lr=CLUSTER_LR,
+                           weight_decay=CLUSTER_WD)
+    # the main path: the epoch's batches (the first already taken) with the
+    # launch counts read around them
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    losses, step_s, nodes, edges = [], [], [], []
+    t0 = time.perf_counter()
+    for sg in itertools.chain([first], it):
+        t1 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = cluster_loss(model, sg)[0]
+        loss.backward()
+        opt.step()
+        _sync(device)
+        step_s.append(time.perf_counter() - t1)
+        losses.append(loss.item())
+        nodes.append(sg.num_nodes())
+        edges.append(sg.num_edges())
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(launches, {}, "the Cluster-GCN epoch")
+    if len(losses) != -(-CLUSTER_PARTS // CLUSTER_BATCH) or not all(
+            map(math.isfinite, losses)):
+        raise RuntimeError(f"Cluster-GCN epoch losses: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # an epoch as a training loop runs it, from a fresh loader whose thread
+    # starts with the epoch (the counted one's had batches buffered during
+    # the first step's check): ms_per_step
+    loader = DataLoader(g, ids, sampler, batch_size=CLUSTER_BATCH,
+                        shuffle=True, seed=1, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    epoch_edges = 0
+    for steps, sg in enumerate(loader, 1):
+        opt.zero_grad(set_to_none=True)
+        cluster_loss(model, sg)[0].backward()
+        opt.step()
+        epoch_edges += sg.num_edges()
+    _sync(device)
+    epoch_s = time.perf_counter() - t0
+    prof = profiled_steps(model, opt, cluster_loss, iter(DataLoader(
+        g, ids, sampler, batch_size=CLUSTER_BATCH, shuffle=True, seed=2,
+        device=device)))
+    res = {"nodes": g.num_nodes(), "edges": g.num_edges(),
+           "parts": CLUSTER_PARTS, "batch_parts": CLUSTER_BATCH,
+           "setup_s": setup_s, "partition_s": partition_s,
+           "cpu_partition_s": cpu_partition_s, "edge_cut": cut,
+           "edge_cut_share": cut / g.num_edges(),
+           "part_nodes_min_max_mean": [int(sizes.min()), int(sizes.max()),
+                                       float(sizes.mean())],
+           "batch_nodes": nodes, "batch_edges": edges,
+           "first_sample_ms": sample_s[0] * 1e3,
+           "sample_ms": float(np.mean(sample_s[1:])) * 1e3,
+           "step_ms": float(np.mean(step_s)) * 1e3,
+           "counted_ms_per_step": wall / len(losses) * 1e3,
+           "epoch_s": epoch_s, "ms_per_step": epoch_s / steps * 1e3,
+           "edges_per_s": epoch_edges / epoch_s, "losses": losses,
+           "launches": launches, "peak_memory_gib": peak,
+           "first_step_vs_cpu": check,
+           "tolerance": "assignment and first batch exact; first step "
+                        "rtol=1e-4, atol=1e-4*max|ref| (the CPU on the card "
+                        "pass's ReLU pattern)",
+           **{f"profile_{k}": v for k, v in prof.items()},
+           "phase_s": time.perf_counter() - t_phase}
+    emit({"phase": "cluster_gcn", **res, **tag})
+    return res
+
+
+def partition_files(m, g, what: str, hetero: bool = False):
+    """``partition_graph`` (or ``partition_hetero_graph``) of ``g`` into 4
+    parts in a fresh directory under ``build/``, read back: the book, the
+    assignment and each part on ``g``'s device."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    base = os.path.join(ROOT, "build")
+    os.makedirs(base, exist_ok=True)
+    out = tempfile.mkdtemp(prefix=f"partition_{what}_", dir=base)
+    try:
+        D = m.distributed
+        if hetero:
+            assign = D.partition_hetero_graph(g, "h", 4, out)
+            graphs = [m.data.load_graphs(os.path.join(out, f"part{p}.npz"),
+                                         device=g.device)[0][0]
+                      for p in range(4)]
+            with open(os.path.join(out, "h.json")) as f:
+                return assign, graphs, json.load(f)
+        mapping = D.partition_graph(g, "g", 4, out, num_hops=1,
+                                    return_mapping=True)
+        graphs = [D.load_partition(out, p, device=g.device)[0]
+                  for p in range(4)]
+        book = D.load_partition_book(out)
+        return (mapping, graphs, D.load_assignment(out), book.meta,
+                book.nid2partid(np.arange(g.num_nodes())))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def run_partition_utilities(tag: dict, device="cuda") -> dict:
+    """Phase partition_utilities: the partition files, halo partitions and
+    METIS orders on ``rand_graph(2000, 10000)``, and the heterograph
+    partitions on the mag recipe at 1/2000 of its counts; each card result
+    equal to the CPU's, timed on both."""
+    import numpy as np
+
+    import dgl_tpu_torch as dt
+
+    t_phase = time.perf_counter()
+    g = dt.rand_graph(SMALL_GRAPH_NODES, SMALL_GRAPH_EDGES, seed=16,
+                      device=device)
+    g.ndata["x"] = torch_like(np.random.default_rng(17).standard_normal(
+        (SMALL_GRAPH_NODES, 8), dtype=np.float32), g)
+    mag = mag_graph(div=2000, seed=18)
+    hg = dt.heterograph(mag["data"], mag["nodes"], device=device)
+    cases = {
+        "metis_partition_assignment k=8": lambda m, x:
+            m.metis_partition_assignment(x, 8),
+        "metis_partition_assignment k=8 balance_edges": lambda m, x:
+            m.metis_partition_assignment(x, 8, balance_edges=True),
+        "partition_graph + load_partition/assignment/book": lambda m, x:
+            partition_files(m, x, "homo"),
+        "metis_partition k=4 extra_cached_hops=1 reshuffle": lambda m, x:
+            m.metis_partition(x, 4, extra_cached_hops=1, reshuffle=True),
+        "reorder_graph metis k=8": lambda m, x: m.reorder_graph(
+            x, "metis", permute_config={"k": 8}),
+        "metis_perm k=8": lambda m, x: m.metis_perm(x, 8),
+    }
+    hetero = {
+        "hetero_partition_assignment k=4": lambda m, x:
+            m.distributed.hetero_partition_assignment(x, 4),
+        "partition_hetero_graph + load_graphs": lambda m, x:
+            partition_files(m, x, "hetero", hetero=True),
+    }
+    timings = {}
+    timed_pair(cases, g, g.to("cpu"), timings,
+               graph=f"rand_graph({SMALL_GRAPH_NODES}, {SMALL_GRAPH_EDGES})")
+    timed_pair(hetero, hg, hg.to("cpu"), timings,
+               graph="mag_graph(div=2000)")
+    emit({"phase": "partition_utilities", "cases": timings,
+          "tolerance": "every result exact, card against CPU",
+          "phase_s": time.perf_counter() - t_phase, **tag})
+    return timings
+
+
+# ---------------------------------------------------------------------------
+# the explainers: GNNExplainer, HeteroGNNExplainer, PGExplainer, SubgraphX
+# ---------------------------------------------------------------------------
+
+EXPLAIN_EPOCHS = 100  # GNNExplainer's default
+# B1w launches an explain_graph epoch over the weighted GCN: forward,
+# EdgeWeightNorm's degree sum and one a layer; backward, one a layer (the
+# masked input needs its gradient; the mask's gradient is gathers)
+EXPLAIN_EPOCH_LAUNCHES = (LAYERS + 1) + LAYERS
+EXPLAIN_NODE_HOPS = 3
+EXPLAIN_RGCN_HOPS = 2
+PG_EPOCHS = 20  # PGExplainer's default
+SMALL_HETERO = {("author", "writes", "paper"): (60, 40, 150),
+                ("paper", "cites", "paper"): (40, 40, 120),
+                ("paper", "written_by", "author"): (40, 60, 150)}
+SMALL_HETERO_HIDDEN = 64
+
+
+def explain_gcn_fn(model):
+    """The weighted GCN of ``weighted_gcn`` (eval mode) as an explainer's
+    ``model_fn(graph, feat, eweight)``: ``EdgeWeightNorm("both")`` of the
+    edge weights, then the layers with ReLU between them."""
+    import torch
+
+    from dgl_tpu_torch.nn import EdgeWeightNorm
+
+    norm = EdgeWeightNorm("both")
+
+    def model_fn(graph, feat, eweight):
+        w = norm(graph, eweight)
+        h = feat
+        for i, conv in enumerate(model.convs):
+            h = conv(graph, h, edge_weight=w)
+            if i != len(model.convs) - 1:
+                h = torch.relu(h)
+        return h
+
+    return model_fn
+
+
+def run_explain_gcn(gp, g, x, tag: dict) -> dict:
+    """Phase explain_gcn: GNNExplainer over the weighted GCN 128-256-256-40
+    on the arxiv zipf graph plus self-loops. ``explain_graph`` over the
+    weighted shell plan (``gp``; B1w launches counted, the first epoch's
+    loss and mask gradients against the graph without plans ``g`` at the
+    plan bound, 100 epochs timed); ``explain_node`` on the node with the
+    most in-edges (``num_hops=3``) of ``g`` against its CPU copy at 1e-4: the subgraph
+    carries no plan, and ``g``'s edge frames are the CPU copy's, where
+    ``gp``'s hold weights normalised over its plan."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.nn.explain import GNNExplainer
+
+    t_phase = time.perf_counter()
+    dims = (IN_FEATS, HIDDEN, HIDDEN, CLASSES)
+    model = weighted_gcn(dims, 0.0, 0).cuda().eval()
+    fn = explain_gcn_fn(model)
+    ex = GNNExplainer(fn, num_hops=LAYERS, num_epochs=EXPLAIN_EPOCHS)
+
+    # the first epoch on both graphs: the same masks (the seed's), the
+    # planned pass's targets, the exact pass on the planned ReLU pattern
+    target = ex._target(gp, x)
+
+    def first_epoch(graph, pattern=None):
+        masks = ex._init_masks(graph, x)
+        for m in masks:
+            m.requires_grad_(True)
+        with relu_pattern(pattern) as seen:
+            loss = ex._loss(masks, graph, x, target)
+        loss.backward()
+        return {"loss": loss.detach(), "edge_mask_grad": masks[0].grad,
+                "feat_mask_grad": masks[1].grad}, seen
+
+    got, seen = first_epoch(gp)
+    want, _ = first_epoch(g, seen)
+    first = held(got, want, 2e-2, "GNNExplainer's first epoch, plan vs "
+                 "exact f32 path")
+
+    # the main path: explain_graph, launches counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    feat_mask, edge_mask = ex.explain_graph(gp, x)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    launches = dict(_kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expected = (LAYERS + 1) + EXPLAIN_EPOCHS * EXPLAIN_EPOCH_LAUNCHES
+    expect_no_other_launch(launches, {"shell_prefix_gspmm": expected},
+                           "GNNExplainer.explain_graph")
+    for name, m in (("feature", feat_mask), ("edge", edge_mask)):
+        if not (torch.isfinite(m).all() and m.min() >= 0 and m.max() <= 1):
+            raise RuntimeError(f"explain_graph's {name} mask leaves [0, 1]")
+
+    # explain_node on the node with the most in-edges (the side that
+    # khop_in_subgraph expands), against the CPU
+    _, dst = g._relation().host_edges()
+    hub = int(np.argmax(np.bincount(dst, minlength=g.num_nodes())))
+    model_cpu = weighted_gcn(dims, 0.0, 0).cpu().eval()
+    model_cpu.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    nid, sg, fm, em = GNNExplainer(
+        fn, EXPLAIN_NODE_HOPS, num_epochs=EXPLAIN_EPOCHS).explain_node(
+        hub, g, x)
+    torch.cuda.synchronize()
+    node_card_s = time.perf_counter() - t0
+    node_launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(node_launches, {}, "GNNExplainer.explain_node")
+    g_cpu, x_cpu = g.to("cpu"), x.cpu()
+    t0 = time.perf_counter()
+    nid_c, sg_c, fm_c, em_c = GNNExplainer(
+        explain_gcn_fn(model_cpu), EXPLAIN_NODE_HOPS,
+        num_epochs=EXPLAIN_EPOCHS).explain_node(hub, g_cpu, x_cpu)
+    node_cpu_s = time.perf_counter() - t0
+    if nid != nid_c:
+        raise RuntimeError(f"explain_node's node id {nid} vs {nid_c}")
+    same_graph_on(sg, sg_c, "explain_node's subgraph, card vs CPU")
+    node_check = held({"feat_mask": fm, "edge_mask": em},
+                      {"feat_mask": fm_c, "edge_mask": em_c}, 1e-4,
+                      "explain_node's masks, card vs CPU")
+    res = {"model": "EdgeWeightNorm('both') + GraphConv(norm='none') "
+                    "128-256-256-40, eval", "epochs": EXPLAIN_EPOCHS,
+           "explain_graph_launches": launches,
+           "expected_shell_prefix_gspmm": expected,
+           "launches_per_epoch": (launches.get("shell_prefix_gspmm", 0)
+                                  - (LAYERS + 1)) / EXPLAIN_EPOCHS,
+           "explain_graph_s": graph_s,
+           "ms_per_epoch": graph_s / EXPLAIN_EPOCHS * 1e3,
+           "explain_graph_peak_memory_gib": peak,
+           "first_epoch_vs_exact_f32": first,
+           "first_epoch_tolerance": "rtol=2e-2, atol=2e-2*max|ref| (the "
+                                    "exact pass on the plan's ReLU pattern)",
+           "hub": hub, "node_subgraph": [sg.num_nodes(), sg.num_edges()],
+           "explain_node_launches": node_launches,
+           "explain_node_card_s": node_card_s,
+           "explain_node_cpu_s": node_cpu_s,
+           "explain_node_vs_cpu": node_check,
+           "explain_node_tolerance": "rtol=1e-4, atol=1e-4*max|ref|",
+           "phase_s": time.perf_counter() - t_phase}
+    emit({"phase": "explain_gcn", **res, **tag})
+    return res
+
+
+def rgcn_explain_fn(model):
+    """``hetero_rgcn``'s R-GCN as ``model_fn(graph, feat, eweight)``: each
+    relation's edge weights through ``mod_kwargs`` as its GraphConv's
+    ``edge_weight``; the paper logits."""
+    import torch
+
+    def model_fn(graph, feat, eweight):
+        kw = {c[1]: {"edge_weight": eweight[c]}
+              for c in graph.canonical_etypes}
+        h = {k: torch.relu(v) for k, v in model.layer0(
+            graph, feat, mod_kwargs=kw).items()}
+        return model.layer1(graph, h, mod_kwargs=kw)["paper"]
+
+    return model_fn
+
+
+def run_explain_rgcn(g, x, tag: dict) -> dict:
+    """Phase explain_rgcn: HeteroGNNExplainer on ``hetero_rgcn``'s R-GCN
+    128-64-349 over ogbn-mag's counts, ``explain_node("paper", ...)`` on
+    the most cited paper with ``num_hops=2`` (100 epochs), against the
+    same explainer on the graph's CPU copy at 1e-4."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.nn.explain import HeteroGNNExplainer
+
+    t_phase = time.perf_counter()
+    dims = (MAG_FEAT, MAG_HIDDEN, MAG_CLASSES)
+    model = hetero_rgcn(g.etypes, dims, 0).cuda().eval()
+    _, cited = g._relations[("paper", "cites", "paper")].host_edges()
+    paper = int(np.argmax(np.bincount(cited, minlength=g.num_nodes(
+        "paper"))))
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    nid, sg, fm, em = HeteroGNNExplainer(
+        rgcn_explain_fn(model), EXPLAIN_RGCN_HOPS,
+        num_epochs=EXPLAIN_EPOCHS).explain_node("paper", paper, g, x)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(launches, {}, "HeteroGNNExplainer.explain_node")
+    model_cpu = hetero_rgcn(g.etypes, dims, 0).cpu().eval()
+    model_cpu.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    t0 = time.perf_counter()
+    g_cpu = g.to("cpu")
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nid_c, sg_c, fm_c, em_c = HeteroGNNExplainer(
+        rgcn_explain_fn(model_cpu), EXPLAIN_RGCN_HOPS,
+        num_epochs=EXPLAIN_EPOCHS).explain_node(
+        "paper", paper, g_cpu, {k: v.cpu() for k, v in x.items()})
+    cpu_s = time.perf_counter() - t0
+    if nid != nid_c:
+        raise RuntimeError(f"explain_node's node id {nid} vs {nid_c}")
+    same_graph_on(sg, sg_c, "the R-GCN explainer's subgraph, card vs CPU")
+    if set(fm) != set(fm_c) or set(em) != set(em_c):
+        raise RuntimeError("the R-GCN explainer's mask types differ")
+    got = {f"feat_mask {k}": v for k, v in fm.items()}
+    want = {f"feat_mask {k}": v for k, v in fm_c.items()}
+    for k, v in em.items():
+        if v.numel():
+            got[f"edge_mask {k[1]}"], want[f"edge_mask {k[1]}"] = v, em_c[k]
+    for name, m in got.items():
+        if not (torch.isfinite(m).all() and m.min() >= 0 and m.max() <= 1):
+            raise RuntimeError(f"the R-GCN explainer's {name} leaves [0, 1]")
+    check = held(got, want, 1e-4, "the R-GCN explainer, card vs CPU")
+    res = {"model": "HeteroGraphConv(GraphConv) R-GCN 128-64-349, eval",
+           "paper": paper, "epochs": EXPLAIN_EPOCHS,
+           "subgraph_nodes": dict(sg._num_src_nodes),
+           "subgraph_edges": {c[1]: sg.num_edges(c)
+                              for c in sg.canonical_etypes},
+           "launches": launches, "card_s": card_s, "cpu_s": cpu_s,
+           "cpu_copy_s": copy_s, "vs_cpu": check,
+           "tolerance": "rtol=1e-4, atol=1e-4*max|ref|",
+           "phase_s": time.perf_counter() - t_phase}
+    emit({"phase": "explain_rgcn", **res, **tag})
+    return res
+
+
+def gin_explain_model(device, seed: int = 0):
+    """``gin_model``'s GIN (five GINConv sum layers, 300-300 MLPs,
+    ``mean_nodes``) with a two-logit head, passing edge weights to every
+    layer: ``forward(g, h, eweight=None)`` returns the (graphs, 2) logits
+    and the last layer's node embeddings. Weights drawn after
+    ``torch.manual_seed(seed)``."""
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch.nn import GINConv
+
+    class GIN(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.convs = torch.nn.ModuleList(
+                GINConv(torch.nn.Sequential(
+                    torch.nn.Linear(GIN_DIM, GIN_DIM), torch.nn.ReLU(),
+                    torch.nn.Linear(GIN_DIM, GIN_DIM)), "sum", device=device)
+                for _ in range(GIN_LAYERS))
+            self.out = torch.nn.Linear(GIN_DIM, 2)
+
+        def forward(self, g, h, eweight=None):
+            for i, conv in enumerate(self.convs):
+                h = conv(g, h, edge_weight=eweight)
+                if i != len(self.convs) - 1:
+                    h = torch.relu(h)
+            with g.local_scope():
+                g.ndata["h"] = h
+                return self.out(dt.mean_nodes(g, "h")), h
+
+    torch.manual_seed(seed)
+    return GIN().to(device).eval()
+
+
+def small_hetero_model(device, seed: int = 0):
+    """``hetero_rgcn``'s two HeteroGraphConv layers over ``SMALL_HETERO``'s
+    relations, 16 -> 64 -> 2, as the hetero explainers' models: the
+    paper logits' mean as (1, 2), and for PGExplainer the hidden layer."""
+    etypes = [c[1] for c in SMALL_HETERO]
+    return hetero_rgcn(etypes, (16, SMALL_HETERO_HIDDEN, 2),
+                       seed).to(device).eval()
+
+
+def small_hetero_fns(model):
+    import torch
+
+    def pg_fn(graph, feat, eweight):
+        kw = {c[1]: {"edge_weight": eweight[c]}
+              for c in graph.canonical_etypes}
+        h = {k: torch.relu(v) for k, v in model.layer0(
+            graph, feat, mod_kwargs=kw).items()}
+        out = model.layer1(graph, h, mod_kwargs=kw)["paper"]
+        return out.mean(0, keepdim=True), h
+
+    def sx_fn(graph, feat):
+        return model(graph, feat).mean(0, keepdim=True)
+
+    return pg_fn, sx_fn
+
+
+def small_hetero(device, seed: int = 19):
+    import numpy as np
+
+    import dgl_tpu_torch as dt
+
+    rng = np.random.default_rng(seed)
+    data = {c: (rng.integers(0, ns, e), rng.integers(0, nd, e))
+            for c, (ns, nd, e) in SMALL_HETERO.items()}
+    nodes = {"author": 60, "paper": 40}
+    hg = dt.heterograph(data, nodes, device=device)
+    feat = {nt: _on(rng.standard_normal((n, 16), dtype=np.float32), device)
+            for nt, n in nodes.items()}
+    return hg, feat
+
+
+def run_explain_gin(tag: dict, device="cuda") -> dict:
+    """Phase explain_gin: PGExplainer (20 epochs, then ``explain_graph``)
+    over OGB's molhiv GIN with a two-logit head on a batch of 32 random
+    molhiv-sized graphs, and SubgraphX (its defaults) on one of them; the
+    heterogeneous explainers on a small random heterograph. Each against
+    the same explainer on the CPU: PGExplainer's loss, MLP, probabilities
+    and masks at 1e-4 (the noise is the seed's on both), SubgraphX's nodes
+    exactly and its score at 1e-4."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.nn.explain import (HeteroPGExplainer,
+                                          HeteroSubgraphX, PGExplainer,
+                                          SubgraphX)
+
+    t_phase = time.perf_counter()
+    bg = dt.batch(molhiv_graphs(GIN_BATCH, 0, device))
+    x = _on(np.random.default_rng(20).standard_normal(
+        (bg.num_nodes(), GIN_DIM), dtype=np.float32), device)
+    model = gin_explain_model(device)
+    model_cpu = gin_explain_model("cpu")
+    model_cpu.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    bg_cpu, x_cpu = bg.to("cpu"), x.cpu()
+    timings, checks = {}, {}
+
+    def both(name, run):
+        """``run(model, graph, feat)`` on the card and on the CPU, timed,
+        launches counted on the card (none: no plan)."""
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = run(model, bg, x)
+        _sync(device)
+        card_s = time.perf_counter() - t0
+        expect_no_other_launch(dict(_kernels.launch_counts), {}, name)
+        t0 = time.perf_counter()
+        want = run(model_cpu, bg_cpu, x_cpu)
+        timings[name] = {"card_s": card_s,
+                         "cpu_s": time.perf_counter() - t0}
+        return got, want
+
+    def pg(m, graph, feat):
+        ex = PGExplainer(lambda g, h, w: m(g, h, w), GIN_DIM,
+                         epochs=PG_EPOCHS)
+        loss = ex.train_step(graph, feat)
+        probs, mask = ex.explain_graph(graph, feat)
+        return {"loss": torch.tensor(loss), "probs": probs, "mask": mask,
+                **{f"mlp {k}": v for k, v in ex.net.state_dict().items()}}
+
+    got, want = both("PGExplainer train_step + explain_graph", pg)
+    checks["PGExplainer"] = held(got, want, 1e-4, "PGExplainer, card vs CPU")
+    mask = got["mask"]
+    if not (mask.min() >= 0 and mask.max() <= 1):
+        raise RuntimeError("PGExplainer's mask leaves [0, 1]")
+    g1 = dt.unbatch(bg)[0]
+    n1 = g1.num_nodes()
+
+    def sx(m, graph, feat):
+        one = g1 if graph is bg else g1.to("cpu")
+        nodes, score = SubgraphX(lambda g, h: m(g, h)[0]).explain_graph(
+            one, feat[:n1])
+        return nodes, score
+
+    (nodes, score), (nodes_c, score_c) = both("SubgraphX explain_graph", sx)
+    if not np.array_equal(nodes, nodes_c):
+        raise RuntimeError(f"SubgraphX's nodes {nodes} vs {nodes_c}")
+    checks["SubgraphX"] = held({"score": torch.tensor(score)},
+                               {"score": torch.tensor(score_c)}, 1e-4,
+                               "SubgraphX's score, card vs CPU")
+
+    # the heterogeneous explainers on a small heterograph
+    hg, feat = small_hetero(device)
+    hg_cpu = hg.to("cpu")
+    feat_cpu = {k: v.cpu() for k, v in feat.items()}
+    hm = small_hetero_model(device)
+    hm_cpu = small_hetero_model("cpu")
+    hm_cpu.load_state_dict({k: v.cpu() for k, v in hm.state_dict().items()})
+    out = {}
+    for where, m, graph, f in (("card", hm, hg, feat),
+                               ("cpu", hm_cpu, hg_cpu, feat_cpu)):
+        pg_fn, sx_fn = small_hetero_fns(m)
+        t0 = time.perf_counter()
+        ex = HeteroPGExplainer(pg_fn, SMALL_HETERO_HIDDEN, epochs=PG_EPOCHS)
+        loss = ex.train_step(graph, f)
+        probs, masks = ex.explain_graph(graph, f)
+        res, hscore = HeteroSubgraphX(sx_fn).explain_graph(graph, f)
+        _sync(device)
+        out[where] = ({"loss": torch.tensor(loss), "probs": probs,
+                       **{f"mask {c[1]}": v for c, v in masks.items()}},
+                      res, hscore, time.perf_counter() - t0)
+    checks["HeteroPGExplainer"] = held(out["card"][0], out["cpu"][0], 1e-4,
+                                       "HeteroPGExplainer, card vs CPU")
+    hres, hres_c = out["card"][1], out["cpu"][1]
+    if set(hres) != set(hres_c) or any(
+            not np.array_equal(hres[k], hres_c[k]) for k in hres):
+        raise RuntimeError(f"HeteroSubgraphX's nodes {hres} vs {hres_c}")
+    checks["HeteroSubgraphX"] = held(
+        {"score": torch.tensor(out["card"][2])},
+        {"score": torch.tensor(out["cpu"][2])}, 1e-4,
+        "HeteroSubgraphX's score, card vs CPU")
+    timings["hetero explainers"] = {"card_s": out["card"][3],
+                                    "cpu_s": out["cpu"][3]}
+    res = {"model": "GIN 5 x 300 (sum), mean_nodes, 2 logits, eval",
+           "graphs": GIN_BATCH, "batch_nodes": bg.num_nodes(),
+           "pg_epochs": PG_EPOCHS, "pg_loss": float(got["loss"]),
+           "subgraphx_graph_nodes": n1, "subgraphx_nodes": nodes.tolist(),
+           "subgraphx_score": score,
+           "hetero_subgraphx_nodes": {k: v.tolist()
+                                      for k, v in hres.items()},
+           "timings": timings, "vs_cpu": checks,
+           "tolerance": "rtol=1e-4, atol=1e-4*max|ref|; node sets exact",
+           "phase_s": time.perf_counter() - t_phase}
+    emit({"phase": "explain_gin", **res, **tag})
+    return res
+
+
 def run() -> dict:
     import torch
 
@@ -7089,6 +7801,12 @@ def run() -> dict:
     weighted = run_weighted(rate, edge["train_step_ms"], ptxas, tag)
     # B1 and B1w under the zoo's callers, launches a forward
     zoo = weighted.pop("conv_zoo")
+    explain = weighted.pop("explain_gcn")
+    weighted["explain_gcn_launches"] = {
+        "explain_graph": explain["explain_graph_launches"][
+            "shell_prefix_gspmm"],
+        "per_epoch": explain["launches_per_epoch"],
+        "epochs": explain["epochs"]}
     for entry, name in ((kernels[0], "shell_prefix_sum"),
                         (weighted, "shell_prefix_gspmm")):
         entry["conv_zoo_launches_per_forward"] = {
@@ -7144,6 +7862,12 @@ def run() -> dict:
         d: {"forward": r["forward_launches"]["shell_prefix_gspmm"],
             "train_step": r["step_launches"]["shell_prefix_gspmm"]}
         for d, r in gdc.items()}
+    t0 = time.perf_counter()
+    run_cluster_gcn(tag)
+    run_partition_utilities(tag)
+    run_explain_gin(tag)
+    emit({"phase": "partitioner_and_explainers_total",
+          "seconds": time.perf_counter() - t0, **tag})
     return {"kernels": kernels, "card": card}
 
 

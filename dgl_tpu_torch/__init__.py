@@ -40,10 +40,17 @@ the host samplers (``sampling``: neighbour, LABOR, random walks, negative
 pairs, PinSAGE) and the rest of ``dataloading`` (the ragged and
 heterogeneous samplers, edge prediction, the subgraph samplers, the
 collators and the prefetching ``DataLoader``), and ``nn.DeepWalk`` and
-``nn.MetaPath2Vec``.
+``nn.MetaPath2Vec``; the multilevel partitioner and the per-part files
+(``distributed``: ``metis_partition_assignment``, ``partition_graph``,
+``load_partition``), graph files (``data.serialize``), the halo
+partitions (``partition_graph_with_halo``, ``metis_partition``), the
+METIS orders and ``ClusterGCNSampler``, and the explainers
+(``nn.explain``: GNNExplainer, PGExplainer and SubgraphX, homogeneous and
+heterogeneous).
 """
-from . import (dataloading, function, geometry, models, nn, ops, propagate,
-               readout, sampling, sparse, transforms, traversal)
+from . import (data, dataloading, distributed, function, geometry, models,
+               nn, ops, propagate, readout, sampling, sparse, transforms,
+               traversal)
 from . import subgraph as subgraph_module
 from .base import ALL, EID, ETYPE, NID, NTYPE, DGLError
 from .batch import batch, pad_batch, slice_batch, stack_graphs, unbatch
@@ -52,7 +59,11 @@ from .convert import (bipartite_from_networkx, bipartite_from_scipy,
                       from_scipy, graph, hetero_from_shared_memory,
                       heterograph, rand_bipartite, rand_graph,
                       to_heterogeneous, to_homogeneous, to_networkx)
+from .data.serialize import load_graphs, save_graphs
+from .distributed.partition import metis_partition_assignment
 from .graph import Graph, Relation
+from .partition_mod import (metis_partition, partition_graph_with_halo,
+                            reshuffle_graph)
 from .params import from_flax_params
 from .readout import (broadcast_edges, broadcast_nodes, max_edges, max_nodes,
                       mean_edges, mean_nodes, readout_edges, readout_nodes,
@@ -106,11 +117,15 @@ __all__ = [
     "double_radius_node_labeling", "metapath_reachable_graph",
     "adj_product_graph", "adj_sum_graph", "sort_csr_by_tag",
     "sort_csc_by_tag", "rcmk_perm", "metis_perm",
+    # partitions and files
+    "metis_partition_assignment", "partition_graph_with_halo",
+    "metis_partition", "reshuffle_graph", "save_graphs", "load_graphs",
     # ordered propagation
     "prop_nodes", "prop_edges", "prop_nodes_bfs", "prop_nodes_topo",
     "prop_edges_dfs",
     # namespaces
-    "dataloading", "function", "geometry", "models", "nn", "ops",
+    "data", "dataloading", "distributed", "function", "geometry", "models",
+    "nn", "ops",
     "propagate", "readout", "sampling", "sparse", "subgraph_module",
     "transforms", "traversal",
 ]

@@ -1,4 +1,6 @@
-"""Build, load and call the host sampler library (``csrc/host_ops.cpp``).
+"""Build, load and call the host library (``csrc/host_ops.cpp``): the
+samplers' picks and the partitioner's matching, aggregation and k-way
+gains.
 
 ``csrc/host_ops.cpp`` is framework-free C++ shared by both packages: the
 port compiles it itself with ``g++`` into
@@ -7,7 +9,7 @@ tree, under a file lock; the file name carries a hash of the source and
 flags, so an edited source is rebuilt) and binds it with ``ctypes``. It
 does not use ``csrc/Makefile``, whose target lies inside the JAX package.
 Nothing here runs at import time. A failed build raises with the
-compiler's output; nothing falls back to a Python sampler.
+compiler's output; nothing falls back to Python code.
 """
 from __future__ import annotations
 
@@ -89,9 +91,21 @@ def library() -> ctypes.CDLL:
             lib.sample_neighbors_etype.argtypes = [
                 i64p, i64p, i64p, i64p, ctypes.c_int64, i64p, i64p,
                 ctypes.c_int64, ctypes.c_int, u64, i64p, i64p, u8p]
+            i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+            f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+            lib.hem_match.argtypes = [i32p, i32p, ctypes.c_int64,
+                                      ctypes.c_int64, i64p]
+            lib.aggregate_csr.argtypes = [
+                i32p, i32p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int, ctypes.c_int64, i64p, i32p, f32p]
+            lib.aggregate_csr.restype = ctypes.c_int64
+            lib.kway_gains.argtypes = [
+                i64p, i32p, ctypes.c_void_p, i64p, ctypes.c_int64,
+                ctypes.c_int64, i32p, f32p]
             for name in ("sample_neighbors_fixed", "sample_neighbors_prob",
                          "select_topk_rows", "random_walk_uniform",
-                         "sample_neighbors_etype"):
+                         "sample_neighbors_etype", "hem_match",
+                         "kway_gains"):
                 getattr(lib, name).restype = None
             _lib = lib
         return _lib
@@ -241,3 +255,83 @@ def build_padded_block(indptr, indices, eids, seed_ids, fanout: int,
                            int(replace), np.uint64(seed).item(), src_ids,
                            esrc, edst, eids_out, emask)
     return src_ids, esrc, edst, eids_out, emask.astype(bool)
+
+
+def _check_ids(ids, n, what: str):
+    """Ids the C++ indexes with unchecked must lie in ``[0, n)``."""
+    if ids.size and (ids.min() < 0 or ids.max() >= n):
+        raise ValueError(f"{what} out of range [0, {n}): "
+                         f"[{int(ids.min())}, {int(ids.max())}]")
+
+
+def _f32_or_null(a):
+    """``a`` as contiguous float32 and its address, or (None, None): the
+    C++ reads a null weight array as all ones."""
+    if a is None:
+        return None, None
+    a = np.ascontiguousarray(a, np.float32)
+    return a, a.ctypes.data_as(ctypes.c_void_p)
+
+
+def hem_match(rows, cols, num_nodes: int):
+    """Greedy heavy-edge matching (``hem_match``) over edges sorted by
+    descending weight: (num_nodes,) int64, each node's pair
+    representative (itself when unmatched)."""
+    lib = library()
+    rows = np.ascontiguousarray(rows, np.int32)
+    cols = np.ascontiguousarray(cols, np.int32)
+    if rows.shape != cols.shape:
+        raise ValueError(f"rows {rows.shape} and cols {cols.shape} differ")
+    _check_ids(rows, num_nodes, "hem_match rows")
+    _check_ids(cols, num_nodes, "hem_match cols")
+    matched = np.empty(int(num_nodes), np.int64)
+    lib.hem_match(rows, cols, rows.shape[0], int(num_nodes), matched)
+    return matched
+
+
+def aggregate_csr(rows, cols, weights, n: int, skip_diag: bool = True,
+                  row_cap: int = 0):
+    """The CSR of the (row, col) pairs with their weights summed
+    (``aggregate_csr``; ``weights`` None: ones), columns sorted in each
+    row; ``skip_diag`` drops row == col, ``row_cap`` > 0 keeps each row's
+    ``row_cap`` heaviest entries. Returns (indptr int64, cols int32,
+    weights float32)."""
+    lib = library()
+    rows = np.ascontiguousarray(rows, np.int32)
+    cols = np.ascontiguousarray(cols, np.int32)
+    m = rows.shape[0]
+    if cols.shape != rows.shape or (weights is not None
+                                    and np.shape(weights) != rows.shape):
+        raise ValueError("rows, cols and weights must be of one length")
+    _check_ids(rows, n, "aggregate_csr rows")
+    weights, wptr = _f32_or_null(weights)
+    indptr = np.empty(int(n) + 1, np.int64)
+    out_cols = np.empty(m, np.int32)
+    out_w = np.empty(m, np.float32)
+    nnz = lib.aggregate_csr(rows, cols, wptr, m, int(n), int(skip_diag),
+                            int(row_cap), indptr, out_cols, out_w)
+    return indptr, out_cols[:nnz].copy(), out_w[:nnz].copy()
+
+
+def kway_gains(indptr, indices, data, parts, k: int):
+    """For each row of a CSR adjacency, the best part other than its own
+    by connection weight and the gain of moving there (``kway_gains``):
+    (best int32, gain float32). ``k`` >= 2."""
+    if k < 2:
+        raise ValueError(f"kway_gains needs k >= 2, got {k}")
+    lib = library()
+    indptr = np.ascontiguousarray(indptr, np.int64)
+    indices = np.ascontiguousarray(indices, np.int32)
+    parts = np.ascontiguousarray(parts, np.int64)
+    data, dptr = _f32_or_null(data)
+    n = indptr.shape[0] - 1
+    if parts.shape != (n,) or indptr[-1] > indices.shape[0] or (
+            data is not None and data.shape != indices.shape):
+        raise ValueError("kway_gains: indptr, indices, data and parts do "
+                         "not describe one CSR of its rows")
+    _check_ids(indices, n, "kway_gains indices")
+    _check_ids(parts, k, "kway_gains parts")
+    best = np.empty(n, np.int32)
+    gain = np.empty(n, np.float32)
+    lib.kway_gains(indptr, indices, dptr, parts, n, int(k), best, gain)
+    return best, gain

@@ -7,9 +7,9 @@ the ragged ``NeighborSampler``, ``MultiLayerFullNeighborSampler`` and
 ``LaborSampler`` of DGL's recipes, the fixed-shape samplers whose blocks
 have the same shapes for every batch (homogeneous and heterogeneous), the
 edge-prediction wrapper with its negative samplers, the subgraph samplers
-(SAINT, ShaDow, capped) and the ``DataLoader`` that samples ahead of its
-consumer in a thread. ``ClusterGCNSampler`` needs the multilevel
-partitioner (ROADMAP queue A11).
+(Cluster-GCN over the multilevel partitioner's parts, SAINT, ShaDow,
+capped) and the ``DataLoader`` that samples ahead of its consumer in a
+thread.
 """
 from .base import (BlockSampler, EdgePredictionSampler, Sampler,
                    as_edge_prediction_sampler, find_exclude_eids)

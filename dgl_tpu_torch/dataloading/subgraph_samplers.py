@@ -17,15 +17,27 @@ __all__ = ["ClusterGCNSampler", "SAINTSampler", "ShaDowKHopSampler"]
 
 
 class ClusterGCNSampler(Sampler):
-    """Cluster-GCN (reference ``cluster_gcn.py``). Its partition needs the
-    multilevel partitioner (``dgl_tpu/distributed/partition.py``), which
-    the port does not have yet: ROADMAP queue A11."""
+    """Cluster-GCN (reference ``cluster_gcn.py``): the graph split once
+    into ``k`` parts by the multilevel partitioner
+    (``distributed.partition.metis_partition_assignment``); a minibatch
+    is the node subgraph of the concatenated nodes of the parts
+    ``cluster_ids``, each part's in id order. Iterate the part ids with a
+    ``DataLoader``."""
 
     def __init__(self, g, k: int, balance_ntypes=None, cache_path=None,
                  seed=None):
-        raise NotImplementedError(
-            "ClusterGCNSampler needs distributed.partition."
-            "metis_partition_assignment: ROADMAP queue A11")
+        from ..distributed.partition import metis_partition_assignment
+
+        self.k = k
+        parts = metis_partition_assignment(g, k)
+        self.part_nodes = [np.nonzero(parts == p)[0] for p in range(k)]
+
+    def sample(self, g, cluster_ids):
+        from ..subgraph import node_subgraph
+
+        cluster_ids = np.atleast_1d(_asnumpy(cluster_ids))
+        return node_subgraph(g, np.concatenate(
+            [self.part_nodes[int(c)] for c in cluster_ids]))
 
 
 class SAINTSampler(Sampler):

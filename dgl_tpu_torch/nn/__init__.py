@@ -1,5 +1,5 @@
 """GNN layers (counterpart of ``dgl_tpu/nn/``), as ``torch.nn`` modules."""
-from . import functional, gt  # noqa: F401
+from . import explain, functional, gt  # noqa: F401
 from .conv import *  # noqa: F401,F403
 from .conv.atomicconv import RadialPooling, msg_func, reduce_func  # noqa: F401
 from .conv.dgnconv import DGNConvTower  # noqa: F401
@@ -13,6 +13,8 @@ from .conv.pna_helpers import (  # noqa: F401
 from .conv.pnaconv import PNAConvTower  # noqa: F401
 from .factory import KNNGraph, RadiusGraph, SegmentedKNNGraph  # noqa: F401
 from .glob import *  # noqa: F401,F403
+from .explain import *  # noqa: F401,F403
+from .explain.subgraphx import MCTSNode  # noqa: F401
 from .conv.twirlsconv import (AX, MLP, Attention, D_power_bias_X,  # noqa: F401
                               D_power_X, Propagate, PropagateNoPrecond,
                               normalized_AX)

@@ -562,19 +562,17 @@ def reorder_graph(g: Graph, node_permute_algo: str = "rcmk",
                   permute_config=None) -> Graph:
     """Relabel nodes (reference ``functional.py`` ``reorder_graph``).
 
-    ``node_permute_algo`` is ``'rcmk'`` (``rcmk_perm``) or ``'custom'``
-    (``permute_config['nodes_perm']``): ``perm[i]`` is the old id of new
-    node ``i``. Edges keep their ids and order; node features are carried
-    over permuted. The ``'metis'`` order needs the multilevel partitioner
-    (ROADMAP queue A11)."""
+    ``node_permute_algo`` is ``'rcmk'`` (``rcmk_perm``), ``'metis'``
+    (``metis_perm`` with ``permute_config['k']`` parts, default 8) or
+    ``'custom'`` (``permute_config['nodes_perm']``): ``perm[i]`` is the
+    old id of new node ``i``. Edges keep their ids and order; node
+    features are carried over permuted."""
     if node_permute_algo == "rcmk":
         perm = _rcmk_host(g)
     elif node_permute_algo == "custom":
         perm = _asnumpy((permute_config or {})["nodes_perm"])
     elif node_permute_algo == "metis":
-        raise NotImplementedError(
-            "reorder_graph('metis'): the multilevel partitioner is ROADMAP "
-            "queue A11")
+        perm = _metis_host(g, (permute_config or {}).get("k", 8))
     else:
         raise DGLError(f"Unknown node_permute_algo {node_permute_algo!r}")
     n = g.num_nodes()
@@ -1243,8 +1241,15 @@ def rcmk_perm(g: Graph) -> torch.Tensor:
     return _put(_rcmk_host(g).astype(np.int64), g.device)
 
 
-def metis_perm(g: Graph, k: int):
-    """The order grouping the multilevel partitioner's ``k`` parts (the
-    reference's ``metis_perm``): the partitioner is ROADMAP queue A11."""
-    raise NotImplementedError(
-        "metis_perm: the multilevel partitioner is ROADMAP queue A11")
+def _metis_host(g: Graph, k: int) -> np.ndarray:
+    from ..distributed.partition import metis_partition_assignment
+
+    return np.argsort(metis_partition_assignment(g, k), kind="stable")
+
+
+def metis_perm(g: Graph, k: int) -> torch.Tensor:
+    """The order grouping the multilevel partitioner's ``k`` parts
+    (``distributed.partition.metis_partition_assignment``), each part's
+    nodes in id order, ``perm[i]`` the old id of new node ``i``, int64 on
+    the graph's device."""
+    return _put(_metis_host(g, k).astype(np.int64), g.device)

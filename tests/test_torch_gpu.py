@@ -1525,3 +1525,112 @@ def test_deepwalk_step_on_card_matches_cpu(card):
             k: p.grad for k, p in model.named_parameters()}})
     cs.same_result(out[str(card)][0], out["cpu"][0], "DeepWalk batch")
     cs.held(out[str(card)][1], out["cpu"][1], 1e-5, "DeepWalk step")
+
+
+def test_cluster_gcn_on_card_matches_cpu(card):
+    """Phase ``cluster_gcn``'s checks at a small size: the partition of the
+    card's graph equals the CPU copy's, a batch of parts is the CPU's
+    subgraph, and one GraphSAGE step over it matches the CPU's (rtol =
+    1e-4 on the card pass's ReLU pattern) with no kernel launched."""
+    import chip_smoke as cs
+    from dgl_tpu_torch.dataloading import ClusterGCNSampler
+    from dgl_tpu_torch.distributed import metis_partition_assignment
+
+    g = _zipf_graph(3000, 20000, 12, card)
+    rng = np.random.default_rng(13)
+    g.ndata["feat"] = torch.from_numpy(rng.normal(size=(3000, 16)).astype(
+        np.float32)).to(card)
+    g.ndata["label"] = torch.from_numpy(rng.integers(0, 5, 3000)).to(card)
+    g.ndata["train_mask"] = torch.from_numpy(rng.random(3000) < 0.6).to(card)
+    g_cpu = g.to("cpu")
+    sampler = ClusterGCNSampler(g, 8)
+    parts = np.empty(3000, np.int64)
+    for p, ids in enumerate(sampler.part_nodes):
+        parts[ids] = p
+    assert np.array_equal(parts, metis_partition_assignment(g_cpu, 8))
+    sg = sampler.sample(g, [1, 6])
+    cs.same_result(sg, sampler.sample(g_cpu, [1, 6]), "parts 1 and 6")
+
+    def make(dev):
+        return GraphSAGE(16, 32, 5, num_layers=3,
+                         generator=torch.Generator().manual_seed(0),
+                         device=dev)
+
+    _kernels.reset_launch_counts()
+    cs.step_vs_cpu(make(card), lambda: make("cpu"), cs.cluster_loss, sg)
+    assert not any(_kernels.launch_counts.values())
+
+
+def test_partition_files_on_card_match_cpu(card):
+    """``partition_graph`` of a graph on the card writes the CPU's files;
+    ``load_partition`` puts the parts back on the card."""
+    import chip_smoke as cs
+
+    g = _zipf_graph(800, 5000, 14, card)
+    card_files = cs.partition_files(dt, g, "card")
+    cpu_files = cs.partition_files(dt, g.to("cpu"), "cpu")
+    cs.same_result(card_files, cpu_files, "partition files")
+    assert all(p.device.type == "cuda" for p in
+               (sub.ndata["_new_id"] for sub in card_files[1]))
+
+
+def test_gnnexplainer_on_card_launches_b1w(card):
+    """Phase ``explain_gcn``'s count at a small size: every
+    ``explain_graph`` epoch of the weighted GCN over
+    ``with_spmm_plans(num_hubs=64, weighted=True)`` launches B1w
+    ``EXPLAIN_EPOCH_LAUNCHES`` times (4 forward, 3 backward), the target
+    pass 4; the masks lie in [0, 1]."""
+    import chip_smoke as cs
+    from dgl_tpu_torch.nn.explain import GNNExplainer
+
+    g = _zipf_graph(3000, 20000, 15, card)
+    gp = dt.add_self_loop(g).with_spmm_plans(num_hubs=64, weighted=True)
+    x = torch.from_numpy(np.random.default_rng(16).normal(
+        size=(3000, 16)).astype(np.float32)).to(card)
+    model = cs.weighted_gcn((16, 32, 32, 5), 0.0, 0).to(card).eval()
+    _kernels.reset_launch_counts()
+    fm, em = GNNExplainer(cs.explain_gcn_fn(model), 3,
+                          num_epochs=4).explain_graph(gp, x)
+    torch.cuda.synchronize()
+    assert dict(_kernels.launch_counts) == {
+        **{k: 0 for k in _kernels.launch_counts},
+        "shell_prefix_gspmm": 4 + 4 * cs.EXPLAIN_EPOCH_LAUNCHES}
+    for m in (fm, em):
+        assert m.min() >= 0 and m.max() <= 1
+
+
+def test_explainers_on_card_match_cpu(card):
+    """PGExplainer (the seed's noise on both devices), SubgraphX and
+    GNNExplainer's ``explain_node`` on small inputs: the card against the
+    CPU at rtol = 1e-4, the node sets exactly."""
+    import chip_smoke as cs
+    from dgl_tpu_torch.nn.explain import (GNNExplainer, PGExplainer,
+                                          SubgraphX)
+
+    graphs = cs.molhiv_graphs(4, 3, card)
+    bg = dt.batch(graphs)
+    x = torch.from_numpy(np.random.default_rng(17).normal(
+        size=(bg.num_nodes(), cs.GIN_DIM)).astype(np.float32)).to(card)
+    model = cs.gin_explain_model(card)
+    model_cpu = cs.gin_explain_model("cpu")
+    model_cpu.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    out = {}
+    for dev, m, graph, feat in ((card, model, bg, x),
+                                ("cpu", model_cpu, bg.to("cpu"), x.cpu())):
+        ex = PGExplainer(m, cs.GIN_DIM, epochs=5)
+        loss = ex.train_step(graph, feat)
+        probs, mask = ex.explain_graph(graph, feat)
+        one = dt.unbatch(graph)[0]
+        nodes, score = SubgraphX(lambda g, h: m(g, h)[0], num_rollouts=5,
+                                 shapley_steps=5).explain_graph(
+            one, feat[:one.num_nodes()])
+        nid, sg, fm, em = GNNExplainer(
+            lambda g, h, w: m(g, h, w)[0].sum(0, keepdim=True), 2,
+            num_epochs=5).explain_node(3, graph, feat)
+        out[str(dev)] = ({"loss": torch.tensor(loss), "probs": probs,
+                          "mask": mask, "score": torch.tensor(score),
+                          "fm": fm, "em": em}, nodes, nid)
+    got, want = out[str(card)], out["cpu"]
+    cs.held(got[0], want[0], 1e-4, "explainers, card vs CPU")
+    assert np.array_equal(got[1], want[1]) and got[2] == want[2]

@@ -221,6 +221,15 @@ SLICE_MODULES += ("_host", "sampling.neighbor", "sampling.labor",
                   "dataloading.spot_target", "dataloading.worker_utils",
                   "dataloading.hetero_sampler", "nn.network_emb")
 
+# the partitioner-and-explainers slice
+SLICE_MODULES += ("distributed", "distributed.dist_context",
+                  "distributed.graph_partition_book",
+                  "distributed.partition", "data", "data.serialize",
+                  "partition_mod", "nn.explain", "nn.explain.gnnexplainer",
+                  "nn.explain.hetero_gnnexplainer",
+                  "nn.explain.pgexplainer", "nn.explain.hetero_pgexplainer",
+                  "nn.explain.subgraphx", "nn.explain.hetero_subgraphx")
+
 
 @pytest.mark.parametrize("name", SLICE_MODULES)
 def test_slice_module_is_scanned_and_exports_its_names(name):
@@ -234,8 +243,9 @@ def test_slice_module_is_scanned_and_exports_its_names(name):
 
 
 def test_reorder_orders():
-    """``reorder_graph('rcmk')`` runs (scipy's reverse Cuthill-McKee); the
-    METIS order needs the multilevel partitioner, ROADMAP queue A11."""
+    """``reorder_graph('rcmk')`` runs (scipy's reverse Cuthill-McKee), and
+    so does the METIS order over the multilevel partitioner: each a
+    permutation of the nodes, the edges kept."""
     import numpy as np
 
     import dgl_tpu_torch as dt
@@ -245,26 +255,30 @@ def test_reorder_orders():
     out = dt.reorder_graph(g, "rcmk")
     assert sorted(out.ndata[dt.NID].tolist()) == list(range(5))
     assert out.num_edges() == 4
-    with pytest.raises(NotImplementedError, match="A11"):
-        dt.reorder_graph(g, "metis")
-    with pytest.raises(NotImplementedError, match="A11"):
-        dt.metis_perm(g, 2)
+    out = dt.reorder_graph(g, "metis", permute_config={"k": 2})
+    assert sorted(out.ndata[dt.NID].tolist()) == list(range(5))
+    assert out.num_edges() == 4
+    assert sorted(dt.metis_perm(g, 2).tolist()) == list(range(5))
 
 
 def test_cluster_gcn_sampler_needs_the_partitioner():
-    """Cluster-GCN's partition is the multilevel partitioner's, ROADMAP
-    queue A11; no sampler raises naming A9 any more."""
+    """Cluster-GCN's partition is the multilevel partitioner's: the
+    sampler's parts cover the nodes once; no port module raises naming
+    queue A9, nor A11's partitioner, any more."""
     import numpy as np
 
     import dgl_tpu_torch as dt
 
-    g = dt.graph((np.array([0, 1]), np.array([1, 2])), num_nodes=3,
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        dt.dataloading.ClusterGCNSampler(g, 2)
+    g = dt.graph((np.array([0, 1, 2, 3]), np.array([1, 2, 3, 0])),
+                 num_nodes=4, device="cpu")
+    sampler = dt.dataloading.ClusterGCNSampler(g, 2)
+    assert sorted(np.concatenate(sampler.part_nodes).tolist()) == [0, 1, 2, 3]
+    assert sampler.sample(g, [0, 1]).num_nodes() == 4
     for dirpath, _dirs, names in os.walk(os.path.join(ROOT,
                                                       "dgl_tpu_torch")):
         for n in names:
             if n.endswith(".py"):
                 with open(os.path.join(dirpath, n), encoding="utf-8") as f:
-                    assert "queue A9" not in f.read(), n
+                    text = f.read()
+                assert "queue A9" not in text, n
+                assert "partitioner is ROADMAP" not in text, n
