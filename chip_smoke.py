@@ -268,6 +268,14 @@ the minibatch GraphSAGE paths (no hand kernel), on the zipf graph with
     (1 + 2 epochs against 1, best of 2 each), a step's profile, and the
     epochs' mean losses, which must be finite and fall;
 
+20'. ``graphbolt_device``: the same work through GraphBolt's on-device
+     backend (``ItemSampler`` -> ``DeviceNeighborSamplerStage([10, 10])``
+     -> ``DeviceFeatureFetcher`` -> ``DeviceSAGE``, Adam at 1e-3, through
+     ``gb.DataLoader``): the first batch's picks checked as in 20 and its
+     features the table's rows, 40 steps with the launch counts read
+     around them (all 0), losses finite and falling, ``ms_per_step``
+     beside 20's;
+
 the host samplers and dataloading (no hand kernel: every count must stay
 0), on a graph of ogbn-products' counts (``products_graph``: 2,449,029
 nodes, 61,859,140 pairs of the SBM recipe stored both ways in order,
@@ -301,6 +309,28 @@ nodes, 61,859,140 pairs of the SBM recipe stored both ways in order,
      picks equal to ``_pick``'s on its own draws) on item -> user graphs
      of that graph's edges, and DeepWalk (dim 128, walks of 40, window 5)
      steps, their losses against the CPU at 1e-4;
+20d. ``graphbolt_products``: DGL's GraphBolt ``node_classification.py``
+     from disk: the graph (int64 endpoints), features, labels and train
+     split written by ``gb.OnDiskDataset.write`` under ``build/`` and
+     loaded back (the CSC equal to the graph's; the directory removed
+     after), the features a ``DiskBasedFeature`` read by ``pread`` behind
+     ``HBMFeatureCache.from_degrees`` (262,144 hot rows on the card),
+     ``ItemSampler(1024, shuffle)`` -> ``NeighborSamplerStage([10, 10,
+     10])`` -> ``FeatureFetcher`` -> ``CopyTo`` -> ``gb.DataLoader``,
+     GraphSAGE 100-256-256-47 (mean, dropout 0.5), Adam at 1e-3: the
+     first batch (blocks, input ids, features) equal to the same pipeline
+     over the CPU graph, the first step against the CPU at 1e-4 as in
+     20a, two batches stage by stage (``sample_ms``, ``fetch_ms`` and its
+     disk reads, ``copy_ms``), one warm and 10 timed steps through the
+     loader's thread (``step_ms``, ``ms_per_step``, the counts 0, the
+     cache's hit rate, peak memory, the resident memory's growth, the
+     feature file never mapped), two profiled (``device_idle_share``);
+20e. ``graphbolt_layer_and_fused_csc``: the first batch of
+     ``gb.LayerNeighborSampler([10, 10, 10])``, ``gb.from_dglgraph`` with
+     ``SamplePerLayer`` + ``CompactPerLayer`` over 3 layers of fanout 10
+     for 1,024 seeds into ``to_dgl_blocks``, and ``in_subgraph`` of the
+     seeds, card against CPU exactly, each timed; the graph cache stages,
+     the CPU and card feature caches and ``all_to_all`` at world size 1;
 
 the heterogeneous path (kernel B1 on bipartite relations), R-GCN on a
 graph of ogbn-mag's published counts (``mag_graph``: 736,389 papers,
@@ -6439,10 +6469,12 @@ def sage_loss(model, blocks, pattern=None):
     return loss, seen
 
 
-def step_vs_cpu(model, make_cpu_model, loss_fn, batch, tol=1e-4) -> dict:
+def step_vs_cpu(model, make_cpu_model, loss_fn, batch, tol=1e-4,
+                batch_cpu=None) -> dict:
     """The first step's loss and gradients on the card against the CPU's
     (dropout off, the CPU pass on the card pass's ReLU pattern) at
-    rtol = ``tol``, atol = ``tol`` * max|ref|."""
+    rtol = ``tol``, atol = ``tol`` * max|ref|; the CPU's batch is
+    ``batch_cpu``, or ``batch`` moved to the CPU."""
     from dgl_tpu_torch.dataloading.dataloader import to_device
 
     model_cpu = make_cpu_model()
@@ -6452,8 +6484,8 @@ def step_vs_cpu(model, make_cpu_model, loss_fn, batch, tol=1e-4) -> dict:
     model_cpu.eval()
     loss, pattern = loss_fn(model, batch)
     loss.backward()
-    ref, _ = loss_fn(model_cpu, to_device(batch, "cpu"),
-                     [p.cpu() for p in pattern])
+    ref, _ = loss_fn(model_cpu, to_device(batch, "cpu") if batch_cpu is None
+                     else batch_cpu, [p.cpu() for p in pattern])
     ref.backward()
     got = {"loss": loss.detach()}
     want = {"loss": ref.detach()}
@@ -7111,6 +7143,522 @@ def run_mag_etype_sampler(g, tag: dict) -> dict:
     emit({"phase": "host_samplers_mag", "samplers": timings,
           "to_homogeneous_s": homo_s, **tag})
     return timings
+
+
+# ---------------------------------------------------------------------------
+# GraphBolt: DGL's GraphBolt node-classification recipe at ogbn-products'
+# counts from an on-disk dataset, the LABOR stage and the fused CSC
+# sampling graph on the same graph, and the on-device backend
+# ---------------------------------------------------------------------------
+
+GB_HOT_ROWS = 262_144  # the card's feature cache: a tenth of the nodes
+GB_TIMED_STEPS = 10
+GB_STAGED_BATCHES = 1  # batches after the first run stage by stage
+GB_DEVICE_STEPS = 40
+
+
+def rss_mib() -> float:
+    """This process's resident memory (``VmRSS``), MiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS"):
+                return int(line.split()[1]) / 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def mapped(path: str) -> bool:
+    """Whether ``path`` is mapped into this process."""
+    with open("/proc/self/maps") as f:
+        return any(line.rstrip().endswith(path) for line in f)
+
+
+def gb_pipeline(train, graph, store, device):
+    """The recipe's datapipe: ``ItemSampler`` (batch 1,024, shuffled, seed
+    0) -> ``NeighborSamplerStage([10, 10, 10])`` -> ``FeatureFetcher`` ->
+    ``CopyTo``."""
+    from dgl_tpu_torch import graphbolt as gb
+
+    dp = gb.ItemSampler(train, PRODUCTS_BATCH, shuffle=True, seed=0)
+    dp = gb.NeighborSamplerStage(dp, graph, PRODUCTS_FANOUTS,
+                                 batch_size=PRODUCTS_BATCH, seed=0,
+                                 device=device)
+    dp = gb.FeatureFetcher(dp, store, ["feat"])
+    return gb.CopyTo(dp, device)
+
+
+def gb_loss(model, mb, pattern=None):
+    """node_classification.py's loss over a GraphBolt batch: the logits of
+    the real seed slots (the fixed-shape blocks' first ``len(labels)``
+    output rows) against the labels, the ReLUs recorded (or following
+    ``pattern``)."""
+    import torch.nn.functional as F
+
+    with relu_pattern(pattern) as seen:
+        logits = model(mb.blocks, mb.node_features["feat"])
+        loss = F.cross_entropy(logits[:mb.labels.shape[0]], mb.labels)
+    return loss, seen
+
+
+def gb_step(model, opt, mb, device) -> float:
+    """One Adam step over a GraphBolt batch; its loss."""
+    opt.zero_grad(set_to_none=True)
+    loss = gb_loss(model, mb)[0]
+    loss.backward()
+    opt.step()
+    _sync(device)
+    return loss.item()
+
+
+def same_gb_batch(a, b, what: str) -> None:
+    """Two GraphBolt batches with equal seeds, labels, input ids, fetched
+    features (exactly) and blocks."""
+    import numpy as np
+
+    for k in ("seeds", "labels"):
+        same_result(getattr(a, k), getattr(b, k), f"{what}: {k}")
+    if not np.array_equal(a.input_nodes, b.input_nodes):
+        raise RuntimeError(f"{what}: input ids differ")
+    same_result(a.node_features, b.node_features, f"{what}: features")
+    same_result(a.blocks, b.blocks, f"{what}: blocks")
+
+
+def staged_batches(copy, count: int, device):
+    """``count`` batches of the pipeline ending in the CopyTo stage
+    ``copy``, each stage applied in turn and timed (the sampler, the
+    fetch, the copy), and the fetch's disk reads alone (the batch's rows
+    that miss the card's cache, read again); returns the batches and the
+    ms of each stage, a list per stage."""
+    import numpy as np
+
+    fetch = copy.source
+    sample = fetch.source
+    cache = fetch.store[("node", "_N", "feat")]
+    items = iter(sample.source)
+    batches, ms = [], {"sample": [], "fetch": [], "copy": [], "disk": []}
+    for _ in range(count):
+        mb = next(items)
+        t0 = time.perf_counter()
+        mb = sample._apply(mb)
+        t1 = time.perf_counter()
+        mb = fetch._apply(mb)
+        _sync(device)
+        t2 = time.perf_counter()
+        mb = copy._apply(mb)
+        _sync(device)
+        t3 = time.perf_counter()
+        miss = mb.input_nodes[~np.isin(mb.input_nodes, cache._hot_sorted)]
+        t4 = time.perf_counter()
+        cache._fb.read(miss)
+        for k, v in (("sample", t1 - t0), ("fetch", t2 - t1),
+                     ("copy", t3 - t2), ("disk", time.perf_counter() - t4)):
+            ms[k].append(v * 1e3)
+        batches.append(mb)
+    return batches, ms
+
+
+def run_graphbolt_products(pg, tag: dict, device="cuda") -> dict:
+    """Phase graphbolt_products: DGL's GraphBolt ``node_classification.py``
+    from disk. ``pg``'s graph, features, labels and train split go through
+    ``gb.OnDiskDataset.write`` into a directory under ``build/`` (removed
+    after) and load back; the loaded graph's CSC equals ``pg["g"]``'s. The
+    features are a ``DiskBasedFeature`` (pread) behind
+    ``HBMFeatureCache.from_degrees`` with ``GB_HOT_ROWS`` rows on the card.
+    The first batch (blocks, input ids, features) equals the same
+    pipeline's over the CPU graph with the features in memory; the first
+    step (dropout off) is held against the CPU at 1e-4. Then
+    ``GB_STAGED_BATCHES`` more batches stage by stage (each stage timed)
+    and stepped, one warm step and ``GB_TIMED_STEPS`` steps through
+    ``gb.DataLoader`` (its prefetch thread) with the launch counts read
+    around them, and two profiled steps."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch import graphbolt as gb
+    from dgl_tpu_torch.models import GraphSAGE
+
+    t_phase = time.perf_counter()
+    g, g_cpu = pg["g"], pg["g_cpu"]
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    path = tempfile.mkdtemp(prefix="graphbolt_products_", dir=build)
+    try:
+        src, dst = g._relation().host_edges()
+        t0 = time.perf_counter()
+        gb.OnDiskDataset.write(
+            path, name="ogbn-products", src=src.astype(np.int64),
+            dst=dst.astype(np.int64), num_nodes=g.num_nodes(),
+            features={"feat": g_cpu.ndata["feat"].numpy()},
+            labels=g_cpu.ndata["label"].numpy(), train_ids=pg["train"],
+            device=device)
+        write_s = time.perf_counter() - t0
+        del src, dst
+        files = {n: os.path.getsize(os.path.join(path, n))
+                 for n in sorted(os.listdir(path))}
+        t0 = time.perf_counter()
+        ds = gb.OnDiskDataset(path, device)
+        graph, train = ds.graph, ds.train_set
+        disk = ds.feature[("node", "_N", "feat")]
+        _sync(device)
+        load_s = time.perf_counter() - t0
+        if not isinstance(disk, gb.DiskBasedFeature) or disk._io != "pread":
+            raise RuntimeError("the on-disk features do not read by pread")
+        rel, ref_rel = graph._relation(), g._relation()
+        for f in ("csc_indptr", "csc_indices", "csc_eids"):
+            if not np.array_equal(rel.host_arrays(f)[0],
+                                  ref_rel.host_arrays(f)[0]):
+                raise RuntimeError(f"the loaded graph's {f} differs")
+        deg = np.diff(rel.host_arrays("csc_indptr")[0])
+        t0 = time.perf_counter()
+        cache = gb.HBMFeatureCache.from_degrees(disk, deg, GB_HOT_ROWS,
+                                                device=device)
+        _sync(device)
+        cache_s = time.perf_counter() - t0
+        store = gb.FeatureStore({("node", "_N", "feat"): cache})
+        # the CPU's batch reads the features from memory: the card's rows
+        # come through the disk and the cache, the CPU's do not
+        store_cpu = gb.FeatureStore({("node", "_N", "feat"): gb.NumpyFeature(
+            g_cpu.ndata["feat"].numpy())})
+
+        def model_on(dev):
+            return GraphSAGE(PRODUCTS_FEAT, PRODUCTS_HIDDEN,
+                             PRODUCTS_CLASSES, num_layers=3, dropout=0.5,
+                             generator=torch.Generator().manual_seed(0),
+                             device=dev)
+
+        # the first batch against the CPU's, then the staged batches
+        staged, stage_ms = staged_batches(
+            gb_pipeline(train, graph, store, device),
+            1 + GB_STAGED_BATCHES, device)
+        t0 = time.perf_counter()
+        first_cpu = next(iter(gb_pipeline(train, g_cpu, store_cpu, "cpu")))
+        cpu_batch_s = time.perf_counter() - t0
+        first = staged[0]
+        same_gb_batch(first, first_cpu, "the first batch, card vs CPU")
+        if not np.array_equal(first.input_nodes,
+                              first.blocks[0].srcdata["_ID"].cpu().numpy()):
+            raise RuntimeError("input ids are not blocks[0].srcdata[NID]")
+        model = model_on(device)
+        check = step_vs_cpu(model, lambda: model_on("cpu"), gb_loss, first,
+                            batch_cpu=first_cpu)
+        del first_cpu, store_cpu
+        opt = torch.optim.Adam(model.parameters(), lr=PRODUCTS_LR)
+        staged_step_ms = []
+        for mb in staged[1:]:
+            t0 = time.perf_counter()
+            gb_step(model, opt, mb, device)
+            staged_step_ms.append((time.perf_counter() - t0) * 1e3)
+        sizes = {"src_slots": [b.num_src_nodes() for b in first.blocks],
+                 "dst_slots": [b.num_dst_nodes() for b in first.blocks],
+                 "edge_slots": [b.num_edges() for b in first.blocks],
+                 "real_edges": block_edges(first.blocks),
+                 "distinct_input_nodes": int(np.unique(
+                     first.input_nodes).shape[0])}
+        del staged, first, mb
+
+        # the main path: a fresh pipeline through the loader's thread, one
+        # warm step, then the timed steps with the counts read around them
+        loader = iter(gb.DataLoader(gb_pipeline(train, graph, store,
+                                                device)))
+        warm_loss = gb_step(model, opt, next(loader), device)
+        hits0, miss0 = cache.hits, cache.misses
+        torch.cuda.reset_peak_memory_stats()
+        rss0 = rss_mib()
+        _kernels.reset_launch_counts()
+        losses, step_s = [], []
+        t0 = time.perf_counter()
+        for _ in range(GB_TIMED_STEPS):
+            mb = next(loader)
+            t1 = time.perf_counter()
+            losses.append(gb_step(model, opt, mb, device))
+            step_s.append(time.perf_counter() - t1)
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.launch_counts)
+        rss1 = rss_mib()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        expect_no_other_launch(launches, {}, "the GraphBolt recipe")
+        if not all(map(math.isfinite, [warm_loss] + losses)):
+            raise RuntimeError(f"non-finite GraphBolt losses: {losses}")
+        if mapped(os.path.join(path, "feat.npy")):
+            raise RuntimeError("the pread path mapped the feature file")
+        hits, misses = cache.hits - hits0, cache.misses - miss0
+        prof = profiled_steps(model, opt, gb_loss, loader)
+        # the last batch's cache misses three ways: the pread path as the
+        # fetch takes it (by blocks where the rows lie dense), one pread a
+        # row, and through a map of the file
+        miss = mb.input_nodes[~np.isin(mb.input_nodes, cache._hot_sorted)]
+        want = g_cpu.ndata["feat"].numpy()[miss]
+        mm = gb.DiskBasedFeature(os.path.join(path, "feat.npy"), io="mmap")
+        read_ms = {}
+        for how, read in (
+                ("pread", disk.read),
+                ("pread a row", lambda i: disk._pread(
+                    i, disk._row_bytes).view(want.dtype).reshape(want.shape)),
+                ("mmap", mm.read)):
+            t0 = time.perf_counter()
+            rows = read(miss)
+            read_ms[how] = (time.perf_counter() - t0) * 1e3
+            if not np.array_equal(rows, want):
+                raise RuntimeError(f"{how}: rows differ from the graph's")
+        disk.close()
+        del loader, mb, rows, want, mm
+        res = {
+            "recipe": "examples/graphbolt/node_classification.py: "
+                      "ItemSampler(1024, shuffle) -> NeighborSamplerStage("
+                      "[10, 10, 10]) -> FeatureFetcher(DiskBasedFeature "
+                      "pread behind HBMFeatureCache) -> CopyTo -> "
+                      "DataLoader; GraphSAGE 100-256-256-47 (mean, dropout "
+                      "0.5), Adam 1e-3",
+            "files_bytes": files, "write_s": write_s, "load_s": load_s,
+            "cache_build_s": cache_s, "hot_rows": GB_HOT_ROWS,
+            "hot_table_mib": GB_HOT_ROWS * PRODUCTS_FEAT * 4 / 2**20,
+            "sample_ms": float(np.mean(stage_ms["sample"][1:])),
+            "fetch_ms": float(np.mean(stage_ms["fetch"][1:])),
+            "fetch_disk_read_ms": float(np.mean(stage_ms["disk"][1:])),
+            "miss_rows": int(miss.shape[0]),
+            "miss_rows_read_ms": read_ms,
+            "copy_ms": float(np.mean(stage_ms["copy"][1:])),
+            "first_batch_stage_ms": {k: v[0] for k, v in stage_ms.items()},
+            "staged_step_ms": staged_step_ms,
+            "step_ms": sum(step_s) / GB_TIMED_STEPS * 1e3,
+            "ms_per_step": wall / GB_TIMED_STEPS * 1e3,
+            "timed_steps": GB_TIMED_STEPS, "losses": [warm_loss] + losses,
+            "cache_hits": hits, "cache_misses": misses,
+            "cache_hit_rate": hits / max(hits + misses, 1),
+            "block_sizes": sizes, "launches": launches,
+            "peak_memory_gib": peak, "rss_growth_mib": rss1 - rss0,
+            "rss_mib": rss1, "feature_file_mapped": False,
+            "cpu_first_batch_s": cpu_batch_s, "first_step_vs_cpu": check,
+            "tolerance": "batch exact; the first step rtol=1e-4, "
+                         "atol=1e-4*max|ref| (dropout off, the CPU on the "
+                         "card pass's ReLU pattern)",
+            "reads": "from the page cache the write has just filled",
+            **prof, "phase_s": time.perf_counter() - t_phase}
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    emit({"phase": "graphbolt_products", **res, **tag})
+    return res
+
+
+def run_graphbolt_layer_and_fused_csc(pg, tag: dict, device="cuda") -> dict:
+    """Phase graphbolt_layer_and_fused_csc: the first batch of
+    ``gb.LayerNeighborSampler([10, 10, 10])`` over the products graph, and
+    ``gb.from_dglgraph`` of it with ``SamplePerLayer`` + ``CompactPerLayer``
+    (3 layers of fanout 10, 1,024 seeds) into ``to_dgl_blocks`` and
+    ``in_subgraph`` of the seeds: card against CPU, exactly, each timed;
+    then the small cases: the graph cache stages, the CPU and card
+    feature caches and ``all_to_all`` at world size 1."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch import graphbolt as gb
+
+    t_phase = time.perf_counter()
+    g, g_cpu = pg["g"], pg["g_cpu"]
+    train = gb.ItemSet(pg["train"], names="seeds")
+    timings = {}
+
+    def both(name, run):
+        out = []
+        for graph, dev in ((g, device), (g_cpu, "cpu")):
+            t0 = time.perf_counter()
+            out.append(run(graph, dev))
+            _sync(dev)
+            timings.setdefault(name, {})[
+                "card_s" if dev == device else "cpu_s"] = (
+                time.perf_counter() - t0)
+        return out
+
+    _kernels.reset_launch_counts()
+
+    def labor(graph, dev):
+        dp = gb.ItemSampler(train, PRODUCTS_BATCH, shuffle=True, seed=0)
+        dp = gb.LayerNeighborSampler(dp, graph, PRODUCTS_FANOUTS, seed=0)
+        mb = next(iter(dp))
+        return [mb.input_nodes, mb.blocks]
+
+    labor_out = both("LayerNeighborSampler first batch", labor)
+    same_result(*labor_out, "LayerNeighborSampler card vs CPU")
+    blocks = labor_out[0][1]
+    timings["LayerNeighborSampler first batch"].update(
+        frontier_nodes=[b.num_src_nodes() for b in blocks],
+        block_edges=[b.num_edges() for b in blocks])
+    del labor_out, blocks
+
+    fused = both("from_dglgraph", lambda graph, dev: gb.from_dglgraph(graph))
+    for f in ("csc_indptr", "indices", "_eids"):
+        if not np.array_equal(getattr(fused[0], f), getattr(fused[1], f)):
+            raise RuntimeError(f"from_dglgraph's {f}, card vs CPU")
+    seeds = np.random.default_rng(2).permutation(pg["train"])[
+        :PRODUCTS_BATCH]
+
+    def fused_of(dev):
+        return fused[0] if dev == device else fused[1]
+
+    def per_layer(graph, dev):
+        dp = gb.ItemSampler(gb.ItemSet(seeds, names="seeds"), PRODUCTS_BATCH)
+        for fanout in PRODUCTS_FANOUTS:
+            dp = gb.CompactPerLayer(gb.SamplePerLayer(
+                dp, fused_of(dev), fanout, seed=0))
+        mb = next(iter(dp))
+        return mb.sampled_subgraphs, mb.to_dgl_blocks(device=dev)
+
+    name = "SamplePerLayer + CompactPerLayer x3, to_dgl_blocks"
+    (subs, blocks), (subs_c, blocks_c) = both(name, per_layer)
+    for i, (a, b) in enumerate(zip(subs, subs_c)):
+        same_result([a.sampled_csc.indptr, a.sampled_csc.indices,
+                      a.original_row_node_ids, a.original_column_node_ids,
+                      a.original_edge_ids],
+                     [b.sampled_csc.indptr, b.sampled_csc.indices,
+                      b.original_row_node_ids, b.original_column_node_ids,
+                      b.original_edge_ids], f"sampled layer {i}")
+    same_result(blocks, blocks_c, "to_dgl_blocks card vs CPU")
+    timings[name].update(
+        rows=[len(s.original_row_node_ids) for s in subs],
+        edges=[s.num_sampled_edges() for s in subs])
+    ins = both("in_subgraph", lambda graph, dev: fused_of(dev).in_subgraph(
+        seeds))
+    same_result([ins[0].sampled_csc.indptr, ins[0].sampled_csc.indices,
+                 ins[0].original_edge_ids],
+                [ins[1].sampled_csc.indptr, ins[1].sampled_csc.indices,
+                 ins[1].original_edge_ids], "in_subgraph card vs CPU")
+    timings["in_subgraph"]["edges"] = ins[0].num_sampled_edges()
+    del fused, subs, subs_c, blocks, blocks_c, ins
+
+    # the small cases: the graph cache stages, the feature caches on the
+    # card and on the CPU, all_to_all at world size 1
+    fg = gb.from_dglgraph(g_cpu.subgraph(np.arange(20_000)))
+    cache = gb.GPUGraphCache(capacity=4_000)
+
+    def insub_batches(stage):
+        return list(stage(gb.ItemSampler(gb.ItemSet(np.arange(4_000)),
+                                         1_000)))
+
+    for _ in range(2):
+        cached = insub_batches(lambda dp: gb.CombineCachedAndFetchedInSubgraph(
+            gb.FetchCachedInsubgraphData(dp, fg, cache), fg, cache))
+    direct = insub_batches(lambda dp: gb.FetchInsubgraphData(dp, fg))
+    for a, b in zip(cached, direct):
+        sa, sb = a.sampled_subgraphs[0], b.sampled_subgraphs[0]
+        same_result([sa.sampled_csc.indptr, sa.sampled_csc.indices,
+                     sa.original_edge_ids],
+                    [sb.sampled_csc.indptr, sb.sampled_csc.indices,
+                     sb.original_edge_ids], "graph cache vs direct fetch")
+    rng = np.random.default_rng(3)
+    table = rng.normal(size=(50_000, PRODUCTS_FEAT)).astype(np.float32)
+    ids = rng.integers(0, 50_000, 20_000)
+    base = gb.NumpyFeature(table)
+    want = torch.from_numpy(table[ids])
+    for what, make in (
+            ("cpu_cached_feature", lambda dev: gb.cpu_cached_feature(
+                base, 400 * 5_000)),
+            ("gpu_cached_feature", lambda dev: gb.gpu_cached_feature(
+                base, 400 * 5_000, device=dev)),
+            ("HBMFeatureCache", lambda dev: gb.HBMFeatureCache(
+                base, np.arange(0, 50_000, 7), device=dev))):
+        outs = []
+        for dev in (device, "cpu"):
+            feat = make(dev)
+            t0 = time.perf_counter()
+            outs.append(torch.as_tensor(feat.read(ids)))
+            _sync(dev)
+            timings.setdefault(what, {})[
+                "card_s" if dev == device else "cpu_s"] = (
+                time.perf_counter() - t0)
+        if not all(torch.equal(o.cpu(), want) for o in outs):
+            raise RuntimeError(f"{what}: rows differ from the table's")
+        if (what != "cpu_cached_feature"
+                and outs[0].device.type != torch.device(device).type):
+            raise RuntimeError(f"{what}: the rows are not on the card")
+    outs = [np.zeros(3, np.int64), torch.zeros(3, dtype=torch.int64)]
+    gb.all_to_all(outs, [np.arange(3), torch.arange(3, 6)])
+    if outs[0].tolist() != [0, 1, 2] or outs[1].tolist() != [3, 4, 5]:
+        raise RuntimeError(f"all_to_all at world size 1: {outs}")
+    launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(launches, {}, "the GraphBolt samplers")
+    res = {"timings": timings, "graph_cache_hit_rate": cache.hit_rate,
+           "launches": launches, "check": "card equal to CPU, exactly",
+           "phase_s": time.perf_counter() - t_phase}
+    emit({"phase": "graphbolt_layer_and_fused_csc", **res, **tag})
+    return res
+
+
+def run_graphbolt_device(data, e2e: dict, tag: dict, device="cuda") -> dict:
+    """Phase graphbolt_device: the on-device backend through the stages,
+    on ``minibatch_data``'s zipf graph: ``ItemSampler`` (512, shuffled) ->
+    ``DeviceNeighborSamplerStage([10, 10])`` -> ``DeviceFeatureFetcher``
+    -> ``DeviceSAGE`` 100-256-47, Adam at 1e-3, ``GB_DEVICE_STEPS`` steps
+    after a warm one through ``gb.DataLoader``; the first batch's picks
+    checked (``check_device_picks``), its features the table's rows; the
+    losses finite and falling. ``ms_per_step`` beside
+    ``sage_minibatch_end_to_end``'s (``e2e``: the same work without the
+    stages)."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch import graphbolt as gb
+    from dgl_tpu_torch.models import DeviceSAGE
+
+    t_phase = time.perf_counter()
+    g, feats, labels = data
+    sampler = gb.DeviceNeighborSamplerStage(
+        gb.ItemSampler(gb.ItemSet(np.arange(N_NODES), names="seeds"),
+                       MB_BATCH, shuffle=True, seed=0, drop_last=True),
+        g, MB_FANOUTS, seed=0, device=device)
+    dp = gb.DeviceFeatureFetcher(sampler, {"feat": feats}, device=device)
+    model = DeviceSAGE(MB_FEAT, MB_HIDDEN, MB_CLASSES, num_layers=2,
+                       generator=torch.Generator().manual_seed(0),
+                       device=device)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    loader = iter(gb.DataLoader(dp))
+
+    def step(mb):
+        logits = model(mb.device_mfg, mb.node_features["feat"])
+        loss = torch.nn.functional.cross_entropy(
+            logits, labels.index_select(0, mb.device_mfg.frontiers[0]))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    first = next(loader)
+    masked = check_device_picks(first.device_mfg, sampler.indptr,
+                                sampler.indices, MB_FANOUTS)
+    if not torch.equal(first.node_features["feat"], feats.index_select(
+            0, first.device_mfg.input_nodes())):
+        raise RuntimeError("DeviceFeatureFetcher's rows differ")
+    losses = [step(first)]
+    _sync(device)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(GB_DEVICE_STEPS):
+        losses.append(step(next(loader)))
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(launches, {}, "the GraphBolt device backend")
+    losses = [v.item() for v in losses]
+    if not (all(map(math.isfinite, losses))
+            and np.mean(losses[-5:]) < np.mean(losses[:5])):
+        raise RuntimeError(f"GraphBolt device losses: {losses}")
+    res = {"pipeline": "ItemSampler(512) -> DeviceNeighborSamplerStage("
+                       "[10, 10]) -> DeviceFeatureFetcher -> DeviceSAGE "
+                       "100-256-47, Adam 1e-3, through gb.DataLoader",
+           "steps": GB_DEVICE_STEPS,
+           "ms_per_step": wall / GB_DEVICE_STEPS * 1e3,
+           "sage_minibatch_end_to_end_ms_per_step": e2e["ms_per_step"],
+           "masked_seeds": masked,
+           "frontiers": [int(f.shape[0])
+                         for f in first.device_mfg.frontiers],
+           "losses": losses, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    emit({"phase": "graphbolt_device", **res, **tag})
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -7821,7 +8369,10 @@ def run() -> dict:
     emit({"phase": "minibatch_data", "setup_s": time.perf_counter() - t0,
           **tag})
     run_sage_minibatch(data, tag)
-    run_sage_end_to_end(data, tag)
+    e2e = run_sage_end_to_end(data, tag)
+    t_gb = time.perf_counter()
+    run_graphbolt_device(data, e2e, tag)
+    gb_s = time.perf_counter() - t_gb
     del data
     t0 = time.perf_counter()
     pg = products_graph()
@@ -7832,6 +8383,11 @@ def run() -> dict:
     run_products_sage(pg, tag)
     run_products_link(pg, tag)
     run_host_samplers(pg, tag)
+    t_gb = time.perf_counter()
+    run_graphbolt_products(pg, tag)
+    run_graphbolt_layer_and_fused_csc(pg, tag)
+    emit({"phase": "graphbolt_total",
+          "seconds": gb_s + time.perf_counter() - t_gb, **tag})
     del pg
     torch.cuda.empty_cache()
     emit({"phase": "samplers_total", "seconds": time.perf_counter() - t0,

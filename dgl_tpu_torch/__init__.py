@@ -46,7 +46,9 @@ collators and the prefetching ``DataLoader``), and ``nn.DeepWalk`` and
 partitions (``partition_graph_with_halo``, ``metis_partition``), the
 METIS orders and ``ClusterGCNSampler``, and the explainers
 (``nn.explain``: GNNExplainer, PGExplainer and SubgraphX, homogeneous and
-heterogeneous).
+heterogeneous); GraphBolt (``graphbolt``: the stage pipeline,
+``FusedCSCSamplingGraph``, the feature stores and caches, the on-disk
+dataset) and the lazy-feature markers.
 """
 from . import (data, dataloading, distributed, function, geometry, models,
                nn, ops, propagate, readout, sampling, sparse, transforms,
@@ -86,6 +88,11 @@ from .transforms.functional import (
     svd_pe, to_bfloat16, to_bidirected, to_block, to_double, to_float,
     to_half, to_simple, to_simple_graph, update_graph_structure)
 
+from . import graphbolt
+from .graphbolt.lazy import (LazyFeature, set_dst_lazy_features,
+                             set_edge_lazy_features, set_node_lazy_features,
+                             set_src_lazy_features)
+
 DGLGraph = Graph
 
 __all__ = [
@@ -123,9 +130,12 @@ __all__ = [
     # ordered propagation
     "prop_nodes", "prop_edges", "prop_nodes_bfs", "prop_nodes_topo",
     "prop_edges_dfs",
+    # lazy features of the GraphBolt pipeline
+    "LazyFeature", "set_node_lazy_features", "set_edge_lazy_features",
+    "set_src_lazy_features", "set_dst_lazy_features",
     # namespaces
-    "data", "dataloading", "distributed", "function", "geometry", "models",
-    "nn", "ops",
+    "data", "dataloading", "distributed", "function", "geometry",
+    "graphbolt", "models", "nn", "ops",
     "propagate", "readout", "sampling", "sparse", "subgraph_module",
     "transforms", "traversal",
 ]

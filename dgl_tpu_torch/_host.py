@@ -1,6 +1,6 @@
 """Build, load and call the host library (``csrc/host_ops.cpp``): the
-samplers' picks and the partitioner's matching, aggregation and k-way
-gains.
+samplers' picks, the partitioner's matching, aggregation and k-way gains,
+and the batched row reads of the out-of-core feature store.
 
 ``csrc/host_ops.cpp`` is framework-free C++ shared by both packages: the
 port compiles it itself with ``g++`` into
@@ -102,6 +102,12 @@ def library() -> ctypes.CDLL:
             lib.kway_gains.argtypes = [
                 i64p, i32p, ctypes.c_void_p, i64p, ctypes.c_int64,
                 ctypes.c_int64, i32p, f32p]
+            u8w = np.ctypeslib.ndpointer(np.uint8,
+                                         flags="C_CONTIGUOUS,WRITEABLE")
+            lib.batched_pread.argtypes = [
+                ctypes.c_int, ctypes.c_int64, i64p, ctypes.c_int64,
+                ctypes.c_int64, u8w]
+            lib.batched_pread.restype = ctypes.c_int64
             for name in ("sample_neighbors_fixed", "sample_neighbors_prob",
                          "select_topk_rows", "random_walk_uniform",
                          "sample_neighbors_etype", "hem_match",
@@ -335,3 +341,32 @@ def kway_gains(indptr, indices, data, parts, k: int):
     gain = np.empty(n, np.float32)
     lib.kway_gains(indptr, indices, dptr, parts, n, int(k), best, gain)
     return best, gain
+
+
+def batched_pread(fd: int, offset0: int, ids, row_bytes: int, out):
+    """Read rows ``ids`` of the fixed-width records that start at byte
+    ``offset0`` of the open file ``fd`` into ``out`` (a writeable,
+    contiguous uint8 array of at least ``len(ids) * row_bytes`` bytes) with
+    parallel ``pread`` calls (``batched_pread``): row ``i`` of the output is
+    the file's bytes ``[offset0 + ids[i] * row_bytes, + row_bytes)``. The
+    file is never mapped. Returns the number of rows read in full. Ids
+    must be rows of the file, as its size gives them."""
+    lib = library()
+    ids = _i64(ids).reshape(-1)
+    row_bytes, offset0 = int(row_bytes), int(offset0)
+    if row_bytes <= 0 or offset0 < 0:
+        raise ValueError(f"batched_pread: row_bytes {row_bytes} and "
+                         f"offset0 {offset0} must be > 0 and >= 0")
+    if not (isinstance(out, np.ndarray) and out.dtype == np.uint8
+            and out.flags.c_contiguous and out.flags.writeable):
+        raise ValueError("batched_pread: out must be a writeable, "
+                         "contiguous uint8 array")
+    out = out.reshape(-1)
+    if out.shape[0] < ids.shape[0] * row_bytes:
+        raise ValueError(f"batched_pread: out holds {out.shape[0]} bytes, "
+                         f"{ids.shape[0]} rows need "
+                         f"{ids.shape[0] * row_bytes}")
+    rows = (os.fstat(fd).st_size - offset0) // row_bytes
+    _check_ids(ids, rows, "batched_pread ids")
+    return int(lib.batched_pread(int(fd), offset0, ids, ids.shape[0],
+                                 row_bytes, out))

@@ -285,6 +285,14 @@ class FixedShapeNeighborSampler(BlockSampler):
         output_nodes, blocks)``, the innermost frontier's (cap_src,) ids
         with -1 padding and the seeds, both int64 on the device, and the
         blocks, innermost first."""
+        cur, seed_nodes, blocks = self.sample_host_blocks(g, seed_nodes,
+                                                          exclude_eids)
+        return (torch.from_numpy(cur).to(self.device),
+                torch.from_numpy(seed_nodes).to(self.device), blocks)
+
+    def sample_host_blocks(self, g: Graph, seed_nodes, exclude_eids=None):
+        """:meth:`sample_blocks` with the innermost frontier's ids and the
+        seeds as the host (numpy) arrays they were sampled as."""
         seed_nodes = _asnumpy(seed_nodes).astype(np.int64)
         if seed_nodes.shape[0] > self.batch_size:
             raise DGLError(f"got {seed_nodes.shape[0]} seeds > batch_size "
@@ -302,5 +310,4 @@ class FixedShapeNeighborSampler(BlockSampler):
             blocks.insert(0, _finalize_block(g, cur, src_ids, esrc, edst,
                                              eids, emask, self.device))
             cur = src_ids
-        return (torch.from_numpy(cur).to(self.device),
-                torch.from_numpy(seed_nodes).to(self.device), blocks)
+        return cur, seed_nodes, blocks

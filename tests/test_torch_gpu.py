@@ -1634,3 +1634,119 @@ def test_explainers_on_card_match_cpu(card):
     got, want = out[str(card)], out["cpu"]
     cs.held(got[0], want[0], 1e-4, "explainers, card vs CPU")
     assert np.array_equal(got[1], want[1]) and got[2] == want[2]
+
+
+# ---------------------------------------------------------------------------
+# GraphBolt on the card
+# ---------------------------------------------------------------------------
+
+
+def _gb_table(n=3000, f=16, seed=5):
+    return np.random.default_rng(seed).normal(size=(n, f)).astype(np.float32)
+
+
+def test_graphbolt_feature_caches_on_card(card, tmp_path):
+    """``HBMFeatureCache`` and ``DeviceCachedFeature`` keep their tables on
+    the card and read the host rows exactly (hits, misses and padding id 0
+    repeated), over the pread disk feature and in memory."""
+    from dgl_tpu_torch import graphbolt as gb
+
+    arr = _gb_table()
+    path = str(tmp_path / "feat.npy")
+    np.save(path, arr)
+    disk = gb.DiskBasedFeature(path)
+    ids = np.concatenate([np.zeros(7, np.int64), np.random.default_rng(
+        6).integers(0, arr.shape[0], 4000)])
+    deg = np.random.default_rng(7).zipf(2.0, arr.shape[0])
+    for fb in (disk, gb.NumpyFeature(arr)):
+        cache = gb.HBMFeatureCache.from_degrees(fb, deg, 300)
+        assert cache._table.device.type == "cuda"
+        out = cache.read_batch(ids)
+        torch.cuda.synchronize()
+        assert out.device.type == "cuda"
+        assert torch.equal(out.cpu(), torch.from_numpy(arr[ids]))
+        cpu = gb.HBMFeatureCache.from_degrees(fb, deg, 300, device="cpu")
+        assert torch.equal(cpu.read_batch(ids), out.cpu())
+        assert (cache.hits, cache.misses) == (cpu.hits, cpu.misses)
+        assert 0 < cache.hits < ids.shape[0]
+        dcf = gb.gpu_cached_feature(fb, 16 * 4 * 500)
+        assert dcf._cache.table.device.type == "cuda"
+        got = dcf.read(ids)
+        torch.cuda.synchronize()
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), torch.from_numpy(arr[ids]))
+        assert dcf.hits + dcf.misses == ids.shape[0] and dcf.hits > 0
+    disk.close()
+
+
+def test_graphbolt_copy_to_overlap_copy_on_card(card):
+    """``CopyTo`` under ``DataLoader(overlap_copy=True)`` and under the
+    prefetch thread gives the inline run's batches: seeds, labels, input
+    ids, features (through the card cache) and blocks, all on the card."""
+    import chip_smoke as cs
+    from dgl_tpu_torch import graphbolt as gb
+
+    g = _sampler_graph(card)
+    arr = _gb_table(g.num_nodes(), 8)
+    labels = np.arange(g.num_nodes()) % 4
+
+    def batches(**kw):
+        cache = gb.HBMFeatureCache(gb.NumpyFeature(arr),
+                                   np.arange(0, g.num_nodes(), 2))
+        dp = gb.ItemSampler(gb.ItemSet((np.arange(0, 3000, 2),
+                                        labels[:3000:2]),
+                                       names=("seeds", "labels")),
+                            batch_size=256, shuffle=True, seed=3)
+        dp = gb.NeighborSamplerStage(dp, g, [4, 4], 256, seed=2)
+        dp = gb.FeatureFetcher(dp, gb.FeatureStore(
+            {("node", "_N", "feat"): cache}), ["feat"])
+        dp = gb.CopyTo(dp, "cuda")
+        return [(mb.seeds, mb.labels, torch.from_numpy(mb.input_nodes),
+                 mb.node_features["feat"], mb.blocks)
+                for mb in gb.DataLoader(dp, **kw)]
+
+    inline = batches(use_prefetch_thread=False)
+    assert len(inline) == 6
+    for kw in (dict(overlap_copy=True), dict(overlap_copy=False)):
+        got = batches(**kw)
+        torch.cuda.synchronize()
+        assert len(got) == len(inline)
+        for a, b in zip(got, inline):
+            for x, y in zip(a[:4], b[:4]):
+                assert x.device == y.device and torch.equal(x, y)
+            assert a[0].device.type == "cuda" and a[3].device.type == "cuda"
+            for ba, bb in zip(a[4], b[4]):
+                assert ba.device.type == "cuda"
+                cs.same_graph_on(ba, bb, "a block")
+        for s, _, i, f, _ in got:
+            assert torch.equal(f.cpu(), torch.from_numpy(arr[i.numpy()]))
+
+
+def test_graphbolt_device_pipeline_on_card(card):
+    """``DeviceNeighborSamplerStage`` and ``DeviceFeatureFetcher`` on the
+    card: every pick an in-edge (``chip_smoke.check_device_picks``), the
+    features the table's rows, a DeviceSAGE step."""
+    import chip_smoke as cs
+    from dgl_tpu_torch import graphbolt as gb
+    from dgl_tpu_torch.models import DeviceSAGE
+
+    g = _sampler_graph(card)
+    arr = _gb_table(g.num_nodes(), 8)
+    dp = gb.ItemSampler(gb.ItemSet(np.arange(g.num_nodes())), 512,
+                        shuffle=True, seed=0)
+    dp = gb.DeviceNeighborSamplerStage(dp, g, [5, 5], seed=1)
+    dp = gb.DeviceFeatureFetcher(dp, {"feat": arr})
+    model = DeviceSAGE(8, 16, 4, num_layers=2,
+                       generator=torch.Generator().manual_seed(0))
+    rel = g._relation()
+    indptr = rel.csc_indptr.to(torch.int32)
+    indices = rel.csc_indices.to(torch.int32)
+    for mb in gb.DataLoader(dp):
+        mfg = mb.device_mfg
+        assert mfg.input_nodes().device.type == "cuda"
+        cs.check_device_picks(mfg, indptr, indices, [5, 5])
+        x = mb.node_features["feat"]
+        assert torch.equal(x.cpu(), torch.from_numpy(
+            arr[mfg.input_nodes().cpu().numpy()]))
+        model(mfg, x).sum().backward()
+    torch.cuda.synchronize()

@@ -163,6 +163,32 @@ _CALLS = {
         " np.array([0, 1]))}}, device='cpu'))"),
     "DeepWalk": "dt.nn.DeepWalk(5, 4{})",
     "MetaPath2Vec": "dt.nn.MetaPath2Vec(5, 4{})",
+    "graphbolt.NeighborSamplerStage": (
+        "list(dt.graphbolt.NeighborSamplerStage(dt.graphbolt.ItemSampler("
+        "dt.graphbolt.ItemSet(np.array([1, 2])), 2), dt.graph((np.array(["
+        "0, 1]), np.array([1, 2])), num_nodes=3, device='cpu'), [1], 2{}))"),
+    "graphbolt.DeviceNeighborSamplerStage": (
+        "dt.graphbolt.DeviceNeighborSamplerStage([], dt.graph((np.array(["
+        "0, 1]), np.array([1, 2])), num_nodes=3, device='cpu'), [2]{})"),
+    "graphbolt.DeviceFeatureFetcher": "dt.graphbolt.DeviceFeatureFetcher("
+                                      "[], {{'x': np.ones((4, 2))}}{})",
+    "graphbolt.CopyTo": "dt.graphbolt.CopyTo([]{})._apply("
+                        "dt.graphbolt.MiniBatch(seeds=np.arange(2)))",
+    "graphbolt.HBMFeatureCache": "dt.graphbolt.HBMFeatureCache("
+                                 "dt.graphbolt.NumpyFeature(np.ones((4, 2),"
+                                 " np.float32)), np.arange(2){})",
+    "graphbolt.gpu_cached_feature": "dt.graphbolt.gpu_cached_feature("
+                                    "dt.graphbolt.NumpyFeature(np.ones(("
+                                    "4, 2), np.float32)), 16{})",
+    "graphbolt.OnDiskDataset": (
+        "(lambda d: dt.graphbolt.OnDiskDataset.write(d, name='x', "
+        "src=np.array([0]), dst=np.array([1]), num_nodes=2{}).graph)("
+        "__import__('tempfile').mkdtemp())"),
+    "graphbolt.MiniBatch.to_dgl_blocks": (
+        "dt.graphbolt.MiniBatch(sampled_subgraphs=[dt.graphbolt."
+        "SampledSubgraphImpl(dt.graphbolt.CSCFormatBase(np.array([0, 1]), "
+        "np.array([1])), np.array([0]), np.array([0, 5]))]).to_dgl_blocks("
+        "*[]{})"),
 }
 
 _PROBE = """
@@ -229,6 +255,20 @@ SLICE_MODULES += ("distributed", "distributed.dist_context",
                   "nn.explain.hetero_gnnexplainer",
                   "nn.explain.pgexplainer", "nn.explain.hetero_pgexplainer",
                   "nn.explain.subgraphx", "nn.explain.hetero_subgraphx")
+
+# the GraphBolt slice
+SLICE_MODULES += ("graphbolt", "graphbolt.base", "graphbolt.dataloader",
+                  "graphbolt.datapipe_utils", "graphbolt.dataset",
+                  "graphbolt.feature_store", "graphbolt.internal_utils",
+                  "graphbolt.item_sampler", "graphbolt.itemset",
+                  "graphbolt.lazy", "graphbolt.minibatch",
+                  "graphbolt.neighbor_sampler_gb", "graphbolt.ondisk_dataset",
+                  "graphbolt.sampling_graph", "graphbolt.subgraph_sampler",
+                  "graphbolt.impl.cache_policy",
+                  "graphbolt.impl.feature_stores",
+                  "graphbolt.impl.fused_csc_sampling_graph",
+                  "graphbolt.impl.graph_cache", "graphbolt.impl.hbm_cache",
+                  "graphbolt.impl.ondisk_metadata")
 
 
 @pytest.mark.parametrize("name", SLICE_MODULES)
