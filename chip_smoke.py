@@ -492,7 +492,54 @@ must stay 0):
     on both devices) against the CPU at rtol = 1e-4 (loss, MLP,
     probabilities, mask), SubgraphX at its defaults on the first graph
     (the node set exactly, the score at 1e-4), and HeteroPGExplainer and
-    HeteroSubgraphX on a small random heterograph the same way.
+    HeteroSubgraphX on a small random heterograph the same way;
+
+the dataset zoo (``dgl_tpu_torch.data``): the repo's recipes from their
+datasets, each dataset built in a fresh temporary directory on the card and
+again on the CPU from the same seed and held exactly equal, each first step
+against the same path on the CPU (plan paths at rtol = 2e-2,
+atol = 2e-2 * max|ref|, on the card pass's ReLU pattern; exact paths at
+1e-4), the launches of a forward and a step read around them:
+
+37. ``data_zoo``: Cora, Citeseer, Pubmed, ``RedditDataset()``,
+    ``SyntheticDataset``, ``SyntheticHeteroDataset``,
+    ``KnowledgeGraphDataset``, ``MiniGCDataset``, ``KarateClubDataset``,
+    ``BAShapeDataset``, Minesweeper, a ``CSVDataset`` over a directory the
+    phase writes, and ``AsNodePredDataset`` and ``AsLinkPredDataset`` over
+    Cora: ``build_s`` on the card and the CPU, and the citation sets built
+    once more from their cache (``cache_load_s``), equal to the first;
+38. ``data_citation_gcn``: ``examples/gcn_cora.py``'s recipe on each of
+    Cora, Citeseer and Pubmed (``add_self_loop(remove_self_loop(g))``,
+    ``with_spmm_plans(weighted=True)``, GCN F-16-C, dropout 0.5, Adam at
+    1e-2, 200 epochs): the plan each graph took (B2 on a bitmap plan, B1
+    on a hub plan), ``forward_ms``, ``step_ms`` and the test accuracy
+    beside the reference's calibrated landing;
+39. ``data_gat``: ``examples/fullgraph_gat_bitmap.py`` on Cora (30 epochs,
+    AdamW 5e-3, the bitmap plan forced: B3 forward, B4 and B5 backward)
+    and ``examples/gat_citeseer.py`` (200 epochs, Adam 5e-3; the dense
+    route, no kernel);
+40. ``data_reddit_gcn``: ``examples/reddit_fullgraph_gcn.py`` on
+    ``RedditDataset()`` (``to_simple``, self-loops, the forced bitmap
+    plan, GraphConv 602-16-41, Adam at 1e-2, 30 steps: B2);
+41. ``data_ogb_fixture_gcn``: ``from_ogb("ogbn-arxiv_mid")`` on the
+    checkout's OGB-layout fixture and ``tests/test_real_train.py``'s GCN
+    (hidden 32, no dropout, 120 Adam steps at 1e-2): accuracy >= 0.6 and a
+    final loss < 1.0;
+42. ``data_minigc_gin``: ``examples/gin_graph_classification.py``
+    (MiniGC seeds 0 and 1 through ``GraphDataLoader``, GIN 1-32-8 of 3
+    layers over in-degree features, Adam at 1e-2, 10 epochs): the first
+    batch equal to the CPU loader's;
+43. ``data_builtin_graphbolt``: ``gb.BuiltinDataset("cora")`` written from
+    the zoo and loaded on the card, its CSC, features, labels and splits
+    equal to ``CoraGraphDataset``'s, then GraphBolt's node-classification
+    pipeline (``ItemSampler`` -> ``NeighborSamplerStage([10, 10])`` ->
+    ``FeatureFetcher`` -> ``CopyTo`` -> ``DataLoader``, GraphSAGE
+    1433-256-7) for 20 epochs, the first batch equal to the CPU's, and
+    its accuracy on the test nodes over sampled blocks.
+
+Each accuracy must reach twice the test set's majority share, and the
+floors the reference's own tests set where they exist (GCN on Cora 0.6,
+GAT 0.5, ``tests/test_end_to_end.py``).
 
 Every training input is built outside ``torch.inference_mode()``.
 It prints one JSON object per result line, the kernel table as
@@ -7172,16 +7219,16 @@ def mapped(path: str) -> bool:
         return any(line.rstrip().endswith(path) for line in f)
 
 
-def gb_pipeline(train, graph, store, device):
+def gb_pipeline(train, graph, store, device, batch=PRODUCTS_BATCH,
+                fanouts=PRODUCTS_FANOUTS):
     """The recipe's datapipe: ``ItemSampler`` (batch 1,024, shuffled, seed
     0) -> ``NeighborSamplerStage([10, 10, 10])`` -> ``FeatureFetcher`` ->
     ``CopyTo``."""
     from dgl_tpu_torch import graphbolt as gb
 
-    dp = gb.ItemSampler(train, PRODUCTS_BATCH, shuffle=True, seed=0)
-    dp = gb.NeighborSamplerStage(dp, graph, PRODUCTS_FANOUTS,
-                                 batch_size=PRODUCTS_BATCH, seed=0,
-                                 device=device)
+    dp = gb.ItemSampler(train, batch, shuffle=True, seed=0)
+    dp = gb.NeighborSamplerStage(dp, graph, fanouts, batch_size=batch,
+                                 seed=0, device=device)
     dp = gb.FeatureFetcher(dp, store, ["feat"])
     return gb.CopyTo(dp, device)
 
@@ -8320,6 +8367,712 @@ def run_explain_gin(tag: dict, device="cuda") -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the dataset zoo: the repo's recipes from their datasets
+# ---------------------------------------------------------------------------
+
+DATA_EPOCHS = 200  # examples/gcn_cora.py and gat_citeseer.py
+DATA_GAT_BITMAP_EPOCHS = 30  # examples/fullgraph_gat_bitmap.py
+DATA_REDDIT_STEPS = 30  # examples/reddit_fullgraph_gcn.py
+DATA_OGB_STEPS = 120  # tests/test_real_train.py
+DATA_GIN_EPOCHS = 10
+DATA_GB_BATCH, DATA_GB_FANOUTS, DATA_GB_EPOCHS = 64, [10, 10], 20
+DATA_TIMED = 10  # time_ms iterations (plus 2 warm-up calls)
+# the reference's calibrated landing of each citation GCN
+# (dgl_tpu/data/citation.py:38-50, benchmarks/calibrate_bow.py's recipe)
+CITATION_LANDING = {"cora": 0.817, "citeseer": 0.693, "pubmed": 0.809}
+# the floors the reference's own tests set (tests/test_end_to_end.py)
+CORA_GCN_FLOOR, CORA_GAT_FLOOR = 0.6, 0.5
+
+
+def same_dataset_on(a, b, what: str) -> None:
+    """Two datasets (any devices) with equal items and equal public data
+    attributes."""
+    if len(a) != len(b):
+        raise RuntimeError(f"{what}: {len(a)} vs {len(b)} items")
+    for i in range(len(b)):
+        same_result(a[i], b[i], f"{what}[{i}]")
+    for k, v in vars(b).items():
+        if not k.startswith("_") and k != "meta":
+            same_result(getattr(a, k), v, f"{what}.{k}")
+
+
+def write_csv_dataset(d: str, seed: int = 8) -> None:
+    """A ``CSVDataset`` directory: 2,000 nodes in a shuffled order with a
+    label, a 16-wide vector and a score, 20,000 weighted edges."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, e = 2000, 20000
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "nodes.csv"), "w") as f:
+        f.write("node_id,label,feat,score\n")
+        for i in rng.permutation(n):
+            vec = ",".join(f"{v:.5f}" for v in rng.random(16))
+            f.write(f'{i},{i % 5},"{vec}",{rng.random():.6f}\n')
+    with open(os.path.join(d, "edges.csv"), "w") as f:
+        f.write("src_id,dst_id,weight\n")
+        for a, b in rng.integers(0, n, (e, 2)):
+            f.write(f"{a},{b},{rng.random():.6f}\n")
+    with open(os.path.join(d, "meta.json"), "w") as f:
+        json.dump({"dataset_name": "csv_chip", "node_data": [
+            {"file_name": "nodes.csv", "ntype": "_N"}], "edge_data": [
+            {"file_name": "edges.csv", "etype": ["_N", "_E", "_N"]}]}, f)
+
+
+def zoo_cases(zoo: dict, csv_dir: str) -> dict:
+    """name -> fn(device): the phase's datasets, each in ``zoo[device]``,
+    a fresh directory a device."""
+    import dgl_tpu_torch.data as D
+
+    def cora(dev):
+        return D.CoraGraphDataset(raw_dir=zoo[dev], device=dev)
+
+    return {
+        "CoraGraphDataset": cora,
+        "CiteseerGraphDataset": lambda dev: D.CiteseerGraphDataset(
+            raw_dir=zoo[dev], device=dev),
+        "PubmedGraphDataset": lambda dev: D.PubmedGraphDataset(
+            raw_dir=zoo[dev], device=dev),
+        "RedditDataset": lambda dev: D.RedditDataset(raw_dir=zoo[dev],
+                                                     device=dev),
+        "SyntheticDataset": lambda dev: D.SyntheticDataset(device=dev),
+        "SyntheticHeteroDataset": lambda dev: D.SyntheticHeteroDataset(
+            device=dev),
+        "KnowledgeGraphDataset": lambda dev: D.KnowledgeGraphDataset(
+            raw_dir=zoo[dev], device=dev),
+        "MiniGCDataset": lambda dev: D.MiniGCDataset(320, 10, 20, seed=0,
+                                                     device=dev),
+        "KarateClubDataset": lambda dev: D.KarateClubDataset(device=dev),
+        "BAShapeDataset": lambda dev: D.BAShapeDataset(device=dev),
+        "MinesweeperDataset": lambda dev: D.MinesweeperDataset(
+            raw_dir=zoo[dev], device=dev),
+        "CSVDataset": lambda dev: D.CSVDataset(csv_dir, device=dev),
+        "AsNodePredDataset(Cora)": lambda dev: D.AsNodePredDataset(
+            cora(dev), split_ratio=(0.6, 0.2, 0.2)),
+        "AsLinkPredDataset(Cora)": lambda dev: D.AsLinkPredDataset(
+            cora(dev), seed=0),
+    }
+
+
+CACHED = ("CoraGraphDataset", "CiteseerGraphDataset", "PubmedGraphDataset")
+
+
+def run_data_zoo(zoo: dict, tag: dict) -> dict:
+    """Phase data_zoo: each dataset built on the card and on the CPU,
+    timed and held exactly equal; the citation sets built once more from
+    the cache the first build wrote, equal to the first. Returns the card
+    and CPU datasets by name."""
+    import torch
+
+    csv_dir = os.path.join(zoo["cuda"], "csv")
+    write_csv_dataset(csv_dir)
+    built, timings = {}, {}
+    for name, make in zoo_cases(zoo, csv_dir).items():
+        t0 = time.perf_counter()
+        card = make("cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = make("cpu")
+        cpu_s = time.perf_counter() - t0
+        first = card[0][0] if isinstance(card[0], tuple) else card[0]
+        if first.device.type != "cuda":
+            raise RuntimeError(f"{name} was built on {first.device}")
+        same_dataset_on(card, cpu, f"{name}, card vs CPU")
+        row = {"build_s": build_s, "cpu_build_s": cpu_s, "items": len(card)}
+        if name in CACHED:
+            t0 = time.perf_counter()
+            again = make("cuda")
+            torch.cuda.synchronize()
+            row["cache_load_s"] = time.perf_counter() - t0
+            same_dataset_on(again, card, f"{name} from its cache")
+            g = card[0]
+            row.update(nodes=g.num_nodes(), edges=g.num_edges(),
+                       feat=int(g.ndata["feat"].shape[1]))
+        built[name] = (card, cpu)
+        timings[name] = row
+    emit({"phase": "data_zoo", "datasets": timings,
+          "check": "card dataset equal to the CPU's (graphs, frames, "
+                   "splits, attributes, dtypes); the citation sets' cache "
+                   "read back equal", **tag})
+    return built
+
+
+def graph_loss(model, batch, pattern=None):
+    """A full-graph recipe's masked loss over ``(graph, x, y, mask)``, the
+    ReLUs recorded (or following ``pattern``)."""
+    graph, x, y, mask = batch
+    with relu_pattern(pattern) as seen:
+        loss = masked_loss(model(graph, x), y, mask)
+    return loss, seen
+
+
+def accuracy_floor(logits, y, test, floor: float, what: str) -> dict:
+    """Test accuracy; fails below twice the test set's majority share or
+    below ``floor``."""
+    import torch
+
+    yt = y[test]
+    acc = (logits[test].argmax(-1) == yt).float().mean().item()
+    majority = (torch.bincount(yt).max().item() / yt.numel())
+    need = max(2 * majority, floor)
+    if not acc >= need:
+        raise RuntimeError(f"{what}: test accuracy {acc} below {need} "
+                           f"(majority share {majority})")
+    return {"test_accuracy": acc, "majority_share": majority,
+            "floor": need}
+
+
+def train_epochs(model, opt, graph, x, y, mask, epochs: int) -> list:
+    """``epochs`` steps; the losses, which must be finite and fall."""
+    import torch
+
+    losses = torch.stack([train_step(model, opt, graph, x, y, mask)
+                          for _ in range(epochs)]).tolist()
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise RuntimeError(f"training losses {losses[:3]} ... "
+                           f"{losses[-3:]}")
+    return losses
+
+
+def counted_forward(model, graph, x, allowed: dict, what: str) -> dict:
+    """One inference forward with the counts set to 0 just before and read
+    just after; fails unless ``allowed`` launched as given, and nothing
+    else."""
+    import torch
+
+    from dgl_tpu_torch import _kernels
+
+    model.eval()
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    with torch.inference_mode():
+        model(graph, x)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(launches, allowed, what)
+    model.train()
+    return launches
+
+
+def recipe_run(model, make_cpu, gp, gp_cpu, frames, frames_cpu, opt,
+               epochs, tol, fwd_expect, step_expect, floor, what) -> dict:
+    """A full-graph recipe: the counted forward, the first step against
+    the CPU (the CPU pass on the card pass's ReLU pattern, at rtol =
+    ``tol``, atol = ``tol`` * max|ref|), the counted step, ``forward_ms`` and ``step_ms`` (their steps
+    counted among ``epochs``), the remaining epochs, the test accuracy."""
+    import torch
+
+    x, y, train, test = frames
+    mask = train.float()
+    xc, yc, trc, _ = frames_cpu
+    fwd = counted_forward(model, gp, x, fwd_expect, f"{what}'s forward")
+    vs_cpu = step_vs_cpu(model, make_cpu, graph_loss, (gp, x, y, mask), tol,
+                         (gp_cpu, xc, yc, trc.float()))
+    loss, step, peak, step_s = counted_step(model, opt, gp, x, y, mask,
+                                            step_expect, what)
+    expect_no_other_launch(step, step_expect, f"{what}'s step")
+    step_ms = time_ms(lambda: train_step(model, opt, gp, x, y, mask),
+                      DATA_TIMED)
+    losses = [loss.item()] + train_epochs(model, opt, gp, x, y, mask,
+                                          epochs - 3 - DATA_TIMED)
+    model.eval()
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(gp, x), DATA_TIMED)
+        logits = model(gp, x)
+    model.train()
+    return {"forward_launches": fwd, "step_launches": step,
+            "first_step_vs_cpu": vs_cpu,
+            "first_step_tolerance": f"rtol={tol:g}, atol={tol:g}*max|ref|",
+            "forward_ms": fwd_ms,
+            "step_ms": step_ms, "peak_memory_gib": peak,
+            "first_step_s": step_s, "epochs": epochs,
+            "losses": {"first": losses[0], "last": losses[-1]},
+            **accuracy_floor(logits, y, test, floor, what)}
+
+
+def node_frames(g):
+    return tuple(g.ndata[k] for k in ("feat", "label", "train_mask",
+                                      "test_mask"))
+
+
+def plan_kernel(rel) -> tuple:
+    """The g-SpMM route ``copy_u`` + sum takes on a relation: the bitmap
+    (B2) before the hub plan (B1 on its cold shells)."""
+    if rel.bitmap_plan is not None:
+        return "bitmap", "bitmap_spmm"
+    if rel.hub_plan is not None:
+        return "hub", "shell_prefix_sum"
+    return "none", None
+
+
+def run_data_citation_gcn(built: dict, tag: dict) -> dict:
+    """Phase data_citation_gcn: ``examples/gcn_cora.py``'s recipe on Cora,
+    Citeseer and Pubmed."""
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch.models import GCN
+
+    out = {}
+    for name in CACHED:
+        card, cpu = built[name]
+        short = name[:-len("GraphDataset")].lower()
+        t0 = time.perf_counter()
+        g = dt.add_self_loop(dt.remove_self_loop(card[0]))
+        gp = g.with_spmm_plans(weighted=True)
+        torch.cuda.synchronize()
+        plans_s = time.perf_counter() - t0
+        g_cpu = dt.add_self_loop(dt.remove_self_loop(cpu[0]))
+        same_graph_on(g, g_cpu, f"{short}: the recipe's graph")
+        gp_cpu = g_cpu.with_spmm_plans(weighted=True)
+        rel = gp._relation()
+        plan, kernel = plan_kernel(rel)
+        if plan_kernel(gp_cpu._relation())[0] != plan:
+            raise RuntimeError(f"{short}: the CPU took another plan")
+        fwd = {kernel: 2} if kernel else {}
+        step = {kernel: 4} if kernel else {}
+        feat = g.ndata["feat"]
+
+        def make(dev, n_in=feat.shape[1], c=card.num_classes):
+            return GCN(n_in, 16, c, generator=torch.Generator().manual_seed(
+                0), device=dev)
+
+        model = make("cuda")
+        opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+        res = recipe_run(model, lambda: make("cpu"), gp, gp_cpu,
+                         node_frames(g), node_frames(g_cpu), opt,
+                         DATA_EPOCHS, 2e-2, fwd, step,
+                         CORA_GCN_FLOOR if short == "cora" else 0.0,
+                         f"GCN on {short}")
+        density = rel.num_edges / (rel.num_src * rel.num_dst)
+        out[short] = {"plan": plan, "kernel": kernel, "density": density,
+                      "nodes": g.num_nodes(), "edges": rel.num_edges,
+                      "plans_s": plans_s,
+                      "calibrated_landing": CITATION_LANDING[short], **res}
+        emit({"phase": "data_citation_gcn", "dataset": short,
+              "model": f"GCN {feat.shape[1]}-16-{card.num_classes}, "
+                       "dropout 0.5, Adam 1e-2, add_self_loop("
+                       "remove_self_loop(g)).with_spmm_plans(weighted=True)",
+              **out[short], **tag})
+        del model, opt, gp, gp_cpu
+    return out
+
+
+def bitmap_gat_model(in_feats, classes, device, heads=8, hidden=8):
+    """``examples/fullgraph_gat_bitmap.py``'s GAT: GATConv in -> 8 x 8
+    heads, ELU, GATConv -> classes (1 head), weights from seed 0."""
+    import torch
+
+    from dgl_tpu_torch.nn import GATConv
+
+    class BitmapGAT(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator().manual_seed(0)
+            self.conv0 = GATConv(in_feats, hidden, heads,
+                                 allow_zero_in_degree=True, generator=gen,
+                                 device=device)
+            self.conv1 = GATConv(heads * hidden, classes, 1,
+                                 allow_zero_in_degree=True, generator=gen,
+                                 device=device)
+
+        def forward(self, g, x):
+            h = self.conv0(g, x)
+            h = torch.nn.functional.elu(h.reshape(h.shape[0], -1))
+            h = self.conv1(g, h)
+            return h.reshape(h.shape[0], -1)
+
+    return BitmapGAT()
+
+
+def run_data_gat(built: dict, tag: dict) -> dict:
+    """Phase data_gat: ``examples/fullgraph_gat_bitmap.py`` on Cora with
+    the bitmap plan forced (B3, B4, B5), and ``examples/gat_citeseer.py``
+    (the dense route)."""
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch.models import GAT
+
+    out = {}
+    card, cpu = built["CoraGraphDataset"]
+    t0 = time.perf_counter()
+    g = dt.add_self_loop(dt.remove_self_loop(dt.to_simple(card[0])))
+    # the example attaches with_spmm_plans(bitmap=True); at Cora's 7.3M
+    # cells the dense mask attaches too and GATConv takes it first, so the
+    # bitmap route is forced by leaving the dense mask out
+    as_written = g.with_spmm_plans(bitmap=True)._relation().dense_adj
+    gp = g.with_spmm_plans(bitmap=True, dense_attn=False)
+    torch.cuda.synchronize()
+    plans_s = time.perf_counter() - t0
+    g_cpu = dt.add_self_loop(dt.remove_self_loop(dt.to_simple(cpu[0])))
+    same_graph_on(g, g_cpu, "the bitmap GAT recipe's graph")
+    gp_cpu = g_cpu.with_spmm_plans(bitmap=True, dense_attn=False)
+    if gp._relation().bitmap_plan is None:
+        raise RuntimeError("Cora's graph lacks its bitmap plan")
+    feat = g.ndata["feat"]
+    model = bitmap_gat_model(feat.shape[1], card.num_classes, "cuda")
+    opt = torch.optim.AdamW(model.parameters(), lr=5e-3, weight_decay=5e-4)
+    b3 = {"bitmap_gat_fwd": 2}
+    res = recipe_run(
+        model, lambda: bitmap_gat_model(feat.shape[1], card.num_classes,
+                                        "cpu"),
+        gp, gp_cpu, node_frames(g), node_frames(g_cpu), opt,
+        DATA_GAT_BITMAP_EPOCHS, 2e-2, b3,
+        {**b3, "bitmap_gat_bwd_dst": 2, "bitmap_gat_bwd_src": 2},
+        CORA_GAT_FLOOR, "the bitmap GAT on Cora")
+    out["bitmap_cora"] = {"route": "bitmap", "plans_s": plans_s,
+                          "route_as_written": "dense" if as_written
+                          is not None else "bitmap", **res}
+    emit({"phase": "data_gat", "recipe": "examples/fullgraph_gat_bitmap.py "
+          "on Cora: GATConv 1433-8x8, ELU, GATConv 64-7, AdamW 5e-3 (weight "
+          "decay 5e-4), with_spmm_plans(bitmap=True, dense_attn=False)",
+          **out["bitmap_cora"], **tag})
+    del model, opt, gp, gp_cpu
+
+    card, cpu = built["CiteseerGraphDataset"]
+    g = dt.add_self_loop(dt.remove_self_loop(card[0]))
+    gp = g.with_spmm_plans(weighted=True)
+    g_cpu = dt.add_self_loop(dt.remove_self_loop(cpu[0]))
+    gp_cpu = g_cpu.with_spmm_plans(weighted=True)
+    rel = gp._relation()
+    route = ("dense" if rel.dense_adj is not None else "bitmap"
+             if rel.bitmap_plan is not None else "fused"
+             if rel.shell_plan is not None else "per-edge")
+    if route != "dense":
+        raise RuntimeError(f"Citeseer's GAT took the {route} route")
+    feat = g.ndata["feat"]
+
+    def make(dev):
+        return GAT(feat.shape[1], 8, card.num_classes, heads=8,
+                   generator=torch.Generator().manual_seed(0), device=dev)
+
+    model = make("cuda")
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    res = recipe_run(model, lambda: make("cpu"), gp, gp_cpu, node_frames(g),
+                     node_frames(g_cpu), opt, DATA_EPOCHS, 2e-2, {}, {},
+                     0.0, "GAT on Citeseer")
+    out["citeseer"] = {"route": route, "cells": rel.num_src * rel.num_dst,
+                       **res}
+    emit({"phase": "data_gat", "recipe": "examples/gat_citeseer.py: GAT "
+          f"{feat.shape[1]}-8x8-{card.num_classes}, dropouts 0.6, Adam 5e-3,"
+          " with_spmm_plans(weighted=True)", **out["citeseer"], **tag})
+    return out
+
+
+def run_data_reddit_gcn(built: dict, tag: dict) -> dict:
+    """Phase data_reddit_gcn: ``examples/reddit_fullgraph_gcn.py`` on
+    ``RedditDataset()`` (B2 2 a forward, 4 a step)."""
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch.models import GCN
+
+    card, cpu = built["RedditDataset"]
+    t0 = time.perf_counter()
+    g = dt.add_self_loop(dt.remove_self_loop(dt.to_simple(card[0])))
+    kw = dict(num_hubs=256, bitmap=True, bitmap_max_bytes=8 << 30)
+    gp = g.with_spmm_plans(**kw)
+    torch.cuda.synchronize()
+    plans_s = time.perf_counter() - t0
+    g_cpu = dt.add_self_loop(dt.remove_self_loop(dt.to_simple(cpu[0])))
+    same_graph_on(g, g_cpu, "the Reddit recipe's graph")
+    gp_cpu = g_cpu.with_spmm_plans(**kw)
+    if gp._relation().bitmap_plan is None:
+        raise RuntimeError("the Reddit recipe's graph lacks its bitmap")
+    feat = g.ndata["feat"]
+
+    def make(dev):
+        # the example's GraphConv 602-16 (ReLU) -> GraphConv 16-41
+        return GCN(feat.shape[1], GCN_HIDDEN, card.num_classes, dropout=0.0,
+                   generator=torch.Generator().manual_seed(0), device=dev)
+
+    model = make("cuda")
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    res = recipe_run(model, lambda: make("cpu"), gp, gp_cpu, node_frames(g),
+                     node_frames(g_cpu), opt, DATA_REDDIT_STEPS, 2e-2,
+                     {"bitmap_spmm": 2}, {"bitmap_spmm": 4}, 0.0,
+                     "GCN on RedditDataset()")
+    rel = gp._relation()
+    out = {"nodes": g.num_nodes(), "edges": rel.num_edges,
+           "plans_s": plans_s, **res}
+    emit({"phase": "data_reddit_gcn", "recipe": "examples/reddit_fullgraph_"
+          "gcn.py: to_simple, self-loops, with_spmm_plans(num_hubs=256, "
+          "bitmap=True, bitmap_max_bytes=8 << 30), GraphConv 602-16-41, "
+          "Adam 1e-2", **out, **tag})
+    return out
+
+
+def run_data_ogb_fixture_gcn(tag: dict) -> dict:
+    """Phase data_ogb_fixture_gcn: the OGB-layout fixture of the checkout
+    read by ``from_ogb`` on the card, ``tests/test_real_train.py``'s GCN
+    (no plan: no kernel), its floors."""
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch.data import from_ogb
+    from dgl_tpu_torch.models import GCN
+
+    root = os.path.join(ROOT, "tests", "fixtures", "ogb")
+    t0 = time.perf_counter()
+    g = dt.add_self_loop(dt.remove_self_loop(
+        from_ogb("ogbn-arxiv_mid", root=root)))
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    g_cpu = dt.add_self_loop(dt.remove_self_loop(
+        from_ogb("ogbn-arxiv_mid", root=root, device="cpu")))
+    same_graph_on(g, g_cpu, "the OGB fixture's graph")
+    feat, y = g.ndata["feat"], g.ndata["label"]
+    classes = int(y.max().item()) + 1
+
+    def make(dev):
+        return GCN(feat.shape[1], 32, classes, dropout=0.0,
+                   generator=torch.Generator().manual_seed(0), device=dev)
+
+    model = make("cuda")
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    res = recipe_run(model, lambda: make("cpu"), g, g_cpu, node_frames(g),
+                     node_frames(g_cpu), opt, DATA_OGB_STEPS, 1e-4, {}, {},
+                     0.6, "GCN on the OGB fixture")
+    if not res["losses"]["last"] < 1.0:
+        raise RuntimeError(f"OGB fixture GCN final loss "
+                           f"{res['losses']['last']}")
+    out = {"nodes": g.num_nodes(), "edges": g.num_edges(), "read_s": read_s,
+           **res}
+    emit({"phase": "data_ogb_fixture_gcn", "recipe": "tests/test_real_train."
+          f"py: GCN {feat.shape[1]}-32-{classes}, no dropout, Adam 1e-2, "
+          f"{DATA_OGB_STEPS} steps; floors accuracy >= 0.6, loss < 1.0",
+          **out, **tag})
+    return out
+
+
+def gin_batch_loss(model, batch, pattern=None):
+    """The GIN recipe's loss over a padded batch: cross-entropy of the real
+    graphs' logits, in-degree features."""
+    bg, y, gmask = batch
+    x = bg.in_degrees().float()[:, None]
+    with relu_pattern(pattern) as seen:
+        loss = masked_loss(model(bg, x), y, gmask.float())
+    return loss, seen
+
+
+def run_data_minigc_gin(built: dict, tag: dict) -> dict:
+    """Phase data_minigc_gin: ``examples/gin_graph_classification.py``."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch.data as D
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.dataloading import GraphDataLoader
+    from dgl_tpu_torch.models import GIN
+
+    train_ds, train_cpu = built["MiniGCDataset"]
+    test_ds = D.MiniGCDataset(80, 10, 20, seed=1)
+    loader = GraphDataLoader(train_ds, batch_size=32, shuffle=True, seed=0)
+    first = next(iter(loader))
+    first_cpu = next(iter(GraphDataLoader(train_cpu, batch_size=32,
+                                          shuffle=True, seed=0,
+                                          device="cpu")))
+    same_result(first, first_cpu, "the first MiniGC batch, card vs CPU")
+
+    def make(dev):
+        return GIN(1, 32, 8, num_layers=3, dropout=0.0,
+                   generator=torch.Generator().manual_seed(0), device=dev)
+
+    model = make("cuda")
+    check = step_vs_cpu(model, lambda: make("cpu"), gin_batch_loss, first,
+                        batch_cpu=first_cpu)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+
+    def step(batch):
+        opt.zero_grad(set_to_none=True)
+        loss = gin_batch_loss(model, batch)[0]
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    losses = [step(first)]
+    torch.cuda.synchronize()
+    step_launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(step_launches, {}, "the GIN step")
+    t0 = time.perf_counter()
+    steps = 0
+    for _ in range(DATA_GIN_EPOCHS):
+        for batch in loader:
+            losses.append(step(batch))
+            steps += 1
+    torch.cuda.synchronize()
+    epoch_s = (time.perf_counter() - t0) / DATA_GIN_EPOCHS
+    losses = torch.stack(losses).tolist()
+    if not (all(map(math.isfinite, losses))
+            and np.mean(losses[-10:]) < np.mean(losses[:10])):
+        raise RuntimeError(f"GIN losses {losses}")
+    model.eval()
+    correct = total = 0
+    with torch.inference_mode():
+        for bg, y, gmask in GraphDataLoader(test_ds, batch_size=32):
+            pred = model(bg, bg.in_degrees().float()[:, None]).argmax(-1)
+            correct += int(((pred == y) & gmask).sum())
+            total += int(gmask.sum())
+    acc = correct / total
+    majority = 10 / 80  # MiniGC's classes are equal: 80 // 8 a class
+    if not acc >= 2 * majority:
+        raise RuntimeError(f"GIN test accuracy {acc}")
+    out = {"train_graphs": len(train_ds), "test_graphs": len(test_ds),
+           "first_step_vs_cpu": check, "step_launches": step_launches,
+           "steps": steps, "epoch_s": epoch_s,
+           "ms_per_step": epoch_s * DATA_GIN_EPOCHS / steps * 1e3,
+           "losses": {"first": losses[0], "last": losses[-1]},
+           "test_accuracy": acc, "majority_share": majority,
+           "floor": 2 * majority}
+    emit({"phase": "data_minigc_gin", "recipe": "examples/gin_graph_"
+          "classification.py: MiniGC 320 (seed 0) / 80 (seed 1), 10-20 "
+          "nodes, GraphDataLoader 32, GIN 1-32-8 x 3 layers, Adam 1e-2",
+          **out, **tag})
+    return out
+
+
+def run_data_builtin_graphbolt(built: dict, zoo: dict, tag: dict) -> dict:
+    """Phase data_builtin_graphbolt: ``gb.BuiltinDataset("cora")`` from the
+    zoo, held against ``CoraGraphDataset``, then GraphBolt's
+    node-classification pipeline on it."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch import graphbolt as gb
+    from dgl_tpu_torch.models import GraphSAGE
+
+    card, cpu = built["CoraGraphDataset"]
+    g = card[0]
+    root = os.path.join(zoo["cuda"], "graphbolt")
+    t0 = time.perf_counter()
+    ds = gb.BuiltinDataset("cora", root=root)
+    graph = ds.graph
+    torch.cuda.synchronize()
+    write_load_s = time.perf_counter() - t0
+    rel, want = graph._relation(), g._relation()
+    for f in want.ARRAY_FIELDS:
+        same_result(getattr(rel, f), getattr(want, f), f"CSC {f}")
+    ids = np.arange(g.num_nodes())
+    same_result(torch.as_tensor(ds.feature.read("node", "_N", "feat", ids)),
+                g.ndata["feat"].cpu(), "features")
+    for split, mask in ((ds.train_set, "train_mask"),
+                        (ds.validation_set, "val_mask"),
+                        (ds.test_set, "test_mask")):
+        got_ids, got_labels = (torch.as_tensor(np.asarray(a))
+                               for a in split[np.arange(len(split))])
+        sel = torch.nonzero(g.ndata[mask]).squeeze(1).cpu()
+        same_result(got_ids, sel, f"{mask} ids")
+        same_result(got_labels, g.ndata["label"].cpu()[sel],
+                    f"{mask} labels")
+    if ds.meta["num_classes"] != card.num_classes:
+        raise RuntimeError("metadata.json's num_classes")
+    ds_cpu = gb.OnDiskDataset(os.path.join(root, "cora"), "cpu")
+
+    def pipe(d, dev):
+        return gb_pipeline(d.train_set, d.graph, d.feature, dev,
+                           DATA_GB_BATCH, DATA_GB_FANOUTS)
+
+    first = next(iter(pipe(ds, "cuda")))
+    first_cpu = next(iter(pipe(ds_cpu, "cpu")))
+    same_gb_batch(first, first_cpu, "the first Cora batch, card vs CPU")
+
+    def make(dev):
+        return GraphSAGE(g.ndata["feat"].shape[1], 256, card.num_classes,
+                         num_layers=2, dropout=0.5,
+                         generator=torch.Generator().manual_seed(0),
+                         device=dev)
+
+    model = make("cuda")
+    check = step_vs_cpu(model, lambda: make("cpu"), gb_loss, first,
+                        batch_cpu=first_cpu)
+    # Adam at 1e-2 (the JAX package's scripts; 1e-3 barely moves Cora's
+    # sparse features in 60 steps)
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    dp = pipe(ds, "cuda")
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [gb_step(model, opt, mb, "cuda")
+              for _ in range(DATA_GB_EPOCHS) for mb in gb.DataLoader(dp)]
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(launches, {}, "GraphBolt on Cora")
+    if not (all(map(math.isfinite, losses))
+            and np.mean(losses[-5:]) < np.mean(losses[:5])):
+        raise RuntimeError(f"GraphBolt Cora losses {losses}")
+    # the test nodes' logits over sampled blocks, the same stages in order
+    test = gb.CopyTo(gb.FeatureFetcher(gb.NeighborSamplerStage(
+        gb.ItemSampler(ds.test_set, DATA_GB_BATCH), graph, DATA_GB_FANOUTS,
+        batch_size=DATA_GB_BATCH, seed=0, device="cuda"), ds.feature,
+        ["feat"]), "cuda")
+    model.eval()
+    logits, labels = [], []
+    with torch.inference_mode():
+        for mb in test:
+            n = mb.labels.shape[0]
+            logits.append(model(mb.blocks, mb.node_features["feat"])[:n])
+            labels.append(mb.labels)
+    y = torch.cat(labels)
+    acc = accuracy_floor(torch.cat(logits), y,
+                         torch.ones_like(y, dtype=torch.bool), 0.0,
+                         "GraphSAGE on BuiltinDataset('cora')")
+    out = {"write_and_load_s": write_load_s, **acc,
+           "batches_per_epoch": len(losses) // DATA_GB_EPOCHS,
+           "steps": len(losses), "ms_per_step": wall / len(losses) * 1e3,
+           "first_step_vs_cpu": check, "launches": launches,
+           "losses": {"first": losses[0], "last": losses[-1]}}
+    emit({"phase": "data_builtin_graphbolt", "pipeline": "BuiltinDataset("
+          "'cora') -> ItemSampler(64) -> NeighborSamplerStage([10, 10]) -> "
+          "FeatureFetcher -> CopyTo -> DataLoader, GraphSAGE 1433-256-7, "
+          "Adam 1e-2", **out, **tag})
+    return out
+
+
+def run_data(tag: dict) -> dict:
+    """The dataset-zoo group: phases 37-43 in fresh temporary directories
+    (the download directory too), removed at the end; returns each
+    kernel's launches a forward and a step by recipe."""
+    import shutil
+    import tempfile
+
+    zoo = {"cuda": tempfile.mkdtemp(prefix="zoo_card_"),
+           "cpu": tempfile.mkdtemp(prefix="zoo_cpu_")}
+    saved = os.environ.get("DGL_TPU_DOWNLOAD_DIR")
+    os.environ["DGL_TPU_DOWNLOAD_DIR"] = zoo["cuda"]
+    try:
+        built = run_data_zoo(zoo, tag)
+        citation = run_data_citation_gcn(built, tag)
+        gat = run_data_gat(built, tag)
+        reddit = run_data_reddit_gcn(built, tag)
+        run_data_ogb_fixture_gcn(tag)
+        run_data_minigc_gin(built, tag)
+        run_data_builtin_graphbolt(built, zoo, tag)
+    finally:
+        if saved is None:
+            os.environ.pop("DGL_TPU_DOWNLOAD_DIR", None)
+        else:
+            os.environ["DGL_TPU_DOWNLOAD_DIR"] = saved
+        for d in zoo.values():
+            shutil.rmtree(d, ignore_errors=True)
+    recipes = {f"gcn {k}": v for k, v in citation.items()}
+    recipes.update({"gat_bitmap cora": gat["bitmap_cora"],
+                    "gcn reddit": reddit})
+    launches = {}
+    for recipe, r in recipes.items():
+        for name in set(r["forward_launches"]) | set(r["step_launches"]):
+            f, s = r["forward_launches"][name], r["step_launches"][name]
+            if f or s:
+                launches.setdefault(name, {})[recipe] = {"forward": f,
+                                                         "train_step": s}
+    return launches
+
+
 def run() -> dict:
     import torch
 
@@ -8424,6 +9177,13 @@ def run() -> dict:
     run_explain_gin(tag)
     emit({"phase": "partitioner_and_explainers_total",
           "seconds": time.perf_counter() - t0, **tag})
+    t0 = time.perf_counter()
+    data = run_data(tag)
+    emit({"phase": "data_total", "seconds": time.perf_counter() - t0,
+          **tag})
+    for name, by_recipe in data.items():
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["data_recipe_launches"] = by_recipe
     return {"kernels": kernels, "card": card}
 
 

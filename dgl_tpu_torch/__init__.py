@@ -48,7 +48,8 @@ METIS orders and ``ClusterGCNSampler``, and the explainers
 (``nn.explain``: GNNExplainer, PGExplainer and SubgraphX, homogeneous and
 heterogeneous); GraphBolt (``graphbolt``: the stage pipeline,
 ``FusedCSCSamplingGraph``, the feature stores and caches, the on-disk
-dataset) and the lazy-feature markers.
+dataset) and the lazy-feature markers; the dataset zoo (``data``: the
+datasets, parsers, generators and adapters).
 """
 from . import (data, dataloading, distributed, function, geometry, models,
                nn, ops, propagate, readout, sampling, sparse, transforms,

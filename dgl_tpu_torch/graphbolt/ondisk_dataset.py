@@ -246,11 +246,14 @@ class BuiltinDataset(OnDiskDataset):
     """Named builtin datasets in GraphBolt form (reference
     ``impl/ondisk_dataset.py:915``, which downloads from the DGL S3
     bucket). A directory ``root/<name>`` that already holds its
-    ``metadata.json`` is loaded as it is. Materialising one from the
-    dataset zoo needs ``data/``'s datasets (ROADMAP queue A10, second
-    part) and raises until they are ported; ``ogbn-arxiv`` and
-    ``ogbn-products`` name zoo classes the zoo does not define, so they
-    fail with ``AttributeError`` as ``dgl_tpu``'s do."""
+    ``metadata.json`` is loaded as it is; otherwise the named dataset is
+    materialised from the ``dgl_tpu_torch.data`` zoo (real parsers when raw
+    files are pre-populated, calibrated synthetic stand-ins otherwise):
+    its graph, masks, features and labels are written through
+    :meth:`OnDiskDataset.write`, ``num_classes`` into ``metadata.json``,
+    then loaded on ``device``. ``ogbn-arxiv`` and ``ogbn-products`` name
+    zoo classes the zoo does not define, so they fail with
+    ``AttributeError`` as ``dgl_tpu``'s do."""
 
     _ZOO = {
         "cora": "CoraGraphDataset",
@@ -260,8 +263,6 @@ class BuiltinDataset(OnDiskDataset):
         "ogbn-arxiv": "OgbnArxivDataset",
         "ogbn-products": "OgbnProductsDataset",
     }
-    # the zoo classes of data/ that exist (ROADMAP queue A10, second part)
-    _IN_ZOO = ("cora", "citeseer", "pubmed", "reddit")
 
     def __init__(self, name: str, root: str = "datasets", device="cuda"):
         key = name.replace("-seeds", "")
@@ -272,14 +273,39 @@ class BuiltinDataset(OnDiskDataset):
             )
         path = os.path.join(root, key)
         if not os.path.exists(os.path.join(path, "metadata.json")):
-            if key not in self._IN_ZOO:
-                raise AttributeError(
-                    f"the dataset zoo has no {self._ZOO[key]!r}: "
-                    f"BuiltinDataset({name!r}) needs {path} prepared")
-            raise NotImplementedError(
-                f"BuiltinDataset({name!r}): materialising {path} needs "
-                f"data/'s {self._ZOO[key]}, ROADMAP queue A10's second part"
-                f" (data/); a directory holding its metadata.json loads")
+            from .. import data as data_zoo
+
+            # the zoo graph is read back on the host: build it there
+            ds = getattr(data_zoo, self._ZOO[key])(device="cpu")
+            g = ds[0]
+            src, dst = (x.numpy() for x in g.edges())
+            masks = {
+                k: np.nonzero(g.ndata[k].numpy())[0]
+                for k in ("train_mask", "val_mask", "test_mask")
+                if k in g.ndata
+            }
+            OnDiskDataset.write(
+                path,
+                name=key,
+                src=src,
+                dst=dst,
+                num_nodes=g.num_nodes(),
+                features={"feat": g.ndata["feat"].numpy()},
+                labels=(
+                    g.ndata["label"].numpy()
+                    if "label" in g.ndata else None
+                ),
+                train_ids=masks.get("train_mask"),
+                val_ids=masks.get("val_mask"),
+                test_ids=masks.get("test_mask"),
+                device="cpu",
+            )
+            meta_path = os.path.join(path, "metadata.json")
+            with open(meta_path) as f:
+                meta = json.load(f)
+            meta["num_classes"] = int(getattr(ds, "num_classes", 0))
+            with open(meta_path, "w") as f:
+                json.dump(meta, f)
         super().__init__(path, device)
 
 

@@ -112,9 +112,45 @@ def test_cooperative_names_raise_naming_a11(call):
         call()
 
 
-def test_builtin_dataset_zoo_raises_naming_a10(tmp_path):
-    with pytest.raises(NotImplementedError, match="A10's second part"):
-        tgb.BuiltinDataset("cora", root=str(tmp_path), device="cpu")
+def builtin_pair(name, tmp_path, monkeypatch):
+    """``BuiltinDataset(name)`` materialised from each package's zoo into a
+    directory of its own (each zoo's default download directory too)."""
+    out = {}
+    for side, m, kw in (("jax", jgb, {}), ("torch", tgb, {"device": "cpu"})):
+        monkeypatch.setenv("DGL_TPU_DOWNLOAD_DIR",
+                           str(tmp_path / f"zoo_{side}"))
+        root = tmp_path / side
+        out[side] = (m.BuiltinDataset(name, root=str(root), **kw),
+                     root / name)
+    return out["torch"], out["jax"]
+
+
+def same_written_dataset(got_dir, ref_dir):
+    """The same files, ``metadata.json`` equal, every array equal; the
+    labels are int64 in the port, int32 in the reference."""
+    files = sorted(os.listdir(ref_dir))
+    assert sorted(os.listdir(got_dir)) == files
+    with open(got_dir / "metadata.json") as f, \
+            open(ref_dir / "metadata.json") as g:
+        assert json.load(f) == json.load(g)
+    for name in files:
+        if not name.endswith(".npy"):
+            continue
+        got, ref = np.load(got_dir / name), np.load(ref_dir / name)
+        if name == "labels.npy":
+            assert (got.dtype, ref.dtype) == (np.int64, np.int32)
+        else:
+            assert got.dtype == ref.dtype, name
+        assert np.array_equal(got, ref), name
+
+
+def test_builtin_dataset_zoo_raises_naming_a10(tmp_path, monkeypatch):
+    """The zoo's names materialise in both packages; the names the zoo
+    lacks raise in both."""
+    (ds, got_dir), (ref, ref_dir) = builtin_pair("cora", tmp_path,
+                                                 monkeypatch)
+    same_written_dataset(got_dir, ref_dir)
+    assert ds.meta["num_classes"] == ref.meta["num_classes"] == 7
     # the reference's zoo defines no OGB class: both fail the same way
     for name in ("ogbn-arxiv", "ogbn-products"):
         with pytest.raises(AttributeError):
@@ -124,6 +160,36 @@ def test_builtin_dataset_zoo_raises_naming_a10(tmp_path):
     for m, kw in ((jgb, {}), (tgb, {"device": "cpu"})):
         with pytest.raises(Exception):
             m.BuiltinDataset("not-a-dataset", root=str(tmp_path), **kw)
+
+
+@pytest.mark.parametrize("name", ["citeseer", "pubmed"])
+def test_builtin_dataset_materialises_from_the_zoo(name, tmp_path,
+                                                   monkeypatch):
+    """Written by each package from its zoo, then loaded: the files, the
+    graph, the splits and the features agree with the zoo's dataset."""
+    (ds, got_dir), (ref, ref_dir) = builtin_pair(name, tmp_path,
+                                                 monkeypatch)
+    same_written_dataset(got_dir, ref_dir)
+    zoo = {"citeseer": dt.data.CiteseerGraphDataset,
+           "pubmed": dt.data.PubmedGraphDataset}[name](
+        raw_dir=str(tmp_path / "zoo_torch"), device="cpu")
+    g = zoo[0]
+    assert ds.meta["num_classes"] == zoo.num_classes
+    src, dst = ds.graph.edges()
+    gsrc, gdst = g.edges()
+    assert torch.equal(src, gsrc) and torch.equal(dst, gdst)
+    (task,) = ds.tasks
+    for split, mask in ((task.train_set, "train_mask"),
+                        (task.validation_set, "val_mask"),
+                        (task.test_set, "test_mask")):
+        ids, labels = split[np.arange(len(split))]
+        want = torch.nonzero(g.ndata[mask]).squeeze(1)
+        assert torch.equal(torch.as_tensor(np_of(ids)), want)
+        assert torch.equal(torch.as_tensor(np_of(labels)),
+                           g.ndata["label"][want])
+    ids = np.arange(0, g.num_nodes(), 5)
+    assert torch.equal(torch.as_tensor(np_of(
+        ds.feature.read("node", "_N", "feat", ids))), g.ndata["feat"][ids])
 
 
 def test_builtin_dataset_loads_a_prepared_directory(tmp_path):

@@ -6,6 +6,10 @@
 - The entry points place their tensors on CUDA unless the caller asks for
   the CPU: in a process that sees no card, calling them without
   ``device`` raises instead of running on the CPU.
+- No module of ``dgl_tpu_torch/data/`` imports networkx, yaml, pyarrow
+  or ogb at module level (the card's host has none of them), and MiniGC
+  and the karate club build where ``import networkx`` fails, equal to the
+  reference's.
 """
 import ast
 import os
@@ -184,6 +188,23 @@ _CALLS = {
         "(lambda d: dt.graphbolt.OnDiskDataset.write(d, name='x', "
         "src=np.array([0]), dst=np.array([1]), num_nodes=2{}).graph)("
         "__import__('tempfile').mkdtemp())"),
+    "data.CoraGraphDataset": "dt.data.CoraGraphDataset(raw_dir=__import__("
+                             "'tempfile').mkdtemp(){})",
+    "data.SyntheticDataset": "dt.data.SyntheticDataset(num_nodes=20, "
+                             "num_edges=40{})",
+    "data.SyntheticHeteroDataset": "dt.data.SyntheticHeteroDataset(*[]{})",
+    "data.MiniGCDataset": "dt.data.MiniGCDataset(8, 4, 6{})",
+    "data.KarateClubDataset": "dt.data.KarateClubDataset(*[]{})",
+    "data.BAShapeDataset": "dt.data.BAShapeDataset(*[]{})",
+    "data.FraudYelpDataset": "dt.data.FraudYelpDataset(num_nodes=50{})",
+    "data.QM9Dataset": "dt.data.QM9Dataset(num_graphs=2{})",
+    "data.MinesweeperDataset": "dt.data.MinesweeperDataset(*[]{})",
+    "data.from_ogb": "dt.data.from_ogb('ogbn-arxiv', root='tests/fixtures/"
+                     "ogb'{})",
+    "data.generate_mask_tensor": "dt.data.utils.generate_mask_tensor("
+                                 "np.ones(3, bool){})",
+    "graphbolt.BuiltinDataset": "dt.graphbolt.BuiltinDataset('cora', root="
+                                "__import__('tempfile').mkdtemp(){}).graph",
     "graphbolt.MiniBatch.to_dgl_blocks": (
         "dt.graphbolt.MiniBatch(sampled_subgraphs=[dt.graphbolt."
         "SampledSubgraphImpl(dt.graphbolt.CSCFormatBase(np.array([0, 1]), "
@@ -208,13 +229,14 @@ print(json.dumps(out))
 
 
 @pytest.fixture(scope="module")
-def default_device_errors():
+def default_device_errors(tmp_path_factory):
     """Each entry point called without ``device`` and then with
     ``device="cpu"``, in one process that sees no card."""
     import json
 
     code = f"CALLS = {json.dumps(json.dumps(_CALLS))}\n" + _PROBE
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               DGL_TPU_DOWNLOAD_DIR=str(tmp_path_factory.mktemp("zoo")))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
@@ -269,6 +291,73 @@ SLICE_MODULES += ("graphbolt", "graphbolt.base", "graphbolt.dataloader",
                   "graphbolt.impl.fused_csc_sampling_graph",
                   "graphbolt.impl.graph_cache", "graphbolt.impl.hbm_cache",
                   "graphbolt.impl.ondisk_metadata")
+
+
+# the dataset-zoo slice
+DATA_MODULES = ("data.dgl_dataset", "data.utils", "data.parsers",
+                "data.synthetic", "data.citation", "data.generators",
+                "data.heterophilous", "data.csv_dataset", "data.adapter",
+                "data.named_extra")
+SLICE_MODULES += DATA_MODULES
+HOST_ONLY = ("networkx", "yaml", "pyarrow", "ogb")
+
+
+@pytest.mark.parametrize("name", DATA_MODULES)
+def test_data_module_imports_no_host_only_package_at_module_level(name):
+    """Module-level imports only: a function may import one lazily (as
+    ``from_ogb`` does ``ogb`` and the meta reader ``yaml``)."""
+    path = os.path.join(ROOT, "dgl_tpu_torch", *name.split(".")) + ".py"
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = []
+    for node in tree.body:
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                 else [])
+        bad += [n for n in names if n.split(".")[0] in HOST_ONLY]
+    assert not bad, (name, bad)
+
+
+_WITHOUT_NETWORKX = """
+import sys
+for name in HOST_ONLY:
+    sys.modules[name] = None  # import fails
+import numpy as np
+import dgl_tpu_torch.data as T
+arrays = {}
+for i, (g, y) in enumerate(T.MiniGCDataset(96, 4, 41, seed=7,
+                                           device="cpu")):
+    src, dst = g.edges()
+    arrays[f"g{i}"] = np.stack([src.numpy(), dst.numpy()])
+    arrays[f"n{i}"] = np.array([g.num_nodes(), int(y)])
+k = T.KarateClubDataset(device="cpu")[0]
+arrays["karate"] = np.stack([a.numpy() for a in k.edges()])
+arrays["karate_label"] = k.ndata["label"].numpy()
+np.savez(OUT, **arrays)
+"""
+
+
+def test_minigc_and_karate_build_without_networkx(tmp_path):
+    import numpy as np
+
+    import dgl_tpu.data as J
+
+    out = str(tmp_path / "graphs.npz")
+    code = (f"HOST_ONLY = {HOST_ONLY!r}\nOUT = {out!r}\n"
+            + _WITHOUT_NETWORKX)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = np.load(out)
+    ref = J.MiniGCDataset(96, 4, 41, seed=7)
+    for i, (g, y) in enumerate(ref):
+        src, dst = (np.asarray(a) for a in g.edges())
+        assert np.array_equal(got[f"g{i}"], np.stack([src, dst])), i
+        assert got[f"n{i}"].tolist() == [g.num_nodes(), int(y)], i
+    k = J.KarateClubDataset()[0]
+    assert np.array_equal(got["karate"],
+                          np.stack([np.asarray(a) for a in k.edges()]))
+    assert np.array_equal(got["karate_label"], np.asarray(k.ndata["label"]))
 
 
 @pytest.mark.parametrize("name", SLICE_MODULES)
