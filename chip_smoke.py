@@ -541,6 +541,57 @@ Each accuracy must reach twice the test set's majority share, and the
 floors the reference's own tests set where they exist (GCN on Cora 0.6,
 GAT 0.5, ``tests/test_end_to_end.py``).
 
+The distributed group (no hand kernel; every launch count stays 0), four
+parts held by one process on the card (a one-process mesh: the exchange
+is a transpose on the card, so the times are the layer's cost, not a
+scaling figure):
+
+44. ``dist_flagship`` (after the GraphBolt phases, on the products graph):
+    the repo's papers100M configuration (``docs/papers100m_flagship.md``
+    section 3; papers100M's graph cut to products' counts, METIS to a
+    random assignment) through dryrun phase 7's path:
+    ``PartitionedGraphCSC`` (sorted on the card, equal to the numpy
+    build), ``DeviceDistSampler([15, 10, 5])`` over 1,024 of each part's
+    own seeds, 128-wide bf16 features and 172 classes drawn from a seed
+    and pulled by ``pull_rows_in_shard_map``, ``DeviceSAGE`` 128-256-172
+    (3 layers), the parts' mean loss, Adam 1e-3. Every MFG's picks are
+    in-neighbours (``check_device_picks``), the pulled rows equal the
+    table's, the exchanged integer bytes equal the analytic count within
+    5 %, the first step is within rtol = 1e-4 of the CPU's; then sample,
+    pull and step times, ``device_idle_share`` and peak memory;
+45. ``dist_host_minibatch``: dryrun phase 4's DistDGL workflow on the
+    same parts (``DistNeighborSampler`` [10, 10, 10], 1,024 seeds a part,
+    ``DistNodeDataLoader``, ``sparse_all_to_all_pull``, GraphSAGE
+    100-256-47, Adam 1e-3, 3 steps; blocks and features equal to the
+    CPU's, the first step within 1e-4), then
+    ``examples/distributed_link_prediction.py`` and
+    ``distributed_rgcn_minibatch.py`` at their sizes, each against the
+    CPU;
+46. ``dist_fullgraph`` (after the dataset zoo): dryrun phase 2, 1.25M
+    nodes and 10M edges in 4 random parts, shards built on the card and
+    the CPU (equal), 5 steps of ``dist_copy_u_sum(mean)`` -> linear ->
+    cross-entropy -> SGD; the first step, ``dist_spmm`` (sum, mean, max,
+    min, edge values) and the delayed form against the single-device
+    path at rtol = 1e-5, atol = 1e-5 * max|ref|;
+47. ``dist_hetero``: ogbn-mag / 8 partitioned by
+    ``hetero_partition_assignment``, the per-etype halo aggregation at
+    F = 64, plain, edge-weighted and delayed, against
+    ``multi_update_all`` at 1e-5;
+48. ``dist_process_group``: ``initialize`` with a coordinator on
+    127.0.0.1 joins a world-size-1 NCCL group; the pull with its backward
+    and ``dist_copy_u_sum`` over it against the one-process mesh; then
+    two processes over gloo on the card at P = 2 (when a world-size-1
+    gloo probe takes CUDA tensors; a failed worker fails the phase);
+    ``exit_client``;
+49. ``dist_cooperative``: GraphBolt over ``BuiltinDataset("cora")`` with
+    ``CooperativeFeatureFetcher`` on a 4-part mesh, its first batch's
+    features equal to ``FeatureFetcher``'s;
+50. ``dist_host_surfaces``: ``DistGraph`` over ``partition_graph``'s
+    files, ``node_split``/``edge_split``, ``DistTensor`` and
+    ``DistEmbedding`` with ``SparseAdam``/``SparseAdagrad`` (against the
+    plain sparse optimisers at 1e-5), ``KVServer``/``KVClient``: card
+    against CPU.
+
 Every training input is built outside ``torch.inference_mode()``.
 It prints one JSON object per result line, the kernel table as
 ``{"kernels": [...]}``, the card's name and power limit, and as its last
@@ -9073,6 +9124,1132 @@ def run_data(tag: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the distributed layer: the repo's distributed recipes over four parts held
+# by one process on the card (a one-process mesh; no hand kernel)
+# ---------------------------------------------------------------------------
+
+DIST_PARTS = 4
+# __graft_entry__.py:200-204: dryrun phase 2's full-graph configuration
+DIST_FULL_N, DIST_FULL_E, DIST_FULL_F, DIST_FULL_C = (1_250_000, 10_000_000,
+                                                      16, 4)
+DIST_STEPS = 5
+DIST_HETERO_DIV, DIST_HETERO_F = 8, 64
+# docs/papers100m_flagship.md section 3: papers100M's widths, fanouts and
+# batch; the graph is the products one (see run_dist_flagship)
+FLAGSHIP_FEAT, FLAGSHIP_HIDDEN, FLAGSHIP_CLASSES = 128, 256, 172
+FLAGSHIP_FANOUTS, FLAGSHIP_BATCH, FLAGSHIP_LR = [15, 10, 5], 1024, 1e-3
+DIST_MB_STEPS = 3
+# examples/distributed_link_prediction.py and distributed_rgcn_minibatch.py
+DIST_LP = dict(num_nodes=2048, num_edges=20_000, num_classes=4, feat_dim=32)
+DIST_LP_FANOUTS, DIST_LP_BATCH, DIST_LP_NEG, DIST_LP_HIDDEN = [5], 16, 2, 32
+DIST_RGCN_FANOUT, DIST_RGCN_BATCH, DIST_RGCN_HIDDEN = 4, 16, 32
+DIST_EXAMPLE_LR = 1e-2
+DIST_COOP_BATCH, DIST_COOP_FANOUTS = 64, [10, 10]
+
+
+def dist_mesh(device="cuda"):
+    from dgl_tpu_torch.parallel import create_mesh
+
+    return create_mesh((DIST_PARTS,), ("gp",), device=device)
+
+
+def _peak_gib(device) -> float:
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _reset_peak(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _gen(seed: int, device):
+    import torch
+
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _no_kernel(what: str) -> None:
+    from dgl_tpu_torch import _kernels
+
+    expect_no_other_launch(dict(_kernels.launch_counts), {}, what)
+
+
+def run_dist_fullgraph(tag: dict, device="cuda") -> dict:
+    """Phase dist_fullgraph: dryrun phase 2 (``__graft_entry__.py:179-226``)
+    over 4 shards of a 1.25M-node, 10M-edge uniform graph: shards built on
+    the card and on the CPU (equal), one ``dist_copy_u_sum(mean=True)``
+    layer, a linear, cross-entropy over every padded row, SGD 0.1, 5 steps.
+    The first step's loss and gradient, the aggregation, ``dist_spmm``
+    (sum, mean, max, min with edge values) and the delayed form are held
+    against the single-device ``copy_u_mean``/``gspmm`` of the same graph
+    at rtol 1e-5, atol 1e-5 * max|ref|."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels, ops
+    from dgl_tpu_torch import distributed as td
+
+    _kernels.reset_launch_counts()
+    _reset_peak(device)
+    rng = np.random.default_rng(61)
+    n, e, f, c = DIST_FULL_N, DIST_FULL_E, DIST_FULL_F, DIST_FULL_C
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    g = dt.graph((src, dst), num_nodes=n, device=device)
+    g_cpu = dt.graph((src, dst), num_nodes=n, device="cpu")
+    parts = td.random_partition_assignment(g, DIST_PARTS, seed=0)
+    _sync(device)
+    t0 = time.perf_counter()
+    shards = td.build_shards(g, parts, DIST_PARTS)
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shards_cpu = td.build_shards(g_cpu, parts, DIST_PARTS)
+    cpu_build_s = time.perf_counter() - t0
+    for k in ("src_ext", "dst_local", "edge_mask", "send_idx", "send_mask",
+              "in_deg", "order", "new_of_old", "ranges", "n_owned",
+              "eids_tbl"):
+        same_result(getattr(shards, k), getattr(shards_cpu, k),
+                    f"build_shards {k}, card vs CPU")
+    mesh = dist_mesh(device)
+    tables = td.shard_arrays(mesh, shards)
+    gen = _gen(62, device)
+    x_old = torch.randn(n, f, generator=gen, device=device)
+    x = shards.shard_features(x_old)
+    y = torch.randint(0, c, (DIST_PARTS, shards.n_max), generator=gen,
+                      device=device)
+    w0 = torch.randn(f, c, generator=gen, device=device) * 0.1
+
+    def loss_of(h, w):
+        return F.cross_entropy((h @ w).reshape(-1, c), y.reshape(-1))
+
+    # the first step, distributed and on one device
+    w = w0.clone().requires_grad_(True)
+    h = td.dist_copy_u_sum(mesh, shards, x, tables=tables, mean=True)
+    loss = loss_of(h, w)
+    loss.backward()
+    w_ref = w0.clone().requires_grad_(True)
+    h_ref = shards.shard_features(ops.copy_u_mean(g, x_old))
+    ref = loss_of(h_ref, w_ref)
+    ref.backward()
+    checks = {"first_step": held({"loss": loss.detach(), "grad": w.grad,
+                                  "h": h.detach()},
+                                 {"loss": ref.detach(), "grad": w_ref.grad,
+                                  "h": h_ref}, 1e-5,
+                                 "dist_copy_u_sum step vs copy_u_mean")}
+    w_e = torch.rand(e, generator=gen, device=device) + 0.5
+    ev = shards.shard_edge_data(w_e)
+    for op in ("sum", "mean", "max", "min"):
+        got = td.dist_spmm(mesh, shards, x, ev, tables=tables, reduce_op=op)
+        want = shards.shard_features(ops.gspmm(g, "mul", op, x_old,
+                                               w_e[:, None]))
+        checks[f"dist_spmm_{op}"] = held_against(got, want, 1e-5,
+                                                 f"dist_spmm {op}")
+    # the delayed form on zero state: the local-only sum, and the fresh
+    # halo as the new state
+    local_w = torch.from_numpy((parts[src] == parts[dst]).astype(
+        np.float32)).to(device)[:, None]
+    state = td.init_halo_state(mesh, shards, f)
+    out1, state = td.dist_copy_u_sum_delayed(mesh, shards, x, state,
+                                             tables=tables)
+    checks["delayed_first"] = held_against(
+        out1, shards.shard_features(ops.gspmm(g, "mul", "sum", x_old,
+                                              local_w)), 1e-5,
+        "the delayed sum on zero state vs the local-only sum")
+    same_result(state, td.halo_exchange(mesh, x, tables["send_idx"],
+                                        tables["send_mask"]),
+                "the delayed form's new state vs the fresh halo")
+    mesh.reset_comm_bytes()
+    td.dist_copy_u_sum(mesh, shards, x, tables=tables)
+    halo_bytes = dict(mesh.comm_bytes)
+
+    losses = []
+
+    def step():
+        nonlocal w
+        w = w.detach().requires_grad_(True)
+        lo = loss_of(td.dist_copy_u_sum(mesh, shards, x, tables=tables,
+                                        mean=True), w)
+        lo.backward()
+        w = w.detach() - 0.1 * w.grad
+        losses.append(lo.detach())
+
+    w = w0.clone()
+    if device == "cuda":
+        step_ms = time_ms(step, DIST_STEPS - 1, warmup=1)
+    else:
+        for _ in range(DIST_STEPS):
+            step()
+        step_ms = 0.0
+    losses = [float(v) for v in losses]
+    if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+        raise RuntimeError(f"dist_fullgraph losses {losses}")
+    _no_kernel("dist_fullgraph")
+    out = {"build_shards_s": build_s, "cpu_build_shards_s": cpu_build_s,
+           "n_max": shards.n_max, "e_max": shards.e_max,
+           "h_max": shards.h_max, "halo_bytes_per_exchange_per_part":
+           halo_bytes, "step_ms": step_ms, "losses": losses,
+           "peak_gib": _peak_gib(device), "checks": checks}
+    emit({"phase": "dist_fullgraph", "config": "dryrun phase 2: 1,250,000 "
+          "nodes, 10,000,000 uniform edges, F = 16, C = 4, 4 random parts, "
+          "dist_copy_u_sum(mean) -> linear -> cross-entropy, SGD 0.1",
+          **out, **tag})
+    return out
+
+
+def run_dist_hetero(tag: dict, device="cuda") -> dict:
+    """Phase dist_hetero: ogbn-mag / 8 (``mag_graph``) partitioned into 4 by
+    ``hetero_partition_assignment`` (the multilevel partitioner over the
+    homogeneous graph), ``build_hetero_shards``, and the per-etype halo
+    aggregation at F = 64, plain and edge-weighted, against the
+    single-device ``multi_update_all`` (copy_u / u_mul_e, sum; cross sum),
+    and the delayed form's second call against the fresh one, at rtol
+    1e-5, atol 1e-5 * max|ref|."""
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch import distributed as td
+    from dgl_tpu_torch import function as fn
+
+    _kernels.reset_launch_counts()
+    _reset_peak(device)
+    mag = mag_graph(div=DIST_HETERO_DIV)
+    hg = dt.heterograph(mag["data"], mag["nodes"], device=device)
+    t0 = time.perf_counter()
+    assign = td.hetero_partition_assignment(hg, DIST_PARTS)
+    partition_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hs = td.build_hetero_shards(hg, assign, DIST_PARTS)
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    mesh = dist_mesh(device)
+    gen = _gen(64, device)
+    feats = {nt: torch.randn(hg.num_nodes(nt), DIST_HETERO_F, generator=gen,
+                             device=device) for nt in hg.ntypes}
+    ew = {cet: torch.rand(hg.num_edges(cet), generator=gen, device=device)
+          for cet in hg.canonical_etypes}
+    x = hs.shard_features(feats)
+    checks = {}
+    for name, msg, kw in (
+            ("plain", fn.copy_u("h", "m"), {}),
+            ("weighted", fn.u_mul_e("h", "w", "m"),
+             {"eweights": {c: hs.shard_edge_data(c, ew[c]) for c in ew}})):
+        got = hs.unshard(td.dist_hetero_copy_u_sum(mesh, hs, x, **kw))
+        gl = hg.local_var()
+        for nt in hg.ntypes:
+            gl._node_frames.setdefault(nt, {})["h"] = feats[nt]
+        for cet in hg.canonical_etypes:
+            gl._edge_frames.setdefault(cet, {})["w"] = ew[cet][:, None]
+        gl.multi_update_all({cet: (msg, fn.sum("m", "agg"))
+                             for cet in hg.canonical_etypes}, "sum")
+        for nt in hg.ntypes:
+            want = gl._node_frames[nt].get("agg")
+            if want is not None:
+                checks[f"{name}_{nt}"] = held_against(
+                    got[nt], want, 1e-5, f"dist_hetero {name} {nt}")
+    state = td.init_hetero_halo_state(mesh, hs, {nt: DIST_HETERO_F
+                                                 for nt in hg.ntypes})
+    first, state = td.dist_hetero_copy_u_sum_delayed(mesh, hs, x, state)
+    second, _ = td.dist_hetero_copy_u_sum_delayed(mesh, hs, x, state)
+    fresh = td.dist_hetero_copy_u_sum(mesh, hs, x)
+    for nt in hg.ntypes:
+        checks[f"delayed_{nt}"] = held_against(second[nt], fresh[nt], 1e-5,
+                                               f"dist_hetero delayed {nt}")
+    if not any(bool((first[nt] != fresh[nt]).any()) for nt in hg.ntypes):
+        raise RuntimeError("the delayed first call read the fresh halo")
+    ms = time_ms(lambda: td.dist_hetero_copy_u_sum(mesh, hs, x), 5) \
+        if device == "cuda" else 0.0
+    _no_kernel("dist_hetero")
+    out = {"partition_s": partition_s, "build_shards_s": build_s,
+           "n_max": hs.n_max, "h_max": hs.h_max,
+           "e_max": {"/".join(k): v for k, v in hs.e_max.items()},
+           "aggregate_ms": ms, "peak_gib": _peak_gib(device),
+           "checks": checks}
+    emit({"phase": "dist_hetero", "config": "ogbn-mag / 8 (mag_graph), 4 "
+          "parts, F = 64", **out, **tag})
+    return out
+
+
+def _part_mfg(mfg, p):
+    """Part ``p``'s MFG of a mesh's (parts, ...) MFG."""
+    from dgl_tpu_torch.sampling.device_sampler import DeviceMFG
+
+    return DeviceMFG([f[p] for f in mfg.frontiers], [n[p] for n in mfg.nbrs],
+                     [m[p] for m in mfg.masks], mfg.seed_mask[p])
+
+
+def _mfg_to(mfg, device):
+    from dgl_tpu_torch.sampling.device_sampler import DeviceMFG
+
+    return DeviceMFG(*[[t.to(device) for t in ts] for ts in mfg[:3]],
+                     mfg.seed_mask.to(device))
+
+
+def _global_csc(pgc, device):
+    """The parts' CSCs end to end: the whole graph's CSC over the new
+    ids (int64 on ``device``)."""
+    import numpy as np
+    import torch
+
+    offs = np.concatenate([[0], np.cumsum([ix.shape[0]
+                                           for ix in pgc.indices])])
+    indptr = np.concatenate([pgc.indptr[p][:-1] + offs[p]
+                             for p in range(pgc.num_parts)] + [[offs[-1]]])
+    return (torch.from_numpy(indptr).to(device),
+            torch.from_numpy(np.concatenate(pgc.indices)).to(device))
+
+
+def _flagship_loss(model, mfg, x, y):
+    """The mean cross-entropy of every part's seeds, averaged over the
+    parts (the gradient the mesh's mean gives the reference)."""
+    import torch
+    import torch.nn.functional as F
+
+    return torch.stack([F.cross_entropy(model(_part_mfg(mfg, p),
+                                              x[p].float()), y[p])
+                        for p in range(x.shape[0])]).mean()
+
+
+def run_dist_flagship(pgd: dict, tag: dict, device="cuda") -> dict:
+    """Phase dist_flagship: the repo's papers100M configuration
+    (``docs/papers100m_flagship.md`` section 3) through dryrun phase 7's
+    path (``__graft_entry__.py:503-590``) over 4 parts of the
+    ogbn-products-count graph (``products_graph``; papers100M's 111M nodes
+    and 1.6B edges cut to it, METIS to ``random_partition_assignment``):
+    ``PartitionedGraphCSC`` and ``shard_csc_arrays``, ``DeviceDistSampler``
+    [15, 10, 5] with 1,024 of its own seeds a part, 128-wide bf16 features
+    and 172 classes drawn from a seed, pulled by ``pull_rows_in_shard_map``,
+    ``DeviceSAGE`` 128-256-172 (3 layers), the parts' mean loss, Adam 1e-3,
+    5 steps. Checks: every MFG's picks, the pulled rows against the table,
+    the first step against the CPU (rtol 1e-4), the counted integer bytes
+    against the analytic count (5 %). Returns the partitioned graph."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch import distributed as td
+    from dgl_tpu_torch.models import DeviceSAGE
+
+    _kernels.reset_launch_counts()
+    _reset_peak(device)
+    g = pgd["g"]
+    P, B = DIST_PARTS, FLAGSHIP_BATCH
+    parts = td.random_partition_assignment(g, P, seed=0)
+    t0 = time.perf_counter()
+    pgc = td.PartitionedGraphCSC.build(g, parts, P)
+    ip, ix = td.shard_csc_arrays(pgc, device=device)
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    n = pgc.num_nodes
+    gen = _gen(65, device)
+    ftable = pgc.shard_rows(torch.randn(n, FLAGSHIP_FEAT, generator=gen,
+                                        device=device).to(torch.bfloat16))
+    ltable = pgc.shard_rows(torch.randint(
+        0, FLAGSHIP_CLASSES, (n,), generator=gen, device=device).float()[
+            :, None])
+    mesh = dist_mesh(device)
+    sampler = td.DeviceDistSampler(FLAGSHIP_FANOUTS, pgc.ranges)
+    gens = [_gen(70 + p, device) for p in range(P)]
+    counts = torch.from_numpy(np.diff(pgc.ranges)).to(device)
+    lo = torch.from_numpy(pgc.ranges[:-1]).to(device)
+    seeds = lo[:, None, None] + (torch.rand(
+        (P, DIST_STEPS + 2, B), generator=gen, device=device)
+        * counts[:, None, None]).long()
+    model = DeviceSAGE(FLAGSHIP_FEAT, FLAGSHIP_HIDDEN, FLAGSHIP_CLASSES,
+                       num_layers=3, generator=torch.Generator().manual_seed(
+                           0), device=device)
+    opt = torch.optim.Adam(model.parameters(), lr=FLAGSHIP_LR)
+
+    def sample(s):
+        return sampler.sample_shard(mesh, gens, ip, ix, seeds[:, s])
+
+    def pull(mfg, s):
+        x = td.pull_rows_in_shard_map(mesh, pgc.ranges, ftable,
+                                      mfg.input_nodes())
+        y = td.pull_rows_in_shard_map(mesh, pgc.ranges, ltable,
+                                      seeds[:, s])[..., 0].long()
+        return x, y
+
+    # the first step, checked
+    mesh.reset_comm_bytes()
+    mfg = sample(0)
+    x, y = pull(mfg, 0)
+    int_bytes = mesh.comm_bytes["int"]
+    m_in = B
+    for f in FLAGSHIP_FANOUTS:
+        m_in *= f + 1
+    analytic = sampler.comm_bytes_per_sample(B, P) + P * (m_in + B) * 4
+    gap = abs(int_bytes - analytic) / analytic
+    if gap > 0.05:
+        raise RuntimeError(f"exchanged integer bytes {int_bytes} vs the "
+                           f"analytic {analytic}")
+    indptr, indices = _global_csc(pgc, device)
+    masked = sum(check_device_picks(_part_mfg(mfg, p), indptr, indices,
+                                    FLAGSHIP_FANOUTS) for p in range(P))
+    del indptr, indices
+    ids = mfg.input_nodes().long()
+    part = torch.clamp(torch.searchsorted(torch.from_numpy(pgc.ranges).to(
+        device), ids, right=True) - 1, 0, P - 1)
+    slot = part * pgc.n_max + ids - torch.from_numpy(pgc.ranges).to(
+        device)[part]
+    real = ids >= 0  # a masked pick's id is -1: its row comes back 0
+    if not (torch.equal(x[real], ftable.reshape(-1, FLAGSHIP_FEAT)[
+            slot[real]]) and not x[~real].any()):
+        raise RuntimeError("the pulled rows differ from the table's")
+    model_cpu = DeviceSAGE(FLAGSHIP_FEAT, FLAGSHIP_HIDDEN, FLAGSHIP_CLASSES,
+                           num_layers=3, device="cpu")
+    model_cpu.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    loss = _flagship_loss(model, mfg, x, y)
+    loss.backward()
+    ref = _flagship_loss(model_cpu, _mfg_to(mfg, "cpu"), x.cpu(), y.cpu())
+    ref.backward()
+    got, want = {"loss": loss.detach()}, {"loss": ref.detach()}
+    for (k, p), q in zip(model.named_parameters(), model_cpu.parameters()):
+        got[k], want[k] = p.grad, q.grad
+    first = held(got, want, 1e-4, "the flagship's first step vs the CPU")
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    del mfg, x, y, model_cpu
+
+    s = 1
+    times = {"sample_ms": [], "pull_ms": [], "step_ms": []}
+
+    def timed(fn_, key):
+        if device != "cuda":
+            return fn_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        a.record()
+        r = fn_()
+        b.record()
+        torch.cuda.synchronize()
+        times[key].append(a.elapsed_time(b))
+        return r
+
+    def train_step():
+        nonlocal s
+        mesh.reset_comm_bytes()
+        mfg_ = timed(lambda: sample(s), "sample_ms")
+        x_, y_ = timed(lambda: pull(mfg_, s), "pull_ms")
+
+        def fb():
+            lo_ = _flagship_loss(model, mfg_, x_, y_)
+            lo_.backward()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            return lo_.detach()
+
+        s = s % (DIST_STEPS + 1) + 1
+        return timed(fb, "step_ms")
+
+    _sync(device)
+    t0 = time.perf_counter()
+    losses = [float(train_step()) for _ in range(DIST_STEPS - 1)]
+    _sync(device)
+    wall = (time.perf_counter() - t0) / (DIST_STEPS - 1) * 1e3
+    step_bytes = dict(mesh.comm_bytes)
+    profile = device_profile(train_step, 2) if device == "cuda" else {}
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"flagship losses {losses}")
+    _no_kernel("dist_flagship")
+    out = {"partition_build_s": build_s, "n_max": pgc.n_max,
+           "input_rows_per_part": m_in, "masked_seeds": masked,
+           "sample_ms": float(np.mean(times["sample_ms"] or [0])),
+           "pull_ms": float(np.mean(times["pull_ms"] or [0])),
+           "step_ms": float(np.mean(times["step_ms"] or [0])),
+           "ms_per_step": wall, "int_bytes_per_step_per_part":
+           step_bytes["int"], "float_bytes_per_step_per_part":
+           step_bytes["float"], "analytic_int_bytes": analytic,
+           "int_bytes_rel_gap": gap,
+           "device_idle_share": profile.get("device_idle_share"),
+           "device_busy_ms_per_step": profile.get("device_busy_ms_per_call"),
+           "peak_gib": _peak_gib(device), "first_step_vs_cpu": first,
+           "losses": [loss.item()] + losses}
+    emit({"phase": "dist_flagship", "config": "papers100M flagship widths "
+          "(128-256-172, DeviceSAGE 3 layers, [15, 10, 5], 1,024 seeds a "
+          "part, bf16 features, Adam 1e-3) over 4 parts of the "
+          "ogbn-products-count graph", **out, **tag})
+    return pgc
+
+
+def _same_blocks(a, b, what):
+    for layer, (la, lb) in enumerate(zip(a, b)):
+        for p, (x, y) in enumerate(zip(la, lb)):
+            same_graph_on(x, y, f"{what}: block {layer} part {p}")
+
+
+def _sage_parts_loss(model, blocks, x, y, m, total):
+    """Masked cross-entropy of every part's seeds over their blocks,
+    summed over the parts and divided by the seed count (the reference's
+    ``(ls * m).sum() / m.sum()``)."""
+    import torch
+    import torch.nn.functional as F
+
+    loss = 0.0
+    for p in range(x.shape[0]):
+        blks = [layer[p] for layer in blocks]
+        h = x[p] * blks[0].srcdata["_mask"][:, None].to(x.dtype)
+        logits = model(blks, h)[: y.shape[1]]
+        loss = loss + (F.cross_entropy(logits, y[p], reduction="none")
+                       * m[p]).sum()
+    return loss / max(total, 1)
+
+
+def _first_step(model, make_cpu, loss_fn, args, args_cpu, what):
+    """The first step's loss and gradients on the card against the CPU's
+    (eval mode; the CPU pass on the card pass's ReLU pattern) at rtol
+    1e-4, atol 1e-4 * max|ref|."""
+    model_cpu = make_cpu()
+    model_cpu.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    model.eval()
+    model_cpu.eval()
+    with relu_pattern() as seen:
+        loss = loss_fn(model, *args)
+    loss.backward()
+    with relu_pattern([m.cpu() for m in seen]):
+        ref = loss_fn(model_cpu, *args_cpu)
+    ref.backward()
+    got, want = {"loss": loss.detach()}, {"loss": ref.detach()}
+    for (k, p), q in zip(model.named_parameters(), model_cpu.parameters()):
+        if q.grad is not None:
+            got[k], want[k] = p.grad, q.grad
+    model.zero_grad(set_to_none=True)
+    model.train()
+    return held(got, want, 1e-4, what)
+
+
+def _dist_batch(loader, mesh, pgc, ftable, ltable):
+    """The next loader batch with its pulled features, labels, mask and
+    seed count."""
+    from dgl_tpu_torch import distributed as td
+
+    in_ids, out_ids, blocks = next(loader)
+    x = td.sparse_all_to_all_pull(mesh, pgc.ranges, ftable, in_ids)
+    y = td.sparse_all_to_all_pull(mesh, pgc.ranges, ltable, out_ids.clamp(
+        min=0))[..., 0].long()
+    m = (out_ids >= 0).to(x.dtype)
+    return in_ids, out_ids, blocks, x, y, m, int(m.sum())
+
+
+def run_dist_host_minibatch(pgd: dict, pgc, tag: dict,
+                            device="cuda") -> dict:
+    """Phase dist_host_minibatch: dryrun phase 4's DistDGL workflow on the
+    flagship's partitioned products graph: ``DistNeighborSampler``
+    [10, 10, 10] with 1,024 seeds a part through ``DistNodeDataLoader``,
+    ``sparse_all_to_all_pull`` of the 100-wide features and labels,
+    GraphSAGE 100-256-47, Adam 1e-3, 3 steps; the blocks and pulled
+    features equal the CPU's, the first step within 1e-4 of the CPU's.
+    Then ``DistEdgeDataLoader`` link prediction and
+    ``DistEtypeNeighborSampler``'s R-GCN at their examples' sizes."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch import distributed as td
+    from dgl_tpu_torch.models import GraphSAGE
+
+    _kernels.reset_launch_counts()
+    _reset_peak(device)
+    P = DIST_PARTS
+    train = pgc.new_of_old[pgd["train"]]
+    mesh, mesh_cpu = dist_mesh(device), dist_mesh("cpu")
+    tabs = {}
+    for dev, gr in ((device, pgd["g"]), ("cpu", pgd["g_cpu"])):
+        tabs[dev] = (pgc.shard_rows(gr.ndata["feat"]),
+                     pgc.shard_rows(gr.ndata["label"].float()[:, None]))
+
+    def loader(dev):
+        sampler = td.DistNeighborSampler(pgc, PRODUCTS_FANOUTS,
+                                         PRODUCTS_BATCH, seed=0, device=dev)
+        return iter(td.DistNodeDataLoader(pgc, train, sampler,
+                                          PRODUCTS_BATCH, seed=0))
+
+    it, it_cpu = loader(device), loader("cpu")
+    t0 = time.perf_counter()
+    batch = _dist_batch(it, mesh, pgc, *tabs[device])
+    _sync(device)
+    first_sample_s = time.perf_counter() - t0
+    cpu = _dist_batch(it_cpu, mesh_cpu, pgc, *tabs["cpu"])
+    for i, what in ((0, "input ids"), (1, "output ids"), (3, "features"),
+                    (4, "labels")):
+        same_result(batch[i], cpu[i], f"dist_host_minibatch {what}")
+    _same_blocks(batch[2], cpu[2], "dist_host_minibatch")
+
+    def make(dev):
+        return GraphSAGE(PRODUCTS_FEAT, PRODUCTS_HIDDEN, PRODUCTS_CLASSES,
+                         num_layers=3, dropout=0.5,
+                         generator=torch.Generator().manual_seed(0),
+                         device=dev)
+
+    model = make(device)
+    check = _first_step(model, lambda: make("cpu"), _sage_parts_loss,
+                        (batch[2],) + batch[3:], (cpu[2],) + cpu[3:],
+                        "dist_host_minibatch's first step vs the CPU")
+    opt = torch.optim.Adam(model.parameters(), lr=PRODUCTS_LR)
+    losses, sample_s = [], []
+    _sync(device)
+    t0 = time.perf_counter()
+    for step in range(DIST_MB_STEPS):
+        if step:
+            ts = time.perf_counter()
+            batch = _dist_batch(it, mesh, pgc, *tabs[device])
+            sample_s.append(time.perf_counter() - ts)
+        loss = _sage_parts_loss(model, batch[2], *batch[3:])
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(float(loss))
+    _sync(device)
+    wall = (time.perf_counter() - t0) / DIST_MB_STEPS * 1e3
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"dist_host_minibatch losses {losses}")
+    out = {"first_sample_s": first_sample_s,
+           "sample_ms": float(np.mean(sample_s)) * 1e3,
+           "ms_per_step": wall, "edges_per_block_layer": [
+               int(sum(int(b.edata["_mask"].sum()) for b in layer))
+               for layer in batch[2]],
+           "first_step_vs_cpu": check, "losses": losses,
+           "link_prediction": run_dist_link_prediction(device),
+           "rgcn": run_dist_rgcn(device), "peak_gib": _peak_gib(device)}
+    _no_kernel("dist_host_minibatch")
+    emit({"phase": "dist_host_minibatch", "config": "DistNeighborSampler "
+          "[10, 10, 10], 1,024 seeds a part, GraphSAGE 100-256-47, Adam "
+          "1e-3, 4 parts of the products graph; link prediction and R-GCN "
+          "at examples/distributed_*'s sizes", **out, **tag})
+    return out
+
+
+def _lp_loss(model, blocks, x, pos, pidx, nidx, total):
+    """``examples/distributed_link_prediction.py``'s loss over every part:
+    dot-product scores of the positive and negative pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    loss = 0.0
+    for p in range(x.shape[0]):
+        blks = [layer[p] for layer in blocks]
+        h = model(blks, x[p] * blks[0].srcdata["_mask"][:, None].to(x.dtype))
+        a = h[pidx[p, :, 0]]
+        pos_s = (a * h[pidx[p, :, 1]]).sum(-1)
+        neg_s = (a[:, None, :] * h[nidx[p]]).sum(-1)
+        per = (F.binary_cross_entropy_with_logits(
+            pos_s, torch.ones_like(pos_s), reduction="none")
+            + F.binary_cross_entropy_with_logits(
+                neg_s, torch.zeros_like(neg_s), reduction="none").mean(-1))
+        loss = loss + (per * (pos[p, :, 0] >= 0).to(per.dtype)).sum()
+    return loss / max(total, 1)
+
+
+def run_dist_link_prediction(device="cuda") -> dict:
+    """``examples/distributed_link_prediction.py``: SyntheticDataset (2,048
+    nodes, 20,000 edges, 32 features), the multilevel partition into 4,
+    ``DistEdgeDataLoader`` ([5], 16 pairs a part, 2 negatives), GraphSAGE
+    32-32-16, Adam 1e-2, 3 steps; the first batch and step against the
+    CPU."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import distributed as td
+    from dgl_tpu_torch.data import SyntheticDataset
+    from dgl_tpu_torch.models import GraphSAGE
+
+    P = DIST_PARTS
+    runs = []
+    for dev in (device, "cpu"):
+        g = SyntheticDataset(**DIST_LP, device=dev)[0]
+        parts = td.metis_partition_assignment(g, P)
+        pgc = td.PartitionedGraphCSC.build(g, parts, P)
+        src, dst = (t.cpu().numpy() for t in g.edges())
+        train = np.arange(0, g.num_edges(), 4)
+        edges = np.stack([pgc.new_of_old[src[train]],
+                          pgc.new_of_old[dst[train]]], 1)
+        loader = iter(td.DistEdgeDataLoader(
+            pgc, edges, DIST_LP_FANOUTS, DIST_LP_BATCH,
+            num_negatives=DIST_LP_NEG, seed=0, device=dev))
+        runs.append((pgc, pgc.shard_rows(g.ndata["feat"]), loader,
+                     dist_mesh(dev)))
+
+    def batch(run):
+        pgc, ftable, loader, mesh = run
+        pos, neg, seeds, pidx, nidx, in_ids, blocks = next(loader)
+        x = td.sparse_all_to_all_pull(mesh, pgc.ranges, ftable, in_ids)
+        return (blocks, x, pos, pidx, nidx, int((pos[..., 0] >= 0).sum()))
+
+    b, b_cpu = batch(runs[0]), batch(runs[1])
+    _same_blocks(b[0], b_cpu[0], "dist link prediction")
+    for i in range(1, 5):
+        same_result(b[i], b_cpu[i], f"dist link prediction input {i}")
+
+    def make(dev):
+        return GraphSAGE(DIST_LP["feat_dim"], DIST_LP_HIDDEN, 16,
+                         num_layers=len(DIST_LP_FANOUTS),
+                         generator=torch.Generator().manual_seed(0),
+                         device=dev)
+
+    model = make(device)
+    check = _first_step(model, lambda: make("cpu"), _lp_loss, b, b_cpu,
+                        "dist link prediction's first step vs the CPU")
+    opt = torch.optim.Adam(model.parameters(), lr=DIST_EXAMPLE_LR)
+    losses = []
+    for step in range(DIST_MB_STEPS):
+        if step:
+            b = batch(runs[0])
+        loss = _lp_loss(model, *b)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(float(loss))
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"dist link prediction losses {losses}")
+    return {"first_step_vs_cpu": check, "losses": losses}
+
+
+class _DistRGCN:
+    """``examples/distributed_rgcn_minibatch.py``'s two ``RelGraphConv``
+    layers over etype-sampled blocks (static slot etypes)."""
+
+    def __init__(self, in_feats, num_classes, num_rels, slot_et, device):
+        import torch
+
+        from dgl_tpu_torch.nn import RelGraphConv
+
+        gen = torch.Generator().manual_seed(0)
+        self.mod = torch.nn.ModuleDict({
+            "l1": RelGraphConv(in_feats, DIST_RGCN_HIDDEN, num_rels,
+                               self_loop=False, generator=gen,
+                               device=device),
+            "l2": RelGraphConv(DIST_RGCN_HIDDEN, num_classes, num_rels,
+                               self_loop=False, generator=gen,
+                               device=device)})
+        self.slot_et = [t.to(device) for t in slot_et]
+
+    def __call__(self, blocks, x):
+        import torch
+
+        h = torch.relu(self.mod["l1"](blocks[0], x, self.slot_et[0]))
+        h = h * blocks[1].srcdata["_mask"][:, None].to(h.dtype)
+        return self.mod["l2"](blocks[1], h, self.slot_et[1])
+
+
+def run_dist_rgcn(device="cuda") -> dict:
+    """``examples/distributed_rgcn_minibatch.py``: SyntheticHeteroDataset
+    through ``to_homogeneous``, the multilevel partition into 4,
+    ``DistEtypeNeighborSampler`` (4 a relation, 2 layers, 16 seeds a
+    part), two ``RelGraphConv``s, Adam 1e-2, 3 steps; the first batch and
+    step against the CPU."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import distributed as td
+    from dgl_tpu_torch.base import ETYPE, NTYPE
+    from dgl_tpu_torch.convert import to_homogeneous
+    from dgl_tpu_torch.data import SyntheticHeteroDataset
+
+    P = DIST_PARTS
+    runs = []
+    for dev in (device, "cpu"):
+        ds = SyntheticHeteroDataset(device=dev)
+        hg = ds[0]
+        homo = to_homogeneous(hg, ndata=["feat"])
+        etypes = homo.edata[ETYPE].cpu().numpy()
+        num_rels = len(hg.canonical_etypes)
+        parts = td.metis_partition_assignment(homo, P)
+        pgc = td.PartitionedGraphCSC.build(homo, parts, P)
+        cat = np.nonzero(homo.ndata[NTYPE].cpu().numpy() == hg.ntypes.index(
+            ds.predict_ntype))[0]
+        labels = torch.zeros(homo.num_nodes(), device=dev)
+        labels[torch.from_numpy(cat).to(dev)] = hg._node_frames[
+            ds.predict_ntype]["label"].float()
+        fanouts = [[DIST_RGCN_FANOUT] * num_rels] * 2
+        sampler = td.DistEtypeNeighborSampler(pgc, etypes, fanouts,
+                                              DIST_RGCN_BATCH, seed=0,
+                                              device=dev)
+        loader = iter(td.DistNodeDataLoader(
+            pgc, np.sort(pgc.new_of_old[cat]), sampler, DIST_RGCN_BATCH,
+            seed=0))
+        slot_et = [torch.from_numpy(sampler.slot_etypes(i)) for i in range(2)]
+        runs.append((pgc, pgc.shard_rows(homo.ndata["feat"]),
+                     pgc.shard_rows(labels[:, None]), loader, dist_mesh(dev),
+                     slot_et, num_rels, ds.num_classes,
+                     homo.ndata["feat"].shape[1]))
+
+    def batch(run):
+        pgc, ftable, ltable, loader, mesh = run[:5]
+        return _dist_batch(loader, mesh, pgc, ftable, ltable)[2:]
+
+    b, b_cpu = batch(runs[0]), batch(runs[1])
+    _same_blocks(b[0], b_cpu[0], "dist R-GCN")
+    same_result(b[1], b_cpu[1], "dist R-GCN features")
+    slot_et, num_rels, classes, feats = runs[0][5:]
+
+    class Model(torch.nn.Module):
+        def __init__(self, dev):
+            super().__init__()
+            self.net = _DistRGCN(feats, classes, num_rels, slot_et, dev)
+            self.mod = self.net.mod
+
+        def forward(self, blocks, x):
+            return self.net(blocks, x)
+
+    model = Model(device)
+    check = _first_step(model, lambda: Model("cpu"), _sage_parts_loss, b,
+                        b_cpu, "dist R-GCN's first step vs the CPU")
+    opt = torch.optim.Adam(model.parameters(), lr=DIST_EXAMPLE_LR)
+    losses = []
+    for step in range(DIST_MB_STEPS):
+        if step:
+            b = batch(runs[0])
+        loss = _sage_parts_loss(model, *b)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(float(loss))
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"dist R-GCN losses {losses}")
+    return {"first_step_vs_cpu": check, "losses": losses}
+
+
+def _pg_worker(rank, world, port, out_path):
+    """One process of the two-process gloo run on the card (started by
+    ``run_dist_process_group``): the pull with its backward and
+    ``dist_copy_u_sum`` over a 2-part process-group mesh, saved for the
+    parent."""
+    import numpy as np
+
+    from dgl_tpu_torch import distributed as td
+    from dgl_tpu_torch.parallel import create_mesh
+
+    td.initialize(coordinator_address=f"127.0.0.1:{port}",
+                  num_processes=world, process_id=rank, device="cuda",
+                  backend="gloo")
+    try:
+        mesh = create_mesh((world,), ("gp",), group=True, device="cuda")
+        out = {k: v.detach().cpu().numpy()
+               for k, v in _pg_case(mesh, "cuda").items()}
+        np.savez(f"{out_path}.rank{rank}.npz", **out)
+    finally:
+        td.exit_client()
+
+
+def _pg_case(mesh, device) -> dict:
+    """The process-group phase's case on ``mesh``: ``sparse_all_to_all_pull``
+    (rows and the table's gradient) and ``dist_copy_u_sum`` over a small
+    graph, each for the parts held here."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import distributed as td
+
+    P = mesh.shape["gp"]
+    rng = np.random.default_rng(66)
+    n, rows_max, B, F = 4_000, -(-4_000 // P), 512, 32
+    ranges = np.minimum(np.arange(P + 1) * rows_max, n)
+    table = torch.from_numpy(rng.normal(size=(P, rows_max, F)).astype(
+        np.float32)).to(device)
+    ids = torch.from_numpy(rng.integers(0, n, (P, B))).to(device)
+    cot = torch.from_numpy(rng.normal(size=(P, B, F)).astype(
+        np.float32)).to(device)
+    t = mesh.local(table).clone().requires_grad_(True)
+    rows = td.sparse_all_to_all_pull(mesh, ranges, t, ids)
+    (rows * mesh.local(cot)).sum().backward()
+    g = dt.graph((rng.integers(0, n, 40_000), rng.integers(0, n, 40_000)),
+                 num_nodes=n, device=device)
+    shards = td.build_shards(g, rng.integers(0, P, n), P)
+    x = shards.shard_features(torch.from_numpy(rng.normal(
+        size=(n, F)).astype(np.float32)).to(device))
+    return {"rows": rows, "table_grad": t.grad,
+            "agg": td.dist_copy_u_sum(mesh, shards, x, mean=True)}
+
+
+def _pg_held(got, want, what) -> dict:
+    """The pulled rows exactly (gathers); the table's gradient and the
+    aggregation (sums whose order the card's atomics choose) at rtol 1e-5,
+    atol 1e-5 * max|ref|."""
+    same_result(got["rows"].cpu(), want["rows"].cpu(), f"{what}: rows")
+    return {k: held_against(got[k].cpu(), want[k].cpu(), 1e-5,
+                            f"{what}: {k}")["max_rel_err"]
+            for k in ("table_grad", "agg")}
+
+
+def _gloo_refuses_cuda(port):
+    """The error with which gloo refuses a CUDA tensor in
+    ``all_to_all_single``, probed once in a world-size-1 group in this
+    process; None when it takes it."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        x = torch.arange(8, dtype=torch.float32, device="cuda")
+        y = torch.empty_like(x)
+        try:
+            dist.all_to_all_single(y, x)
+        except RuntimeError as e:
+            return str(e).strip().splitlines()[0]
+        same_result(y.cpu(), x.cpu(), "gloo's all_to_all_single on the card")
+        return None
+    finally:
+        dist.destroy_process_group()
+
+
+def _pg_two_gloo_processes(port) -> dict:
+    """Two processes on the card over gloo at P = 2 (``_pg_worker``), each
+    rank held against the one-process mesh. A worker that fails or runs
+    past 180 s fails the phase with its errors."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch.parallel import create_mesh
+
+    out_path = os.path.join(tempfile.mkdtemp(prefix="dist_pg_"), "out")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, %r); "
+         "import chip_smoke as cs; cs._pg_worker(%d, 2, %d, %r)"
+         % (ROOT, rank, port, out_path)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    deadline = time.monotonic() + 180
+    errs, late = [], False
+    try:
+        for p in procs:
+            try:
+                errs.append(p.communicate(timeout=max(
+                    deadline - time.monotonic(), 1.0))[1])
+            except subprocess.TimeoutExpired:
+                late = True
+                p.kill()
+                errs.append(p.communicate()[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if late or any(p.returncode for p in procs):
+        raise RuntimeError(
+            "the gloo workers " + ("ran past 180 s" if late else "failed")
+            + "".join(f"\n[rank {r}, rc {p.returncode}] {e[-2000:]}"
+                      for r, (p, e) in enumerate(zip(procs, errs))))
+    want = _pg_case(create_mesh((2,), ("gp",), device="cuda"), "cuda")
+    out = {"ran": True}
+    for rank in range(2):
+        part = dict(np.load(f"{out_path}.rank{rank}.npz"))
+        out[f"rank{rank}"] = _pg_held(
+            {k: torch.from_numpy(v) for k, v in part.items()},
+            {k: v[rank:rank + 1].detach().cpu() for k, v in want.items()},
+            f"gloo on the card, rank {rank} vs the one-process mesh")
+    return out
+
+
+def run_dist_process_group(tag: dict) -> dict:
+    """Phase dist_process_group: the process-group backend on the card. A
+    world-size-1 NCCL group joined by ``initialize`` (coordinator on
+    127.0.0.1): the pull with its backward and ``dist_copy_u_sum`` over it
+    against the one-process mesh at P = 1 (exact); then two processes on
+    the card over gloo at P = 2 against the one-process mesh, when a
+    world-size-1 gloo group takes CUDA tensors in ``all_to_all_single``;
+    ``exit_client`` last."""
+    import socket
+
+    import torch.distributed as dist
+
+    from dgl_tpu_torch import distributed as td
+    from dgl_tpu_torch.parallel import create_mesh
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    t0 = time.perf_counter()
+    td.initialize(coordinator_address=f"127.0.0.1:{free_port()}",
+                  num_processes=1, process_id=0, device="cuda")
+    try:
+        backend = dist.get_backend()
+        got = _pg_case(create_mesh((1,), ("gp",), group=True,
+                                   device="cuda"), "cuda")
+        want = _pg_case(create_mesh((1,), ("gp",), device="cuda"), "cuda")
+        nccl = _pg_held(got, want, "the NCCL group at P = 1 vs the "
+                        "one-process mesh")
+    finally:
+        td.exit_client()
+    if td.get_world_size() != 1 or dist.is_initialized():
+        raise RuntimeError("exit_client left the process group")
+    nccl_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refused = _gloo_refuses_cuda(free_port())
+    gloo = {"ran": False, "reason": refused} if refused else \
+        _pg_two_gloo_processes(free_port())
+    out = {"nccl_backend": backend, "nccl_world_size_1": nccl,
+           "nccl_world_size_1_s": nccl_s,
+           "gloo_two_processes": gloo,
+           "gloo_s": time.perf_counter() - t0}
+    emit({"phase": "dist_process_group", **out, **tag})
+    return out
+
+
+def run_dist_cooperative(tag: dict, device="cuda") -> dict:
+    """Phase dist_cooperative: GraphBolt's pipeline over
+    ``BuiltinDataset("cora")`` with ``CooperativeFeatureFetcher`` on a
+    4-part mesh (``shard_feature_table``) in place of ``FeatureFetcher``:
+    the first batch's features equal ``FeatureFetcher``'s."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import graphbolt as gb
+
+    root = tempfile.mkdtemp(prefix="dist_coop_")
+    saved = os.environ.get("DGL_TPU_DOWNLOAD_DIR")
+    os.environ["DGL_TPU_DOWNLOAD_DIR"] = root
+    try:
+        ds = gb.BuiltinDataset("cora", root=root, device=device)
+        mesh = dist_mesh(device)
+        feat = torch.as_tensor(ds.feature.read(
+            "node", "_N", "feat", np.arange(ds.graph.num_nodes())))
+        tables = {"feat": gb.shard_feature_table(mesh, feat.to(device))}
+
+        def stages():
+            return gb.NeighborSamplerStage(
+                gb.ItemSampler(ds.train_set, DIST_COOP_BATCH, shuffle=True,
+                               seed=0), ds.graph, DIST_COOP_FANOUTS,
+                batch_size=DIST_COOP_BATCH, seed=0, device=device)
+
+        coop = next(iter(gb.CooperativeFeatureFetcher(stages(), mesh,
+                                                      tables)))
+        plain = next(iter(gb.FeatureFetcher(stages(), ds.feature, ["feat"])))
+        same_result(coop.node_features["feat"].cpu(),
+                    torch.as_tensor(plain.node_features["feat"]).cpu(),
+                    "CooperativeFeatureFetcher vs FeatureFetcher")
+        mesh.reset_comm_bytes()
+        next(iter(gb.CooperativeFeatureFetcher(stages(), mesh, tables)))
+        out = {"input_rows": int(len(coop.input_nodes)),
+               "bytes_per_part": dict(mesh.comm_bytes)}
+    finally:
+        if saved is None:
+            os.environ.pop("DGL_TPU_DOWNLOAD_DIR", None)
+        else:
+            os.environ["DGL_TPU_DOWNLOAD_DIR"] = saved
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "dist_cooperative", **out, **tag})
+    return out
+
+
+def run_dist_host_surfaces(tag: dict, device="cuda") -> dict:
+    """Phase dist_host_surfaces: ``DistGraph`` over ``partition_graph``'s
+    files (its picks, ``node_split``, ``edge_split``), ``DistTensor`` and
+    ``DistEmbedding`` with ``SparseAdam`` and ``SparseAdagrad``, and
+    ``KVServer``/``KVClient`` push and pull: card against CPU exactly; the
+    optimisers against the non-distributed sparse optimisers at 1e-5."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import distributed as td
+    from dgl_tpu_torch.base import EID
+    from dgl_tpu_torch.nn import sparse_emb
+
+    rng = np.random.default_rng(67)
+    n, e = 50_000, 400_000
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    feat = rng.normal(size=(n, 16)).astype(np.float32)
+    parts = rng.integers(0, DIST_PARTS, n)
+    d = tempfile.mkdtemp(prefix="dist_graph_")
+    res = {}
+    try:
+        g = dt.graph((src, dst), num_nodes=n, device="cpu")
+        g.ndata["feat"] = torch.from_numpy(feat)
+        td.partition_graph(g, "g", DIST_PARTS, d, parts=parts)
+        for dev in (device, "cpu"):
+            out = []
+            for rank in range(DIST_PARTS):
+                dg = td.DistGraph(d, part_id=rank, device=dev)
+                book = dg.get_partition_book()
+                lo, hi = int(book._ranges[rank]), int(book._ranges[rank + 1])
+                sg = dg.sample_neighbors(np.arange(lo, hi)[::97], 5, seed=3)
+                out += [*sg.edges(), sg.edata[EID], dg.ndata["feat"][:100],
+                        td.node_split(np.arange(n) % 3 == 0, book, rank=rank),
+                        td.edge_split(np.arange(e), book, rank=rank)]
+            res[dev] = out
+        same_result([torch.as_tensor(a).cpu() for a in res[device]],
+                    [torch.as_tensor(a) for a in res["cpu"]],
+                    "DistGraph card vs CPU")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    checks = {}
+    ids = [rng.integers(0, 10_000, 2_048) for _ in range(3)]
+    grads = [rng.normal(size=(2_048, 64)).astype(np.float32)
+             for _ in range(3)]
+    for name, kw in (("SparseAdam", {"lr": 1e-2}),
+                     ("SparseAdagrad", {"lr": 5e-2})):
+        tabs = {}
+        for dev in (device, "cpu"):
+            emb = td.DistEmbedding(10_000, 64, mesh=dist_mesh(dev), seed=5)
+            opt = getattr(td.optim, name)([emb], **kw)
+            for i, gr in zip(ids, grads):
+                opt.step([(_on(i, dev), _on(gr, dev))])
+            tabs[dev] = emb.data
+        plain = td.DistEmbedding(10_000, 64, seed=5, device=device).data
+        init, update = ((sparse_emb.sparse_adam_init,
+                         sparse_emb.sparse_adam_update) if name == "SparseAdam"
+                        else (sparse_emb.sparse_adagrad_init,
+                              sparse_emb.sparse_adagrad_update))
+        state = init(plain)
+        for i, gr in zip(ids, grads):
+            plain, state = update(plain, state, _on(i, device),
+                                  _on(gr, device), **kw)
+        checks[name] = held_against(tabs[device][:10_000], plain, 1e-5,
+                                    f"{name} vs the plain sparse update")
+        checks[f"{name}_vs_cpu"] = held_against(tabs[device], tabs["cpu"],
+                                                1e-5, f"{name} card vs CPU")
+    t = {dev: td.DistTensor((1_000, 8), mesh=dist_mesh(dev)) for dev in
+         (device, "cpu")}
+    for dev in t:
+        t[dev][_on(np.arange(0, 1_000, 7), dev)] = _on(
+            np.ones((143, 8), np.float32), dev)
+    same_result(t[device].data.cpu(), t["cpu"].data, "DistTensor writes")
+    kv = {}
+    for dev in (device, "cpu"):
+        c = td.KVClient(td.KVServer(0))
+        c.init_data("feat", (n, 16), np.float32)
+        c.push("feat", _on(np.arange(0, n, 3), dev), _on(feat[::3], dev))
+        kv[dev] = c.pull("feat", _on(np.arange(0, n, 5), dev))
+    same_result(kv[device], kv["cpu"], "KVClient push/pull card vs CPU")
+    out = {"checks": checks}
+    emit({"phase": "dist_host_surfaces", **out, **tag})
+    return out
+
+
+def run_dist(tag: dict) -> dict:
+    """The distributed group's phases that need no products graph."""
+    t0 = time.perf_counter()
+    out = {"fullgraph": run_dist_fullgraph(tag),
+           "hetero": run_dist_hetero(tag),
+           "process_group": run_dist_process_group(tag),
+           "cooperative": run_dist_cooperative(tag),
+           "host_surfaces": run_dist_host_surfaces(tag)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def run() -> dict:
     import torch
 
@@ -9141,6 +10318,11 @@ def run() -> dict:
     run_graphbolt_layer_and_fused_csc(pg, tag)
     emit({"phase": "graphbolt_total",
           "seconds": gb_s + time.perf_counter() - t_gb, **tag})
+    t_dist = time.perf_counter()
+    pgc = run_dist_flagship(pg, tag)
+    run_dist_host_minibatch(pg, pgc, tag)
+    del pgc
+    dist_s = time.perf_counter() - t_dist
     del pg
     torch.cuda.empty_cache()
     emit({"phase": "samplers_total", "seconds": time.perf_counter() - t0,
@@ -9184,6 +10366,9 @@ def run() -> dict:
     for name, by_recipe in data.items():
         entry = next(k for k in kernels if k["name"] == name)
         entry["data_recipe_launches"] = by_recipe
+    dist = run_dist(tag)
+    emit({"phase": "dist_total", "seconds": dist_s + dist["seconds"],
+          **tag})
     return {"kernels": kernels, "card": card}
 
 

@@ -49,11 +49,14 @@ METIS orders and ``ClusterGCNSampler``, and the explainers
 heterogeneous); GraphBolt (``graphbolt``: the stage pipeline,
 ``FusedCSCSamplingGraph``, the feature stores and caches, the on-disk
 dataset) and the lazy-feature markers; the dataset zoo (``data``: the
-datasets, parsers, generators and adapters).
+datasets, parsers, generators and adapters); the distributed layer
+(``distributed``: shards and halo exchange, the sparse all-to-all, the
+distributed samplers and loaders, ``DistTensor``, the KV store and the
+graph services) over the meshes of ``parallel``.
 """
 from . import (data, dataloading, distributed, function, geometry, models,
-               nn, ops, propagate, readout, sampling, sparse, transforms,
-               traversal)
+               nn, ops, parallel, propagate, readout, sampling, sparse,
+               transforms, traversal)
 from . import subgraph as subgraph_module
 from .base import ALL, EID, ETYPE, NID, NTYPE, DGLError
 from .batch import batch, pad_batch, slice_batch, stack_graphs, unbatch

@@ -1,13 +1,19 @@
-"""Process rank and count (counterpart of
+"""Process-group bring-up, rank and count (counterpart of
 ``dgl_tpu/distributed/dist_context.py``; reference
 ``python/dgl/distributed/dist_context.py``), over ``torch.distributed``.
 
 A process that has not joined a process group is rank 0 of 1, as one JAX
-process is. Setting the group up (``initialize``) and tearing it down
-(``exit_client``) belong with the rest of the distributed layer, ROADMAP
-queue A11, and raise until it is ported.
+process is. ``initialize`` joins one when a coordinator is given, or when
+``tools/launch.py`` set ``DGL_TPU_COORDINATOR``, ``DGL_TPU_NUM_PROCS`` and
+``DGL_TPU_PROC_ID``; without either it does nothing. The backend is NCCL
+for a process on a card and gloo for one on the CPU; a failed join raises.
 """
 from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
 
 __all__ = ["initialize", "get_rank", "get_world_size", "exit_client"]
 
@@ -32,14 +38,47 @@ def get_world_size() -> int:
     return dist.get_world_size() if _group_ready() else 1
 
 
-def initialize(*args, **kwargs):
-    """(reference ``dist_context.py:208``): the distributed layer is
-    ROADMAP queue A11."""
-    raise NotImplementedError(
-        "distributed.initialize: the distributed layer is ROADMAP queue A11")
+def initialize(ip_config: Optional[str] = None,
+               coordinator_address: Optional[str] = None,
+               num_processes: Optional[int] = None,
+               process_id: Optional[int] = None, *, device="cuda",
+               backend: Optional[str] = None, **kwargs):
+    """Join the default process group (reference ``dist_context.py:208``).
+
+    ``coordinator_address`` is ``host:port`` of rank 0's store; without it
+    the ``DGL_TPU_*`` variables of ``tools/launch.py`` are read, and
+    without them this is a no-op (one process, rank 0 of 1).
+    ``ip_config`` is accepted for the reference's signature. ``device``
+    picks the backend (``"nccl"`` for a card, ``"gloo"`` for the CPU)
+    unless ``backend`` names one; a card process is bound to card
+    ``process_id`` modulo the visible count. A second call is a no-op.
+    """
+    import torch.distributed as dist
+
+    if _group_ready():
+        return
+    if coordinator_address is None and "DGL_TPU_COORDINATOR" in os.environ:
+        coordinator_address = os.environ["DGL_TPU_COORDINATOR"]
+        num_processes = int(os.environ.get("DGL_TPU_NUM_PROCS", "1"))
+        process_id = int(os.environ.get("DGL_TPU_PROC_ID", "0"))
+    if coordinator_address is None:
+        return
+    num_processes = 1 if num_processes is None else int(num_processes)
+    process_id = 0 if process_id is None else int(process_id)
+    device = torch.device(device)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        torch.cuda.set_device(process_id % torch.cuda.device_count())
+    dist.init_process_group(
+        backend, init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes, rank=process_id)
 
 
 def exit_client():
-    """(reference ``dist_context.py:365``): ROADMAP queue A11."""
-    raise NotImplementedError(
-        "distributed.exit_client: the distributed layer is ROADMAP queue A11")
+    """Leave the default process group (reference ``dist_context.py:365``);
+    a no-op outside one."""
+    import torch.distributed as dist
+
+    if _group_ready():
+        dist.destroy_process_group()

@@ -18,9 +18,6 @@ import torch
 from ..graph import _asnumpy
 from .minibatch import MiniBatch
 
-_COOPERATIVE = ("the cooperative stages need distributed/cooperative.py's "
-                "sparse all-to-all over a mesh, ROADMAP queue A11")
-
 __all__ = [
     "NeighborSamplerStage",
     "DeviceNeighborSamplerStage",
@@ -256,20 +253,62 @@ class FeatureFetcher(_Stage):
 
 
 def shard_feature_table(mesh, feat, axis: str = "gp"):
-    """Row-shard a feature array over a mesh axis for
-    :class:`CooperativeFeatureFetcher` (reference
-    ``impl/cooperative_conv.py``): ROADMAP queue A11."""
-    raise NotImplementedError(f"shard_feature_table: {_COOPERATIVE}")
+    """Row-shard a global feature array over a mesh axis for
+    :class:`CooperativeFeatureFetcher`.
+
+    Returns ``(ranges, table)``: ``ranges`` the (P+1,) global row range of
+    each part (int64), ``table`` the (L, rows_max, F) part-major local rows
+    held here (zero-padded tails), both on the mesh's device."""
+    feat = torch.as_tensor(feat)
+    nparts = mesh.shape[axis]
+    n = feat.shape[0]
+    rows_max = -(-n // nparts)
+    ranges = np.minimum(np.arange(nparts + 1) * rows_max, n)
+    table = feat.new_zeros((nparts * rows_max,) + tuple(feat.shape[1:]))
+    table[:n] = feat
+    table = table.reshape((nparts, rows_max) + tuple(feat.shape[1:]))
+    return (torch.from_numpy(ranges.astype(np.int64)).to(mesh.device),
+            mesh.local(table, axis))
 
 
 class CooperativeFeatureFetcher(_Stage):
     """Cooperative-minibatching feature fetch (reference
     ``impl/neighbor_sampler.py:555-639`` + ``impl/cooperative_conv.py:12``):
-    ROADMAP queue A11."""
+    features live row-sharded over the mesh; a minibatch's input nodes are
+    split evenly over the parts, and each part fetches its share by owner
+    with the sparse all-to-all pull, so every row moves once, from the
+    part that owns it. No part holds the whole table. The features come
+    out on the mesh's device, in the batch's id order (across processes
+    the parts' shares are gathered).
+
+    ``tables``: dict key -> (ranges, table), from
+    :func:`shard_feature_table`."""
 
     def __init__(self, source, mesh, tables, axis: str = "gp"):
-        raise NotImplementedError(f"CooperativeFeatureFetcher: "
-                                  f"{_COOPERATIVE}")
+        super().__init__(source)
+        self.mesh = mesh
+        self.tables = tables
+        self.axis = axis
+
+    def _apply(self, mb: MiniBatch) -> MiniBatch:
+        from ..distributed.cooperative import sparse_all_to_all_pull
+
+        ids = torch.as_tensor(
+            mb.input_nodes if mb.input_nodes is not None else mb.seeds)
+        ids = ids.to(self.mesh.device, torch.int64)
+        n = ids.shape[0]
+        nparts = self.mesh.shape[self.axis]
+        per = -(-max(n, 1) // nparts)
+        padded = ids.new_zeros(nparts * per)
+        padded[:n] = ids
+        id_blocks = self.mesh.local(padded.reshape(nparts, per), self.axis)
+        for k, (ranges, table) in self.tables.items():
+            rows = sparse_all_to_all_pull(self.mesh, ranges, table,
+                                          id_blocks, axis=self.axis)
+            rows = self.mesh.all_gather(rows, self.axis)
+            mb.node_features[k] = rows.reshape(
+                (nparts * per,) + tuple(rows.shape[2:]))[:n]
+        return mb
 
 
 def _to_device(x, device: torch.device):

@@ -4,8 +4,8 @@
 ``impl/neighbor_sampler.py:555-639``, ``impl/cooperative_conv.py:12``).
 
 The reference names are kept. ``all_to_all`` runs over
-``torch.distributed``; the cooperative convolution needs the sparse
-all-to-all of ``distributed/cooperative.py``, ROADMAP queue A11.
+``torch.distributed``; the cooperative convolution is the sparse
+all-to-all of ``distributed/cooperative.py`` over a mesh.
 """
 from __future__ import annotations
 
@@ -17,7 +17,6 @@ import torch
 from ..graph import _asnumpy
 from .minibatch import MiniBatch
 from .neighbor_sampler_gb import (
-    _COOPERATIVE,
     MiniBatchTransformer,
     NeighborSamplerStage,
     _Stage,
@@ -289,20 +288,32 @@ def convert_to_hetero(item):
 
 
 class CooperativeConvFunction:
-    """Cross-rank activation redistribution for cooperative minibatching
-    (reference ``impl/cooperative_conv.py:12``): ROADMAP queue A11."""
+    """Cross-part activation redistribution for cooperative minibatching
+    (reference ``impl/cooperative_conv.py:12``): the forward pulls each
+    row from its owner part, the backward pushes the gradients back; both
+    are the differentiable sparse all-to-all of
+    ``distributed/cooperative.py`` (its exchange's backward is the reverse
+    exchange)."""
 
     @staticmethod
     def apply(mesh, ranges, table, ids, axis: str = "gp"):
-        raise NotImplementedError(f"CooperativeConvFunction: {_COOPERATIVE}")
+        from ..distributed.cooperative import sparse_all_to_all_pull
+
+        return sparse_all_to_all_pull(mesh, ranges, table, ids, axis=axis)
 
 
-class CooperativeConv:
+class CooperativeConv(torch.nn.Module):
     """Module form of :class:`CooperativeConvFunction` (reference
-    ``impl/cooperative_conv.py:96``): ROADMAP queue A11."""
+    ``impl/cooperative_conv.py:96``)."""
 
     def __init__(self, mesh, axis: str = "gp"):
-        raise NotImplementedError(f"CooperativeConv: {_COOPERATIVE}")
+        super().__init__()
+        self.mesh = mesh
+        self.axis = axis
+
+    def forward(self, ranges, table, ids):
+        return CooperativeConvFunction.apply(self.mesh, ranges, table, ids,
+                                             self.axis)
 
 
 # Reference impl alias (``impl/temporal_neighbor_sampler.py``

@@ -205,6 +205,22 @@ _CALLS = {
                                  "np.ones(3, bool){})",
     "graphbolt.BuiltinDataset": "dt.graphbolt.BuiltinDataset('cora', root="
                                 "__import__('tempfile').mkdtemp(){}).graph",
+    "parallel.create_mesh": "dt.parallel.create_mesh((2,), ('gp',){})"
+                            ".axis_index('gp')",
+    "distributed.shard_csc_arrays": "dt.distributed.shard_csc_arrays("
+                                    "dt.distributed.PartitionedGraphCSC.build(dt.graph((np.array([0, 1]), np.array([1, 2])), num_nodes=3, device='cpu'), np.array([0, 1, 1]), 2){})",
+    "distributed.PartitionedGraphCSC.shard_rows": (
+        "dt.distributed.PartitionedGraphCSC.build(dt.graph((np.array([0, 1]), np.array([1, 2])), num_nodes=3, device='cpu'), np.array([0, 1, 1]), 2).shard_rows(np.ones((3, 2)){})"),
+    "distributed.DistNeighborSampler": (
+        "dt.distributed.DistNeighborSampler(dt.distributed.PartitionedGraphCSC.build(dt.graph((np.array([0, 1]), np.array([1, 2])), num_nodes=3, device='cpu'), np.array([0, 1, 1]), 2), [1], 2{}).sample_blocks("
+        "np.array([1]))"),
+    "distributed.DistEdgeDataLoader": (
+        "list(dt.distributed.DistEdgeDataLoader(dt.distributed.PartitionedGraphCSC.build(dt.graph((np.array([0, 1]), np.array([1, 2])), num_nodes=3, device='cpu'), np.array([0, 1, 1]), 2), np.array([[0, 1]]), "
+        "[1], 1{}))"),
+    "distributed.DistTensor": "dt.distributed.DistTensor((3, 2){})",
+    "distributed.DistEmbedding": "dt.distributed.DistEmbedding(3, 2{})",
+    "distributed.merge_graphs": "dt.distributed.merge_graphs([(np.array("
+                                "[0]), np.array([1]))], 2{})",
     "graphbolt.MiniBatch.to_dgl_blocks": (
         "dt.graphbolt.MiniBatch(sampled_subgraphs=[dt.graphbolt."
         "SampledSubgraphImpl(dt.graphbolt.CSCFormatBase(np.array([0, 1]), "
@@ -291,6 +307,18 @@ SLICE_MODULES += ("graphbolt", "graphbolt.base", "graphbolt.dataloader",
                   "graphbolt.impl.fused_csc_sampling_graph",
                   "graphbolt.impl.graph_cache", "graphbolt.impl.hbm_cache",
                   "graphbolt.impl.ondisk_metadata")
+
+
+# the distributed slice
+SLICE_MODULES += ("parallel", "parallel.mesh", "parallel.spmd",
+                  "distributed.shard", "distributed.dist_spmm",
+                  "distributed.hetero_shard", "distributed.cooperative",
+                  "distributed.dist_minibatch",
+                  "distributed.device_dist_sampler",
+                  "distributed.dist_tensor", "distributed.optim",
+                  "distributed.dist_graph", "distributed.kvstore",
+                  "distributed.server", "distributed.role",
+                  "distributed.graph_services")
 
 
 # the dataset-zoo slice

@@ -246,8 +246,10 @@ def test_partition_book_and_rank():
     assert tb.partid == 0  # no process group: rank 0 of 1
     assert dt.distributed.get_world_size() == 1
     assert dt.distributed.GraphPartitionBook is dt.distributed.RangePartitionBook
-    with pytest.raises(NotImplementedError, match="A11"):
-        dt.distributed.dist_context.initialize()
+    # no coordinator given or in the environment: still rank 0 of 1
+    dt.distributed.dist_context.initialize()
+    assert dt.distributed.get_rank() == 0
+    assert dt.distributed.get_world_size() == 1
 
 
 # ---------------------------------------------------------------------------
