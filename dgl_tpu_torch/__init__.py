@@ -52,13 +52,31 @@ dataset) and the lazy-feature markers; the dataset zoo (``data``: the
 datasets, parsers, generators and adapters); the distributed layer
 (``distributed``: shards and halo exchange, the sparse all-to-all, the
 distributed samplers and loaders, ``DistTensor``, the KV store and the
-graph services) over the meshes of ``parallel``.
+graph services) over the meshes of ``parallel``; and the remainder: the
+``dgl-tpu``-style trainer (``cli``: ``python -m dgl_tpu_torch``),
+checkpoints in the JAX package's layout (``checkpoint``), graphs in
+shared memory (``Graph.shared_memory``, ``hetero_from_shared_memory``,
+``multiprocessing_mod``), the homophily measures, ``merge``, ``optim``,
+``profiler``, ``health``, ``config``, ``random`` and ``utils``.
 """
 from . import (data, dataloading, distributed, function, geometry, models,
                nn, ops, parallel, propagate, readout, sampling, sparse,
                transforms, traversal)
 from . import subgraph as subgraph_module
-from .base import ALL, EID, ETYPE, NID, NTYPE, DGLError
+from . import mpops, optim, storages, utils
+from . import checkpoint, health
+from . import random_mod as random
+from .base import ALL, EID, ETYPE, NID, NTYPE, DGLError, DGLWarning
+from .checkpoint import load_checkpoint, save_checkpoint
+from .config import config, get_config
+from .homophily import (adjusted_homophily, edge_homophily,
+                        edge_label_informativeness, get_long_edges,
+                        linkx_homophily, node_homophily,
+                        node_label_informativeness)
+from .logging_mod import enable_verbose_logging, get_logger
+from .merge import merge
+from .ops import edge_softmax
+from .random_mod import seed
 from .batch import batch, pad_batch, slice_batch, stack_graphs, unbatch
 from .convert import (bipartite_from_networkx, bipartite_from_scipy,
                       block_to_graph, create_block, from_networkx,
@@ -97,11 +115,27 @@ from .graphbolt.lazy import (LazyFeature, set_dst_lazy_features,
                              set_edge_lazy_features, set_node_lazy_features,
                              set_src_lazy_features)
 
+# `import dgl.function as fn`
+fn = function
+
+# the reference's names of the graph class
 DGLGraph = Graph
+DGLHeteroGraph = Graph
+
+
+def apply_each(data, fn, *args, **kwargs):
+    """Apply ``fn`` to every value of a dict (or to a bare value):
+    reference ``dgl.apply_each`` (``python/dgl/utils/internal.py``)."""
+    if isinstance(data, dict):
+        return {k: fn(v, *args, **kwargs) for k, v in data.items()}
+    return fn(data, *args, **kwargs)
+
 
 __all__ = [
-    "ALL", "EID", "ETYPE", "NID", "NTYPE", "DGLError", "Graph", "DGLGraph",
-    "Relation",
+    "ALL", "EID", "ETYPE", "NID", "NTYPE", "DGLError", "DGLWarning", "Graph",
+    "DGLGraph", "DGLHeteroGraph", "Relation",
+    # message passing
+    "fn", "edge_softmax", "apply_each",
     # construction
     "graph", "heterograph", "create_block", "from_scipy", "from_networkx",
     "to_networkx", "bipartite_from_scipy", "bipartite_from_networkx",
@@ -137,9 +171,17 @@ __all__ = [
     # lazy features of the GraphBolt pipeline
     "LazyFeature", "set_node_lazy_features", "set_edge_lazy_features",
     "set_src_lazy_features", "set_dst_lazy_features",
+    # graph measures and merging
+    "node_homophily", "edge_homophily", "linkx_homophily",
+    "adjusted_homophily", "edge_label_informativeness",
+    "node_label_informativeness", "get_long_edges", "merge",
+    # state
+    "seed", "save_checkpoint", "load_checkpoint", "config", "get_config",
+    "get_logger", "enable_verbose_logging",
     # namespaces
     "data", "dataloading", "distributed", "function", "geometry",
-    "graphbolt", "models", "nn", "ops",
+    "graphbolt", "models", "nn", "ops", "parallel",
     "propagate", "readout", "sampling", "sparse", "subgraph_module",
-    "transforms", "traversal",
+    "transforms", "traversal", "mpops", "optim", "storages", "utils",
+    "random", "health", "checkpoint",
 ]

@@ -318,7 +318,24 @@ def block_to_graph(block: Graph) -> Graph:
     return g
 
 
-def hetero_from_shared_memory(name: str) -> Graph:
-    raise NotImplementedError(
-        "hetero_from_shared_memory comes with multiprocessing_mod: ROADMAP "
-        "queue A12")
+def hetero_from_shared_memory(name: str, device="cuda") -> Graph:
+    """Attach a (hetero)graph that :meth:`Graph.shared_memory` of either
+    package published under ``name`` (reference ``convert.py``
+    ``hetero_from_shared_memory``): its structure and frames, built on
+    ``device``. The block stays published."""
+    import io
+    import json
+    from multiprocessing import shared_memory
+
+    from .data.serialize import _unflatten_graph
+
+    shm = shared_memory.SharedMemory(name=name)
+    try:
+        size = int.from_bytes(bytes(shm.buf[:8]), "little")
+        raw = bytes(shm.buf[8:8 + size])
+    finally:
+        shm.close()
+    with np.load(io.BytesIO(raw), allow_pickle=False) as z:
+        meta = json.loads(bytes(z["__meta__"].tobytes()).decode("utf-8"))
+        arrays = {k: z[k] for k in z.files}
+    return _unflatten_graph(meta["graphs"][0], arrays, device)

@@ -31,6 +31,20 @@ from .worker_utils import (CollateWrapper, WorkerInitWrapper,
                            remove_parent_storage_columns,
                            restore_parent_storage_columns)
 
+# the distributed loaders under the reference's legacy names, resolved at
+# first use: ``distributed`` imports ``dataloading.DataLoader``, so an eager
+# import here would be circular
+DistDataLoader = DataLoader
+
+
+def __getattr__(name):
+    if name in ("DistNodeDataLoader", "DistEdgeDataLoader"):
+        from ..distributed import dist_minibatch
+
+        return getattr(dist_minibatch, name)
+    raise AttributeError(name)
+
+
 __all__ = [
     "EdgePredictionSampler", "TensorizedDataset", "DDPTensorizedDataset",
     "create_tensorized_dataset", "NodeCollator", "EdgeCollator",
@@ -43,4 +57,5 @@ __all__ = [
     "LaborSampler", "DataLoader", "NodeDataLoader", "EdgeDataLoader",
     "Uniform", "GlobalUniform", "PerSourceUniform", "ClusterGCNSampler",
     "SAINTSampler", "ShaDowKHopSampler", "HeteroFixedShapeNeighborSampler",
+    "DistDataLoader", "DistNodeDataLoader", "DistEdgeDataLoader",
 ]

@@ -1,5 +1,8 @@
 """Builtin function base classes (reference ``python/dgl/function/base.py``)."""
 
+TargetCode = {"u": 0, "e": 1, "v": 2}
+
+
 class BuiltinFunction:
     """Base class of all builtin functions (reference ``function/base.py:8``)."""
 

@@ -7,7 +7,7 @@ import sys
 
 from .base import MessageFunction
 
-__all__ = ["copy_u", "copy_e"]
+__all__ = ["copy_u", "copy_e", "copy_src", "copy_edge"]
 
 _BINARY_OPS = ["add", "sub", "mul", "div", "dot"]
 _TARGETS = ["u", "v", "e"]
@@ -21,6 +21,11 @@ def copy_u(u, out):
 def copy_e(e, out):
     """Message = edge feature (reference ``message.py:93``)."""
     return MessageFunction("copy_lhs", "e", None, e, None, out)
+
+
+# the reference's deprecated names
+copy_src = copy_u
+copy_edge = copy_e
 
 
 def _gen_message_builtin(lhs, rhs, binary_op):

@@ -1263,9 +1263,42 @@ class Graph:
         return torch.nonzero(mask).reshape(-1)
 
     def shared_memory(self, name: str, formats=None):
-        raise NotImplementedError(
-            "Graph.shared_memory comes with multiprocessing_mod: ROADMAP "
-            "queue A12")
+        """Publish this graph into POSIX shared memory under ``name``
+        (reference ``heterograph.py:6267`` ``DGLGraph.shared_memory``;
+        ``formats`` is accepted for parity: every layout is rebuilt on
+        attach). One block holds an 8-byte little-endian length, then the
+        ``.npz`` of :func:`data.serialize.save_graphs`, the JAX package's
+        layout: either package attaches it with
+        ``hetero_from_shared_memory``. A block of that name is replaced.
+        The block lives until it is unlinked
+        (``self._shm_handle.unlink()``). Returns self."""
+        import io
+        import json
+        from multiprocessing import shared_memory
+
+        from .data.serialize import _flatten_graph
+
+        arrays = {}
+        meta = [_flatten_graph(self, 0, arrays)]
+        arrays["__meta__"] = np.frombuffer(
+            json.dumps({"graphs": meta, "labels": []}).encode("utf-8"),
+            dtype=np.uint8)
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        raw = buf.getbuffer()
+        try:
+            shm = shared_memory.SharedMemory(name=name, create=True,
+                                             size=len(raw) + 8)
+        except FileExistsError:
+            old = shared_memory.SharedMemory(name=name)
+            old.close()
+            old.unlink()
+            shm = shared_memory.SharedMemory(name=name, create=True,
+                                             size=len(raw) + 8)
+        shm.buf[:8] = len(raw).to_bytes(8, "little")
+        shm.buf[8:8 + len(raw)] = raw
+        self._shm_handle = shm
+        return self
 
     def __repr__(self):
         if self._is_block:

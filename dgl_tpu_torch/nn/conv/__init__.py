@@ -24,16 +24,19 @@ from .hgtconv import HGTConv
 from .nnconv import NNConv
 from .pnaconv import PNAConv, PNAConvTower
 from .relgraphconv import RelGraphConv
-from .sageconv import SAGEConv
+from .sageconv import SAGEConv, precompute_sage_neigh
 from .spectral import APPNPConv, ChebConv, SGConv, TAGConv
 from .twirlsconv import TWIRLSConv, TWIRLSUnfoldingAndAttention
+from ..utils_nn import EdgeWeightNorm
 
 __all__ = ["AGNNConv", "APPNPConv", "AtomicConv", "CFConv", "ChebConv",
            "DGNConv", "DenseChebConv", "DenseGraphConv", "DenseSAGEConv",
            "DotGatConv", "EGATConv", "EGNNConv", "EdgeConv", "EdgeGATConv",
+           "EdgeWeightNorm",
            "GATConv", "GATv2Conv", "GCN2Conv", "GINConv", "GINEConv",
            "GMMConv", "GatedGCNConv", "GatedGraphConv", "GraphConv",
            "GroupRevRes", "HGTConv", "NNConv", "PNAConv", "RelGraphConv",
            "SAGEConv", "SGConv", "ShiftedSoftplus", "TAGConv", "TWIRLSConv",
            "TWIRLSUnfoldingAndAttention", "check_zero_in_degree",
-           "expand_as_pair", "precompute_graphconv"]
+           "expand_as_pair", "precompute_graphconv",
+           "precompute_sage_neigh"]

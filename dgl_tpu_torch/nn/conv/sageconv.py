@@ -7,6 +7,8 @@ runs before the message passing when it narrows the features
 Aggregators: ``mean`` and ``gcn`` (``copy_u`` sums, through a hub plan's
 kernel where the graph has one), ``pool`` (``relu(fc_pool(h))``, then a
 max) and ``lstm`` (an LSTM over each node's mailbox).
+``precompute_sage_neigh`` and ``SAGEConv(precomputed_neigh=...)`` take the
+mean aggregation of a constant input table out of the training loop.
 """
 from __future__ import annotations
 
@@ -21,6 +23,23 @@ from .._init import flax_init
 from .graphconv import expand_as_pair
 
 _AGGREGATORS = ("mean", "gcn", "pool", "lstm")
+
+
+def precompute_sage_neigh(graph, feat, edge_weight=None):
+    """The mean-aggregated neighbourhood of a constant input table, for
+    ``SAGEConv(..., precomputed_neigh=...)`` with the mean aggregator: the
+    aggregation is linear, so ``fc_neigh(mean_agg(X))`` equals
+    ``fc_neigh`` of this table and the layer's g-SpMM (forward and
+    backward) leaves the epoch. The mean of ``copy_u``, or of ``u_mul_e``
+    when ``edge_weight`` is given."""
+    with graph.local_scope() as g:
+        msg_fn = fn.copy_u("h", "m")
+        if edge_weight is not None:
+            g.edata["_edge_weight"] = edge_weight
+            msg_fn = fn.u_mul_e("h", "_edge_weight", "m")
+        g.srcdata["h"] = feat
+        g.update_all(msg_fn, fn.mean("m", "neigh"))
+        return g.dstdata["neigh"]
 
 
 def _lstm_reduce(cell, m, mask):
@@ -129,7 +148,15 @@ class SAGEConv(nn.Module):
         if aggregator_type == "lstm":
             self.lstm.bias_ih.register_hook(torch.zeros_like)
 
-    def forward(self, graph, feat, edge_weight=None):
+    def forward(self, graph, feat, edge_weight=None, precomputed_neigh=None):
+        if precomputed_neigh is not None:
+            # as the reference's branch: no dropout, no message passing
+            if self.aggregator_type != "mean":
+                raise DGLError(
+                    "precomputed_neigh requires the mean aggregator")
+            _feat_src, feat_dst = expand_as_pair(feat, graph)
+            return self._finish(self.fc_self(feat_dst)
+                                + self.fc_neigh(precomputed_neigh))
         with graph.local_scope() as g:
             feat_src, feat_dst = expand_as_pair(feat, g)
             feat_src = self.feat_drop(feat_src)
@@ -169,10 +196,13 @@ class SAGEConv(nn.Module):
                 h_neigh = self.fc_neigh(g.dstdata["neigh"])
             rst = h_neigh if self.fc_self is None else (
                 self.fc_self(feat_dst) + h_neigh)
-            if self.bias is not None:
-                rst = rst + self.bias
-            if self.activation is not None:
-                rst = self.activation(rst)
-            if self.norm is not None:
-                rst = self.norm(rst)
-            return rst
+            return self._finish(rst)
+
+    def _finish(self, rst):
+        if self.bias is not None:
+            rst = rst + self.bias
+        if self.activation is not None:
+            rst = self.activation(rst)
+        if self.norm is not None:
+            rst = self.norm(rst)
+        return rst

@@ -1750,3 +1750,79 @@ def test_graphbolt_device_pipeline_on_card(card):
             arr[mfg.input_nodes().cpu().numpy()]))
         model(mfg, x).sum().backward()
     torch.cuda.synchronize()
+
+
+def test_checkpoint_round_trip_on_card(card, tmp_path):
+    """A GCN's state_dict and its Adam state, CUDA tensors both: saved,
+    loaded into a fresh model and optimiser on the card, and the logits
+    equal exactly."""
+    g = dt.add_self_loop(dt.rand_graph(300, 1500, seed=0, device=card))
+    x = torch.randn(300, 16, device=card)
+    y = torch.randint(0, 4, (300,), device=card)
+
+    def make():
+        m = GCN(16, 32, 4, dropout=0.0, device=card)
+        return m, torch.optim.Adam(m.parameters(), lr=1e-2)
+
+    def step(m, opt):
+        loss = torch.nn.functional.cross_entropy(m(g, x), y)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+
+    model, opt = make()
+    for _ in range(3):
+        step(model, opt)
+    path = str(tmp_path / "ck.npz")
+    dt.save_checkpoint(path, {"model": model.state_dict(),
+                              "opt": opt.state_dict()}, step=3)
+    fresh, fresh_opt = make()
+    step(fresh, fresh_opt)
+    state, n = dt.load_checkpoint(path, {"model": fresh.state_dict(),
+                                         "opt": fresh_opt.state_dict()},
+                                  return_step=True)
+    assert n == 3
+    assert state["model"]["conv0.weight"].device.type == "cuda"
+    fresh.load_state_dict(state["model"])
+    fresh_opt.load_state_dict(state["opt"])
+    for k, v in model.state_dict().items():
+        assert torch.equal(fresh.state_dict()[k], v), k
+    # index_add's atomics reorder the sums unless told not to
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.no_grad():
+            assert torch.equal(fresh(g, x), model(g, x))
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def test_hetero_from_shared_memory_on_card(card):
+    import os
+    from multiprocessing import shared_memory
+
+    rng = np.random.default_rng(0)
+    hg = dt.heterograph({
+        ("u", "r", "v"): (rng.integers(0, 10, 30), rng.integers(0, 8, 30)),
+        ("v", "s", "u"): (rng.integers(0, 8, 20), rng.integers(0, 10, 20))},
+        device="cpu")
+    hg.nodes["u"].data["x"] = torch.arange(10.0)
+    hg.edges_view[("u", "r", "v")].data["w"] = torch.arange(30.0)
+    name = f"dgl_torch_card_{os.getpid()}"
+    hg.shared_memory(name)
+    try:
+        back = dt.hetero_from_shared_memory(name, device="cuda")
+        assert back.device.type == "cuda"
+        assert back.nodes["u"].data["x"].device.type == "cuda"
+        for cet in hg.canonical_etypes:
+            for a, b in zip(hg.edges(etype=cet), back.edges(etype=cet)):
+                assert torch.equal(a, b.cpu())
+        assert torch.equal(back.nodes["u"].data["x"].cpu(),
+                           torch.arange(10.0))
+        assert torch.equal(
+            back.edges_view[("u", "r", "v")].data["w"].cpu(),
+            torch.arange(30.0))
+    finally:
+        shm = shared_memory.SharedMemory(name)
+        shm.close()
+        shm.unlink()

@@ -221,6 +221,23 @@ _CALLS = {
     "distributed.DistEmbedding": "dt.distributed.DistEmbedding(3, 2{})",
     "distributed.merge_graphs": "dt.distributed.merge_graphs([(np.array("
                                 "[0]), np.array([1]))], 2{})",
+    "cli.train": "__import__('dgl_tpu_torch.cli').cli.train({{'pipeline': 'nodepred', 'model': 'gcn', "
+                 "'dataset': 'cora', 'epochs': 1}}{})",
+    "cli.apply": (
+        "(lambda d: __import__('dgl_tpu_torch.cli').cli.apply({{'checkpoint': dt.save_checkpoint("
+        "d + '/ck.npz', dt.models.GCN(1433, 16, 7, device='cpu')"
+        ".state_dict()), 'output': d + '/p.npy'}}{}))(__import__("
+        "'tempfile').mkdtemp())"),
+    "hetero_from_shared_memory": (
+        "(lambda n: dt.hetero_from_shared_memory(dt.graph((np.array([0]), "
+        "np.array([1])), num_nodes=2, device='cpu').shared_memory(n)"
+        "._shm_handle.name{}))('dt_probe_' + str(__import__('os')"
+        ".getpid()))"),
+    # False where no card answers: raise then, to show the default probes
+    # CUDA (and that the CPU probe answers)
+    "health.check_devices": (
+        "dt.health.check_devices(60{}) or (_ for _ in ()).throw("
+        "RuntimeError('no CUDA card answered the probe'))"),
     "graphbolt.MiniBatch.to_dgl_blocks": (
         "dt.graphbolt.MiniBatch(sampled_subgraphs=[dt.graphbolt."
         "SampledSubgraphImpl(dt.graphbolt.CSCFormatBase(np.array([0, 1]), "
@@ -319,6 +336,14 @@ SLICE_MODULES += ("parallel", "parallel.mesh", "parallel.spmd",
                   "distributed.dist_graph", "distributed.kvstore",
                   "distributed.server", "distributed.role",
                   "distributed.graph_services")
+
+
+# the remainder
+SLICE_MODULES += ("base", "logging_mod", "config", "random_mod", "utils",
+                  "utils.checks", "utils.filter_mod", "utils.internal",
+                  "homophily", "merge", "mpops", "storages", "optim",
+                  "ops.chunk_tree", "profiler", "health",
+                  "multiprocessing_mod", "checkpoint", "cli")
 
 
 # the dataset-zoo slice
@@ -439,3 +464,184 @@ def test_cluster_gcn_sampler_needs_the_partitioner():
                     text = f.read()
                 assert "queue A9" not in text, n
                 assert "partitioner is ROADMAP" not in text, n
+
+
+# ---------------------------------------------------------------------------
+# name parity: every public name of dgl_tpu's modules has a counterpart
+# ---------------------------------------------------------------------------
+
+# where the port departs from the JAX package's names, and why
+NAME_EXCEPTIONS = {
+    # JAX's BCOO sparse format has no PyTorch counterpart
+    ("sparse", "from_bcoo"), ("sparse", "to_bcoo"),
+    ("sparse.convert", "from_bcoo"), ("sparse.convert", "to_bcoo"),
+    # a JAX workaround for rsqrt's lowering; the port calls torch.rsqrt
+    ("nn.utils_nn", "jax_rsqrt"),
+}
+# reference modules whose port lives under another name
+MODULE_RENAMES = {
+    "ops.pallas_hub": "ops.hub_cache",  # the Pallas kernel B6's module
+}
+# reference modules with no module of their own in the port
+NO_COUNTERPART = {
+    # B1's Pallas kernel: its CUDA port is bound by ops.shell_prefix
+    "ops.shell_pallas",
+    # the ctypes bindings of the reference's C library: the port's are
+    # _host, over csrc/host_ops.cpp
+    "_native",
+    # running the package as a program: the port has its own __main__
+    "__main__",
+}
+
+
+def _literal_names(node, env, current):
+    """The strings a ``__all__`` expression names: literals, names bound
+    to other modules' ``__all__``, ``list()``/``set()``/``sorted()`` and
+    ``+``/``|`` of those."""
+    if isinstance(node, (ast.List, ast.Tuple, ast.Set)):
+        return {e.value for e in node.elts if isinstance(e, ast.Constant)}
+    if isinstance(node, ast.Name):
+        return set(current) if node.id == "__all__" else set(
+            env.get(node.id, ()))
+    if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+            and node.func.id in ("list", "set", "sorted", "tuple")
+            and node.args):
+        return _literal_names(node.args[0], env, current)
+    if isinstance(node, ast.BinOp):
+        return (_literal_names(node.left, env, current)
+                | _literal_names(node.right, env, current))
+    return set()
+
+
+def _module_path(dotted):
+    base = os.path.join(ROOT, *dotted.split("."))
+    return (os.path.join(base, "__init__.py") if os.path.isdir(base)
+            else base + ".py")
+
+
+def public_names(dotted, _seen=None):
+    """A module's public names, by ``ast`` (no import): its ``__all__``
+    as far as literals build it (``+=``, ``append``, ``extend``, other
+    modules' ``__all__``; names appended in loops are not seen); for a
+    package without ``__all__``, the public names it imports (``*``
+    imports resolved); for a module without, its public functions and
+    classes. A package also names the public submodules it imports."""
+    seen = _seen if _seen is not None else {}
+    if dotted in seen:
+        return seen[dotted]
+    seen[dotted] = set()
+    path = _module_path(dotted)
+    is_pkg = path.endswith("__init__.py")
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    here = dotted.split(".") if is_pkg else dotted.split(".")[:-1]
+    env, imported, submodules, current = {}, set(), set(), None
+    for node in tree.body:  # module-level imports only
+        if not isinstance(node, ast.ImportFrom):
+            continue
+        src = node.module
+        if node.level:
+            parts = here[:len(here) - (node.level - 1)]
+            src = ".".join(parts + ([node.module] if node.module else []))
+        for a in node.names:
+            if a.name == "*":
+                imported |= public_names(src, seen)
+            elif a.name == "__all__":
+                env[a.asname] = public_names(src, seen)
+            else:
+                imported.add(a.asname or a.name)
+                if (is_pkg and node.level and node.module is None
+                        and not (a.asname or a.name).startswith("_")):
+                    submodules.add(a.asname or a.name)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            current = _literal_names(node.value, env, current or ())
+        elif (isinstance(node, ast.AugAssign)
+              and getattr(node.target, "id", None) == "__all__"):
+            current = set(current or ()) | _literal_names(
+                node.value, env, current or ())
+        elif (isinstance(node, ast.Call)
+              and isinstance(node.func, ast.Attribute)
+              and getattr(node.func.value, "id", None) == "__all__"
+              and node.args):
+            arg = node.args[0]
+            if node.func.attr == "append" and isinstance(arg, ast.Constant):
+                current = set(current or ()) | {arg.value}
+            elif node.func.attr == "extend":
+                current = set(current or ()) | _literal_names(
+                    arg, env, current or ())
+    if current is not None:
+        names = set(current)
+    elif is_pkg:
+        names = {n for n in imported if not n.startswith("_")}
+    else:
+        names = {n.name for n in tree.body
+                 if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                 and not n.name.startswith("_")}
+    seen[dotted] = names | submodules
+    return seen[dotted]
+
+
+def _reference_modules():
+    out = []
+    top = os.path.join(ROOT, "dgl_tpu")
+    for dirpath, dirs, names in os.walk(top):
+        dirs[:] = sorted(d for d in dirs if d != "__pycache__")
+        rel = os.path.relpath(dirpath, top)
+        pkg = [] if rel == "." else rel.split(os.sep)
+        for n in sorted(names):
+            if n.endswith(".py"):
+                mod = pkg + ([] if n == "__init__.py" else [n[:-3]])
+                out.append(".".join(mod))
+    return out
+
+
+REFERENCE_MODULES = _reference_modules()
+
+
+def test_name_reader_sees_built_lists():
+    names = public_names("dgl_tpu.function")  # list(a) + list(b)
+    assert {"copy_u", "copy_e", "copy_src", "copy_edge"} <= names
+    assert "edge_softmax" in public_names("dgl_tpu.ops")  # sorted(set|{})
+    assert "pallas_hub" in public_names("dgl_tpu.ops")  # a submodule
+    assert "gaussian" in public_names("dgl_tpu.nn")  # no __all__
+    assert "TargetCode" not in public_names("dgl_tpu.function.base")
+
+
+@pytest.mark.parametrize("name", REFERENCE_MODULES)
+def test_reference_names_have_port_counterparts(name):
+    """``dgl_tpu.<name>``'s public names are attributes of the port's
+    module of the same name, but for the commented exceptions above."""
+    import importlib
+
+    if name in NO_COUNTERPART:
+        return
+    port_name = MODULE_RENAMES.get(name, name)
+    ref_dotted = "dgl_tpu" + ("." + name if name else "")
+    mod = importlib.import_module(
+        "dgl_tpu_torch" + ("." + port_name if port_name else ""))
+    missing = []
+    for attr in sorted(public_names(ref_dotted)):
+        if (name, attr) in NAME_EXCEPTIONS:
+            continue
+        attr_port = MODULE_RENAMES.get(
+            f"{name}.{attr}" if name else attr, attr).split(".")[-1]
+        if not hasattr(mod, attr_port):
+            missing.append(attr)
+    assert not missing, (name, missing)
+
+
+def test_name_exceptions_are_all_needed():
+    """Each exception names a module and a name that exist in the
+    reference and are missing from the port, so the list stays honest."""
+    import importlib
+
+    for mod, attr in sorted(NAME_EXCEPTIONS):
+        assert attr in public_names("dgl_tpu." + mod), (mod, attr)
+        assert not hasattr(importlib.import_module("dgl_tpu_torch." + mod),
+                           attr), (mod, attr)
+    for mod in NO_COUNTERPART | set(MODULE_RENAMES):
+        assert mod in REFERENCE_MODULES, mod
+        assert not os.path.exists(_module_path("dgl_tpu_torch." + mod)) or \
+            mod == "__main__", mod
