@@ -79,6 +79,18 @@ the GraphSAGE path (kernel B1, shell prefix sum):
     of the nodes labelled, on the same plan: 10 B1 launches at F = 40, the
     result against the graph without a plan at rtol = 2e-2,
     atol = 2e-2 * max|ref|, and its time beside that graph's;
+6c. the hub plan's exact modes on the same graphs (phase
+    ``exact_hub_plans``, ``run_exact_hub_plans``): (a)
+    ``reorder_for_spmm(precision="f32")`` (the segment-sum cold tail: the
+    node order kept, no B1 launch), (b) an f32 plan with
+    ``cold="shell-f32"`` and the int8 plan's hubs on the reordered graph
+    (B1f, the kernel over f32 rows: 3 launches a forward, 5 a step),
+    (c) ``precision="int8", cold="bf16"``; each a counted forward and step,
+    the output and gradients against the graph without plans ((a), (b)
+    at rtol = 1e-4, atol = 1e-4 * max|ref|; (c) at 2e-2), times; (a) and
+    (b) again with ``allow_tf32 = True`` set in the process; B1f against
+    its plain version, equal, on the forward's and backward's real f32
+    tables, its times, bound and ``embedding_bag``'s;
 
 the Reddit-scale GCN and GAT paths (kernels B2, bitmap SpMM, B3,
 bitmap-flash GAT forward, and B4 and B5, its backward):
@@ -124,7 +136,14 @@ bitmap-flash GAT forward, and B4 and B5, its backward):
     versions on the check rows only) beside their times with ``dz`` in
     f32 (``prev_ms``, PERF.md's figure for them, not measured here),
     ``ptxas``'s figures, the blocks an SM holds and the bitmap bytes in
-    flight per SM while those warps load; times the step and profiles it.
+    flight per SM while those warps load; times the step and profiles it;
+14a. the exact bitmap mode (phase ``exact_bitmap_gcn``,
+    ``run_exact_bitmap_gcn``): a ``compute_dtype="float32"`` plan over the
+    same bits, GCN's counted forward (2 B2f launches, B2 over f32 rows)
+    and step (4), output and gradients against the exact f32 path at
+    rtol = 1e-4, atol = 1e-4 * max|ref|, times; B2f against its plain
+    version on 4,096 dst rows of the forward's real table within
+    1e-6 * max|ref|, its time, bound and ``torch.sparse.mm``'s.
 
 the hub-cache path (kernel B6, hub gather; ``benchmarks/bench_hub.py``'s
 defaults: 1024 hubs, F = 256, f32):
@@ -745,7 +764,7 @@ def ptxas_start(names):
 def ptxas_key(name: str) -> str:
     """The report's key of a compiled kernel's mangled ``name``: ``nh=..
     nf=..`` for B3-B5's templates, ``gspmm T=.. vec=.. op=.. fast=..``
-    for B1's weighted caller, ``sum vec=..`` for B1, else the name
+    for B1's weighted caller, ``sum T=.. vec=..`` for B1, else the name
     itself."""
     import re
 
@@ -755,9 +774,10 @@ def ptxas_key(name: str) -> str:
         return (f"gspmm T={'bf16' if m.group(1) == 't' else 'f32'} "
                 f"vec={m.group(2)} op={GSPMM_OPS[int(m.group(3))]} "
                 f"fast={m.group(4)}")
-    m = re.search(r"shell_prefix_sum_kernelILi(\d+)E", name)
+    m = re.search(r"shell_prefix_sum_kernelI([tf])Li(\d+)E", name)
     if m:
-        return f"sum vec={m.group(1)}"
+        return (f"sum T={'bf16' if m.group(1) == 't' else 'f32'} "
+                f"vec={m.group(2)}")
     m = re.search(r"ILi(\d+)ELi(\d+)E", name)
     return f"nh={m.group(1)} nf={m.group(2)}" if m else name
 
@@ -946,8 +966,9 @@ def check_b1(plan, reverse, xg, bags, rate) -> dict:
     """B1 against its plain version on one direction's shells (the
     forward's, or with ``reverse`` the backward's) of the bf16 table
     ``xg``, at rtol = atol = 1e-5 (both sum the same f32 values in the
-    same order); its times, the plain version's and ``embedding_bag``'s
-    over the same cold edges, and its bound."""
+    same order), or B1f on an f32 table, equal to the bit; its times, the
+    plain version's and ``embedding_bag``'s over the same cold edges, and
+    its bound (the table's rows at their own width)."""
     import torch
 
     from dgl_tpu_torch.ops import hub_spmm
@@ -966,10 +987,12 @@ def check_b1(plan, reverse, xg, bags, rate) -> dict:
     torch.cuda.synchronize()
     abs_err = (got - want).abs().max().item()
     rel_err = abs_err / max(want.abs().max().item(), 1e-30)
-    if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
-        raise RuntimeError(f"B1 vs plain ({'reverse' if reverse else 'fwd'}"
-                           f" shells, F={xg.shape[1]}): max abs err "
-                           f"{abs_err}")
+    exact = xg.dtype == torch.float32
+    if not (torch.equal(got, want) if exact else torch.allclose(
+            got, want, rtol=1e-5, atol=1e-5)):
+        raise RuntimeError(f"B1{'f' if exact else ''} vs plain "
+                           f"({'reverse' if reverse else 'fwd'} shells, "
+                           f"F={xg.shape[1]}): max abs err {abs_err}")
     lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
         bag_idx, xg, bag_off, mode="sum", include_last_offset=True)
     # the bags hold the shell levels' edges; the residual enters as base
@@ -977,7 +1000,7 @@ def check_b1(plan, reverse, xg, bags, rate) -> dict:
                - want).abs().max().item()
     bound, bound_by, stream_ms = kernel_bound(
         level_rows, n_out, rows_used, n_cold, xg.shape[1], base is not None,
-        rate)
+        rate, elem=xg.element_size())
     return {
         "F": xg.shape[1], "n_out": n_out, "cold_edges": n_cold,
         "table_rows_read": rows_used, "shell_levels": len(level_rows),
@@ -1360,9 +1383,274 @@ def run_label_propagation(gp, tag: dict) -> dict:
     return result
 
 
-def run_sage(rate: float, tag: dict) -> dict:
-    """The GraphSAGE path (kernel B1); returns B1's entry of the kernel
+# phase exact_hub_plans: the hub plan's other (precision, cold) pairs on
+# the main path's graph, each with its tolerance against the exact path and
+# the kernels a forward and a training step launch (B1f: one a layer
+# forward, one a layer but the first backward, as B1)
+EXACT_HUB_MODES = {
+    "a": ("f32", "f32", 1e-4, {}, {}),
+    "b": ("f32", "shell-f32", 1e-4, {"shell_prefix_sum_f32": LAYERS},
+          {"shell_prefix_sum_f32": 2 * LAYERS - 1}),
+    "c": ("int8", "bf16", 2e-2, {}, {}),
+}
+
+
+def with_plan(g, hub_plan=None, bitmap_plan=None):
+    """The graph with ``hub_plan`` or ``bitmap_plan`` in place of its own,
+    attached by ``Relation.with_hub_plan``/``with_bitmap_plan`` (its other
+    plans kept)."""
+    g2 = g.local_var()
+    rels = {}
+    for c, r in g._relations.items():
+        if hub_plan is not None:
+            r = r.with_hub_plan(hub_plan)
+        if bitmap_plan is not None:
+            r = r.with_bitmap_plan(bitmap_plan)
+        rels[c] = r
+    g2._relations = rels
+    return g2
+
+
+def forward_vs_exact(model, graph, g_exact, x, tol: float, what: str):
+    """The model's eval forward on ``graph`` against ``g_exact`` at
+    rtol = ``tol``, atol = ``tol`` * max|ref|."""
+    import torch
+
+    with torch.inference_mode():
+        out = model(graph, x)
+        ref = model(g_exact, x)
+    if not torch.isfinite(out).all():
+        raise RuntimeError(f"{what}: non-finite output")
+    scale = ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    if not torch.allclose(out, ref, rtol=tol, atol=tol * scale):
+        raise RuntimeError(f"{what} vs the exact f32 path: max abs err "
+                           f"{err} (max |ref| {scale})")
+    return {"max_abs_err": err, "max_rel_err": err / scale,
+            "tolerance": f"rtol={tol:g}, atol={tol:g}*max|ref|"}
+
+
+def aggregation_vs_exact(graph, g_exact, x, tol: float, what: str):
+    """``copy_u_sum`` of ``x`` on ``graph`` and its gradient of
+    ``sum(out * cot)`` against ``g_exact``'s at rtol = ``tol``,
+    atol = ``tol`` * max|ref|."""
+    import torch
+
+    import dgl_tpu_torch as dt
+
+    cot = torch.randn(x.shape, generator=torch.Generator(
+        device=x.device).manual_seed(9), device=x.device)
+    res = []
+    for gr in (graph, g_exact):
+        xg = x.detach().clone().requires_grad_()
+        out = dt.ops.copy_u_sum(gr, xg)
+        (out * cot).sum().backward()
+        res.append((out.detach(), xg.grad))
+    errs = {}
+    for name, a, b in (("out", res[0][0], res[1][0]),
+                       ("grad", res[0][1], res[1][1])):
+        scale = b.abs().max().item()
+        errs[name] = (a - b).abs().max().item() / scale
+        if not torch.allclose(a, b, rtol=tol, atol=tol * scale):
+            raise RuntimeError(f"{what}: copy_u_sum {name} vs the exact "
+                               f"path: max rel err {errs[name]}")
+    return errs
+
+
+def run_exact_hub_plans(g, gp, x, rate: float, tag: dict) -> dict:
+    """The hub plan's exact modes on the main path's graph (phase
+    ``exact_hub_plans``), GraphSAGE 128-256-256-40 (mean, weights from seed
+    0): (a) ``reorder_for_spmm(g, 2048, precision="f32")``, whose cold
+    tail is the segment sum (identity ``perm``, no B1); (b) an f32 plan
+    with ``cold="shell-f32"`` on the main path's reordered graph with the
+    int8 plan's hubs (B1f 3 a forward, 5 a step); (c) ``precision="int8",
+    cold="bf16"``. Each: a counted forward and the gradients against the
+    graph without plans ((a), (b) at rtol = 1e-4, atol = 1e-4 * max|ref|;
+    (c) at the plan bound 2e-2), a counted Adam step, times. Then (a) and
+    (b) again with ``torch.backends.cuda.matmul.allow_tf32 = True`` set:
+    each layer's hub SpMM on its real input, output and gradient, against
+    the graph without plans at 1e-4 (an f32 hub matmul at TF32 would be
+    off by about 1e-3); the whole model's forward and gradients against
+    the exact path under the same flag at 1e-2 (both paths' linears run
+    at TF32, whose roundings of two nearly equal inputs can differ by a
+    10-bit ulp); the flag is restored after.
+    Last, B1f against its plain version, equal, on the forward's and the
+    backward's real f32 tables. Returns B1f's entry of the kernel
     table."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.models import GraphSAGE
+    from dgl_tpu_torch.ops import hub_spmm
+    from dgl_tpu_torch.ops.hub_spmm import build_hub_plan
+
+    t_phase = time.perf_counter()
+    int8 = gp._relation().hub_plan
+    hubs = int8.hub_ids.cpu().numpy()
+    y = torch.from_numpy(np.random.default_rng(4).integers(
+        0, CLASSES, N_NODES)).cuda()
+    mask = torch.ones(N_NODES, device=x.device)
+    gp_exact = strip_plans(gp)
+    graphs = {}
+    t0 = time.perf_counter()
+    ga, perm = dt.transforms.reorder_for_spmm(g, 2048, precision="f32")
+    torch.cuda.synchronize()
+    if not np.array_equal(perm, np.arange(N_NODES)):
+        raise RuntimeError("reorder_for_spmm(precision='f32') relabelled "
+                           "the nodes: its plan has no shells to rank by")
+    graphs["a"] = (ga, g, time.perf_counter() - t0)
+    for key in ("b", "c"):
+        precision, cold = EXACT_HUB_MODES[key][:2]
+        t0 = time.perf_counter()
+        plan = build_hub_plan(gp._relation(), 2048, precision, cold=cold,
+                              hub_ids_override=hubs)
+        torch.cuda.synchronize()
+        graphs[key] = (with_plan(gp, hub_plan=plan), gp_exact,
+                       time.perf_counter() - t0)
+    plan_b = graphs["b"][0]._relation().hub_plan
+    if plan_b.shell_rows != int8.shell_rows:
+        raise RuntimeError("the shell-f32 plan's shells differ from the "
+                           "main path's")
+    results, rec_fwd, rec_bwd = {}, [], []
+    for key, (precision, cold, tol, n_fwd, n_step) in EXACT_HUB_MODES.items():
+        graph, g_exact, plans_s = graphs[key]
+        plan = graph._relation().hub_plan
+        if (plan.precision, plan.cold) != (precision, cold):
+            raise RuntimeError(f"({key}) built {plan!r}")
+        what = f"GraphSAGE over the {precision}/{cold} hub plan"
+        model = GraphSAGE(IN_FEATS, HIDDEN, CLASSES, num_layers=LAYERS,
+                          aggregator_type="mean", dropout=0.5,
+                          generator=torch.Generator().manual_seed(0)).eval()
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        with torch.inference_mode(), recording(hub_spmm,
+                                               "shell_prefix_sum") as rec:
+            out = model(graph, x)
+        torch.cuda.synchronize()
+        fwd_launches = dict(_kernels.launch_counts)
+        expect_no_other_launch(fwd_launches, n_fwd, f"the {what} forward")
+        if tuple(out.shape) != (N_NODES, CLASSES):
+            raise RuntimeError(f"{what}: bad output {tuple(out.shape)}")
+        fwd_check = forward_vs_exact(model, graph, g_exact, x, tol, what)
+        with recording(hub_spmm, "shell_prefix_sum",
+                       lambda t, idx, *a, **k: idx is plan.rev_shell_idx
+                       ) as rec_rev:
+            grad_check = check_grads(model, graph, g_exact, x, y, mask, what,
+                                     tol)
+        if key == "b":
+            rec_fwd, rec_bwd = rec, rec_rev
+        model.train()
+        opt = torch.optim.Adam(model.parameters(), lr=LR)
+        loss, step_launches, step_peak, step_s = counted_step(
+            model, opt, graph, x, y, mask, n_step, what)
+        expect_no_other_launch(step_launches, n_step,
+                               f"the {what} training step")
+        model.eval()
+        with torch.inference_mode():
+            fwd_ms = time_ms(lambda: model(graph, x), 5)
+        model.train()
+        step_ms = time_ms(lambda: train_step(model, opt, graph, x, y, mask),
+                          3)
+        results[key] = {
+            "plan": repr(plan), "plans_s": plans_s, "forward_ms": fwd_ms,
+            "step_ms": step_ms, "forward_launches": fwd_launches,
+            "step_launches": step_launches, "step_peak_memory_gib":
+            step_peak, "first_step_s": step_s, "loss": loss.item(),
+            "forward_vs_exact_f32": fwd_check, "grads_vs_exact_f32":
+            grad_check}
+        emit({"phase": "exact_hub_plans", "mode": key, "precision":
+              precision, "cold": cold, **results[key], **tag})
+        del model, opt, out
+    # (a) and (b) with TF32 allowed in the process: each hub SpMM of a
+    # forward, on its real input, and its gradient must stay at f32
+    # rounding of the exact path; the models' own linears run at TF32 on
+    # both paths, so the whole model is held at TF32's class (1e-2)
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        for key in ("a", "b"):
+            graph, g_exact, _ = graphs[key]
+            what = (f"GraphSAGE over the {'/'.join(EXACT_HUB_MODES[key][:2])}"
+                    " hub plan with allow_tf32")
+            model = GraphSAGE(IN_FEATS, HIDDEN, CLASSES, num_layers=LAYERS,
+                              aggregator_type="mean",
+                              generator=torch.Generator().manual_seed(0))
+            with torch.inference_mode(), recording(
+                    hub_spmm, "hub_copy_u_sum") as rec_agg:
+                model.eval()(graph, x)
+            if len(rec_agg) != LAYERS:
+                raise RuntimeError(f"{what}: {len(rec_agg)} hub SpMMs")
+            tf32 = {
+                "hub_spmm_max_rel_err": {
+                    f"layer{i} F={a[1].shape[1]}": aggregation_vs_exact(
+                        graph, g_exact, a[1], 1e-4, what)
+                    for i, (a, _kw) in enumerate(rec_agg)},
+                "hub_spmm_tolerance": "rtol=1e-4, atol=1e-4*max|ref|, "
+                                      "output and gradient",
+                "forward_vs_exact_path_tf32": forward_vs_exact(
+                    model, graph, g_exact, x, 1e-2, what),
+                "grads_vs_exact_path_tf32": check_grads(
+                    model, graph, g_exact, x, y, mask, what, 1e-2)}
+            del rec_agg
+            if not torch.backends.cuda.matmul.allow_tf32:
+                raise RuntimeError("the hub plan did not restore allow_tf32")
+            emit({"phase": "exact_hub_plans_tf32", "mode": key,
+                  "allow_tf32": True, **tf32, **tag})
+            del model
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    # B1f against its plain version on the recorded real tables
+    if len(rec_fwd) != LAYERS or len(rec_bwd) != LAYERS - 1:
+        raise RuntimeError(f"recorded {len(rec_fwd)} forward and "
+                           f"{len(rec_bwd)} reverse B1f calls")
+    checks = {}
+    for reverse, rec in ((False, rec_fwd), (True, rec_bwd)):
+        bags = cold_bags(plan_b, reverse)
+        for i, (args, _kw) in enumerate(rec):
+            xg = args[0]
+            if xg.dtype != torch.float32:
+                raise RuntimeError(f"B1f got a {xg.dtype} table")
+            label = (f"layer{LAYERS - 1 - i if reverse else i} "
+                     f"{'bwd' if reverse else 'fwd'} F={xg.shape[1]}")
+            with torch.inference_mode():
+                checks[label] = check_b1(plan_b, reverse, xg, bags, rate)
+            emit({"phase": "kernel_vs_plain", "kernel":
+                  "shell_prefix_sum_f32", "shape": label,
+                  "tolerance": "equal", **checks[label], **tag})
+    del rec_fwd, rec_bwd, graphs
+    total_s = time.perf_counter() - t_phase
+    emit({"phase": "exact_hub_plans_total", "seconds": total_s, **tag})
+    main = checks["layer1 fwd F=256"]
+    return {
+        "name": "shell_prefix_sum_f32",
+        "route": "cuda",
+        "source": "dgl_tpu_torch/csrc/shell_prefix_sum.cu",
+        "replaces": "dgl_tpu/ops/shell_pallas.py:110",
+        "launches": results["b"]["forward_launches"]["shell_prefix_sum_f32"],
+        "max_abs_err": max(v["max_abs_err"] for v in checks.values()),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "shape": f"B1 over f32 rows (cold='shell-f32'): layer1 F=256, "
+                 f"n_out={N_NODES}, times per call; launches: the "
+                 "inference forward",
+        "launches_train_step":
+            results["b"]["step_launches"]["shell_prefix_sum_f32"],
+        "by_shape": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms",
+                                            "max_abs_err")}
+                     for k, v in checks.items()},
+        "exact_hub_plans_s": total_s,
+    }
+
+
+def run_sage(rate: float, tag: dict) -> list:
+    """The GraphSAGE path (kernels B1 and B1f); returns their entries of
+    the kernel table."""
     import numpy as np
     import torch
 
@@ -1464,10 +1752,12 @@ def run_sage(rate: float, tag: dict) -> dict:
     # 6a, 6b. the other aggregators, and label propagation, on the plan
     aggs = run_sage_aggregators(gp, x, tag)
     lp = run_label_propagation(gp, tag)
+    # 6c. the exact plan modes (B1f) on the same graphs
+    b1f = run_exact_hub_plans(g, gp, x, rate, tag)
 
     main = per_shape["layer1 F=256"]
     bwd = train["backward"]
-    return {
+    return [{
         "name": "shell_prefix_sum",
         "route": "cuda",
         "source": "dgl_tpu_torch/csrc/shell_prefix_sum.cu",
@@ -1492,7 +1782,7 @@ def run_sage(rate: float, tag: dict) -> dict:
                                              "bound_ms", "bound_by",
                                              "library_ms", "max_abs_err")}
                      for k, v in bwd.items()},
-    }
+    }, b1f]
 
 
 def reddit_graph(seed: int = 41):
@@ -1625,7 +1915,7 @@ def run_gcn_training(g, gp, feat, y, mask, rate: float, tag: dict) -> dict:
         E, device=feat.device), size=(N, N))  # symmetric: A^T = A
     bwd = {}
     for i, (args, _kw) in enumerate(rec[2:]):
-        bits_t, dz, n_rows = args
+        bits_t, dz, n_rows = args[:3]
         label = f"layer{1 - i} bwd F={dz.shape[1]}"
         got = bitmap_matmul(bits_t, dz, n_rows)
         want = bitmap_matmul_plain(bits_t, dz, n_rows)
@@ -2014,6 +2304,8 @@ def run_reddit(rate: float, ptxas: dict, tag: dict) -> list:
     gcn_train = run_gcn_training(g, gp, feat, labels, train_mask, rate, tag)
     gat_train = run_gat_training(gp, feat, labels, train_mask, rate, ptxas,
                                  tag)
+    # 14a. the exact bitmap mode (B2f) on the same bits
+    b2f = run_exact_bitmap_gcn(g, gp, feat, labels, train_mask, rate, tag)
 
     m2, m3 = b2["layer0 F=16"], b3["layer0 H=8 O=8"]
     b4, b5 = gat_train["b4"], gat_train["b5"]
@@ -2074,7 +2366,139 @@ def run_reddit(rate: float, ptxas: dict, tag: dict) -> list:
                  f"plain_ms on {B3_CHECK_ROWS} rows; launches: one GAT "
                  "training step",
     } for name, line, d in (("bitmap_gat_bwd_dst", 226, b4),
-                            ("bitmap_gat_bwd_src", 298, b5))]
+                            ("bitmap_gat_bwd_src", 298, b5))] + [b2f]
+
+
+def run_exact_bitmap_gcn(g, gp, feat, y, mask, rate: float,
+                         tag: dict) -> dict:
+    """The exact bitmap mode on the Reddit graph (phase
+    ``exact_bitmap_gcn``): a ``BitmapPlan`` with the main path's bits
+    (no build, no second bitmap) and ``compute_dtype="float32"``, attached
+    with ``Relation.with_bitmap_plan``; GCN 602-16-41 (weights from seed
+    0): a counted forward (B2f 2), the output and the gradients against
+    the exact f32 path at rtol = 1e-4, atol = 1e-4 * max|ref| (the bf16
+    plan's error printed beside it), a counted Adam step (B2f 4), times;
+    then B2f against its plain version on the forward's first real table
+    on 4,096 dst rows spread over the graph, within 1e-6 * max|ref|, its
+    time, bound and ``torch.sparse.mm``'s. Returns B2f's entry of the
+    kernel table."""
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.models import GCN
+    from dgl_tpu_torch.ops import bitmap_spmm
+    from dgl_tpu_torch.ops.bitmap_spmm import (BitmapPlan, bitmap_matmul,
+                                               bitmap_matmul_plain)
+
+    t_phase = time.perf_counter()
+    N, rel = REDDIT_N, gp._relation()
+    E = rel.num_edges
+    p16 = rel.bitmap_plan
+    plan = BitmapPlan(p16.bits, p16.bits_rev, num_src=p16.num_src,
+                      num_dst=p16.num_dst, num_edges=p16.num_edges,
+                      edge_hash=p16.edge_hash, compute_dtype="float32")
+    gp32 = with_plan(gp, bitmap_plan=plan)
+    what = "GCN over the float32 bitmap plan"
+    gcn = GCN(REDDIT_FEAT, GCN_HIDDEN, REDDIT_CLASSES, dropout=0.5,
+              generator=torch.Generator().manual_seed(0)).eval()
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    with torch.inference_mode(), recording(bitmap_spmm,
+                                           "bitmap_matmul") as rec:
+        out = gcn(gp32, feat)
+    torch.cuda.synchronize()
+    fwd_launches = dict(_kernels.launch_counts)
+    expect_no_other_launch(fwd_launches, {"bitmap_spmm_f32": 2},
+                           f"the {what} forward")
+    if tuple(out.shape) != (N, REDDIT_CLASSES):
+        raise RuntimeError(f"{what}: bad output {tuple(out.shape)}")
+    fwd_check = forward_vs_exact(gcn, gp32, g, feat, 1e-4, what)
+    bf16_check = forward_vs_exact(gcn, gp, g, feat, 2e-2,
+                                  "GCN over the bfloat16 bitmap plan")
+    grad_check = check_grads(gcn, gp32, g, feat, y, mask, what, 1e-4)
+    gcn.train()
+    opt = torch.optim.Adam(gcn.parameters(), lr=LR)
+    loss, step_launches, step_peak, step_s = counted_step(
+        gcn, opt, gp32, feat, y, mask, {"bitmap_spmm_f32": 4}, what)
+    expect_no_other_launch(step_launches, {"bitmap_spmm_f32": 4},
+                           f"the {what} training step")
+    gcn.eval()
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: gcn(gp32, feat), 5)
+    gcn.train()
+    step_ms = time_ms(lambda: train_step(gcn, opt, gp32, feat, y, mask), 3)
+    emit({"phase": "exact_bitmap_gcn", "model": "GCN 602-16-41",
+          "plan": repr(plan), "compute_dtype": plan.compute_dtype,
+          "forward_launches": fwd_launches, "step_launches": step_launches,
+          "forward_ms": fwd_ms, "step_ms": step_ms, "first_step_s": step_s,
+          "step_peak_memory_gib": step_peak, "loss": loss.item(),
+          "forward_vs_exact_f32": fwd_check,
+          "bf16_plan_forward_vs_exact_f32": bf16_check,
+          "grads_vs_exact_f32": grad_check, **tag})
+    del out, opt
+    # B2f against its plain version on the forward's first real table
+    args = rec[0][0]
+    bits, x, n_rows = args[0], args[1], args[2]
+    if len(rec) != 2 or x.dtype != torch.float32 or n_rows != N:
+        raise RuntimeError(f"recorded {len(rec)} B2f calls, the first "
+                           f"{x.dtype} x {tuple(x.shape)}")
+    rows = check_rows(N, B3_CHECK_ROWS)
+    with torch.inference_mode():
+        bits_rows = bits[rows]
+        got = bitmap_matmul(bits, x, N, "float32")
+        want = bitmap_matmul_plain(bits_rows, x, compute_dtype="float32")
+        torch.cuda.synchronize()
+        scale = max(want.abs().max().item(), 1e-30)
+        abs_err = (got[rows] - want).abs().max().item()
+        if not torch.allclose(got[rows], want, rtol=1e-6,
+                              atol=1e-6 * scale):
+            raise RuntimeError(f"B2f vs plain: max abs err {abs_err} (max "
+                               f"|ref| {scale})")
+        csc = rel.csc_indptr.long(), rel.csc_indices.long()
+        adj = torch.sparse_csr_tensor(csc[0], csc[1], torch.ones(
+            E, device=feat.device), size=(N, N))
+        feat_n = x.shape[1]
+        bound, bound_by = bitmap_bound(bits, N, 2 * N * feat_n * 4,
+                                       E * feat_n, rate)
+        b2f = {
+            "F": feat_n, "max_abs_err": abs_err,
+            "max_rel_err": abs_err / scale,
+            "ms": time_ms(lambda: bitmap_matmul(bits, x, N, "float32"), 20,
+                          hide_host=True),
+            "plain_ms": time_ms(lambda: bitmap_matmul_plain(
+                bits_rows, x, compute_dtype="float32"), 2, warmup=1,
+                hide_host=True),
+            "library_ms": time_ms(lambda: torch.sparse.mm(adj, x), 20,
+                                  hide_host=True),
+            "bound_ms": bound, "bound_by": bound_by,
+        }
+    del adj, bits_rows, rec
+    emit({"phase": "kernel_vs_plain", "kernel": "bitmap_spmm_f32",
+          "shape": f"layer0 F={feat_n}", "n_dst": N, "edges": E,
+          "checked_rows": B3_CHECK_ROWS,
+          "tolerance": "rtol=1e-6, atol=1e-6*max|ref|",
+          "plain": f"on the {B3_CHECK_ROWS} checked rows",
+          "library": "torch.sparse.mm(CSR adjacency, f32)", **b2f, **tag})
+    total_s = time.perf_counter() - t_phase
+    emit({"phase": "exact_bitmap_gcn_total", "seconds": total_s, **tag})
+    return {
+        "name": "bitmap_spmm_f32",
+        "route": "cuda",
+        "source": "dgl_tpu_torch/csrc/bitmap_spmm.cu",
+        "replaces": "dgl_tpu/ops/bitmap_spmm.py:201",
+        "launches": fwd_launches["bitmap_spmm_f32"],
+        "max_abs_err": b2f["max_abs_err"],
+        "ms": b2f["ms"],
+        "plain_ms": b2f["plain_ms"],
+        "bound_ms": b2f["bound_ms"],
+        "bound_by": b2f["bound_by"],
+        "library_ms": b2f["library_ms"],
+        "shape": f"B2 over f32 x (compute_dtype='float32'): GCN layer0 "
+                 f"F={feat_n}, n_dst={N}, E={E}, times per call; plain_ms "
+                 f"on {B3_CHECK_ROWS} rows; launches: the inference forward",
+        "launches_train_step": step_launches["bitmap_spmm_f32"],
+        "exact_bitmap_gcn_s": total_s,
+    }
 
 
 def expect_no_other_launch(launches: dict, allowed: dict, what: str):
@@ -10825,7 +11249,7 @@ def run() -> dict:
     run_fwd_edge_cases(tag)
     run_bwd_edge_cases(tag)
     run_gspmm_edge_cases(tag)
-    kernels = [run_sage(rate, tag)]
+    kernels = run_sage(rate, tag)
     kernels += run_reddit(rate, ptxas, tag)
     kernels.append(run_hub_cache(rate, tag))
     edge = run_gat_edge(tag)

@@ -10,7 +10,9 @@ every module on a machine without ``nvcc``.
 
 Every wrapper that launches a kernel adds one to its entry in
 :data:`launch_counts`, so a run can show that its path went through the
-kernel. A failed build or launch raises; nothing falls back.
+kernel. The f32 instantiations of the shell prefix sum and the bitmap SpMM
+(the exact plan modes) count under names of their own,
+``shell_prefix_sum_f32`` and ``bitmap_spmm_f32``. A failed build or launch raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -26,8 +28,9 @@ SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name) for name in (
     "bitmap_gat_bwd_dst.cu", "bitmap_gat_bwd_src.cu", "hub_gather.cu"))
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
-launch_counts = {"shell_prefix_sum": 0, "shell_prefix_gspmm": 0,
-                 "bitmap_spmm": 0,
+launch_counts = {"shell_prefix_sum": 0, "shell_prefix_sum_f32": 0,
+                 "shell_prefix_gspmm": 0, "bitmap_spmm": 0,
+                 "bitmap_spmm_f32": 0,
                  "bitmap_gat_fwd": 0, "bitmap_gat_bwd_dst": 0,
                  "bitmap_gat_bwd_src": 0, "hub_gather": 0}
 
@@ -59,14 +62,14 @@ def library() -> ctypes.CDLL:
             p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
             for fn, argtypes in (
                     (lib.dgl_shell_prefix_sum,
-                     [p, i64, i64, p, p, p, i32, p, p, i64, i32, p]),
+                     [p, i32, i64, i64, p, p, p, i32, p, p, i64, i32, p]),
                     (lib.dgl_shell_prefix_gspmm,
                      [i32, i32, p, i32, i64, i64, p, i32, i64, i64, p, p, p,
                       p, i32, p, p, p, i64, i64, i32, p]),
                     (lib.dgl_shell_prefix_gspmm_occupancy,
                      [i32, i32, i32, i32, i32, i64, i32, p]),
                     (lib.dgl_bitmap_spmm,
-                     [p, i64, i64, p, i64, i64, i64, i32, p, p]),
+                     [p, i64, i64, p, i32, i64, i64, i64, i32, p, p]),
                     (lib.dgl_bitmap_gat_fwd,
                      [p, p, i64, p, p, p, i64, i32, i32, i32, i32, i32,
                       i32, ctypes.c_float, p, p, p]),

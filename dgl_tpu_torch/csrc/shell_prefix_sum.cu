@@ -10,7 +10,9 @@
 //
 //    over the nested-prefix shell levels k (sizes m_k non-increasing). An
 //    index outside [0, n_table) reads as zero: the hub plan pads each level
-//    with the index n_table.
+//    with the index n_table. The table is bf16 (cold="shell") or f32
+//    (cold="shell-f32", the exact mode): the Pallas kernel casts each
+//    piece block to f32, so it takes either.
 //
 // 2. dgl_shell_prefix_gspmm, with the message build that feeds it in the
 //    weighted shell g-SpMM (dgl_tpu/ops/shell_spmm.py::_shell_accumulate,
@@ -36,13 +38,16 @@
 // bit and the kernels agree with their plain versions exactly.
 //
 // dgl_shell_prefix_sum, simple first: one thread owns VEC consecutive
-// output columns of one output row (16-byte loads when VEC == 8),
+// output columns of one output row (when VEC == 8, one 16-byte load of a
+// bf16 row or two of an f32 row),
 // neighbouring threads own neighbouring chunks of the same row so a warp's
 // loads coalesce over the row, and the level walk (walk_levels) stops at
 // the first level that does not reach the row. Bytes bound it: each
 // (row, level) pair reads its index and its gathered row, and the output
 // row is written once in f32. Its rows have few levels (the hub plan's
 // cold tail: 2.4 a row on ogbn-arxiv), so the walk's latency stays hidden.
+// The f32 instantiation moves twice the row bytes and is otherwise the
+// same walk, with the same adds in the same order.
 //
 // dgl_shell_prefix_gspmm's rows have more levels (7.9 a row in the
 // weighted arxiv forward, 22 levels), and each level is a chain of
@@ -149,9 +154,41 @@ __device__ __forceinline__ void store_out(float* __restrict__ out, int64_t o,
   }
 }
 
+// Adds VEC consecutive values of a table row into acc, in order.
 template <int VEC>
+__device__ __forceinline__ void add_row(const uint16_t* __restrict__ row,
+                                        float (&acc)[VEC]) {
+  if constexpr (VEC == 8) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(row));
+    acc[0] += bf16_lo(v.x); acc[1] += bf16_hi(v.x);
+    acc[2] += bf16_lo(v.y); acc[3] += bf16_hi(v.y);
+    acc[4] += bf16_lo(v.z); acc[5] += bf16_hi(v.z);
+    acc[6] += bf16_lo(v.w); acc[7] += bf16_hi(v.w);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      acc[j] += __uint_as_float(static_cast<uint32_t>(__ldg(row + j)) << 16);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void add_row(const float* __restrict__ row,
+                                        float (&acc)[VEC]) {
+  if constexpr (VEC == 8) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(row));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(row + 4));
+    acc[0] += a.x; acc[1] += a.y; acc[2] += a.z; acc[3] += a.w;
+    acc[4] += b.x; acc[5] += b.y; acc[6] += b.z; acc[7] += b.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[j] += __ldg(row + j);
+  }
+}
+
+// T: uint16_t (bf16 rows) or float.
+template <typename T, int VEC>
 __global__ void shell_prefix_sum_kernel(
-    const uint16_t* __restrict__ table, int64_t n_table, int64_t feat,
+    const T* __restrict__ table, int64_t n_table, int64_t feat,
     const int32_t* __restrict__ idx, const int64_t* __restrict__ level_off,
     const int64_t* __restrict__ level_rows, int n_levels,
     const float* __restrict__ base, float* __restrict__ out, int64_t n_out) {
@@ -167,18 +204,7 @@ __global__ void shell_prefix_sum_kernel(
   walk_levels(r, level_off, level_rows, n_levels, [&](int, int64_t p) {
     const int64_t s = __ldg(idx + p);
     if (s < 0 || s >= n_table) return;
-    const uint16_t* row = table + s * feat + c;
-    if constexpr (VEC == 8) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(row));
-      acc[0] += bf16_lo(v.x); acc[1] += bf16_hi(v.x);
-      acc[2] += bf16_lo(v.y); acc[3] += bf16_hi(v.y);
-      acc[4] += bf16_lo(v.z); acc[5] += bf16_hi(v.z);
-      acc[6] += bf16_lo(v.w); acc[7] += bf16_hi(v.w);
-    } else {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j)
-        acc[j] += __uint_as_float(static_cast<uint32_t>(__ldg(row + j)) << 16);
-    }
+    add_row<VEC>(table + s * feat + c, acc);
   });
   store_out<VEC>(out, o, acc);
 }
@@ -520,32 +546,48 @@ int grid_of(int64_t work, unsigned* blocks) {
   return 0;
 }
 
+template <typename T>
+void launch_sum(const void* table, int64_t n_table, int64_t feat,
+                const int32_t* i, const int64_t* lo, const int64_t* lr,
+                int n_levels, const float* b, float* o, int64_t n_out,
+                int vec, unsigned blocks, cudaStream_t s) {
+  const auto* t = static_cast<const T*>(table);
+  if (vec == 8) {
+    shell_prefix_sum_kernel<T, 8><<<blocks, kThreads, 0, s>>>(
+        t, n_table, feat, i, lo, lr, n_levels, b, o, n_out);
+  } else {
+    shell_prefix_sum_kernel<T, 1><<<blocks, kThreads, 0, s>>>(
+        t, n_table, feat, i, lo, lr, n_levels, b, o, n_out);
+  }
+}
+
 }  // namespace
 
-// vec must be 8 (feat % 8 == 0 and every pointer 16-byte aligned, checked by
-// the caller) or 1. Returns a cudaError_t as int; 0 means launched.
+// bf16: the table's type (1 bf16, 0 f32). vec must be 8 (feat % 8 == 0 and
+// every pointer 16-byte aligned, checked by the caller) or 1. Returns a
+// cudaError_t as int; 0 means launched.
 extern "C" int dgl_shell_prefix_sum(
-    const void* table, int64_t n_table, int64_t feat, const void* idx,
-    const void* level_off, const void* level_rows, int n_levels,
-    const void* base, void* out, int64_t n_out, int vec, void* stream) {
+    const void* table, int bf16, int64_t n_table, int64_t feat,
+    const void* idx, const void* level_off, const void* level_rows,
+    int n_levels, const void* base, void* out, int64_t n_out, int vec,
+    void* stream) {
   if (vec != 8 && vec != 1) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t work = n_out * (feat / vec);
   if (work == 0) return 0;
   unsigned blocks = 0;
   if (int err = grid_of(work, &blocks)) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* t = static_cast<const uint16_t*>(table);
   const auto* i = static_cast<const int32_t*>(idx);
   const auto* lo = static_cast<const int64_t*>(level_off);
   const auto* lr = static_cast<const int64_t*>(level_rows);
   const auto* b = static_cast<const float*>(base);
   auto* o = static_cast<float*>(out);
-  if (vec == 8) {
-    shell_prefix_sum_kernel<8><<<blocks, kThreads, 0, s>>>(
-        t, n_table, feat, i, lo, lr, n_levels, b, o, n_out);
+  if (bf16) {
+    launch_sum<uint16_t>(table, n_table, feat, i, lo, lr, n_levels, b, o,
+                         n_out, vec, blocks, s);
   } else {
-    shell_prefix_sum_kernel<1><<<blocks, kThreads, 0, s>>>(
-        t, n_table, feat, i, lo, lr, n_levels, b, o, n_out);
+    launch_sum<float>(table, n_table, feat, i, lo, lr, n_levels, b, o, n_out,
+                      vec, blocks, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,12 +14,16 @@ byte ``b`` of a row carries bit ``j`` for source ``block*4096 + j*512 + b``.
 expanding the tile) on a CUDA tensor, and the plain PyTorch version
 :func:`bitmap_matmul_plain` (the reference's ``_expand_bits`` +
 ``_bitmap_matmul_xla``) on a CPU tensor. Both multiply the 0/1 matrix by
-``x`` rounded to bf16 and sum in f32.
+``x`` in the plan's ``compute_dtype`` and sum in f32: ``"bfloat16"`` rounds
+``x`` to bf16 (about 4e-3 relative a row), ``"float32"`` keeps it in f32
+and gives exact f32 sums, as the reference documents (its CPU path; the
+plain version's product runs in full f32 whatever the process's TF32
+setting). The kernel has an instantiation for each type.
 
-Semantics: exact ``copy_u + sum`` over a simple graph (the builder refuses
+Semantics: ``copy_u + sum`` over a simple graph (the builder refuses
 multi-edges). The backward is the same matmul over the transpose bitmap,
 ``du = A^T dz`` through ``bits_rev`` (``bits`` itself when the relation is
-symmetric), as the reference's ``_bitmap_bwd``.
+symmetric), in the same type, as the reference's ``_bitmap_bwd``.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from ._precision import full_f32
 
 __all__ = ["BitmapPlan", "bitmap_bytes", "build_bitmap_plan",
            "bitmap_copy_u_sum", "bitmap_matmul", "bitmap_matmul_plain",
@@ -35,6 +40,9 @@ __all__ = ["BitmapPlan", "bitmap_bytes", "build_bitmap_plan",
 _C = 512   # dst rows per tile of the reference kernel (bits rows pad to it)
 _S = 4096  # src cols per tile; a row's bytes pad to a multiple of _S / 8
 _PW = _S // 8  # 512 bytes per 4096-source block
+# compute_dtype -> (x's type in the product, the launch count's name)
+_TYPES = {"bfloat16": (torch.bfloat16, "bitmap_spmm"),
+          "float32": (torch.float32, "bitmap_spmm_f32")}
 
 
 def _rup(x: int, m: int) -> int:
@@ -58,7 +66,8 @@ class BitmapPlan:
     backward, None when the relation is symmetric and square (``bits``
     serves both directions). ``num_edges`` and ``edge_hash``: the
     relation's edge count (set bits) and ``Relation.edge_hash()``, which let
-    a consumer check that a relation is the plan's.
+    a consumer check that a relation is the plan's. ``compute_dtype``:
+    ``"bfloat16"`` or ``"float32"``, the type ``x`` is multiplied in.
     """
 
     def __init__(self, bits, bits_rev, *, num_src: int, num_dst: int,
@@ -134,11 +143,12 @@ def build_bitmap_plan(rel, max_bytes: int = 2 << 30,
                       compute_dtype: str = "bfloat16"):
     """Build on the relation's device; None when the relation has
     multi-edges (a bit cannot count two parallel edges) or the bitmaps
-    exceed ``max_bytes``. A symmetric square relation keeps one bitmap."""
-    if compute_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"bitmap plan compute_dtype {compute_dtype!r}: only bfloat16 is "
-            "ported (ROADMAP queue C)")
+    exceed ``max_bytes``. A symmetric square relation keeps one bitmap.
+    ``compute_dtype`` (``"bfloat16"`` or ``"float32"``) changes no bit;
+    the plan records it."""
+    if compute_dtype not in _TYPES:
+        raise ValueError(f"bitmap plan compute_dtype must be bfloat16 or "
+                         f"float32, got {compute_dtype!r}")
     if rel.num_edges == 0:
         return None
     uniq = rel.edge_keys()
@@ -177,36 +187,45 @@ def _expand_bits(b):
         C, W * 8)
 
 
-def bitmap_matmul_plain(bits, x, n_rows=None, chunk: int = 1024):
+def bitmap_matmul_plain(bits, x, n_rows=None, chunk: int = 1024,
+                        compute_dtype: str = "bfloat16"):
     """Plain PyTorch version: expand ``chunk`` dst rows at a time to a
-    dense 0/1 f32 matrix and multiply by ``x`` rounded to bf16, in f32.
-    Returns (n_rows, F) f32 (``n_rows`` defaults to all bitmap rows)."""
+    dense 0/1 f32 matrix and multiply by ``x`` in ``compute_dtype`` (bf16
+    rounds it), in full f32. Returns (n_rows, F) f32 (``n_rows`` defaults
+    to all bitmap rows)."""
     n_rows = bits.shape[0] if n_rows is None else int(n_rows)
     n_src = x.shape[0]
-    xf = x.to(torch.bfloat16).to(torch.float32)
+    xf = x.to(_TYPES[compute_dtype][0]).to(torch.float32)
     out = torch.empty((n_rows, x.shape[1]), dtype=torch.float32,
                       device=x.device)
-    for c0 in range(0, n_rows, chunk):
-        c1 = min(c0 + chunk, n_rows)
-        a = _expand_bits(bits[c0:c1])[:, :n_src].to(torch.float32)
-        out[c0:c1] = a @ xf
+    with full_f32():
+        for c0 in range(0, n_rows, chunk):
+            c1 = min(c0 + chunk, n_rows)
+            a = _expand_bits(bits[c0:c1])[:, :n_src].to(torch.float32)
+            out[c0:c1] = a @ xf
     return out
 
 
-def bitmap_matmul(bits, x, n_rows=None):
-    """``out[d] = sum_{s: bit (d, s) set} bf16(x[s])`` in f32 for the first
-    ``n_rows`` bitmap rows. ``bits``: plane-packed uint8 bitmap; ``x``:
-    (n_src, F) with n_src <= 8 * bits.shape[1].
+def bitmap_matmul(bits, x, n_rows=None, compute_dtype: str = "bfloat16"):
+    """``out[d] = sum_{s: bit (d, s) set} cd(x[s])`` in f32 for the first
+    ``n_rows`` bitmap rows, ``cd`` the ``compute_dtype`` (``"bfloat16"``
+    rounds the rows, ``"float32"`` keeps them). ``bits``: plane-packed
+    uint8 bitmap; ``x``: (n_src, F) with n_src <= 8 * bits.shape[1].
 
     A CUDA ``x`` runs the kernel; a CPU ``x`` runs the plain version."""
+    if compute_dtype not in _TYPES:
+        raise ValueError(f"compute_dtype must be bfloat16 or float32, got "
+                         f"{compute_dtype!r}")
     if x.device.type == "cpu":
-        return bitmap_matmul_plain(bits, x, n_rows)
+        return bitmap_matmul_plain(bits, x, n_rows,
+                                   compute_dtype=compute_dtype)
     if not x.is_cuda:
         raise ValueError(f"bitmap_matmul: unsupported device {x.device}")
-    return _launch(bits, x, bits.shape[0] if n_rows is None else int(n_rows))
+    return _launch(bits, x, bits.shape[0] if n_rows is None else int(n_rows),
+                   compute_dtype)
 
 
-def _launch(bits, x, n_rows):
+def _launch(bits, x, n_rows, compute_dtype):
     dev = x.device
     if bits.dtype != torch.uint8 or bits.dim() != 2 or bits.device != dev:
         raise ValueError("bits must be a 2-D uint8 bitmap on x's device")
@@ -224,9 +243,10 @@ def _launch(bits, x, n_rows):
     # padded to whole passes so every row gather is 16-byte loads
     lanes = 1 if feat <= 8 else 2 if feat <= 16 else 4 if feat <= 32 else 8
     fp = _rup(feat, 8 * lanes)
-    xb = x.to(torch.bfloat16)
+    cd, name = _TYPES[compute_dtype]
+    xb = x.to(cd)
     if fp != feat or not xb.is_contiguous() or xb.data_ptr() % 16:
-        xp = torch.zeros((n_src, fp), dtype=torch.bfloat16, device=dev)
+        xp = torch.zeros((n_src, fp), dtype=cd, device=dev)
         xp[:, :feat] = xb
         xb = xp
     bits = bits.contiguous()
@@ -234,10 +254,11 @@ def _launch(bits, x, n_rows):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.dgl_bitmap_spmm(bits.data_ptr(), n_rows, W,
-                                   xb.data_ptr(), n_src, fp, feat, lanes,
-                                   out.data_ptr(), stream)
-    _kernels.check(code, "bitmap_spmm")
-    _kernels.launch_counts["bitmap_spmm"] += 1
+                                   xb.data_ptr(), int(cd == torch.bfloat16),
+                                   n_src, fp, feat, lanes, out.data_ptr(),
+                                   stream)
+    _kernels.check(code, name)
+    _kernels.launch_counts[name] += 1
     return out
 
 
@@ -247,19 +268,23 @@ class _BitmapCopyUSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u, plan):
         ctx.plan = plan
-        return bitmap_matmul(plan.bits, u, plan.num_dst).to(u.dtype)
+        return bitmap_matmul(plan.bits, u, plan.num_dst,
+                             plan.compute_dtype).to(u.dtype)
 
     @staticmethod
     def backward(ctx, dz):
         plan = ctx.plan
         bits_t = plan.bits if plan.bits_rev is None else plan.bits_rev
-        # dz rounds to bf16 as the forward rounds u (reference _bitmap_bwd)
-        du = bitmap_matmul(bits_t, dz, plan.num_src)
+        # dz in f32, then in the plan's type as the forward takes u
+        # (reference _bitmap_bwd): bf16 rounds it
+        du = bitmap_matmul(bits_t, dz.to(torch.float32), plan.num_src,
+                           plan.compute_dtype)
         return du.to(dz.dtype), None
 
 
 def bitmap_copy_u_sum(plan: BitmapPlan, u):
     """``out[d] = sum_{s: (s,d) in E} u[s]`` for 2-D ``u`` (num_src, F):
-    matches ``ops.copy_u_sum`` on a simple graph to bf16 class (the rows
-    are rounded to bf16, the sums are f32). Returns ``u.dtype``."""
+    matches ``ops.copy_u_sum`` on a simple graph to bf16 class with
+    ``compute_dtype="bfloat16"`` (the rows are rounded to bf16, the sums
+    are f32), to f32 rounding with ``"float32"``. Returns ``u.dtype``."""
     return _BitmapCopyUSum.apply(u, plan)

@@ -14,8 +14,11 @@ out-of-range index that gathers zero (:func:`flat_shell_indices`).
 :func:`shell_prefix_sum` runs the hand-written CUDA kernel
 (``dgl_tpu_torch/csrc/shell_prefix_sum.cu``, which fuses the gather the
 TPU kernel could not) on a CUDA tensor, and the plain PyTorch version
-:func:`shell_prefix_sum_plain` on a CPU tensor. Both sum in f32, base first
-and then level by level, so on the same inputs they agree to the bit.
+:func:`shell_prefix_sum_plain` on a CPU tensor. The table is bf16 (the hub
+plan's ``cold="shell"``) or f32 (``"shell-f32"``: the TPU kernel casts
+each piece block to f32, so it takes either); the kernel has an
+instantiation for each. Both sum in f32, base first and then level by
+level, so on the same inputs they agree to the bit.
 
 :func:`shell_prefix_gspmm` is B1's weighted caller (the reference's
 ``shell_spmm._shell_accumulate``, which builds the message stream with XLA
@@ -118,7 +121,7 @@ def shell_prefix_sum(table, flat_idx, level_rows, n_out, base=None,
                      levels=None):
     """``out[r] = base[r] + sum_{k : r < m_k} float(table[idx[off_k + r]])``.
 
-    ``table``: (N, F) bf16 feature table. ``flat_idx``: int32 layout of
+    ``table``: (N, F) bf16 or f32 feature table. ``flat_idx``: int32 layout of
     :func:`flat_shell_indices`. ``level_rows``: the ``m_k``. ``base``:
     optional (>= n_out, F) f32. ``levels``: the :func:`level_table` of
     ``level_rows`` on the table's device (built here when not given).
@@ -135,10 +138,14 @@ def shell_prefix_sum(table, flat_idx, level_rows, n_out, base=None,
     return _launch(table, flat_idx, level_rows, n_out, base, levels)
 
 
+_TABLE_TYPES = {torch.bfloat16: "shell_prefix_sum",
+                torch.float32: "shell_prefix_sum_f32"}
+
+
 def _launch(table, flat_idx, level_rows, n_out, base, levels):
     dev = table.device
-    if table.dtype != torch.bfloat16 or table.dim() != 2:
-        raise ValueError(f"table must be 2-D bf16, got {table.dtype} "
+    if table.dtype not in _TABLE_TYPES or table.dim() != 2:
+        raise ValueError(f"table must be 2-D bf16 or f32, got {table.dtype} "
                          f"{tuple(table.shape)}")
     if flat_idx.dtype != torch.int32 or flat_idx.device != dev:
         raise ValueError("flat_idx must be int32 on the table's device")
@@ -171,12 +178,14 @@ def _launch(table, flat_idx, level_rows, n_out, base, levels):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.dgl_shell_prefix_sum(
-            table.data_ptr(), n, feat, flat_idx.data_ptr(),
+            table.data_ptr(), int(table.dtype == torch.bfloat16), n, feat,
+            flat_idx.data_ptr(),
             levels[0].data_ptr(), levels[1].data_ptr(), len(level_rows),
             None if base is None else base.data_ptr(), out.data_ptr(),
             n_out, vec, stream)
-    _kernels.check(code, "shell_prefix_sum")
-    _kernels.launch_counts["shell_prefix_sum"] += 1
+    name = _TABLE_TYPES[table.dtype]
+    _kernels.check(code, name)
+    _kernels.launch_counts[name] += 1
     return out
 
 

@@ -74,8 +74,15 @@ def test_refuses_multiedges_and_budget():
     assert tb.build_bitmap_plan(trel, max_bytes=10) is None
     assert tb.bitmap_bytes(300, 200, False) == jb.bitmap_bytes(300, 200,
                                                                False)
-    with pytest.raises(NotImplementedError, match="queue C"):
-        tb.build_bitmap_plan(trel, compute_dtype="float32")
+    # the exact mode builds the same bits and records its type; any other
+    # type raises
+    plan = tb.build_bitmap_plan(trel)
+    plan32 = tb.build_bitmap_plan(trel, compute_dtype="float32")
+    assert plan32.compute_dtype == "float32"
+    assert torch.equal(plan32.bits, plan.bits)
+    assert torch.equal(plan32.bits_rev, plan.bits_rev)
+    with pytest.raises(ValueError, match="float16"):
+        tb.build_bitmap_plan(trel, compute_dtype="float16")
 
 
 @pytest.mark.parametrize("feat", [16, 41, 130])

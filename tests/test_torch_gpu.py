@@ -18,6 +18,7 @@ from dgl_tpu_torch.models import GAT, GCN, GraphSAGE
 from dgl_tpu_torch.nn import GATConv
 from dgl_tpu_torch.ops import bitmap_gat as tbg
 from dgl_tpu_torch.ops import hub_spmm
+from dgl_tpu_torch.ops._precision import full_f32
 from dgl_tpu_torch.ops.bitmap_spmm import (
     bitmap_copy_u_sum, bitmap_matmul, bitmap_matmul_plain, build_bitmap_plan,
     unpack_host)
@@ -78,8 +79,9 @@ def test_kernel_matches_plain(card, feat, n_out):
 def test_kernel_rejects_wrong_inputs(card):
     table, idx, _ = _shell_inputs(40, 4)
     flat, rows = flat_shell_indices(idx, LEVELS[0], oob_index=N_TABLE)
-    with pytest.raises(ValueError, match="bf16"):
-        shell_prefix_sum(table.float().to(card), flat.to(card), rows,
+    # bf16 and f32 tables have a kernel each (B1, B1f); no other type does
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        shell_prefix_sum(table.half().to(card), flat.to(card), rows,
                          LEVELS[0])
     with pytest.raises(ValueError, match="int32"):
         shell_prefix_sum(table.to(card), flat.long().to(card), rows,
@@ -108,6 +110,117 @@ def test_hub_copy_u_sum_on_card_matches_cpu(card):
     assert _kernels.launch_counts["shell_prefix_sum"] == before + 1
     # same bf16 products and f32 sums, in another order on the card
     torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_out", [LEVELS[0] + 5, 1000])
+@pytest.mark.parametrize("feat", [40, 128, 256, 13])
+def test_b1f_kernel_equals_plain(card, feat, n_out):
+    """B1f, the kernel's f32 instantiation (the hub plan's
+    ``cold="shell-f32"``), adds the same f32 values in the same order as
+    its plain version: equal to the bit, with and without a base, on the
+    16-byte path and the scalar one (F = 13, an unaligned base)."""
+    _table, idx, base = _shell_inputs(feat, 5)
+    table = torch.from_numpy(np.random.default_rng(feat).normal(
+        size=(N_TABLE, feat)).astype(np.float32))
+    flat, rows = flat_shell_indices(idx, n_out, oob_index=N_TABLE)
+    table_c, flat_c = table.to(card), flat.to(card)
+    rows_b = base.shape[0] - 1
+    shifted = base.to(card).reshape(-1)[1:1 + rows_b * feat].view(rows_b, feat)
+    for b in (None, base.to(card), shifted):
+        before = dict(_kernels.launch_counts)
+        out = shell_prefix_sum(table_c, flat_c, rows, n_out, base=b)
+        torch.cuda.synchronize()
+        assert _kernels.launch_counts["shell_prefix_sum_f32"] == before[
+            "shell_prefix_sum_f32"] + 1
+        assert _kernels.launch_counts["shell_prefix_sum"] == before[
+            "shell_prefix_sum"]
+        ref = shell_prefix_sum_plain(table_c, flat_c, rows, n_out, base=b)
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+        cpu = shell_prefix_sum_plain(table, flat, rows, n_out,
+                                     base=None if b is None else b.cpu())
+        torch.testing.assert_close(out.cpu(), cpu, rtol=0, atol=0)
+
+
+def _exact_hub_graph():
+    rng = np.random.default_rng(9)
+    n, e = 6000, 48000
+    w = 1.0 / np.arange(1, n + 1)
+    src = rng.choice(n, e, p=w / w.sum())
+    dst = rng.choice(n, e, p=(w ** 0.7) / (w ** 0.7).sum())  # a residual
+    return dt.graph((src, dst), num_nodes=n, device="cpu"), n
+
+
+# (precision, cold) -> (B1 launches, B1f launches) of a forward and its
+# backward: one a direction in the shell modes, none in the segment modes
+HUB_MODES = {("f32", "f32"): (0, 0), ("f32", "shell-f32"): (0, 2),
+             ("int8", "bf16"): (0, 0), ("int8", "shell"): (2, 0),
+             ("bf16", "shell-f32"): (0, 2), ("f32", "shell"): (2, 0)}
+
+
+@pytest.mark.parametrize("precision,cold", list(HUB_MODES))
+def test_hub_modes_on_card(card, precision, cold):
+    """Each (precision, cold) pair on the card: its launch counts, and its
+    forward and gradient against the same plan on the CPU (rtol = 1e-5,
+    atol = 1e-5 * max|ref| in the exact modes, 1e-4 where rows round to
+    bf16: the same products summed in another order)."""
+    g, n = _exact_hub_graph()
+    plan = build_hub_plan(g._relation(), 256, precision, cold=cold)
+    assert plan.cold == cold
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32))
+    dz = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32))
+    xr = x.clone().requires_grad_()
+    ref = hub_copy_u_sum(plan, xr)
+    (ref * dz).sum().backward()
+    xc = x.to(card).requires_grad_()
+    _kernels.reset_launch_counts()
+    out = hub_copy_u_sum(plan.to(card), xc)
+    (out * dz.to(card)).sum().backward()
+    torch.cuda.synchronize()
+    b1, b1f = HUB_MODES[(precision, cold)]
+    assert (_kernels.launch_counts["shell_prefix_sum"],
+            _kernels.launch_counts["shell_prefix_sum_f32"]) == (b1, b1f)
+    tol = 1e-5 if (precision, cold) in (("f32", "f32"),
+                                        ("f32", "shell-f32")) else 1e-4
+    for got, want in ((out.detach(), ref.detach()), (xc.grad, xr.grad)):
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got.cpu(), want, rtol=tol,
+                                   atol=tol * scale)
+
+
+@pytest.mark.parametrize("cold", ["f32", "shell-f32"])
+def test_f32_hub_plan_ignores_tf32(card, cold):
+    """With ``allow_tf32 = True`` set in the process, the f32 plan's forward
+    and gradient still match the graph without plans (``index_add_`` in
+    f32) at rtol = 1e-5, atol = 1e-5 * max|ref|: an f32 hub matmul at TF32
+    would be off by about 1e-3. The flag is as it was after each call."""
+    g, n = _exact_hub_graph()
+    gc = g.to(card)
+    gp = gc.with_spmm_plans(num_hubs=256, precision="f32", bitmap=False,
+                            dense_attn=False)
+    if cold == "shell-f32":
+        rel = gp._relation()
+        gp._relations = {k: rel.with_hub_plan(build_hub_plan(
+            rel, 256, "f32", cold=cold)) for k in gp._relations}
+    assert gp._relation().hub_plan.cold == cold
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32)).to(card)
+    dz = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32)).to(card)
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got = []
+        for graph in (gp, gc):
+            xg = x.clone().requires_grad_()
+            out = dt.ops.copy_u_sum(graph, xg)
+            (out * dz).sum().backward()
+            got.append((out.detach(), xg.grad))
+            assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    for a, b in zip(*got):
+        scale = b.abs().max().item()
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * scale)
 
 
 def _bipartite_relation(case):
@@ -255,6 +368,55 @@ def test_bitmap_spmm_kernel_matches_plain(card, bitmap_plans, feat):
     want_t = torch.from_numpy(np.bincount(
         _bitmap_edges(11)[0], minlength=N_SRC).astype(np.float32))
     torch.testing.assert_close(out_t.cpu(), want_t[:, None].expand(-1, feat))
+
+
+@pytest.mark.parametrize("feat", [1, 16, 41, 130])
+def test_b2f_kernel_matches_plain(card, bitmap_plans, feat):
+    """B2f, the kernel's f32 instantiation (``compute_dtype="float32"``),
+    against its plain version: the same f32 rows summed in another order,
+    within 1e-6 * max|ref|; the f32 rows are not rounded to bf16."""
+    plan, deg = bitmap_plans
+    x = torch.from_numpy(np.random.default_rng(feat).normal(
+        size=(N_SRC, feat)).astype(np.float32))
+    bits = plan.bits.to(card)
+    before = dict(_kernels.launch_counts)
+    out = bitmap_matmul(bits, x.to(card), N_DST, "float32")
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["bitmap_spmm_f32"] == before[
+        "bitmap_spmm_f32"] + 1
+    assert _kernels.launch_counts["bitmap_spmm"] == before["bitmap_spmm"]
+    for want in (bitmap_matmul_plain(bits, x.to(card), N_DST,
+                                     compute_dtype="float32"),
+                 bitmap_matmul_plain(plan.bits, x, N_DST,
+                                     compute_dtype="float32").to(card)):
+        scale = want.abs().max().item()
+        torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6 * scale)
+    bf = bitmap_matmul(bits, x.to(card), N_DST)
+    assert not torch.allclose(out, bf, rtol=1e-6, atol=1e-6)
+    assert not out[torch.from_numpy(deg == 0).to(card)].any()
+
+
+def test_b2f_copy_u_sum_step_launches(card, bitmap_rel):
+    """A float32 bitmap plan: 1 B2f launch forward and 1 backward, none of
+    B2, and the gradient against the graph without plans at f32
+    rounding."""
+    plan = build_bitmap_plan(bitmap_rel.to(card), compute_dtype="float32")
+    assert plan.compute_dtype == "float32"
+    x = torch.randn(N_SRC, 16, device=card, requires_grad=True)
+    dz = torch.randn(N_DST, 16, device=card)
+    _kernels.reset_launch_counts()
+    out = bitmap_copy_u_sum(plan, x)
+    (out * dz).sum().backward()
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["bitmap_spmm_f32"] == 2
+    assert _kernels.launch_counts["bitmap_spmm"] == 0
+    dense = torch.from_numpy(unpack_host(plan.bits.cpu().numpy())[
+        :N_DST, :N_SRC].astype(np.float32)).to(card)
+    with full_f32():
+        want, want_dx = dense @ x.detach(), dense.t() @ dz
+    for a, b in ((out.detach(), want), (x.grad, want_dx)):
+        scale = b.abs().max().item()
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * scale)
 
 
 def _b3(bits, csc, el, er, h, n_rows, nf):

@@ -2,7 +2,7 @@
 
 - The plain PyTorch version of the shell prefix sum against the Pallas
   kernel ``shell_prefix_sum_pallas`` run in interpret mode (f32 sums of the
-  same bf16 rows in the same order: rtol = atol = 1e-5).
+  same bf16 rows, or f32 rows, in the same order: rtol = atol = 1e-5).
 - The hub plan's arrays, exact.
 - ``hub_copy_u_sum`` against the reference at 1e-4, and against exact f32
   ``copy_u_sum`` at 2e-2 (bf16-rounded rows).
@@ -44,6 +44,24 @@ def _shell_inputs(feat, seed):
 @pytest.mark.parametrize("feat", [40, 128, 256])
 def test_plain_matches_pallas_interpret(feat, with_base):
     table_bf, idx, base = _shell_inputs(feat, feat + int(with_base))
+    _check_plain_vs_pallas(table_bf, idx, base if with_base else None)
+
+
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("feat", [40, 128, 256])
+def test_plain_matches_pallas_interpret_f32(feat, with_base):
+    """B1f: the same over an f32 table, fed to the Pallas kernel as f32
+    pieces (the reference's ``cold="shell-f32"``); the plain version must
+    not round it."""
+    _table_bf, idx, base = _shell_inputs(feat, feat + int(with_base))
+    rng = np.random.default_rng(feat)
+    table = torch.from_numpy(rng.normal(size=(N_TABLE, feat)).astype(
+        np.float32))
+    _check_plain_vs_pallas(table, idx, base if with_base else None)
+
+
+def _check_plain_vs_pallas(table, idx, b):
+    feat = table.shape[1]
     n_out = LEVELS[0] + 5  # rows past every level read the base (or 0)
     flat_t, rows_t = flat_shell_indices(
         [torch.from_numpy(i) for i in idx], n_out, oob_index=N_TABLE)
@@ -52,17 +70,18 @@ def test_plain_matches_pallas_interpret(feat, with_base):
     assert rows_t == rows_j
     np.testing.assert_array_equal(flat_t.numpy(), np.asarray(flat_j))
     # the reference gathers with jnp.take(mode="fill") before its kernel
-    tab = table_bf.to(torch.float32).numpy()
+    tab = table.to(torch.float32).numpy()
     tab0 = np.concatenate([tab, np.zeros((1, feat), np.float32)])
-    pieces = jnp.asarray(tab0[np.asarray(flat_j)], jnp.bfloat16)
-    b = base if with_base else None
+    pieces = jnp.asarray(tab0[np.asarray(flat_j)],
+                         jnp.bfloat16 if table.dtype == torch.bfloat16
+                         else jnp.float32)
     sp._FORCE_PALLAS_INTERPRET = True
     try:
         ref = sp.shell_prefix_sum_pallas(
             pieces, rows_j, n_out, base=None if b is None else jnp.asarray(b))
     finally:
         sp._FORCE_PALLAS_INTERPRET = False
-    out = shell_prefix_sum(table_bf, flat_t, rows_t, n_out,
+    out = shell_prefix_sum(table, flat_t, rows_t, n_out,
                            base=None if b is None else torch.from_numpy(b))
     assert out.dtype == torch.float32 and tuple(out.shape) == (n_out, feat)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref)[:n_out],
