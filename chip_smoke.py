@@ -16,13 +16,14 @@ Run it from the root of a checkout, on a machine with a CUDA card. It
     skipped), every (nh, nf) case of its switch and layer 1's H = 1,
     O = 41; rows without an edge must get out = 0 exactly and
     lse = log(1e-30);
-1b. holds B4 and B5 against their plain versions at the edges of their
-    walk (phase ``bitmap_gat_bwd_edge_cases``): a dst row with more set
-    bits than the walk's queue holds, empty rows both ways, rows whose
-    block count is not a whole number of the walk's 2-block loads, row
-    counts that are not a multiple of a thread block's 8 rows, and every
-    (nh, nf) case of the kernels' switch; rows without an edge must get
-    exact zeros;
+1b. holds B4 (over the relation's CSC) and B5 (over its CSR) against
+    their plain versions (over the bits) at the edges of their walks
+    (phase ``bitmap_gat_bwd_edge_cases``): on a 1,301 x 26,001 graph with a
+    full row each way and empty rows both ways, and on 1a's graph and its
+    transpose (degrees 0, 1, 31, 32, 33, around 64, 128 and 256, 1,000 and
+    more, a full row, sink indices in the CSC and the CSR), every (nh, nf)
+    case of the kernels' switch; rows without an edge must get exact
+    zeros;
 1c. holds B1's weighted caller (``shell_prefix_gspmm``) against its plain
     version, exactly, on small weighted shell plans (phase
     ``shell_gspmm_edge_cases``): every op, bf16 and f32 tables, every
@@ -129,14 +130,18 @@ bitmap-flash GAT forward, and B4 and B5, its backward):
     losses), B2 against its plain version on the backward's real ``dz``,
     step time and profile;
 14. trains GAT (no dropout): one counted step (2 launches each of B3, B4
-    and B5), four more (finite, falling losses); holds B4 and B5 against
-    their plain versions on both layers' real step inputs, B4 on the 4,096
-    dst rows of step 11 and B5 on 4,096 source rows chosen the same way,
-    at B3's tolerance; times both (no PyTorch call computes them; the plain
-    versions on the check rows only) beside their times with ``dz`` in
-    f32 (``prev_ms``, PERF.md's figure for them, not measured here),
-    ``ptxas``'s figures, the blocks an SM holds and the bitmap bytes in
-    flight per SM while those warps load; times the step and profiles it;
+    and B5), four more (finite, falling losses); holds B4 (over the CSC)
+    and B5 (over the CSR) against their plain versions (over the bits) on
+    both layers' real step inputs, B4 on the 4,096 dst rows of step 11
+    and B5 on 4,096 source rows chosen the same way, at B3's tolerance;
+    times both (no PyTorch call computes them; the plain versions on the
+    check rows only) beside their times as bitmap walks (``prev_ms``,
+    PERF.md's figure for them, not measured here), their bound over the
+    index (``b45_figures``) and the bitmap walk's, the bytes their gathers
+    move, ``ptxas``'s figures, the blocks an SM holds and the gather bytes
+    in flight per SM; times B5 at layer 0 with its 8 heads in one pass and
+    in two passes of 4, in turns (phase ``bitmap_gat_bwd_src_passes``);
+    times the step and profiles it;
 14a. the exact bitmap mode (phase ``exact_bitmap_gcn``,
     ``run_exact_bitmap_gcn``): a ``compute_dtype="float32"`` plan over the
     same bits, GCN's counted forward (2 B2f launches, B2 over f32 rows)
@@ -674,24 +679,24 @@ REDDIT_FEAT, REDDIT_CLASSES = 602, 41
 GCN_HIDDEN = 16  # examples/reddit_fullgraph_gcn.py:48-54
 GAT_HIDDEN, GAT_HEADS = 8, 8  # benchmarks/bench_reddit_gat.py:47-48
 B3_CHECK_ROWS = 4096
-# B3's times as a walk of the bitmap, and B4's and B5's with dz in f32, as
-# PERF.md records them (H100 80GB HBM3 at 700 W), by GAT layer: printed
-# beside this run's times as "prev_ms", not measured here
+# B3's, B4's and B5's times as walks of the bitmap, as PERF.md records
+# them (H100 80GB HBM3 at 700 W), by GAT layer: printed beside this run's
+# times as "prev_ms", not measured here
 PREV_MS = {"bitmap_gat_fwd": {"layer0 H=8 O=8": 5.944,
                               "layer1 H=1 O=41": 5.648},
-           "bitmap_gat_bwd_dst": {"layer0 H=8 O=8": 5.990,
-                                  "layer1 H=1 O=41": 5.684},
-           "bitmap_gat_bwd_src": {"layer0 H=8 O=8": 8.339,
-                                  "layer1 H=1 O=41": 7.257}}
+           "bitmap_gat_bwd_dst": {"layer0 H=8 O=8": 6.016,
+                                  "layer1 H=1 O=41": 5.700},
+           "bitmap_gat_bwd_src": {"layer0 H=8 O=8": 7.032,
+                                  "layer1 H=1 O=41": 6.518}}
 PREV_MS_SOURCE = {
     "bitmap_gat_fwd": "PERF.md: the kernel that walked the bitmap, before "
                       "the CSC walk; not measured in this run",
-    "bitmap_gat_bwd_dst": "PERF.md: the kernel with dz in f32; not measured "
-                          "in this run"}
+    "bitmap_gat_bwd_dst": "PERF.md: the kernel that walked the bitmap; not "
+                          "measured in this run"}
 PREV_MS_SOURCE["bitmap_gat_bwd_src"] = PREV_MS_SOURCE["bitmap_gat_bwd_dst"]
-# the edge cases of B4's and B5's walk: a bitmap of 1,301 dst rows by
-# 26,001 sources (7 blocks a dst row, 1 a source row), and (heads, odim)
-# pairs giving each (nh, nf) case of the kernels' switch
+# the edge cases of B4's and B5's walks: a graph of 1,301 dst rows by
+# 26,001 sources with a full row each way, and (heads, odim) pairs giving
+# each (nh, nf) case of the kernels' switch
 EDGE_N_SRC, EDGE_N_DST = 26_001, 1_301
 EDGE_CASES = ((1, 5), (2, 8), (3, 7), (12, 8), (1, 16), (2, 12), (5, 16),
               (1, 32), (3, 20), (2, 130))
@@ -1856,6 +1861,37 @@ def b3_figures(rel, heads, odim, rate) -> dict:
             "ids_gb": E * passes * 4 / 1e9}
 
 
+def b45_figures(rel, heads, odim, rate, kernel, nh=None) -> dict:
+    """B4's (``kernel="dst"``, over the relation's CSC) or B5's (``"src"``,
+    over its CSR, heads in passes of ``nh``) bound and traffic: the bound
+    counts every input read once (indptr, the int32 ids, the f32 tables
+    el, er, lse and c, the bf16 h and dz, over the real rows) and every
+    output written once (B4's der; B5's del and dh) over the HBM rate,
+    against 2 (B4) or 4 (B5) f32 operations per edge and feature over the
+    f32 rate; ``gather_gb`` is what the design moves per call, gathered
+    per edge and pass (mostly L2 hits): B4's el and h, B5's (er, lse, c,
+    0) and dz; ``ids_gb`` the ids read once a pass."""
+    from dgl_tpu_torch.ops import bitmap_gat as tbg
+
+    nh, nf, h_pad, o_pad = tbg._passes(heads, odim, nh=nh)
+    passes = (h_pad // nh) * (o_pad // nf)
+    E, Ns, Nd = rel.num_edges, rel.num_src, rel.num_dst
+    dst = kernel == "dst"
+    n_bytes = (((Nd if dst else Ns) + 1) * 4 + E * 4
+               + (Ns + 3 * Nd) * heads * 4 + (Ns + Nd) * heads * odim * 2
+               + (Nd * heads * 4 if dst
+                  else Ns * heads * 4 + Ns * heads * odim * 4))
+    bytes_ms = n_bytes / rate * 1e3
+    ops_ms = (2 if dst else 4) * E * heads * odim / F32_RATE * 1e3
+    per_edge = (nh * 4 if dst else nh * 16) + nh * nf * 2
+    return {"nh": nh, "nf": nf, "o_pad": o_pad, "passes": passes,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_bytes_ms": bytes_ms, "bound_operations_ms": ops_ms,
+            "gather_gb": E * passes * per_edge / 1e9,
+            "ids_gb": E * passes * 4 / 1e9}
+
+
 def bitmap_bound(bits, n_rows, other_bytes, flops, rate):
     """Least time of one call over the bitmap: its first ``n_rows`` rows
     read once (the padding rows below are never read) plus ``other_bytes``
@@ -1991,41 +2027,46 @@ def run_gat_training(gp, feat, y, mask, rate: float, ptxas: dict,
     srows = check_rows(N, B3_CHECK_ROWS, seed=4)
     b4, b5 = {}, {}
     for (args_d, _), (args_s, _) in zip(rec_d, rec_s):
-        bits, elp, erp, hp, slope, lse, c, dz, n_rows = args_d
-        bits_t, n_src = args_s[0], args_s[8]
-        heads, odim = hp.shape[1], hp.shape[2]
+        bits, indptr, indices, el, er, hb, slope, lse, c, dz, n_rows = args_d
+        bits_t, t_indptr, t_indices, n_src = (args_s[0], args_s[1],
+                                              args_s[2], args_s[10])
+        if not (indptr is rel.csc_indptr and indices is rel.csc_indices
+                and t_indptr is rel.csr_indptr
+                and t_indices is rel.csr_indices):
+            raise RuntimeError("B4 and B5 were not handed the relation's "
+                               "CSC and CSR")
+        heads, odim = hb.shape[1], hb.shape[2]
         label = f"layer{0 if heads == GAT_HEADS else 1} H={heads} O={odim}"
         got = tbg.bitmap_gat_bwd_dst(*args_d)
         got_del, got_dh = tbg.bitmap_gat_bwd_src(*args_s)
         plain_d = lambda: tbg.gat_bwd_dst_plain(  # noqa: E731
-            bits[rows], elp, erp[rows], hp, slope, lse[rows], c[rows],
+            bits[rows], el, er[rows], hb, slope, lse[rows], c[rows],
             dz[rows])
         plain_s = lambda: tbg.gat_bwd_src_plain(  # noqa: E731
-            bits_t[srows], elp[srows], erp, hp[srows], slope, lse, c, dz)
+            bits_t[srows], el[srows], er, hb[srows], slope, lse, c, dz)
         want = plain_d()
         want_del, want_dh = plain_s()
         torch.cuda.synchronize()
-        errs, rel = {}, {}
+        errs, rel_err = {}, {}
         for what, a, b in (("der", got[rows], want),
                            ("del", got_del[srows], want_del),
                            ("dh", got_dh[srows], want_dh)):
             scale = max(b.abs().max().item(), 1e-30)
             errs[what] = (a - b).abs().max().item()
-            rel[what] = errs[what] / scale
+            rel_err[what] = errs[what] / scale
             if not torch.allclose(a, b, rtol=1e-4, atol=1e-5 * scale):
                 raise RuntimeError(f"B4/B5 vs plain at {label} ({what}): "
                                    f"max abs err {errs[what]} (max |ref| "
                                    f"{scale})")
         nh, nho = N * heads, N * heads * odim
-        # B4 reads el, er, lse, c (f32), h and dz (bf16) and writes der; B5
-        # reads el, h per source and er, lse, c, dz per destination and
-        # writes del and dh
-        bound_d = bitmap_bound(bits, n_rows, nh * 4 * 4 + nho * 2
-                               + nho * 2 + nh * 4, E * heads * odim * 2,
-                               rate)
-        bound_s = bitmap_bound(bits_t, n_src, nh * 4 * 4 + nho * 2
-                               + nho * 2 + nh * 4 + nho * 4,
-                               E * heads * odim * 4, rate)
+        # the walks these kernels replaced read the bitmap (bits, bits_t)
+        # besides el, er, lse, c (f32), h and dz (bf16) and the outputs
+        walk_d = bitmap_bound(bits, n_rows, nh * 4 * 4 + nho * 2
+                              + nho * 2 + nh * 4, E * heads * odim * 2,
+                              rate)[0]
+        walk_s = bitmap_bound(bits_t, n_src, nh * 4 * 4 + nho * 2
+                              + nho * 2 + nh * 4 + nho * 4,
+                              E * heads * odim * 4, rate)[0]
         common = {"H": heads, "O": odim, "library_ms": None,
                   "plain_rows": B3_CHECK_ROWS}
         compiled = {name: {"ptxas": ptxas[name][
@@ -2035,34 +2076,42 @@ def run_gat_training(gp, feat, y, mask, rate: float, ptxas: dict,
             "prev_ms_source": PREV_MS_SOURCE[name]}
             for name in ("bitmap_gat_bwd_dst", "bitmap_gat_bwd_src")}
         b4[label] = {**common, **compiled["bitmap_gat_bwd_dst"],
+                     **b45_figures(rel, heads, odim, rate, "dst"),
+                     "bitmap_walk_bound_ms": walk_d,
                      "max_abs_err": errs["der"],
-                     "max_rel_err": rel["der"],
+                     "max_rel_err": rel_err["der"],
                      "ms": time_ms(lambda: tbg.bitmap_gat_bwd_dst(*args_d),
                                    10, hide_host=True),
                      "plain_ms": time_ms(plain_d, 2, warmup=1,
-                                         hide_host=True),
-                     "bound_ms": bound_d[0], "bound_by": bound_d[1]}
+                                         hide_host=True)}
         b5[label] = {**common, **compiled["bitmap_gat_bwd_src"],
+                     **b45_figures(rel, heads, odim, rate, "src"),
+                     "bitmap_walk_bound_ms": walk_s,
                      "max_abs_err": max(errs["del"], errs["dh"]),
                      "max_abs_err_del": errs["del"],
                      "max_abs_err_dh": errs["dh"],
-                     "max_rel_err_del": rel["del"],
-                     "max_rel_err_dh": rel["dh"],
+                     "max_rel_err_del": rel_err["del"],
+                     "max_rel_err_dh": rel_err["dh"],
                      "ms": time_ms(lambda: tbg.bitmap_gat_bwd_src(*args_s),
                                    10, hide_host=True),
                      "plain_ms": time_ms(plain_s, 2, warmup=1,
-                                         hide_host=True),
-                     "bound_ms": bound_s[0], "bound_by": bound_s[1]}
-        for name, d in (("bitmap_gat_bwd_dst", b4), ("bitmap_gat_bwd_src",
-                                                     b5)):
+                                         hide_host=True)}
+        for name, d, index in (("bitmap_gat_bwd_dst", b4, "CSC"),
+                               ("bitmap_gat_bwd_src", b5, "CSR")):
             emit({"phase": "kernel_vs_plain", "kernel": name,
                   "shape": label, "n": N, "edges": E,
+                  "input": f"the relation's {index}, walked a row a warp; "
+                           "the bitmap is not read",
                   "tolerance": "rtol=1e-4, atol=1e-5*max|ref|",
                   "plain": f"on {B3_CHECK_ROWS} rows (the first and last "
-                           "512-row tiles and random rows between)",
+                           "512-row tiles and random rows between), over "
+                           "the bits",
                   "library": "none: no single PyTorch call computes a "
                              "masked rank-1-logit softmax gradient",
                   **d[label], **tag})
+        if heads == GAT_HEADS:
+            b5[label]["passes_timing"] = b5_passes(
+                args_s, srows, want_del, want_dh, rel, rate, ptxas, tag)
         del got, got_del, got_dh, want, want_del, want_dh
     del rec_d, rec_s
     step = lambda: train_step(model, opt, gp, feat, y, mask)  # noqa: E731
@@ -2072,6 +2121,56 @@ def run_gat_training(gp, feat, y, mask, rate: float, ptxas: dict,
           **device_profile(step, 2), **tag})
     return {"launches": launches, "train_step_ms": timing["step_ms"],
             "b4": b4, "b5": b5}
+
+
+def b5_passes(args_s, srows, want_del, want_dh, rel, rate: float,
+              ptxas: dict, tag: dict) -> dict:
+    """B5 at layer 0 (8 heads of 8) with its heads in one pass of 8 and in
+    two passes of 4 (phase ``bitmap_gat_bwd_src_passes``): two passes
+    read the ids and el twice, but each pass's gathered tables, (er, lse,
+    c, 0) and dz of 4 heads (14.9 + 14.9 MB at Reddit scale), fit the
+    50 MB L2 where one pass's (59.6 MB) do not. Both against the plain
+    version on the check rows at B3's tolerance; timed in turns (8, 4, 4,
+    8 heads a pass) on the same inputs."""
+    import torch
+
+    from dgl_tpu_torch.ops import bitmap_gat as tbg
+
+    (_bits_t, indptr, indices, el, er, hb, slope, lse, c, dz,
+     n_src) = args_s
+    heads, odim = hb.shape[1], hb.shape[2]
+    launch = {nh: (lambda nh=nh: tbg._launch_bwd_src(
+        indptr, indices, el, er, hb, slope, lse, c, dz, n_src, nh))
+        for nh in (8, 4)}
+    out = {}
+    for nh, fn in launch.items():
+        got_del, got_dh = fn()
+        torch.cuda.synchronize()
+        errs = {}
+        for what, a, b in (("del", got_del[srows], want_del),
+                           ("dh", got_dh[srows], want_dh)):
+            scale = max(b.abs().max().item(), 1e-30)
+            errs[what] = (a - b).abs().max().item()
+            if not torch.allclose(a, b, rtol=1e-4, atol=1e-5 * scale):
+                raise RuntimeError(f"B5 in passes of {nh} heads vs plain "
+                                   f"({what}): max abs err {errs[what]} "
+                                   f"(max |ref| {scale})")
+        nf = tbg._passes(heads, odim, nh=nh)[1]
+        out[f"nh={nh}"] = {
+            "max_abs_err": errs, "ms": [],
+            **b45_figures(rel, heads, odim, rate, "src", nh),
+            "ptxas": ptxas["bitmap_gat_bwd_src"][f"nh={nh} nf={nf}"],
+            **tbg.bwd_occupancy("bitmap_gat_bwd_src", heads, odim, nh)}
+        del got_del, got_dh
+    for nh in (8, 4, 4, 8):
+        out[f"nh={nh}"]["ms"].append(time_ms(launch[nh], 10,
+                                             hide_host=True))
+    for v in out.values():
+        v["mean_ms"] = sum(v["ms"]) / len(v["ms"])
+    emit({"phase": "bitmap_gat_bwd_src_passes", "shape": f"layer0 H={heads} "
+          f"O={odim}", "order": "8, 4, 4, 8 heads a pass",
+          "default_nh": tbg._passes(heads, odim)[0], **out, **tag})
+    return {k: v["mean_ms"] for k, v in out.items()}
 
 
 def run_reddit(rate: float, ptxas: dict, tag: dict) -> list:
@@ -2361,12 +2460,20 @@ def run_reddit(rate: float, ptxas: dict, tag: dict) -> list:
         "bound_ms": d["layer0 H=8 O=8"]["bound_ms"],
         "bound_by": d["layer0 H=8 O=8"]["bound_by"],
         "library_ms": None,
+        "input": f"the relation's {index}, walked a row a warp; the bitmap "
+                 "is not read",
         "shape": f"GAT layer0 H=8 O=8, n={N}, E={E}, times per call; "
                  f"layer1 H=1 O=41: {d['layer1 H=1 O=41']['ms']} ms; "
                  f"plain_ms on {B3_CHECK_ROWS} rows; launches: one GAT "
                  "training step",
-    } for name, line, d in (("bitmap_gat_bwd_dst", 226, b4),
-                            ("bitmap_gat_bwd_src", 298, b5))] + [b2f]
+        "layer1": {k: d["layer1 H=1 O=41"][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "max_abs_err")},
+        **({"layer0_passes_ms": d["layer0 H=8 O=8"]["passes_timing"]}
+           if name == "bitmap_gat_bwd_src" else {}),
+    } for name, line, d, index in (("bitmap_gat_bwd_dst", 226, b4, "CSC"),
+                                   ("bitmap_gat_bwd_src", 298, b5, "CSR"))
+    ] + [b2f]
 
 
 def run_exact_bitmap_gcn(g, gp, feat, y, mask, rate: float,
@@ -2731,14 +2838,14 @@ def run_gat_edge(tag: dict) -> dict:
             "peak_memory_gib": peak}
 
 
-def edge_case_plan():
-    """The bitmap of B4's and B5's edge cases, built on the card: random
-    edges with empty rows both ways (destinations 1000..1099 receive
-    nothing, sources 20000..20099 send nothing), a full dst row 7 (25,901
-    bits, 4,096 in each full block: more than the walk's 256-entry queue,
-    so each block goes in rounds) and a full source row 9 (1,201 bits).
-    7 blocks a dst row is not a whole number of the walk's 2-block loads,
-    and neither row count is a multiple of a thread block's 8 rows."""
+def edge_case_plan(device="cuda"):
+    """The graph of B4's and B5's first edge cases (``tests/test_torch_gpu.py``
+    holds them to the same ones), built on ``device``: random edges with
+    empty rows both ways (destinations 1000..1099 receive nothing, sources
+    20000..20099 send nothing), a full dst row 7 (25,901 in-edges) and a
+    full source row 9 (1,201 out-edges); neither row count is a multiple of
+    a thread block's 4 rows. Returns its bitmap plan and its relation, whose
+    CSC and CSR the kernels walk."""
     import numpy as np
 
     import dgl_tpu_torch as dt
@@ -2755,86 +2862,143 @@ def edge_case_plan():
     dst = np.concatenate([dst[keep], np.full(all_src.size, 7), all_dst])
     flat = np.unique(dst.astype(np.int64) * EDGE_N_SRC + src)
     rel = dt.Relation.from_coo(flat % EDGE_N_SRC, flat // EDGE_N_SRC,
-                               EDGE_N_SRC, EDGE_N_DST)
-    return build_bitmap_plan(rel)
+                               EDGE_N_SRC, EDGE_N_DST, device=device)
+    return build_bitmap_plan(rel), rel
 
 
-def run_bwd_edge_cases(tag: dict) -> None:
-    """B4 and B5 at the edges of their walk (``edge_case_plan``), every
-    (nh, nf) case of their switch, against their plain versions at
-    rtol = 1e-4, atol = 1e-5 * max|ref| (B3's tolerance); rows without an
-    edge must get exact zeros. Raises on any mismatch."""
+def bwd_case(plan, heads, odim, seed, device="cuda"):
+    """B4's and B5's inputs on ``plan``'s graph from ``seed``: el, er, h
+    (bf16), the plain forward's lse, c = out . dz from an f32 dz, and dz in
+    bf16, as the backward hands them to the kernels."""
     import numpy as np
     import torch
 
     from dgl_tpu_torch.ops import bitmap_gat as tbg
 
-    plan = edge_case_plan()
+    rng = np.random.default_rng(seed)
+    t = lambda *sh: torch.from_numpy(  # noqa: E731
+        rng.normal(size=sh).astype(np.float32)).to(device)
+    n_src, n_dst = plan.num_src, plan.num_dst
+    el, er = t(n_src, heads), t(n_dst, heads)
+    h = t(n_src, heads, odim).to(torch.bfloat16)
+    out, lse = tbg.gat_fwd_plain(plan.bits[:n_dst], el, er, h, 0.2)
+    dzf = t(n_dst, heads, odim)
+    return el, er, h, lse, (out * dzf).sum(-1), dzf.to(torch.bfloat16)
+
+
+def run_bwd_edge_cases(tag: dict) -> None:
+    """B4 (over the relation's CSC) and B5 (over its CSR) at the edges of
+    their walks, every (nh, nf) case of their switch, against their plain
+    versions (over the bits) at rtol = 1e-4, atol = 1e-5 * max|ref| (B3's
+    tolerance): on ``edge_case_plan``'s graph, then B4 on
+    ``fwd_edge_case_csc``'s and B5 on ``bwd_edge_case_csr``'s (degrees 0,
+    1, 31, 32, 33, around 64, 128 and 256, 1,000 and more, a full row, sink
+    indices); rows without an edge must get exact zeros. Raises on any
+    mismatch."""
+    import torch
+
+    from dgl_tpu_torch.ops import bitmap_gat as tbg
+
+    plan, rel = edge_case_plan()
     bits, bits_t = plan.bits, plan.bits_rev
-    deg_dst = tbg._expand_bits(bits[:EDGE_N_DST])[:, :EDGE_N_SRC].sum(1)
-    deg_src = tbg._expand_bits(bits_t[:EDGE_N_SRC])[:, :EDGE_N_DST].sum(1)
+    csc, csr = (rel.csc_indptr, rel.csc_indices), (rel.csr_indptr,
+                                                    rel.csr_indices)
+    deg_dst, deg_src = rel.in_degrees().long(), rel.out_degrees().long()
     if (int(deg_dst[7]) != EDGE_N_SRC - 100 or int(deg_src[9]) != EDGE_N_DST
             - 100 or int((deg_dst == 0).sum()) != 100
             or int((deg_src == 0).sum()) != 100):
-        raise RuntimeError("the edge-case bitmap lacks its full or empty rows")
+        raise RuntimeError("the edge-case graph lacks its full or empty rows")
+    if not (torch.equal(tbg._expand_bits(bits[:EDGE_N_DST])[
+            :, :EDGE_N_SRC].sum(1).long(), deg_dst) and torch.equal(
+            tbg._expand_bits(bits_t[:EDGE_N_SRC])[:, :EDGE_N_DST].sum(
+                1).long(), deg_src)):
+        raise RuntimeError("the edge-case bitmaps and the relation differ")
     covered = {tbg._passes(h, o)[:2] for h, o in EDGE_CASES}
     if covered != SWITCH_CASES:
         raise RuntimeError(f"edge cases cover {sorted(covered)}")
-    cases = {}
-    for heads, odim in EDGE_CASES:
-        rng = np.random.default_rng(heads * 10 + odim)
-        t = lambda *sh: torch.from_numpy(  # noqa: E731
-            rng.normal(size=sh).astype(np.float32)).cuda()
-        el, er = t(EDGE_N_SRC, heads), t(EDGE_N_DST, heads)
-        h = t(EDGE_N_SRC, heads, odim).to(torch.bfloat16)
-        out, lse = tbg.gat_fwd_plain(bits[:EDGE_N_DST], el, er, h, 0.2)
-        dzf = t(EDGE_N_DST, heads, odim)
-        c, dz = (out * dzf).sum(-1), dzf.to(torch.bfloat16)
-        der = tbg.bitmap_gat_bwd_dst(bits, el, er, h, 0.2, lse, c, dz,
-                                     EDGE_N_DST)
-        dele, dh = tbg.bitmap_gat_bwd_src(bits_t, el, er, h, 0.2, lse, c, dz,
-                                          EDGE_N_SRC)
-        want = (tbg.gat_bwd_dst_plain(bits[:EDGE_N_DST], el, er, h, 0.2, lse,
-                                      c, dz),
-                *tbg.gat_bwd_src_plain(bits_t[:EDGE_N_SRC], el, er, h, 0.2,
-                                       lse, c, dz))
-        torch.cuda.synchronize()
-        label = f"H={heads} O={odim}"
+
+    def check(label, pairs, zero_rows):
         errs = {}
-        for what, a, b in zip(("der", "del", "dh"), (der, dele, dh), want):
+        for what, a, b in pairs:
             scale = max(b.abs().max().item(), 1e-30)
             errs[what] = (a - b).abs().max().item()
             if not torch.allclose(a, b, rtol=1e-4, atol=1e-5 * scale):
                 raise RuntimeError(f"B4/B5 edge case {label} ({what}): max "
                                    f"abs err {errs[what]} (max |ref| "
                                    f"{scale})")
-        if (der[deg_dst == 0].any() or dele[deg_src == 0].any()
-                or dh[deg_src == 0].any()):
+        if any(t[rows].any() for t, rows in zero_rows):
             raise RuntimeError(f"B4/B5 edge case {label}: a row without an "
                                "edge got a gradient")
+        return errs
+
+    cases = {}
+    for heads, odim in EDGE_CASES:
+        el, er, h, lse, c, dz = bwd_case(plan, heads, odim,
+                                         heads * 10 + odim)
+        der = tbg.bitmap_gat_bwd_dst(bits, *csc, el, er, h, 0.2, lse, c, dz,
+                                     EDGE_N_DST)
+        dele, dh = tbg.bitmap_gat_bwd_src(bits_t, *csr, el, er, h, 0.2, lse,
+                                          c, dz, EDGE_N_SRC)
+        want = (tbg.gat_bwd_dst_plain(bits[:EDGE_N_DST], el, er, h, 0.2, lse,
+                                      c, dz),
+                *tbg.gat_bwd_src_plain(bits_t[:EDGE_N_SRC], el, er, h, 0.2,
+                                       lse, c, dz))
+        torch.cuda.synchronize()
+        label = f"H={heads} O={odim}"
+        errs = check(label, zip(("der", "del", "dh"), (der, dele, dh), want),
+                     ((der, deg_dst == 0), (dele, deg_src == 0),
+                      (dh, deg_src == 0)))
         nh, nf = tbg._passes(heads, odim)[:2]
         cases[label] = {"nh": nh, "nf": nf, "max_abs_err": errs}
+
+    # the degree extremes: B4 on B3's graph, B5 on its transpose
+    plan_d, csc_d, deg_d = fwd_edge_case_csc()
+    plan_s, csr_s, deg_s = bwd_edge_case_csr()
+    degrees = {}
+    for heads, odim in FWD_CASES:
+        label = f"H={heads} O={odim}"
+        el, er, h, lse, c, dz = bwd_case(plan_d, heads, odim,
+                                         heads * 100 + odim)
+        der = tbg.bitmap_gat_bwd_dst(plan_d.bits, *csc_d, el, er, h, 0.2,
+                                     lse, c, dz, FWD_N_DST)
+        want = tbg.gat_bwd_dst_plain(plan_d.bits[:FWD_N_DST], el, er, h, 0.2,
+                                     lse, c, dz)
+        torch.cuda.synchronize()
+        errs = check("degrees " + label, [("der", der, want)],
+                     [(der, deg_d == 0)])
+        el, er, h, lse, c, dz = bwd_case(plan_s, heads, odim,
+                                         heads * 100 + odim + 1)
+        dele, dh = tbg.bitmap_gat_bwd_src(plan_s.bits_rev, *csr_s, el, er, h,
+                                          0.2, lse, c, dz, FWD_N_DST)
+        want = tbg.gat_bwd_src_plain(plan_s.bits_rev[:FWD_N_DST], el, er, h,
+                                     0.2, lse, c, dz)
+        torch.cuda.synchronize()
+        errs.update(check("degrees " + label,
+                          zip(("del", "dh"), (dele, dh), want),
+                          [(dele, deg_s == 0), (dh, deg_s == 0)]))
+        degrees[label] = {"nf": tbg._passes(heads, odim)[1],
+                          "max_abs_err": errs}
     emit({"phase": "bitmap_gat_bwd_edge_cases", "bitmap": repr(plan),
-          "full_rows_bits": {"dst 7": int(deg_dst[7]),
-                             "source 9": int(deg_src[9])},
+          "input": "B4 the relation's CSC, B5 its CSR; the plain versions "
+                   "the bits",
+          "full_rows": {"dst 7": int(deg_dst[7]),
+                        "source 9": int(deg_src[9])},
           "empty_rows": {"dst": 100, "source": 100},
           "tolerance": "rtol=1e-4, atol=1e-5*max|ref|", "cases": cases,
+          "degree_cases": {"degrees": list(FWD_DEGREES),
+                           "empty_rows": {"dst": int((deg_d == 0).sum()),
+                                          "source": int((deg_s == 0).sum())},
+                           "cases": degrees},
           **tag})
 
 
-def fwd_edge_case_csc(device="cuda"):
-    """The graph of B3's edge cases (``tests/test_torch_gpu.py`` holds B3 to
-    the same ones): the rows 0..16 have the in-degrees FWD_DEGREES, rows
-    1000..1099 none, the others 0..40 random ones; and its CSC with sink
-    indices (``FWD_N_SRC``, a padded edge) added: one in the middle of rows
-    20..24, a sink alone in row 25 (which has no real edge), 40 after the
-    33 real ones of row 26. Returns the bitmap plan of the real edges, the
-    CSC with sinks (int32) and the real in-degrees, all on ``device``."""
+def _degree_case_lists():
+    """The rows of the degree-extreme graphs (``fwd_edge_case_csc``,
+    ``bwd_edge_case_csr``): FWD_N_DST rows over FWD_N_SRC columns, rows
+    0..16 of the degrees FWD_DEGREES, rows 1000..1099 and 25 of none, row
+    26 of 33, the others 0..40 random ones; each row's sorted columns and
+    the degrees."""
     import numpy as np
-    import torch
-
-    import dgl_tpu_torch as dt
-    from dgl_tpu_torch.ops.bitmap_spmm import build_bitmap_plan
 
     rng = np.random.default_rng(23)
     deg = rng.integers(0, 41, FWD_N_DST)
@@ -2842,18 +3006,69 @@ def fwd_edge_case_csc(device="cuda"):
     deg[1000:1100] = 0
     deg[25], deg[26] = 0, 33
     lists = [np.sort(rng.choice(FWD_N_SRC, d, replace=False)) for d in deg]
+    return lists, deg
+
+
+def _with_sinks(lists, sink, device):
+    """The rows' index (indptr, indices; int32 on ``device``) with sink
+    columns (``sink``, a padded edge) added: one in the middle of rows
+    20..24, a sink alone in row 25 (which has no real edge), 40 after the
+    33 real ones of row 26."""
+    import numpy as np
+    import torch
+
+    lists = list(lists)
+    for d in range(20, 25):
+        lists[d] = np.insert(lists[d], len(lists[d]) // 2, sink)
+    lists[25] = np.array([sink])
+    lists[26] = np.concatenate([lists[26], np.full(40, sink)])
+    indptr = np.concatenate([[0], np.cumsum([len(x) for x in lists])])
+    return tuple(torch.from_numpy(a.astype(np.int32)).to(device)
+                 for a in (indptr, np.concatenate(lists)))
+
+
+def fwd_edge_case_csc(device="cuda"):
+    """The graph of B3's edge cases, and of B4's degree extremes
+    (``tests/test_torch_gpu.py`` holds both to the same ones): dst rows of
+    the in-degrees of ``_degree_case_lists``, and its CSC with sink indices
+    (``FWD_N_SRC``) added as ``_with_sinks`` says. Returns the bitmap plan
+    of the real edges, the CSC with sinks (int32) and the real in-degrees,
+    all on ``device``."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch.ops.bitmap_spmm import build_bitmap_plan
+
+    lists, deg = _degree_case_lists()
     src = np.concatenate(lists)
     dst = np.repeat(np.arange(FWD_N_DST), deg)
     plan = build_bitmap_plan(dt.Relation.from_coo(src, dst, FWD_N_SRC,
                                                   FWD_N_DST, device=device))
-    for d in range(20, 25):
-        lists[d] = np.insert(lists[d], len(lists[d]) // 2, FWD_N_SRC)
-    lists[25] = np.array([FWD_N_SRC])
-    lists[26] = np.concatenate([lists[26], np.full(40, FWD_N_SRC)])
-    indptr = np.concatenate([[0], np.cumsum([len(x) for x in lists])])
-    csc = tuple(torch.from_numpy(a.astype(np.int32)).to(device)
-                for a in (indptr, np.concatenate(lists)))
-    return plan, csc, torch.from_numpy(deg).to(device)
+    return (plan, _with_sinks(lists, FWD_N_SRC, device),
+            torch.from_numpy(deg).to(device))
+
+
+def bwd_edge_case_csr(device="cuda"):
+    """The graph of B5's degree extremes, ``fwd_edge_case_csc``'s
+    transpose: FWD_N_DST source rows of the out-degrees of
+    ``_degree_case_lists`` over FWD_N_SRC destinations, and its CSR with
+    sink indices (``FWD_N_SRC``) added as ``_with_sinks`` says. Returns the
+    bitmap plan of the real edges (``bits_rev`` holds the source rows), the
+    CSR with sinks (int32) and the real out-degrees, all on ``device``."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch.ops.bitmap_spmm import build_bitmap_plan
+
+    lists, deg = _degree_case_lists()
+    dst = np.concatenate(lists)
+    src = np.repeat(np.arange(FWD_N_DST), deg)
+    plan = build_bitmap_plan(dt.Relation.from_coo(src, dst, FWD_N_DST,
+                                                  FWD_N_SRC, device=device))
+    return (plan, _with_sinks(lists, FWD_N_SRC, device),
+            torch.from_numpy(deg).to(device))
 
 
 def run_fwd_edge_cases(tag: dict) -> None:

@@ -34,6 +34,36 @@ launch_counts = {"shell_prefix_sum": 0, "shell_prefix_sum_f32": 0,
                  "bitmap_gat_fwd": 0, "bitmap_gat_bwd_dst": 0,
                  "bitmap_gat_bwd_src": 0, "hub_gather": 0}
 
+_P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_float)
+# each C function's parameters (``extern "C"`` in csrc/*.cu; every one
+# returns a cudaError_t as int); tests/test_torch_kernels_abi.py holds this
+# table to the sources
+ARGTYPES = {
+    "dgl_shell_prefix_sum":
+        [_P, _I32, _I64, _I64, _P, _P, _P, _I32, _P, _P, _I64, _I32, _P],
+    "dgl_shell_prefix_gspmm":
+        [_I32, _I32, _P, _I32, _I64, _I64, _P, _I32, _I64, _I64, _P, _P, _P,
+         _P, _I32, _P, _P, _P, _I64, _I64, _I32, _P],
+    "dgl_shell_prefix_gspmm_occupancy":
+        [_I32, _I32, _I32, _I32, _I32, _I64, _I32, _P],
+    "dgl_bitmap_spmm": [_P, _I64, _I64, _P, _I32, _I64, _I64, _I64, _I32, _P,
+                        _P],
+    "dgl_bitmap_gat_fwd":
+        [_P, _P, _I64, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32,
+         _F32, _P, _P, _P],
+    "dgl_bitmap_gat_bwd_dst":
+        [_P, _P, _I64, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32,
+         _I32, _F32, _P, _P],
+    "dgl_bitmap_gat_bwd_src":
+        [_P, _P, _I64, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
+         _I32, _F32, _P, _P, _P],
+    "dgl_bitmap_gat_fwd_occupancy": [_I32, _I32, _P],
+    "dgl_bitmap_gat_bwd_dst_occupancy": [_I32, _I32, _P],
+    "dgl_bitmap_gat_bwd_src_occupancy": [_I32, _I32, _P],
+    "dgl_hub_gather": [_P, _I64, _I64, _I32, _P, _I64, _I32, _P, _I32, _P],
+}
+
 _lib = None
 _lock = threading.Lock()
 
@@ -59,31 +89,8 @@ def library() -> ctypes.CDLL:
                 is_python_module=False,
             )
             lib = ctypes.CDLL(path)
-            p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            for fn, argtypes in (
-                    (lib.dgl_shell_prefix_sum,
-                     [p, i32, i64, i64, p, p, p, i32, p, p, i64, i32, p]),
-                    (lib.dgl_shell_prefix_gspmm,
-                     [i32, i32, p, i32, i64, i64, p, i32, i64, i64, p, p, p,
-                      p, i32, p, p, p, i64, i64, i32, p]),
-                    (lib.dgl_shell_prefix_gspmm_occupancy,
-                     [i32, i32, i32, i32, i32, i64, i32, p]),
-                    (lib.dgl_bitmap_spmm,
-                     [p, i64, i64, p, i32, i64, i64, i64, i32, p, p]),
-                    (lib.dgl_bitmap_gat_fwd,
-                     [p, p, i64, p, p, p, i64, i32, i32, i32, i32, i32,
-                      i32, ctypes.c_float, p, p, p]),
-                    (lib.dgl_bitmap_gat_bwd_dst,
-                     [p, i64, i64, p, p, p, p, p, p, i64, i32, i32, i32,
-                      i32, i32, ctypes.c_float, p, p]),
-                    (lib.dgl_bitmap_gat_bwd_src,
-                     [p, i64, i64, p, p, p, p, i64, i32, i32, i32, i32, i32,
-                      i32, ctypes.c_float, p, p, p]),
-                    (lib.dgl_bitmap_gat_fwd_occupancy, [i32, i32, p]),
-                    (lib.dgl_bitmap_gat_bwd_dst_occupancy, [i32, i32, p]),
-                    (lib.dgl_bitmap_gat_bwd_src_occupancy, [i32, i32, p]),
-                    (lib.dgl_hub_gather,
-                     [p, i64, i64, i32, p, i64, i32, p, i32, p])):
+            for name, argtypes in ARGTYPES.items():
+                fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = lib

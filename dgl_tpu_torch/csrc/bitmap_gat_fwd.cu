@@ -35,11 +35,8 @@
 // features (16 bytes): a source goes to G lanes, one slot each, and K = 8 /
 // G, so every lane gathers kSteps = 8 rows of 16 bytes a chunk, 4 KB a warp.
 // The ids and el arrive through a ring in the warp's shared memory, by
-// cp.async: the ids two chunks ahead (evict-first in L2, so the 0.447 GB id
-// stream does not push h and el out), el one chunk ahead (its ids are in
-// the ring by then). Prefetched into registers instead, they would be
-// copied from buffer to buffer at the end of every chunk, and the copy
-// waits for the load: a round trip to device memory a chunk.
+// cp.async (edge_ring.cuh, which B4 and B5 share): the ids two chunks
+// ahead, evict-first in L2, el one chunk ahead.
 //
 //  1. Logits: the lane computes the NH logits of each source it owns from
 //     el in the ring. A warp max per head over the chunk raises the running
@@ -66,39 +63,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "edge_ring.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;      // rows (warps) per thread block
 constexpr int kSteps = 8;      // 16-byte gathers in flight per lane
 constexpr int kMinBlocks = 6;  // resident blocks per SM: at most 80 registers
-
-// B bytes from global src to shared dst without a register; zeros and no
-// read when !ok
-template <int B>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
-               "l"(src), "n"(B), "r"(ok ? B : 0)
-               : "memory");
-}
-// the same for 4 bytes read once: L2 evicts the line first (policy)
-__device__ __forceinline__ void cp_async_once(void* dst, const void* src,
-                                              bool ok, uint64_t policy) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile(
-      "cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2, %3;\n"
-      ::"r"(d), "l"(src), "r"(ok ? 4 : 0), "l"(policy)
-      : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N of this thread's newest groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // v[j] = the max of v[j] over the warp, on every lane, for j < NH: a
 // reduce-scatter (each step keeps half of the heads, chosen by one lane
@@ -181,127 +152,82 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks) gat_fwd_kernel(
 #pragma unroll
     for (int j = 0; j < NH; ++j)
       er_r[j] = __ldg(er + row * h_pad + head0 + j);
-    uint64_t once;  // the id stream must not push h and el out of L2
-    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(once));
     auto is_src = [n_src](int s) {
       return static_cast<unsigned>(s) < static_cast<unsigned>(n_src);
     };
-    // lane owns sources k * 32 + lane of a chunk; -1 past the row's end
-    auto fetch_ids = [&](int c0, int r) {
+    edge_ring::walk<C, NH>(
+        ids_sh[warp], el_sh[warp], indices, beg, end, el, h_pad, head0,
+        n_src, lane, [&](int c0, const int* ids, float* pw) {
+          // 1. logits of the sources this lane owns; the max rises
+          // once a chunk
+          float z[K][NH], m_new[NH];
+          unsigned ok = 0;
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int i = c0 + k * 32 + lane;
-        if (i < end)
-          cp_async_once(&ids_sh[warp][r][k * 32 + lane], indices + i, true,
-                        once);
-        else
-          ids_sh[warp][r][k * 32 + lane] = -1;
-      }
-      cp_commit();
-    };
-    auto fetch_el = [&](int r, int e) {
+          for (int k = 0; k < K; ++k) {
+            ok |= static_cast<unsigned>(is_src(ids[k * 32 + lane])) << k;
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int s = ids_sh[warp][r][k * 32 + lane];
-        const bool ok = is_src(s);
-        const float* src =
-            el + static_cast<int64_t>(ok ? s : 0) * h_pad + head0;
-        float* dst = &el_sh[warp][e][(k * 32 + lane) * NH];
-        if constexpr (NH >= 4) {
-#pragma unroll
-          for (int q = 0; q < NH; q += 4) cp_async<16>(dst + q, src + q, ok);
-        } else {
-          cp_async<4 * NH>(dst, src, ok);
-        }
-      }
-      cp_commit();
-    };
-
-    // the ring: ids two chunks ahead, el one chunk ahead
-    fetch_ids(beg, 0);
-    fetch_ids(beg + C, 1);
-    cp_wait<1>();
-    __syncwarp();
-    fetch_el(0, 0);
-    int it = 0;
-    for (int c0 = beg; c0 < end; c0 += C, ++it) {
-      const int* ids = ids_sh[warp][it % 3];
-      float* pw = el_sh[warp][it & 1];
-      fetch_ids(c0 + 2 * C, (it + 2) % 3);
-      cp_wait<1>();  // this chunk's el and the next chunk's ids are here
-      __syncwarp();
-      fetch_el((it + 1) % 3, (it + 1) & 1);
-
-      // 1. logits of the sources this lane owns; the max rises once a chunk
-      float z[K][NH], m_new[NH];
-      unsigned ok = 0;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        ok |= static_cast<unsigned>(is_src(ids[k * 32 + lane])) << k;
-#pragma unroll
-        for (int j = 0; j < NH; ++j) {
-          const float t = er_r[j] + pw[(k * 32 + lane) * NH + j];
-          z[k][j] = t > 0.f ? t : t * slope;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NH; ++j) {
-        m_new[j] = -INFINITY;
-#pragma unroll
-        for (int k = 0; k < K; ++k)
-          if (ok >> k & 1u) m_new[j] = fmaxf(m_new[j], z[k][j]);
-      }
-      warp_max_heads<NH>(m_new, lane);
-#pragma unroll
-      for (int j = 0; j < NH; ++j) m_new[j] = fmaxf(m[j], m_new[j]);
-      // p over el, in place: (source, head) at source * NH + head
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-#pragma unroll
-        for (int j = 0; j < NH; ++j)
-          pw[(k * 32 + lane) * NH + j] =
-              ok >> k & 1u ? __expf(z[k][j] - m_new[j]) : 0.f;
-      }
-      __syncwarp();
-
-      // 2. every gather of the chunk before the first FMA
-      const int n_steps = min(kSteps, (end - c0 + P - 1) / P);
-      uint4 v[kSteps];
-#pragma unroll
-      for (int t = 0; t < kSteps; ++t) {
-        const int j = t * P + lane / G;  // the source, in the chunk
-        const int s = ids[j];
-        v[t] = t < n_steps && is_src(s)
-                   ? __ldg(reinterpret_cast<const uint4*>(h_hf + s * h_stride))
-                   : make_uint4(0u, 0u, 0u, 0u);
-      }
-
-      // 3. this lane's state to the new max of its head
-      const float m_old = pick<NH>(m, hk), m_now = pick<NH>(m_new, hk);
-      const float r = m_now == -INFINITY ? 1.f : __expf(m_old - m_now);
-      sum *= r;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) acc[k] *= r;
-#pragma unroll
-      for (int j = 0; j < NH; ++j) m[j] = m_new[j];
-
-      // 4. p * h[s] over this lane's 8 features
-#pragma unroll
-      for (int t = 0; t < kSteps; ++t) {
-        if (t < n_steps) {
-          const float p = pw[(t * P + lane / G) * NH + hk];
-          sum += p;
-          const uint32_t w[4] = {v[t].x, v[t].y, v[t].z, v[t].w};
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            acc[2 * k] += p * __uint_as_float(w[k] << 16);
-            acc[2 * k + 1] += p * __uint_as_float(w[k] & 0xffff0000u);
+            for (int j = 0; j < NH; ++j) {
+              const float t = er_r[j] + pw[(k * 32 + lane) * NH + j];
+              z[k][j] = t > 0.f ? t : t * slope;
+            }
           }
-        }
-      }
-      __syncwarp();  // the ring's slots are written again
-    }
-    cp_wait<0>();  // no copy may land after the warp has left
+#pragma unroll
+          for (int j = 0; j < NH; ++j) {
+            m_new[j] = -INFINITY;
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              if (ok >> k & 1u) m_new[j] = fmaxf(m_new[j], z[k][j]);
+          }
+          warp_max_heads<NH>(m_new, lane);
+#pragma unroll
+          for (int j = 0; j < NH; ++j) m_new[j] = fmaxf(m[j], m_new[j]);
+          // p over el, in place: (source, head) at source * NH + head
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+#pragma unroll
+            for (int j = 0; j < NH; ++j)
+              pw[(k * 32 + lane) * NH + j] =
+                  ok >> k & 1u ? __expf(z[k][j] - m_new[j]) : 0.f;
+          }
+          __syncwarp();
+
+          // 2. every gather of the chunk before the first FMA
+          const int n_steps = min(kSteps, (end - c0 + P - 1) / P);
+          uint4 v[kSteps];
+#pragma unroll
+          for (int t = 0; t < kSteps; ++t) {
+            const int j = t * P + lane / G;  // the source, in the chunk
+            const int s = ids[j];
+            v[t] = t < n_steps && is_src(s)
+                       ? __ldg(reinterpret_cast<const uint4*>(
+                             h_hf + s * h_stride))
+                       : make_uint4(0u, 0u, 0u, 0u);
+          }
+
+          // 3. this lane's state to the new max of its head
+          const float m_old = pick<NH>(m, hk), m_now = pick<NH>(m_new, hk);
+          const float r = m_now == -INFINITY ? 1.f : __expf(m_old - m_now);
+          sum *= r;
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc[k] *= r;
+#pragma unroll
+          for (int j = 0; j < NH; ++j) m[j] = m_new[j];
+
+          // 4. p * h[s] over this lane's 8 features
+#pragma unroll
+          for (int t = 0; t < kSteps; ++t) {
+            if (t < n_steps) {
+              const float p = pw[(t * P + lane / G) * NH + hk];
+              sum += p;
+              const uint32_t w[4] = {v[t].x, v[t].y, v[t].z, v[t].w};
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                acc[2 * k] += p * __uint_as_float(w[k] << 16);
+                acc[2 * k + 1] += p * __uint_as_float(w[k] & 0xffff0000u);
+              }
+            }
+          }
+        });
   }
 
   // the lanes that share this slot hold the same max: add their states
@@ -346,27 +272,6 @@ cudaError_t launch(const void* indptr, const void* indices, int64_t n_rows,
   return cudaGetLastError();
 }
 
-// Registers, static shared bytes and local (stack and spill) bytes per
-// thread of one instantiation, its resident blocks per SM, and the gather
-// bytes an SM has in flight while all those warps gather (kSteps 16-byte
-// loads a lane), into out[0..4].
-template <typename Kernel>
-cudaError_t occupancy(Kernel kernel, int* out) {
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  if (e != cudaSuccess) return e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                    kWarps * 32, 0);
-  if (e != cudaSuccess) return e;
-  out[0] = a.numRegs;
-  out[1] = static_cast<int>(a.sharedSizeBytes);
-  out[2] = static_cast<int>(a.localSizeBytes);
-  out[3] = blocks;
-  out[4] = blocks * kWarps * 32 * kSteps * 16;
-  return cudaSuccess;
-}
-
 }  // namespace
 
 #define DGL_GAT_CASES(X)                                             \
@@ -404,9 +309,10 @@ extern "C" int dgl_bitmap_gat_fwd(const void* indptr, const void* indices,
 // thread, resident blocks per SM and gather bytes in flight per SM, into
 // out[0..4]. Returns a cudaError_t as int.
 extern "C" int dgl_bitmap_gat_fwd_occupancy(int nh, int nf, int* out) {
-#define DGL_GAT_CASE(NH, NF) \
-  if (nh == NH && nf == NF)  \
-    return static_cast<int>(occupancy(gat_fwd_kernel<NH, NF>, out));
+#define DGL_GAT_CASE(NH, NF)                      \
+  if (nh == NH && nf == NF)                       \
+    return static_cast<int>(edge_ring::occupancy( \
+        gat_fwd_kernel<NH, NF>, kWarps * 32, kSteps, out));
   DGL_GAT_CASES(DGL_GAT_CASE)
 #undef DGL_GAT_CASE
   return static_cast<int>(cudaErrorInvalidValue);

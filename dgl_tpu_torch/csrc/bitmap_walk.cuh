@@ -1,9 +1,7 @@
 // One warp walks the set bits of one row of a plane-packed adjacency bitmap
-// (dgl_tpu_torch/ops/bitmap_spmm.py): the shared front end of the kernels
-// that read the bitmap, one walk (walk_row) for its three users: the SpMM
-// B2 (bitmap_spmm.cu) and the GAT backward B4 and B5
-// (bitmap_gat_bwd_dst.cu, bitmap_gat_bwd_src.cu). The GAT forward B3
-// (bitmap_gat_fwd.cu) walks the relation's CSC instead.
+// (dgl_tpu_torch/ops/bitmap_spmm.py): the front end of the one kernel that
+// reads the bitmap, the SpMM B2 (bitmap_spmm.cu). The GAT kernels B3, B4
+// and B5 walk the relation's CSC or CSR instead (edge_ring.cuh).
 //
 // Layout: a row holds n_blocks blocks of 512 bytes (4096 sources each);
 // within a block, byte b carries bit j for source block*4096 + j*512 + b.
@@ -106,28 +104,6 @@ __device__ __forceinline__ void walk_row(const uint8_t* __restrict__ brow,
     }
   }
   drain();
-}
-
-// Registers, static shared bytes and local (stack and spill) bytes per
-// thread of a walk_row kernel launched with `threads` threads a block and U
-// = `unroll`, its resident blocks per SM, and the bitmap bytes an SM has in
-// flight while all those warps load (U 16-byte loads a lane), into
-// out[0..4].
-template <typename Kernel>
-cudaError_t walk_occupancy(Kernel kernel, int threads, int unroll, int* out) {
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  if (e != cudaSuccess) return e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
-                                                    0);
-  if (e != cudaSuccess) return e;
-  out[0] = a.numRegs;
-  out[1] = static_cast<int>(a.sharedSizeBytes);
-  out[2] = static_cast<int>(a.localSizeBytes);
-  out[3] = blocks;
-  out[4] = blocks * threads * unroll * 16;
-  return cudaSuccess;
 }
 
 }  // namespace bitmap_walk

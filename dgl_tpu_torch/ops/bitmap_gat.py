@@ -24,14 +24,18 @@ bf16, as the reference's TPU path hands it to its kernels
 (``dgl_tpu/ops/bitmap_gat.py:455,468``):
 
 - :func:`bitmap_gat_bwd_dst` (kernel B4, ``csrc/bitmap_gat_bwd_dst.cu``),
-  dst-major over ``bits``: ``der[d] = dz[d] . (B @ h)[d] - c[d] rowsum(B)[d]``;
+  dst-major: ``der[d] = dz[d] . (B @ h)[d] - c[d] rowsum(B)[d]``, one warp
+  a dst row walking its in-edges from the relation's CSC, as B3 does;
 - :func:`bitmap_gat_bwd_src` (kernel B5, ``csrc/bitmap_gat_bwd_src.cu``),
-  src-major over the transpose bitmap: ``dh[s] = (alpha^T dz)[s]`` and
-  ``del[s] = h[s] . (B^T dz)[s] - (B^T c)[s]``.
+  src-major: ``dh[s] = (alpha^T dz)[s]`` and ``del[s] = h[s] . (B^T dz)[s]
+  - (B^T c)[s]``, one warp a source row walking its out-edges from the
+  relation's CSR (``csr_indptr`` / ``csr_indices``), which name the pairs
+  of the transpose bitmap.
 
 Their plain versions :func:`gat_bwd_dst_plain` and :func:`gat_bwd_src_plain`
 compute the reference's ``_gat_xla_bwd`` (``dz`` and ``h`` taken as f32 of
-their bf16 values, everything else f32) on any subset of bitmap rows.
+their bf16 values, everything else f32) over the bits, on any subset of
+bitmap rows.
 """
 from __future__ import annotations
 
@@ -189,38 +193,56 @@ def bitmap_gat_fwd(bits, indptr, indices, el, er, h, slope, n_rows=None):
     return _launch(indptr, indices, el, er, h, float(slope), n_rows)
 
 
-def bitmap_gat_bwd_dst(bits, el, er, h, slope, lse, c, dz, n_rows=None):
-    """Kernel B4: ``der`` (n_rows, H) f32 over the first ``n_rows`` dst rows
-    of ``bits``. ``el`` (n_src, H) f32, ``h`` (n_src, H, O) bf16; ``er``,
-    ``lse``, ``c`` (>= n_rows, H) f32; ``dz`` (>= n_rows, H, O) bf16.
+def bitmap_gat_bwd_dst(bits, indptr, indices, el, er, h, slope, lse, c, dz,
+                       n_rows=None):
+    """Kernel B4: ``der`` (n_rows, H) f32 over the first ``n_rows`` dst rows.
+    Their in-edges are named by the plan's ``bits``, which the plain version
+    reads, and by the relation's CSC, ``indptr`` (n_rows + 1,) and
+    ``indices``, both int32, which the kernel reads (an index outside
+    [0, n_src) is skipped). ``el`` (n_src, H) f32, ``h`` (n_src, H, O) bf16;
+    ``er``, ``lse``, ``c`` (>= n_rows, H) f32; ``dz`` (>= n_rows, H, O) bf16.
 
-    A CUDA ``h`` runs the kernel; a CPU ``h`` runs the plain version."""
+    A CUDA ``h`` runs the kernel; a CPU ``h`` runs the plain version, for
+    which the CSC may be None."""
     n_rows = bits.shape[0] if n_rows is None else int(n_rows)
+    n_src = h.shape[0]
+    _check_bwd("CSC", bits, indptr, indices, el, h, dz,
+               (("er", er, n_rows), ("lse", lse, n_rows), ("c", c, n_rows)),
+               n_rows, n_src)
+    if el.shape[0] != n_src or dz.shape[0] < n_rows:
+        raise ValueError("el must have h's rows and dz >= n_rows")
     if h.device.type == "cpu":
         return gat_bwd_dst_plain(bits[:n_rows], el, er[:n_rows], h, slope,
                                  lse[:n_rows], c[:n_rows], dz[:n_rows])
-    if not h.is_cuda:
-        raise ValueError(f"bitmap_gat_bwd_dst: unsupported device {h.device}")
-    return _launch_bwd_dst(bits, el, er, h, float(slope), lse, c, dz, n_rows)
+    return _launch_bwd_dst(indptr, indices, el, er, h, float(slope), lse, c,
+                           dz, n_rows)
 
 
-def bitmap_gat_bwd_src(bits_t, el, er, h, slope, lse, c, dz, n_rows=None):
+def bitmap_gat_bwd_src(bits_t, indptr, indices, el, er, h, slope, lse, c, dz,
+                       n_rows=None):
     """Kernel B5: ``del`` (n_rows, H) and ``dh`` (n_rows, H, O), f32, over
-    the first ``n_rows`` source rows of the transpose bitmap ``bits_t``.
+    the first ``n_rows`` source rows. Their out-edges are named by the
+    transpose bitmap ``bits_t``, which the plain version reads, and by the
+    relation's CSR, ``indptr`` (n_rows + 1,) and ``indices``, both int32,
+    which the kernel reads (an index outside [0, n_dst) is skipped).
     ``el`` (>= n_rows, H) f32 and ``h`` (>= n_rows, H, O) bf16 per source;
     ``dz`` (n_dst, H, O) bf16 and ``er``, ``lse``, ``c`` (>= n_dst, H) f32
     per destination, n_dst <= 8 * bits_t.shape[1].
 
-    A CUDA ``h`` runs the kernel; a CPU ``h`` runs the plain version."""
+    A CUDA ``h`` runs the kernel; a CPU ``h`` runs the plain version, for
+    which the CSR may be None."""
     n_rows = bits_t.shape[0] if n_rows is None else int(n_rows)
     n_dst = dz.shape[0]
+    _check_bwd("CSR", bits_t, indptr, indices, el, h, dz,
+               (("er", er, n_dst), ("lse", lse, n_dst), ("c", c, n_dst)),
+               n_rows, n_dst)
+    if el.shape[0] < n_rows or h.shape[0] < n_rows:
+        raise ValueError("el and h must have >= n_rows rows")
     if h.device.type == "cpu":
         return gat_bwd_src_plain(bits_t[:n_rows], el[:n_rows], er, h[:n_rows],
                                  slope, lse, c, dz)
-    if not h.is_cuda:
-        raise ValueError(f"bitmap_gat_bwd_src: unsupported device {h.device}")
-    return _launch_bwd_src(bits_t, el, er, h, float(slope), lse, c, dz,
-                           n_rows)
+    return _launch_bwd_src(indptr, indices, el, er, h, float(slope), lse, c,
+                           dz, n_rows)
 
 
 def _pow2_at_least(n):
@@ -293,19 +315,23 @@ def _launch(indptr, indices, el, er, h, slope, n_rows, nf=None):
     return out, lse
 
 
-def _passes(heads, odim, nf=None):
+def _passes(heads, odim, nf=None, nh=None):
     """A pass holds nh heads x nf features per source (nh * nf <= 64), 8
     features a lane; heads and features pad to whole passes. ``nf`` by
-    default: the least of 8, 16, 32, 64 that holds ``odim``, so the fewest
-    passes, which every kernel runs (a B3 pass re-reads the ids and el and
-    repeats every edge's logits: H=1, O=41 as three passes of 16 features
-    measured slower than one of 64 on the H100, PERF.md). Returns
-    (nh, nf, h_pad, o_pad)."""
+    default: the least of 8, 16, 32, 64 that holds ``odim``, and ``nh`` the
+    most heads such a pass holds, so the fewest passes, which every kernel
+    runs (a B3 pass re-reads the ids and el and repeats every edge's
+    logits: H=1, O=41 as three passes of 16 features measured slower than
+    one of 64 on the H100, PERF.md). Returns (nh, nf, h_pad, o_pad)."""
     if nf is None:
         nf = next((f for f in (8, 16, 32) if odim <= f), 64)
     if nf not in (8, 16, 32, 64):
         raise ValueError(f"nf must be 8, 16, 32 or 64, got {nf}")
-    nh = min(64 // nf, _pow2_at_least(heads))
+    if nh is None:
+        nh = min(64 // nf, _pow2_at_least(heads))
+    elif nh not in (1, 2, 4, 8) or nh * nf > 64:
+        raise ValueError(f"nh must be 1, 2, 4 or 8 with nh * nf <= 64, "
+                         f"got nh={nh}, nf={nf}")
     return nh, nf, -(-heads // nh) * nh, -(-odim // nf) * nf
 
 
@@ -346,13 +372,16 @@ def _pad_features(x, h_pad, o_pad):
     return _aligned(x)
 
 
-def _check_bwd(bits, el, h, dz, row_ops, n_rows, n_cols):
-    """Common argument checks of B4 and B5: ``n_cols`` are the bitmap's
-    column entities, ``row_ops`` the f32 (>= n, H) operands with their
-    least row count."""
+def _check_bwd(index, bits, indptr, indices, el, h, dz, row_ops, n_rows,
+               n_cols):
+    """Argument checks of B4 (``index="CSC"``) and B5 (``"CSR"``) and their
+    plain versions; raises ValueError. ``n_cols``: the bitmap's column
+    entities; ``row_ops``: the f32 (>= n, H) operands with their least row
+    count. The relation's index is the kernel's input: a CUDA ``h`` needs
+    it, int32 on its device (int64 ids are refused, not converted)."""
     dev = h.device
-    if bits.dtype != torch.uint8 or bits.dim() != 2 or bits.device != dev:
-        raise ValueError("bits must be a 2-D uint8 bitmap on h's device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"bitmap GAT backward: unsupported device {dev}")
     if h.dtype != torch.bfloat16 or h.dim() != 3:
         raise ValueError(f"h must be 3-D bf16, got {h.dtype} "
                          f"{tuple(h.shape)}")
@@ -364,20 +393,29 @@ def _check_bwd(bits, el, h, dz, row_ops, n_rows, n_cols):
         if (t.dtype != torch.float32 or t.device != dev or t.dim() != 2
                 or t.shape[1] != heads or t.shape[0] < n):
             raise ValueError(f"{name} must be (>= {n}, H) f32 on h's device")
+    if bits.dtype != torch.uint8 or bits.dim() != 2 or bits.device != dev:
+        raise ValueError("bits must be a 2-D uint8 bitmap on h's device")
     n_bits_rows, W = bits.shape
     if W % 512 or n_rows > n_bits_rows or n_cols > W * 8:
         raise ValueError(f"bitmap {tuple(bits.shape)} does not fit "
                          f"n_rows={n_rows} and {n_cols} columns")
-    return heads, odim
+    if indptr is None and indices is None and dev.type == "cpu":
+        return
+    for name, t in (("indptr", indptr), ("indices", indices)):
+        if (not isinstance(t, torch.Tensor) or t.dtype != torch.int32
+                or t.dim() != 1 or t.device != dev):
+            raise ValueError(f"{name} must be a 1-D int32 tensor on h's "
+                             f"device: the relation's {index}")
+    if indptr.numel() != n_rows + 1:
+        raise ValueError(f"indptr has {indptr.numel()} entries, not "
+                         f"n_rows + 1 = {n_rows + 1}")
+    if indices.numel() + 4096 >= 2 ** 31:
+        raise ValueError("more than 2^31 - 4096 edges: ids are int32")
 
 
-def _launch_bwd_dst(bits, el, er, h, slope, lse, c, dz, n_rows):
-    n_src = h.shape[0]
-    heads, odim = _check_bwd(bits, el, h, dz,
-                             (("er", er, n_rows), ("lse", lse, n_rows),
-                              ("c", c, n_rows)), n_rows, n_src)
-    if el.shape[0] != n_src or dz.shape[0] < n_rows:
-        raise ValueError("el must have h's rows and dz >= n_rows")
+def _launch_bwd_dst(indptr, indices, el, er, h, slope, lse, c, dz, n_rows):
+    """B4 on checked inputs, the fewest passes."""
+    n_src, heads, odim = h.shape
     dev = h.device
     der = torch.empty((n_rows, heads), dtype=torch.float32, device=dev)
     if n_rows == 0 or heads == 0 or odim == 0:
@@ -388,12 +426,12 @@ def _launch_bwd_dst(bits, el, er, h, slope, lse, c, dz, n_rows):
                   for t in (er, _lse_guard(lse[:n_rows]), c))
     h = _pad_features(h, h_pad, o_pad)
     dz = _pad_features(dz[:n_rows], h_pad, o_pad)
-    bits = bits.contiguous()
+    indptr, indices = indptr.contiguous(), indices.contiguous()
     lib = _kernels.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.dgl_bitmap_gat_bwd_dst(
-            bits.data_ptr(), n_rows, bits.shape[1], el.data_ptr(),
+            indptr.data_ptr(), indices.data_ptr(), n_rows, el.data_ptr(),
             er.data_ptr(), lse.data_ptr(), c.data_ptr(), h.data_ptr(),
             dz.data_ptr(), n_src, heads, h_pad, o_pad, nh, nf, slope,
             der.data_ptr(), stream)
@@ -402,32 +440,31 @@ def _launch_bwd_dst(bits, el, er, h, slope, lse, c, dz, n_rows):
     return der
 
 
-def _launch_bwd_src(bits_t, el, er, h, slope, lse, c, dz, n_rows):
+def _launch_bwd_src(indptr, indices, el, er, h, slope, lse, c, dz, n_rows,
+                    nh=None):
+    """B5 on checked inputs. ``nh``: the heads per pass, the fewest
+    passes' by default (:func:`_passes`); chip_smoke.py also times others."""
     n_dst = dz.shape[0]
-    heads, odim = _check_bwd(bits_t, el, h, dz,
-                             (("er", er, n_dst), ("lse", lse, n_dst),
-                              ("c", c, n_dst)), n_rows, n_dst)
-    if el.shape[0] < n_rows or h.shape[0] < n_rows:
-        raise ValueError("el and h must have >= n_rows rows")
+    heads, odim = h.shape[1], h.shape[2]
     dev = h.device
     dele = torch.empty((n_rows, heads), dtype=torch.float32, device=dev)
     dh = torch.empty((n_rows, heads, odim), dtype=torch.float32, device=dev)
     if n_rows == 0 or heads == 0 or odim == 0:
         return dele, dh
-    nh, nf, h_pad, o_pad = _passes(heads, odim)
+    nh, nf, h_pad, o_pad = _passes(heads, odim, nh=nh)
     el = _pad_heads(el[:n_rows], h_pad)
     h = _pad_features(h[:n_rows], h_pad, o_pad)
-    # the destinations' (er, lse, c) packed as one 16-byte gather per edge
+    # the destinations' (er, lse, c) packed as one 16-byte gather per pair
     ed = torch.stack([er[:n_dst], _lse_guard(lse[:n_dst]), c[:n_dst],
                       torch.zeros_like(c[:n_dst])], dim=2)
     ed = _pad_heads(ed, h_pad)
     dz = _pad_features(dz, h_pad, o_pad)
-    bits_t = bits_t.contiguous()
+    indptr, indices = indptr.contiguous(), indices.contiguous()
     lib = _kernels.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.dgl_bitmap_gat_bwd_src(
-            bits_t.data_ptr(), n_rows, bits_t.shape[1], el.data_ptr(),
+            indptr.data_ptr(), indices.data_ptr(), n_rows, el.data_ptr(),
             h.data_ptr(), ed.data_ptr(), dz.data_ptr(), n_dst, heads, odim,
             h_pad, o_pad, nh, nf, slope, dele.data_ptr(), dh.data_ptr(),
             stream)
@@ -436,26 +473,28 @@ def _launch_bwd_src(bits_t, el, er, h, slope, lse, c, dz, n_rows):
     return dele, dh
 
 
-def bwd_occupancy(name, heads, odim):
+def bwd_occupancy(name, heads, odim, nh=None):
     """What the card runs B4 (``name="bitmap_gat_bwd_dst"``) or B5
-    (``"bitmap_gat_bwd_src"``) with at ``heads`` x ``odim``: the compiled
-    kernel's registers, static shared bytes and local (stack and spill)
-    bytes per thread, its resident blocks per SM, and the bitmap bytes an SM
-    has in flight at that occupancy while all its warps load."""
-    nh, nf, _h_pad, _o_pad = _passes(heads, odim)
+    (``"bitmap_gat_bwd_src"``) with at ``heads`` x ``odim`` (B5's heads in
+    passes of ``nh``): the compiled kernel's registers, static shared bytes
+    and local (stack and spill) bytes per thread, its resident blocks per
+    SM, and the gather bytes (of h for B4, of dz for B5) an SM has in
+    flight at that occupancy while all its warps gather."""
+    nh, nf, _h_pad, _o_pad = _passes(heads, odim, nh=nh)
     out = (ctypes.c_int * 5)()
     code = getattr(_kernels.library(), f"dgl_{name}_occupancy")(
         nh, nf, ctypes.addressof(out))
     _kernels.check(code, f"{name}_occupancy")
     keys = ("registers", "static_smem_bytes", "local_bytes_per_thread",
-            "blocks_per_sm", "bitmap_bytes_in_flight_per_sm")
+            "blocks_per_sm", "gather_bytes_in_flight_per_sm")
     return {"nh": nh, "nf": nf, **dict(zip(keys, out))}
 
 
 def _prep(plan, el, er, h):
-    """The reference's operand preparation, as B4 and B5 take it: el and er
-    in f32, h in bf16, el and h padded to the bitmap's column count, er to
-    its row count."""
+    """The reference's operand preparation, as the plain versions of B4 and
+    B5 take it on the CPU: el and er in f32, h in bf16, el and h padded to
+    the bitmap's column count, er to its row count. The kernels take the
+    unpadded rows."""
     Hp, W = plan.bits.shape
     Ws = W * 8
     nheads, odim = int(el.shape[1]), int(h.shape[2])
@@ -467,7 +506,9 @@ def _prep(plan, el, er, h):
 
 class _BitmapGAT(torch.autograd.Function):
     """Bitmap-flash GAT: forward B3, backward B4 and B5 (reference
-    ``_gat_fwd`` / ``_gat_bwd``)."""
+    ``_gat_fwd`` / ``_gat_bwd``). On the card each kernel walks the
+    relation's index (B3 and B4 its CSC, B5 its CSR), so the relation is
+    kept for the backward."""
 
     @staticmethod
     def forward(ctx, el, er, h, slope, plan, rel):
@@ -478,15 +519,25 @@ class _BitmapGAT(torch.autograd.Function):
                                   h.to(torch.bfloat16), slope, plan.num_dst)
         out = out.to(h.dtype)
         ctx.save_for_backward(el, er, h, lse, out)
-        ctx.slope, ctx.plan = slope, plan
+        ctx.slope, ctx.plan, ctx.rel = slope, plan, rel
         return out
 
     @staticmethod
     def backward(ctx, dz):
-        el, er, h, lse, out = ctx.saved_tensors
-        plan, slope = ctx.plan, ctx.slope
+        # detached: the kernels' operands carry no autograd history (on the
+        # card el and er reach them uncopied)
+        el, er, h, lse, out = (t.detach() for t in ctx.saved_tensors)
+        plan, slope, rel = ctx.plan, ctx.slope, ctx.rel
         need_el, need_er, need_h = ctx.needs_input_grad[:3]
-        elp, erp, hp = _prep(plan, el, er, h)
+        if h.device.type == "cpu":
+            elp, erp, hp = _prep(plan, el, er, h)
+        else:
+            elp, erp, hp = (el.to(torch.float32), er.to(torch.float32),
+                            h.to(torch.bfloat16))
+        csc = csr = (None, None)
+        if rel is not None:
+            csc = rel.csc_indptr, rel.csc_indices
+            csr = rel.csr_indptr, rel.csr_indices
         # the kernels read only the real rows, so dz and out stay unpadded;
         # c[d, h] = out . dz from the f32 dz, then dz in bf16 for both
         # kernels (the reference's TPU path, bitmap_gat.py:447-468)
@@ -495,12 +546,13 @@ class _BitmapGAT(torch.autograd.Function):
         dzb = dzf.to(torch.bfloat16)
         d_el = d_er = d_h = None
         if need_er:
-            d_er = bitmap_gat_bwd_dst(plan.bits, elp, erp, hp, slope, lse, c,
-                                      dzb, plan.num_dst).to(er.dtype)
+            d_er = bitmap_gat_bwd_dst(plan.bits, *csc, elp, erp, hp, slope,
+                                      lse, c, dzb,
+                                      plan.num_dst).to(er.dtype)
         if need_el or need_h:
             bits_t = plan.bits if plan.bits_rev is None else plan.bits_rev
-            dele, dh = bitmap_gat_bwd_src(bits_t, elp, erp, hp, slope, lse,
-                                          c, dzb, plan.num_src)
+            dele, dh = bitmap_gat_bwd_src(bits_t, *csr, elp, erp, hp, slope,
+                                          lse, c, dzb, plan.num_src)
             d_el = dele.to(el.dtype) if need_el else None
             d_h = dh.to(h.dtype) if need_h else None
         return d_el, d_er, d_h, None, None, None
@@ -527,8 +579,8 @@ def bitmap_gat(slope, plan: BitmapPlan, el, er, h, rel=None):
     Returns (num_dst, H, O) in ``h.dtype``: ``sum_s alpha[s, d] h[s]`` with
     alpha the softmax of ``leaky(el[s] + er[d])`` over each destination's
     in-neighbours. ``rel``: the plan's relation, whose CSC the forward
-    kernel walks; on the CPU the plain version reads only the plan's bits,
-    and ``rel`` may be None there."""
+    kernel and B4 walk and whose CSR B5 walks; on the CPU the plain versions
+    read only the plan's bits, and ``rel`` may be None there."""
     if rel is not None:
         _check_plan_rel(plan, rel)
     return _BitmapGAT.apply(el, er, h, slope, plan, rel)

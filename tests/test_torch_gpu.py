@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import dgl_tpu_torch as dt
+from chip_smoke import EDGE_CASES, FWD_CASES, SWITCH_CASES
 from dgl_tpu_torch import _kernels
 from dgl_tpu_torch.models import GAT, GCN, GraphSAGE
 from dgl_tpu_torch.nn import GATConv
@@ -595,7 +596,8 @@ def test_gcn_and_gat_launch_the_kernels(card):
 
 def _symmetric_plan():
     """A symmetric relation on N_SRC nodes with nodes 4500..4599 isolated
-    and a full tile: nodes 0..31 joined to every node 0..4095."""
+    and a full tile: nodes 0..31 joined to every node 0..4095. Returns its
+    bitmap plan and the relation."""
     src, dst = _bitmap_edges(13)
     keep = ((src < 4500) | (src >= 4600)) & ((dst < 4500) | (dst >= 4600))
     src, dst = np.concatenate([src[keep], dst[keep]]), np.concatenate(
@@ -605,7 +607,7 @@ def _symmetric_plan():
                                device="cpu")
     plan = build_bitmap_plan(rel)
     assert plan.bits_rev is None
-    return plan
+    return plan, rel
 
 
 def _bwd_inputs(plan, heads, odim, seed):
@@ -620,26 +622,35 @@ def _bwd_inputs(plan, heads, odim, seed):
     return el, er, h, lse, (out * dz).sum(-1), dz.to(torch.bfloat16)
 
 
+def _index(rel, device):
+    """The relation's CSC (B4's input) and CSR (B5's) on ``device``."""
+    return ((rel.csc_indptr.to(device), rel.csc_indices.to(device)),
+            (rel.csr_indptr.to(device), rel.csr_indices.to(device)))
+
+
 @pytest.mark.parametrize("symmetric", [False, True])
 @pytest.mark.parametrize("heads,odim", [(8, 8), (1, 41), (3, 5), (2, 130)])
-def test_bitmap_gat_bwd_kernels_match_plain(card, bitmap_plans, symmetric,
-                                            heads, odim):
-    """B4 over ``bits`` and B5 over the transpose (``bits_rev``, or
-    ``bits`` itself when symmetric) against their plain versions, on the
-    card and on the CPU: rows without an edge, a full 4096-bit tile, padded
-    heads and features (3, 5) and three feature walks (2, 130). rtol = 1e-4,
-    atol = 1e-5 * max|ref|, B3's tolerance (exponentials and sums in another
-    order)."""
-    plan = _symmetric_plan() if symmetric else bitmap_plans[0]
+def test_bitmap_gat_bwd_kernels_match_plain(card, bitmap_plans, bitmap_rel,
+                                            symmetric, heads, odim):
+    """B4 over the relation's CSC and B5 over its CSR against their plain
+    versions over ``bits`` and its transpose (``bits_rev``, or ``bits``
+    itself when symmetric), on the card and on the CPU: rows without an
+    edge, a full 4096-source tile, padded heads and features (3, 5) and
+    three feature walks (2, 130). rtol = 1e-4, atol = 1e-5 * max|ref|, B3's
+    tolerance (exponentials and sums in another order)."""
+    plan, rel = _symmetric_plan() if symmetric else (bitmap_plans[0],
+                                                     bitmap_rel)
     bits_t = plan.bits if plan.bits_rev is None else plan.bits_rev
     ins = _bwd_inputs(plan, heads, odim, heads * 100 + odim)
     el, er, h, lse, c, dz = (x.to(card) for x in ins)
     n_src, n_dst = plan.num_src, plan.num_dst
     bits, bits_tc = plan.bits.to(card), bits_t.to(card)
+    csc, csr = _index(rel, card)
     before = dict(_kernels.launch_counts)
-    der = tbg.bitmap_gat_bwd_dst(bits, el, er, h, 0.2, lse, c, dz, n_dst)
-    dele, dh = tbg.bitmap_gat_bwd_src(bits_tc, el, er, h, 0.2, lse, c, dz,
-                                      n_src)
+    der = tbg.bitmap_gat_bwd_dst(bits, *csc, el, er, h, 0.2, lse, c, dz,
+                                 n_dst)
+    dele, dh = tbg.bitmap_gat_bwd_src(bits_tc, *csr, el, er, h, 0.2, lse, c,
+                                      dz, n_src)
     torch.cuda.synchronize()
     assert _kernels.launch_counts["bitmap_gat_bwd_dst"] == (
         before["bitmap_gat_bwd_dst"] + 1)
@@ -653,10 +664,10 @@ def test_bitmap_gat_bwd_kernels_match_plain(card, bitmap_plans, symmetric,
     _close(der, want_der, 1e-4)
     _close(dele, want_del, 1e-4)
     _close(dh, want_dh, 1e-4)
-    cpu_der = tbg.bitmap_gat_bwd_dst(plan.bits, *ins[:2], ins[2], 0.2,
-                                     *ins[3:], n_dst)
-    cpu_del, cpu_dh = tbg.bitmap_gat_bwd_src(bits_t, *ins[:2], ins[2], 0.2,
-                                             *ins[3:], n_src)
+    cpu_der = tbg.bitmap_gat_bwd_dst(plan.bits, None, None, *ins[:2], ins[2],
+                                     0.2, *ins[3:], n_dst)
+    cpu_del, cpu_dh = tbg.bitmap_gat_bwd_src(bits_t, None, None, *ins[:2],
+                                             ins[2], 0.2, *ins[3:], n_src)
     _close(der.cpu(), cpu_der, 1e-4)
     _close(dele.cpu(), cpu_del, 1e-4)
     _close(dh.cpu(), cpu_dh, 1e-4)
@@ -671,56 +682,34 @@ def _expand_deg(bits, n_cols):
     return unpack_host(bits.numpy())[:, :n_cols].sum(1)
 
 
-EDGE_N_SRC, EDGE_N_DST = 26_001, 1_301  # 7 and 1 bitmap blocks a row
-
-
-def _edge_case_plan():
-    """Random edges with empty rows both ways (destinations 1000..1099
-    receive nothing, sources 20000..20099 send nothing), a full dst row 7
-    (25,901 bits, 4,096 in each full block: more than the walk's 256-entry
-    queue, so each block goes in rounds) and a full source row 9 (1,201
-    bits). 7 blocks a dst row is not a whole number of the walk's 2-block
-    loads, and neither row count is a multiple of the 8 rows of a thread
-    block."""
-    rng = np.random.default_rng(17)
-    src = rng.integers(0, EDGE_N_SRC, 40000)
-    dst = rng.integers(0, EDGE_N_DST, 40000)
-    keep = (((dst < 1000) | (dst >= 1100))
-            & ((src < 20000) | (src >= 20100)))
-    all_src = np.setdiff1d(np.arange(EDGE_N_SRC), np.arange(20000, 20100))
-    all_dst = np.setdiff1d(np.arange(EDGE_N_DST), np.arange(1000, 1100))
-    src = np.concatenate([src[keep], all_src, np.full(all_dst.size, 9)])
-    dst = np.concatenate([dst[keep], np.full(all_src.size, 7), all_dst])
-    flat = np.unique(dst.astype(np.int64) * EDGE_N_SRC + src)
-    rel = dt.Relation.from_coo(flat % EDGE_N_SRC, flat // EDGE_N_SRC,
-                               EDGE_N_SRC, EDGE_N_DST, device="cpu")
-    return build_bitmap_plan(rel)
-
-
-# (heads, odim) giving each (nh, nf) case of B4's and B5's switch: (1, 8),
-# (2, 8), (4, 8), (8, 8) over two blocks of heads, (1, 16), (2, 16), (4, 16)
-# over two, (1, 32), (2, 32), (1, 64) in three feature walks
-EDGE_CASES = [(1, 5), (2, 8), (3, 7), (12, 8), (1, 16), (2, 12), (5, 16),
-              (1, 32), (3, 20), (2, 130)]
-
-
 def test_edge_cases_cover_every_switch_case():
     assert sorted(tbg._passes(h, o)[:2] for h, o in EDGE_CASES) == sorted(
+        SWITCH_CASES)
+    assert sorted(SWITCH_CASES) == sorted(
         [(1, 8), (2, 8), (4, 8), (8, 8), (1, 16), (2, 16), (4, 16), (1, 32),
          (2, 32), (1, 64)])
 
 
 @pytest.fixture(scope="module")
-def edge_case_plan():
-    return _edge_case_plan()
+def edge_case_graph():
+    from chip_smoke import edge_case_plan
+
+    return edge_case_plan("cpu")
 
 
+# (heads, odim) giving each (nh, nf) case of B4's and B5's switch: (1, 8),
+# (2, 8), (4, 8), (8, 8) over two blocks of heads, (1, 16), (2, 16), (4, 16)
+# over two, (1, 32), (2, 32), (1, 64) in three feature walks; and layer 1's
+# H = 1, O = 41
 @pytest.mark.parametrize("heads,odim", EDGE_CASES)
-def test_bitmap_gat_bwd_edge_cases(card, edge_case_plan, heads, odim):
-    """B4 and B5's walk at its edges (see ``_edge_case_plan``),
-    every (nh, nf) case of the switch, against the plain versions at
-    B3's tolerance; rows without an edge get exact zeros."""
-    plan = edge_case_plan
+def test_bitmap_gat_bwd_edge_cases(card, edge_case_graph, heads, odim):
+    """B4 and B5's walks at their edges (chip_smoke.py's
+    ``edge_case_plan``: a full row each way, empty rows both ways), every
+    (nh, nf) case of the switch, against the plain versions at B3's
+    tolerance; rows without an edge get exact zeros."""
+    from chip_smoke import EDGE_N_DST, EDGE_N_SRC
+
+    plan, rel = edge_case_graph
     deg_dst = _expand_deg(plan.bits, EDGE_N_SRC)[:EDGE_N_DST]
     deg_src = _expand_deg(plan.bits_rev, EDGE_N_DST)[:EDGE_N_SRC]
     assert deg_dst[7] == EDGE_N_SRC - 100 and deg_src[9] == EDGE_N_DST - 100
@@ -728,10 +717,11 @@ def test_bitmap_gat_bwd_edge_cases(card, edge_case_plan, heads, odim):
     el, er, h, lse, c, dz = (x.to(card) for x in _bwd_inputs(
         plan, heads, odim, heads * 10 + odim))
     bits, bits_t = plan.bits.to(card), plan.bits_rev.to(card)
-    der = tbg.bitmap_gat_bwd_dst(bits, el, er, h, 0.2, lse, c, dz,
+    csc, csr = _index(rel, card)
+    der = tbg.bitmap_gat_bwd_dst(bits, *csc, el, er, h, 0.2, lse, c, dz,
                                  EDGE_N_DST)
-    dele, dh = tbg.bitmap_gat_bwd_src(bits_t, el, er, h, 0.2, lse, c, dz,
-                                      EDGE_N_SRC)
+    dele, dh = tbg.bitmap_gat_bwd_src(bits_t, *csr, el, er, h, 0.2, lse, c,
+                                      dz, EDGE_N_SRC)
     torch.cuda.synchronize()
     _close(der, tbg.gat_bwd_dst_plain(bits[:EDGE_N_DST], el, er, h, 0.2, lse,
                                       c, dz), 1e-4)
@@ -744,22 +734,137 @@ def test_bitmap_gat_bwd_edge_cases(card, edge_case_plan, heads, odim):
     assert not dele[empty].any() and not dh[empty].any()
 
 
-def test_bitmap_gat_bwd_rejects_wrong_inputs(card, bitmap_plans):
+@pytest.mark.parametrize("heads,odim", FWD_CASES)
+def test_bitmap_gat_bwd_dst_degree_extremes(card, heads, odim):
+    """B4 over a CSC of in-degrees 0, 1, 31, 32, 33, around 64, 128 and
+    256, 1,000 and more and a full row, with sink indices to be skipped
+    (chip_smoke.py's ``fwd_edge_case_csc``, B3's edge cases), every (nh,
+    nf) case and layer 1's H = 1, O = 41, against its plain version over
+    the bits at B3's tolerance; rows without a real edge get der = 0."""
+    from chip_smoke import FWD_N_DST, fwd_edge_case_csc
+
+    plan, csc, deg = fwd_edge_case_csc(card)
+    plan = plan.to("cpu")
+    el, er, h, lse, c, dz = (x.to(card) for x in _bwd_inputs(
+        plan, heads, odim, heads * 100 + odim))
+    bits = plan.bits.to(card)
+    before = _kernels.launch_counts["bitmap_gat_bwd_dst"]
+    der = tbg.bitmap_gat_bwd_dst(bits, *csc, el, er, h, 0.2, lse, c, dz,
+                                 FWD_N_DST)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["bitmap_gat_bwd_dst"] == before + 1
+    _close(der, tbg.gat_bwd_dst_plain(bits[:FWD_N_DST], el, er, h, 0.2, lse,
+                                      c, dz), 1e-4)
+    empty = deg == 0
+    assert int(empty.sum()) >= 100 and bool(empty[25])
+    assert not der[empty].any()
+
+
+@pytest.mark.parametrize("heads,odim", FWD_CASES)
+def test_bitmap_gat_bwd_src_degree_extremes(card, heads, odim):
+    """B5 over a CSR of out-degrees 0, 1, 31, 32, 33, around 64, 128 and
+    256, 1,000 and more and a full row, with sink indices to be skipped
+    (chip_smoke.py's ``bwd_edge_case_csr``, the transpose of B4's graph),
+    every (nh, nf) case and H = 1, O = 41, against its plain version over
+    the transpose bitmap at B3's tolerance; rows without a real edge get
+    del = dh = 0."""
+    from chip_smoke import FWD_N_DST, bwd_edge_case_csr
+
+    plan, csr, deg = bwd_edge_case_csr(card)
+    plan = plan.to("cpu")
+    el, er, h, lse, c, dz = (x.to(card) for x in _bwd_inputs(
+        plan, heads, odim, heads * 100 + odim + 1))
+    bits_t = plan.bits_rev.to(card)
+    before = _kernels.launch_counts["bitmap_gat_bwd_src"]
+    dele, dh = tbg.bitmap_gat_bwd_src(bits_t, *csr, el, er, h, 0.2, lse, c,
+                                      dz, FWD_N_DST)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["bitmap_gat_bwd_src"] == before + 1
+    want_del, want_dh = tbg.gat_bwd_src_plain(bits_t[:FWD_N_DST], el, er, h,
+                                              0.2, lse, c, dz)
+    _close(dele, want_del, 1e-4)
+    _close(dh, want_dh, 1e-4)
+    empty = deg == 0
+    assert int(empty.sum()) >= 100 and bool(empty[25])
+    assert not dele[empty].any() and not dh[empty].any()
+
+
+@pytest.mark.parametrize("nh", [8, 4, 2, 1])
+def test_bitmap_gat_bwd_src_head_passes(card, bitmap_plans, bitmap_rel, nh):
+    """B5 at the Reddit GAT's layer-0 shape (H = 8, O = 8) with its heads in
+    passes of ``nh`` (the private launcher; chip_smoke.py times 8 against
+    4) against its plain version at B3's tolerance."""
+    plan = bitmap_plans[0]
+    ins = _bwd_inputs(plan, 8, 8, 88)
+    el, er, h, lse, c, dz = (x.to(card) for x in ins)
+    _, csr = _index(bitmap_rel, card)
+    bits_t = plan.bits_rev.to(card)
+    tbg._check_bwd("CSR", bits_t, *csr, el, h, dz,
+                   (("er", er, N_DST), ("lse", lse, N_DST), ("c", c, N_DST)),
+                   N_SRC, N_DST)
+    dele, dh = tbg._launch_bwd_src(*csr, el, er, h, 0.2, lse, c, dz, N_SRC,
+                                   nh)
+    torch.cuda.synchronize()
+    want_del, want_dh = tbg.gat_bwd_src_plain(bits_t[:N_SRC], el, er, h, 0.2,
+                                              lse, c, dz)
+    _close(dele, want_del, 1e-4)
+    _close(dh, want_dh, 1e-4)
+
+
+def test_bitmap_gat_bwd_rejects_wrong_inputs(card, bitmap_plans, bitmap_rel):
     plan, _ = bitmap_plans
     el, er, h, lse, c, dz = (x.to(card) for x in _bwd_inputs(plan, 2, 4, 1))
-    bits = plan.bits.to(card)
+    bits, bits_t = plan.bits.to(card), plan.bits_rev.to(card)
+    csc, csr = _index(bitmap_rel, card)
     with pytest.raises(ValueError, match="bf16"):
-        tbg.bitmap_gat_bwd_dst(bits, el, er, h.float(), 0.2, lse, c, dz)
+        tbg.bitmap_gat_bwd_dst(bits, *csc, el, er, h.float(), 0.2, lse, c,
+                               dz)
     with pytest.raises(ValueError, match="dz must be"):
-        tbg.bitmap_gat_bwd_src(plan.bits_rev.to(card), el, er, h, 0.2, lse,
-                               c, dz.double())
-    for fn, b in ((tbg.bitmap_gat_bwd_dst, bits),
-                  (tbg.bitmap_gat_bwd_src, plan.bits_rev.to(card))):
+        tbg.bitmap_gat_bwd_src(bits_t, *csr, el, er, h, 0.2, lse, c,
+                               dz.double())
+    for fn, b, idx in ((tbg.bitmap_gat_bwd_dst, bits, csc),
+                       (tbg.bitmap_gat_bwd_src, bits_t, csr)):
         with pytest.raises(ValueError, match="bf16"):
-            fn(b, el, er, h, 0.2, lse, c, dz.float())
+            fn(b, *idx, el, er, h, 0.2, lse, c, dz.float())
     with pytest.raises(ValueError, match="lse must be"):
-        tbg.bitmap_gat_bwd_dst(bits, el, er, h, 0.2, lse[:10], c, dz,
+        tbg.bitmap_gat_bwd_dst(bits, *csc, el, er, h, 0.2, lse[:10], c, dz,
                                N_DST)
+    # the kernels walk the relation's index: on the card it must be there,
+    # int32 on the card (no fallback to the bits, no conversion)
+    before = dict(_kernels.launch_counts)
+    for fn, b, idx, n, what in (
+            (tbg.bitmap_gat_bwd_dst, bits, csc, N_DST, "CSC"),
+            (tbg.bitmap_gat_bwd_src, bits_t, csr, N_SRC, "CSR")):
+        for bad, match in (((None, None), "indptr must be"),
+                           ((idx[0], None), "indices must be"),
+                           ((idx[0].long(), idx[1]), "indptr must be"),
+                           ((idx[0], idx[1].long()), "indices must be"),
+                           ((idx[0].cpu(), idx[1]), "indptr must be"),
+                           ((idx[0], idx[1].cpu()), "indices must be"),
+                           ((idx[0][:-1], idx[1]), "entries")):
+            with pytest.raises(ValueError, match=match) as err:
+                fn(b, *bad, el, er, h, 0.2, lse, c, dz, n)
+            if match != "entries":
+                assert f"the relation's {what}" in str(err.value)
+    assert dict(_kernels.launch_counts) == before
+
+
+def test_bitmap_gat_backward_needs_the_relation_on_card(card, bitmap_plans,
+                                                        bitmap_rel):
+    """``bitmap_gat`` without the relation has no CSC or CSR for the card's
+    kernels: its forward raises (B3), and nothing falls back to the bits.
+    With the relation a backward launches B4 and B5 once each."""
+    plan = bitmap_plans[0].to(card)
+    el = torch.ones(N_SRC, 2, device=card, requires_grad=True)
+    er = torch.ones(N_DST, 2, device=card, requires_grad=True)
+    h = torch.ones(N_SRC, 2, 4, device=card, requires_grad=True)
+    with pytest.raises(ValueError, match="the relation's CSC"):
+        tbg.bitmap_gat(0.2, plan, el, er, h)
+    before = dict(_kernels.launch_counts)
+    tbg.bitmap_gat(0.2, plan, el, er, h, bitmap_rel.to(card)).sum().backward()
+    torch.cuda.synchronize()
+    for name in ("bitmap_gat_bwd_dst", "bitmap_gat_bwd_src"):
+        assert _kernels.launch_counts[name] == before[name] + 1
 
 
 def test_spmm_backwards_launch_b2_and_b1(card, bitmap_plans):

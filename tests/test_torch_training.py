@@ -187,7 +187,7 @@ def test_bitmap_gat_backward_hands_kernels_bf16_dz(monkeypatch):
     c_bf16 = (out.detach() * dz.to(torch.bfloat16).float()).sum(-1)
     assert not torch.equal(c_f32, c_bf16)
     for name, args in seen.items():
-        c, dz_k = args[6], args[7]
+        c, dz_k = args[8], args[9]
         assert dz_k.dtype == torch.bfloat16, name
         assert torch.equal(dz_k, dz.to(torch.bfloat16)), name
         assert c.dtype == torch.float32 and torch.equal(c, c_f32), name
@@ -209,12 +209,14 @@ def test_bitmap_gat_plain_row_subsets_and_needs_input_grad(monkeypatch):
     elp, erp, hp = tbg._prep(plan, el, er, h)
     out, lse = tbg.bitmap_gat_fwd(plan.bits, trel.csc_indptr,
                                   trel.csc_indices, elp, erp, hp, 0.2, n_dst)
-    dz = t(n_dst, heads, odim)
+    dz = t(n_dst, heads, odim).to(torch.bfloat16)  # the kernels' dz
     c = (out * dz).sum(-1)
-    der = tbg.bitmap_gat_bwd_dst(plan.bits, elp, erp, hp, 0.2, lse, c, dz,
-                                 n_dst)
-    dele, dh = tbg.bitmap_gat_bwd_src(plan.bits_rev, elp, erp, hp, 0.2, lse,
-                                      c, dz, n_src)
+    der = tbg.bitmap_gat_bwd_dst(plan.bits, trel.csc_indptr,
+                                 trel.csc_indices, elp, erp, hp, 0.2, lse, c,
+                                 dz, n_dst)
+    dele, dh = tbg.bitmap_gat_bwd_src(plan.bits_rev, trel.csr_indptr,
+                                      trel.csr_indices, elp, erp, hp, 0.2,
+                                      lse, c, dz, n_src)
     rows = torch.tensor([0, 5, 299, 580, 599])
     sub = tbg.gat_bwd_dst_plain(plan.bits[rows], elp, erp[rows], hp, 0.2,
                                 lse[rows], c[rows], dz[rows], chunk=2)
