@@ -33,6 +33,19 @@ Run it from the root of a checkout, on a machine with a CUDA card. It
     edge 0 (inf and NaN where the plain version has them), a graph without
     an edge, and 3,001 rows whose levels end at the kernel's tile edges
     (``tiles_edges``: 32 levels, a residual, rows without an in-edge);
+1d. holds B1 and B1f (``shell_prefix_sum``) against their plain version,
+    equal to the bit, on small hub plans' shells (phase
+    ``shell_prefix_sum_edge_cases``): the forward and the reverse shells
+    of 1c's graphs with every edge cold (``tiles_edges``' 32 levels, a
+    residual, rows without an in-edge, 3,001 rows that fill no whole
+    tile; the power-law graph with residuals both ways; the graph
+    relabelled by in-degree; the graph without an edge), and the 32
+    levels of ``TILE_LEVEL_ENDS`` as they are, with slots out of range
+    either way and an ``n_out`` that cuts the deeper levels; F = 1, 8, 13
+    (the scalar path), 40, 64, 128, 256 and 264 (more than 32 lanes a
+    row), bf16 and f32 tables, without a base, with one and with an
+    unaligned one (the scalar path); beside them ``ptxas -v``'s
+    registers, shared memory and spills of each instantiation;
 
 the GraphSAGE path (kernel B1, shell prefix sum):
 
@@ -48,7 +61,7 @@ the GraphSAGE path (kernel B1, shell prefix sum):
    rows to bf16);
 4. holds the kernel against its plain PyTorch version on the card, on the
    three layers' real shell inputs (F = 128, 256, 40) and at the bench
-   headline width (F = 256), at rtol = atol = 1e-5 (both sum the same f32
+   headline width (F = 256), equal to the bit (both sum the same f32
    values in the same order);
 5. times the kernel, its plain version and
    ``torch.nn.functional.embedding_bag(mode="sum")`` over the same cold
@@ -375,8 +388,8 @@ over 4 relations, 128-wide features, 349 classes; the recipe of
     ``cites`` and layer 0's ``cites`` and ``writes``), four more with
     finite, falling losses; B1 against its plain version on ``writes``
     both ways and ``affiliated_with`` forward (the step's real tables)
-    and backward (a seeded table: institution reaches no loss), at
-    rtol = atol = 1e-5, with its bound and ``embedding_bag``'s time;
+    and backward (a seeded table: institution reaches no loss), equal to
+    the bit, with its bound and ``embedding_bag``'s time;
     times, profiles and peak memory;
 21a. ``mag_rgcn_minibatch``: the same R-GCN over
      ``HeteroFixedShapeNeighborSampler`` blocks of the same graph
@@ -970,10 +983,11 @@ def kernel_bound(level_rows, n_out, n_table_rows_used, n_cold, feat,
 def check_b1(plan, reverse, xg, bags, rate) -> dict:
     """B1 against its plain version on one direction's shells (the
     forward's, or with ``reverse`` the backward's) of the bf16 table
-    ``xg``, at rtol = atol = 1e-5 (both sum the same f32 values in the
-    same order), or B1f on an f32 table, equal to the bit; its times, the
-    plain version's and ``embedding_bag``'s over the same cold edges, and
-    its bound (the table's rows at their own width)."""
+    ``xg``, or B1f on an f32 table, equal to the bit (both sum the same
+    f32 values in the same order); its times, the plain version's and
+    ``embedding_bag``'s over the same cold edges, its bound (the table's
+    rows at their own width), its share of the bound and the gather-stream
+    figure (a table row read for every cold edge)."""
     import torch
 
     from dgl_tpu_torch.ops import hub_spmm
@@ -992,11 +1006,9 @@ def check_b1(plan, reverse, xg, bags, rate) -> dict:
     torch.cuda.synchronize()
     abs_err = (got - want).abs().max().item()
     rel_err = abs_err / max(want.abs().max().item(), 1e-30)
-    exact = xg.dtype == torch.float32
-    if not (torch.equal(got, want) if exact else torch.allclose(
-            got, want, rtol=1e-5, atol=1e-5)):
-        raise RuntimeError(f"B1{'f' if exact else ''} vs plain "
-                           f"({'reverse' if reverse else 'fwd'} shells, "
+    if not torch.equal(got, want):
+        raise RuntimeError(f"B1{'f' if xg.dtype == torch.float32 else ''} vs "
+                           f"plain ({'reverse' if reverse else 'fwd'} shells, "
                            f"F={xg.shape[1]}): max abs err {abs_err}")
     lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
         bag_idx, xg, bag_off, mode="sum", include_last_offset=True)
@@ -1006,12 +1018,13 @@ def check_b1(plan, reverse, xg, bags, rate) -> dict:
     bound, bound_by, stream_ms = kernel_bound(
         level_rows, n_out, rows_used, n_cold, xg.shape[1], base is not None,
         rate, elem=xg.element_size())
+    ms = time_ms(kern, 50, hide_host=True)
     return {
         "F": xg.shape[1], "n_out": n_out, "cold_edges": n_cold,
         "table_rows_read": rows_used, "shell_levels": len(level_rows),
         "residual": base is not None, "max_abs_err": abs_err,
-        "max_rel_err": rel_err,
-        "ms": time_ms(kern, 50, hide_host=True),
+        "max_rel_err": rel_err, "tolerance": "equal",
+        "ms": ms, "share_of_bound": bound / ms,
         "ms_with_host": time_ms(kern, 50),
         "plain_ms": time_ms(lambda: shell_prefix_sum_plain(
             *args, base=base), 10, hide_host=True),
@@ -1622,8 +1635,8 @@ def run_exact_hub_plans(g, gp, x, rate: float, tag: dict) -> dict:
             with torch.inference_mode():
                 checks[label] = check_b1(plan_b, reverse, xg, bags, rate)
             emit({"phase": "kernel_vs_plain", "kernel":
-                  "shell_prefix_sum_f32", "shape": label,
-                  "tolerance": "equal", **checks[label], **tag})
+                  "shell_prefix_sum_f32", "shape": label, **checks[label],
+                  **tag})
     del rec_fwd, rec_bwd, graphs
     total_s = time.perf_counter() - t_phase
     emit({"phase": "exact_hub_plans_total", "seconds": total_s, **tag})
@@ -3465,10 +3478,19 @@ def gspmm_edge_case_plans(device="cuda"):
     ``empty``, 50 nodes and no edge (no level); ``tiles``, 3,001 nodes
     whose levels end at the kernel's tile edges (``tiles_edges``). f32
     gathers; the cases cast the tables to each type themselves."""
-    import numpy as np
-
     import dgl_tpu_torch as dt
     from dgl_tpu_torch.ops.shell_spmm import build_shell_plan
+
+    return {name: build_shell_plan(dt.graph((s, d), num_nodes=n,
+                                            device=device)._relation(),
+                                   "f32")
+            for name, (s, d, n) in edge_case_graphs().items()}
+
+
+def edge_case_graphs():
+    """The edge-case graphs of the shell kernels by name, as ``(src, dst,
+    num_nodes)`` (see ``gspmm_edge_case_plans``)."""
+    import numpy as np
 
     rng = np.random.default_rng(17)
     n = 300
@@ -3483,10 +3505,7 @@ def gspmm_edge_case_plans(device="cuda"):
     graphs["identity"] = (new[src], new[dst], n)
     graphs["empty"] = (np.zeros(0, np.int64), np.zeros(0, np.int64), 50)
     graphs["tiles"] = tiles_edges(rng)
-    return {name: build_shell_plan(dt.graph((s, d), num_nodes=n,
-                                            device=device)._relation(),
-                                   "f32")
-            for name, (s, d, n) in graphs.items()}
+    return graphs
 
 
 # (u feature shape or None, e feature shape): every broadcast gspmm hands
@@ -3595,6 +3614,117 @@ def run_gspmm_edge_cases(tag: dict) -> None:
           "nonfinite_outputs_matched": nonfinite,
           "tolerance": "exact (0.0; inf and NaN where the plain version has "
                        "them)", **tag})
+
+
+# B1's edge-case widths: the scalar path (1, 13), one to eight lanes a row,
+# 32, and more than 32 lanes a row (264: the row over two blocks)
+SUM_EDGE_FEATS = (1, 8, 13, 40, 64, 128, 256, 264)
+
+
+def sum_edge_case_layouts(device="cuda"):
+    """B1's edge-case inputs by name: ``(flat_idx, level_rows, n_out,
+    n_table)``. The forward and the reverse shells of hub plans over
+    ``edge_case_graphs`` with every edge cold (the one hub is a node
+    without out-edges): ``tiles`` (the levels of ``TILE_LEVEL_ENDS``,
+    rounded up to 8 as the plan pads them, 32 of them and a residual,
+    rows without an in-edge, 3,001 rows, which fill no whole tile),
+    ``residual`` (residuals both ways), ``identity`` and ``empty`` (no
+    level: only the base). Then ``TILE_LEVEL_ENDS``' 32 levels as they
+    are over a 2,600-row table, a tenth of the slots out of range (-1, the
+    table's size, the int32 extremes), with ``n_out`` 3,001 and 1,000 (the
+    latter cuts the deeper levels)."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch.ops.hub_spmm import build_hub_plan
+    from dgl_tpu_torch.ops.shell_prefix import flat_shell_indices
+
+    out = {}
+    for name, (src, dst, n) in edge_case_graphs().items():
+        hub = int(np.argmin(np.bincount(src, minlength=n)))
+        plan = build_hub_plan(dt.graph((src, dst), num_nodes=n,
+                                       device=device)._relation(), 1,
+                              "int8", hub_ids_override=[hub])
+        if plan.num_cold != len(src):
+            raise RuntimeError(f"{name}: the hub plan kept "
+                               f"{len(src) - plan.num_cold} hub edges")
+        for reverse in (False, True):
+            flat, rows, _lv, _res, _unrank, n_out = plan.direction(reverse)
+            n_table = plan.num_dst if reverse else plan.num_src
+            if not rows:
+                flat, rows = flat_shell_indices([], n_out, n_table)
+                flat = flat.to(device)
+            out[f"{name} {'bwd' if reverse else 'fwd'}"] = (flat, rows,
+                                                            n_out, n_table)
+    rng = np.random.default_rng(23)
+    n_table = 2600
+    idx = []
+    for m in TILE_LEVEL_ENDS:
+        v = rng.integers(0, n_table, m).astype(np.int32)
+        bad = rng.random(m) < 0.1
+        v[bad] = rng.choice(np.array([-1, n_table, -2**31, 2**31 - 1],
+                                     np.int32), int(bad.sum()))
+        idx.append(torch.from_numpy(v).to(device))
+    flat, rows = flat_shell_indices(idx, None, n_table)
+    for n_out in (3001, 1000):
+        out[f"levels n_out={n_out}"] = (flat, rows, n_out, n_table)
+    return out
+
+
+def run_shell_prefix_sum_edge_cases(ptxas: dict, tag: dict) -> None:
+    """B1 and B1f against their plain version on ``sum_edge_case_layouts``
+    at every width of ``SUM_EDGE_FEATS``, bf16 and f32 tables, without a
+    base, with one and with one that is not 16-byte aligned (the scalar
+    path). Equal to the bit: the same f32 values added in the same order.
+    Prints ``ptxas -v``'s report of each of the kernel's instantiations."""
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.ops.shell_prefix import (shell_prefix_sum,
+                                                shell_prefix_sum_plain)
+
+    t0 = time.perf_counter()
+    layouts = sum_edge_case_layouts()
+    rng = np.random.default_rng(29)
+    names = {torch.bfloat16: "shell_prefix_sum",
+             torch.float32: "shell_prefix_sum_f32"}
+    before = {n: _kernels.launch_counts[n] for n in names.values()}
+    n_cases = {n: 0 for n in names.values()}
+    for label, (flat, rows, n_out, n_table) in layouts.items():
+        for feat in SUM_EDGE_FEATS:
+            table = torch.from_numpy(rng.normal(size=(n_table, feat)).astype(
+                np.float32)).cuda()
+            full = torch.from_numpy(rng.normal(size=(n_out + 8, feat)).astype(
+                np.float32)).cuda()
+            shifted = full.reshape(-1)[1:1 + (n_out + 7) * feat].view(
+                n_out + 7, feat)
+            for dtype, name in names.items():
+                xg = table.to(dtype)
+                for base in (None, full, shifted):
+                    got = shell_prefix_sum(xg, flat, rows, n_out, base=base)
+                    want = shell_prefix_sum_plain(xg, flat, rows, n_out,
+                                                  base=base)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise RuntimeError(
+                            f"{name} edge case {label} F={feat} base="
+                            f"{'none' if base is None else base.data_ptr() % 16}"
+                            f": max abs err "
+                            f"{(got - want).abs().max().item()}")
+                    n_cases[name] += 1
+    launched = {n: _kernels.launch_counts[n] - before[n] for n in names.values()}
+    if launched != n_cases:
+        raise RuntimeError(f"{n_cases} edge cases launched the kernels "
+                           f"{launched} times")
+    emit({"phase": "shell_prefix_sum_edge_cases", "cases": n_cases,
+          "layouts": {k: {"levels": len(r), "n_out": n, "n_table": t}
+                      for k, (_f, r, n, t) in layouts.items()},
+          "feats": list(SUM_EDGE_FEATS), "tolerance": "equal",
+          "ptxas": {k: v for k, v in ptxas["shell_prefix_sum"].items()
+                    if k.startswith("sum ")},
+          "seconds": time.perf_counter() - t0, **tag})
 
 
 def zipf_loops_graph():
@@ -11464,6 +11594,7 @@ def run() -> dict:
     run_fwd_edge_cases(tag)
     run_bwd_edge_cases(tag)
     run_gspmm_edge_cases(tag)
+    run_shell_prefix_sum_edge_cases(ptxas, tag)
     kernels = run_sage(rate, tag)
     kernels += run_reddit(rate, ptxas, tag)
     kernels.append(run_hub_cache(rate, tag))

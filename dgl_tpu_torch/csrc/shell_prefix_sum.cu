@@ -37,50 +37,75 @@
 // is an explicitly rounded intrinsic, so no fused multiply-add changes a
 // bit and the kernels agree with their plain versions exactly.
 //
-// dgl_shell_prefix_sum, simple first: one thread owns VEC consecutive
-// output columns of one output row (when VEC == 8, one 16-byte load of a
-// bf16 row or two of an f32 row),
-// neighbouring threads own neighbouring chunks of the same row so a warp's
-// loads coalesce over the row, and the level walk (walk_levels) stops at
-// the first level that does not reach the row. Bytes bound it: each
-// (row, level) pair reads its index and its gathered row, and the output
-// row is written once in f32. Its rows have few levels (the hub plan's
-// cold tail: 2.4 a row on ogbn-arxiv), so the walk's latency stays hidden.
-// The f32 instantiation moves twice the row bytes and is otherwise the
-// same walk, with the same adds in the same order.
+// A row's levels are a chain of dependent loads: the level's count, the
+// slot's index, then the gathered row (and the edge value). Walked one
+// level after the other, that latency binds, not the bytes: a row that
+// reaches all 32 levels (SHELL_CAP) waits some 64 round trips to the
+// memory in a row. Both kernels were first written so, one thread a
+// chunk of VEC columns of one row; the weighted one was redesigned first
+// (7.9 levels a row in the weighted arxiv forward), the hub caller after
+// it, when its 32-level rows (the reverse shells of the arxiv backward,
+// and ogbn-mag's affiliated_with, whose 8,740 rows all have 32 levels)
+// ran at twice their stream time while its 13-level forwards ran at it
+// (PERF.md, section 6). Both now take the same shape:
+//
+// - A warp owns a tile of rw consecutive rank rows, tpr = min(F / VEC, 32)
+//   threads a row (rw = 32 / tpr: several rows share a warp at small F; a
+//   wider row is split over blockIdx.y). It takes its tile's level count
+//   by one ballot over its first row (rows are rank-ordered and the
+//   levels nested prefixes, so the first row has the most) and stages
+//   every slot of the tile's levels into its own part of shared memory
+//   (stage_tile): the runs idx[off_k + r0 .. off_k + min(r0 + rw, m_k)),
+//   several slots a lane at a time, so the tile's index loads are in
+//   flight together and each (row, level) index is read once, not once a
+//   lane. A round runs only the slots the tile has, and steps a slot's
+//   (level, row) by adds, not by a division a slot. The warps of a block
+//   do not wait for each other's slots: staging by the whole block held
+//   every warp to the slowest one's loads and measured slower.
+// - Each thread then walks its row's levels (its tile's count, or a few
+//   fewer) in groups: it issues the group's row loads first, then adds
+//   them in level order with explicitly rounded adds, so the result stays
+//   exact. Levels past the row's count issue no load and add nothing. No
+//   row's levels are split over threads: that would change the order of
+//   the sum.
+//
+// dgl_shell_prefix_sum: most of its rows are short (2.4 levels a row in
+// the arxiv forward), so besides the chain, what a warp does around its
+// loads and the registers that set how many warps an SM holds decide its
+// time. Each warp copies the level table for itself (no block-wide
+// barrier), a group runs only the levels its tile has (the same in every
+// lane), rows and columns are ints, and kSumGroup = 4 levels in flight
+// (bf16; 2 f32 rows) with kSumStage = 4 slots a lane staged at once hold
+// it to 37 registers, 6 blocks an SM. Its first version of this shape (8
+// and 8, a division a slot, a block barrier: 62 registers, 4 blocks) ran
+// the 32-level rows at their stream time but the 13-level forwards 40 %
+// slower than the simple walk; capping the registers at 32 spills
+// (b1_variants.py times these choices; PERF.md, section 6). A slot
+// outside [0, n_table) loads a zero row, which is what the plain version
+// adds there. The base is loaded first, so its latency passes while the
+// level table and the slots arrive. The f32 output is written once and
+// not read again: it is stored with the streaming hint (st.global.cs), so
+// it passes through the L2 without pushing out the table rows that later
+// levels gather again; an evict-last policy on the table's rows measured
+// slower. Bytes bind it once the chain is cut: each distinct table row
+// read, each slot's index, the base and the output.
 //
 // dgl_shell_prefix_gspmm's rows have more levels (7.9 a row in the
-// weighted arxiv forward, 22 levels), and each level is a chain of
-// dependent loads: the level's count, the slot's indices, then the node
-// row and the edge value. Walked one level after the other, that latency
-// binds it, not the bytes. Once the chain is cut, the instructions a level
-// costs and the registers that set how many warps hide the rest do: on
-// the H100 the kernel is barely faster when every slot gathers one row,
-// which takes the rows' memory traffic away (chip_smoke.py's
-// ms_every_slot_row_0; PERF.md, section 6). So:
+// weighted arxiv forward, 22 levels). Once the chain is cut, the
+// instructions a level costs and the registers that set how many warps
+// hide the rest bind it: on the H100 the kernel is barely faster when
+// every slot gathers one row, which takes the rows' memory traffic away
+// (chip_smoke.py's ms_every_slot_row_0; PERF.md, section 6). So:
 //
-// - A warp owns a tile of rw consecutive rank rows, F / VEC threads a row
-//   (rw = 32 / (F / VEC): several rows share a warp at small F; a wider
-//   row is split over blockIdx.y). At entry the block copies the level
-//   table into shared memory, its only block-wide barrier. Each warp then
-//   takes its tile's level count by one ballot over its first row (rows
-//   are rank-ordered and the levels nested prefixes, so the first row has
-//   the most) and stages every slot of the tile's levels into its own part
-//   of shared memory: the runs nidx[off_k + r0 .. off_k + min(r0 + rw,
-//   n_k)) and eidx[...], kStage slots a lane at a time, so the tile's
-//   index loads are in flight together. An operand of one value a row
-//   (kind 1: the edge weight of u_mul_e and of EdgeWeightNorm's copy_rhs)
-//   is gathered once a slot here, in place of its index, not once a lane.
-//   The warps of a block do not wait for each other: staging by the whole
-//   block (a barrier after the table and one after the slots) held every
-//   warp to the slowest one's loads and measured slower.
-// - Each thread then walks its row's levels (its tile's count, or a few
-//   fewer) in groups of kGroup levels (one in f32): it issues the group's
-//   row loads first, then builds the messages and adds them in level order
-//   with the explicit roundings, so the result stays exact. Levels past
-//   the row's count issue no load and add nothing. Two levels in flight
-//   keep the kernel at 40 registers; four or eight hold more rows in
-//   registers, fewer warps fit on an SM, and it measured slower.
+// - Its block copies the level table into shared memory at entry, the
+//   one block-wide barrier. It stages both index streams of a slot; an
+//   operand of one value a row (kind 1: the edge weight of u_mul_e and of
+//   EdgeWeightNorm's copy_rhs) is gathered once a slot while staging, in
+//   place of its index, not once a lane.
+// - It walks kGroup levels at a time (one in f32) and builds the messages
+//   between the loads and the adds. Two levels in flight keep the kernel
+//   at 40 registers; four or eight hold more rows in registers, fewer
+//   warps fit on an SM, and it measured slower.
 // - The kinds of the main path (whole lhs rows, one rhs value a row) are
 //   compiled in (FAST): no kind test in the walk, and the rhs value comes
 //   from shared memory. bf16 messages are rounded two at a time by one
@@ -89,8 +114,8 @@
 //   more pass over the f32 output. rank is a permutation, so no two
 //   threads store one element. base stays in rank order.
 //
-// No tensor cores: the work has no reuse inside a block. Offsets are
-// computed in int64.
+// No tensor cores: the work has no reuse inside a block. Offsets into
+// the tables, the indices and the output are computed in int64.
 //
 // Plain C interface, bound from Python with ctypes
 // (dgl_tpu_torch/_kernels.py); each launch returns cudaGetLastError().
@@ -101,24 +126,25 @@
 
 namespace {
 
+constexpr int kMaxLevels = 32;  // SHELL_CAP; the wrappers raise above it
+constexpr int kWarps = 8;       // warps a block, fewer where shared memory
+constexpr int kSmemCap = 48 * 1024;  // would pass this (no opt-in needed)
+// dgl_shell_prefix_sum: levels whose row loads a thread issues before it
+// adds them (bf16 rows; f32 rows take twice the registers, so half as
+// many levels), and index slots a lane stages at once (see above)
+constexpr int kSumGroup = 4;
+constexpr int kSumStage = 4;
+// dgl_shell_prefix_gspmm: slots a lane stages at once (two indices each),
+// and levels in flight (bf16; f32 half as many)
+constexpr int kStage = 4;
+constexpr int kGroup = 2;
+
 __device__ __forceinline__ float bf16_lo(uint32_t w) {
   return __uint_as_float(w << 16);
 }
 
 __device__ __forceinline__ float bf16_hi(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
-}
-
-// Calls visit(k, position in the flat index vector) for each level k that
-// reaches row r, in level order.
-template <typename Visit>
-__device__ __forceinline__ void walk_levels(
-    int64_t r, const int64_t* __restrict__ level_off,
-    const int64_t* __restrict__ level_rows, int n_levels, Visit visit) {
-  for (int k = 0; k < n_levels; ++k) {
-    if (r >= __ldg(level_rows + k)) break;
-    visit(k, __ldg(level_off + k) + r);
-  }
 }
 
 template <int VEC>
@@ -154,59 +180,235 @@ __device__ __forceinline__ void store_out(float* __restrict__ out, int64_t o,
   }
 }
 
-// Adds VEC consecutive values of a table row into acc, in order.
-template <int VEC>
-__device__ __forceinline__ void add_row(const uint16_t* __restrict__ row,
-                                        float (&acc)[VEC]) {
-  if constexpr (VEC == 8) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(row));
-    acc[0] += bf16_lo(v.x); acc[1] += bf16_hi(v.x);
-    acc[2] += bf16_lo(v.y); acc[3] += bf16_hi(v.y);
-    acc[4] += bf16_lo(v.z); acc[5] += bf16_hi(v.z);
-    acc[6] += bf16_lo(v.w); acc[7] += bf16_hi(v.w);
-  } else {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j)
-      acc[j] += __uint_as_float(static_cast<uint32_t>(__ldg(row + j)) << 16);
-  }
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float ld(const uint16_t* p) {
+  return __uint_as_float(static_cast<uint32_t>(__ldg(p)) << 16);
 }
 
-template <int VEC>
-__device__ __forceinline__ void add_row(const float* __restrict__ row,
-                                        float (&acc)[VEC]) {
-  if constexpr (VEC == 8) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(row));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(row + 4));
-    acc[0] += a.x; acc[1] += a.y; acc[2] += a.z; acc[3] += a.w;
-    acc[4] += b.x; acc[5] += b.y; acc[6] += b.z; acc[7] += b.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[j] += __ldg(row + j);
-  }
+__device__ __forceinline__ uint32_t ld_bits(const float* p) {
+  return __float_as_uint(__ldg(p));
 }
 
-// T: uint16_t (bf16 rows) or float.
+__device__ __forceinline__ uint32_t ld_bits(const uint16_t* p) {
+  return __ldg(p);
+}
+
+// One level's VEC values of a table row as loaded: bf16 two to a word (the
+// even column in the low half), f32 one; the weighted caller's kind 1
+// keeps its staged value in w[0].
 template <typename T, int VEC>
-__global__ void shell_prefix_sum_kernel(
-    const T* __restrict__ table, int64_t n_table, int64_t feat,
+struct Raw {
+  uint32_t w[(VEC * static_cast<int>(sizeof(T)) + 3) / 4];
+};
+
+// Column j of a loaded row; KIND as for the weighted caller's operands
+// (-1: read at run time as a_kind; 1: the staged value).
+template <typename T, int VEC, int KIND>
+__device__ __forceinline__ float value(const Raw<T, VEC>& v, int a_kind,
+                                       int j) {
+  if ((KIND >= 0 ? KIND : a_kind) == 1) return __uint_as_float(v.w[0]);
+  if constexpr (sizeof(T) == 2) {
+    return (j & 1) ? bf16_hi(v.w[j / 2]) : bf16_lo(v.w[j / 2]);
+  } else {
+    return __uint_as_float(v.w[j]);
+  }
+}
+
+// n / d for 0 <= n < 1,056 and 1 <= d <= 32, with inv = reciprocal(d):
+// a multiply and a shift in place of a division.
+__host__ __device__ __forceinline__ int reciprocal(int d) {
+  return (65536 + d - 1) / d;
+}
+
+__device__ __forceinline__ int div_by(int n, int inv) {
+  return (n * inv) >> 16;
+}
+
+// Stages one warp's tile: for each of its kt levels k, the slots of the
+// rows r0 + i (i < rows) that the level reaches (r0 + i < cnt[k]), NS
+// index streams of them (src[0..NS)), into slot k * rw + i of dst[j]
+// (rw_inv = reciprocal(rw)). Each lane loads up to STAGE slots (lane,
+// lane + 32, ...) before it stores any, so the tile's index loads are in
+// flight together; a round runs only as many of them as the tile has
+// slots. fix(j, v) turns stream j's index v into what is staged. The
+// caller syncs the warp after it.
+template <int NS, int STAGE, typename R, typename Fix>
+__device__ __forceinline__ void stage_tile(
+    const int32_t* const* src, uint32_t* const* dst,
+    const int64_t* s_off, const R* s_cnt, R r0, int rows, int rw,
+    int rw_inv, int kt, int lane, Fix fix) {
+  const int n_slots = kt * rw;
+  const int dk = div_by(32, rw_inv);  // 32 slots on: dk levels, di rows
+  const int di = 32 - dk * rw;
+  int k = div_by(lane, rw_inv);  // the lane's slot: level k, row i
+  int i = lane - k * rw;
+  for (int s0 = 0; s0 < n_slots; s0 += 32 * STAGE) {
+    const int n_u = (n_slots - s0 + 31) / 32;  // the same in every lane
+    uint32_t v[NS][STAGE] = {};
+    bool ok[STAGE];
+#pragma unroll
+    for (int u = 0; u < STAGE; ++u) {
+      ok[u] = false;
+      if (u < n_u) {
+        ok[u] = s0 + lane + 32 * u < n_slots && i < rows && r0 + i < s_cnt[k];
+        if (ok[u]) {
+          const int64_t p = s_off[k] + r0 + i;
+#pragma unroll
+          for (int j = 0; j < NS; ++j) v[j][u] = __ldg(src[j] + p);
+        }
+        k += dk;
+        i += di;
+        if (i >= rw) {
+          i -= rw;
+          ++k;
+        }
+      }
+    }
+    // the values first, then the stores: a store waits for its load, and
+    // would hold back the next slot's load behind it
+#pragma unroll
+    for (int u = 0; u < STAGE; ++u) {
+      if (u < n_u && ok[u]) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j) v[j][u] = fix(j, v[j][u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < STAGE; ++u) {
+      if (u < n_u && ok[u]) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j) dst[j][s0 + lane + 32 * u] = v[j][u];
+      }
+    }
+  }
+}
+
+
+// ---- the hub caller --------------------------------------------------------
+
+// VEC consecutive values of a table row.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_row(const T* __restrict__ row,
+                                         Raw<T, VEC>& v) {
+  if constexpr (VEC == 8) {
+    const uint4* q = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+    for (int h = 0; h < static_cast<int>(sizeof(T)) / 2; ++h) {
+      const uint4 x = __ldg(q + h);
+      v.w[4 * h] = x.x; v.w[4 * h + 1] = x.y;
+      v.w[4 * h + 2] = x.z; v.w[4 * h + 3] = x.w;
+    }
+  } else {
+    v.w[0] = ld_bits(row);
+  }
+}
+
+// The output row, stored with the streaming hint: written once, read by
+// no later load of this kernel.
+template <int VEC>
+__device__ __forceinline__ void store_streaming(float* __restrict__ out,
+                                                int64_t o,
+                                                const float (&acc)[VEC]) {
+  if constexpr (VEC == 8) {
+    __stcs(reinterpret_cast<float4*>(out + o),
+           make_float4(acc[0], acc[1], acc[2], acc[3]));
+    __stcs(reinterpret_cast<float4*>(out + o + 4),
+           make_float4(acc[4], acc[5], acc[6], acc[7]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) __stcs(out + o + j, acc[j]);
+  }
+}
+
+// T: uint16_t (bf16 rows) or float. One warp a tile of rw rank rows, tpr
+// threads a row (tpr_inv, rw_inv: their reciprocals). Shared memory, a
+// region a warp: the level table (static), then n_levels * rw index
+// slots, [level][row] (dynamic). A slot below n_valid = min(n_table,
+// 2^31), as unsigned, reads a row; rows, columns and counts fit an int
+// (the launch checks it).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kWarps * 32) shell_prefix_sum_kernel(
+    const T* __restrict__ table, uint32_t n_valid, int feat,
     const int32_t* __restrict__ idx, const int64_t* __restrict__ level_off,
     const int64_t* __restrict__ level_rows, int n_levels,
-    const float* __restrict__ base, float* __restrict__ out, int64_t n_out) {
-  const int64_t n_vec = feat / VEC;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n_out * n_vec) return;
-  const int64_t r = t / n_vec;
-  const int64_t c = (t - r * n_vec) * VEC;
-  const int64_t o = r * feat + c;
+    const float* __restrict__ base, float* __restrict__ out, int n_out,
+    int tpr, int rw, int tpr_inv, int rw_inv) {
+  constexpr int U = sizeof(T) == 2 ? kSumGroup : kSumGroup / 2;
+  __shared__ int64_t s_off[kWarps][kMaxLevels];
+  __shared__ int s_rows[kWarps][kMaxLevels];
+  extern __shared__ uint32_t s_slot[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r0 = (blockIdx.x * (blockDim.x >> 5) + warp) * rw;
+  if (r0 >= n_out) return;  // the whole warp
+  const int i = div_by(lane, tpr_inv);
+  const int c = (blockIdx.y * tpr + lane - i * tpr) * VEC;
+  const int r = r0 + i;
+  const bool mine = i < rw && r < n_out && c < feat;
+  const int64_t o = static_cast<int64_t>(r) * feat + c;
 
+  // the base first: its load is in flight while the levels arrive
   float acc[VEC];
-  load_base<VEC>(base, o, acc);
-  walk_levels(r, level_off, level_rows, n_levels, [&](int, int64_t p) {
-    const int64_t s = __ldg(idx + p);
-    if (s < 0 || s >= n_table) return;
-    add_row<VEC>(table + s * feat + c, acc);
-  });
-  store_out<VEC>(out, o, acc);
+  if (mine) load_base<VEC>(base, o, acc);
+  // each warp its own copy of the level table, lane k level k (counts
+  // past an int clamped: no row reaches them), so no warp waits for
+  // another
+  int64_t* w_off = s_off[warp];
+  int* w_rows = s_rows[warp];
+  int m = 0;
+  if (lane < n_levels) {
+    w_off[lane] = __ldg(level_off + lane);
+    const int64_t mk = __ldg(level_rows + lane);
+    m = mk < 0x7fffffff ? static_cast<int>(mk) : 0x7fffffff;
+    w_rows[lane] = m;
+  }
+  // the tile's levels: those that reach its first row (a prefix)
+  const int kt = __popc(__ballot_sync(0xffffffffu, r0 < m));
+  const int rows = n_out - r0 < rw ? n_out - r0 : rw;
+  uint32_t* s_idx = s_slot + warp * n_levels * rw;
+  const int32_t* const src[1] = {idx};
+  uint32_t* const dst[1] = {s_idx};
+  __syncwarp();
+  stage_tile<1, kSumStage>(src, dst, w_off, w_rows, r0, rows, rw, rw_inv,
+                           kt, lane, [](int, uint32_t v) { return v; });
+  __syncwarp();
+  if (!mine) return;
+  int kr = kt;  // the row's levels: its tile's, or a few fewer
+  while (kr > 0 && r >= w_rows[kr - 1]) --kr;
+
+  const uint32_t* my_idx = s_idx + i;
+  const T* tab = table + c;
+  // groups over the tile's levels, the same in every lane, so a group
+  // runs only the levels the tile has; each row loads and adds its own
+  for (int k0 = 0; k0 < kt; k0 += U) {
+    const int n_u = kt - k0;
+    Raw<T, VEC> v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (u < n_u && k0 + u < kr) {
+        const uint32_t s = my_idx[(k0 + u) * rw];
+        if (s < n_valid) {
+          load_row<T, VEC>(tab + static_cast<int64_t>(s) * feat, v[u]);
+        } else {
+#pragma unroll
+          for (int w = 0; w < static_cast<int>(sizeof(v[u].w) / 4); ++w) {
+            v[u].w[w] = 0u;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (u < n_u && k0 + u < kr) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          acc[j] = __fadd_rn(acc[j], value<T, VEC, 0>(v[u], 0, j));
+        }
+      }
+    }
+  }
+  store_streaming<VEC>(out, o, acc);
 }
 
 
@@ -224,28 +426,6 @@ struct Operand {
   int64_t mod;
 };
 
-constexpr int kMaxLevels = 32;  // SHELL_CAP; the wrapper raises above it
-constexpr int kWarps = 8;       // warps a block, fewer where shared memory
-constexpr int kSmemCap = 48 * 1024;  // would pass this (no opt-in needed)
-constexpr int kStage = 4;       // slots a lane stages at once
-// Levels whose loads a thread issues before it adds them (bf16; f32 rows
-// take twice the registers, so half as many levels).
-constexpr int kGroup = 2;
-
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float ld(const uint16_t* p) {
-  return __uint_as_float(static_cast<uint32_t>(__ldg(p)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld_bits(const float* p) {
-  return __float_as_uint(__ldg(p));
-}
-
-__device__ __forceinline__ uint32_t ld_bits(const uint16_t* p) {
-  return __ldg(p);
-}
-
 // What a tile stages for one slot of an operand: the gathered row's index,
 // or for kind 1 (ONE: known to be) the row's one value, in f32 bits.
 template <typename T, bool ONE>
@@ -254,13 +434,6 @@ __device__ __forceinline__ uint32_t staged(const Operand& a, int32_t row) {
   return __float_as_uint(
       ld(static_cast<const T*>(a.ptr) + static_cast<int64_t>(row) * a.mod));
 }
-
-// One level's VEC values of an operand as loaded: bf16 two to a word (the
-// even column in the low half), f32 one; kind 1 keeps the staged value.
-template <typename T, int VEC>
-struct Raw {
-  uint32_t w[(VEC * static_cast<int>(sizeof(T)) + 3) / 4];
-};
 
 // KIND: the operand's kind where the kernel is instantiated for it, -1
 // where it is read at run time (a.kind).
@@ -297,17 +470,6 @@ __device__ __forceinline__ void load_raw(const Operand& a, uint32_t slot,
     } else {
       v.w[j] = b;
     }
-  }
-}
-
-template <typename T, int VEC, int KIND>
-__device__ __forceinline__ float value(const Raw<T, VEC>& v, int a_kind,
-                                       int j) {
-  if ((KIND >= 0 ? KIND : a_kind) == 1) return __uint_as_float(v.w[0]);
-  if constexpr (sizeof(T) == 2) {
-    return (j & 1) ? bf16_hi(v.w[j / 2]) : bf16_lo(v.w[j / 2]);
-  } else {
-    return __uint_as_float(v.w[j]);
   }
 }
 
@@ -384,40 +546,15 @@ __global__ void __launch_bounds__(kWarps * 32) shell_prefix_gspmm_kernel(
   // the tile's levels: those that reach its first row (a prefix)
   const bool reaches = lane < n_levels && r0 < s_real[lane];
   const int kt = __popc(__ballot_sync(0xffffffffu, reaches));
-  const int n_slots = kt * rw;
-  for (int s0 = lane; s0 < n_slots; s0 += 32 * kStage) {
-    uint32_t a[kStage] = {}, b[kStage] = {};
-    bool ok[kStage];
-#pragma unroll
-    for (int u = 0; u < kStage; ++u) {
-      const int s = s0 + 32 * u;
-      const int k = s / rw;
-      const int i = s - k * rw;
-      ok[u] = s < n_slots && i < rows && r0 + i < s_real[k];
-      if (ok[u]) {
-        const int64_t p = s_off[k] + r0 + i;
-        if constexpr (kLhs) a[u] = __ldg(nidx + p);
-        if constexpr (kRhs) b[u] = __ldg(eidx + p);
-      }
-    }
-    // the values first, then the stores: a store waits for its load, and
-    // would hold back the next slot's load behind it
-#pragma unroll
-    for (int u = 0; u < kStage; ++u) {
-      if (ok[u]) {
-        if constexpr (kLhs) a[u] = staged<T, false>(lhs, a[u]);
-        if constexpr (kRhs) b[u] = staged<T, RK == 1>(rhs, b[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kStage; ++u) {
-      if (ok[u]) {
-        const int s = s0 + 32 * u;
-        if constexpr (kLhs) s_lhs[s] = a[u];
-        if constexpr (kRhs) s_rhs[s] = b[u];
-      }
-    }
-  }
+  // the streams the op reads: nidx for the lhs, eidx for the rhs
+  const int32_t* const src[2] = {kLhs ? nidx : eidx, eidx};
+  uint32_t* const dst[2] = {kLhs ? s_lhs : s_rhs, s_rhs};
+  stage_tile<int(kLhs) + int(kRhs), kStage>(
+      src, dst, s_off, s_real, r0, rows, rw, reciprocal(rw), kt, lane,
+      [&](int j, uint32_t v) {
+        return kLhs && j == 0 ? staged<T, false>(lhs, v)
+                              : staged<T, RK == 1>(rhs, v);
+      });
   if (rank != nullptr && lane < rows) s_rank[lane] = __ldg(rank + r0 + lane);
   __syncwarp();
 
@@ -462,8 +599,8 @@ __global__ void __launch_bounds__(kWarps * 32) shell_prefix_gspmm_kernel(
       }
     }
   }
-  const int64_t dst = rank != nullptr ? s_rank[i] : r;
-  store_out<VEC>(out, dst * feat + c, acc);
+  const int64_t dst_row = rank != nullptr ? s_rank[i] : r;
+  store_out<VEC>(out, dst_row * feat + c, acc);
 }
 
 using GspmmKernel = void (*)(Operand, Operand, const int32_t*,
@@ -507,22 +644,29 @@ GspmmKernel gspmm_kernel(int op, int bf16, int vec, int lhs_kind,
                   : kernel_of<float, 1>(op, fast);
 }
 
+// The words a weighted call stages for each row of a tile: an index (or
+// value) a level for each operand the op reads, and the row's rank.
+int gspmm_words(int op, int n_levels) {
+  const int n_ops = op == kCopyLhs || op == kCopyRhs ? 1 : 2;
+  return n_ops * n_levels + 1;
+}
+
 // The launch shape of a call: tpr = min(F / vec, 32) threads a row, rw =
 // 32 / tpr rows a warp, the row's columns over blockIdx.y, kWarps warps a
-// block or as many as keep the shared memory under kSmemCap.
+// block or as many as keep the shared memory (words 32-bit words for each
+// row of a tile) under kSmemCap.
 struct Tile {
   dim3 grid, block;
   size_t smem;
   int tpr, rw;
 };
 
-int tile_of(int op, int64_t n_out, int64_t feat, int vec, int n_levels,
-            Tile* t) {
+int tile_of(int words, int64_t n_out, int64_t feat, int vec, Tile* t) {
   const int64_t n_vec = feat / vec;
   t->tpr = static_cast<int>(n_vec < 32 ? n_vec : 32);
   t->rw = 32 / t->tpr;
-  const int n_ops = op == kCopyLhs || op == kCopyRhs ? 1 : 2;
-  const size_t per_warp = (n_ops * n_levels + 1) * t->rw * sizeof(uint32_t);
+  const size_t per_warp = static_cast<size_t>(words) * t->rw *
+                          sizeof(uint32_t);
   const int warps = static_cast<int>(
       per_warp * kWarps > kSmemCap ? kSmemCap / per_warp : kWarps);
   const int64_t rows = static_cast<int64_t>(warps) * t->rw;
@@ -537,45 +681,44 @@ int tile_of(int op, int64_t n_out, int64_t feat, int vec, int n_levels,
   return 0;
 }
 
-constexpr int kThreads = 256;
-
-int grid_of(int64_t work, unsigned* blocks) {
-  const int64_t b = (work + kThreads - 1) / kThreads;
-  if (b > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  *blocks = static_cast<unsigned>(b);
-  return 0;
-}
-
 template <typename T>
 void launch_sum(const void* table, int64_t n_table, int64_t feat,
                 const int32_t* i, const int64_t* lo, const int64_t* lr,
                 int n_levels, const float* b, float* o, int64_t n_out,
-                int vec, unsigned blocks, cudaStream_t s) {
-  const auto* t = static_cast<const T*>(table);
+                int vec, const Tile& t, cudaStream_t s) {
+  const auto* tab = static_cast<const T*>(table);
+  const auto n_valid = static_cast<uint32_t>(
+      n_table < (int64_t{1} << 31) ? n_table : int64_t{1} << 31);
+  const int f = static_cast<int>(feat), n = static_cast<int>(n_out);
+  const int ti = reciprocal(t.tpr), ri = reciprocal(t.rw);
   if (vec == 8) {
-    shell_prefix_sum_kernel<T, 8><<<blocks, kThreads, 0, s>>>(
-        t, n_table, feat, i, lo, lr, n_levels, b, o, n_out);
+    shell_prefix_sum_kernel<T, 8><<<t.grid, t.block, t.smem, s>>>(
+        tab, n_valid, f, i, lo, lr, n_levels, b, o, n, t.tpr, t.rw, ti, ri);
   } else {
-    shell_prefix_sum_kernel<T, 1><<<blocks, kThreads, 0, s>>>(
-        t, n_table, feat, i, lo, lr, n_levels, b, o, n_out);
+    shell_prefix_sum_kernel<T, 1><<<t.grid, t.block, t.smem, s>>>(
+        tab, n_valid, f, i, lo, lr, n_levels, b, o, n, t.tpr, t.rw, ti, ri);
   }
 }
 
 }  // namespace
 
-// bf16: the table's type (1 bf16, 0 f32). vec must be 8 (feat % 8 == 0 and
-// every pointer 16-byte aligned, checked by the caller) or 1. Returns a
-// cudaError_t as int; 0 means launched.
+// bf16: the table's type (1 bf16, 0 f32). level_rows holds each level's
+// row count m_k (non-increasing), n_levels <= 32. vec must be 8 (feat % 8
+// == 0 and every pointer 16-byte aligned, checked by the caller) or 1.
+// Returns a cudaError_t as int; 0 means launched.
 extern "C" int dgl_shell_prefix_sum(
     const void* table, int bf16, int64_t n_table, int64_t feat,
     const void* idx, const void* level_off, const void* level_rows,
     int n_levels, const void* base, void* out, int64_t n_out, int vec,
     void* stream) {
-  if (vec != 8 && vec != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t work = n_out * (feat / vec);
-  if (work == 0) return 0;
-  unsigned blocks = 0;
-  if (int err = grid_of(work, &blocks)) return err;
+  // rows, columns and a grid's rows fit an int in the kernel
+  if ((vec != 8 && vec != 1) || n_levels < 0 || n_levels > kMaxLevels ||
+      n_out > 0x7fffffffLL - 32 * kWarps || feat > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_out == 0 || feat / vec == 0) return 0;
+  Tile t;
+  if (int err = tile_of(n_levels, n_out, feat, vec, &t)) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* i = static_cast<const int32_t*>(idx);
   const auto* lo = static_cast<const int64_t*>(level_off);
@@ -584,10 +727,10 @@ extern "C" int dgl_shell_prefix_sum(
   auto* o = static_cast<float*>(out);
   if (bf16) {
     launch_sum<uint16_t>(table, n_table, feat, i, lo, lr, n_levels, b, o,
-                         n_out, vec, blocks, s);
+                         n_out, vec, t, s);
   } else {
     launch_sum<float>(table, n_table, feat, i, lo, lr, n_levels, b, o, n_out,
-                      vec, blocks, s);
+                      vec, t, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -615,7 +758,9 @@ extern "C" int dgl_shell_prefix_gspmm(
   }
   if (n_out == 0 || feat / vec == 0) return 0;
   Tile t;
-  if (int err = tile_of(op, n_out, feat, vec, n_levels, &t)) return err;
+  if (int err = tile_of(gspmm_words(op, n_levels), n_out, feat, vec, &t)) {
+    return err;
+  }
   kernel<<<t.grid, t.block, t.smem, static_cast<cudaStream_t>(stream)>>>(
       Operand{lhs, lhs_kind, lhs_div, lhs_mod},
       Operand{rhs, rhs_kind, rhs_div, rhs_mod},
@@ -642,7 +787,9 @@ extern "C" int dgl_shell_prefix_gspmm_occupancy(int op, int bf16, int vec,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Tile t;
-  if (int err = tile_of(op, 1, feat, vec, n_levels, &t)) return err;
+  if (int err = tile_of(gspmm_words(op, n_levels), 1, feat, vec, &t)) {
+    return err;
+  }
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, kernel);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -125,6 +125,7 @@ def shell_prefix_sum(table, flat_idx, level_rows, n_out, base=None,
     :func:`flat_shell_indices`. ``level_rows``: the ``m_k``. ``base``:
     optional (>= n_out, F) f32. ``levels``: the :func:`level_table` of
     ``level_rows`` on the table's device (built here when not given).
+    On the card at most ``SHELL_CAP`` levels, their sizes non-increasing.
     Returns (n_out, F) f32.
 
     A CUDA table runs the kernel; a CPU table runs the plain version.
@@ -149,6 +150,12 @@ def _launch(table, flat_idx, level_rows, n_out, base, levels):
                          f"{tuple(table.shape)}")
     if flat_idx.dtype != torch.int32 or flat_idx.device != dev:
         raise ValueError("flat_idx must be int32 on the table's device")
+    if len(level_rows) > SHELL_CAP:
+        raise ValueError(f"{len(level_rows)} levels: the kernel takes at "
+                         f"most SHELL_CAP = {SHELL_CAP}")
+    if any(b > a for a, b in zip(level_rows, level_rows[1:])):
+        raise ValueError("level_rows must not increase: the levels are "
+                         "nested prefixes")
     if levels is None:
         levels = level_table(level_rows, dev)
     if (levels.dtype != torch.int64 or levels.device != dev

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import dgl_tpu_torch as dt
-from chip_smoke import EDGE_CASES, FWD_CASES, SWITCH_CASES
+from chip_smoke import EDGE_CASES, FWD_CASES, SWITCH_CASES, TILE_LEVEL_ENDS
 from dgl_tpu_torch import _kernels
 from dgl_tpu_torch.models import GAT, GCN, GraphSAGE
 from dgl_tpu_torch.nn import GATConv
@@ -33,6 +33,13 @@ pytestmark = pytest.mark.gpu
 
 LEVELS = [1500, 1104, 600, 17, 8]  # non-increasing, as the shells are
 N_TABLE = 2000
+# 32 levels (SHELL_CAP) ending at the edges of the kernel's tiles of rows
+TILE_LEVELS = list(TILE_LEVEL_ENDS)
+# (F, levels): F = 13 takes the scalar path; the 32-level layout at the
+# scalar path, at six rows a warp (F = 40) and at one (F = 256)
+B1_CASES = [(40, LEVELS), (128, LEVELS), (256, LEVELS), (13, LEVELS),
+            (13, TILE_LEVELS), (40, TILE_LEVELS), (256, TILE_LEVELS)]
+B1_IDS = ["40", "128", "256", "13", "tiles-13", "tiles-40", "tiles-256"]
 
 
 @pytest.fixture
@@ -42,23 +49,31 @@ def card():
     return torch.device("cuda")
 
 
-def _shell_inputs(feat, seed):
+def _shell_inputs(feat, seed, levels=LEVELS):
+    """bf16 table, per-level indices with out-of-range slots (the table's
+    size; in the 32-level layout also -1 and the int32 extremes), and an
+    f32 base."""
     rng = np.random.default_rng(seed)
     table = torch.from_numpy(rng.normal(size=(N_TABLE, feat)).astype(
         np.float32)).to(torch.bfloat16)
-    idx = [torch.from_numpy(rng.integers(0, N_TABLE + 1, m).astype(np.int32))
-           for m in LEVELS]
-    base = torch.from_numpy(rng.normal(size=(LEVELS[0] + 8, feat)).astype(
+    idx = [rng.integers(0, N_TABLE + 1, m).astype(np.int32) for m in levels]
+    if levels is TILE_LEVELS:
+        for v in idx:
+            bad = rng.random(v.shape[0]) < 0.05
+            v[bad] = rng.choice(np.array([-1, -2**31, 2**31 - 1], np.int32),
+                                int(bad.sum()))
+    base = torch.from_numpy(rng.normal(size=(levels[0] + 8, feat)).astype(
         np.float32))
-    return table, idx, base
+    return table, [torch.from_numpy(v) for v in idx], base
 
 
 @pytest.mark.parametrize("n_out", [LEVELS[0] + 5, 1000])
-@pytest.mark.parametrize("feat", [40, 128, 256, 13])
-def test_kernel_matches_plain(card, feat, n_out):
-    """Both sum the same f32 values in the same order: rtol = atol = 1e-5.
-    F = 13 takes the scalar path; n_out = 1000 cuts the deeper levels."""
-    table, idx, base = _shell_inputs(feat, 3)
+@pytest.mark.parametrize("feat,levels", B1_CASES, ids=B1_IDS)
+def test_kernel_matches_plain(card, feat, levels, n_out):
+    """Both sum the same f32 values in the same order: equal to the bit.
+    F = 13 takes the scalar path; n_out = 1000 cuts the deeper levels (and
+    both cut the 32-level layout's first levels)."""
+    table, idx, base = _shell_inputs(feat, 3, levels)
     flat, rows = flat_shell_indices(idx, n_out, oob_index=N_TABLE)
     table_c, flat_c = table.to(card), flat.to(card)
     rows_b = base.shape[0] - 1
@@ -71,7 +86,7 @@ def test_kernel_matches_plain(card, feat, n_out):
         assert _kernels.launch_counts["shell_prefix_sum"] == before + 1
         ref = shell_prefix_sum_plain(table_c, flat_c, rows, n_out, base=b)
         assert out.shape == (n_out, feat) and out.dtype == torch.float32
-        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
         cpu = shell_prefix_sum_plain(table, flat, rows, n_out,
                                      base=None if b is None else b.cpu())
         torch.testing.assert_close(out.cpu(), cpu, rtol=1e-5, atol=1e-5)
@@ -89,6 +104,13 @@ def test_kernel_rejects_wrong_inputs(card):
                          LEVELS[0])
     with pytest.raises(ValueError, match="shorter"):
         shell_prefix_sum(table.to(card), flat[:100].to(card), rows,
+                         LEVELS[0])
+    # at most 32 levels, nested: no fallback above the kernel's level table
+    flat33 = torch.full((33 * 512,), N_TABLE, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="SHELL_CAP"):
+        shell_prefix_sum(table.to(card), flat33, [512] * 33, 512)
+    with pytest.raises(ValueError, match="increase"):
+        shell_prefix_sum(table.to(card), flat.to(card), rows[::-1],
                          LEVELS[0])
 
 
@@ -114,13 +136,14 @@ def test_hub_copy_u_sum_on_card_matches_cpu(card):
 
 
 @pytest.mark.parametrize("n_out", [LEVELS[0] + 5, 1000])
-@pytest.mark.parametrize("feat", [40, 128, 256, 13])
-def test_b1f_kernel_equals_plain(card, feat, n_out):
+@pytest.mark.parametrize("feat,levels", B1_CASES, ids=B1_IDS)
+def test_b1f_kernel_equals_plain(card, feat, levels, n_out):
     """B1f, the kernel's f32 instantiation (the hub plan's
     ``cold="shell-f32"``), adds the same f32 values in the same order as
     its plain version: equal to the bit, with and without a base, on the
-    16-byte path and the scalar one (F = 13, an unaligned base)."""
-    _table, idx, base = _shell_inputs(feat, 5)
+    16-byte path and the scalar one (F = 13, an unaligned base), over 5
+    levels and over 32 that end at the kernel's tile edges."""
+    _table, idx, base = _shell_inputs(feat, 5, levels)
     table = torch.from_numpy(np.random.default_rng(feat).normal(
         size=(N_TABLE, feat)).astype(np.float32))
     flat, rows = flat_shell_indices(idx, n_out, oob_index=N_TABLE)

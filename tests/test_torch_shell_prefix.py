@@ -27,33 +27,44 @@ from dgl_tpu_torch.ops.shell_prefix import (
 
 LEVELS = [1500, 1104, 600, 17, 8]  # non-increasing, as the shells are
 N_TABLE = 2000
+# SHELL_CAP's 32 levels, the deepest rows' case: most levels end off the
+# 8-row steps of the hub plan and off the card kernel's tiles of rows
+DEEP_LEVELS = [1300, 700, 385, 257, 256, 255, 200, 129, 128, 127, 100, 97,
+               96, 95, 60, 49, 48, 47, 33, 32, 31, 17, 16, 15, 9, 8, 7, 5, 4,
+               3, 1, 1]
+# (F, levels)
+CASES = [(40, LEVELS), (128, LEVELS), (256, LEVELS), (40, DEEP_LEVELS)]
+IDS = ["40", "128", "256", "deep-40"]
 
 
-def _shell_inputs(feat, seed):
-    """bf16 table, per-level indices with some out-of-range (zero) slots,
-    and an f32 base."""
+def _shell_inputs(feat, seed, levels=LEVELS):
+    """bf16 table, per-level indices with some out-of-range (zero) slots
+    (a tenth of the 32-level layout's), and an f32 base."""
     rng = np.random.default_rng(seed)
     table = rng.normal(size=(N_TABLE, feat)).astype(np.float32)
     table_bf = torch.from_numpy(table).to(torch.bfloat16)
-    idx = [rng.integers(0, N_TABLE + 1, m).astype(np.int32) for m in LEVELS]
-    base = rng.normal(size=(LEVELS[0] + 8, feat)).astype(np.float32)
+    idx = [rng.integers(0, N_TABLE + 1, m).astype(np.int32) for m in levels]
+    if levels is DEEP_LEVELS:
+        for v in idx:
+            v[rng.random(v.shape[0]) < 0.1] = N_TABLE
+    base = rng.normal(size=(levels[0] + 8, feat)).astype(np.float32)
     return table_bf, idx, base
 
 
 @pytest.mark.parametrize("with_base", [False, True])
-@pytest.mark.parametrize("feat", [40, 128, 256])
-def test_plain_matches_pallas_interpret(feat, with_base):
-    table_bf, idx, base = _shell_inputs(feat, feat + int(with_base))
+@pytest.mark.parametrize("feat,levels", CASES, ids=IDS)
+def test_plain_matches_pallas_interpret(feat, levels, with_base):
+    table_bf, idx, base = _shell_inputs(feat, feat + int(with_base), levels)
     _check_plain_vs_pallas(table_bf, idx, base if with_base else None)
 
 
 @pytest.mark.parametrize("with_base", [False, True])
-@pytest.mark.parametrize("feat", [40, 128, 256])
-def test_plain_matches_pallas_interpret_f32(feat, with_base):
+@pytest.mark.parametrize("feat,levels", CASES, ids=IDS)
+def test_plain_matches_pallas_interpret_f32(feat, levels, with_base):
     """B1f: the same over an f32 table, fed to the Pallas kernel as f32
     pieces (the reference's ``cold="shell-f32"``); the plain version must
     not round it."""
-    _table_bf, idx, base = _shell_inputs(feat, feat + int(with_base))
+    _table_bf, idx, base = _shell_inputs(feat, feat + int(with_base), levels)
     rng = np.random.default_rng(feat)
     table = torch.from_numpy(rng.normal(size=(N_TABLE, feat)).astype(
         np.float32))
@@ -62,7 +73,7 @@ def test_plain_matches_pallas_interpret_f32(feat, with_base):
 
 def _check_plain_vs_pallas(table, idx, b):
     feat = table.shape[1]
-    n_out = LEVELS[0] + 5  # rows past every level read the base (or 0)
+    n_out = len(idx[0]) + 5  # rows past every level read the base (or 0)
     flat_t, rows_t = flat_shell_indices(
         [torch.from_numpy(i) for i in idx], n_out, oob_index=N_TABLE)
     flat_j, rows_j = sp.flat_shell_indices(
