@@ -377,11 +377,12 @@ over 4 relations, 128-wide features, 349 classes; the recipe of
 
 21. ``with_spmm_plans(num_hubs=2048)`` (int8 hubs; no relation passes the
     bitmap or dense gate, which is checked), then the R-GCN of
-    ``examples/rgcn_hetero.py`` as user code (``hetero_rgcn``: two
-    ``HeteroGraphConv`` layers of ``GraphConv``, 128 -> 64 -> 349, OGB's
-    R-GCN widths for ogbn-mag), one counted forward (6 B1 launches:
-    layer 1 skips ``writes`` and ``affiliated_with``, whose source type
-    has no input there), held against the exact f32 path (the graph
+    ``examples/rgcn_hetero.py`` (``dgl_tpu_torch.examples.rgcn_hetero``'s
+    ``HeteroRGCN``: two ``HeteroGraphConv`` layers of ``GraphConv``,
+    128 -> 64 -> 349, OGB's R-GCN widths for ogbn-mag), one counted
+    forward (6 B1 launches: layer 1 skips ``writes`` and
+    ``affiliated_with``, whose source type has no input there), held
+    against the exact f32 path (the graph
     without plans) at rtol = 2e-2, atol = 2e-2 * max|ref|; gradients as in
     step 6; one counted step with Adam at 1e-2 and masked cross-entropy on
     the paper train split (9 launches: the backward of layer 1's
@@ -493,10 +494,11 @@ the rest of the graph utilities (B1 under SIGN, B1w under GDC):
 33. ``graph_utilities``: the dense encodings and paths at Cora's size,
     the linear utilities and module transforms on the zipf graph, the
     others on ``rand_graph(2000, 10000)``, ``laplacian_lambda_max`` over
-    256 molhiv-sized graphs and the Child-Sum Tree-LSTM of
-    ``examples/tree_lstm.py`` over ``prop_nodes_topo`` on 256 random
-    trees: each card result against the CPU's (exact, device values at
-    1e-5), timed;
+    256 molhiv-sized graphs and the Child-Sum Tree-LSTM cell of
+    ``dgl_tpu_torch.examples.tree_lstm`` on 256 random trees, by its
+    topological frontiers (a ``pull`` and an ``apply_nodes`` each) and by
+    ``prop_nodes_topo`` over the cell's UDFs (the two within 1e-5): each
+    card result against the CPU's (exact, device values at 1e-5), timed;
 
 the multilevel partitioner and the explainers (no hand kernel: every count
 must stay 0):
@@ -545,25 +547,27 @@ atol = 2e-2 * max|ref|, on the card pass's ReLU pattern; exact paths at
     phase writes, and ``AsNodePredDataset`` and ``AsLinkPredDataset`` over
     Cora: ``build_s`` on the card and the CPU, and the citation sets built
     once more from their cache (``cache_load_s``), equal to the first;
-38. ``data_citation_gcn``: ``examples/gcn_cora.py``'s recipe on each of
+38. ``data_citation_gcn``: ``examples/gcn_cora.py``'s recipe, through
+    ``dgl_tpu_torch.examples.gcn_cora``'s graph and model, on each of
     Cora, Citeseer and Pubmed (``add_self_loop(remove_self_loop(g))``,
     ``with_spmm_plans(weighted=True)``, GCN F-16-C, dropout 0.5, Adam at
     1e-2, 200 epochs): the plan each graph took (B2 on a bitmap plan, B1
     on a hub plan), ``forward_ms``, ``step_ms`` and the test accuracy
     beside the reference's calibrated landing;
-39. ``data_gat``: ``examples/fullgraph_gat_bitmap.py`` on Cora (30 epochs,
+39. ``data_gat``: ``dgl_tpu_torch.examples.fullgraph_gat_bitmap`` on Cora
+    (30 epochs,
     AdamW 5e-3, the bitmap plan forced: B3 forward, B4 and B5 backward)
-    and ``examples/gat_citeseer.py`` (200 epochs, Adam 5e-3; the dense
-    route, no kernel);
-40. ``data_reddit_gcn``: ``examples/reddit_fullgraph_gcn.py`` on
+    and ``dgl_tpu_torch.examples.gat_citeseer`` (200 epochs, Adam 5e-3;
+    the dense route, no kernel);
+40. ``data_reddit_gcn``: ``dgl_tpu_torch.examples.reddit_fullgraph_gcn`` on
     ``RedditDataset()`` (``to_simple``, self-loops, the forced bitmap
     plan, GraphConv 602-16-41, Adam at 1e-2, 30 steps: B2);
 41. ``data_ogb_fixture_gcn``: ``from_ogb("ogbn-arxiv_mid")`` on the
     checkout's OGB-layout fixture and ``tests/test_real_train.py``'s GCN
     (hidden 32, no dropout, 120 Adam steps at 1e-2): accuracy >= 0.6 and a
     final loss < 1.0;
-42. ``data_minigc_gin``: ``examples/gin_graph_classification.py``
-    (MiniGC seeds 0 and 1 through ``GraphDataLoader``, GIN 1-32-8 of 3
+42. ``data_minigc_gin``: ``dgl_tpu_torch.examples.gin_graph_classification``
+    (MiniGC seeds 0 and 1 through its ``GraphDataLoader``s, GIN 1-32-8 of 3
     layers over in-degree features, Adam at 1e-2, 10 epochs): the first
     batch equal to the CPU loader's;
 43. ``data_builtin_graphbolt``: ``gb.BuiltinDataset("cora")`` written from
@@ -601,9 +605,9 @@ scaling figure):
     ``DistNodeDataLoader``, ``sparse_all_to_all_pull``, GraphSAGE
     100-256-47, Adam 1e-3, 3 steps; blocks and features equal to the
     CPU's, the first step within 1e-4), then
-    ``examples/distributed_link_prediction.py`` and
-    ``distributed_rgcn_minibatch.py`` at their sizes, each against the
-    CPU;
+    ``dgl_tpu_torch.examples.distributed_link_prediction`` and
+    ``distributed_rgcn_minibatch`` (their setup, batches, models and
+    losses) at their sizes over 4 parts, each against the CPU;
 46. ``dist_fullgraph`` (after the dataset zoo): dryrun phase 2, 1.25M
     nodes and 10M edges in 4 random parts, shards built on the card and
     the CPU (equal), 5 steps of ``dist_copy_u_sum(mean)`` -> linear ->
@@ -661,6 +665,30 @@ process), in a fresh temporary directory:
     Chrome trace names CUDA kernels;
 56. ``remainder_health``: ``check_devices()`` (a fresh interpreter sums
     ``torch.ones(8, 8)`` on the card; run in a thread meanwhile) is True.
+
+The programs group (last): ``python -m dgl_tpu_torch.examples.gcn_cora``
+and the data tools run as processes of their own while the examples run
+in this one:
+
+57. ``examples``: every ported example that no phase above runs
+    (``EXAMPLE_MAINS``), each through ``main(["--device", "cuda"])`` at
+    its default widths and dataset (the cuts of ``EXAMPLE_CUTS`` printed
+    in its line): finite, falling losses and every launch count 0 (none
+    attaches a plan); then ``examples_gcn_cora_program``: the program at
+    its defaults (bitmap plan), its exit code, falling losses, a test
+    accuracy of at least 0.6, no JAX module imported, and in its own
+    process every GCN forward 2 B2 launches and every training step 4
+    (counts read around each call);
+58. ``tools``: Cora saved by ``save_graphs``; ``partition_cli`` (METIS,
+    4 parts), ``dispatch_partitions dispatch`` and ``verify``;
+    ``chunked_dispatch`` of the arxiv zipf graph's chunked layout with a
+    random 4-part assignment, its parts holding ``partition_graph``'s
+    nodes, ids, and owned features and in-edges for that assignment;
+    ``ogb_to_ondisk`` of the saved Cora and of the checkout's OGB-layout
+    fixture, each ``OnDiskDataset`` loaded on the card equal to its
+    source; then ``partition_cli``'s parts loaded on the card, their
+    owned in-edges equal to Cora's, and one ``dist_copy_u_sum`` over
+    shards of them against ``copy_u_sum`` at rtol = 1e-5.
 
 Every training input is built outside ``torch.inference_mode()``.
 It prints one JSON object per result line, the kernel table as
@@ -5098,38 +5126,6 @@ def mag_graph(div: int = 1, seed: int = 0):
             "masks": masks}
 
 
-def hetero_rgcn(etypes, dims, seed):
-    """The R-GCN of ``examples/rgcn_hetero.py:16-37`` as user code: two
-    ``HeteroGraphConv(aggregate="sum")`` layers of
-    ``GraphConv(allow_zero_in_degree=True)``, one a relation, ReLU between
-    them, widths ``dims``; the paper logits out (its ``["paper"]``).
-    Weights from ``seed``."""
-    import torch
-    from torch import nn
-
-    from dgl_tpu_torch.nn import GraphConv, HeteroGraphConv
-
-    class _Model(nn.Module):
-        def __init__(self):
-            super().__init__()
-            gen = torch.Generator().manual_seed(seed)
-            self.layer0 = HeteroGraphConv(
-                {et: GraphConv(dims[0], dims[1], allow_zero_in_degree=True,
-                               generator=gen) for et in etypes},
-                aggregate="sum")
-            self.layer1 = HeteroGraphConv(
-                {et: GraphConv(dims[1], dims[2], allow_zero_in_degree=True,
-                               generator=gen) for et in etypes},
-                aggregate="sum")
-
-        def forward(self, graph, inputs):
-            h = {k: torch.relu(v)
-                 for k, v in self.layer0(graph, inputs).items()}
-            return self.layer1(graph, h)["paper"]
-
-    return _Model()
-
-
 def hgt_model(ntypes, in_feats, head_size, heads, num_etypes, classes,
               n_out, dropout=0.2, seed=0, device="cuda"):
     """The HGT of DGL's example (``examples/pytorch/hgt/model.py``,
@@ -5236,6 +5232,7 @@ def run_mag(rate: float, tag: dict) -> dict:
 
     import dgl_tpu_torch as dt
     from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.examples import rgcn_hetero
     from dgl_tpu_torch.ops import hub_spmm
 
     torch.cuda.empty_cache()
@@ -5268,8 +5265,11 @@ def run_mag(rate: float, tag: dict) -> dict:
             "residual": p.res_dst is not None,
             "reverse_residual": p.res_src is not None}
     del mag
-    model = hetero_rgcn(etypes, (MAG_FEAT, MAG_HIDDEN, MAG_CLASSES),
-                        0).cuda().eval()
+    model = rgcn_hetero.HeteroRGCN(
+        MAG_FEAT, MAG_HIDDEN, MAG_CLASSES, etypes,
+        generator=torch.Generator().manual_seed(0), device="cuda").eval()
+    # the helpers below take the paper logits, as the example's loss does
+    model.register_forward_hook(lambda mod, args, out: out["paper"])
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     emit({"phase": "mag_graph", "nodes": dict(g._num_src_nodes),
@@ -6440,7 +6440,7 @@ GLOB_GRAPHS, GLOB_FEAT = 4096, 64
 # samples 512 of them
 CLOUDS, CLOUD_POINTS, CLOUD_K, CLOUD_OUT, FPS_POINTS = 32, 1024, 20, 64, 512
 # examples/tree_lstm.py: random trees of up to 12 nodes, x 16, h 32
-TREES, TREE_MAX_NODES, TREE_X, TREE_H = 256, 12, 16, 32
+TREES, TREE_MAX_NODES, TREE_H = 256, 12, 32
 
 
 def record_b1():
@@ -6994,61 +6994,6 @@ def run_point_cloud(tag: dict, device="cuda") -> dict:
     return result
 
 
-def tree_lstm_forest(count: int, seed: int, device):
-    """``examples/tree_lstm.py``'s random trees (edges child -> parent),
-    batched, with 16-wide node inputs."""
-    import numpy as np
-    import torch
-
-    import dgl_tpu_torch as dt
-
-    rng = np.random.default_rng(seed)
-    trees = []
-    for _ in range(count):
-        n = int(rng.integers(3, TREE_MAX_NODES))
-        parents = [int(rng.integers(0, i)) for i in range(1, n)]
-        trees.append(dt.graph((np.arange(1, n), np.array(parents)),
-                              num_nodes=n, device=device))
-    forest = dt.batch(trees)
-    forest.ndata["x"] = torch.from_numpy(rng.normal(
-        size=(forest.num_nodes(), TREE_X)).astype(np.float32)).to(device)
-    return forest
-
-
-def tree_lstm_states(forest, weights):
-    """The Child-Sum Tree-LSTM cell of ``examples/tree_lstm.py`` through
-    ``prop_nodes_topo``, leaves first: a UDF mailbox reduce over the
-    children, the gates in the apply function. Returns every node's h."""
-    import torch
-
-    import dgl_tpu_torch as dt
-
-    w = {k: v.to(forest.device) for k, v in weights.items()}
-    g = forest.local_var()
-    zeros = torch.zeros((g.num_nodes(), TREE_H), device=g.device)
-    g.ndata.update({"iou_x": g.ndata["x"] @ w["W_iou"], "h": zeros,
-                    "c": zeros, "h_sum": zeros, "c_f": zeros})
-
-    def msg(edges):
-        return {"h": edges.src["h"], "c": edges.src["c"]}
-
-    def reduce(nodes):
-        mask = nodes.mailbox_mask[..., None]
-        f = torch.sigmoid(nodes.mailbox["h"] @ w["U_f"] + w["b_f"])
-        return {"h_sum": (nodes.mailbox["h"] * mask).sum(1),
-                "c_f": (f * nodes.mailbox["c"] * mask).sum(1)}
-
-    def apply(nodes):
-        iou = (nodes.data["iou_x"] + nodes.data["h_sum"] @ w["U_iou"]
-               + w["b_iou"])
-        i, o, u = iou.split(TREE_H, dim=-1)
-        c = torch.sigmoid(i) * torch.tanh(u) + nodes.data["c_f"]
-        return {"h": torch.sigmoid(o) * torch.tanh(c), "c": c}
-
-    dt.prop_nodes_topo(g, msg, reduce, apply)
-    return g.ndata["h"]
-
-
 def utility_cases(n: int, seed: int = 14):
     """Phase graph_utilities' calls on a graph of ``n`` nodes: name ->
     fn(module, g), random arguments drawn once from ``seed``."""
@@ -7165,11 +7110,15 @@ def run_graph_utils(tag: dict, device="cuda") -> dict:
     size (``ppr`` and ``heat_kernel``: phase gdc_gcn), the linear ones on
     the arxiv zipf graph, the others on ``rand_graph(2000, 10000)``; then
     ``laplacian_lambda_max`` over 256 molhiv-sized graphs and the
-    Child-Sum Tree-LSTM over ``prop_nodes_topo`` on 256 random trees."""
+    Child-Sum Tree-LSTM cell of ``dgl_tpu_torch.examples.tree_lstm`` on
+    256 random trees, by its frontier loop and by ``prop_nodes_topo``
+    over its UDFs (each against the CPU, and the two against each other,
+    at 1e-5)."""
     import numpy as np
     import torch
 
     import dgl_tpu_torch as dt
+    from dgl_tpu_torch.examples import tree_lstm
 
     timings = {}
     src, dst = cora_graph()
@@ -7205,24 +7154,45 @@ def run_graph_utils(tag: dict, device="cuda") -> dict:
             np.abs(np.subtract(lam, lam_cpu)) / np.abs(lam_cpu))),
         "tolerance": "rtol=1e-9 (ARPACK's random start)"}
 
-    forest = tree_lstm_forest(TREES, 18, device)
-    gen = torch.Generator().manual_seed(19)
-    shapes = {"W_iou": (TREE_X, 3 * TREE_H), "U_iou": (TREE_H, 3 * TREE_H),
-              "b_iou": (3 * TREE_H,), "U_f": (TREE_H, TREE_H),
-              "b_f": (TREE_H,)}
-    weights = {k: torch.randn(s, generator=gen) * 0.3
-               for k, s in shapes.items()}
+    # examples/tree_lstm.py's trees and cell (dgl_tpu_torch.examples.
+    # tree_lstm), its biases drawn too
+    forest = dt.batch(tree_lstm.random_trees(
+        TREES, TREE_MAX_NODES, np.random.default_rng(18), device))
+    cell = tree_lstm.TreeLSTMCell(tree_lstm.X_SIZE, TREE_H,
+                                  generator=torch.Generator().manual_seed(19),
+                                  device=device)
+    with torch.no_grad():
+        cell.b_iou.normal_(0.0, 0.3)
+    cell_cpu = tree_lstm.TreeLSTMCell(tree_lstm.X_SIZE, TREE_H, device="cpu")
+    cell_cpu.load_state_dict({k: v.cpu() for k, v in
+                              cell.state_dict().items()})
     t0 = time.perf_counter()
     with torch.no_grad():
-        h = tree_lstm_states(forest, weights)
+        h = cell(forest, forest.ndata["x"])
         torch.cuda.synchronize()
         tree_s = time.perf_counter() - t0
-        h_cpu = tree_lstm_states(forest.to("cpu"), weights)
+        # the same cell's UDFs through prop_nodes_topo
+        t0 = time.perf_counter()
+        g_topo = cell.start(forest, forest.ndata["x"])
+        dt.prop_nodes_topo(g_topo, *cell.udfs())
+        h_topo = g_topo.ndata["h"]
+        torch.cuda.synchronize()
+        topo_s = time.perf_counter() - t0
+        forest_cpu = forest.to("cpu")
+        h_cpu = cell_cpu(forest_cpu, forest_cpu.ndata["x"])
+        g_topo_cpu = cell_cpu.start(forest_cpu, forest_cpu.ndata["x"])
+        dt.prop_nodes_topo(g_topo_cpu, *cell_cpu.udfs())
     frontiers = len(dt.traversal.topological_nodes_generator(forest))
-    timings["prop_nodes_topo Tree-LSTM"] = {
+    timings["Tree-LSTM cell (examples/tree_lstm.py)"] = {
         "card_s": tree_s, "trees": TREES, "nodes": forest.num_nodes(),
         "frontiers": frontiers,
         **held_against(h, h_cpu, 1e-5, "Tree-LSTM card vs CPU")}
+    timings["prop_nodes_topo Tree-LSTM"] = {
+        "card_s": topo_s, "trees": TREES, "frontiers": frontiers,
+        "vs_frontier_loop": held_against(h_topo, h, 1e-5, "prop_nodes_topo "
+                                         "Tree-LSTM vs the frontier loop"),
+        **held_against(h_topo, g_topo_cpu.ndata["h"], 1e-5,
+                       "prop_nodes_topo Tree-LSTM card vs CPU")}
     emit({"phase": "graph_utilities", "utilities": timings,
           "check": "card result equal to the CPU's (indices, host values, "
                    "graphs, frames); device values rtol=1e-5, "
@@ -7663,7 +7633,8 @@ def run_products_link(pg, tag: dict, device="cuda") -> dict:
 
 
 def rgcn_blocks(model, blocks, inputs, pattern=None):
-    """``hetero_rgcn``'s two layers over two blocks: the paper logits."""
+    """``examples.rgcn_hetero``'s two layers over two blocks: the paper
+    logits."""
     import torch
 
     with relu_pattern(pattern) as seen:
@@ -7675,8 +7646,9 @@ def rgcn_blocks(model, blocks, inputs, pattern=None):
 
 def run_mag_minibatch(g, feats, labels, train, tag: dict,
                       device="cuda") -> dict:
-    """Phase mag_rgcn_minibatch: ``hetero_rgcn``'s 128-64-349 R-GCN over
-    ``HeteroFixedShapeNeighborSampler`` blocks of ``run_mag``'s graph,
+    """Phase mag_rgcn_minibatch: ``examples.rgcn_hetero``'s 128-64-349
+    R-GCN over ``HeteroFixedShapeNeighborSampler`` blocks of ``run_mag``'s
+    graph,
     fanouts [25, 20] (hetero_rgcn.py's) on every relation into a sampled
     type, 1,024 paper seeds a batch, Adam at 1e-2, 5 steps."""
     import numpy as np
@@ -7686,6 +7658,7 @@ def run_mag_minibatch(g, feats, labels, train, tag: dict,
     from dgl_tpu_torch.base import NID
     from dgl_tpu_torch.dataloading import HeteroFixedShapeNeighborSampler
     from dgl_tpu_torch.dataloading.dataloader import to_device
+    from dgl_tpu_torch.examples import rgcn_hetero
 
     t_phase = time.perf_counter()
     g_cpu = g.to("cpu")
@@ -7730,17 +7703,17 @@ def run_mag_minibatch(g, feats, labels, train, tag: dict,
         ce = F.cross_entropy(logits, y[dst[NID]], reduction="none")
         return (ce * m).sum() / m.sum(), seen
 
-    model = hetero_rgcn(g.etypes, (MAG_FEAT, MAG_HIDDEN, MAG_CLASSES),
-                        0).to(device)
+    model = rgcn_hetero.HeteroRGCN(
+        MAG_FEAT, MAG_HIDDEN, MAG_CLASSES, g.etypes,
+        generator=torch.Generator().manual_seed(0), device=device)
     feats_cpu = {k: v.cpu() for k, v in feats.items()}
     labels_cpu = labels.cpu()
 
     def cpu_loss(m, b, pattern=None):
         return loss_fn(m, b, pattern, feats_cpu, labels_cpu)
 
-    # hetero_rgcn makes its GraphConvs on the card: the CPU copy moves
-    model_cpu = hetero_rgcn(g.etypes, (MAG_FEAT, MAG_HIDDEN, MAG_CLASSES),
-                            0).cpu()
+    model_cpu = rgcn_hetero.HeteroRGCN(MAG_FEAT, MAG_HIDDEN, MAG_CLASSES,
+                                       g.etypes, device="cpu")
     model_cpu.load_state_dict({k: v.cpu()
                                for k, v in model.state_dict().items()})
     loss, pattern = loss_fn(model, batches[0])
@@ -8947,9 +8920,9 @@ def run_explain_gcn(gp, g, x, tag: dict) -> dict:
 
 
 def rgcn_explain_fn(model):
-    """``hetero_rgcn``'s R-GCN as ``model_fn(graph, feat, eweight)``: each
-    relation's edge weights through ``mod_kwargs`` as its GraphConv's
-    ``edge_weight``; the paper logits."""
+    """``examples.rgcn_hetero``'s R-GCN as ``model_fn(graph, feat,
+    eweight)``: each relation's edge weights through ``mod_kwargs`` as its
+    GraphConv's ``edge_weight``; the paper logits."""
     import torch
 
     def model_fn(graph, feat, eweight):
@@ -8963,19 +8936,22 @@ def rgcn_explain_fn(model):
 
 
 def run_explain_rgcn(g, x, tag: dict) -> dict:
-    """Phase explain_rgcn: HeteroGNNExplainer on ``hetero_rgcn``'s R-GCN
-    128-64-349 over ogbn-mag's counts, ``explain_node("paper", ...)`` on
+    """Phase explain_rgcn: HeteroGNNExplainer on ``examples.rgcn_hetero``'s
+    R-GCN 128-64-349 over ogbn-mag's counts, ``explain_node("paper", ...)`` on
     the most cited paper with ``num_hops=2`` (100 epochs), against the
     same explainer on the graph's CPU copy at 1e-4."""
     import numpy as np
     import torch
 
     from dgl_tpu_torch import _kernels
+    from dgl_tpu_torch.examples import rgcn_hetero
     from dgl_tpu_torch.nn.explain import HeteroGNNExplainer
 
     t_phase = time.perf_counter()
     dims = (MAG_FEAT, MAG_HIDDEN, MAG_CLASSES)
-    model = hetero_rgcn(g.etypes, dims, 0).cuda().eval()
+    model = rgcn_hetero.HeteroRGCN(
+        *dims, g.etypes, generator=torch.Generator().manual_seed(0),
+        device="cuda").eval()
     _, cited = g._relations[("paper", "cites", "paper")].host_edges()
     paper = int(np.argmax(np.bincount(cited, minlength=g.num_nodes(
         "paper"))))
@@ -8988,7 +8964,8 @@ def run_explain_rgcn(g, x, tag: dict) -> dict:
     card_s = time.perf_counter() - t0
     launches = dict(_kernels.launch_counts)
     expect_no_other_launch(launches, {}, "HeteroGNNExplainer.explain_node")
-    model_cpu = hetero_rgcn(g.etypes, dims, 0).cpu().eval()
+    model_cpu = rgcn_hetero.HeteroRGCN(*dims, g.etypes,
+                                       device="cpu").eval()
     model_cpu.load_state_dict({k: v.cpu()
                                for k, v in model.state_dict().items()})
     t0 = time.perf_counter()
@@ -9062,12 +9039,18 @@ def gin_explain_model(device, seed: int = 0):
 
 
 def small_hetero_model(device, seed: int = 0):
-    """``hetero_rgcn``'s two HeteroGraphConv layers over ``SMALL_HETERO``'s
-    relations, 16 -> 64 -> 2, as the hetero explainers' models: the
-    paper logits' mean as (1, 2), and for PGExplainer the hidden layer."""
+    """``examples.rgcn_hetero``'s two HeteroGraphConv layers over
+    ``SMALL_HETERO``'s relations, 16 -> 64 -> 2, as the hetero explainers'
+    models: the paper logits' mean as (1, 2), and for PGExplainer the
+    hidden layer."""
+    import torch
+
+    from dgl_tpu_torch.examples import rgcn_hetero
+
     etypes = [c[1] for c in SMALL_HETERO]
-    return hetero_rgcn(etypes, (16, SMALL_HETERO_HIDDEN, 2),
-                       seed).to(device).eval()
+    return rgcn_hetero.HeteroRGCN(
+        16, SMALL_HETERO_HIDDEN, 2, etypes,
+        generator=torch.Generator().manual_seed(seed), device=device).eval()
 
 
 def small_hetero_fns(model):
@@ -9082,7 +9065,7 @@ def small_hetero_fns(model):
         return out.mean(0, keepdim=True), h
 
     def sx_fn(graph, feat):
-        return model(graph, feat).mean(0, keepdim=True)
+        return model(graph, feat)["paper"].mean(0, keepdim=True)
 
     return pg_fn, sx_fn
 
@@ -9462,24 +9445,24 @@ def plan_kernel(rel) -> tuple:
 
 def run_data_citation_gcn(built: dict, tag: dict) -> dict:
     """Phase data_citation_gcn: ``examples/gcn_cora.py``'s recipe on Cora,
-    Citeseer and Pubmed."""
+    Citeseer and Pubmed, through ``dgl_tpu_torch.examples.gcn_cora``'s
+    graph and model."""
     import torch
 
-    import dgl_tpu_torch as dt
-    from dgl_tpu_torch.models import GCN
+    from dgl_tpu_torch.examples import gcn_cora
 
     out = {}
     for name in CACHED:
         card, cpu = built[name]
         short = name[:-len("GraphDataset")].lower()
         t0 = time.perf_counter()
-        g = dt.add_self_loop(dt.remove_self_loop(card[0]))
-        gp = g.with_spmm_plans(weighted=True)
+        gp = gcn_cora.recipe_graph(card[0])
         torch.cuda.synchronize()
         plans_s = time.perf_counter() - t0
-        g_cpu = dt.add_self_loop(dt.remove_self_loop(cpu[0]))
+        g = gcn_cora.recipe_graph(card[0], plans=False)
+        g_cpu = gcn_cora.recipe_graph(cpu[0], plans=False)
         same_graph_on(g, g_cpu, f"{short}: the recipe's graph")
-        gp_cpu = g_cpu.with_spmm_plans(weighted=True)
+        gp_cpu = gcn_cora.recipe_graph(cpu[0], plans=True)
         rel = gp._relation()
         plan, kernel = plan_kernel(rel)
         if plan_kernel(gp_cpu._relation())[0] != plan:
@@ -9489,8 +9472,7 @@ def run_data_citation_gcn(built: dict, tag: dict) -> dict:
         feat = g.ndata["feat"]
 
         def make(dev, n_in=feat.shape[1], c=card.num_classes):
-            return GCN(n_in, 16, c, generator=torch.Generator().manual_seed(
-                0), device=dev)
+            return gcn_cora.make_model(n_in, 16, c, dev)
 
         model = make("cuda")
         opt = torch.optim.Adam(model.parameters(), lr=1e-2)
@@ -9513,65 +9495,39 @@ def run_data_citation_gcn(built: dict, tag: dict) -> dict:
     return out
 
 
-def bitmap_gat_model(in_feats, classes, device, heads=8, hidden=8):
-    """``examples/fullgraph_gat_bitmap.py``'s GAT: GATConv in -> 8 x 8
-    heads, ELU, GATConv -> classes (1 head), weights from seed 0."""
-    import torch
-
-    from dgl_tpu_torch.nn import GATConv
-
-    class BitmapGAT(torch.nn.Module):
-        def __init__(self):
-            super().__init__()
-            gen = torch.Generator().manual_seed(0)
-            self.conv0 = GATConv(in_feats, hidden, heads,
-                                 allow_zero_in_degree=True, generator=gen,
-                                 device=device)
-            self.conv1 = GATConv(heads * hidden, classes, 1,
-                                 allow_zero_in_degree=True, generator=gen,
-                                 device=device)
-
-        def forward(self, g, x):
-            h = self.conv0(g, x)
-            h = torch.nn.functional.elu(h.reshape(h.shape[0], -1))
-            h = self.conv1(g, h)
-            return h.reshape(h.shape[0], -1)
-
-    return BitmapGAT()
-
-
 def run_data_gat(built: dict, tag: dict) -> dict:
     """Phase data_gat: ``examples/fullgraph_gat_bitmap.py`` on Cora with
     the bitmap plan forced (B3, B4, B5), and ``examples/gat_citeseer.py``
-    (the dense route)."""
+    (the dense route), through ``dgl_tpu_torch.examples``' graphs, models
+    and optimisers."""
     import torch
 
-    import dgl_tpu_torch as dt
-    from dgl_tpu_torch.models import GAT
+    from dgl_tpu_torch.examples import fullgraph_gat_bitmap, gat_citeseer
 
     out = {}
     card, cpu = built["CoraGraphDataset"]
     t0 = time.perf_counter()
-    g = dt.add_self_loop(dt.remove_self_loop(dt.to_simple(card[0])))
-    # the example attaches with_spmm_plans(bitmap=True); at Cora's 7.3M
+    # the JAX example attaches with_spmm_plans(bitmap=True); at Cora's 7.3M
     # cells the dense mask attaches too and GATConv takes it first, so the
-    # bitmap route is forced by leaving the dense mask out
-    as_written = g.with_spmm_plans(bitmap=True)._relation().dense_adj
-    gp = g.with_spmm_plans(bitmap=True, dense_attn=False)
+    # port's example forces the bitmap route by leaving the dense mask out
+    gp = fullgraph_gat_bitmap.recipe_graph(card[0])
     torch.cuda.synchronize()
     plans_s = time.perf_counter() - t0
-    g_cpu = dt.add_self_loop(dt.remove_self_loop(dt.to_simple(cpu[0])))
+    g = fullgraph_gat_bitmap.recipe_graph(card[0], plans=False)
+    as_written = g.with_spmm_plans(bitmap=True)._relation().dense_adj
+    g_cpu = fullgraph_gat_bitmap.recipe_graph(cpu[0], plans=False)
     same_graph_on(g, g_cpu, "the bitmap GAT recipe's graph")
-    gp_cpu = g_cpu.with_spmm_plans(bitmap=True, dense_attn=False)
+    gp_cpu = fullgraph_gat_bitmap.recipe_graph(cpu[0], plans=True)
     if gp._relation().bitmap_plan is None:
         raise RuntimeError("Cora's graph lacks its bitmap plan")
     feat = g.ndata["feat"]
-    model = bitmap_gat_model(feat.shape[1], card.num_classes, "cuda")
-    opt = torch.optim.AdamW(model.parameters(), lr=5e-3, weight_decay=5e-4)
+    model = fullgraph_gat_bitmap.make_model(feat.shape[1], card.num_classes,
+                                            "cuda")
+    opt = fullgraph_gat_bitmap.make_optimizer(model)
     b3 = {"bitmap_gat_fwd": 2}
     res = recipe_run(
-        model, lambda: bitmap_gat_model(feat.shape[1], card.num_classes,
-                                        "cpu"),
+        model, lambda: fullgraph_gat_bitmap.make_model(
+            feat.shape[1], card.num_classes, "cpu"),
         gp, gp_cpu, node_frames(g), node_frames(g_cpu), opt,
         DATA_GAT_BITMAP_EPOCHS, 2e-2, b3,
         {**b3, "bitmap_gat_bwd_dst": 2, "bitmap_gat_bwd_src": 2},
@@ -9586,10 +9542,10 @@ def run_data_gat(built: dict, tag: dict) -> dict:
     del model, opt, gp, gp_cpu
 
     card, cpu = built["CiteseerGraphDataset"]
-    g = dt.add_self_loop(dt.remove_self_loop(card[0]))
-    gp = g.with_spmm_plans(weighted=True)
-    g_cpu = dt.add_self_loop(dt.remove_self_loop(cpu[0]))
-    gp_cpu = g_cpu.with_spmm_plans(weighted=True)
+    gp = gat_citeseer.recipe_graph(card[0])
+    g = gat_citeseer.recipe_graph(card[0], plans=False)
+    g_cpu = gat_citeseer.recipe_graph(cpu[0], plans=False)
+    gp_cpu = gat_citeseer.recipe_graph(cpu[0], plans=True)
     rel = gp._relation()
     route = ("dense" if rel.dense_adj is not None else "bitmap"
              if rel.bitmap_plan is not None else "fused"
@@ -9599,8 +9555,7 @@ def run_data_gat(built: dict, tag: dict) -> dict:
     feat = g.ndata["feat"]
 
     def make(dev):
-        return GAT(feat.shape[1], 8, card.num_classes, heads=8,
-                   generator=torch.Generator().manual_seed(0), device=dev)
+        return gat_citeseer.make_model(feat.shape[1], card.num_classes, dev)
 
     model = make("cuda")
     opt = torch.optim.Adam(model.parameters(), lr=5e-3)
@@ -9617,30 +9572,24 @@ def run_data_gat(built: dict, tag: dict) -> dict:
 
 def run_data_reddit_gcn(built: dict, tag: dict) -> dict:
     """Phase data_reddit_gcn: ``examples/reddit_fullgraph_gcn.py`` on
-    ``RedditDataset()`` (B2 2 a forward, 4 a step)."""
+    ``RedditDataset()`` (B2 2 a forward, 4 a step), through
+    ``dgl_tpu_torch.examples.reddit_fullgraph_gcn``'s graph and model."""
     import torch
 
-    import dgl_tpu_torch as dt
-    from dgl_tpu_torch.models import GCN
+    from dgl_tpu_torch.examples import reddit_fullgraph_gcn as reddit
 
     card, cpu = built["RedditDataset"]
     t0 = time.perf_counter()
-    g = dt.add_self_loop(dt.remove_self_loop(dt.to_simple(card[0])))
-    kw = dict(num_hubs=256, bitmap=True, bitmap_max_bytes=8 << 30)
-    gp = g.with_spmm_plans(**kw)
+    g, gp = reddit.recipe_graph(card[0])
     torch.cuda.synchronize()
     plans_s = time.perf_counter() - t0
-    g_cpu = dt.add_self_loop(dt.remove_self_loop(dt.to_simple(cpu[0])))
+    g_cpu, gp_cpu = reddit.recipe_graph(cpu[0], plans=True)
     same_graph_on(g, g_cpu, "the Reddit recipe's graph")
-    gp_cpu = g_cpu.with_spmm_plans(**kw)
-    if gp._relation().bitmap_plan is None:
-        raise RuntimeError("the Reddit recipe's graph lacks its bitmap")
     feat = g.ndata["feat"]
 
     def make(dev):
         # the example's GraphConv 602-16 (ReLU) -> GraphConv 16-41
-        return GCN(feat.shape[1], GCN_HIDDEN, card.num_classes, dropout=0.0,
-                   generator=torch.Generator().manual_seed(0), device=dev)
+        return reddit.make_model(feat.shape[1], card.num_classes, dev)
 
     model = make("cuda")
     opt = torch.optim.Adam(model.parameters(), lr=1e-2)
@@ -9704,35 +9653,35 @@ def run_data_ogb_fixture_gcn(tag: dict) -> dict:
 def gin_batch_loss(model, batch, pattern=None):
     """The GIN recipe's loss over a padded batch: cross-entropy of the real
     graphs' logits, in-degree features."""
+    from dgl_tpu_torch.examples.gin_graph_classification import (
+        node_features)
+
     bg, y, gmask = batch
-    x = bg.in_degrees().float()[:, None]
+    x = node_features(bg)
     with relu_pattern(pattern) as seen:
         loss = masked_loss(model(bg, x), y, gmask.float())
     return loss, seen
 
 
 def run_data_minigc_gin(built: dict, tag: dict) -> dict:
-    """Phase data_minigc_gin: ``examples/gin_graph_classification.py``."""
+    """Phase data_minigc_gin: ``examples/gin_graph_classification.py``
+    through ``dgl_tpu_torch.examples.gin_graph_classification``'s loaders
+    (the zoo's MiniGC 320 / 80), model and test accuracy."""
     import numpy as np
     import torch
 
-    import dgl_tpu_torch.data as D
     from dgl_tpu_torch import _kernels
-    from dgl_tpu_torch.dataloading import GraphDataLoader
-    from dgl_tpu_torch.models import GIN
+    from dgl_tpu_torch.examples import gin_graph_classification as gin
 
-    train_ds, train_cpu = built["MiniGCDataset"]
-    test_ds = D.MiniGCDataset(80, 10, 20, seed=1)
-    loader = GraphDataLoader(train_ds, batch_size=32, shuffle=True, seed=0)
+    train_ds, loader, test_loader = gin.loaders(320, 32, "cuda")
+    same_result(train_ds[0], built["MiniGCDataset"][0][0],
+                "the example's MiniGC vs the zoo's")
     first = next(iter(loader))
-    first_cpu = next(iter(GraphDataLoader(train_cpu, batch_size=32,
-                                          shuffle=True, seed=0,
-                                          device="cpu")))
+    first_cpu = next(iter(gin.loaders(320, 32, "cpu")[1]))
     same_result(first, first_cpu, "the first MiniGC batch, card vs CPU")
 
     def make(dev):
-        return GIN(1, 32, 8, num_layers=3, dropout=0.0,
-                   generator=torch.Generator().manual_seed(0), device=dev)
+        return gin.make_model(32, 8, dev)
 
     model = make("cuda")
     check = step_vs_cpu(model, lambda: make("cpu"), gin_batch_loss, first,
@@ -9764,18 +9713,12 @@ def run_data_minigc_gin(built: dict, tag: dict) -> dict:
     if not (all(map(math.isfinite, losses))
             and np.mean(losses[-10:]) < np.mean(losses[:10])):
         raise RuntimeError(f"GIN losses {losses}")
-    model.eval()
-    correct = total = 0
-    with torch.inference_mode():
-        for bg, y, gmask in GraphDataLoader(test_ds, batch_size=32):
-            pred = model(bg, bg.in_degrees().float()[:, None]).argmax(-1)
-            correct += int(((pred == y) & gmask).sum())
-            total += int(gmask.sum())
-    acc = correct / total
+    acc = gin.test_accuracy(model, test_loader)
     majority = 10 / 80  # MiniGC's classes are equal: 80 // 8 a class
     if not acc >= 2 * majority:
         raise RuntimeError(f"GIN test accuracy {acc}")
-    out = {"train_graphs": len(train_ds), "test_graphs": len(test_ds),
+    out = {"train_graphs": len(train_ds),
+           "test_graphs": len(test_loader.dataset),
            "first_step_vs_cpu": check, "step_launches": step_launches,
            "steps": steps, "epoch_s": epoch_s,
            "ms_per_step": epoch_s * DATA_GIN_EPOCHS / steps * 1e3,
@@ -10465,7 +10408,7 @@ DIST_MB_STEPS = 3
 # examples/distributed_link_prediction.py and distributed_rgcn_minibatch.py
 DIST_LP = dict(num_nodes=2048, num_edges=20_000, num_classes=4, feat_dim=32)
 DIST_LP_FANOUTS, DIST_LP_BATCH, DIST_LP_NEG, DIST_LP_HIDDEN = [5], 16, 2, 32
-DIST_RGCN_FANOUT, DIST_RGCN_BATCH, DIST_RGCN_HIDDEN = 4, 16, 32
+DIST_RGCN_BATCH, DIST_RGCN_HIDDEN = 16, 32
 DIST_EXAMPLE_LR = 1e-2
 DIST_COOP_BATCH, DIST_COOP_FANOUTS = 64, [10, 10]
 
@@ -10701,14 +10644,6 @@ def run_dist_hetero(tag: dict, device="cuda") -> dict:
     return out
 
 
-def _part_mfg(mfg, p):
-    """Part ``p``'s MFG of a mesh's (parts, ...) MFG."""
-    from dgl_tpu_torch.sampling.device_sampler import DeviceMFG
-
-    return DeviceMFG([f[p] for f in mfg.frontiers], [n[p] for n in mfg.nbrs],
-                     [m[p] for m in mfg.masks], mfg.seed_mask[p])
-
-
 def _mfg_to(mfg, device):
     from dgl_tpu_torch.sampling.device_sampler import DeviceMFG
 
@@ -10736,7 +10671,9 @@ def _flagship_loss(model, mfg, x, y):
     import torch
     import torch.nn.functional as F
 
-    return torch.stack([F.cross_entropy(model(_part_mfg(mfg, p),
+    from dgl_tpu_torch.examples.device_dist_sage import part_mfg
+
+    return torch.stack([F.cross_entropy(model(part_mfg(mfg, p),
                                               x[p].float()), y[p])
                         for p in range(x.shape[0])]).mean()
 
@@ -10759,6 +10696,7 @@ def run_dist_flagship(pgd: dict, tag: dict, device="cuda") -> dict:
 
     from dgl_tpu_torch import _kernels
     from dgl_tpu_torch import distributed as td
+    from dgl_tpu_torch.examples.device_dist_sage import part_mfg
     from dgl_tpu_torch.models import DeviceSAGE
 
     _kernels.reset_launch_counts()
@@ -10815,7 +10753,7 @@ def run_dist_flagship(pgd: dict, tag: dict, device="cuda") -> dict:
         raise RuntimeError(f"exchanged integer bytes {int_bytes} vs the "
                            f"analytic {analytic}")
     indptr, indices = _global_csc(pgc, device)
-    masked = sum(check_device_picks(_part_mfg(mfg, p), indptr, indices,
+    masked = sum(check_device_picks(part_mfg(mfg, p), indptr, indices,
                                     FLAGSHIP_FANOUTS) for p in range(P))
     del indptr, indices
     ids = mfg.input_nodes().long()
@@ -11052,193 +10990,113 @@ def run_dist_host_minibatch(pgd: dict, pgc, tag: dict,
     return out
 
 
-def _lp_loss(model, blocks, x, pos, pidx, nidx, total):
-    """``examples/distributed_link_prediction.py``'s loss over every part:
-    dot-product scores of the positive and negative pairs."""
-    import torch
-    import torch.nn.functional as F
+def _example_runs(setup, axis, device):
+    """A distributed example's setup on a one-process mesh of DIST_PARTS
+    parts, on the card and on the CPU: (mesh, setup's result) each."""
+    from dgl_tpu_torch.examples._common import dist_mesh as example_mesh
 
-    loss = 0.0
-    for p in range(x.shape[0]):
-        blks = [layer[p] for layer in blocks]
-        h = model(blks, x[p] * blks[0].srcdata["_mask"][:, None].to(x.dtype))
-        a = h[pidx[p, :, 0]]
-        pos_s = (a * h[pidx[p, :, 1]]).sum(-1)
-        neg_s = (a[:, None, :] * h[nidx[p]]).sum(-1)
-        per = (F.binary_cross_entropy_with_logits(
-            pos_s, torch.ones_like(pos_s), reduction="none")
-            + F.binary_cross_entropy_with_logits(
-                neg_s, torch.zeros_like(neg_s), reduction="none").mean(-1))
-        loss = loss + (per * (pos[p, :, 0] >= 0).to(per.dtype)).sum()
-    return loss / max(total, 1)
+    runs = []
+    for dev in (device, "cpu"):
+        mesh = example_mesh(DIST_PARTS, axis, dev)
+        runs.append((mesh, setup(mesh, dev)))
+    return runs
+
+
+def _example_steps(model, opt, loss_fn, batches, first):
+    """``DIST_MB_STEPS`` Adam steps, the first over ``first``; the
+    losses, which must be finite."""
+    losses, b = [], first
+    for step in range(DIST_MB_STEPS):
+        if step:
+            b = batches()
+        loss = loss_fn(model, *b)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(loss.item())
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"losses {losses}")
+    return losses
 
 
 def run_dist_link_prediction(device="cuda") -> dict:
-    """``examples/distributed_link_prediction.py``: SyntheticDataset (2,048
-    nodes, 20,000 edges, 32 features), the multilevel partition into 4,
-    ``DistEdgeDataLoader`` ([5], 16 pairs a part, 2 negatives), GraphSAGE
-    32-32-16, Adam 1e-2, 3 steps; the first batch and step against the
-    CPU."""
-    import numpy as np
+    """``examples/distributed_link_prediction.py`` through
+    ``dgl_tpu_torch.examples.distributed_link_prediction``: SyntheticDataset
+    (2,048 nodes, 20,000 edges, 32 features), the multilevel partition
+    into 4, ``DistEdgeDataLoader`` ([5], 16 pairs a part, 2 negatives),
+    GraphSAGE 32-32-16, Adam 1e-2, 3 steps; the first batch and step
+    against the CPU."""
     import torch
 
-    from dgl_tpu_torch import distributed as td
-    from dgl_tpu_torch.data import SyntheticDataset
-    from dgl_tpu_torch.models import GraphSAGE
+    from dgl_tpu_torch.examples import distributed_link_prediction as lp
 
-    P = DIST_PARTS
-    runs = []
-    for dev in (device, "cpu"):
-        g = SyntheticDataset(**DIST_LP, device=dev)[0]
-        parts = td.metis_partition_assignment(g, P)
-        pgc = td.PartitionedGraphCSC.build(g, parts, P)
-        src, dst = (t.cpu().numpy() for t in g.edges())
-        train = np.arange(0, g.num_edges(), 4)
-        edges = np.stack([pgc.new_of_old[src[train]],
-                          pgc.new_of_old[dst[train]]], 1)
-        loader = iter(td.DistEdgeDataLoader(
-            pgc, edges, DIST_LP_FANOUTS, DIST_LP_BATCH,
-            num_negatives=DIST_LP_NEG, seed=0, device=dev))
-        runs.append((pgc, pgc.shard_rows(g.ndata["feat"]), loader,
-                     dist_mesh(dev)))
+    runs = _example_runs(lambda mesh, dev: lp.setup(
+        mesh, DIST_LP_BATCH, DIST_LP_FANOUTS, DIST_LP_NEG, dev), lp.AXIS,
+        device)
+    its = [iter(r[1][3]) for r in runs]
 
-    def batch(run):
-        pgc, ftable, loader, mesh = run
-        pos, neg, seeds, pidx, nidx, in_ids, blocks = next(loader)
-        x = td.sparse_all_to_all_pull(mesh, pgc.ranges, ftable, in_ids)
-        return (blocks, x, pos, pidx, nidx, int((pos[..., 0] >= 0).sum()))
+    def batch(i):
+        mesh, (g, pg, ftable, _) = runs[i]
+        return lp.batch_inputs(mesh, pg, ftable, next(its[i]))
 
-    b, b_cpu = batch(runs[0]), batch(runs[1])
+    b, b_cpu = batch(0), batch(1)
     _same_blocks(b[0], b_cpu[0], "dist link prediction")
     for i in range(1, 5):
         same_result(b[i], b_cpu[i], f"dist link prediction input {i}")
+    mesh = runs[0][0]
+
+    def loss_fn(model, *args):
+        return lp.part_losses(mesh, model, *args).sum()
 
     def make(dev):
-        return GraphSAGE(DIST_LP["feat_dim"], DIST_LP_HIDDEN, 16,
-                         num_layers=len(DIST_LP_FANOUTS),
-                         generator=torch.Generator().manual_seed(0),
-                         device=dev)
+        return lp.make_model(DIST_LP["feat_dim"], len(DIST_LP_FANOUTS), dev)
 
     model = make(device)
-    check = _first_step(model, lambda: make("cpu"), _lp_loss, b, b_cpu,
+    check = _first_step(model, lambda: make("cpu"), loss_fn, b, b_cpu,
                         "dist link prediction's first step vs the CPU")
     opt = torch.optim.Adam(model.parameters(), lr=DIST_EXAMPLE_LR)
-    losses = []
-    for step in range(DIST_MB_STEPS):
-        if step:
-            b = batch(runs[0])
-        loss = _lp_loss(model, *b)
-        loss.backward()
-        opt.step()
-        opt.zero_grad(set_to_none=True)
-        losses.append(float(loss))
-    if not all(map(math.isfinite, losses)):
-        raise RuntimeError(f"dist link prediction losses {losses}")
+    losses = _example_steps(model, opt, loss_fn, lambda: batch(0), b)
     return {"first_step_vs_cpu": check, "losses": losses}
 
 
-class _DistRGCN:
-    """``examples/distributed_rgcn_minibatch.py``'s two ``RelGraphConv``
-    layers over etype-sampled blocks (static slot etypes)."""
-
-    def __init__(self, in_feats, num_classes, num_rels, slot_et, device):
-        import torch
-
-        from dgl_tpu_torch.nn import RelGraphConv
-
-        gen = torch.Generator().manual_seed(0)
-        self.mod = torch.nn.ModuleDict({
-            "l1": RelGraphConv(in_feats, DIST_RGCN_HIDDEN, num_rels,
-                               self_loop=False, generator=gen,
-                               device=device),
-            "l2": RelGraphConv(DIST_RGCN_HIDDEN, num_classes, num_rels,
-                               self_loop=False, generator=gen,
-                               device=device)})
-        self.slot_et = [t.to(device) for t in slot_et]
-
-    def __call__(self, blocks, x):
-        import torch
-
-        h = torch.relu(self.mod["l1"](blocks[0], x, self.slot_et[0]))
-        h = h * blocks[1].srcdata["_mask"][:, None].to(h.dtype)
-        return self.mod["l2"](blocks[1], h, self.slot_et[1])
-
-
 def run_dist_rgcn(device="cuda") -> dict:
-    """``examples/distributed_rgcn_minibatch.py``: SyntheticHeteroDataset
-    through ``to_homogeneous``, the multilevel partition into 4,
-    ``DistEtypeNeighborSampler`` (4 a relation, 2 layers, 16 seeds a
-    part), two ``RelGraphConv``s, Adam 1e-2, 3 steps; the first batch and
-    step against the CPU."""
-    import numpy as np
+    """``examples/distributed_rgcn_minibatch.py`` through
+    ``dgl_tpu_torch.examples.distributed_rgcn_minibatch``:
+    SyntheticHeteroDataset through ``to_homogeneous``, the multilevel
+    partition into 4, ``DistEtypeNeighborSampler`` (4 a relation, 2
+    layers, 16 seeds a part), two ``RelGraphConv``s, Adam 1e-2, 3 steps;
+    the first batch and step against the CPU."""
     import torch
 
-    from dgl_tpu_torch import distributed as td
-    from dgl_tpu_torch.base import ETYPE, NTYPE
-    from dgl_tpu_torch.convert import to_homogeneous
-    from dgl_tpu_torch.data import SyntheticHeteroDataset
+    from dgl_tpu_torch.examples import distributed_rgcn_minibatch as rgcn
+    from dgl_tpu_torch.examples import distributed_sage_minibatch as sage
 
-    P = DIST_PARTS
-    runs = []
-    for dev in (device, "cpu"):
-        ds = SyntheticHeteroDataset(device=dev)
-        hg = ds[0]
-        homo = to_homogeneous(hg, ndata=["feat"])
-        etypes = homo.edata[ETYPE].cpu().numpy()
-        num_rels = len(hg.canonical_etypes)
-        parts = td.metis_partition_assignment(homo, P)
-        pgc = td.PartitionedGraphCSC.build(homo, parts, P)
-        cat = np.nonzero(homo.ndata[NTYPE].cpu().numpy() == hg.ntypes.index(
-            ds.predict_ntype))[0]
-        labels = torch.zeros(homo.num_nodes(), device=dev)
-        labels[torch.from_numpy(cat).to(dev)] = hg._node_frames[
-            ds.predict_ntype]["label"].float()
-        fanouts = [[DIST_RGCN_FANOUT] * num_rels] * 2
-        sampler = td.DistEtypeNeighborSampler(pgc, etypes, fanouts,
-                                              DIST_RGCN_BATCH, seed=0,
-                                              device=dev)
-        loader = iter(td.DistNodeDataLoader(
-            pgc, np.sort(pgc.new_of_old[cat]), sampler, DIST_RGCN_BATCH,
-            seed=0))
-        slot_et = [torch.from_numpy(sampler.slot_etypes(i)) for i in range(2)]
-        runs.append((pgc, pgc.shard_rows(homo.ndata["feat"]),
-                     pgc.shard_rows(labels[:, None]), loader, dist_mesh(dev),
-                     slot_et, num_rels, ds.num_classes,
-                     homo.ndata["feat"].shape[1]))
+    runs = _example_runs(lambda mesh, dev: rgcn.setup(
+        mesh, DIST_RGCN_BATCH, dev, seed=0), rgcn.AXIS, device)
+    its = [iter(r[1][6]) for r in runs]
 
-    def batch(run):
-        pgc, ftable, ltable, loader, mesh = run[:5]
-        return _dist_batch(loader, mesh, pgc, ftable, ltable)[2:]
+    def batch(i):
+        mesh, (_, _, _, pg, ftable, ltable, _, _) = runs[i]
+        return sage.batch_inputs(mesh, pg, ftable, ltable, next(its[i]))
 
-    b, b_cpu = batch(runs[0]), batch(runs[1])
+    b, b_cpu = batch(0), batch(1)
     _same_blocks(b[0], b_cpu[0], "dist R-GCN")
     same_result(b[1], b_cpu[1], "dist R-GCN features")
-    slot_et, num_rels, classes, feats = runs[0][5:]
+    mesh, (ds, hg, homo, _, _, _, _, slot_et) = runs[0]
 
-    class Model(torch.nn.Module):
-        def __init__(self, dev):
-            super().__init__()
-            self.net = _DistRGCN(feats, classes, num_rels, slot_et, dev)
-            self.mod = self.net.mod
+    def loss_fn(model, *args):
+        return sage.part_losses(mesh, model, *args).sum()
 
-        def forward(self, blocks, x):
-            return self.net(blocks, x)
+    def make(dev):
+        return rgcn.make_model(homo.ndata["feat"].shape[1], DIST_RGCN_HIDDEN,
+                               ds.num_classes, len(hg.canonical_etypes),
+                               slot_et, dev)
 
-    model = Model(device)
-    check = _first_step(model, lambda: Model("cpu"), _sage_parts_loss, b,
-                        b_cpu, "dist R-GCN's first step vs the CPU")
+    model = make(device)
+    check = _first_step(model, lambda: make("cpu"), loss_fn, b, b_cpu,
+                        "dist R-GCN's first step vs the CPU")
     opt = torch.optim.Adam(model.parameters(), lr=DIST_EXAMPLE_LR)
-    losses = []
-    for step in range(DIST_MB_STEPS):
-        if step:
-            b = batch(runs[0])
-        loss = _sage_parts_loss(model, *b)
-        loss.backward()
-        opt.step()
-        opt.zero_grad(set_to_none=True)
-        losses.append(float(loss))
-    if not all(map(math.isfinite, losses)):
-        raise RuntimeError(f"dist R-GCN losses {losses}")
+    losses = _example_steps(model, opt, loss_fn, lambda: batch(0), b)
     return {"first_step_vs_cpu": check, "losses": losses}
 
 
@@ -11572,6 +11430,410 @@ def run_dist(tag: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the repo's programs on the port: the ported examples run through their
+# main(), python -m dgl_tpu_torch.examples.gcn_cora as a program, and the
+# data tools as programs (no hand kernel outside the converted recipes)
+# ---------------------------------------------------------------------------
+
+# every ported example that no converted phase above runs, at its default
+# widths and dataset, by main(argv); EXAMPLE_CUTS lists the epochs cut for
+# the budget (each printed in its phase line). They run in this process,
+# which earlier phases have warmed: in a fresh process the first example
+# pays that process's warm-up, which costs more than running apart saves
+EXAMPLE_MAINS = ("rgcn_hetero", "tree_lstm", "link_prediction",
+                 "graphsage_minibatch", "sage_device_sampler",
+                 "graphbolt_pipeline", "distributed_sage",
+                 "distributed_hetero_rgcn", "distributed_sage_minibatch",
+                 "distributed_link_prediction", "distributed_rgcn_minibatch",
+                 "device_dist_sage", "cooperative_minibatch")
+EXAMPLE_CUTS = {name: ["--epochs", "2"] for name in (
+    "graphsage_minibatch", "sage_device_sampler", "graphbolt_pipeline",
+    "distributed_sage_minibatch", "distributed_link_prediction",
+    "distributed_rgcn_minibatch")}
+EXAMPLE_TIMEOUT = 300  # seconds for a program (gcn_cora, the tool runner)
+TOOL_PARTS = 4
+
+# runs each tool command of a JSON list as ``python -m
+# dgl_tpu_torch.tools.<tool>`` runs it and prints its exit code and seconds
+# after its own output
+TOOL_RUNNER = r"""
+import json, runpy, sys, time
+for cmd in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    rc = 0
+    try:
+        sys.argv = [cmd[0]] + cmd[1:]
+        runpy.run_module("dgl_tpu_torch.tools." + cmd[0],
+                         run_name="__main__", alter_sys=True)
+    except SystemExit as exc:
+        rc = 0 if exc.code is None else exc.code
+    print("TOOL_RESULT " + json.dumps({
+        "cmd": cmd, "rc": rc, "seconds": time.perf_counter() - t0}),
+        flush=True)
+"""
+
+# runs ``python -m dgl_tpu_torch.examples.gcn_cora`` at its defaults
+# (``runpy.run_module``, ``sys.argv`` set) and prints, after its own
+# output, the port's kernel launches of each GCN forward (its entry and
+# exit counts, and whether it trained) and whether JAX or the JAX package
+# was imported
+GCN_RUNNER = r"""
+import json, runpy, sys
+from dgl_tpu_torch import _kernels
+from dgl_tpu_torch.models import GCN
+calls, forward = [], GCN.forward
+def counted(self, *args, **kwargs):
+    entry = dict(_kernels.launch_counts)
+    out = forward(self, *args, **kwargs)
+    calls.append([self.training, entry, dict(_kernels.launch_counts)])
+    return out
+GCN.forward = counted
+_kernels.reset_launch_counts()
+sys.argv = ["gcn_cora"]
+runpy.run_module("dgl_tpu_torch.examples.gcn_cora", run_name="__main__",
+                 alter_sys=True)
+print("GCN_RESULT " + json.dumps({
+    "calls": calls, "launches": dict(_kernels.launch_counts),
+    "jax": sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "dgl_tpu"))}), flush=True)
+"""
+
+def _program_env(work: str, zoo: str) -> dict:
+    """A program's environment: the checkout importable, and datasets
+    built under ``work/zoo`` (a directory for each process, so that no two
+    build one at once)."""
+    return dict(os.environ, DGL_TPU_DOWNLOAD_DIR=os.path.join(work, zoo),
+                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
+                                                              ""))
+
+
+def _finish(proc, what: str):
+    """A program's stdout once it has ended with code 0."""
+    try:
+        out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        raise RuntimeError(f"{what} ran past {EXAMPLE_TIMEOUT} s:\n"
+                           f"{err[-3000:]}")
+    if proc.returncode:
+        raise RuntimeError(f"{what} exited {proc.returncode}:\n"
+                           f"{out[-2000:]}\n{err[-3000:]}")
+    return out
+
+
+def tool_inputs(work: str) -> dict:
+    """The tools' inputs, written into ``work``: Cora saved by the port's
+    ``save_graphs`` with its features beside it, and the arxiv zipf graph
+    (with 8-wide features) in the chunked layout with a random 4-part
+    assignment."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch.data import CoraGraphDataset
+    from dgl_tpu_torch.data.serialize import save_graphs
+    from dgl_tpu_torch.tools.chunked_dispatch import write_chunked
+
+    t0 = time.perf_counter()
+    cora = CoraGraphDataset()[0]
+    save_graphs(os.path.join(work, "cora.npz"), [cora])
+    np.savez(os.path.join(work, "feats.npz"),
+             feat=cora.ndata["feat"].cpu().numpy())
+    rng = np.random.default_rng(24)
+    zipf = dt.graph(zipf_graph(0), num_nodes=N_NODES)
+    zipf.ndata["feat"] = torch.from_numpy(rng.normal(size=(
+        N_NODES, 8)).astype(np.float32)).cuda()
+    meta = write_chunked(zipf, "zipf", os.path.join(work, "chunked"))
+    assign = rng.integers(0, TOOL_PARTS, N_NODES)
+    np.save(os.path.join(work, "assign.npy"), assign)
+    return {"cora": cora, "zipf": zipf, "meta": meta, "assign": assign,
+            "write_s": time.perf_counter() - t0}
+
+
+def tool_commands(meta: str) -> list:
+    fixture = os.path.join(ROOT, "tests", "fixtures", "ogb")
+    parts = str(TOOL_PARTS)
+    return [
+        ["partition_cli", "--graph", "cora.npz", "--method", "metis",
+         "--num-parts", parts, "--out", "parts"],
+        ["dispatch_partitions", "dispatch", "--parts", "parts",
+         "--node-feats", "feats.npz"],
+        ["dispatch_partitions", "verify", "--parts", "parts"],
+        ["chunked_dispatch", "--meta", meta, "--assignment", "assign.npy",
+         "--num-parts", parts, "--out", "shards"],
+        ["ogb_to_ondisk", "--graph", "cora.npz", "--out", "ondisk"],
+        ["ogb_to_ondisk", "--ogb", "ogbn-arxiv_mid", "--root", fixture,
+         "--out", "ondisk_ogb"],
+    ]
+
+
+def _owned_view(g):
+    """A part's node ids and inner flags in the order of the ids, its
+    owned nodes' features, and their in-edges as sorted pairs of new ids
+    (host arrays)."""
+    import numpy as np
+
+    nid = g.ndata["_new_id"].cpu().numpy()
+    inner = g.ndata["inner_node"].cpu().numpy().astype(bool)
+    src, dst = (t.cpu().numpy() for t in g.edges())
+    keep = inner[dst]
+    pairs = np.stack([nid[src[keep]], nid[dst[keep]]], 1)
+    pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+    order = np.argsort(nid)
+    owned = order[inner[order]]
+    return (nid[order], inner[order], pairs,
+            g.ndata["feat"].cpu().numpy()[owned])
+
+
+def check_parts_step(parts_dir: str, cora) -> dict:
+    """``load_partition`` of every part on the card; the graph the owned
+    nodes' in-edges make equals Cora's, and one ``dist_copy_u_sum`` over
+    shards of it matches ``copy_u_sum`` on Cora at rtol = 1e-5,
+    atol = 1e-5 * max|ref|."""
+    import numpy as np
+    import torch
+
+    import dgl_tpu_torch as dt
+    from dgl_tpu_torch import distributed as td
+    from dgl_tpu_torch import ops
+
+    assign = td.load_assignment(parts_dir)
+    order = np.argsort(assign, kind="stable")  # new id -> old id
+    src, dst = [], []
+    for p in range(TOOL_PARTS):
+        pg, _ = td.load_partition(parts_dir, p)
+        if pg.device.type != "cuda":
+            raise RuntimeError(f"part {p} loaded on {pg.device}")
+        nid = pg.ndata["_new_id"].cpu().numpy()
+        inner = pg.ndata["inner_node"].cpu().numpy().astype(bool)
+        s, d = (t.cpu().numpy() for t in pg.edges())
+        keep = inner[d]
+        src.append(order[nid[s[keep]]])
+        dst.append(order[nid[d[keep]]])
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    csrc, cdst = (t.cpu().numpy().astype(np.int64) for t in cora.edges())
+    n = cora.num_nodes()
+    if src.shape != csrc.shape or not np.array_equal(
+            np.sort(dst * n + src), np.sort(cdst * n + csrc)):
+        raise RuntimeError("the parts' owned in-edges are not Cora's edges")
+    g = dt.graph((src, dst), num_nodes=cora.num_nodes())
+    shards = td.build_shards(g, assign, TOOL_PARTS)
+    mesh = dist_mesh()
+    x = cora.ndata["feat"]
+    got = td.dist_copy_u_sum(mesh, shards, shards.shard_features(x),
+                             tables=td.shard_arrays(mesh, shards))
+    want = shards.shard_features(ops.copy_u_sum(cora, x))
+    return held_against(got, want, 1e-5, "dist_copy_u_sum over the loaded "
+                        "parts vs copy_u_sum on Cora")
+
+
+def check_tool_outputs(work: str, inputs: dict) -> dict:
+    """The tools' files read back on the card: the chunked parts against
+    ``partition_graph``'s for the same assignment (the same nodes and ids,
+    the owned nodes' features and in-edges), the OnDisk datasets against
+    their sources, and a distributed step over ``partition_cli``'s
+    parts."""
+    import numpy as np
+
+    from dgl_tpu_torch import distributed as td
+    from dgl_tpu_torch.data import from_ogb
+    from dgl_tpu_torch.graphbolt import OnDiskDataset
+
+    t0 = time.perf_counter()
+    ref_dir = os.path.join(work, "partition_graph")
+    td.partition_graph(inputs["zipf"], "zipf", TOOL_PARTS, ref_dir,
+                       parts=inputs["assign"])
+    for p in range(TOOL_PARTS):
+        a, _ = td.load_partition(os.path.join(work, "shards"), p)
+        b, _ = td.load_partition(ref_dir, p)
+        for x, y, what in zip(_owned_view(a), _owned_view(b),
+                              ("ids", "inner", "in-edges", "features")):
+            if x.shape != y.shape or not np.array_equal(x, y):
+                raise RuntimeError(f"chunked part {p}: {what} differ from "
+                                   "partition_graph's")
+    chunked_s = time.perf_counter() - t0
+    root = os.path.join(ROOT, "tests", "fixtures", "ogb")
+    for d, src in (("ondisk", inputs["cora"]),
+                   ("ondisk_ogb", from_ogb("ogbn-arxiv_mid", root=root))):
+        ds = OnDiskDataset(os.path.join(work, d))
+        if ds.graph.device.type != "cuda":
+            raise RuntimeError(f"{d} loaded on {ds.graph.device}")
+        for a, b in zip(ds.graph.edges(), src.edges()):
+            if not np.array_equal(a.cpu().numpy(), b.cpu().numpy()):
+                raise RuntimeError(f"{d}: edges differ from the source's")
+        feat = ds.feature.read("node", "_N", "feat",
+                               np.arange(src.num_nodes()))
+        feat = feat.cpu().numpy() if hasattr(feat, "cpu") else np.asarray(
+            feat)
+        if not np.array_equal(feat, src.ndata["feat"].cpu().numpy()):
+            raise RuntimeError(f"{d}: features differ from the source's")
+    return {"chunked_vs_partition_graph_s": chunked_s,
+            "dist_step_over_loaded_parts": check_parts_step(
+                os.path.join(work, "parts"), inputs["cora"])}
+
+
+def run_example_mains(tag: dict) -> dict:
+    """Phase examples: each of ``EXAMPLE_MAINS`` in this process through
+    ``main(["--device", "cuda"] + cuts)``, its printed lines captured, the
+    launch counts set to 0 just before and read just after (every count
+    must stay 0: none of them attaches a plan). Its losses must be finite
+    and fall (``device_dist_sage``, which prints each step's loss on its
+    own seeds: the mean of the last three below the first)."""
+    import importlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from dgl_tpu_torch import _kernels
+
+    out = {}
+    for name in EXAMPLE_MAINS:
+        mod = importlib.import_module(f"dgl_tpu_torch.examples.{name}")
+        argv = EXAMPLE_CUTS.get(name, []) + ["--device", "cuda"]
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            res = mod.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(_kernels.launch_counts)
+        expect_no_other_launch(launches, {}, f"examples.{name}")
+        losses = [float(v) for v in res["losses"]]
+        last = (np.mean(losses[-3:]) if name == "device_dist_sage"
+                else losses[-1])
+        if not (all(map(math.isfinite, losses)) and last < losses[0]):
+            raise RuntimeError(f"examples.{name}: losses {losses}")
+        lines = printed.getvalue().splitlines()
+        out[name] = {"argv": argv, "seconds": seconds,
+                     "launches": {k: v for k, v in launches.items() if v},
+                     "losses": {"first": losses[0], "last": losses[-1],
+                                "count": len(losses)},
+                     **{k: res[k] for k in ("test_accuracy", "auc",
+                                            "hit_rate") if k in res},
+                     "last_line": lines[-1] if lines else ""}
+        emit({"phase": "examples", "example": name, **out[name],
+              "cut": EXAMPLE_CUTS.get(name, "none"), **tag})
+    return out
+
+
+def check_gcn_program(out: str) -> dict:
+    """``GCN_RUNNER``'s output: the program's losses falling and its test
+    accuracy at least ``tests/test_end_to_end.py``'s 0.6; no JAX module
+    imported; every GCN forward 2 B2 launches, every training step (from
+    a training forward's entry to the next forward's) 4, nothing else."""
+    lines = out.splitlines()
+    res = json.loads(lines[-1][len("GCN_RESULT "):])
+    lines = lines[:-1]
+    losses = _losses(lines)
+    acc = _accuracy(lines, "test accuracy")
+    if not (len(losses) == 10 and losses[-1] < losses[0]
+            and acc >= CORA_GCN_FLOOR):
+        raise RuntimeError(f"gcn_cora printed {lines}")
+    if res["jax"]:
+        raise RuntimeError(f"gcn_cora imported {res['jax']}")
+    calls = res["calls"]
+    ends = [c[1] for c in calls[1:]] + [res["launches"]]
+    steps = 0
+    for k, ((training, entry, exit_), end) in enumerate(zip(calls, ends)):
+        expect_no_other_launch({n: exit_[n] - entry[n] for n in exit_},
+                               {"bitmap_spmm": 2}, f"gcn_cora's forward {k}")
+        if training:
+            steps += 1
+            expect_no_other_launch({n: end[n] - entry[n] for n in end},
+                                   {"bitmap_spmm": 4},
+                                   f"gcn_cora's step at forward {k}")
+    if steps != 200:
+        raise RuntimeError(f"gcn_cora took {steps} steps, not 200")
+    return {"losses": losses, "test_accuracy": acc, "floor": CORA_GCN_FLOOR,
+            "forwards": len(calls), "steps": steps,
+            "launches_per_forward": {"bitmap_spmm": 2},
+            "launches_per_step": {"bitmap_spmm": 4}, "launches": {
+                k: n for k, n in res["launches"].items() if n},
+            "jax_modules": res["jax"], "last_line": lines[-1]}
+
+
+def run_programs(tag: dict) -> dict:
+    """The programs group: ``python -m dgl_tpu_torch.examples.gcn_cora``
+    at its defaults (``GCN_RUNNER``) and the data tools (``TOOL_RUNNER``
+    over ``tool_commands``) start as processes of their own, the example
+    mains run in this one meanwhile, then phase
+    ``examples_gcn_cora_program`` (``check_gcn_program``) and phase
+    ``tools`` (every command's exit code, ``verify``'s OK, the files read
+    back on the card by ``check_tool_outputs``). Work files live in a
+    fresh temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+
+    t_group = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="programs_")
+    saved = os.environ.get("DGL_TPU_DOWNLOAD_DIR")
+    os.environ["DGL_TPU_DOWNLOAD_DIR"] = os.path.join(work, "zoo")
+    procs = []
+    try:
+        def start(argv, zoo):
+            proc = subprocess.Popen(
+                [sys.executable] + argv, cwd=work,
+                env=_program_env(work, zoo), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            procs.append(proc)
+            return proc
+
+        t0 = time.perf_counter()
+        gcn = start(["-c", GCN_RUNNER], "zoo_gcn")
+        inputs = tool_inputs(work)
+        cmds = tool_commands(inputs["meta"])
+        tools = start(["-c", TOOL_RUNNER, json.dumps(cmds)], "zoo_tools")
+        mains = run_example_mains(tag)
+
+        program = {"seconds": time.perf_counter() - t0, **check_gcn_program(
+            _finish(gcn, "python -m dgl_tpu_torch.examples.gcn_cora"))}
+        emit({"phase": "examples_gcn_cora_program",
+              "cmd": "python -m dgl_tpu_torch.examples.gcn_cora", **program,
+              **tag})
+
+        out = _finish(tools, "the tool runner")
+        results, chunks, text = [], [], []
+        for line in out.splitlines():
+            if line.startswith("TOOL_RESULT "):
+                results.append(json.loads(line[len("TOOL_RESULT "):]))
+                chunks.append(text)
+                text = []
+            else:
+                text.append(line)
+        if [r["cmd"] for r in results] != cmds or any(r["rc"]
+                                                      for r in results):
+            raise RuntimeError(f"the tools: {results}\n{out[-2000:]}")
+        by_cmd = {" ".join(r["cmd"][:2]): {"seconds": r["seconds"],
+                                           "last_line": c[-1] if c else ""}
+                  for r, c in zip(results, chunks)}
+        ok = f"verified {TOOL_PARTS} parts, 2708 nodes: OK"
+        if chunks[2][-1:] != [ok]:
+            raise RuntimeError(f"verify printed {chunks[2][-3:]}")
+        tools_out = {"write_inputs_s": inputs["write_s"], "commands": by_cmd,
+                     **check_tool_outputs(work, inputs),
+                     "group_s": time.perf_counter() - t_group}
+        emit({"phase": "tools", "inputs": "Cora (save_graphs), the arxiv "
+              f"zipf graph chunked ({N_EDGES:,} edges, 8-wide features), a "
+              "random 4-part assignment", **tools_out, **tag})
+    finally:
+        for proc in procs:  # a failed phase leaves no program running
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        if saved is None:
+            os.environ.pop("DGL_TPU_DOWNLOAD_DIR", None)
+        else:
+            os.environ["DGL_TPU_DOWNLOAD_DIR"] = saved
+        shutil.rmtree(work, ignore_errors=True)
+    return {"mains": mains, "gcn_cora_program": program, "tools": tools_out,
+            "seconds": time.perf_counter() - t_group}
+
+
 def run() -> dict:
     import torch
 
@@ -11695,6 +11957,8 @@ def run() -> dict:
     dist = run_dist(tag)
     emit({"phase": "dist_total", "seconds": dist_s + dist["seconds"],
           **tag})
+    programs = run_programs(tag)
+    emit({"phase": "programs_total", "seconds": programs["seconds"], **tag})
     return {"kernels": kernels, "card": card}
 
 

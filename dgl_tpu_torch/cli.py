@@ -236,58 +236,13 @@ def _run_graphpred(cfg: dict, device):
 
 
 def _run_linkpred(cfg: dict, device):
-    """The reference runs ``examples/link_prediction.py``; its logic, kept
-    here: a 2-layer GraphSAGE encoder on a 2,000-node synthetic graph,
-    ``global_uniform_negative_sampling`` a epoch, the dot-product score,
-    the logistic loss (no dropout), then an AUC."""
-    from .data import SyntheticDataset
-    from .models import GraphSAGE
-    from .sampling import global_uniform_negative_sampling
+    """The reference runs ``examples/link_prediction.py``; so does this:
+    :mod:`dgl_tpu_torch.examples.link_prediction`'s training and AUC."""
+    from .examples import link_prediction
 
-    ds = SyntheticDataset(num_nodes=2000, num_edges=16000, num_classes=4,
-                          feat_dim=32, device=device)
-    g = ds[0]
-    feat = g.ndata["feat"]
-    src, dst = g._relation(None).host_edges()
-    pos_src = torch.from_numpy(src.astype(np.int64)).to(device)
-    pos_dst = torch.from_numpy(dst.astype(np.int64)).to(device)
-
-    model = GraphSAGE(32, 64, 64, num_layers=2, generator=_generator(0),
-                      device=device)
-    model.eval()
-    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
-
-    def score(h, s, d):
-        return (h[s] * h[d]).sum(-1)
-
-    losses = []
-    for epoch in range(cfg.get("epochs", 50)):
-        neg_src, neg_dst = global_uniform_negative_sampling(
-            g, pos_src.shape[0], seed=epoch)
-        k = min(neg_src.shape[0], pos_src.shape[0])
-        h = model(g, feat)
-        loss = (-F.logsigmoid(score(h, pos_src[:k], pos_dst[:k])).mean()
-                - F.logsigmoid(-score(h, neg_src[:k], neg_dst[:k])).mean())
-        opt.zero_grad()
-        loss.backward()
-        opt.step()
-        losses.append(loss.item())
-        if epoch % 10 == 0:
-            print(f"epoch {epoch} loss {losses[-1]:.4f}")
-    # AUC on a held-out style sample
-    with torch.no_grad():
-        h = model(g, feat)
-        pos = score(h, pos_src, pos_dst).cpu().numpy()
-        ns, nd = global_uniform_negative_sampling(g, pos_src.shape[0],
-                                                  seed=777)
-        neg = score(h, ns, nd).cpu().numpy()
-    scores = np.concatenate([pos, neg])
-    order = np.argsort(scores)
-    ranks = np.empty_like(order, dtype=np.float64)
-    ranks[order] = np.arange(1, len(scores) + 1)
-    n_pos, n_neg = len(pos), len(neg)
-    auc = (ranks[:n_pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg)
-    print(f"AUC {auc:.4f}")
+    model, data, losses = link_prediction.train(cfg.get("epochs", 50),
+                                                device)
+    print(f"AUC {link_prediction.auc(model, *data):.4f}")
     return losses
 
 
