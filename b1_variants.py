@@ -106,27 +106,30 @@ VARIANTS = {
 }
 
 
-def build(variants: dict) -> dict:
-    """Compile each variant's source into a library (all ``nvcc`` at once);
-    returns ``{name: (ctypes library, ptxas report of the B1
-    instantiations)}``."""
+def build(variants: dict, out_dir: str = BUILD,
+          keep=lambda key: key.startswith("sum ")) -> dict:
+    """Compile each variant's source into a library under ``out_dir`` (all
+    ``nvcc`` at once, ``csrc/`` on the include path); returns ``{name:
+    (ctypes library, ptxas report of the instantiations whose key
+    ``keep`` holds)}``."""
     import chip_smoke as cs
     from torch.utils.cpp_extension import CUDA_HOME
 
     from dgl_tpu_torch import _kernels
 
-    os.makedirs(BUILD, exist_ok=True)
+    os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for i, (name, text) in enumerate(variants.items()):
-        src = os.path.join(BUILD, f"v{i}.cu")
+        src = os.path.join(out_dir, f"v{i}.cu")
         with open(src, "w") as f:
             f.write(text)
         procs[name] = (subprocess.Popen(
             [os.path.join(CUDA_HOME, "bin", "nvcc"), *_kernels.CUDA_FLAGS,
              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
-             "-v", "-o", os.path.join(BUILD, f"v{i}.so"), src],
+             "-v", "-I", os.path.dirname(SOURCE), "-o",
+             os.path.join(out_dir, f"v{i}.so"), src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            os.path.join(BUILD, f"v{i}.so"))
+            os.path.join(out_dir, f"v{i}.so"))
     out = {}
     for name, (proc, path) in procs.items():
         report = cs.ptxas_report(proc)
@@ -135,8 +138,7 @@ def build(variants: dict) -> dict:
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-        out[name] = (lib, {k: v for k, v in report.items()
-                           if k.startswith("sum ")})
+        out[name] = (lib, {k: v for k, v in report.items() if keep(k)})
     return out
 
 

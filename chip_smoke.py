@@ -120,10 +120,14 @@ bitmap-flash GAT forward, and B4 and B5, its backward):
 9. drives GAT 602 -> 8 x 8 heads -> 41 once (counts read around it: two
    B3 launches, B3 walking the relation's CSC), checking the output's shape
    and finiteness (step 11 holds its values);
-10. holds B2 against its plain version on both GCN layers' real tables at
-    rtol = 1e-5, atol = 1e-5 * max|ref| (the same f32 terms summed in
-    another order), and times it, its plain version and ``torch.sparse.mm``
-    on the CSR adjacency;
+10. holds B2 (over the relation's CSC) against its plain version (over
+    the bits) on both GCN layers' real tables at rtol = 1e-5,
+    atol = 1e-5 * max|ref| (the same f32 terms summed in another order),
+    and two of its launches against each other (equal), and times it, its
+    plain version and ``torch.sparse.mm`` on the CSR adjacency, beside its
+    bound over the CSC (``b2_figures``), the bitmap walk's bound, its
+    ``ptxas`` figures and its time as a bitmap walk (``prev_ms``,
+    PERF.md's figure, not measured here);
 11. holds B3 (over the relation's CSC) against its plain version (over
     the bits) on both GAT layers' real inputs, on 4,096 dst rows spread
     over the graph (the first and last 512-row tiles included), at
@@ -138,9 +142,10 @@ bitmap-flash GAT forward, and B4 and B5, its backward):
 12. times both forwards as a caller waits for them and breaks their device
     time down by kernel with ``torch.profiler``;
 13. trains GCN (dropout 0.5): gradients against the exact f32 path as in
-    step 6, one counted step (4 B2 launches: 2 forward, 2 backward over
-    ``bits``, the graph being symmetric), four more (finite, falling
-    losses), B2 against its plain version on the backward's real ``dz``,
+    step 6, one counted step (4 B2 launches: 2 forward over the CSC, 2
+    backward over the CSR, the plain version's over ``bits``, the graph
+    being symmetric), four more (finite, falling losses), B2 against its
+    plain version on the backward's real ``dz`` with step 10's figures,
     step time and profile;
 14. trains GAT (no dropout): one counted step (2 launches each of B3, B4
     and B5), four more (finite, falling losses); holds B4 (over the CSC)
@@ -157,11 +162,15 @@ bitmap-flash GAT forward, and B4 and B5, its backward):
     times the step and profiles it;
 14a. the exact bitmap mode (phase ``exact_bitmap_gcn``,
     ``run_exact_bitmap_gcn``): a ``compute_dtype="float32"`` plan over the
-    same bits, GCN's counted forward (2 B2f launches, B2 over f32 rows)
+    same bits, GCN's counted forward (2 B2f launches, B2 over f32 rows,
+    walking the CSC)
     and step (4), output and gradients against the exact f32 path at
     rtol = 1e-4, atol = 1e-4 * max|ref|, times; B2f against its plain
     version on 4,096 dst rows of the forward's real table within
-    1e-6 * max|ref|, its time, bound and ``torch.sparse.mm``'s.
+    1e-6 * max|ref|, its time, bound and ``torch.sparse.mm``'s, with step
+    10's figures; and B2f's two backward calls of the gradient pass (over
+    the CSR) against the plain version over the bits on the same rows,
+    within 1e-6 * max|ref|, with their times and bounds.
 
 the hub-cache path (kernel B6, hub gather; ``benchmarks/bench_hub.py``'s
 defaults: 1024 hubs, F = 256, f32):
@@ -720,21 +729,29 @@ REDDIT_FEAT, REDDIT_CLASSES = 602, 41
 GCN_HIDDEN = 16  # examples/reddit_fullgraph_gcn.py:48-54
 GAT_HIDDEN, GAT_HEADS = 8, 8  # benchmarks/bench_reddit_gat.py:47-48
 B3_CHECK_ROWS = 4096
-# B3's, B4's and B5's times as walks of the bitmap, as PERF.md records
-# them (H100 80GB HBM3 at 700 W), by GAT layer: printed beside this run's
-# times as "prev_ms", not measured here
-PREV_MS = {"bitmap_gat_fwd": {"layer0 H=8 O=8": 5.944,
+# B2's, B2f's, B3's, B4's and B5's times as walks of the bitmap, as
+# PERF.md records them (H100 80GB HBM3 at 700 W), by call: printed on the
+# kernel_vs_plain lines beside this run's times as "prev_ms", not measured
+# here
+PREV_MS = {"bitmap_spmm": {"layer0 F=16": 3.274, "layer1 F=16": 3.275,
+                           "layer1 bwd F=16": 3.282,
+                           "layer0 bwd F=16": 3.284},
+           "bitmap_spmm_f32": {"layer0 F=16": 3.538},
+           "bitmap_gat_fwd": {"layer0 H=8 O=8": 5.944,
                               "layer1 H=1 O=41": 5.648},
            "bitmap_gat_bwd_dst": {"layer0 H=8 O=8": 6.016,
                                   "layer1 H=1 O=41": 5.700},
            "bitmap_gat_bwd_src": {"layer0 H=8 O=8": 7.032,
                                   "layer1 H=1 O=41": 6.518}}
 PREV_MS_SOURCE = {
+    "bitmap_spmm": "PERF.md: the kernel that walked the bitmap, before the "
+                   "CSC / CSR walk; not measured in this run",
     "bitmap_gat_fwd": "PERF.md: the kernel that walked the bitmap, before "
                       "the CSC walk; not measured in this run",
     "bitmap_gat_bwd_dst": "PERF.md: the kernel that walked the bitmap; not "
                           "measured in this run"}
 PREV_MS_SOURCE["bitmap_gat_bwd_src"] = PREV_MS_SOURCE["bitmap_gat_bwd_dst"]
+PREV_MS_SOURCE["bitmap_spmm_f32"] = PREV_MS_SOURCE["bitmap_spmm"]
 # the edge cases of B4's and B5's walks: a graph of 1,301 dst rows by
 # 26,001 sources with a full row each way, and (heads, odim) pairs giving
 # each (nh, nf) case of the kernels' switch
@@ -810,8 +827,8 @@ def ptxas_start(names):
 def ptxas_key(name: str) -> str:
     """The report's key of a compiled kernel's mangled ``name``: ``nh=..
     nf=..`` for B3-B5's templates, ``gspmm T=.. vec=.. op=.. fast=..``
-    for B1's weighted caller, ``sum T=.. vec=..`` for B1, else the name
-    itself."""
+    for B1's weighted caller, ``sum T=.. vec=..`` for B1, ``T=.. G=..``
+    for B2, else the name itself."""
     import re
 
     m = re.search(r"shell_prefix_gspmm_kernelI([tf])Li(\d+)ELi(\d+)ELb([01])E",
@@ -820,6 +837,9 @@ def ptxas_key(name: str) -> str:
         return (f"gspmm T={'bf16' if m.group(1) == 't' else 'f32'} "
                 f"vec={m.group(2)} op={GSPMM_OPS[int(m.group(3))]} "
                 f"fast={m.group(4)}")
+    m = re.search(r"bitmap_spmm_kernelI([tf])Li(\d+)E", name)
+    if m:
+        return f"T={'bf16' if m.group(1) == 't' else 'f32'} G={m.group(2)}"
     m = re.search(r"shell_prefix_sum_kernelI([tf])Li(\d+)E", name)
     if m:
         return (f"sum T={'bf16' if m.group(1) == 't' else 'f32'} "
@@ -1933,6 +1953,37 @@ def b45_figures(rel, heads, odim, rate, kernel, nh=None) -> dict:
             "ids_gb": E * passes * 4 / 1e9}
 
 
+def b2_figures(rel, feat, dtype, rate, kernel) -> dict:
+    """B2's (x in bf16) or B2f's (``dtype`` float32) bound and traffic over
+    the relation's CSC (``kernel="fwd"``, a row a destination) or CSR
+    (``"bwd"``, a row a source): the bound counts every input read once
+    (indptr, the int32 ids, x over the real rows in ``dtype``) and the f32
+    output written once over the HBM rate, against one f32 add per edge
+    and feature over the f32 rate; ``gather_gb`` is what the design moves
+    per call, a row of x (padded to whole passes) gathered per edge (L2
+    hits), and ``ids_gb`` the ids read once a pass."""
+    import torch
+
+    from dgl_tpu_torch.ops.bitmap_spmm import _lanes
+
+    elem = torch.empty((), dtype=dtype).element_size()
+    lanes, fp = _lanes(feat)
+    passes = fp // (8 * lanes)
+    E = rel.num_edges
+    n_rows, n_src = ((rel.num_dst, rel.num_src) if kernel == "fwd"
+                     else (rel.num_src, rel.num_dst))
+    n_bytes = (n_rows + 1) * 4 + E * 4 + n_src * feat * elem + (
+        n_rows * feat * 4)
+    bytes_ms = n_bytes / rate * 1e3
+    ops_ms = E * feat / F32_RATE * 1e3
+    return {"lanes": lanes, "passes": passes,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_bytes_ms": bytes_ms, "bound_operations_ms": ops_ms,
+            "gather_gb": E * fp * elem / 1e9,
+            "ids_gb": E * passes * 4 / 1e9}
+
+
 def bitmap_bound(bits, n_rows, other_bytes, flops, rate):
     """Least time of one call over the bitmap: its first ``n_rows`` rows
     read once (the padding rows below are never read) plus ``other_bytes``
@@ -1957,9 +2008,10 @@ def check_rows(n: int, count: int, seed: int = 3):
     return torch.from_numpy(np.sort(np.concatenate([edge, mid]))).cuda()
 
 
-def run_gcn_training(g, gp, feat, y, mask, rate: float, tag: dict) -> dict:
-    """GCN training at Reddit scale (B2 forward and, over the transpose
-    bitmap, backward); returns B2's backward figures."""
+def run_gcn_training(g, gp, feat, y, mask, rate: float, ptxas: dict,
+                     tag: dict) -> dict:
+    """GCN training at Reddit scale (B2 forward over the relation's CSC
+    and backward over its CSR); returns B2's backward figures."""
     import torch
 
     from dgl_tpu_torch.models import GCN
@@ -1987,14 +2039,23 @@ def run_gcn_training(g, gp, feat, y, mask, rate: float, tag: dict) -> dict:
           "grads_vs_exact_f32": grad_check, **tag})
     if len(rec) != 4:
         raise RuntimeError(f"recorded {len(rec)} bitmap_matmul calls")
+    # the forward hands the kernel the relation's own CSC, the backward its
+    # CSR
+    for i, (_args, kw) in enumerate(rec):
+        want_idx = ((rel.csc_indptr, rel.csc_indices) if i < 2
+                    else (rel.csr_indptr, rel.csr_indices))
+        if any(k not in kw or kw[k].data_ptr() != t.data_ptr()
+               for k, t in zip(("indptr", "indices"), want_idx)):
+            raise RuntimeError(f"B2 call {i} was not handed the relation's "
+                               f"{'CSC' if i < 2 else 'CSR'}")
     csc = rel.csc_indptr.long(), rel.csc_indices.long()
     adj = torch.sparse_csr_tensor(csc[0], csc[1], torch.ones(
         E, device=feat.device), size=(N, N))  # symmetric: A^T = A
     bwd = {}
-    for i, (args, _kw) in enumerate(rec[2:]):
+    for i, (args, kw) in enumerate(rec[2:]):
         bits_t, dz, n_rows = args[:3]
         label = f"layer{1 - i} bwd F={dz.shape[1]}"
-        got = bitmap_matmul(bits_t, dz, n_rows)
+        got = bitmap_matmul(bits_t, dz, n_rows, **kw)
         want = bitmap_matmul_plain(bits_t, dz, n_rows)
         torch.cuda.synchronize()
         scale = max(want.abs().max().item(), 1e-30)
@@ -2002,24 +2063,30 @@ def run_gcn_training(g, gp, feat, y, mask, rate: float, tag: dict) -> dict:
         if not torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale):
             raise RuntimeError(f"B2 vs plain at {label}: max abs err "
                                f"{abs_err} (max |ref| {scale})")
+        if not torch.equal(bitmap_matmul(bits_t, dz, n_rows, **kw), got):
+            raise RuntimeError(f"B2 at {label}: two launches differ")
         feat_n = dz.shape[1]
         dzf = dz.to(torch.bfloat16).float()
-        bound, bound_by = bitmap_bound(
-            bits_t, n_rows, N * feat_n * 2 + N * feat_n * 4, E * feat_n,
-            rate)
+        fig = b2_figures(rel, feat_n, torch.bfloat16, rate, "bwd")
         bwd[label] = {
             "F": feat_n, "max_abs_err": abs_err,
             "max_rel_err": abs_err / scale,
-            "ms": time_ms(lambda: bitmap_matmul(bits_t, dz, n_rows), 20,
-                          hide_host=True),
+            "ms": time_ms(lambda: bitmap_matmul(bits_t, dz, n_rows, **kw),
+                          20, hide_host=True),
             "plain_ms": time_ms(lambda: bitmap_matmul_plain(
                 bits_t, dz, n_rows), 2, warmup=1, hide_host=True),
             "library_ms": time_ms(lambda: torch.sparse.mm(adj, dzf), 20,
                                   hide_host=True),
-            "bound_ms": bound, "bound_by": bound_by,
+            **fig, "bitmap_walk_bound_ms": bitmap_bound(
+                bits_t, n_rows, N * feat_n * 2 + N * feat_n * 4,
+                E * feat_n, rate)[0],
+            "prev_ms": PREV_MS["bitmap_spmm"][label],
+            "prev_ms_source": PREV_MS_SOURCE["bitmap_spmm"],
+            "ptxas": ptxas["bitmap_spmm"][f"T=bf16 G={fig['lanes']}"],
         }
         emit({"phase": "kernel_vs_plain", "kernel": "bitmap_spmm",
               "shape": label, "n_dst": n_rows, "edges": E,
+              "input": "the relation's CSR (csr_indptr, csr_indices)",
               "tolerance": "rtol=1e-5, atol=1e-5*max|ref|",
               "library": "torch.sparse.mm(CSR adjacency, f32)",
               **bwd[label], **tag})
@@ -2309,8 +2376,10 @@ def run_reddit(rate: float, ptxas: dict, tag: dict) -> list:
           "output_max_abs": gout.abs().max().item(), **tag})
 
     # 10. B2 against its plain version and torch.sparse.mm on both layers'
-    # real tables (F = 16 each)
+    # real tables (F = 16 each); B2 walks the relation's CSC, the plain
+    # version reads the bits
     bits = plan.bits
+    idx = {"indptr": rel.csc_indptr, "indices": rel.csc_indices}
     with torch.inference_mode():
         nrm = 1.0 / torch.sqrt(torch.clamp(gp.out_degrees().float(), min=1))
         t0_tab = (feat * nrm[:, None]) @ gcn.conv0.weight
@@ -2324,7 +2393,7 @@ def run_reddit(rate: float, ptxas: dict, tag: dict) -> list:
         for label, t in tables.items():
             xb = t.to(torch.bfloat16).contiguous()
             xf = xb.float()
-            got = bitmap_matmul(bits, xb, N)
+            got = bitmap_matmul(bits, xb, N, **idx)
             want = bitmap_matmul_plain(bits, xb, N)
             torch.cuda.synchronize()
             scale = max(want.abs().max().item(), 1e-30)
@@ -2332,24 +2401,31 @@ def run_reddit(rate: float, ptxas: dict, tag: dict) -> list:
             if not torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale):
                 raise RuntimeError(f"B2 vs plain at {label}: max abs err "
                                    f"{abs_err} (max |ref| {scale})")
+            if not torch.equal(bitmap_matmul(bits, xb, N, **idx), got):
+                raise RuntimeError(f"B2 at {label}: two launches differ")
             lib_err = (torch.sparse.mm(adj, xf) - got).abs().max().item()
             feat_n = xb.shape[1]
-            bound, bound_by = bitmap_bound(
-                bits, N, N * feat_n * 2 + N * feat_n * 4, E * feat_n, rate)
+            fig = b2_figures(rel, feat_n, torch.bfloat16, rate, "fwd")
             b2[label] = {
                 "F": feat_n, "max_abs_err": abs_err,
                 "max_rel_err": abs_err / scale,
-                "ms": time_ms(lambda: bitmap_matmul(bits, xb, N), 20,
+                "ms": time_ms(lambda: bitmap_matmul(bits, xb, N, **idx), 20,
                               hide_host=True),
                 "plain_ms": time_ms(lambda: bitmap_matmul_plain(bits, xb, N),
                                     2, warmup=1, hide_host=True),
                 "library_ms": time_ms(lambda: torch.sparse.mm(adj, xf), 20,
                                       hide_host=True),
                 "library_max_abs_err": lib_err,
-                "bound_ms": bound, "bound_by": bound_by,
+                **fig, "bitmap_walk_bound_ms": bitmap_bound(
+                    bits, N, N * feat_n * 2 + N * feat_n * 4, E * feat_n,
+                    rate)[0],
+                "prev_ms": PREV_MS["bitmap_spmm"][label],
+                "prev_ms_source": PREV_MS_SOURCE["bitmap_spmm"],
+                "ptxas": ptxas["bitmap_spmm"][f"T=bf16 G={fig['lanes']}"],
             }
             emit({"phase": "kernel_vs_plain", "kernel": "bitmap_spmm",
                   "shape": label, "n_dst": N, "edges": E,
+                  "input": "the relation's CSC (csc_indptr, csc_indices)",
                   "tolerance": "rtol=1e-5, atol=1e-5*max|ref|",
                   "library": "torch.sparse.mm(CSR adjacency, f32)",
                   **b2[label], **tag})
@@ -2441,11 +2517,13 @@ def run_reddit(rate: float, ptxas: dict, tag: dict) -> list:
 
     # 13-14. training: GCN (dropout 0.5) and GAT, Adam, masked loss over
     # the recipe's train split
-    gcn_train = run_gcn_training(g, gp, feat, labels, train_mask, rate, tag)
+    gcn_train = run_gcn_training(g, gp, feat, labels, train_mask, rate,
+                                 ptxas, tag)
     gat_train = run_gat_training(gp, feat, labels, train_mask, rate, ptxas,
                                  tag)
     # 14a. the exact bitmap mode (B2f) on the same bits
-    b2f = run_exact_bitmap_gcn(g, gp, feat, labels, train_mask, rate, tag)
+    b2f = run_exact_bitmap_gcn(g, gp, feat, labels, train_mask, rate, ptxas,
+                               tag)
 
     m2, m3 = b2["layer0 F=16"], b3["layer0 H=8 O=8"]
     b4, b5 = gat_train["b4"], gat_train["b5"]
@@ -2461,8 +2539,13 @@ def run_reddit(rate: float, ptxas: dict, tag: dict) -> list:
         "bound_ms": m2["bound_ms"],
         "bound_by": m2["bound_by"],
         "library_ms": m2["library_ms"],
+        "input": "the relation's CSC (csc_indptr, csc_indices) forward, its "
+                 "CSR backward, walked a row a warp; the bitmap is not read",
         "shape": f"GCN layer0 F=16, n_dst={N}, E={E}, times per call; "
                  "launches: the inference forward",
+        "layer1": {k: b2["layer1 F=16"][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "max_abs_err")},
         "launches_train_step": gcn_train["launches_train_step"],
         "backward": {k: {f: v[f] for f in ("F", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms",
@@ -2517,7 +2600,7 @@ def run_reddit(rate: float, ptxas: dict, tag: dict) -> list:
     ] + [b2f]
 
 
-def run_exact_bitmap_gcn(g, gp, feat, y, mask, rate: float,
+def run_exact_bitmap_gcn(g, gp, feat, y, mask, rate: float, ptxas: dict,
                          tag: dict) -> dict:
     """The exact bitmap mode on the Reddit graph (phase
     ``exact_bitmap_gcn``): a ``BitmapPlan`` with the main path's bits
@@ -2528,8 +2611,9 @@ def run_exact_bitmap_gcn(g, gp, feat, y, mask, rate: float,
     plan's error printed beside it), a counted Adam step (B2f 4), times;
     then B2f against its plain version on the forward's first real table
     on 4,096 dst rows spread over the graph, within 1e-6 * max|ref|, its
-    time, bound and ``torch.sparse.mm``'s. Returns B2f's entry of the
-    kernel table."""
+    time, bound and ``torch.sparse.mm``'s, and its backward calls over the
+    CSR (``b2f_backward_vs_plain``). Returns B2f's entry of the kernel
+    table."""
     import torch
 
     from dgl_tpu_torch import _kernels
@@ -2563,7 +2647,10 @@ def run_exact_bitmap_gcn(g, gp, feat, y, mask, rate: float,
     fwd_check = forward_vs_exact(gcn, gp32, g, feat, 1e-4, what)
     bf16_check = forward_vs_exact(gcn, gp, g, feat, 2e-2,
                                   "GCN over the bfloat16 bitmap plan")
-    grad_check = check_grads(gcn, gp32, g, feat, y, mask, what, 1e-4)
+    # the gradients' pass records B2f's calls: two forward, then the
+    # backward's (layer 1, layer 0) over the relation's CSR
+    with recording(bitmap_spmm, "bitmap_matmul") as rec_g:
+        grad_check = check_grads(gcn, gp32, g, feat, y, mask, what, 1e-4)
     gcn.train()
     opt = torch.optim.Adam(gcn.parameters(), lr=LR)
     loss, step_launches, step_peak, step_s = counted_step(
@@ -2584,16 +2671,21 @@ def run_exact_bitmap_gcn(g, gp, feat, y, mask, rate: float,
           "bf16_plan_forward_vs_exact_f32": bf16_check,
           "grads_vs_exact_f32": grad_check, **tag})
     del out, opt
-    # B2f against its plain version on the forward's first real table
-    args = rec[0][0]
+    # B2f against its plain version on the forward's first real table; the
+    # forward handed it the relation's own CSC
+    args, kw = rec[0]
     bits, x, n_rows = args[0], args[1], args[2]
     if len(rec) != 2 or x.dtype != torch.float32 or n_rows != N:
         raise RuntimeError(f"recorded {len(rec)} B2f calls, the first "
                            f"{x.dtype} x {tuple(x.shape)}")
+    if any(k not in kw or kw[k].data_ptr() != t.data_ptr()
+           for k, t in (("indptr", rel.csc_indptr),
+                        ("indices", rel.csc_indices))):
+        raise RuntimeError("B2f was not handed the relation's CSC")
     rows = check_rows(N, B3_CHECK_ROWS)
     with torch.inference_mode():
         bits_rows = bits[rows]
-        got = bitmap_matmul(bits, x, N, "float32")
+        got = bitmap_matmul(bits, x, N, "float32", **kw)
         want = bitmap_matmul_plain(bits_rows, x, compute_dtype="float32")
         torch.cuda.synchronize()
         scale = max(want.abs().max().item(), 1e-30)
@@ -2602,31 +2694,39 @@ def run_exact_bitmap_gcn(g, gp, feat, y, mask, rate: float,
                               atol=1e-6 * scale):
             raise RuntimeError(f"B2f vs plain: max abs err {abs_err} (max "
                                f"|ref| {scale})")
+        if not torch.equal(bitmap_matmul(bits, x, N, "float32", **kw), got):
+            raise RuntimeError("B2f: two launches differ")
         csc = rel.csc_indptr.long(), rel.csc_indices.long()
         adj = torch.sparse_csr_tensor(csc[0], csc[1], torch.ones(
             E, device=feat.device), size=(N, N))
         feat_n = x.shape[1]
-        bound, bound_by = bitmap_bound(bits, N, 2 * N * feat_n * 4,
-                                       E * feat_n, rate)
+        fig = b2_figures(rel, feat_n, torch.float32, rate, "fwd")
         b2f = {
             "F": feat_n, "max_abs_err": abs_err,
             "max_rel_err": abs_err / scale,
-            "ms": time_ms(lambda: bitmap_matmul(bits, x, N, "float32"), 20,
-                          hide_host=True),
+            "ms": time_ms(lambda: bitmap_matmul(bits, x, N, "float32", **kw),
+                          20, hide_host=True),
             "plain_ms": time_ms(lambda: bitmap_matmul_plain(
                 bits_rows, x, compute_dtype="float32"), 2, warmup=1,
                 hide_host=True),
             "library_ms": time_ms(lambda: torch.sparse.mm(adj, x), 20,
                                   hide_host=True),
-            "bound_ms": bound, "bound_by": bound_by,
+            **fig, "bitmap_walk_bound_ms": bitmap_bound(
+                bits, N, 2 * N * feat_n * 4, E * feat_n, rate)[0],
+            "prev_ms": PREV_MS["bitmap_spmm_f32"][f"layer0 F={feat_n}"],
+            "prev_ms_source": PREV_MS_SOURCE["bitmap_spmm_f32"],
+            "ptxas": ptxas["bitmap_spmm"][f"T=f32 G={fig['lanes']}"],
         }
     del adj, bits_rows, rec
     emit({"phase": "kernel_vs_plain", "kernel": "bitmap_spmm_f32",
           "shape": f"layer0 F={feat_n}", "n_dst": N, "edges": E,
           "checked_rows": B3_CHECK_ROWS,
+          "input": "the relation's CSC (csc_indptr, csc_indices)",
           "tolerance": "rtol=1e-6, atol=1e-6*max|ref|",
           "plain": f"on the {B3_CHECK_ROWS} checked rows",
           "library": "torch.sparse.mm(CSR adjacency, f32)", **b2f, **tag})
+    b2f_bwd = b2f_backward_vs_plain(rel, rec_g, rows, rate, tag)
+    del rec_g
     total_s = time.perf_counter() - t_phase
     emit({"phase": "exact_bitmap_gcn_total", "seconds": total_s, **tag})
     return {
@@ -2641,12 +2741,69 @@ def run_exact_bitmap_gcn(g, gp, feat, y, mask, rate: float,
         "bound_ms": b2f["bound_ms"],
         "bound_by": b2f["bound_by"],
         "library_ms": b2f["library_ms"],
+        "input": "the relation's CSC forward, its CSR backward, walked a "
+                 "row a warp; the bitmap is not read",
         "shape": f"B2 over f32 x (compute_dtype='float32'): GCN layer0 "
                  f"F={feat_n}, n_dst={N}, E={E}, times per call; plain_ms "
                  f"on {B3_CHECK_ROWS} rows; launches: the inference forward",
         "launches_train_step": step_launches["bitmap_spmm_f32"],
+        "backward": b2f_bwd,
         "exact_bitmap_gcn_s": total_s,
     }
+
+
+def b2f_backward_vs_plain(rel, rec, rows, rate: float, tag: dict) -> dict:
+    """B2f's backward calls of the exact GCN's gradient pass (``rec``: the
+    recorded ``bitmap_matmul`` calls, two forward and two backward), each
+    handed the relation's own CSR, against the plain version over the
+    transpose bits on the checked ``rows``, within 1e-6 * max|ref|; two
+    launches give the same bits. Returns their figures by call."""
+    import torch
+
+    from dgl_tpu_torch.ops.bitmap_spmm import (bitmap_matmul,
+                                               bitmap_matmul_plain)
+
+    if len(rec) != 4:
+        raise RuntimeError(f"recorded {len(rec)} B2f calls in the exact "
+                           "GCN's gradient pass, expected 4")
+    out = {}
+    for i, (args, kw) in enumerate(rec[2:]):
+        bits_t, dz, n_rows, cd = args[:4]
+        label = f"layer{1 - i} bwd F={dz.shape[1]}"
+        if cd != "float32" or n_rows != rel.num_src or any(
+                k not in kw or kw[k].data_ptr() != t.data_ptr()
+                for k, t in (("indptr", rel.csr_indptr),
+                             ("indices", rel.csr_indices))):
+            raise RuntimeError(f"B2f at {label} was not handed the "
+                               "relation's CSR in f32")
+        with torch.inference_mode():
+            got = bitmap_matmul(bits_t, dz, n_rows, cd, **kw)
+            want = bitmap_matmul_plain(bits_t[rows], dz, compute_dtype=cd)
+            torch.cuda.synchronize()
+            scale = max(want.abs().max().item(), 1e-30)
+            abs_err = (got[rows] - want).abs().max().item()
+            if not torch.allclose(got[rows], want, rtol=1e-6,
+                                  atol=1e-6 * scale):
+                raise RuntimeError(f"B2f vs plain at {label}: max abs err "
+                                   f"{abs_err} (max |ref| {scale})")
+            if not torch.equal(bitmap_matmul(bits_t, dz, n_rows, cd, **kw),
+                               got):
+                raise RuntimeError(f"B2f at {label}: two launches differ")
+            fig = b2_figures(rel, dz.shape[1], torch.float32, rate, "bwd")
+            out[label] = {
+                "F": dz.shape[1], "max_abs_err": abs_err,
+                "ms": time_ms(lambda: bitmap_matmul(bits_t, dz, n_rows, cd,
+                                                    **kw), 20,
+                              hide_host=True),
+                "bound_ms": fig["bound_ms"], "bound_by": fig["bound_by"]}
+        emit({"phase": "kernel_vs_plain", "kernel": "bitmap_spmm_f32",
+              "shape": label, "n_dst": n_rows, "edges": rel.num_edges,
+              "checked_rows": int(rows.numel()),
+              "input": "the relation's CSR (csr_indptr, csr_indices)",
+              "tolerance": "rtol=1e-6, atol=1e-6*max|ref|",
+              "plain": f"over the transpose bits on the {rows.numel()} "
+                       "checked rows", **out[label], **tag})
+    return out
 
 
 def expect_no_other_launch(launches: dict, allowed: dict, what: str):
@@ -11844,10 +12001,11 @@ def run() -> dict:
     tag = {"card": card}
 
     # 1. build the kernels from the checkout's sources (one nvcc each,
-    # started together), and B1 (with its weighted caller), B3, B4 and B5
-    # once more for ptxas's report
+    # started together), and B1 (with its weighted caller), B2, B3, B4 and
+    # B5 once more for ptxas's report
     t0 = time.perf_counter()
-    procs = ptxas_start(list(PREV_MS) + ["shell_prefix_sum"])
+    procs = ptxas_start(["bitmap_spmm", "bitmap_gat_fwd", "bitmap_gat_bwd_dst",
+                         "bitmap_gat_bwd_src", "shell_prefix_sum"])
     _kernels.library()
     ptxas = {name: ptxas_report(p) for name, p in procs.items()}
     emit({"phase": "build", "kernels": sorted(_kernels.launch_counts),

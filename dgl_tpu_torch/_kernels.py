@@ -47,7 +47,7 @@ ARGTYPES = {
          _P, _I32, _P, _P, _P, _I64, _I64, _I32, _P],
     "dgl_shell_prefix_gspmm_occupancy":
         [_I32, _I32, _I32, _I32, _I32, _I64, _I32, _P],
-    "dgl_bitmap_spmm": [_P, _I64, _I64, _P, _I32, _I64, _I64, _I64, _I32, _P,
+    "dgl_bitmap_spmm": [_P, _P, _I64, _P, _I32, _I64, _I64, _I64, _I32, _P,
                         _P],
     "dgl_bitmap_gat_fwd":
         [_P, _P, _I64, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32,

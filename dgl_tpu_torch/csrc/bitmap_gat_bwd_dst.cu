@@ -24,8 +24,8 @@
 // ms at 3.35 TB/s; 2 f32 operations per edge and feature, 0.22 ms at 67
 // TFLOP/s), but every edge gathers el[s] and h[s], 32 + 128 bytes at that
 // shape, mostly from L2 (both fit its 50 MB). The kernel this one replaces
-// walked the plan's bitmap (bitmap_walk.cuh): it streamed and decoded all
-// 6.81 GB of it on every call, and drained the decoded sources with no
+// walked the plan's bitmap (a walk of its set bits, since deleted): it
+// streamed and decoded all 6.81 GB of it on every call, and drained the decoded sources with no
 // bitmap load in flight.
 //
 // Design: B3's walk (edge_ring.cuh) with lse known, so no running max and no

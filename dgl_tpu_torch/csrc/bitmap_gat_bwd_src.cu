@@ -28,8 +28,8 @@
 // reach device memory; the wrapper can instead run the heads as passes of
 // fewer heads (nh), each pass's tables inside L2, at the cost of reading
 // the ids once a pass. The kernel this one replaces walked the plan's
-// transpose bitmap (bitmap_walk.cuh), streaming and decoding all 6.81 GB of
-// it on every call.
+// transpose bitmap (a walk of its set bits, since deleted), streaming and
+// decoding all 6.81 GB of it on every call.
 //
 // Design: B3's walk (edge_ring.cuh) over the CSR, one warp per source row,
 // in chunks of 32 K destinations. The ids and the destinations' (er, lse,

@@ -1,19 +1,20 @@
 // One warp walks one row of a relation's index (its CSC or its CSR): the
-// shared front end of the GAT kernels that read the relation's edge lists,
-// B3 (bitmap_gat_fwd.cu, in-edges from the CSC), B4 (bitmap_gat_bwd_dst.cu,
-// the same) and B5 (bitmap_gat_bwd_src.cu, out-edges from the CSR). The
-// kernels that read the adjacency bitmap walk it with bitmap_walk.cuh.
+// shared front end of the kernels of a bitmap plan's relation, B2
+// (bitmap_spmm.cu: in-edges from the CSC forward, out-edges from the CSR
+// backward), B3 (bitmap_gat_fwd.cu, in-edges from the CSC), B4
+// (bitmap_gat_bwd_dst.cu, the same) and B5 (bitmap_gat_bwd_src.cu, out-edges
+// from the CSR). None of them reads the plan's bitmap.
 //
 // The row's ids indices[beg .. end) go in chunks of C, and with each chunk
-// the E floats of a per-node table row that each id names (el, or the
-// destinations' (er, lse, c)). Both arrive by cp.async through a ring in the
-// warp's shared memory, without passing through registers: the ids two
-// chunks ahead, read once and so marked evict-first in L2 (the id stream,
-// 0.447 GB at Reddit scale, must not push the gathered tables out), the
-// table rows one chunk ahead (their ids are in the ring by then). Prefetched
-// into registers instead, they would be copied from buffer to buffer at the
-// end of every chunk, and the copy waits for the load: a round trip to
-// device memory a chunk.
+// (walk; walk_ids brings the ids alone, for B2) the E floats of a per-node
+// table row that each id names (el, or the destinations' (er, lse, c)). Both
+// arrive by cp.async through a ring in the warp's shared memory, without
+// passing through registers: the ids two chunks ahead, read once and so
+// marked evict-first in L2 (the id stream, 0.447 GB at Reddit scale, must
+// not push the gathered tables out), the table rows one chunk ahead (their
+// ids are in the ring by then). Prefetched into registers instead, they
+// would be copied from buffer to buffer at the end of every chunk, and the
+// copy waits for the load: a round trip to device memory a chunk.
 
 #pragma once
 
@@ -121,6 +122,32 @@ __device__ __forceinline__ void walk(int (&id_ring)[3][C],
     fetch_rows<C, E>(row_ring[(it + 1) & 1], id_ring[(it + 1) % 3], table,
                      stride, col0, n, lane);
     chunk(c0, static_cast<const int*>(id_ring[it % 3]), row_ring[it & 1]);
+    __syncwarp();  // the ring's slots are written again
+  }
+  cp_wait<0>();  // no copy may land after the warp has left
+}
+
+// Calls chunk(c0, ids) for the chunks c0 = beg, beg + C, ... < end of one
+// row, ids[0 .. C) holding the chunk's ids (-1 past end): walk without the
+// table rows. id_ring: the warp's ring of 3 chunks, fetched two ahead. The
+// whole warp calls it with the same beg < end; chunk must leave with the
+// warp converged.
+template <int C, typename Chunk>
+__device__ __forceinline__ void walk_ids(int (&id_ring)[3][C],
+                                         const int* __restrict__ indices,
+                                         int beg, int end, int lane,
+                                         Chunk&& chunk) {
+  uint64_t once;  // the id stream must not push the gathered rows out of L2
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(once));
+  fetch_ids<C>(id_ring[0], indices, beg, end, lane, once);
+  fetch_ids<C>(id_ring[1], indices, beg + C, end, lane, once);
+  int it = 0;
+  for (int c0 = beg; c0 < end; c0 += C, ++it) {
+    fetch_ids<C>(id_ring[(it + 2) % 3], indices, c0 + 2 * C, end, lane,
+                 once);
+    cp_wait<2>();  // this chunk's ids are here
+    __syncwarp();
+    chunk(c0, static_cast<const int*>(id_ring[it % 3]));
     __syncwarp();  // the ring's slots are written again
   }
   cp_wait<0>();  // no copy may land after the warp has left

@@ -823,7 +823,8 @@ class Graph:
           ``bitmap=True``, or with ``"auto"`` on a dense relation (density
           ``E/(N_src*N_dst) >= bitmap_min_density`` and bitmaps within
           ``2 * bitmap_max_bytes``); the builder still refuses multi-edges
-          and plans over ``bitmap_max_bytes``.
+          and plans over ``bitmap_max_bytes``. Only on an int32 relation:
+          the route's kernels walk its int32 CSC and CSR.
         - With ``weighted=True``, a full-edge shell plan
           (:mod:`dgl_tpu_torch.ops.shell_spmm`, gathers in
           ``gather_dtype``), so edge-weighted sum/mean ops, max/min, the
@@ -1382,10 +1383,13 @@ def with_dense_plans(r: Relation, dense_attn: bool | str = "auto",
         da = build_dense_adj(r, max_cells=dense_attn_max_cells)
         if da is not None:
             r = r.with_dense_adj(da)
-    want_bitmap = bitmap is True or (
+    # the route's kernels (B2-B5) walk the relation's int32 CSC and CSR and
+    # refuse int64 ids: an int64 relation takes the hub and shell routes
+    want_bitmap = r.src.dtype == torch.int32 and (bitmap is True or (
         bitmap == "auto" and cells > 0
         and r.num_edges / cells >= bitmap_min_density
-        and bitmap_bytes(r.num_src, r.num_dst, False) <= bitmap_max_bytes * 2)
+        and bitmap_bytes(r.num_src, r.num_dst, False)
+        <= bitmap_max_bytes * 2))
     if want_bitmap:
         bp = build_bitmap_plan(r, max_bytes=bitmap_max_bytes)
         if bp is not None:

@@ -44,7 +44,7 @@ import ctypes
 import torch
 
 from .. import _kernels
-from .bitmap_spmm import BitmapPlan, _expand_bits
+from .bitmap_spmm import BitmapPlan, _check_plan_rel, _expand_bits
 
 __all__ = ["bitmap_gat", "bitmap_gat_fwd", "gat_fwd_plain",
            "bitmap_gat_bwd_dst", "bitmap_gat_bwd_src", "gat_bwd_dst_plain",
@@ -556,19 +556,6 @@ class _BitmapGAT(torch.autograd.Function):
             d_el = dele.to(el.dtype) if need_el else None
             d_h = dh.to(h.dtype) if need_h else None
         return d_el, d_er, d_h, None, None, None
-
-
-def _check_plan_rel(plan, rel):
-    """The plan must be the relation's: the same node and edge counts and
-    the same edge set (``Relation.edge_hash``, counted once a relation)."""
-    for what in ("num_src", "num_dst", "num_edges"):
-        if getattr(plan, what) != getattr(rel, what):
-            raise ValueError(f"bitmap plan and relation disagree on {what}: "
-                             f"{getattr(plan, what)} != "
-                             f"{getattr(rel, what)}")
-    if plan.edge_hash != rel.edge_hash():
-        raise ValueError("bitmap plan and relation disagree on their edge "
-                         "sets: the plan was built from another relation")
 
 
 def bitmap_gat(slope, plan: BitmapPlan, el, er, h, rel=None):

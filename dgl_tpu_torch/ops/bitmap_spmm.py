@@ -9,11 +9,15 @@ Layout (the reference's, bit for bit): ``bits`` is (rup(num_dst, 512),
 rup(num_src, 4096) / 8) uint8, PLANE-PACKED: within each 4096-column block,
 byte ``b`` of a row carries bit ``j`` for source ``block*4096 + j*512 + b``.
 
-:func:`bitmap_matmul` runs the hand-written CUDA kernel
-(``dgl_tpu_torch/csrc/bitmap_spmm.cu``, which walks the set bits instead of
-expanding the tile) on a CUDA tensor, and the plain PyTorch version
-:func:`bitmap_matmul_plain` (the reference's ``_expand_bits`` +
-``_bitmap_matmul_xla``) on a CPU tensor. Both multiply the 0/1 matrix by
+:func:`bitmap_matmul` runs the hand-written CUDA kernel B2
+(``dgl_tpu_torch/csrc/bitmap_spmm.cu``) on a CUDA tensor, and the plain
+PyTorch version :func:`bitmap_matmul_plain` (the reference's
+``_expand_bits`` + ``_bitmap_matmul_xla``) on a CPU tensor. The kernel does
+not read the bits: one warp a row walks the row's edge list from the
+relation's index, its CSC (``csc_indptr`` / ``csc_indices``) forward and
+its CSR backward. The plan refuses multi-edges, so the index names exactly
+the pairs of the bits, which the plain version reads; the card's check
+compares the two representations. Both multiply the 0/1 matrix by
 ``x`` in the plan's ``compute_dtype`` and sum in f32: ``"bfloat16"`` rounds
 ``x`` to bf16 (about 4e-3 relative a row), ``"float32"`` keeps it in f32
 and gives exact f32 sums, as the reference documents (its CPU path; the
@@ -23,7 +27,8 @@ setting). The kernel has an instantiation for each type.
 Semantics: ``copy_u + sum`` over a simple graph (the builder refuses
 multi-edges). The backward is the same matmul over the transpose bitmap,
 ``du = A^T dz`` through ``bits_rev`` (``bits`` itself when the relation is
-symmetric), in the same type, as the reference's ``_bitmap_bwd``.
+symmetric; the kernel walks the CSR), in the same type, as the
+reference's ``_bitmap_bwd``.
 """
 from __future__ import annotations
 
@@ -206,85 +211,156 @@ def bitmap_matmul_plain(bits, x, n_rows=None, chunk: int = 1024,
     return out
 
 
-def bitmap_matmul(bits, x, n_rows=None, compute_dtype: str = "bfloat16"):
+def bitmap_matmul(bits, x, n_rows=None, compute_dtype: str = "bfloat16", *,
+                  indptr=None, indices=None):
     """``out[d] = sum_{s: bit (d, s) set} cd(x[s])`` in f32 for the first
-    ``n_rows`` bitmap rows, ``cd`` the ``compute_dtype`` (``"bfloat16"``
-    rounds the rows, ``"float32"`` keeps them). ``bits``: plane-packed
-    uint8 bitmap; ``x``: (n_src, F) with n_src <= 8 * bits.shape[1].
+    ``n_rows`` rows, ``cd`` the ``compute_dtype`` (``"bfloat16"`` rounds
+    the rows, ``"float32"`` keeps them). ``x``: (n_src, F).
 
-    A CUDA ``x`` runs the kernel; a CPU ``x`` runs the plain version."""
+    A CUDA ``x`` runs the kernel, which reads only the relation's index:
+    ``indptr`` (``n_rows + 1`` entries, ``n_rows`` by default) and
+    ``indices``, 1-D int32 on ``x``'s device, the CSC of the relation whose
+    bits these are (the CSR for ``bits_rev``); int64 ids are refused, not
+    converted. ``bits`` is not read there and may be None. A CPU ``x`` runs
+    the plain version over ``bits``, the plane-packed uint8 bitmap
+    (n_src <= 8 * bits.shape[1]); an index passed there is checked and not
+    read."""
     if compute_dtype not in _TYPES:
         raise ValueError(f"compute_dtype must be bfloat16 or float32, got "
                          f"{compute_dtype!r}")
-    if x.device.type == "cpu":
-        return bitmap_matmul_plain(bits, x, n_rows,
-                                   compute_dtype=compute_dtype)
-    if not x.is_cuda:
-        raise ValueError(f"bitmap_matmul: unsupported device {x.device}")
-    return _launch(bits, x, bits.shape[0] if n_rows is None else int(n_rows),
-                   compute_dtype)
-
-
-def _launch(bits, x, n_rows, compute_dtype):
     dev = x.device
-    if bits.dtype != torch.uint8 or bits.dim() != 2 or bits.device != dev:
-        raise ValueError("bits must be a 2-D uint8 bitmap on x's device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"bitmap_matmul: unsupported device {dev}")
     if x.dim() != 2:
         raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
-    n_bits_rows, W = bits.shape
-    n_src, feat = x.shape
-    if W % _PW or n_rows > n_bits_rows or n_src > W * 8:
+    if dev.type == "cpu":
+        n_rows = _check_bits(bits, x, n_rows)
+        if indptr is not None or indices is not None:
+            _check_index(indptr, indices, dev, n_rows)
+        return bitmap_matmul_plain(bits, x, n_rows,
+                                   compute_dtype=compute_dtype)
+    if n_rows is None:
+        n_rows = indptr.numel() - 1 if isinstance(indptr, torch.Tensor) else 0
+    n_rows = int(n_rows)
+    _check_index(indptr, indices, dev, n_rows)
+    return _launch(indptr, indices, x, n_rows, compute_dtype)
+
+
+def _check_bits(bits, x, n_rows) -> int:
+    """Checks of the plain version's bitmap; returns ``n_rows`` (all
+    bitmap rows by default). Raises ValueError."""
+    if (not isinstance(bits, torch.Tensor) or bits.dtype != torch.uint8
+            or bits.dim() != 2 or bits.device != x.device):
+        raise ValueError("bits must be a 2-D uint8 bitmap on x's device")
+    n_rows = bits.shape[0] if n_rows is None else int(n_rows)
+    if (bits.shape[1] % _PW or n_rows > bits.shape[0]
+            or x.shape[0] > bits.shape[1] * 8):
         raise ValueError(f"bitmap {tuple(bits.shape)} does not fit x "
                          f"{tuple(x.shape)} and n_rows={n_rows}")
+    return n_rows
+
+
+def _check_index(indptr, indices, dev, n_rows):
+    """Checks of the kernel's input, the relation's index: 1-D int32 on
+    ``dev``, ``indptr`` of ``n_rows + 1`` entries. Raises ValueError."""
+    for name, t in (("indptr", indptr), ("indices", indices)):
+        if (not isinstance(t, torch.Tensor) or t.dtype != torch.int32
+                or t.dim() != 1 or t.device != dev):
+            raise ValueError(f"{name} must be a 1-D int32 tensor on x's "
+                             "device: the relation's CSC (CSR for the "
+                             "transpose)")
+    if indptr.numel() != n_rows + 1:
+        raise ValueError(f"indptr has {indptr.numel()} entries, not "
+                         f"n_rows + 1 = {n_rows + 1}")
+    if indices.numel() + 4096 >= 2 ** 31:
+        raise ValueError("more than 2^31 - 4096 edges: ids are int32")
+
+
+def _lanes(feat: int):
+    """A pass covers 8 features on each of ``lanes`` lanes per source; x is
+    padded to whole passes (``fp`` columns) so every row gather is 16-byte
+    loads. Returns (lanes, fp)."""
+    lanes = 1 if feat <= 8 else 2 if feat <= 16 else 4 if feat <= 32 else 8
+    return lanes, _rup(feat, 8 * lanes)
+
+
+def _launch(indptr, indices, x, n_rows, compute_dtype):
+    """B2 on checked inputs."""
+    dev = x.device
+    n_src, feat = x.shape
     out = torch.empty((n_rows, feat), dtype=torch.float32, device=dev)
     if n_rows == 0 or feat == 0:
         return out
-    # a pass covers 8 features on each of `lanes` lanes per source; x is
-    # padded to whole passes so every row gather is 16-byte loads
-    lanes = 1 if feat <= 8 else 2 if feat <= 16 else 4 if feat <= 32 else 8
-    fp = _rup(feat, 8 * lanes)
+    lanes, fp = _lanes(feat)
     cd, name = _TYPES[compute_dtype]
     xb = x.to(cd)
     if fp != feat or not xb.is_contiguous() or xb.data_ptr() % 16:
         xp = torch.zeros((n_src, fp), dtype=cd, device=dev)
         xp[:, :feat] = xb
         xb = xp
-    bits = bits.contiguous()
+    indptr, indices = indptr.contiguous(), indices.contiguous()
     lib = _kernels.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.dgl_bitmap_spmm(bits.data_ptr(), n_rows, W,
-                                   xb.data_ptr(), int(cd == torch.bfloat16),
-                                   n_src, fp, feat, lanes, out.data_ptr(),
-                                   stream)
+        code = lib.dgl_bitmap_spmm(indptr.data_ptr(), indices.data_ptr(),
+                                   n_rows, xb.data_ptr(),
+                                   int(cd == torch.bfloat16), n_src, fp,
+                                   feat, lanes, out.data_ptr(), stream)
     _kernels.check(code, name)
     _kernels.launch_counts[name] += 1
     return out
 
 
 class _BitmapCopyUSum(torch.autograd.Function):
-    """The bitmap SpMM; its backward runs the same kernel over ``A^T``."""
+    """The bitmap SpMM; its backward runs the same kernel over ``A^T``.
+    Each call hands :func:`bitmap_matmul` the bits and the relation's
+    index, and the wrapper reads one of them by ``x``'s device: on the card
+    the kernel walks the relation's CSC forward and its CSR backward, so
+    the relation is kept for the backward; on the CPU the plain version
+    reads the bits."""
 
     @staticmethod
-    def forward(ctx, u, plan):
-        ctx.plan = plan
-        return bitmap_matmul(plan.bits, u, plan.num_dst,
-                             plan.compute_dtype).to(u.dtype)
+    def forward(ctx, u, plan, rel):
+        ctx.plan, ctx.rel = plan, rel
+        csc = {} if rel is None else {"indptr": rel.csc_indptr,
+                                      "indices": rel.csc_indices}
+        return bitmap_matmul(plan.bits, u, plan.num_dst, plan.compute_dtype,
+                             **csc).to(u.dtype)
 
     @staticmethod
     def backward(ctx, dz):
-        plan = ctx.plan
+        plan, rel = ctx.plan, ctx.rel
         bits_t = plan.bits if plan.bits_rev is None else plan.bits_rev
+        csr = {} if rel is None else {"indptr": rel.csr_indptr,
+                                      "indices": rel.csr_indices}
         # dz in f32, then in the plan's type as the forward takes u
         # (reference _bitmap_bwd): bf16 rounds it
         du = bitmap_matmul(bits_t, dz.to(torch.float32), plan.num_src,
-                           plan.compute_dtype)
-        return du.to(dz.dtype), None
+                           plan.compute_dtype, **csr)
+        return du.to(dz.dtype), None, None
 
 
-def bitmap_copy_u_sum(plan: BitmapPlan, u):
+def _check_plan_rel(plan, rel):
+    """The plan must be the relation's: the same node and edge counts and
+    the same edge set (``Relation.edge_hash``, counted once a relation)."""
+    for what in ("num_src", "num_dst", "num_edges"):
+        if getattr(plan, what) != getattr(rel, what):
+            raise ValueError(f"bitmap plan and relation disagree on {what}: "
+                             f"{getattr(plan, what)} != "
+                             f"{getattr(rel, what)}")
+    if plan.edge_hash != rel.edge_hash():
+        raise ValueError("bitmap plan and relation disagree on their edge "
+                         "sets: the plan was built from another relation")
+
+
+def bitmap_copy_u_sum(plan: BitmapPlan, u, rel=None):
     """``out[d] = sum_{s: (s,d) in E} u[s]`` for 2-D ``u`` (num_src, F):
     matches ``ops.copy_u_sum`` on a simple graph to bf16 class with
     ``compute_dtype="bfloat16"`` (the rows are rounded to bf16, the sums
-    are f32), to f32 rounding with ``"float32"``. Returns ``u.dtype``."""
-    return _BitmapCopyUSum.apply(u, plan)
+    are f32), to f32 rounding with ``"float32"``. Returns ``u.dtype``.
+    ``rel``: the plan's relation, whose CSC the kernel walks forward and
+    whose CSR it walks backward; on the CPU the plain version reads only
+    the plan's bits, and ``rel`` may be None there."""
+    if rel is not None:
+        _check_plan_rel(plan, rel)
+    return _BitmapCopyUSum.apply(u, plan, rel)

@@ -169,14 +169,15 @@ def gspmm(g, op, reduce_op, lhs_data, rhs_data, etype=None):
     if (rel.uniform_stride > 0
             and rel.num_dst * rel.uniform_stride <= rel.num_edges_padded):
         return _gspmm_uniform(op, reduce_op, rel, u, e)
-    # packed-bitmap dense path (ops/bitmap_spmm.py): the adjacency streams
-    # as bits through kernel B2, the high-degree (Reddit-class) path
+    # packed-bitmap dense path (ops/bitmap_spmm.py), the high-degree
+    # (Reddit-class) path: kernel B2 walks the relation's CSC (its CSR
+    # backward), the plain version on the CPU the plan's bits
     if (rel.bitmap_plan is not None and op == "copy_lhs"
             and reduce_op in ("sum", "mean") and u is not None
             and u.dim() == 2):
         from .bitmap_spmm import bitmap_copy_u_sum
 
-        out = bitmap_copy_u_sum(rel.bitmap_plan, u)
+        out = bitmap_copy_u_sum(rel.bitmap_plan, u, rel)
         return _mean(rel, out) if reduce_op == "mean" else out
 
     # dense-hub fast path (ops/hub_spmm.py): one matmul for the hub edges,

@@ -84,7 +84,7 @@ def write_chunked(g, name: str, out_dir: str, num_chunks: int = 4):
 
 
 def dispatch(meta_path: str, assignment: np.ndarray, num_parts: int,
-             out_dir: str, device="cpu"):
+             out_dir: str, device="cuda"):
     """Stream the chunked layout into per-part files (see the module's
     docstring); the parts' graphs are built on ``device``. Returns the
     partition book."""

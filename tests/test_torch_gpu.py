@@ -372,39 +372,64 @@ def _close(got, want, rtol):
     torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5 * scale)
 
 
-@pytest.mark.parametrize("feat", [1, 16, 41, 130])
-def test_bitmap_spmm_kernel_matches_plain(card, bitmap_plans, feat):
+B2_FEATS = [1, 8, 16, 24, 41, 64, 130]  # G = 1, 1, 2, 4, 8, 8; 130: 3 passes
+
+
+def _x(n, feat, seed):
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(n, feat)).astype(np.float32))
+
+
+@pytest.mark.parametrize("feat", B2_FEATS)
+def test_bitmap_spmm_kernel_matches_plain(card, bitmap_plans, bitmap_rel,
+                                          feat):
+    """B2 walks the relation's CSC, its plain version reads the bits (on the
+    card and on the CPU): the same f32 terms summed in another order.
+    Rows without an in-edge are 0; a second launch gives the same bits.
+    The transpose walks the CSR against the plain version over
+    ``bits_rev``."""
     plan, deg = bitmap_plans
-    x = torch.from_numpy(np.random.default_rng(feat).normal(
-        size=(N_SRC, feat)).astype(np.float32))
+    x = _x(N_SRC, feat, feat)
     bits = plan.bits.to(card)
+    csc, csr = _index(bitmap_rel, card)
+    idx = dict(zip(("indptr", "indices"), csc))
     before = _kernels.launch_counts["bitmap_spmm"]
-    out = bitmap_matmul(bits, x.to(card), N_DST)
+    out = bitmap_matmul(bits, x.to(card), N_DST, **idx)
     torch.cuda.synchronize()
     assert _kernels.launch_counts["bitmap_spmm"] == before + 1
     assert out.shape == (N_DST, feat) and out.dtype == torch.float32
     _close(out, bitmap_matmul_plain(bits, x.to(card), N_DST), 1e-5)
     _close(out.cpu(), bitmap_matmul_plain(plan.bits, x, N_DST), 1e-5)
     assert not out[torch.from_numpy(deg == 0).to(card)].any()
-    # the transpose bitmap: a different row length and row count
-    out_t = bitmap_matmul(plan.bits_rev.to(card),
-                          torch.ones(N_DST, feat, device=card), N_SRC)
+    assert torch.equal(bitmap_matmul(bits, x.to(card), N_DST, **idx), out)
+    # the kernel reads no bits: none passed, n_rows from indptr
+    assert torch.equal(bitmap_matmul(None, x.to(card), **idx), out)
+    # the transpose over the CSR: a different row count and id range
+    dz = _x(N_DST, feat, feat + 1)
+    out_t = bitmap_matmul(plan.bits_rev.to(card), dz.to(card), N_SRC,
+                          indptr=csr[0], indices=csr[1])
+    _close(out_t.cpu(), bitmap_matmul_plain(plan.bits_rev, dz, N_SRC), 1e-5)
+    ones = bitmap_matmul(plan.bits_rev.to(card),
+                         torch.ones(N_DST, feat, device=card), N_SRC,
+                         indptr=csr[0], indices=csr[1])
     want_t = torch.from_numpy(np.bincount(
         _bitmap_edges(11)[0], minlength=N_SRC).astype(np.float32))
-    torch.testing.assert_close(out_t.cpu(), want_t[:, None].expand(-1, feat))
+    torch.testing.assert_close(ones.cpu(), want_t[:, None].expand(-1, feat))
 
 
-@pytest.mark.parametrize("feat", [1, 16, 41, 130])
-def test_b2f_kernel_matches_plain(card, bitmap_plans, feat):
+@pytest.mark.parametrize("feat", B2_FEATS)
+def test_b2f_kernel_matches_plain(card, bitmap_plans, bitmap_rel, feat):
     """B2f, the kernel's f32 instantiation (``compute_dtype="float32"``),
-    against its plain version: the same f32 rows summed in another order,
+    over the relation's CSC (its transpose over the CSR) against its plain
+    version over the bits: the same f32 rows summed in another order,
     within 1e-6 * max|ref|; the f32 rows are not rounded to bf16."""
     plan, deg = bitmap_plans
-    x = torch.from_numpy(np.random.default_rng(feat).normal(
-        size=(N_SRC, feat)).astype(np.float32))
+    x = _x(N_SRC, feat, feat)
     bits = plan.bits.to(card)
+    csc, csr = _index(bitmap_rel, card)
+    idx = dict(zip(("indptr", "indices"), csc))
     before = dict(_kernels.launch_counts)
-    out = bitmap_matmul(bits, x.to(card), N_DST, "float32")
+    out = bitmap_matmul(bits, x.to(card), N_DST, "float32", **idx)
     torch.cuda.synchronize()
     assert _kernels.launch_counts["bitmap_spmm_f32"] == before[
         "bitmap_spmm_f32"] + 1
@@ -415,21 +440,62 @@ def test_b2f_kernel_matches_plain(card, bitmap_plans, feat):
                                      compute_dtype="float32").to(card)):
         scale = want.abs().max().item()
         torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6 * scale)
-    bf = bitmap_matmul(bits, x.to(card), N_DST)
+    bf = bitmap_matmul(bits, x.to(card), N_DST, **idx)
     assert not torch.allclose(out, bf, rtol=1e-6, atol=1e-6)
     assert not out[torch.from_numpy(deg == 0).to(card)].any()
+    assert torch.equal(
+        bitmap_matmul(bits, x.to(card), N_DST, "float32", **idx), out)
+    dz = _x(N_DST, feat, feat + 1)
+    out_t = bitmap_matmul(plan.bits_rev.to(card), dz.to(card), N_SRC,
+                          "float32", indptr=csr[0], indices=csr[1])
+    want_t = bitmap_matmul_plain(plan.bits_rev, dz, N_SRC,
+                                 compute_dtype="float32")
+    torch.testing.assert_close(out_t.cpu(), want_t, rtol=1e-6,
+                               atol=1e-6 * want_t.abs().max().item())
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("feat", B2_FEATS)
+def test_bitmap_spmm_degree_extremes(card, feat, compute_dtype):
+    """B2 and B2f at the edges of their walk: chip_smoke.py's
+    ``fwd_edge_case_csc`` (dst rows of in-degree 0, 1, 31, 32, 33, around
+    64, 128 and 256, 1,000 and more, a row holding every source; sink
+    indices in the CSC, which must be skipped) and its transpose over the
+    CSR (``bwd_edge_case_csr``, sinks there too), against the plain version
+    over the bits: rtol = 1e-5, atol = 1e-5 * max|ref| (f32: 1e-6). Rows
+    without a real edge are 0."""
+    from chip_smoke import (FWD_N_DST, FWD_N_SRC, bwd_edge_case_csr,
+                            fwd_edge_case_csc)
+
+    tol = 1e-5 if compute_dtype == "bfloat16" else 1e-6
+    for make, transpose in ((fwd_edge_case_csc, False),
+                            (bwd_edge_case_csr, True)):
+        plan, (indptr, indices), deg = make(card)
+        bits = plan.bits_rev if transpose else plan.bits
+        assert int(indices.max()) == FWD_N_SRC  # the sinks are there
+        assert int(deg.max()) == FWD_N_SRC and bool((deg == 0).any())
+        x = _x(FWD_N_SRC, feat, feat).to(card)
+        out = bitmap_matmul(bits, x, FWD_N_DST, compute_dtype,
+                            indptr=indptr, indices=indices)
+        want = bitmap_matmul_plain(bits, x, FWD_N_DST,
+                                   compute_dtype=compute_dtype)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        torch.testing.assert_close(out, want, rtol=tol, atol=tol * scale)
+        assert not out[deg == 0].any()
 
 
 def test_b2f_copy_u_sum_step_launches(card, bitmap_rel):
-    """A float32 bitmap plan: 1 B2f launch forward and 1 backward, none of
-    B2, and the gradient against the graph without plans at f32
-    rounding."""
-    plan = build_bitmap_plan(bitmap_rel.to(card), compute_dtype="float32")
+    """A float32 bitmap plan: 1 B2f launch forward (over the relation's
+    CSC) and 1 backward (over its CSR), none of B2, and the gradient
+    against the graph without plans at f32 rounding."""
+    rel = bitmap_rel.to(card)
+    plan = build_bitmap_plan(rel, compute_dtype="float32")
     assert plan.compute_dtype == "float32"
     x = torch.randn(N_SRC, 16, device=card, requires_grad=True)
     dz = torch.randn(N_DST, 16, device=card)
     _kernels.reset_launch_counts()
-    out = bitmap_copy_u_sum(plan, x)
+    out = bitmap_copy_u_sum(plan, x, rel)
     (out * dz).sum().backward()
     torch.cuda.synchronize()
     assert _kernels.launch_counts["bitmap_spmm_f32"] == 2
@@ -441,6 +507,29 @@ def test_b2f_copy_u_sum_step_launches(card, bitmap_rel):
     for a, b in ((out.detach(), want), (x.grad, want_dx)):
         scale = b.abs().max().item()
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * scale)
+
+
+def test_int64_graph_takes_the_hub_route(card):
+    """An int64 graph gets no bitmap plan from ``with_spmm_plans`` (B2-B5
+    walk an int32 index), so ``copy_u_sum`` over it launches no B2 and
+    equals the int32 graph's, which runs B2, within bf16 rounding."""
+    src, dst = _bitmap_edges(11)
+    n = N_SRC
+    x = _x(n, 16, 5).to(card)
+    out = {}
+    for idtype in (torch.int32, torch.int64):
+        g = dt.graph((src, dst), num_nodes=n, idtype=idtype, device=card)
+        gp = g.with_spmm_plans(num_hubs=64, bitmap=True)
+        assert (gp._relation().bitmap_plan is not None) == (
+            idtype == torch.int32)
+        _kernels.reset_launch_counts()
+        out[idtype] = dt.ops.copy_u_sum(gp, x)
+        torch.cuda.synchronize()
+        assert (_kernels.launch_counts["bitmap_spmm"] == 1) == (
+            idtype == torch.int32)
+    want = out[torch.int32]
+    torch.testing.assert_close(out[torch.int64], want, rtol=2e-2,
+                               atol=2e-2 * want.abs().max().item())
 
 
 def _b3(bits, csc, el, er, h, n_rows, nf):
@@ -523,13 +612,33 @@ def test_bitmap_gat_fwd_edge_cases(card, heads, odim, nf):
 def test_kernels_reject_wrong_inputs(card, bitmap_plans, bitmap_rel):
     plan, _ = bitmap_plans
     bits = plan.bits.to(card)
+    csc = bitmap_rel.csc_indptr.to(card), bitmap_rel.csc_indices.to(card)
+    x4 = torch.ones(N_SRC, 4, device=card)
+    # the bits are the plain version's input: checked where it reads them,
+    # on the CPU; the card's kernel reads none, so it does not look at them
     with pytest.raises(ValueError, match="uint8"):
-        bitmap_matmul(bits.to(torch.int32), torch.ones(N_SRC, 4, device=card))
+        bitmap_matmul(plan.bits.to(torch.int32), x4.cpu(), N_DST)
     with pytest.raises(ValueError, match="does not fit"):
-        bitmap_matmul(bits[:, :512], torch.ones(N_SRC, 4, device=card))
+        bitmap_matmul(plan.bits[:, :512], x4.cpu(), N_DST)
+    want = bitmap_matmul(None, x4, N_DST, indptr=csc[0], indices=csc[1])
+    for unread in (bits.to(torch.int32), bits[:, :512]):
+        assert torch.equal(bitmap_matmul(unread, x4, N_DST, indptr=csc[0],
+                                         indices=csc[1]), want)
+    # B2 walks the relation's index: on the card it must be there, int32,
+    # on x's device, one entry a row more than the rows
+    with pytest.raises(ValueError, match="indptr must be"):
+        bitmap_matmul(bits, x4, N_DST)
+    with pytest.raises(ValueError, match="indices must be"):
+        bitmap_matmul(bits, x4, N_DST, indptr=csc[0],
+                      indices=csc[1].long())
+    with pytest.raises(ValueError, match="indices must be"):
+        bitmap_matmul(bits, x4, N_DST, indptr=csc[0], indices=csc[1].cpu())
+    with pytest.raises(ValueError, match="entries"):
+        bitmap_matmul(bits, x4, N_DST - 1, indptr=csc[0], indices=csc[1])
+    with pytest.raises(ValueError, match="the relation's CSC"):
+        bitmap_copy_u_sum(plan.to(card), x4)
     h = torch.ones(N_SRC, 2, 4, device=card)
     el = torch.ones(N_SRC, 2, device=card)
-    csc = bitmap_rel.csc_indptr.to(card), bitmap_rel.csc_indices.to(card)
     with pytest.raises(ValueError, match="bf16"):
         tbg.bitmap_gat_fwd(bits, *csc, el, el[:N_DST], h, 0.2, N_DST)
     hb = h.to(torch.bfloat16)
@@ -890,21 +999,22 @@ def test_bitmap_gat_backward_needs_the_relation_on_card(card, bitmap_plans,
         assert _kernels.launch_counts[name] == before[name] + 1
 
 
-def test_spmm_backwards_launch_b2_and_b1(card, bitmap_plans):
-    """B2 over ``bits_rev`` and the hub backward (B1 over the reverse
-    shells) on the card against the same backward on the CPU, one launch
-    each way. The bitmap: the same f32 terms in another order (rtol 1e-5,
-    atol 1e-5 * max|ref|). The hub: bf16 products and f32 sums in another
-    order, rtol = atol = 1e-4."""
+def test_spmm_backwards_launch_b2_and_b1(card, bitmap_plans, bitmap_rel):
+    """B2 over the relation's CSR (the plain version over ``bits_rev``) and
+    the hub backward (B1 over the reverse shells) on the card against the
+    same backward on the CPU, one launch each way. The bitmap: the same f32
+    terms in another order (rtol 1e-5, atol 1e-5 * max|ref|). The hub: bf16
+    products and f32 sums in another order, rtol = atol = 1e-4."""
     plan, _ = bitmap_plans
     rng = np.random.default_rng(12)
     x = torch.from_numpy(rng.normal(size=(N_SRC, 16)).astype(np.float32))
     dz = torch.from_numpy(rng.normal(size=(N_DST, 16)).astype(np.float32))
     grads = []
-    for p, dev in ((plan, "cpu"), (plan.to(card), card)):
+    for p, r, dev in ((plan, bitmap_rel, "cpu"),
+                      (plan.to(card), bitmap_rel.to(card), card)):
         xx = x.detach().clone().to(dev).requires_grad_()
         before = _kernels.launch_counts["bitmap_spmm"]
-        (bitmap_copy_u_sum(p, xx) * dz.to(dev)).sum().backward()
+        (bitmap_copy_u_sum(p, xx, r) * dz.to(dev)).sum().backward()
         grads.append(xx.grad)
     torch.cuda.synchronize()
     assert _kernels.launch_counts["bitmap_spmm"] == before + 2
